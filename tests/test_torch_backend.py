@@ -1,0 +1,378 @@
+"""The PyTorch port's MSCKF back-end against the JAX package, on the CPU.
+
+Inputs are the synthetic oracle scenario of tests/test_msckf_backend.py and
+views in the style of tests/test_triangulation.py.  The unit functions
+(propagation K14's plain version, feature_block, the chi-square gate, the
+EKF updates, triangulation) are compared in float64 to 1e-9 on a realistic
+filter state; the whole back-end sequence is compared per frame.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tests.oracle.synthetic import make_scenario, window_imu
+from uav_airvision_tpu.config import euroc_config
+from uav_airvision_tpu.models.msckf import propagation as jprop
+from uav_airvision_tpu.models.msckf import state as jstate
+from uav_airvision_tpu.models.msckf import step as jstep
+from uav_airvision_tpu.models.msckf import triangulation as jtri
+from uav_airvision_tpu.models.msckf import update as jupd
+from uav_airvision_tpu_torch import convert
+from uav_airvision_tpu_torch.models.msckf import propagation as tprop
+from uav_airvision_tpu_torch.models.msckf import state as tstate
+from uav_airvision_tpu_torch.models.msckf import step as tstep
+from uav_airvision_tpu_torch.models.msckf import triangulation as ttri
+from uav_airvision_tpu_torch.models.msckf import update as tupd
+
+CPU = torch.device("cpu")
+JAX_TYPES = {c.__name__: c for c in (jstate.FilterState, jstate.ImuState, jstate.CamWindow,
+                                     jstate.FeatureTable, jstate.MsckfParams)}
+
+
+def to_jax(tree):
+    """The port's NamedTuple tree of tensors -> the JAX package's classes."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return JAX_TYPES[type(tree).__name__](*(to_jax(x) for x in tree))
+    return jnp.asarray(tree.numpy())
+
+
+def assert_close(got, want, tol, what=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max()) / scale
+    assert err <= tol, f"{what}: relative error {err:.3e} > {tol:.0e}"
+
+
+def scenario_inputs(cfg, scenario):
+    """Per-frame numpy backend inputs, as tests/test_msckf_backend.py builds them."""
+    cap = cfg.capacity
+    active = [t >= scenario.imu[cap.imu_init_msgs - 1][0] for t, _ in scenario.frames]
+    windows = window_imu(scenario, active)
+    I, K = cap.max_imu_per_frame, cap.max_features
+    frames = []
+    for k, (t, meas) in enumerate(scenario.frames):
+        _, window = windows[k]
+        f = dict(timestamp=np.float64(t), imu_t=np.zeros(I), imu_w=np.zeros((I, 3)),
+                 imu_a=np.zeros((I, 3)), imu_mask=np.zeros(I, bool),
+                 feat_ids=np.full(K, -1, np.int32), feat_uv=np.zeros((K, 4)),
+                 feat_mask=np.zeros(K, bool), active=bool(active[k]))
+        for j, (mt, w, a) in enumerate(window[:I]):
+            f["imu_t"][j], f["imu_w"][j], f["imu_a"][j], f["imu_mask"][j] = mt, w, a, True
+        for j, (fid, u0, v0, u1, v1) in enumerate(meas[:K]):
+            f["feat_ids"][j], f["feat_uv"][j], f["feat_mask"][j] = fid, (u0, v0, u1, v1), True
+        frames.append(f)
+    return frames
+
+
+@pytest.fixture(scope="module")
+def scenario64():
+    cfg = euroc_config(dtype="float64")
+    sc = make_scenario(euroc_config(), duration=4.0, seed=3)
+    return cfg, sc, scenario_inputs(cfg, sc)
+
+
+def run_port(cfg, sc, frames, n=None):
+    params = tstate.make_params(cfg, CPU)
+    state = tstate.init_state(cfg, params, sc.gyro_bias, sc.acc_mean)
+    outs = []
+    for f in frames[:n]:
+        fr = tstep.FrameInput(**{k: (v if k == "active" else torch.as_tensor(v))
+                                 for k, v in f.items()})
+        state, out = tstep.backend_step(state, fr, params, cfg)
+        outs.append(out)
+    return state, params, outs
+
+
+@pytest.fixture(scope="module")
+def port_run(scenario64):
+    cfg, sc, frames = scenario64
+    return run_port(cfg, sc, frames)
+
+
+@pytest.fixture(scope="module")
+def jax_step64(scenario64):
+    """The JAX back-end step, jitted once for the float64 config."""
+    cfg = scenario64[0]
+    jparams = jstate.make_params(cfg, dtype=jnp.float64)
+    return jparams, jax.jit(functools.partial(jstep.backend_step, params=jparams, config=cfg))
+
+
+def compare_sequences(cfg, sc, frames, touts, jax_step64, p_tol):
+    """Run the JAX back-end over ``frames``; per active frame, hold the
+    port's outputs to it.  Returns (n_prune, n_lost) frame counts."""
+    jparams, step = jax_step64
+    jst = jstate.init_state(cfg, jparams, sc.gyro_bias, sc.acc_mean, dtype=jnp.float64)
+    n_prune = n_lost = 0
+    for f, tout in zip(frames, touts):
+        fr = jstep.FrameInput(**{k: jnp.asarray(v) for k, v in f.items()})
+        jst, jout = step(jst, fr)
+        assert bool(jout.active) == bool(tout.active)
+        if not bool(jout.active):
+            continue
+        n_prune += int(jout.n_prune_feats) > 0
+        n_lost += int(jout.n_update_rows) > 0
+        for f_ in ("n_cams", "n_features", "n_update_rows", "n_prune_feats",
+                   "n_lost_overflow"):
+            assert int(getattr(tout, f_)) == int(getattr(jout, f_)), f_
+        np.testing.assert_allclose(tout.p.numpy(), np.asarray(jout.p), atol=p_tol, rtol=0)
+        np.testing.assert_allclose(tout.q.numpy(), np.asarray(jout.q), atol=p_tol / 10, rtol=0)
+    return n_prune, n_lost
+
+
+def test_backend_sequence_matches_jax(scenario64, port_run, jax_step64):
+    """Per-frame poses of the whole back-end (propagation, augmentation,
+    lost-feature updates, rank-12 prunes) within 1e-6 m / 1e-7 in float64:
+    the two packages round in different orders, and the filter carries those
+    last-digit differences across frames."""
+    cfg, sc, frames = scenario64
+    n_prune, n_lost = compare_sequences(cfg, sc, frames, port_run[2], jax_step64, 1e-6)
+    assert n_prune > 0 and n_lost > 0  # both update paths ran
+
+
+def test_lost_overflow_second_pass_matches_jax(scenario64, jax_step64):
+    """More than max_lost_per_frame (64) features lost at once: the second
+    marginalization pass (the scenario of tests/test_msckf_backend.py).
+    Within 1e-5 m: the second pass relinearizes after the first update."""
+    cfg = scenario64[0]
+    base = make_scenario(euroc_config(), duration=4.0, n_landmarks=120, track_len=80, seed=11)
+    kcut = len(base.frames) - 8  # all features vanish here
+    k0 = kcut - 4  # ...after exactly 4 observations each
+    sc = dataclasses.replace(base, frames=[(t, meas if k0 <= k < kcut else [])
+                                           for k, (t, meas) in enumerate(base.frames)])
+    frames = scenario_inputs(cfg, sc)
+    _, _, touts = run_port(cfg, sc, frames)
+    compare_sequences(cfg, sc, frames, touts, jax_step64, 1e-5)
+    n_feat = [int(o.n_features) for o in touts if bool(o.active)]
+    assert np.diff(n_feat).min() < -cfg.capacity.max_lost_per_frame  # both passes ran
+
+
+@pytest.mark.parametrize("dtype,n_valid", [("float32", 11), ("float32", 40),
+                                           ("float64", 11), ("float64", 40)])
+def test_propagate_plain_matches_jax(dtype, n_valid):
+    """K14's plain version: relative error <= 1e-5 in float32 (sums in
+    another order), <= 1e-12 in float64."""
+    cfg = euroc_config(dtype=dtype)
+    npdt = np.dtype(dtype)
+    rng = np.random.default_rng(n_valid)
+    jparams = jstate.make_params(cfg)
+    js = jstate.init_state(cfg, jparams, np.array([2e-3, -1e-3, 5e-4]),
+                           np.array([0.3, -0.2, 9.79]))
+    D = cfg.capacity.state_dim
+    A = rng.normal(0, 0.05, (D, D))
+    q = rng.normal(0, 1, 4)
+    qn = q + rng.normal(0, 0.01, 4)
+    imu = js.imu._replace(
+        q=jnp.asarray((q / np.linalg.norm(q)).astype(npdt)),
+        q_null=jnp.asarray((qn / np.linalg.norm(qn)).astype(npdt)),
+        v=jnp.asarray(rng.normal(0, 0.5, 3).astype(npdt)),
+        p=jnp.asarray(rng.normal(0, 1, 3).astype(npdt)),
+        v_null=jnp.asarray(rng.normal(0, 0.5, 3).astype(npdt)),
+        p_null=jnp.asarray(rng.normal(0, 1, 3).astype(npdt)),
+        ba=jnp.asarray(rng.normal(0, 0.01, 3).astype(npdt)),
+        timestamp=jnp.asarray(npdt.type(3.0)))
+    js = js._replace(imu=imu, cov=jnp.asarray((A @ A.T + 0.01 * np.eye(D)).astype(npdt)))
+    I = cfg.capacity.max_imu_per_frame
+    imu_t = np.zeros(I, npdt)
+    imu_t[:n_valid] = 3.0 + 0.005 * np.arange(1, n_valid + 1)
+    imu_w = np.zeros((I, 3), npdt)
+    imu_w[:n_valid] = rng.normal(0, 0.3, (n_valid, 3))
+    imu_a = np.zeros((I, 3), npdt)
+    imu_a[:n_valid] = rng.normal([0, 0, 9.81], 0.5, (n_valid, 3))
+    mask = np.arange(I) < n_valid
+    want = jax.jit(jprop.propagate)(js, jparams, jnp.asarray(imu_t), jnp.asarray(imu_w),
+                                    jnp.asarray(imu_a), jnp.asarray(mask))
+    got = tprop.propagate(convert.to_torch(js, CPU), convert.to_torch(jparams, CPU),
+                          torch.as_tensor(imu_t), torch.as_tensor(imu_w),
+                          torch.as_tensor(imu_a), torch.as_tensor(mask))
+    tol = 1e-5 if dtype == "float32" else 1e-12
+    for f in ("q", "v", "p", "q_null", "v_null", "p_null", "timestamp"):
+        assert_close(getattr(got.imu, f).numpy(), getattr(want.imu, f), tol, f)
+    assert int(got.imu.sid) == int(want.imu.sid)
+    assert_close(got.cov.numpy(), want.cov, tol, "cov")
+
+
+@pytest.fixture(scope="module")
+def blocks(scenario64):
+    """A realistic float64 filter state (41 frames into the scenario: a
+    19-camera window) and up to 16 features with >= 3 observations."""
+    cfg, sc, frames = scenario64
+    state, params, _ = run_port(cfg, sc, frames, n=41)
+    t = state.features
+    cand = (t.valid & (t.obs_mask.sum(1) >= 3)).numpy()
+    sel = torch.as_tensor(np.nonzero(cand)[0][:16])
+    assert len(sel) >= 4
+    return state, params, sel
+
+
+def _jax_feature_blocks(jst, jparams, sel, D):
+    @jax.jit
+    def blocks(jst, jparams, sel):
+        c, t = jst.cams, jst.features
+        return jax.vmap(lambda s: jupd.feature_block(
+            c.q, c.p, c.q_null, c.p_null, t.obs[s], t.obs_mask[s], t.position[s],
+            jst.gravity, jparams.R_cam0_cam1, jparams.t_cam0_cam1, D))(sel)
+
+    return blocks(jst, jparams, jnp.asarray(sel.numpy()))
+
+
+def test_feature_block_and_gate_match_jax(blocks):
+    state, params, sel = blocks
+    cfg = euroc_config(dtype="float64")
+    D = cfg.capacity.state_dim
+    jst, jparams = to_jax(state), to_jax(params)
+    jH, jr, jrows = _jax_feature_blocks(jst, jparams, sel, D)
+    c, t = state.cams, state.features
+    H, r, rows = tupd.feature_block(c.q, c.p, c.q_null, c.p_null, t.obs[sel], t.obs_mask[sel],
+                                    t.position[sel], state.gravity, params.R_cam0_cam1,
+                                    params.t_cam0_cam1, D)
+    assert_close(H.numpy(), jH, 1e-9, "H_proj")
+    assert_close(r.numpy(), jr, 1e-9, "r_proj")
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+    dof = t.obs_mask[sel].sum(1).to(torch.int32) - 1
+    # residual scales that land on the bounds' pass side, the fail side and
+    # the undecided band (exact Cholesky, both row tiers)
+    jgate = jax.jit(jupd.gating_test_batch)
+    for scale in (1e-3, 1.0, 30.0, 1e3):
+        for rows_true in (rows, torch.full_like(rows, 77)):
+            want = jgate(jH, jr * scale, jnp.asarray(rows_true.numpy()),
+                                          jst.cov, jparams.obs_noise, jparams.chi2_table,
+                                          jnp.asarray(dof.numpy()))
+            got = tupd.gating_test_batch(H, r * scale, rows_true, state.cov, params.obs_noise,
+                                         params.chi2_table, dof)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n_rows", [60, 200, 700], ids=["T1", "T2", "QR"])
+def test_apply_update_matches_jax(blocks, n_rows):
+    state, params, sel = blocks
+    D = state.cov.shape[0]
+    rng = np.random.default_rng(n_rows)
+    H = np.zeros((1680, D))
+    H[:n_rows, 21:] = rng.normal(0, 0.5, (n_rows, D - 21))
+    H[:n_rows, :21] = rng.normal(0, 0.05, (n_rows, 21))
+    r = np.zeros(1680)
+    r[:n_rows] = rng.normal(0, 0.01, n_rows)
+    jst, jparams = to_jax(state), to_jax(params)
+    want, jwarn = jax.jit(jupd.apply_update)(jst, jparams, jnp.asarray(H), jnp.asarray(r),
+                                             jnp.asarray(n_rows, jnp.int32))
+    got, twarn = tupd.apply_update(state, params, torch.as_tensor(H), torch.as_tensor(r), n_rows)
+    for a, b, name in ((got.imu.p, want.imu.p, "p"), (got.imu.q, want.imu.q, "q"),
+                       (got.cams.p, want.cams.p, "cams.p"), (got.cams.q, want.cams.q, "cams.q"),
+                       (got.cov, want.cov, "cov")):
+        assert_close(a.numpy(), b, 1e-9, name)
+    assert bool(twarn) == bool(jwarn)
+
+
+def test_apply_update_rank12_matches_jax(blocks):
+    state, params, _ = blocks
+    rng = np.random.default_rng(12)
+    r0, r1 = 4, 9
+    cols = np.concatenate([21 + 6 * r0 + np.arange(6), 21 + 6 * r1 + np.arange(6)])
+    B = rng.normal(0, 0.8, (60, 12))
+    B[25:35] = 0.0
+    r = rng.normal(0, 0.02, 60)
+    jst, jparams = to_jax(state), to_jax(params)
+    want, _ = jupd.apply_update_rank12(jst, jparams, jnp.asarray(B), jnp.asarray(r),
+                                       jnp.asarray(cols))
+    got, _ = tupd.apply_update_rank12(state, params, torch.as_tensor(B), torch.as_tensor(r),
+                                      torch.as_tensor(cols))
+    for a, b, name in ((got.imu.p, want.imu.p, "p"), (got.cams.p, want.cams.p, "cams.p"),
+                       (got.cov, want.cov, "cov")):
+        assert_close(a.numpy(), b, 1e-9, name)
+
+
+def _random_views_inputs(rng, n_feats, N=20, noise=0.002):
+    """Window poses and stereo observations of landmarks (the style of
+    tests/test_triangulation.py), float64."""
+    cam_q = np.zeros((N, 4))
+    cam_q[:, 3] = 1.0
+    cam_p = np.zeros((N, 3))
+    for i in range(N):
+        q = np.concatenate([rng.normal(0, 0.05, 3) * 0.5, [1.0]])
+        cam_q[i] = q / np.linalg.norm(q)
+        cam_p[i] = rng.normal(0, 0.3, 3)
+    R_c0c1, t_c0c1 = np.eye(3), np.array([0.11, 0.0, 0.0])
+    obs = np.zeros((n_feats, N, 4))
+    mask = np.zeros((n_feats, N), bool)
+    from uav_airvision_tpu.utils import quaternion as jq
+
+    Rs = np.asarray(jq.to_rotation(jnp.asarray(cam_q)))
+    for f in range(n_feats):
+        p_w = rng.normal(0, 1.0, 3) + np.array([0.0, 0.0, 4.0])
+        first = int(rng.integers(0, N - 3))
+        for i in range(first, min(N, first + int(rng.integers(2, 20)))):
+            pc0 = Rs[i] @ (p_w - cam_p[i])
+            pc1 = pc0 - t_c0c1
+            obs[f, i, :2] = pc0[:2] / pc0[2] + rng.normal(0, noise, 2)
+            obs[f, i, 2:] = pc1[:2] / pc1[2] + rng.normal(0, noise, 2)
+            mask[f, i] = True
+    return cam_q, cam_p, obs, mask, R_c0c1, t_c0c1
+
+
+@pytest.mark.parametrize("noise", [0.0005, 0.01, 0.05])
+def test_triangulate_matches_jax(noise):
+    rng = np.random.default_rng(int(noise * 1e4))
+    cam_q, cam_p, obs, mask, R, t = _random_views_inputs(rng, 24, noise=noise)
+    tri_cfg = euroc_config().triangulation
+    active = rng.uniform(size=24) < 0.85
+    @jax.jit
+    def jax_tri(obs, mask, active):
+        jv = jax.vmap(lambda o, m: jtri.build_views(jnp.asarray(cam_q), jnp.asarray(cam_p), o,
+                                                    m, jnp.asarray(R), jnp.asarray(t)))(obs, mask)
+        return jax.vmap(lambda v, a: jtri.triangulate(v, tri_cfg, active=a))(jv, active)
+
+    jpos, jok = jax_tri(jnp.asarray(obs), jnp.asarray(mask), jnp.asarray(active))
+    tv = ttri.build_views(*(torch.as_tensor(x) for x in (cam_q, cam_p, obs, mask, R, t)))
+    tpos, tok = ttri.triangulate(tv, tri_cfg, active=torch.as_tensor(active))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert_close(tpos.numpy(), jpos, 1e-9, "position")
+
+
+def test_convert_round_trip_exact(port_run):
+    state, params, _ = port_run
+    for tree in (state, params):
+        back = convert.to_numpy(convert.to_torch(convert.to_numpy(tree), CPU))
+        for a, b in zip(jax.tree_util.tree_leaves(tuple(convert.to_numpy(tree))),
+                        jax.tree_util.tree_leaves(tuple(back))):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    # JAX trees convert to the same values the port builds itself
+    from uav_airvision_tpu.models.frontend.params import make_frontend_params as j_fparams
+    from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
+
+    cfg = euroc_config()
+    jparams = jstate.make_params(cfg)
+    pairs = ((jstate.init_state(cfg, jparams, np.zeros(3), np.array([0.1, 0.2, 9.8])),
+              tstate.init_state(cfg, tstate.make_params(cfg, CPU), np.zeros(3),
+                                np.array([0.1, 0.2, 9.8]))),
+             (jparams, tstate.make_params(cfg, CPU)),
+             (j_fparams(cfg), make_frontend_params(cfg, CPU)))
+    for jtree, ttree in pairs:
+        conv = convert.to_torch(jtree, CPU)
+        for a, b, c in zip(jax.tree_util.tree_leaves(jtree), jax.tree_util.tree_leaves(tuple(conv)),
+                           jax.tree_util.tree_leaves(tuple(ttree))):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+            assert b.dtype == c.dtype
+            np.testing.assert_allclose(b.numpy(), c.numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_unported_options_raise():
+    from uav_airvision_tpu_torch.models.frontend import pipeline as tpipe
+
+    for fe in (dict(exact_adder_mask=True), dict(stereo_full_backward=True),
+               dict(stereo_seeded=False), dict(stereo_fwd_levels=2),
+               dict(lk_compact_windows=True)):
+        cfg = euroc_config()
+        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, **fe))
+        with pytest.raises(NotImplementedError):
+            tpipe.check_supported(cfg)
+    cfg = euroc_config()
+    cfg = dataclasses.replace(cfg, filter=dataclasses.replace(cfg.filter, prune_rank12=False))
+    with pytest.raises(NotImplementedError):
+        tstep.check_supported(cfg)

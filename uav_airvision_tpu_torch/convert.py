@@ -1,0 +1,66 @@
+"""Conversion between the JAX package's state/parameter trees (taken as
+numpy arrays) and the port's tensors, so both packages can start from the
+same state.
+
+``to_torch`` maps a NamedTuple tree by class name onto the port's classes
+(``FrontendParams``, ``MsckfParams``, ``FilterState`` and its parts) with
+``np.array`` on every leaf, so it takes JAX arrays or numpy arrays alike
+without importing JAX.  ``to_numpy``
+maps the other way into the same port classes holding numpy arrays.
+
+The JAX ``FrontendState.prev_rows`` (banded template rows of the previous
+frame) has no counterpart: the port keeps the previous cam0 pyramid, so
+``frontend_state_to_torch`` also takes the previous cam0 image.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from uav_airvision_tpu.config import Config
+
+from .models.frontend.params import FrontendParams
+from .models.frontend.pipeline import FrontendState
+from .models.msckf.state import CamWindow, FeatureTable, FilterState, ImuState, MsckfParams
+from .ops.pyramid import build_pyramid_padded
+
+PORT_TYPES = {cls.__name__: cls for cls in (
+    FrontendParams, MsckfParams, FilterState, ImuState, CamWindow, FeatureTable)}
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def to_torch(tree, device):
+    """NamedTuple tree of arrays -> the port's NamedTuple tree of tensors."""
+    if _is_namedtuple(tree):
+        cls = PORT_TYPES[type(tree).__name__]
+        return cls(*(to_torch(getattr(tree, f), device) for f in cls._fields))
+    return torch.as_tensor(np.array(tree), device=device)
+
+
+def to_numpy(tree):
+    """The port's NamedTuple tree of tensors -> the same classes of numpy arrays."""
+    if _is_namedtuple(tree):
+        return type(tree)(*(to_numpy(x) for x in tree))
+    return tree.detach().cpu().numpy()
+
+
+def frontend_state_to_torch(fs, prev_cam0, config: Config, device) -> FrontendState:
+    """JAX ``FrontendState`` (arrays) + the previous frame's cam0 image ->
+    the port's state, whose ``prev_pyr`` is that image's pyramid.  An
+    uninitialized state gets no pyramid."""
+    initialized = bool(np.asarray(fs.initialized))
+    prev_pyr = None
+    if initialized:
+        img = torch.as_tensor(np.asarray(prev_cam0, np.uint8), device=device)
+        prev_pyr = build_pyramid_padded(img, config.frontend.pyramid_levels)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device)
+
+    return FrontendState(ids=t(fs.ids), lifetime=t(fs.lifetime), cam0=t(fs.cam0),
+                         cam1=t(fs.cam1), valid=t(fs.valid), next_id=t(fs.next_id),
+                         prev_pyr=prev_pyr, initialized=t(fs.initialized))

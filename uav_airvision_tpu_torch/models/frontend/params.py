@@ -1,0 +1,41 @@
+"""Constant parameters of the image-processing front-end (port of
+uav_airvision_tpu/models/frontend/params.py)."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from uav_airvision_tpu.config import Config
+
+
+class FrontendParams(NamedTuple):
+    cam0_intrinsics: torch.Tensor  # (4,) fx fy cx cy
+    cam0_coeffs: torch.Tensor  # (4,)
+    cam1_intrinsics: torch.Tensor  # (4,)
+    cam1_coeffs: torch.Tensor  # (4,)
+    R_cam0_imu: torch.Tensor  # (3,3) cam0 -> imu
+    R_cam1_imu: torch.Tensor
+    t_cam0_imu: torch.Tensor  # (3,)
+    t_cam1_imu: torch.Tensor
+
+
+def make_frontend_params(config: Config, device, dtype=torch.float32) -> FrontendParams:
+    T0 = np.linalg.inv(config.np_T_imu_cam0())
+    T1 = np.linalg.inv(config.np_T_imu_cam1())
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype, device=device)
+
+    return FrontendParams(
+        cam0_intrinsics=t(config.calib.cam0_intrinsics),
+        cam0_coeffs=t(config.calib.cam0_distortion_coeffs),
+        cam1_intrinsics=t(config.calib.cam1_intrinsics),
+        cam1_coeffs=t(config.calib.cam1_distortion_coeffs),
+        R_cam0_imu=t(T0[:3, :3]),
+        R_cam1_imu=t(T1[:3, :3]),
+        t_cam0_imu=t(T0[:3, 3]),
+        t_cam1_imu=t(T1[:3, 3]),
+    )

@@ -1,0 +1,201 @@
+"""IMU propagation: error-state transition and covariance, OC-EKF
+constrained.  Port of uav_airvision_tpu/models/msckf/propagation.py.
+
+``propagate`` launches kernel K14 (``csrc/propagate.cu``, one block) on a
+CUDA state and runs the plain PyTorch version ``propagate_plain`` on a CPU
+state.  The plain version keeps the JAX package's batched phases: prefix
+products of the per-sample quaternion integrators, RK4 velocity/position as
+cumulative sums, batched 21x21 transitions and noises, and a pairwise fold
+of the (Phi, Q) composition.  The JAX ``propagate_tiered`` slices the padded
+IMU slice to 16 samples when they fit; masked samples are identity, so the
+result is the same and the port has no tier.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ... import kernels
+from ...utils import quaternion as quat
+from .state import IMU_DIM, FilterState, MsckfParams
+
+
+def _omega_mat(gyro, half_dt):
+    n = gyro.shape[0]
+    norm = torch.linalg.norm(gyro, dim=-1)
+    Omega = torch.zeros((n, 4, 4), dtype=gyro.dtype, device=gyro.device)
+    Omega[:, :3, :3] = -quat.skew(gyro)
+    Omega[:, :3, 3] = gyro
+    Omega[:, 3, :3] = -gyro
+    big = norm > 1e-5
+    safe = torch.where(big, norm, torch.ones_like(norm))
+    eye4 = torch.eye(4, dtype=gyro.dtype, device=gyro.device)
+    c = torch.cos(norm * half_dt)[:, None, None]
+    s = (torch.sin(norm * half_dt) / safe)[:, None, None]
+    exact = c * eye4 + s * Omega
+    approx = c * (eye4 + Omega * half_dt[:, None, None])
+    return torch.where(big[:, None, None], exact, approx)
+
+
+def propagate_plain(state: FilterState, params: MsckfParams, imu_t, imu_w, imu_a,
+                    imu_mask) -> FilterState:
+    dtype = state.cov.dtype
+    dev = state.cov.device
+    imu = state.imu
+    gravity = state.gravity
+    qc = params.noise_qc_diag
+    I = imu_t.shape[0]
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    eyeI = torch.eye(IMU_DIM, dtype=dtype, device=dev)
+    m = imu_mask
+
+    t_prev = torch.cat([imu.timestamp[None], imu_t[:-1]])
+    dt = torch.where(m, imu_t - t_prev, 0.0).to(dtype)
+    gyro = torch.where(m[:, None], imu_w - imu.bg[None, :], 0.0).to(dtype)
+    acc = torch.where(m[:, None], imu_a - imu.ba[None, :], 0.0).to(dtype)
+
+    # orientation chain: prefix products P_i = M_i ... M_0 (Hillis-Steele)
+    M_full = _omega_mat(gyro, dt * 0.5)
+    M_half = _omega_mat(gyro, dt * 0.25)
+    M_full = torch.where(m[:, None, None], M_full, torch.eye(4, dtype=dtype, device=dev))
+    P = M_full
+    d = 1
+    while d < I:
+        P = torch.cat([P[:d], P[d:] @ P[:-d]])
+        d *= 2
+    q_next = quat.normalize(torch.einsum("nij,j->ni", P, imu.q))
+    q_at = torch.cat([imu.q[None], q_next[:-1]])
+
+    # RK4 velocity / position
+    dq_full = torch.einsum("nij,nj->ni", M_full, q_at)
+    dq_half = torch.einsum("nij,nj->ni", M_half, q_at)
+    R_all_T = quat.to_rotation(torch.cat([q_at, dq_half, dq_full])).transpose(-1, -2)
+    k_all = torch.einsum("nij,nj->ni", R_all_T, acc.repeat(3, 1)) + gravity[None, :]
+    k1vd, k2vd, k4vd = k_all[:I], k_all[I:2 * I], k_all[2 * I:]
+    dv = (k1vd + 4.0 * k2vd + k4vd) * (dt / 6.0)[:, None]
+    dv = torch.where(m[:, None], dv, 0.0)
+    v_next = imu.v[None, :] + torch.cumsum(dv, 0)
+    v_at = torch.cat([imu.v[None], v_next[:-1]])
+    dp = v_at * dt[:, None] + (k1vd + 2.0 * k2vd) * (dt * dt / 6.0)[:, None]
+    dp = torch.where(m[:, None], dp, 0.0)
+    p_next = imu.p[None, :] + torch.cumsum(dp, 0)
+
+    # batched transition / noise
+    qn_at = torch.cat([imu.q_null[None], q_next[:-1]])
+    vn_at = torch.cat([imu.v_null[None], v_next[:-1]])
+    pn_at = torch.cat([imu.p_null[None], p_next[:-1]])
+    R_at = quat.to_rotation(q_at)
+    F = torch.zeros((I, IMU_DIM, IMU_DIM), dtype=dtype, device=dev)
+    F[:, :3, :3] = -quat.skew(gyro)
+    F[:, :3, 3:6] = -eye3
+    F[:, 6:9, :3] = -torch.einsum("nji,njk->nik", R_at, quat.skew(acc))
+    F[:, 6:9, 9:12] = -R_at.transpose(-1, -2)
+    F[:, 12:15, 6:9] = eye3
+    G = torch.zeros((I, IMU_DIM, 12), dtype=dtype, device=dev)
+    G[:, :3, :3] = -eye3
+    G[:, 3:6, 3:6] = eye3
+    G[:, 6:9, 6:9] = -R_at.transpose(-1, -2)
+    G[:, 9:12, 9:12] = eye3
+
+    Fdt = F * dt[:, None, None]
+    Fdt2 = Fdt @ Fdt
+    Phi = eyeI + Fdt + Fdt2 / 2.0 + (Fdt2 @ Fdt) / 6.0
+    R_null = quat.to_rotation(qn_at)
+    Phi[:, :3, :3] = quat.to_rotation(q_next) @ R_null.transpose(-1, -2)
+    u = torch.einsum("nij,j->ni", R_null, gravity)
+    s_vec = u / (u * u).sum(-1, keepdim=True)
+    A1 = Phi[:, 6:9, :3].clone()
+    w1 = torch.einsum("nij,j->ni", quat.skew(vn_at - v_next), gravity)
+    corr1 = torch.einsum("nij,nj->ni", A1, u) - w1
+    Phi[:, 6:9, :3] = A1 - corr1[:, :, None] * s_vec[:, None, :]
+    A2 = Phi[:, 12:15, :3].clone()
+    w2 = torch.einsum("nij,j->ni", quat.skew(dt[:, None] * vn_at + pn_at - p_next), gravity)
+    corr2 = torch.einsum("nij,nj->ni", A2, u) - w2
+    Phi[:, 12:15, :3] = A2 - corr2[:, :, None] * s_vec[:, None, :]
+    Phi = torch.where(m[:, None, None], Phi, eyeI)
+    PhiG = Phi @ G
+    Q = torch.einsum("nik,k,njk->nij", PhiG, qc, PhiG) * dt[:, None, None]
+    Q = torch.where(m[:, None, None], Q, 0.0)
+
+    # pairwise fold of (Phi_b Phi_a, Phi_b Q_a Phi_b^T + Q_b); identity pads
+    n = I
+    if n & (n - 1):
+        n2 = 1 << (n - 1).bit_length()
+        Phi = torch.cat([Phi, eyeI.expand(n2 - n, IMU_DIM, IMU_DIM)])
+        Q = torch.cat([Q, torch.zeros((n2 - n, IMU_DIM, IMU_DIM), dtype=dtype, device=dev)])
+        n = n2
+    while n > 1:
+        Pa, Qa, Pb, Qb = Phi[0::2], Q[0::2], Phi[1::2], Q[1::2]
+        Phi = Pb @ Pa
+        Q = Pb @ Qa @ Pb.transpose(-1, -2) + Qb
+        n //= 2
+    Phi_tot, Q_tot = Phi[0], Q[0]
+
+    cov = state.cov.clone()
+    P_ii = Phi_tot @ cov[:IMU_DIM, :IMU_DIM] @ Phi_tot.T + Q_tot
+    P_ic = Phi_tot @ cov[:IMU_DIM, IMU_DIM:]
+    cov[:IMU_DIM, :IMU_DIM] = P_ii
+    cov[:IMU_DIM, IMU_DIM:] = P_ic
+    cov[IMU_DIM:, :IMU_DIM] = P_ic.T
+    cov = (cov + cov.T) / 2.0
+
+    n_valid = m.to(torch.int32).sum()
+    any_valid = n_valid > 0
+    last = torch.clamp(n_valid - 1, min=0).long()
+
+    def pick(new_arr, old):
+        return torch.where(any_valid, new_arr[last], old)
+
+    q_new, v_new, p_new = pick(q_next, imu.q), pick(v_next, imu.v), pick(p_next, imu.p)
+    imu = imu._replace(
+        q=q_new, v=v_new, p=p_new,
+        q_null=torch.where(any_valid, q_new, imu.q_null),
+        v_null=torch.where(any_valid, v_new, imu.v_null),
+        p_null=torch.where(any_valid, p_new, imu.p_null),
+        timestamp=torch.where(any_valid, imu_t[last], imu.timestamp),
+        sid=imu.sid + 1)
+    return state._replace(imu=imu, cov=cov)
+
+
+def propagate(state: FilterState, params: MsckfParams, imu_t, imu_w, imu_a,
+              imu_mask) -> FilterState:
+    """Propagate the IMU state and covariance over one frame's padded IMU
+    slice (valid samples packed first)."""
+    cov = state.cov
+    if cov.device.type == "cpu":
+        return propagate_plain(state, params, imu_t, imu_w, imu_a, imu_mask)
+    if cov.device.type != "cuda":
+        raise ValueError(f"K14 runs on CUDA tensors, got {cov.device}")
+    entry = {torch.float32: "propagate_f32", torch.float64: "propagate_f64"}.get(cov.dtype)
+    if entry is None:
+        raise ValueError(f"K14 takes float32 or float64, got {cov.dtype}")
+    dtype = cov.dtype
+    imu = state.imu
+    st_in = torch.cat([imu.q, imu.p, imu.v, imu.bg, imu.ba, imu.q_null, imu.p_null,
+                       imu.v_null, imu.timestamp[None], state.gravity]).to(dtype).contiguous()
+    imu_t = imu_t.to(dtype).contiguous()
+    imu_w = imu_w.to(dtype).contiguous()
+    imu_a = imu_a.to(dtype).contiguous()
+    imu_mask = imu_mask.to(torch.bool).contiguous()
+    qc = params.noise_qc_diag.to(dtype).contiguous()
+    cov = cov.contiguous()
+    kernels.check_cuda(cov, st_in, imu_t, imu_w, imu_a, imu_mask, qc)
+    I = imu_t.shape[0]
+    if (cov.shape[0] != cov.shape[1] or cov.shape[0] < IMU_DIM or imu_w.shape != (I, 3)
+            or imu_a.shape != (I, 3) or imu_mask.shape != (I,)):
+        raise ValueError("propagate: inconsistent covariance / IMU slice shapes")
+    st_out = torch.empty((21,), dtype=dtype, device=cov.device)
+    cov_out = torch.empty_like(cov)
+    kernels.launch(entry, kernels.ptr(imu_t), kernels.ptr(imu_w), kernels.ptr(imu_a),
+                   kernels.ptr(imu_mask), I, kernels.ptr(st_in),
+                   kernels.ptr(qc), kernels.ptr(cov), cov.shape[0],
+                   kernels.ptr(st_out), kernels.ptr(cov_out))
+    propagate.launches += 1
+    imu = imu._replace(
+        q=st_out[0:4], v=st_out[4:7], p=st_out[7:10], timestamp=st_out[10],
+        q_null=st_out[11:15], v_null=st_out[15:18], p_null=st_out[18:21],
+        sid=imu.sid + 1)
+    return state._replace(imu=imu, cov=cov_out)
+
+
+propagate.launches = 0

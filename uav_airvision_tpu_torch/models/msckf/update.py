@@ -1,0 +1,213 @@
+"""Measurement model: stereo reprojection Jacobians, the Householder
+left-nullspace projection, the chi-square gate and the EKF updates.
+
+Port of uav_airvision_tpu/models/msckf/update.py, batched over features.
+The JAX ``lax.cond`` tiers (gate bounds / 32-row gate tier, update row
+tiers T1/T2/QR) are kept as Python branches on values read back from the
+device, so each branch computes what the JAX branch computes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...device import to_host
+from ...utils import quaternion as quat
+from .state import IMU_DIM, FilterState, MsckfParams
+
+GATE_TIER = 32
+
+
+def stereo_jacobian(cam_q, cam_p, cam_q_null, cam_p_null, p_w, z, gravity, R_c0c1, t_c0c1):
+    """Jacobian/residual of stereo observations wrt their camera states
+    (OC-EKF projected, with the reference's H_f = -H_x[:, 3:6] quirk).
+    cam_* (N, .) broadcast against p_w (B, 1, 3) and z (B, N, 4).
+    Returns H_x (B,N,4,6), H_f (B,N,4,3), r (B,N,4)."""
+    R_w_c0 = quat.to_rotation(cam_q)  # (N,3,3)
+    R_w_c1 = R_c0c1 @ R_w_c0
+    t_c1_w = cam_p - torch.einsum("nji,j->ni", R_w_c1, t_c0c1)
+    p_c0 = torch.einsum("nij,bnj->bni", R_w_c0, p_w - cam_p)  # (B,N,3)
+    p_c1 = torch.einsum("nij,bnj->bni", R_w_c1, p_w - t_c1_w)
+    inv_z0 = 1.0 / p_c0[..., 2]
+    inv_z1 = 1.0 / p_c1[..., 2]
+    zero = torch.zeros_like(inv_z0)
+    zrow = torch.stack([zero, zero, zero], dim=-1)
+    dz_dpc0 = torch.stack([
+        torch.stack([inv_z0, zero, -p_c0[..., 0] * inv_z0 * inv_z0], dim=-1),
+        torch.stack([zero, inv_z0, -p_c0[..., 1] * inv_z0 * inv_z0], dim=-1),
+        zrow, zrow], dim=-2)  # (B,N,4,3)
+    dz_dpc1 = torch.stack([
+        zrow, zrow,
+        torch.stack([inv_z1, zero, -p_c1[..., 0] * inv_z1 * inv_z1], dim=-1),
+        torch.stack([zero, inv_z1, -p_c1[..., 1] * inv_z1 * inv_z1], dim=-1)], dim=-2)
+    B = p_c0.shape[0]
+    sk0 = quat.skew(p_c0)  # (B,N,3,3)
+    dpc0_dxc = torch.cat([sk0, -R_w_c0.expand(B, -1, -1, -1)], dim=-1)  # (B,N,3,6)
+    dpc1_dxc = torch.cat([R_c0c1 @ sk0, -R_w_c1.expand(B, -1, -1, -1)], dim=-1)
+    A = dz_dpc0 @ dpc0_dxc + dz_dpc1 @ dpc1_dxc  # (B,N,4,6)
+    u = torch.cat([
+        torch.einsum("nij,j->ni", quat.to_rotation(cam_q_null), gravity).expand(B, -1, -1),
+        torch.einsum("bnij,j->bni", quat.skew(p_w - cam_p_null), gravity)], dim=-1)  # (B,N,6)
+    Au = torch.einsum("bnij,bnj->bni", A, u)
+    H_x = A - Au[..., :, None] * u[..., None, :] / (u * u).sum(-1)[..., None, None]
+    H_f = -H_x[..., 3:6]
+    pred = torch.cat([p_c0[..., :2] * inv_z0[..., None], p_c1[..., :2] * inv_z1[..., None]], -1)
+    return H_x, H_f, z - pred
+
+
+def feature_block(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
+                  R_c0c1, t_c0c1, state_dim):
+    """Stacked, nullspace-projected blocks of B features over their masked
+    observations.  obs (B,N,4), obs_mask (B,N), p_w (B,3).  Returns
+    (H_proj (B, 4N-3, 21+6N), r_proj (B, 4N-3), rows_true (B,)) where only the
+    first 4 n_obs - 3 rows of a block are nonzero."""
+    B, N = obs_mask.shape
+    dtype = p_w.dtype
+    Hx, Hf, r = stereo_jacobian(cams_q, cams_p, cams_qn, cams_pn, p_w[:, None, :], obs,
+                                gravity, R_c0c1, t_c0c1)
+    m = obs_mask.to(dtype)
+    Hx = Hx * m[..., None, None]
+    Hf = Hf * m[..., None, None]
+    r = r * m[..., None]
+    Hx = torch.where(torch.isfinite(Hx), Hx, 0.0)
+    Hf = torch.where(torch.isfinite(Hf), Hf, 0.0)
+    r = torch.where(torch.isfinite(r), r, 0.0)
+
+    rank = torch.cumsum(obs_mask.to(torch.int32), dim=1) - 1  # (B,N)
+    n_obs = obs_mask.to(torch.int32).sum(1)
+    slots = torch.arange(N, device=obs.device)
+    # P[b, r, s] = 1 iff valid slot s has rank r (row compaction)
+    P = ((rank[:, None, :] == slots[None, :, None]) & obs_mask[:, None, :]).to(dtype)
+    H_fj = torch.einsum("brs,bsij->brij", P, Hf).reshape(B, 4 * N, 3)
+    r_j = torch.einsum("brs,bsi->bri", P, r).reshape(B, 4 * N)
+    H_cam = torch.einsum("brs,bsij->brisj", P, Hx).reshape(B, 4 * N, 6 * N)
+    H_xj = torch.cat([torch.zeros((B, 4 * N, IMU_DIM), dtype=dtype, device=obs.device),
+                      H_cam], dim=-1)
+
+    # three Householder reflections applied to [H_f | r | H_x]
+    T = torch.cat([H_fj, r_j[..., None], H_xj], dim=-1)  # (B, 4N, 4+D)
+    rows = torch.arange(4 * N, device=obs.device)
+    for j in range(3):
+        x = torch.where(rows >= j, T[..., j], 0.0)
+        normx = torch.sqrt((x * x).sum(-1))
+        sign = torch.where(x[:, j] >= 0, 1.0, -1.0).to(dtype)
+        v = x.clone()
+        v[:, j] = v[:, j] + sign * normx
+        vnorm2 = (v * v).sum(-1)
+        scale = torch.where(vnorm2 > 1e-30, 2.0 / vnorm2, torch.zeros_like(vnorm2))
+        vT = torch.einsum("br,brc->bc", v, T)
+        T = T - scale[:, None, None] * (v[:, :, None] * vT[:, None, :])
+    return T[:, 3:, 4:], T[:, 3:, 3], (4 * n_obs - 3).to(torch.int32)
+
+
+def _cholesky(S):
+    """Lower Cholesky factor; a factor that fails is NaN, as in JAX."""
+    L, info = torch.linalg.cholesky_ex(S)
+    bad = (info != 0).reshape(info.shape + (1, 1))
+    return torch.where(bad, torch.nan, L)
+
+
+def gating_test_batch(H, r, rows_true, cov, obs_noise, chi2_table, dof):
+    """Chi-square gate per feature block: H (B,R,D), r (B,R).  Blocks taller
+    than GATE_TIER first try the eigenvalue bounds r'r / (s2 + tr HPH') <=
+    gamma <= r'r / s2; the exact Cholesky runs only when a block is
+    undecided, on the 32-row prefix when every block fits in it."""
+
+    def gamma_of(Hs, rs):
+        m = Hs.shape[1]
+        S = Hs @ cov @ Hs.transpose(1, 2) + obs_noise * torch.eye(m, dtype=H.dtype,
+                                                                  device=H.device)
+        y = torch.linalg.solve_triangular(_cholesky(S), rs[..., None], upper=False)[..., 0]
+        return (y * y).sum(-1)
+
+    R = H.shape[1]
+    thresh = chi2_table[torch.clamp(dof, 0, chi2_table.shape[0] - 1).long()]
+    if R <= GATE_TIER:
+        return gamma_of(H, r) < thresh
+    rtr = (r * r).sum(-1)
+    tr = ((H @ cov) * H).sum((1, 2))
+    pass_sure = rtr < thresh * obs_noise
+    fail_sure = rtr > thresh * (obs_noise + tr)
+    undecided = ~(pass_sure | fail_sure)
+    any_undecided, fits = to_host(torch.stack([undecided.any(),
+                                               rows_true.max() <= GATE_TIER]))
+    if not any_undecided:
+        return pass_sure
+    if fits:
+        return gamma_of(H[:, :GATE_TIER], r[:, :GATE_TIER]) < thresh
+    return gamma_of(H, r) < thresh
+
+
+def update_tiers(D: int):
+    T1 = D + 7 - (D + 7) % 8
+    return T1, 2 * D
+
+
+def apply_update_rank12(state: FilterState, params: MsckfParams, B, r, cols):
+    """EKF update for a stack nonzero only in the 12 columns ``cols`` (the
+    camera-prune update), in the push-through form that never inverts P12:
+    W = s2 I + B'B P12, B' S^-1 r = W^-1 B'r, B' S^-1 B = W^-1 B'B."""
+    dtype = state.cov.dtype
+    P = state.cov
+    Pc = P[:, cols]
+    P12 = Pc[cols, :]
+    BtB = B.T @ B
+    Btr = B.T @ r
+    W = params.obs_noise * torch.eye(12, dtype=dtype, device=P.device) + BtB @ P12
+    bsr = torch.linalg.solve(W, Btr)
+    G = torch.linalg.solve(W, BtB)
+    G = (G + G.T) / 2.0
+    delta = Pc @ bsr
+    P_new = P - Pc @ G @ Pc.T
+    return _inject_delta(state, delta, (P_new + P_new.T) / 2.0)
+
+
+def apply_update(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):
+    """EKF update from the stacked zero-padded buffer.  ``rows_true`` (a
+    Python int) picks the row tier: zero padding rows give zero gain columns,
+    so a prefix covering every true row is the same update; past T2 a thin
+    QR compresses the stack first.  Non-Joseph P <- P - K H P, kept."""
+    dtype = H_buf.dtype
+    D = H_buf.shape[1]
+    P = state.cov
+
+    def gain(H, r):
+        S = H @ P @ H.T + params.obs_noise * torch.eye(H.shape[0], dtype=dtype, device=P.device)
+        HP = H @ P
+        K = torch.cholesky_solve(HP, _cholesky(S), upper=False).T
+        return K @ r, K @ H
+
+    T1, T2 = update_tiers(D)
+    if rows_true is None or H_buf.shape[0] <= T2:
+        delta, KH = gain(H_buf, r_buf)
+    elif rows_true <= T1:
+        delta, KH = gain(H_buf[:T1], r_buf[:T1])
+    elif rows_true <= T2:
+        delta, KH = gain(H_buf[:T2], r_buf[:T2])
+    else:
+        Q, R = torch.linalg.qr(H_buf, mode="reduced")
+        delta, KH = gain(R, Q.T @ r_buf)
+    P_new = P - KH @ P
+    return _inject_delta(state, delta, (P_new + P_new.T) / 2.0)
+
+
+def _inject_delta(state: FilterState, delta, P_new):
+    """Error-state correction: quaternion boxplus for IMU, extrinsic and
+    camera states, the new covariance, and the update-magnitude warning."""
+    d_imu = delta[:IMU_DIM]
+    imu = state.imu
+    dq = quat.small_angle_quaternion(d_imu[:3])
+    imu = imu._replace(q=quat.multiply(dq, imu.q), bg=imu.bg + d_imu[3:6],
+                       v=imu.v + d_imu[6:9], ba=imu.ba + d_imu[9:12], p=imu.p + d_imu[12:15])
+    dq_ext = quat.small_angle_quaternion(d_imu[15:18])
+    imu = imu._replace(R_imu_cam0=quat.to_rotation(dq_ext) @ imu.R_imu_cam0,
+                       t_cam0_imu=imu.t_cam0_imu + d_imu[18:21])
+    cams = state.cams
+    N = cams.q.shape[0]
+    d_cam = delta[IMU_DIM:].reshape(N, 6)
+    live = torch.arange(N, device=delta.device) < cams.count
+    q_new = quat.multiply(quat.small_angle_quaternion(d_cam[:, :3]), cams.q)
+    cams = cams._replace(q=torch.where(live[:, None], q_new, cams.q),
+                         p=torch.where(live[:, None], cams.p + d_cam[:, 3:], cams.p))
+    too_large = (torch.linalg.norm(d_imu[6:9]) > 0.5) | (torch.linalg.norm(d_imu[12:15]) > 1.0)
+    return state._replace(imu=imu, cams=cams, cov=P_new), too_large

@@ -1,0 +1,109 @@
+"""The VIO model: front-end + MSCKF back-end per frame, and the sequence
+runner.  Port of uav_airvision_tpu/models/vio.py (``init_vio_state``,
+``vio_step``, ``run_sequence``); PyTorch runs eagerly, so the sequence runner
+is a Python loop over frames with the same signature and ``StepOutput``
+fields, stacked over time."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from uav_airvision_tpu.config import Config
+
+from ..device import get_device, to_host
+from .frontend.params import FrontendParams, make_frontend_params
+from .frontend.pipeline import FrontendState, frontend_step, init_frontend_state
+from .msckf.state import FilterState, MsckfParams, init_state, make_params
+from .msckf.step import FrameInput, StepOutput, backend_step
+
+
+class VioState(NamedTuple):
+    frontend: FrontendState
+    filter: FilterState
+
+
+class VioFrame(NamedTuple):
+    """Sensor frames; every field has a leading time axis in ``run_sequence``."""
+
+    timestamp: torch.Tensor  # ()
+    cam0: torch.Tensor  # (H,W) uint8
+    cam1: torch.Tensor  # (H,W) uint8
+    imu_t: torch.Tensor  # (I,)
+    imu_w: torch.Tensor  # (I,3)
+    imu_a: torch.Tensor  # (I,3)
+    imu_mask: torch.Tensor  # (I,)
+    fe_mean_w: torch.Tensor  # (3,)
+    fe_dt: torch.Tensor  # ()
+    active: torch.Tensor  # () bool
+
+
+def frames_from_prebatch(pb, cam0, cam1, device) -> VioFrame:
+    """VioFrame (time-leading) from a ``PrebatchedSequence`` and (T,H,W)
+    uint8 image stacks, as the JAX package's bench and CLI assemble it."""
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+
+    return VioFrame(
+        timestamp=f32(pb.timestamps),
+        cam0=torch.as_tensor(np.asarray(cam0), device=device),
+        cam1=torch.as_tensor(np.asarray(cam1), device=device),
+        imu_t=f32(pb.imu_t), imu_w=f32(pb.imu_w), imu_a=f32(pb.imu_a),
+        imu_mask=torch.as_tensor(np.asarray(pb.imu_mask), device=device),
+        fe_mean_w=f32(pb.fe_mean_w), fe_dt=f32(pb.fe_dt),
+        active=torch.as_tensor(np.asarray(pb.active), device=device))
+
+
+def init_vio_state(config: Config, gyro_bias=None, acc_mean=None,
+                   mparams: MsckfParams = None, device=None) -> VioState:
+    device = mparams.obs_noise.device if mparams is not None else get_device(device or "cpu")
+    mparams = mparams or make_params(config, device)
+    return VioState(frontend=init_frontend_state(config, device),
+                    filter=init_state(config, mparams, gyro_bias, acc_mean))
+
+
+def vio_step(state: VioState, frame: VioFrame, fparams: FrontendParams,
+             mparams: MsckfParams, config: Config, active: bool):
+    """Full frame: images -> features -> filter update -> pose.  ``active``
+    is ``frame.active`` as a host value.  Returns (state, StepOutput)."""
+    state, out, _ = _vio_step(state, frame, fparams, mparams, config, active)
+    return state, out
+
+
+def _vio_step(state: VioState, frame: VioFrame, fparams: FrontendParams,
+              mparams: MsckfParams, config: Config, active: bool):
+    fe_state, fe_out = frontend_step(state.frontend, frame.cam0, frame.cam1,
+                                     frame.fe_mean_w, frame.fe_dt, fparams, config)
+    dtype = state.filter.cov.dtype
+    backend_frame = FrameInput(
+        timestamp=frame.timestamp.to(dtype), imu_t=frame.imu_t.to(dtype),
+        imu_w=frame.imu_w.to(dtype), imu_a=frame.imu_a.to(dtype),
+        imu_mask=frame.imu_mask, feat_ids=fe_out.ids, feat_uv=fe_out.uv.to(dtype),
+        feat_mask=fe_out.mask, active=active)
+    filt, out = backend_step(state.filter, backend_frame, mparams, config)
+    return VioState(frontend=fe_state, filter=filt), out, fe_out
+
+
+def run_sequence(config: Config, frames: VioFrame, gyro_bias, acc_mean, fparams=None,
+                 mparams=None, state: VioState = None, on_frame=None):
+    """Run every frame of ``frames`` (leading time axis) through ``vio_step``.
+    Returns (state, StepOutput with a leading time axis).  The device is the
+    frames' device.  ``on_frame(k, fe_out, out)``, if given, sees each
+    frame's FrontendOutput and StepOutput."""
+    device = get_device(str(frames.cam0.device))
+    mparams = mparams or make_params(config, device)
+    fparams = fparams or make_frontend_params(config, device)
+    if state is None:
+        state = init_vio_state(config, gyro_bias, acc_mean, mparams)
+    active = to_host(frames.active)
+    outs = []
+    for k in range(frames.timestamp.shape[0]):
+        frame = VioFrame(*(x[k] for x in frames))
+        state, out, fe_out = _vio_step(state, frame, fparams, mparams, config,
+                                       bool(active[k]))
+        if on_frame is not None:
+            on_frame(k, fe_out, out)
+        outs.append(out)
+    return state, StepOutput(*(torch.stack(xs) for xs in zip(*outs)))

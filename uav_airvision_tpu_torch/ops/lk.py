@@ -1,0 +1,210 @@
+"""Batched pyramidal Lucas-Kanade optical flow with OpenCV semantics.
+
+Port of uav_airvision_tpu/ops/lk.py::pyramidal_lk_banded: window 15x15,
+Scharr/32 template gradients zeroed outside the image, G computed once per
+level at the previous point, bilinear re-sampling of J per iteration, eps
+convergence plus OpenCV's flip-flop halving, the level-0 min-eigenvalue and
+in-bounds status, OPTFLOW_USE_INITIAL_FLOW.
+
+The JAX package's banded block layout is a TPU gather workaround and is not
+ported, but the search-window freeze bounds it implies change results and are
+reproduced exactly (``_search_window``).  Templates come from ``prev_pyr``
+and search windows from ``curr_pyr``; the temporal tracker passes the
+previous frame's cam0 pyramid as ``prev_pyr``.
+
+On a CUDA tensor ``pyramidal_lk`` launches kernel K1 (``csrc/lk.cu``, one
+block per point); on a CPU tensor it runs ``pyramidal_lk_plain``, batched
+over points.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .pyramid import LK_PAD, Pyramid
+
+LK_MARGIN = 8  # search margin; with the 48-px / 16-px block snap: 8..23 px
+BAND_STRIDE = 16
+BAND_BW = 48
+_SM = (3.0 / 32.0, 10.0 / 32.0, 3.0 / 32.0)
+
+
+def _template(img: torch.Tensor, pts: torch.Tensor, scale: float, win: int):
+    """(I, Ix, Iy, corner) of each point's template at one level."""
+    HP, WP = img.shape
+    F = pts.shape[0]
+    n = win + 3
+    half = (win - 1) * 0.5
+    c = pts * scale - half + LK_PAD  # (F, 2) window corner, padded coords
+    fc = torch.floor(c)
+    ry0 = torch.clamp(fc[:, 1].to(torch.int64) - 1, 0, HP - n)
+    rx0 = torch.clamp(fc[:, 0].to(torch.int64) - 1, 0, WP - n)
+    ar = torch.arange(n, device=img.device)
+    raw = img[(ry0[:, None] + ar)[:, :, None], (rx0[:, None] + ar)[:, None, :]]
+    ax = (c[:, 0] - fc[:, 0])[:, None, None]
+    ay = (c[:, 1] - fc[:, 1])[:, None, None]
+    T = ((1 - ax) * (1 - ay) * raw[:, :-1, :-1] + ax * (1 - ay) * raw[:, :-1, 1:]
+         + (1 - ax) * ay * raw[:, 1:, :-1] + ax * ay * raw[:, 1:, 1:])  # (F,17,17)
+    v = _SM[0] * T[:, :-2] + _SM[1] * T[:, 1:-1] + _SM[2] * T[:, 2:]
+    ix = (-1.0 * v[:, :, :-2] + 0.0 * v[:, :, 1:-1]) + 1.0 * v[:, :, 2:]
+    w = (-1.0 * T[:, :-2] + 0.0 * T[:, 1:-1]) + 1.0 * T[:, 2:]
+    iy = _SM[0] * w[:, :, :-2] + _SM[1] * w[:, :, 1:-1] + _SM[2] * w[:, :, 2:]
+    aw = torch.arange(win, device=img.device, dtype=c.dtype)
+    ys = c[:, 1:2] + aw  # (F, win) patch pixel centres
+    xs = c[:, 0:1] + aw
+    inside = (((ys >= LK_PAD) & (ys <= HP - 1 - LK_PAD))[:, :, None]
+              & ((xs >= LK_PAD) & (xs <= WP - 1 - LK_PAD))[:, None, :])
+    ix = ix * inside
+    iy = iy * inside
+    return T[:, 1:-1, 1:-1], ix, iy, c.reshape(F, 2)
+
+
+def _search_window(pts_l: torch.Tensor, HP: int, WP: int, win: int):
+    """Block origin o (F, 2) [y, x] and sample-corner bound ub (F, 2) of the
+    search window (lk.py:188-219 with extract.py::block_of's clip and snap)."""
+    need = win + 1 + 2 * LK_MARGIN
+    half = (win - 1) * 0.5
+    corner0 = pts_l - half + LK_PAD
+    out_o, out_ub = [], []
+    for axis, n in ((1, HP), (0, WP)):
+        des = torch.clamp(torch.floor(corner0[:, axis]).to(torch.int64) - LK_MARGIN,
+                          0, n - need)
+        nb = max(1, -((n - BAND_BW) // -BAND_STRIDE) + 1)
+        o = BAND_STRIDE * torch.clamp(des // BAND_STRIDE, max=nb - 1)
+        out_o.append(o)
+        out_ub.append(torch.clamp(n - (win + 1) - o, max=BAND_BW - (win + 1)))
+    return torch.stack(out_o, 1), torch.stack(out_ub, 1)
+
+
+def _sample(img: torch.Tensor, sy, sx, oy, ox, win: int):
+    """Bilinear win x win patches with corners at (oy + sy, ox + sx)."""
+    by, bx = torch.floor(sy), torch.floor(sx)
+    fy = (sy - by)[:, None, None]
+    fx = (sx - bx)[:, None, None]
+    aw = torch.arange(win, device=img.device)
+    r = (oy + by.to(torch.int64))[:, None] + aw  # (F, win)
+    c = (ox + bx.to(torch.int64))[:, None] + aw
+    r0, r1 = r[:, :, None], r[:, :, None] + 1
+    c0, c1 = c[:, None, :], c[:, None, :] + 1
+    t0 = (1 - fy) * img[r0, c0] + fy * img[r1, c0]
+    t1 = (1 - fy) * img[r0, c1] + fy * img[r1, c1]
+    return t0 * (1 - fx) + t1 * fx
+
+
+def pyramidal_lk_plain(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts,
+                       valid, win: int = 15, max_iter: int = 30, eps: float = 0.01,
+                       min_eig_threshold: float = 1e-4, n_levels: int | None = None,
+                       max_iter_upper: int | None = None):
+    """Plain PyTorch version of kernel K1 (every point runs the capped number
+    of gated steps; a converged point never moves again)."""
+    if n_levels is None:
+        n_levels = min(prev_pyr.n_levels, curr_pyr.n_levels)
+    eps2 = eps * eps
+    half = (win - 1) * 0.5
+    next_pts = init_pts.clone()
+    status = None
+    for L in reversed(range(n_levels)):
+        scale = 1.0 / (1 << L)
+        pimg, cimg = prev_pyr.levels[L], curr_pyr.levels[L]
+        HP, WP = cimg.shape
+        H, W = HP - 2 * LK_PAD, WP - 2 * LK_PAD
+        I, ix, iy, c = _template(pimg, prev_pts, scale, win)
+        a11 = (ix * ix).sum((1, 2))
+        a12 = (ix * iy).sum((1, 2))
+        a22 = (iy * iy).sum((1, 2))
+        bt1 = (I * ix).sum((1, 2))
+        bt2 = (I * iy).sum((1, 2))
+        det = a11 * a22 - a12 * a12
+        inv_det = torch.where(det > 1e-12, 1.0 / det, torch.zeros_like(det))
+        ipx = torch.floor(c[:, 0]) - LK_PAD
+        ipy = torch.floor(c[:, 1]) - LK_PAD
+        Hl, Wl = pimg.shape[0] - 2 * LK_PAD, pimg.shape[1] - 2 * LK_PAD
+        in_prev = (ipx >= -win) & (ipx < Wl) & (ipy >= -win) & (ipy < Hl)
+        good = valid & in_prev & (det > 1e-12)
+        if L == 0:
+            min_eig = (a22 + a11 - torch.sqrt((a11 - a22) ** 2 + 4.0 * a12 * a12)) / (
+                2.0 * win * win)
+            status = valid & in_prev & (min_eig >= min_eig_threshold) & (det > 1e-12)
+
+        pts = next_pts * scale
+        o, ub = _search_window(pts, HP, WP, win)
+        oy, ox = o[:, 0], o[:, 1]
+        uby, ubx = ub[:, 0].to(pts.dtype), ub[:, 1].to(pts.dtype)
+        it_max = max_iter if (L == 0 or not max_iter_upper) else max_iter_upper
+        conv = ~good
+        prev_delta = torch.zeros_like(pts)
+        for it in range(it_max):
+            corner = pts - half + LK_PAD
+            sy = torch.minimum(torch.clamp(corner[:, 1] - oy.to(pts.dtype), min=0.0), uby)
+            sx = torch.minimum(torch.clamp(corner[:, 0] - ox.to(pts.dtype), min=0.0), ubx)
+            J = _sample(cimg, sy, sx, oy, ox, win)
+            b1 = (J * ix).sum((1, 2)) - bt1
+            b2 = (J * iy).sum((1, 2)) - bt2
+            dx = (a12 * b2 - a22 * b1) * inv_det
+            dy = (a12 * b1 - a11 * b2) * inv_det
+            delta = torch.stack([dx, dy], dim=-1)
+            new = pts + delta
+            fl = torch.floor(new - half)
+            inb = (fl[:, 0] >= -win) & (fl[:, 0] < W) & (fl[:, 1] >= -win) & (fl[:, 1] < H)
+            nc = new - half + LK_PAD
+            in_win = ((nc[:, 0] - ox >= 0.0) & (nc[:, 0] - ox <= ubx)
+                      & (nc[:, 1] - oy >= 0.0) & (nc[:, 1] - oy <= uby))
+            step = ~conv & good & in_win
+            pts = torch.where(step[:, None], new, pts)
+            small = (delta * delta).sum(-1) <= eps2
+            flip = ((it > 0) & (torch.abs(dx + prev_delta[:, 0]) < 0.01)
+                    & (torch.abs(dy + prev_delta[:, 1]) < 0.01))
+            pts = torch.where((step & flip)[:, None], pts - delta * 0.5, pts)
+            conv = conv | small | flip | ~good | ~inb | ~in_win
+            prev_delta = delta
+        next_pts = pts * (1 << L)
+
+    H0, W0 = prev_pyr.H0, prev_pyr.W0
+    fl = torch.floor(next_pts - half)
+    inb = (fl[:, 0] >= -win) & (fl[:, 0] < W0) & (fl[:, 1] >= -win) & (fl[:, 1] < H0)
+    return next_pts, status & inb
+
+
+def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid,
+                 win: int = 15, max_iter: int = 30, eps: float = 0.01,
+                 min_eig_threshold: float = 1e-4, n_levels: int | None = None,
+                 max_iter_upper: int | None = None):
+    """Track ``prev_pts`` (F, 2) from ``prev_pyr`` into ``curr_pyr``, starting
+    at ``init_pts``.  Returns (next_pts (F, 2) float32, status (F,) bool).
+    ``max_iter_upper`` caps the iterations of levels > 0."""
+    if prev_pts.device.type == "cpu":
+        return pyramidal_lk_plain(prev_pyr, curr_pyr, prev_pts, init_pts, valid,
+                                  win, max_iter, eps, min_eig_threshold, n_levels,
+                                  max_iter_upper)
+    if prev_pts.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors, got {prev_pts.device}")
+    if win != 15:
+        raise NotImplementedError("the LK kernel is built for a 15x15 window")
+    if (prev_pyr.H0, prev_pyr.W0) != (curr_pyr.H0, curr_pyr.W0):
+        raise ValueError("prev and curr pyramids differ in size")
+    if n_levels is None:
+        n_levels = min(prev_pyr.n_levels, curr_pyr.n_levels)
+    if n_levels > min(prev_pyr.n_levels, curr_pyr.n_levels):
+        raise ValueError("n_levels exceeds the pyramids' depth")
+    prev_pts = prev_pts.to(torch.float32).contiguous()
+    init_pts = init_pts.to(torch.float32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    kernels.check_cuda(prev_pyr.flat, curr_pyr.flat, prev_pts, init_pts, valid)
+    F = prev_pts.shape[0]
+    if prev_pts.shape != (F, 2) or init_pts.shape != (F, 2) or valid.shape != (F,):
+        raise ValueError(f"points {tuple(prev_pts.shape)}, {tuple(init_pts.shape)}, "
+                         f"valid {tuple(valid.shape)}")
+    out_pts = torch.empty_like(prev_pts)
+    out_status = torch.empty((F,), dtype=torch.bool, device=prev_pts.device)
+    kernels.launch("pyramidal_lk", kernels.ptr(prev_pyr.flat), kernels.ptr(curr_pyr.flat),
+                   prev_pyr.H0, prev_pyr.W0, kernels.ptr(prev_pts),
+                   kernels.ptr(init_pts), kernels.ptr(valid), F, n_levels,
+                   int(max_iter), int(max_iter_upper or 0), float(eps * eps),
+                   float(min_eig_threshold), kernels.ptr(out_pts),
+                   kernels.ptr(out_status))
+    pyramidal_lk.launches += 1
+    return out_pts, out_status
+
+
+pyramidal_lk.launches = 0
