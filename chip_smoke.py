@@ -4,23 +4,48 @@
 
 1. Device: exits 1 unless CUDA is available; prints the card's name and
    power limit (nvidia-smi) and builds the kernels of
-   ``uav_airvision_tpu_torch/csrc`` (nvcc, sm_90a).
-2. Kernels against their plain PyTorch versions on the card, at main-path
-   shapes, on a rendered 752x480 bench-world frame pair: K2 (pyramid) and
-   K4+K6 (FAST + mask + NMS) exactly, K1 (LK; temporal 104 points x 2
-   levels, stereo forward 204 x 2, backward 204 x level 0) status agreeing
-   on >= 99% of points and agreeing points within 1e-3 px, K14 (propagation,
-   11 IMU samples, a real covariance) within 1e-5 relative.  Median times by
-   CUDA events, warm.
-3. Main path: the bench world as bench.py renders it (euroc_config, seed 5,
-   200 frames) through ``run_sequence`` on the card twice; the second run is
-   timed, with every launch counter set to 0 just before it.  Checks: every
-   kernel launched, finite poses, >= 150 active frames, ATE max (per-frame
-   |p - groundtruth|, no alignment) under ATE_BAR_M.
-   The first 40 frames also run through the port's plain PyTorch path on
-   the host; poses must agree within 1e-4 m.
-4. Prints the per-kernel JSON line, then the result line
+   ``uav_airvision_tpu_torch/csrc`` (nvcc, sm_90a, one process per source).
+2. Front-end kernels against their plain PyTorch versions on the card, at
+   main-path shapes, on a rendered 752x480 bench-world frame pair: K2
+   (pyramid) and K4+K6 (FAST + mask + NMS) exactly, K1 (LK; temporal 104
+   points x 2 levels, stereo forward 204 x 2, backward 204 x level 0) status
+   agreeing on >= 99% of points and agreeing points within 1e-3 px.
+3. Main path, warm run: the bench world as bench.py renders it
+   (euroc_config, seed 5, 200 frames) through ``run_sequence`` on the card,
+   with an observer (``kernels.observer``) recording the arguments of the
+   back-end kernels' calls, the latest per shape, and counting the calls
+   per shape.
+4. Back-end kernels against their plain versions on those recorded calls
+   (real filter states of the bench world), plus forced cases the bench
+   world may not reach:
+   - K14 (propagation, 11 IMU samples): within 1e-5 relative;
+   - K13 (triangulation, every recorded B and B = 128): validity identical,
+     positions within 1e-4 of max(|p|, 1) for 95% of the features and within
+     1e-3 for each (a cost comparison that ties within rounding can take the
+     other LM branch, and an unconverged solve ends a step apart);
+   - K9 (feature block, N = 20 and the prune's N = 2): H_proj, r_proj within
+     1e-5 (N = 20) / 1e-4 (N = 2: the reflections of two close views
+     cancel) of each block's largest entry, rows_true exact;
+   - K10 (gate; bounds on the 77-row blocks, gamma on the 5-, 32- and
+     77-row prefixes, residual scales 1e-3, 1, 10, 30, 1e3): gamma within
+     1e-4 relative, bound flags and decisions identical except within 1e-4
+     of a threshold;
+   - K12 (rank-12 prune update, as recorded and with an exactly singular
+     P12): P_new and delta within 1e-4 of max(|P|, 1).
+   Median times by CUDA events, warm; the JSON line's times and bound are
+   those of each kernel's (each K10 entry point's) most frequent shape.
+5. Main path, timed run: every launch counter set to 0 just before it.
+   Checks: every kernel (each K10 entry point) launched, finite poses,
+   >= 150 active frames, ATE max (per-frame |p - groundtruth|, no
+   alignment) under ATE_BAR_M.  The first 40 frames also run through the
+   port's plain PyTorch path on the host; poses must agree within 1e-4 m.
+6. Prints the per-kernel JSON line (launches, max error, ms, plain ms, the
+   bound and what binds it), then the result line
    ``{"ok": true, "device": {...}}`` last.  Any failure exits nonzero.
+
+Bounds: bytes each input read once and each output written once over
+3.35 TB/s, against the operations counted from this run's shapes over
+67 TFLOP/s (float32 outside the tensor cores; H100 SXM data sheet).
 """
 
 from __future__ import annotations
@@ -37,6 +62,8 @@ import time
 ATE_BAR_M = 0.0411
 MIN_ACTIVE = 150
 N_FRAMES = 200
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 FAILURES: list = []
@@ -73,12 +100,23 @@ def cuda_ms(fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float):
+    """(ms, what binds): the least time the card could take for the work,
+    bytes over the memory rate or operations over the float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def render_bench_world(n_frames: int):
     import numpy as np
 
-    from uav_airvision_tpu.config import euroc_config
-    from uav_airvision_tpu.simulation.world import StereoWorld
-    from uav_airvision_tpu.streaming.prebatch import prebatch_imu
+    from uav_airvision_tpu_torch.config import euroc_config
+    from uav_airvision_tpu_torch.simulation.world import StereoWorld
+    from uav_airvision_tpu_torch.streaming.prebatch import prebatch_imu
 
     config = euroc_config()
     world = StereoWorld(config)
@@ -117,9 +155,13 @@ def check_kernels(config, frames, dev):
         err = max(float((g - w).abs().max()) for g, w in zip(got.levels, want.levels))
         if err != 0.0:
             fail(f"K2 pyramid differs from its plain version by {err}")
+    # ~20 integer operations per output pixel (two separable 5-tap passes)
+    k2_bound = bound(nbytes(cam0, got.flat),
+                     20 * sum(lv.numel() for lv in got.levels[1:]))
     res["K2"] = (0.0,
                  cuda_ms(lambda: pyramid.build_pyramid_padded(cam0, fe.pyramid_levels)),
-                 cuda_ms(lambda: pyramid.build_pyramid_padded_plain(cam0, fe.pyramid_levels)))
+                 cuda_ms(lambda: pyramid.build_pyramid_padded_plain(cam0, fe.pyramid_levels)),
+                 *k2_bound)
     print(f"[K2] pyramid 480x752 -> 4 padded levels: exact; "
           f"{res['K2'][1]:.4f} ms vs plain {res['K2'][2]:.4f} ms")
 
@@ -144,8 +186,11 @@ def check_kernels(config, frames, dev):
               f"{int((pk2.cpu() != ck).sum())} pixels")
     if int(kk.sum()) < 100:
         fail(f"K4+K6 kept only {int(kk.sum())} corners")
+    # ~48 operations per pixel: 16 ring differences against two thresholds,
+    # the arc test and the 3x3 maximum
     res["K4+K6"] = (0.0, cuda_ms(lambda: fast.detect_fast(cam0, fe.fast_threshold, pts, valid)),
-                    cuda_ms(lambda: fast.detect_fast_plain(cam0, fe.fast_threshold, pts, valid)))
+                    cuda_ms(lambda: fast.detect_fast_plain(cam0, fe.fast_threshold, pts, valid)),
+                    *bound(nbytes(cam0, pts, valid, kk, ks), 48 * cam0.numel()))
     print(f"[K4+K6] FAST + 104-point mask + NMS, 480x752: exact ({int(kk.sum())} corners); "
           f"{res['K4+K6'][1]:.4f} ms vs plain {res['K4+K6'][2]:.4f} ms")
 
@@ -167,7 +212,7 @@ def check_kernels(config, frames, dev):
         "stereo fwd 204 pts x 2 levels": (pyr0, pyr1, both, both + disp, both_valid, 2, 5),
         "stereo bwd 204 pts x level 0": (pyr1, pyr0, both + disp, both, both_valid, 1, None),
     }
-    err_all, ms_all, plain_all = 0.0, 0.0, 0.0
+    err_all, ms_all, plain_all, bytes_all, ops_all = 0.0, 0.0, 0.0, 0, 0
     for label, (pp, cp, p0, p1, v, nl, up) in shapes.items():
         args = dict(win=15, max_iter=10, eps=0.01, min_eig_threshold=1e-4, n_levels=nl,
                     max_iter_upper=up)
@@ -184,7 +229,15 @@ def check_kernels(config, frames, dev):
         print(f"[K1] {label}: status agreement {agree:.4f}, max err {err:.3e} px "
               f"({int(both_ok.sum())} tracked); {ms:.4f} ms vs plain {pms:.4f} ms")
         err_all, ms_all, plain_all = max(err_all, err), ms_all + ms, plain_all + pms
-    res["K1"] = (err_all, ms_all, plain_all)
+        # per valid point and level, the (15+2)^2 patch of the previous image
+        # (template and its gradients) and at least one of the current image;
+        # the points and status in and out.  ~31 operations per window pixel:
+        # the template gradients and at least one iteration
+        point_levels = int(v.sum()) * nl
+        bytes_all += (point_levels * 2 * 17 ** 2 * pp.flat.element_size()
+                      + nbytes(p0, p1, v, kn, kst))
+        ops_all += point_levels * 225 * 31
+    res["K1"] = (err_all, ms_all, plain_all, *bound(bytes_all, ops_all))
     return res
 
 
@@ -215,7 +268,244 @@ def check_propagate(filter_state, params, frames, k):
     pms = cuda_ms(lambda: propagation.propagate_plain(*args), reps=10)
     print(f"[K14] propagate {n_valid} IMU samples, {tuple(got.cov.shape)} covariance: "
           f"relative error {err:.3e}; {ms:.4f} ms vs plain {pms:.4f} ms")
-    return abs_err, ms, pms
+    # per valid sample ~119 kFLOP of 21x21 products (Fdt^2, Fdt^3, the
+    # composition, Phi G, Q); then Phi P_ii Phi^T, Phi P_ic, the symmetrization
+    D = filter_state.cov.shape[0]
+    ops = n_valid * 119_000 + 2 * 2 * 21 ** 3 + 2 * 21 * 21 * (D - 21) + D * D
+    b = bound(nbytes(filter_state.cov, got.cov, *args[2:]), ops)
+    return abs_err, ms, pms, *b
+
+
+class Recorder:
+    """Installed as the kernels' observer (``kernels.observer``), keeps the
+    arguments of the latest call of each back-end kernel wrapper for each
+    shape, and counts the calls per shape."""
+
+    KEYS = {  # wrapper: (label, shape from its arguments)
+        "triangulate": ("K13", lambda a: a[2].shape[0]),
+        "feature_block": ("K9", lambda a: tuple(a[5].shape)),
+        "gating_test_batch": ("K10", lambda a: tuple(a[0].shape)),
+        "gate_bounds": ("K10 bounds", lambda a: tuple(a[0].shape)),
+        "gate_gamma": ("K10 gamma", lambda a: tuple(a[0].shape)),
+        "rank12_update": ("K12", lambda a: tuple(a[1].shape)),
+    }
+
+    def __init__(self):
+        self.calls, self.counts = {}, {}
+
+    def __call__(self, name, args):
+        label, shape = self.KEYS[name]
+        key = (label, shape(args))
+        self.calls[key] = args
+        self.counts[key] = self.counts.get(key, 0) + 1
+
+    def __enter__(self):
+        from uav_airvision_tpu_torch import kernels
+
+        kernels.observer = self
+        return self
+
+    def __exit__(self, *exc):
+        from uav_airvision_tpu_torch import kernels
+
+        kernels.observer = None
+
+    def of(self, kind):
+        return {k[1]: v for k, v in sorted(self.calls.items(), key=str) if k[0] == kind}
+
+    def most_frequent(self, kind):
+        """The shape of the kind's most frequent call (on a tie, the first in
+        ``of``'s order)."""
+        keys = sorted((k for k in self.counts if k[0] == kind), key=str)
+        return max(keys, key=lambda k: self.counts[k])[1] if keys else None
+
+
+def _rows_needed(H, r):
+    """Per block, the rows up to the last one with a nonzero entry of H or r."""
+    import torch
+
+    nz = (H.abs().amax(2) != 0) | (r != 0)
+    idx = torch.arange(nz.shape[1], device=nz.device).expand_as(nz)
+    return (torch.where(nz, idx, -1).amax(1) + 1).to(torch.float64).cpu()
+
+
+def check_backend_kernels(rec: Recorder, config, params):
+    """K13, K9, K10 and K12 against their plain versions on the calls the
+    warm run recorded, and on forced cases.  Returns {name: (max_abs_err,
+    ms, plain_ms, bound_ms, bound_by)} with the times and bound at each
+    kernel's (each K10 entry point's) most frequent shape in the warm run."""
+    import torch
+
+    from uav_airvision_tpu_torch.models.msckf import triangulation as tri
+    from uav_airvision_tpu_torch.models.msckf import update as upd
+
+    res = {}
+
+    # K13: every recorded batch size, and B = 128 by repeating a call
+    calls = rec.of("K13")
+    if not calls:
+        fail("the warm run made no triangulation call")
+        return res
+    if 128 not in calls:
+        a = list(calls[max(calls)])
+        idx = torch.arange(128, device=a[2].device) % a[2].shape[0]
+        a[2], a[3] = a[2][idx], a[3][idx]
+        if a[7] is not None:
+            a[7] = a[7][idx]
+        calls[128] = tuple(a)
+    for B, a in sorted(calls.items()):
+        pos, ok = tri.triangulate(*a)
+        ppos, pok = tri.triangulate_plain(*a)
+        both = ok & pok & torch.isfinite(ppos).all(1)
+        rel = ((pos - ppos).abs().max(1).values / ppos.abs().max(1).values.clamp(min=1.0))[both]
+        err = float(rel.max()) if len(rel) else 0.0
+        abs_err = float((pos - ppos)[both].abs().max()) if bool(both.any()) else 0.0
+        close = float((rel <= 1e-4).float().mean()) if len(rel) else 1.0
+        if not torch.equal(ok, pok) or not err <= 1e-3 or close < 0.95:
+            fail(f"K13 B={B}: validity differs on {int((ok != pok).sum())} features, "
+                 f"position error {err:.3e}, {close:.3f} of features within 1e-4")
+        ms = cuda_ms(lambda: tri.triangulate(*a))
+        pms = cuda_ms(lambda: tri.triangulate_plain(*a), reps=10)
+        n_obs = a[3].sum(1).to(torch.float64)
+        act = a[7] if a[7] is not None else torch.ones_like(ok)
+        # per observing slot ~230 FLOP to build its two views; per view ~27
+        # FLOP for a cost, ~75 for the normal equations, ~7 for the depth
+        # check; an active feature takes at least one step
+        ops = float((n_obs * 230 + 2 * n_obs * (27 + 7) + act * 2 * n_obs * (75 + 27)).sum())
+        b = bound(nbytes(*a[:6], pos, ok) + (nbytes(a[7]) if a[7] is not None else 0), ops)
+        print(f"[K13] triangulate B={B} x N={a[3].shape[1]}: validity identical, max position "
+              f"error {err:.3e} of max(|p|, 1), {close:.3f} of features within 1e-4; "
+              f"{ms:.4f} ms vs plain {pms:.4f} ms; "
+              f"bound {b[0] * 1e3:.3f} us ({b[1]})")
+        if B == rec.most_frequent("K13"):
+            res["K13"] = (abs_err, ms, pms, *b)
+
+    # K9: the lost features' N = 20 blocks and the prune's N = 2 blocks
+    calls = rec.of("K9")
+    for (B, N), a in sorted(calls.items()):
+        H, r, rows = upd.feature_block(*a)
+        pH, pr, prows = upd.feature_block_plain(*a)
+        scale = torch.maximum(pH.abs().amax((1, 2)), pr.abs().amax(1)).clamp(min=1e-30)
+        err = max(float(((g - w).abs().flatten(1).amax(1) / scale).max())
+                  for g, w in ((H, pH), (r, pr)))
+        abs_err = max(float((H - pH).abs().max()), float((r - pr).abs().max()))
+        tol = 1e-5 if N > 2 else 1e-4
+        if not torch.equal(rows, prows) or not err <= tol:
+            fail(f"K9 B={B} N={N}: error {err:.3e} of the block maximum, rows equal "
+                 f"{torch.equal(rows, prows)}")
+        ms = cuda_ms(lambda: upd.feature_block(*a))
+        pms = cuda_ms(lambda: upd.feature_block_plain(*a), reps=10)
+        n_obs = a[5].sum(1).to(torch.float64)
+        # ~400 FLOP per observing slot for its Jacobians; three reflections
+        # of ~5 FLOP per entry over the 4 n_obs x (4 + 6 n_obs) live tile
+        ops = float((n_obs * 400 + 15 * 4 * n_obs * (4 + 6 * n_obs)).sum())
+        b = bound(nbytes(*a[:10], H, r, rows), ops)
+        print(f"[K9] feature_block B={B} x N={N} -> {tuple(H.shape)}: error {err:.3e} of the "
+              f"block maximum; {ms:.4f} ms vs plain {pms:.4f} ms; bound {b[0] * 1e3:.3f} us "
+              f"({b[1]})")
+        if (B, N) == rec.most_frequent("K9"):
+            res["K9"] = (abs_err, ms, pms, *b)
+
+    # K10: the recorded gate calls at forced residual scales and row tiers
+    gates = rec.of("K10")
+    gate_err = 0.0
+    for shape, a in sorted(gates.items()):
+        H, r, rows, cov, noise, table, dof = a
+        tiers = [rows] if H.shape[1] <= 32 else [rows, torch.full_like(rows, H.shape[1])]
+        thresh = table[torch.clamp(dof, 0, table.shape[0] - 1).long()]
+        for scale in (1e-3, 1.0, 10.0, 30.0, 1e3):
+            rs = r * scale
+            for rt in tiers:
+                got = upd.gating_test_batch(H, rs, rt, cov, noise, table, dof)
+                want = upd.gating_test_batch_plain(H, rs, rt, cov, noise, table, dof)
+                gamma = upd.gate_gamma_plain(H, rs, cov, noise)
+                near = (gamma - thresh).abs() <= 1e-4 * thresh
+                if not bool(((got == want) | near).all()):
+                    fail(f"K10 {tuple(shape)} scale {scale}: decisions differ on "
+                         f"{int(((got != want) & ~near).sum())} blocks")
+            for m in sorted({min(H.shape[1], 32), H.shape[1]}):
+                g = upd.gate_gamma(H[:, :m], rs[:, :m], cov, noise)
+                w = upd.gate_gamma_plain(H[:, :m], rs[:, :m], cov, noise)
+                same_nan = torch.equal(g.isnan(), w.isnan())
+                rel = float(((g - w).abs() / w.abs().clamp(min=1e-30)).nan_to_num().max())
+                if scale == 1.0:
+                    gate_err = max(gate_err, float((g - w).abs().nan_to_num().max()))
+                if not same_nan or not rel <= 1e-4:
+                    fail(f"K10 gamma {tuple(H[:, :m].shape)} scale {scale}: relative "
+                         f"error {rel:.3e}, NaN pattern equal {same_nan}")
+            if H.shape[1] > 32:
+                ps, fs = upd.gate_bounds(H, rs, cov, noise, thresh)
+                pps, pfs = upd.gate_bounds_plain(H, rs, cov, noise, thresh)
+                rtr = (rs * rs).sum(-1)
+                tr = ((H @ cov) * H).sum((1, 2))
+                near = ((rtr - thresh * noise).abs() <= 1e-4 * rtr) | (
+                    (rtr - thresh * (noise + tr)).abs() <= 1e-4 * rtr)
+                if not bool(((ps == pps) & (fs == pfs) | near).all()):
+                    fail(f"K10 bounds {tuple(shape)} scale {scale}: flags differ")
+        print(f"[K10] gate {tuple(shape)}: decisions, bounds and gamma agree at scales "
+              f"1e-3..1e3 on the {'/'.join(str(int(t.max())) for t in tiers)}-row tiers")
+    if not any(shape[1] > 32 for shape in gates):
+        fail("the warm run made no 77-row gate call")
+        return res
+    # each entry point timed at its most frequent shape in the warm run
+    ms, pms, n_bytes, ops, timed = 0.0, 0.0, 0, 0.0, []
+    for entry, kernel, plain in (("bounds", upd.gate_bounds, upd.gate_bounds_plain),
+                                 ("gamma", upd.gate_gamma, upd.gate_gamma_plain)):
+        shape = rec.most_frequent(f"K10 {entry}")
+        if shape is None:
+            fail(f"the warm run made no gate_{entry} call")
+            return res
+        a = rec.of(f"K10 {entry}")[shape]
+        ms += cuda_ms(lambda: kernel(*a))
+        pms += cuda_ms(lambda: plain(*a), reps=10)
+        H, nz, D = a[0], _rows_needed(a[0], a[1]), a[0].shape[2]
+        if entry == "bounds":
+            # H P over the rows that hold data (2 nz D^2) and the trace
+            ops += float((2 * nz * D * D + 2 * nz * D).sum())
+            n_bytes += nbytes(*a) + 2 * H.shape[0]
+        else:
+            # and S's lower triangle (nz^2 D), the Cholesky (nz^3 / 3) and
+            # the border row
+            ops += float((2 * nz * D * D + nz * (nz + 1) * D + nz ** 3 / 3 + nz ** 2).sum())
+            n_bytes += nbytes(*a) + H.element_size() * H.shape[0]
+        timed.append(f"{entry} {shape} ({rec.counts[(f'K10 {entry}', shape)]} calls)")
+    b = bound(n_bytes, ops)
+    print(f"[K10] {' + '.join(timed)}: {ms:.4f} ms vs plain {pms:.4f} ms; "
+          f"bound {b[0] * 1e3:.3f} us ({b[1]})")
+    res["K10"] = (gate_err, ms, pms, *b)
+
+    # K12: the recorded prune updates, and one with an exactly singular P12
+    calls = rec.of("K12")
+    if not calls:
+        fail("the warm run made no rank-12 prune update")
+        return res
+    cases = {f"B {k}": v for k, v in calls.items()}
+    P, Bm, rr, cols, noise = calls[max(calls)]
+    P = P.clone()
+    P[cols[6:], :] = 0.0  # the second camera's block: P12 of rank 6
+    P[:, cols[6:]] = 0.0
+    cases["singular P12"] = (P, Bm, rr, cols, noise)
+    for label, a in cases.items():
+        P, Bm, rr, cols, noise = a
+        rank = int(torch.linalg.matrix_rank(P[cols][:, cols].double()))
+        delta, P_new = upd.rank12_update(*a)
+        pdelta, pP_new = upd.rank12_update_plain(*a)
+        scale = max(float(pP_new.abs().max()), 1.0)
+        err = max(float((P_new - pP_new).abs().max()), float((delta - pdelta).abs().max()))
+        if not err <= 1e-4 * scale or not torch.isfinite(P_new).all():
+            fail(f"K12 {label}: error {err:.3e} (max |P| {scale:.3e})")
+        ms = cuda_ms(lambda: upd.rank12_update(*a))
+        pms = cuda_ms(lambda: upd.rank12_update_plain(*a), reps=10)
+        n, D = Bm.shape[0], P.shape[0]
+        # B'B, B'r, W, the LU and its 13 right-hand sides, Pc G, delta, and
+        # 26 FLOP per entry of sym(P - Pc G Pc')
+        ops = 2 * n * 156 + 3 * 12 ** 3 + 13 * 144 + 2 * D * 156 + 26 * D * D
+        b = bound(nbytes(P, Bm, rr, cols, noise, delta, P_new), ops)
+        print(f"[K12] rank-12 update, {label}, P12 rank {rank}: error {err:.3e}; {ms:.4f} ms "
+              f"vs plain {pms:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
+        if label == f"B {rec.most_frequent('K12')}":
+            res["K12"] = (err, ms, pms, *b)
+    return res
 
 
 def main() -> int:
@@ -236,7 +526,7 @@ def main() -> int:
 
     from uav_airvision_tpu_torch import device, kernels
     from uav_airvision_tpu_torch.models import vio
-    from uav_airvision_tpu_torch.models.msckf import propagation
+    from uav_airvision_tpu_torch.models.msckf import propagation, triangulation, update
     from uav_airvision_tpu_torch.models.msckf.state import make_params
     from uav_airvision_tpu_torch.ops import fast, lk, pyramid
 
@@ -256,28 +546,38 @@ def main() -> int:
 
     results = check_kernels(config, frames, dev)
 
-    # main path, warm run
+    # main path, warm run, recording the back-end kernels' calls
     t0 = time.time()
-    state, _ = vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
+    with Recorder() as rec:
+        state, _ = vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
     torch.cuda.synchronize()
-    print(f"[main] warm run: {N_FRAMES} frames in {time.time() - t0:.2f} s")
-    results["K14"] = check_propagate(state.filter, make_params(config, dev), frames, 100)
+    print(f"[main] warm run: {N_FRAMES} frames in {time.time() - t0:.2f} s; calls per shape "
+          f"{ {f'{k[0]} {k[1]}': n for k, n in sorted(rec.counts.items(), key=str)} }")
+    params = make_params(config, dev)
+    results["K14"] = check_propagate(state.filter, params, frames, N_FRAMES // 2)
+    results.update(check_backend_kernels(rec, config, params))
 
-    wrappers = {"K1": lk.pyramidal_lk, "K2": pyramid.build_pyramid_padded,
-                "K4+K6": fast.detect_fast, "K14": propagation.propagate}
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = {"K1": [lk.pyramidal_lk], "K2": [pyramid.build_pyramid_padded],
+                "K4+K6": [fast.detect_fast], "K14": [propagation.propagate],
+                "K13": [triangulation.triangulate], "K9": [update.feature_block],
+                "K10": [update.gate_bounds, update.gate_gamma],
+                "K12": [update.rank12_update]}
+    for fns in wrappers.values():
+        for fn in fns:
+            fn.launches = 0
     syncs0 = device.host_syncs["sync"]
     torch.cuda.synchronize()
     t0 = time.time()
     state, outs = vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    per_entry = {f"{name} {fn.__name__}": fn.launches
+                 for name, fns in wrappers.items() for fn in fns}
+    launches = {name: sum(fn.launches for fn in fns) for name, fns in wrappers.items()}
     syncs = (device.host_syncs["sync"] - syncs0) / N_FRAMES
     print(f"[main] timed run: {N_FRAMES} frames in {wall:.3f} s = {N_FRAMES / wall:.2f} "
-          f"frames/s; {syncs:.2f} host syncs/frame; launches {launches}")
-    for name, n in launches.items():
+          f"frames/s; {syncs:.2f} host syncs/frame; launches {per_entry}")
+    for name, n in per_entry.items():
         if n == 0:
             fail(f"the main path never launched kernel {name}")
 
@@ -294,14 +594,20 @@ def main() -> int:
     if not ate_max < ATE_BAR_M:
         fail(f"ATE max {ate_max:.5f} m is not under the bar {ATE_BAR_M} m")
 
-    sources = {"K1": ("uav_airvision_tpu_torch/csrc/lk.cu",
-                      "uav_airvision_tpu/ops/lk.py:341", "pyramidal_lk"),
-               "K2": ("uav_airvision_tpu_torch/csrc/pyramid.cu",
-                      "uav_airvision_tpu/ops/pyramid.py:115", "build_pyramid_padded"),
-               "K4+K6": ("uav_airvision_tpu_torch/csrc/fast.cu",
-                         "uav_airvision_tpu/ops/fast.py:103", "fast_detect_masked"),
-               "K14": ("uav_airvision_tpu_torch/csrc/propagate.cu",
-                       "uav_airvision_tpu/models/msckf/propagation.py:88", "propagate")}
+    sources = {"K1": ("lk.cu", "uav_airvision_tpu/ops/lk.py:341", "pyramidal_lk"),
+               "K2": ("pyramid.cu", "uav_airvision_tpu/ops/pyramid.py:115",
+                      "build_pyramid_padded"),
+               "K4+K6": ("fast.cu", "uav_airvision_tpu/ops/fast.py:103", "fast_detect_masked"),
+               "K14": ("propagate.cu", "uav_airvision_tpu/models/msckf/propagation.py:88",
+                       "propagate"),
+               "K13": ("triangulate.cu",
+                       "uav_airvision_tpu/models/msckf/triangulation.py:159", "triangulate"),
+               "K9": ("feature_block.cu", "uav_airvision_tpu/models/msckf/update.py:103",
+                      "feature_block"),
+               "K10": ("gate.cu", "uav_airvision_tpu/models/msckf/update.py:170",
+                       "gating_test_batch"),
+               "K12": ("rank12.cu", "uav_airvision_tpu/models/msckf/update.py:239",
+                       "rank12_update")}
     # the same frames through the port's plain PyTorch path on the host
     n_ref = 40
     cpu_frames = vio.VioFrame(*(x[:n_ref].cpu() for x in frames))
@@ -317,11 +623,16 @@ def main() -> int:
 
     if FAILURES:
         fatal(f"{len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))
+    missing = [name for name in sources if name not in results]
+    if missing:
+        fatal(f"no kernel check result for {missing}")
     print(json.dumps({"kernels": [
-        {"name": f"{name} {sources[name][2]}", "route": "cuda", "source": sources[name][0],
+        {"name": f"{name} {sources[name][2]}", "route": "cuda",
+         "source": f"uav_airvision_tpu_torch/csrc/{sources[name][0]}",
          "replaces": sources[name][1], "launches": launches[name],
          "max_abs_err": results[name][0], "ms": results[name][1],
-         "plain_ms": results[name][2]} for name in ("K1", "K2", "K4+K6", "K14")]}))
+         "plain_ms": results[name][2], "bound_ms": results[name][3],
+         "bound_by": results[name][4], "library_ms": None} for name in sources]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -23,6 +23,7 @@ from uav_airvision_tpu.models.msckf import state as jstate
 from uav_airvision_tpu.models.msckf import step as jstep
 from uav_airvision_tpu.models.msckf import triangulation as jtri
 from uav_airvision_tpu.models.msckf import update as jupd
+from uav_airvision_tpu_torch import config as tconfig
 from uav_airvision_tpu_torch import convert
 from uav_airvision_tpu_torch.models.msckf import propagation as tprop
 from uav_airvision_tpu_torch.models.msckf import state as tstate
@@ -40,6 +41,11 @@ def to_jax(tree):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return JAX_TYPES[type(tree).__name__](*(to_jax(x) for x in tree))
     return jnp.asarray(tree.numpy())
+
+
+def port_config(cfg):
+    """The port's own Config with the same values as the JAX package's."""
+    return tconfig.Config.from_json(cfg.to_json())
 
 
 def assert_close(got, want, tol, what=""):
@@ -78,6 +84,7 @@ def scenario64():
 
 
 def run_port(cfg, sc, frames, n=None):
+    cfg = port_config(cfg)
     params = tstate.make_params(cfg, CPU)
     state = tstate.init_state(cfg, params, sc.gyro_bias, sc.acc_mean)
     outs = []
@@ -320,6 +327,7 @@ def test_triangulate_matches_jax(noise):
     rng = np.random.default_rng(int(noise * 1e4))
     cam_q, cam_p, obs, mask, R, t = _random_views_inputs(rng, 24, noise=noise)
     tri_cfg = euroc_config().triangulation
+    t_tri_cfg = tconfig.euroc_config().triangulation
     active = rng.uniform(size=24) < 0.85
     @jax.jit
     def jax_tri(obs, mask, active):
@@ -328,8 +336,8 @@ def test_triangulate_matches_jax(noise):
         return jax.vmap(lambda v, a: jtri.triangulate(v, tri_cfg, active=a))(jv, active)
 
     jpos, jok = jax_tri(jnp.asarray(obs), jnp.asarray(mask), jnp.asarray(active))
-    tv = ttri.build_views(*(torch.as_tensor(x) for x in (cam_q, cam_p, obs, mask, R, t)))
-    tpos, tok = ttri.triangulate(tv, tri_cfg, active=torch.as_tensor(active))
+    window = (torch.as_tensor(x) for x in (cam_q, cam_p, obs, mask, R, t))
+    tpos, tok = ttri.triangulate_plain(*window, t_tri_cfg, active=torch.as_tensor(active))
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
     assert_close(tpos.numpy(), jpos, 1e-9, "position")
 
@@ -346,13 +354,13 @@ def test_convert_round_trip_exact(port_run):
     from uav_airvision_tpu.models.frontend.params import make_frontend_params as j_fparams
     from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
 
-    cfg = euroc_config()
+    cfg, tcfg = euroc_config(), tconfig.euroc_config()
     jparams = jstate.make_params(cfg)
     pairs = ((jstate.init_state(cfg, jparams, np.zeros(3), np.array([0.1, 0.2, 9.8])),
-              tstate.init_state(cfg, tstate.make_params(cfg, CPU), np.zeros(3),
+              tstate.init_state(tcfg, tstate.make_params(tcfg, CPU), np.zeros(3),
                                 np.array([0.1, 0.2, 9.8]))),
-             (jparams, tstate.make_params(cfg, CPU)),
-             (j_fparams(cfg), make_frontend_params(cfg, CPU)))
+             (jparams, tstate.make_params(tcfg, CPU)),
+             (j_fparams(cfg), make_frontend_params(tcfg, CPU)))
     for jtree, ttree in pairs:
         conv = convert.to_torch(jtree, CPU)
         for a, b, c in zip(jax.tree_util.tree_leaves(jtree), jax.tree_util.tree_leaves(tuple(conv)),
@@ -368,11 +376,11 @@ def test_unported_options_raise():
     for fe in (dict(exact_adder_mask=True), dict(stereo_full_backward=True),
                dict(stereo_seeded=False), dict(stereo_fwd_levels=2),
                dict(lk_compact_windows=True)):
-        cfg = euroc_config()
+        cfg = tconfig.euroc_config()
         cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, **fe))
         with pytest.raises(NotImplementedError):
             tpipe.check_supported(cfg)
-    cfg = euroc_config()
+    cfg = tconfig.euroc_config()
     cfg = dataclasses.replace(cfg, filter=dataclasses.replace(cfg.filter, prune_rank12=False))
     with pytest.raises(NotImplementedError):
         tstep.check_supported(cfg)

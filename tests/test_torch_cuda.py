@@ -5,15 +5,24 @@ one (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Small shapes; chip_smoke.py repeats these checks at the main path's shapes.
+The front-end kernels run at small shapes (chip_smoke.py repeats those
+checks at the main path's shapes); the back-end kernels run at the main
+path's shapes, on a filter state that the port's plain back-end builds on
+the host from the oracle scenario (41 frames: a 19-camera window).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from uav_airvision_tpu.config import euroc_config
-from uav_airvision_tpu_torch.models.msckf import propagation
+# tests/ is on sys.path (pytest puts a test file's directory there); the
+# oracle is imported from it directly because, run with --noconftest,
+# another installed package named "tests" can shadow this directory
+from oracle.synthetic import make_scenario, window_imu
+from uav_airvision_tpu_torch import convert
+from uav_airvision_tpu_torch.config import euroc_config
+from uav_airvision_tpu_torch.models.msckf import (
+    propagation, step, triangulation, update)
 from uav_airvision_tpu_torch.models.msckf.state import init_state, make_params
 from uav_airvision_tpu_torch.ops import fast, lk, pyramid
 
@@ -101,3 +110,202 @@ def test_propagate_kernel_matches_plain(dev, dtype):
     for g, ref in ((got.cov, want.cov), (got.imu.q, want.imu.q), (got.imu.p, want.imu.p),
                    (got.imu.v, want.imu.v)):
         assert float((g - ref).abs().max() / ref.abs().max()) <= tol
+
+
+def _host_state(dtype, n_frames=41):
+    """The port's plain back-end over the oracle scenario on the host, the
+    frames windowed as tests/test_torch_backend.py windows them."""
+    cfg = euroc_config(dtype=dtype)
+    sc = make_scenario(cfg, duration=4.0, seed=3)
+    cap = cfg.capacity
+    cpu = torch.device("cpu")
+    params = make_params(cfg, cpu)
+    state = init_state(cfg, params, sc.gyro_bias, sc.acc_mean)
+    tdt = state.cov.dtype
+    active = [t >= sc.imu[cap.imu_init_msgs - 1][0] for t, _ in sc.frames]
+    windows = window_imu(sc, active)
+    I, K = cap.max_imu_per_frame, cap.max_features
+    for k, (t, meas) in enumerate(sc.frames[:n_frames]):
+        window = windows[k][1][:I]
+        f = dict(imu_t=torch.zeros(I, dtype=tdt), imu_w=torch.zeros((I, 3), dtype=tdt),
+                 imu_a=torch.zeros((I, 3), dtype=tdt), imu_mask=torch.zeros(I, dtype=torch.bool),
+                 feat_ids=torch.full((K,), -1, dtype=torch.int32),
+                 feat_uv=torch.zeros((K, 4), dtype=tdt),
+                 feat_mask=torch.zeros(K, dtype=torch.bool))
+        for j, (mt, w, a) in enumerate(window):
+            f["imu_t"][j], f["imu_mask"][j] = mt, True
+            f["imu_w"][j], f["imu_a"][j] = torch.as_tensor(w), torch.as_tensor(a)
+        for j, (fid, u0, v0, u1, v1) in enumerate(meas[:K]):
+            f["feat_ids"][j], f["feat_mask"][j] = fid, True
+            f["feat_uv"][j] = torch.tensor([u0, v0, u1, v1])
+        state, _ = step.backend_step(state, step.FrameInput(
+            timestamp=torch.tensor(t, dtype=tdt), active=bool(active[k]), **f), params, cfg)
+    return cfg, state, params
+
+
+@pytest.fixture(scope="module")
+def host_states():
+    return {}
+
+
+def _card_state(dev, host_states, dtype):
+    """(config, state, params, sel) on the card: ``sel`` indexes the
+    features with >= 3 observations."""
+    if dtype not in host_states:
+        host_states[dtype] = _host_state(dtype)
+    cfg, state, params = host_states[dtype]
+    state = convert.to_torch(convert.to_numpy(state), dev)
+    params = convert.to_torch(convert.to_numpy(params), dev)
+    t = state.features
+    sel = torch.nonzero(t.valid & (t.obs_mask.sum(1) >= 3))[:, 0]
+    assert len(sel) >= 8
+    return cfg, state, params, sel
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("B", [16, 128])
+def test_triangulate_kernel_matches_plain(dev, host_states, dtype, B):
+    """K13: validity identical; in float32 positions within 1e-4 of
+    max(|p|, 1) for 95% of the features and within 1e-3 for every one, in
+    float64 within 1e-7 for every one.  The window is a real one and the
+    features are its observed features, repeated to B, with ~1 px of noise
+    on the repeats' observations so that each solve differs.  Five LM steps
+    from such a start do not converge, and an unconverged iterate carries
+    the rounding of the normal equations' sums; where two costs tie within
+    rounding, the step is accepted on one side and refused on the other, so
+    a few features end a step apart."""
+    cfg, state, params, sel = _card_state(dev, host_states, dtype)
+    c, t = state.cams, state.features
+    idx = sel[torch.arange(B, device=dev) % len(sel)]
+    rng = np.random.default_rng(B)
+    obs = t.obs[idx] + torch.as_tensor(rng.normal(0, 2e-3, (B,) + t.obs.shape[1:]),
+                                       device=dev).to(t.obs.dtype)
+    obs[: len(sel)] = t.obs[idx[: len(sel)]]
+    active = torch.as_tensor(rng.uniform(size=B) < 0.85, device=dev)
+    args = (c.q, c.p, obs, t.obs_mask[idx], params.R_cam0_cam1, params.t_cam0_cam1,
+            cfg.triangulation, active)
+    n0 = triangulation.triangulate.launches
+    pos, ok = triangulation.triangulate(*args)
+    assert triangulation.triangulate.launches == n0 + 1
+    ppos, pok = triangulation.triangulate_plain(*args)
+    assert torch.equal(ok, pok)
+    err = (pos - ppos).abs().max(1).values / ppos.abs().max(1).values.clamp(min=1.0)
+    if dtype == "float32":
+        assert float(err.max()) <= 1e-3 and float((err <= 1e-4).float().mean()) >= 0.95
+    else:
+        assert float(err.max()) <= 1e-7
+
+
+def _blocks(dev, host_states, dtype, N, B):
+    """feature_block arguments at N = 20 (lost features) or N = 2 (the
+    prune's two cameras), B features."""
+    cfg, state, params, sel = _card_state(dev, host_states, dtype)
+    c, t = state.cams, state.features
+    idx = sel[torch.arange(B, device=dev) % len(sel)]
+    rm = torch.arange(N, device=dev) if N == 20 else torch.tensor([3, 7], device=dev)
+    return state, params, (c.q[rm], c.p[rm], c.q_null[rm], c.p_null[rm], t.obs[idx][:, rm],
+                           t.obs_mask[idx][:, rm], t.position[idx], state.gravity,
+                           params.R_cam0_cam1, params.t_cam0_cam1, cfg.capacity.state_dim)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("N,B", [(20, 16), (20, 64), (2, 64)])
+def test_feature_block_kernel_matches_plain(dev, host_states, dtype, N, B):
+    """K9: H_proj and r_proj within 1e-5 (float32; 1e-4 for the prune's
+    N = 2 blocks, whose reflections of two close views cancel) / 1e-10
+    (float64) of each block's largest entry of [H_proj | r_proj] (the
+    reflections sum in another order); rows_true exact; rows past
+    4 n_obs - 3 exactly zero."""
+    _, _, args = _blocks(dev, host_states, dtype, N, B)
+    H, r, rows = update.feature_block(*args)
+    pH, pr, prows = update.feature_block_plain(*args)
+    assert torch.equal(rows, prows)
+    tol = (1e-5 if N > 2 else 1e-4) if dtype == "float32" else 1e-10
+    scale = torch.maximum(pH.abs().amax((1, 2)), pr.abs().amax(1)).clamp(min=1e-30)
+    for got, want in ((H, pH), (r, pr)):
+        err = (got - want).abs().flatten(1).amax(1)
+        assert float((err / scale).max()) <= tol
+    below = torch.arange(H.shape[1], device=dev)[None, :] >= rows[:, None]
+    assert not bool(H.abs().amax(2)[below].any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_gate_kernels_match_plain(dev, host_states, dtype):
+    """K10: gamma within 1e-4 (float32) / 1e-9 (float64) relative, and the
+    gate's decisions identical except where gamma lies within 1e-4 of the
+    threshold, at residual scales on the pass side, in the undecided band
+    and on the fail side; the 77-row and the 32-row tier and the 5-row
+    prune blocks."""
+    state, params, args = _blocks(dev, host_states, dtype, 20, 16)
+    H, r, rows = update.feature_block_plain(*args)
+    H, r = H.contiguous(), r.contiguous()
+    dof = args[5].sum(1).to(torch.int32) - 1
+    _, _, args2 = _blocks(dev, host_states, dtype, 2, 64)
+    H2, r2, rows2 = update.feature_block_plain(*args2)
+    cols = torch.cat([21 + 6 * 3 + torch.arange(6, device=dev),
+                      21 + 6 * 7 + torch.arange(6, device=dev)])
+    H5 = torch.zeros((64, 5, H.shape[2]), dtype=H.dtype, device=dev).index_copy(
+        2, cols, H2[:, :, 21:33])
+    dof5 = torch.full((64,), 2, dtype=torch.int32, device=dev)
+    rtol = 1e-4 if dtype == "float32" else 1e-9
+    cases = [(H, r * s, rt, dof) for s in (1e-3, 1.0, 10.0, 30.0, 1e3)
+             for rt in (rows, torch.full_like(rows, 77))]
+    cases += [(H5, r2 * s, rows2, dof5) for s in (1e-3, 1.0, 30.0, 1e3)]
+    n_b, n_g = update.gate_bounds.launches, update.gate_gamma.launches
+    for Hc, rc, rt, d in cases:
+        thresh = params.chi2_table[d.long()]
+        got = update.gating_test_batch(Hc, rc, rt, state.cov, params.obs_noise,
+                                       params.chi2_table, d)
+        want = update.gating_test_batch_plain(Hc, rc, rt, state.cov, params.obs_noise,
+                                              params.chi2_table, d)
+        gamma = update.gate_gamma_plain(Hc, rc, state.cov, params.obs_noise)
+        near = (gamma - thresh).abs() <= 1e-4 * thresh
+        assert bool(((got == want) | near).all())
+        for m in {min(Hc.shape[1], 32), Hc.shape[1]}:
+            g = update.gate_gamma(Hc[:, :m], rc[:, :m], state.cov, params.obs_noise)
+            w = update.gate_gamma_plain(Hc[:, :m], rc[:, :m], state.cov, params.obs_noise)
+            assert _rel_err(g, w) <= rtol
+        if Hc.shape[1] > 32:
+            ps, fs = update.gate_bounds(Hc, rc, state.cov, params.obs_noise, thresh)
+            pps, pfs = update.gate_bounds_plain(Hc, rc, state.cov, params.obs_noise, thresh)
+            assert torch.equal(ps, pps) and torch.equal(fs, pfs)
+    assert update.gate_bounds.launches > n_b and update.gate_gamma.launches > n_g
+    # a factorisation that fails gives NaN, as the plain version's
+    bad = -1e6 * torch.eye(H.shape[2], dtype=H.dtype, device=dev)
+    assert bool(update.gate_gamma(H[:2], r[:2], bad, params.obs_noise).isnan().all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("singular", [False, True])
+def test_rank12_kernel_matches_plain(dev, host_states, dtype, singular):
+    """K12: the covariance and the state after the update within 1e-4
+    (float32) / 1e-10 (float64) of the largest covariance entry.  The two
+    12x12 solves of W = s2 I + B'B P12 round differently (LU in the kernel,
+    the library's solver in the plain version), and W's conditioning
+    carries that into the update.  ``singular``: the second camera is past
+    the window's count, so its covariance block and P12 are exactly
+    singular; W stays invertible."""
+    cfg, state, params, _ = _card_state(dev, host_states, dtype)
+    count = int(state.cams.count)
+    r0, r1 = (count - 1, count) if singular else (4, 9)
+    cols = torch.cat([21 + 6 * r0 + torch.arange(6, device=dev),
+                      21 + 6 * r1 + torch.arange(6, device=dev)])
+    P12 = state.cov[cols][:, cols]
+    assert (int(torch.linalg.matrix_rank(P12.double())) < 12) == singular
+    rng = np.random.default_rng(12)
+    Bm = torch.as_tensor(rng.normal(0, 0.8, (320, 12)), device=dev).to(state.cov.dtype)
+    Bm[25:35] = 0.0
+    rr = torch.as_tensor(rng.normal(0, 0.02, 320), device=dev).to(state.cov.dtype)
+    n0 = update.rank12_update.launches
+    got, _ = update.apply_update_rank12(state, params, Bm, rr, cols)
+    assert update.rank12_update.launches == n0 + 1
+    want, _ = update.apply_update_rank12_plain(state, params, Bm, rr, cols)
+    tol = 1e-4 if dtype == "float32" else 1e-10
+    scale = float(want.cov.abs().max())
+    assert torch.equal(got.cov, got.cov.T)
+    for a, b in ((got.cov, want.cov), (got.imu.p, want.imu.p), (got.cams.p, want.cams.p)):
+        assert float((a - b).abs().max()) <= tol * max(scale, 1.0)

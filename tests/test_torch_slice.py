@@ -25,6 +25,7 @@ from uav_airvision_tpu.simulation.world import StereoWorld
 from uav_airvision_tpu.streaming.prebatch import prebatch_imu
 from uav_airvision_tpu.utils.precision import with_highest_precision
 from uav_airvision_tpu_torch import convert
+from uav_airvision_tpu_torch.config import Config as TConfig
 from uav_airvision_tpu_torch.models import vio as tvio
 from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
 from uav_airvision_tpu_torch.models.frontend.pipeline import frontend_step
@@ -92,10 +93,11 @@ def both_runs():
     pb, cam0, cam1 = render(cfg, N_FRAMES)
     frames = tvio.frames_from_prebatch(pb, cam0, cam1, torch.device("cpu"))
     port = []
-    tvio.run_sequence(cfg, frames, pb.gyro_bias, pb.acc_mean,
+    tcfg = TConfig.from_json(cfg.to_json())  # the port's own Config, same values
+    tvio.run_sequence(tcfg, frames, pb.gyro_bias, pb.acc_mean,
                       on_frame=lambda k, fe, out: port.append((out, fe)))
     ref, jax_fe_state = run_jax(cfg, pb, cam0, cam1)
-    return cfg, pb, frames, cam0, port, ref, jax_fe_state
+    return tcfg, pb, frames, cam0, port, ref, jax_fe_state
 
 
 def test_frontend_from_converted_jax_state(both_runs):

@@ -18,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from uav_airvision_tpu.config import Config
-
+from .config import Config
 from .models.frontend.params import FrontendParams
 from .models.frontend.pipeline import FrontendState
 from .models.msckf.state import CamWindow, FeatureTable, FilterState, ImuState, MsckfParams

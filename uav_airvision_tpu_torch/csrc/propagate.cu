@@ -25,34 +25,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "msckf_common.cuh"
+
 namespace {
 
 constexpr int kD = 21;  // IMU error-state dimension
 constexpr int kThreads = 512;
 
-template <typename T>
-__device__ void quat_normalize(T q[4]) {
-  const T n = sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
-  for (int k = 0; k < 4; ++k) q[k] = q[k] / n;
-}
-
-// JPL quaternion -> rotation (R = (2w^2-1) I - 2w [v]x + 2 v v^T), q normalized.
-template <typename T>
-__device__ void to_rotation(const T qin[4], T R[9]) {
-  T q[4] = {qin[0], qin[1], qin[2], qin[3]};
-  quat_normalize(q);
-  const T x = q[0], y = q[1], z = q[2], w = q[3];
-  const T a = T(2) * w * w - T(1);
-  R[0] = a + T(2) * x * x;
-  R[1] = T(2) * w * z + T(2) * x * y;
-  R[2] = -T(2) * w * y + T(2) * x * z;
-  R[3] = -T(2) * w * z + T(2) * y * x;
-  R[4] = a + T(2) * y * y;
-  R[5] = T(2) * w * x + T(2) * y * z;
-  R[6] = T(2) * w * y + T(2) * z * x;
-  R[7] = -T(2) * w * x + T(2) * z * y;
-  R[8] = a + T(2) * z * z;
-}
+using msckf::quat_normalize;
+using msckf::to_rotation;
 
 // _omega_mat: q(t+dt) = M q(t) for gyro g over half_dt.
 template <typename T>

@@ -24,9 +24,11 @@ def set_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def get_device(name: str = "cpu") -> torch.device:
-    """``torch.device(name)`` after the precision setup; raises when a CUDA
-    device is asked for and none is present (never falls back to the CPU)."""
+def get_device(name: str = "cuda") -> torch.device:
+    """``torch.device(name)`` after the precision setup.  The port runs on the
+    card unless the caller asks for the CPU (the CPU tests pass ``"cpu"``);
+    raises when a CUDA device is asked for and none is present (never falls
+    back to the CPU)."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} requested but CUDA is not available")

@@ -1,16 +1,19 @@
 """Build-and-bind layer for the hand-written CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files compile with nvcc for ``sm_90a`` into ONE shared
-library with a plain C interface, loaded with ``ctypes``:
+Every ``csrc/*.cu`` file compiles with nvcc for ``sm_90a`` into an object,
+all of them at once (one nvcc process per source), and the objects link
+into ONE shared library with a plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
-         -shared -Xcompiler -fPIC -o build/torch_kernels/lib<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c csrc/<name>.cu -o build/torch_kernels/<hash>/<name>.o
+    nvcc -shared -o build/torch_kernels/lib<hash>.so build/torch_kernels/<hash>/*.o
 
-The library name carries a hash of the sources and flags, so an edit to any
-source rebuilds it.  The build runs at the first kernel launch of a process
-(never at import: the CPU tests import every module and this machine may have
-no nvcc).  ``-fmad=false`` keeps nvcc from contracting a*b+c into FMAs, so a
-kernel rounds where its plain PyTorch version does.
+The library name carries a hash of the sources (headers included) and
+flags, so an edit to any source rebuilds it.  The build runs at the first
+kernel launch of a process (never at import: the CPU tests import every
+module and this machine may have no nvcc).  ``-fmad=false`` keeps nvcc from
+contracting a*b+c into FMAs, so a kernel rounds where its plain PyTorch
+version does.
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()``; ``launch`` raises on a nonzero code.
@@ -30,12 +33,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+D = ctypes.c_double
+L = ctypes.c_longlong
 # C signatures: every entry point returns int (a cudaError_t).
 SIGNATURES = {
     # src, src_stride, src_off, Hs, Ws, dst, Ho, Wo, pad, down, stream
@@ -51,10 +57,38 @@ SIGNATURES = {
     # state_out, cov_out, stream
     "propagate_f32": [P, P, P, P, I, P, P, P, I, P, P, P],
     "propagate_f64": [P, P, P, P, I, P, P, P, I, P, P, P],
+    # cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B, huber_eps,
+    # precision, damping, outer_max, inner_max, pos_out, ok_out, stream
+    "triangulate_f32": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P],
+    "triangulate_f64": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P],
+    # cams_q, cams_p, cams_qn, cams_pn, N, obs, obs_mask, p_w, gravity,
+    # R_c0c1, t_c0c1, B, H_out, r_out, rows_out, stream
+    "feature_block_f32": [P, P, P, P, I, P, P, P, P, P, P, I, P, P, P, P],
+    "feature_block_f64": [P, P, P, P, I, P, P, P, P, P, P, I, P, P, P, P],
+    # H, r, B, R, D, h_stride, r_stride, P, obs_noise, thresh, pass_out,
+    # fail_out, stream
+    "gate_bounds_f32": [P, P, I, I, I, L, L, P, P, P, P, P, P],
+    "gate_bounds_f64": [P, P, I, I, I, L, L, P, P, P, P, P, P],
+    # H, r, B, m, D, h_stride, r_stride, P, obs_noise, gamma_out, stream
+    "gate_gamma_f32": [P, P, I, I, I, L, L, P, P, P, P],
+    "gate_gamma_f64": [P, P, I, I, I, L, L, P, P, P, P],
+    # P, D, B, r, n, cols, obs_noise, delta_out, P_out, stream
+    "rank12_f32": [P, I, P, P, I, P, P, P, P, P],
+    "rank12_f64": [P, I, P, P, I, P, P, P, P, P],
 }
 
 _lib = None
 build_info: dict = {}
+
+# An optional callable(name, args): the back-end kernels' wrappers pass it
+# the arguments of every call they launch on the card (chip_smoke.py
+# records the main path's calls through it).
+observer = None
+
+
+def observe(name: str, args: tuple) -> None:
+    if observer is not None:
+        observer(name, args)
 
 
 def _sources():
@@ -75,21 +109,39 @@ def build() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    lib_path = BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
+    tag = h.hexdigest()[:16]
+    lib_path = BUILD_DIR / f"lib{tag}.so"
     if lib_path.exists():
         build_info.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    obj_dir = BUILD_DIR / f"{tag}.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for src in _sources():
+        if src.suffix == ".cu":
+            obj = obj_dir / f"{src.stem}.o"
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    report, failed = [], []
+    for src, _, proc in procs:
+        _, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *[str(obj) for _, obj, _ in procs]], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib_path)
+    shutil.rmtree(obj_dir, ignore_errors=True)
     build_info.update(path=str(lib_path), seconds=time.time() - t0,
-                      cached=False, ptxas=proc.stderr)
+                      cached=False, ptxas="".join(report))
     return lib_path
 
 

@@ -1,6 +1,6 @@
 """Command line of the PyTorch port (batch mode on the built-in simulator).
 
-    python -m uav_airvision_tpu_torch.main --synthetic 8 --eval [--device cuda]
+    python -m uav_airvision_tpu_torch.main --synthetic 8 --eval [--device cpu]
 
 Renders ``--synthetic`` seconds of the calibrated StereoWorld, runs the whole
 sequence through ``run_sequence`` on ``--device``, writes the reference
@@ -21,16 +21,16 @@ def main(argv=None):
                         help="seconds of the built-in simulator to run")
     parser.add_argument("--eval", action="store_true",
                         help="compute ATE/RTE against ground truth")
-    parser.add_argument("--device", default="cpu", help="cpu or cuda")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
     import numpy as np
     import torch
 
-    from uav_airvision_tpu.config import euroc_config
-    from uav_airvision_tpu.simulation.world import StereoWorld
-    from uav_airvision_tpu.streaming.prebatch import prebatch_imu
-    from uav_airvision_tpu.utils.trajectory import TrajectoryWriter
+    from .config import euroc_config
+    from .simulation.world import StereoWorld
+    from .streaming.prebatch import prebatch_imu
+    from .utils.trajectory import TrajectoryWriter
 
     from .device import get_device
     from .models.vio import frames_from_prebatch, run_sequence
@@ -65,7 +65,7 @@ def main(argv=None):
     print(f"[out] trajectory -> {writer.path} ({int(act.sum())} poses)")
 
     if args.eval:
-        from uav_airvision_tpu.evaluation.metrics import ate, rte
+        from .evaluation.metrics import ate, rte
 
         gtp = world.groundtruth(fts)
         a = ate(ts_abs[act], p[act], fts, gtp)

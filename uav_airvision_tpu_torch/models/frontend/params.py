@@ -8,7 +8,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from uav_airvision_tpu.config import Config
+from ...config import Config
 
 
 class FrontendParams(NamedTuple):

@@ -20,8 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from uav_airvision_tpu.config import Config
-
+from ...config import Config
 from ...device import to_host
 from ...ops import camera, fast, gridops, lk, pyramid
 from ...ops.pyramid import Pyramid

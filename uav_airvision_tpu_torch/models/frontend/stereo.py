@@ -10,8 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from uav_airvision_tpu.config import Config
-
+from ...config import Config
 from ...ops import camera, lk
 from ...ops.pyramid import LK_PAD, Pyramid
 from ...utils import quaternion as quat

@@ -12,8 +12,7 @@ import numpy as np
 import torch
 from scipy.stats import chi2 as _chi2
 
-from uav_airvision_tpu.config import Config
-
+from ...config import Config
 from ...utils import quaternion as quat
 
 IMU_DIM = 21  # error state: dtheta, bg, v, ba, p, ext_theta, ext_t

@@ -15,8 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from uav_airvision_tpu.config import Config
-
+from ...config import Config
 from ...device import to_host
 from ...ops.gridops import set_drop, smallest_k_indices, stable_compact_indices
 from ...utils import quaternion as quat
@@ -168,9 +167,9 @@ def _triangulate_selected(state: FilterState, params: MsckfParams, config: Confi
     their observations; returns (state with positions, init_fail)."""
     table, cams = state.features, state.cams
     need_init = sel_ok & ~table.initialized[sel]
-    views = tri.build_views(cams.q, cams.p, table.obs[sel], table.obs_mask[sel],
-                            params.R_cam0_cam1, params.t_cam0_cam1)
-    new_pos, tri_ok = tri.triangulate(views, config.triangulation, active=need_init)
+    new_pos, tri_ok = tri.triangulate(cams.q, cams.p, table.obs[sel], table.obs_mask[sel],
+                                      params.R_cam0_cam1, params.t_cam0_cam1,
+                                      config.triangulation, active=need_init)
     init_done = need_init & tri_ok
     table = table._replace(
         position=table.position.index_put((sel,), torch.where(init_done[:, None], new_pos,

@@ -2,12 +2,16 @@
 observations of a feature, batched over features.
 
 Port of the ``static_solve`` path of
-uav_airvision_tpu/models/msckf/triangulation.py::triangulate: at most
-``inner_loop_max_iteration`` damped 3x3 solves in total (the reference's
-inner counter is shared across outer iterations), Huber weights, a Cramer
-3x3 solve, and the positive-depth validity check.  The JAX package's
-while-loop form (``static_solve=False``) gives the same result, so the port
-runs this one form for both settings.
+uav_airvision_tpu/models/msckf/triangulation.py::triangulate with
+``build_views``: at most ``inner_loop_max_iteration`` damped 3x3 solves in
+total (the reference's inner counter is shared across outer iterations),
+Huber weights, a Cramer 3x3 solve, and the positive-depth validity check.
+The JAX package's while-loop form (``static_solve=False``) gives the same
+result, so the port runs this one form for both settings.
+
+``triangulate`` launches kernel K13 (``csrc/triangulate.cu``, the views
+built in the kernel, one warp per feature) on CUDA tensors and runs the
+plain PyTorch version ``triangulate_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,8 +20,8 @@ from typing import NamedTuple
 
 import torch
 
-from uav_airvision_tpu.config import TriangulationConfig
-
+from ... import kernels
+from ...config import TriangulationConfig
 from ...utils import quaternion as quat
 
 
@@ -123,9 +127,10 @@ def _solve3(A, b):
     return torch.where(ok[..., None], x, torch.zeros_like(x))
 
 
-def triangulate(v: TriangulationViews, tri: TriangulationConfig, active=None):
-    """Returns (position_world (B,3), is_valid (B,)).  ``active=False`` rows
-    run no solve (their result is the closed-form initial guess)."""
+def triangulate_views(v: TriangulationViews, tri: TriangulationConfig, active=None):
+    """The LM solve over built views.  Returns (position_world (B,3),
+    is_valid (B,)).  ``active=False`` rows run no solve (their result is
+    the closed-form initial guess)."""
     dtype = v.z.dtype
     B = v.z.shape[0]
     dev = v.z.device
@@ -169,4 +174,62 @@ def _finish(v: TriangulationViews, x):
     depths = torch.einsum("bnij,bj->bni", v.R, final)[..., 2] + v.t[..., 2]
     ok = torch.where(v.mask, depths > 0, True).all(-1)
     pos = torch.einsum("bij,bj->bi", v.R_anchor, final) + v.t_anchor
+    return pos, ok
+
+
+def triangulate_plain(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri: TriangulationConfig,
+                      active=None):
+    return triangulate_views(build_views(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1), tri,
+                             active)
+
+
+def triangulate(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri: TriangulationConfig,
+                active=None):
+    """Triangulate B features over their masked stereo observations of the
+    window: cam_q (N,4), cam_p (N,3), obs (B,N,4), obs_mask (B,N), the
+    stereo extrinsic R_c0c1 (3,3), t_c0c1 (3,), active (B,) or None.
+    Returns (position_world (B,3), is_valid (B,))."""
+    dev = obs.device
+    if dev.type == "cpu":
+        return triangulate_plain(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri, active)
+    if dev.type != "cuda":
+        raise ValueError(f"K13 runs on CUDA tensors, got {dev}")
+    args = (cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri, active)
+    kernels.observe("triangulate", args)
+    out = _triangulate_kernel(*args)
+    triangulate.launches += 1
+    return out
+
+
+triangulate.launches = 0
+
+
+def _triangulate_kernel(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri, active):
+    dtype, dev = obs.dtype, obs.device
+    entry = {torch.float32: "triangulate_f32", torch.float64: "triangulate_f64"}.get(dtype)
+    if entry is None:
+        raise ValueError(f"K13 takes float32 or float64, got {dtype}")
+    B, N = obs_mask.shape
+    cam_q, cam_p, obs, R_c0c1, t_c0c1 = (x.to(dtype).contiguous()
+                                         for x in (cam_q, cam_p, obs, R_c0c1, t_c0c1))
+    obs_mask = obs_mask.to(torch.bool).contiguous()
+    args = [cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1]
+    if active is not None:
+        active = active.to(torch.bool).contiguous()
+        args.append(active)
+    kernels.check_cuda(*args)
+    if (cam_q.shape != (N, 4) or cam_p.shape != (N, 3) or obs.shape != (B, N, 4)
+            or R_c0c1.shape != (3, 3) or t_c0c1.shape != (3,)
+            or (active is not None and active.shape != (B,))):
+        raise ValueError("triangulate: inconsistent window / observation shapes")
+    if N > 64:
+        raise ValueError(f"the K13 kernel takes at most 64 camera slots, got {N}")
+    pos = torch.empty((B, 3), dtype=dtype, device=dev)
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    kernels.launch(entry, kernels.ptr(cam_q), kernels.ptr(cam_p), N, kernels.ptr(obs),
+                   kernels.ptr(obs_mask), kernels.ptr(R_c0c1), kernels.ptr(t_c0c1),
+                   kernels.ptr(active) if active is not None else None, B,
+                   float(tri.huber_epsilon), float(tri.estimation_precision),
+                   float(tri.initial_damping), int(tri.outer_loop_max_iteration),
+                   int(tri.inner_loop_max_iteration), kernels.ptr(pos), kernels.ptr(ok))
     return pos, ok

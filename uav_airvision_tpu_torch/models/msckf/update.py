@@ -5,12 +5,20 @@ Port of uav_airvision_tpu/models/msckf/update.py, batched over features.
 The JAX ``lax.cond`` tiers (gate bounds / 32-row gate tier, update row
 tiers T1/T2/QR) are kept as Python branches on values read back from the
 device, so each branch computes what the JAX branch computes.
+
+Three kernels carry the marginalization path on CUDA tensors, each beside
+its plain PyTorch version (``<name>_plain``, which CPU tensors run):
+K9 ``feature_block`` (``csrc/feature_block.cu``), K10 ``gate_bounds`` and
+``gate_gamma`` (``csrc/gate.cu``, the two pieces of ``gating_test_batch``)
+and K12 ``rank12_update`` (``csrc/rank12.cu``, the update of
+``apply_update_rank12``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ... import kernels
 from ...device import to_host
 from ...utils import quaternion as quat
 from .state import IMU_DIM, FilterState, MsckfParams
@@ -55,12 +63,8 @@ def stereo_jacobian(cam_q, cam_p, cam_q_null, cam_p_null, p_w, z, gravity, R_c0c
     return H_x, H_f, z - pred
 
 
-def feature_block(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
-                  R_c0c1, t_c0c1, state_dim):
-    """Stacked, nullspace-projected blocks of B features over their masked
-    observations.  obs (B,N,4), obs_mask (B,N), p_w (B,3).  Returns
-    (H_proj (B, 4N-3, 21+6N), r_proj (B, 4N-3), rows_true (B,)) where only the
-    first 4 n_obs - 3 rows of a block are nonzero."""
+def feature_block_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
+                        R_c0c1, t_c0c1, state_dim):
     B, N = obs_mask.shape
     dtype = p_w.dtype
     Hx, Hf, r = stereo_jacobian(cams_q, cams_p, cams_qn, cams_pn, p_w[:, None, :], obs,
@@ -100,6 +104,57 @@ def feature_block(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
     return T[:, 3:, 4:], T[:, 3:, 3], (4 * n_obs - 3).to(torch.int32)
 
 
+def feature_block(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
+                  R_c0c1, t_c0c1, state_dim):
+    """Stacked, nullspace-projected blocks of B features over their masked
+    observations.  cams_* (N, .) window slots, obs (B,N,4), obs_mask (B,N),
+    p_w (B,3).  Returns (H_proj (B, 4N-3, 21+6N), r_proj (B, 4N-3),
+    rows_true (B,)) where only the first 4 n_obs - 3 rows of a block are
+    nonzero.  ``state_dim`` is unused (the columns follow from N)."""
+    dev = obs.device
+    if dev.type == "cpu":
+        return feature_block_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w,
+                                   gravity, R_c0c1, t_c0c1, state_dim)
+    if dev.type != "cuda":
+        raise ValueError(f"K9 runs on CUDA tensors, got {dev}")
+    args = (cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity, R_c0c1, t_c0c1)
+    kernels.observe("feature_block", args + (state_dim,))
+    out = _feature_block_kernel(*args)
+    feature_block.launches += 1
+    return out
+
+
+feature_block.launches = 0
+
+
+def _feature_block_kernel(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
+                          R_c0c1, t_c0c1):
+    dtype, dev = p_w.dtype, p_w.device
+    entry = {torch.float32: "feature_block_f32", torch.float64: "feature_block_f64"}.get(dtype)
+    if entry is None:
+        raise ValueError(f"K9 takes float32 or float64, got {dtype}")
+    B, N = obs_mask.shape
+    cams_q, cams_p, cams_qn, cams_pn, obs, p_w, gravity, R_c0c1, t_c0c1 = (
+        x.to(dtype).contiguous()
+        for x in (cams_q, cams_p, cams_qn, cams_pn, obs, p_w, gravity, R_c0c1, t_c0c1))
+    obs_mask = obs_mask.to(torch.bool).contiguous()
+    kernels.check_cuda(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
+                       R_c0c1, t_c0c1)
+    if (cams_q.shape != (N, 4) or cams_qn.shape != (N, 4) or cams_p.shape != (N, 3)
+            or cams_pn.shape != (N, 3) or obs.shape != (B, N, 4) or p_w.shape != (B, 3)
+            or gravity.shape != (3,) or R_c0c1.shape != (3, 3) or t_c0c1.shape != (3,)):
+        raise ValueError("feature_block: inconsistent window / observation shapes")
+    R, D = 4 * N - 3, IMU_DIM + 6 * N
+    H = torch.empty((B, R, D), dtype=dtype, device=dev)
+    r = torch.empty((B, R), dtype=dtype, device=dev)
+    rows = torch.empty((B,), dtype=torch.int32, device=dev)
+    kernels.launch(entry, *(kernels.ptr(x) for x in (cams_q, cams_p, cams_qn, cams_pn)), N,
+                   kernels.ptr(obs), kernels.ptr(obs_mask), kernels.ptr(p_w),
+                   kernels.ptr(gravity), kernels.ptr(R_c0c1), kernels.ptr(t_c0c1), B,
+                   kernels.ptr(H), kernels.ptr(r), kernels.ptr(rows))
+    return H, r, rows
+
+
 def _cholesky(S):
     """Lower Cholesky factor; a factor that fails is NaN, as in JAX."""
     L, info = torch.linalg.cholesky_ex(S)
@@ -107,35 +162,126 @@ def _cholesky(S):
     return torch.where(bad, torch.nan, L)
 
 
-def gating_test_batch(H, r, rows_true, cov, obs_noise, chi2_table, dof):
-    """Chi-square gate per feature block: H (B,R,D), r (B,R).  Blocks taller
-    than GATE_TIER first try the eigenvalue bounds r'r / (s2 + tr HPH') <=
-    gamma <= r'r / s2; the exact Cholesky runs only when a block is
-    undecided, on the 32-row prefix when every block fits in it."""
+def gate_gamma_plain(H, r, cov, obs_noise):
+    m = H.shape[1]
+    S = H @ cov @ H.transpose(1, 2) + obs_noise * torch.eye(m, dtype=H.dtype, device=H.device)
+    y = torch.linalg.solve_triangular(_cholesky(S), r[..., None], upper=False)[..., 0]
+    return (y * y).sum(-1)
 
-    def gamma_of(Hs, rs):
-        m = Hs.shape[1]
-        S = Hs @ cov @ Hs.transpose(1, 2) + obs_noise * torch.eye(m, dtype=H.dtype,
-                                                                  device=H.device)
-        y = torch.linalg.solve_triangular(_cholesky(S), rs[..., None], upper=False)[..., 0]
-        return (y * y).sum(-1)
 
+def gate_bounds_plain(H, r, cov, obs_noise, thresh):
+    rtr = (r * r).sum(-1)
+    tr = ((H @ cov) * H).sum((1, 2))
+    return rtr < thresh * obs_noise, rtr > thresh * (obs_noise + tr)
+
+
+def _gate_args(H, r, cov, obs_noise):
+    """The kernels' operands: H and r with contiguous rows (a row prefix of a
+    larger block is kept as the view it is), cov and s2 in H's type."""
+    if H.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"K10 takes float32 or float64, got {H.dtype}")
+    B, m, D = H.shape
+    if H.stride(2) != 1 or H.stride(1) != D:
+        H = H.contiguous()
+    if r.stride(1) != 1:
+        r = r.contiguous()
+    cov = cov.to(H.dtype).contiguous()
+    noise = obs_noise.to(H.dtype).reshape(1).contiguous()
+    if r.shape != (B, m) or cov.shape != (D, D):
+        raise ValueError(f"K10: H {tuple(H.shape)}, r {tuple(r.shape)}, cov {tuple(cov.shape)}")
+    if H.device != cov.device or r.device != cov.device or noise.device != cov.device:
+        raise ValueError(f"K10: tensors on {H.device}, {r.device}, {cov.device}")
+    return H, r, cov, noise
+
+
+def gate_gamma(H, r, cov, obs_noise):
+    """gamma = r' S^-1 r per block, S = H P H' + s2 I: H (B,m,D), r (B,m)
+    (row prefixes of larger blocks are taken as they are, no copy).  A
+    factorisation that fails gives NaN."""
+    if H.device.type == "cpu":
+        return gate_gamma_plain(H, r, cov, obs_noise)
+    if H.device.type != "cuda":
+        raise ValueError(f"K10 runs on CUDA tensors, got {H.device}")
+    kernels.observe("gate_gamma", (H, r, cov, obs_noise))
+    gamma = _gate_gamma_kernel(H, r, cov, obs_noise)
+    gate_gamma.launches += 1
+    return gamma
+
+
+def gate_bounds(H, r, cov, obs_noise, thresh):
+    """The gate's eigenvalue bounds per block: (pass_sure, fail_sure) with
+    pass_sure = r'r < thresh s2 and fail_sure = r'r > thresh (s2 + tr HPH')."""
+    if H.device.type == "cpu":
+        return gate_bounds_plain(H, r, cov, obs_noise, thresh)
+    if H.device.type != "cuda":
+        raise ValueError(f"K10 runs on CUDA tensors, got {H.device}")
+    kernels.observe("gate_bounds", (H, r, cov, obs_noise, thresh))
+    out = _gate_bounds_kernel(H, r, cov, obs_noise, thresh)
+    gate_bounds.launches += 1
+    return out
+
+
+gate_gamma.launches = 0
+gate_bounds.launches = 0
+
+
+def _gate_gamma_kernel(H, r, cov, obs_noise):
+    dtype = H.dtype
+    H, r, cov, noise = _gate_args(H, r, cov, obs_noise)
+    B, m, D = H.shape
+    gamma = torch.empty((B,), dtype=dtype, device=H.device)
+    kernels.launch("gate_gamma_f32" if dtype == torch.float32 else "gate_gamma_f64",
+                   kernels.ptr(H), kernels.ptr(r), B, m, D, H.stride(0), r.stride(0),
+                   kernels.ptr(cov), kernels.ptr(noise), kernels.ptr(gamma))
+    return gamma
+
+
+def _gate_bounds_kernel(H, r, cov, obs_noise, thresh):
+    dtype = H.dtype
+    H, r, cov, noise = _gate_args(H, r, cov, obs_noise)
+    thresh = thresh.to(dtype).contiguous()
+    B, R, D = H.shape
+    if thresh.shape != (B,):
+        raise ValueError(f"gate_bounds: thresh {tuple(thresh.shape)}")
+    pass_sure = torch.empty((B,), dtype=torch.bool, device=H.device)
+    fail_sure = torch.empty((B,), dtype=torch.bool, device=H.device)
+    kernels.launch("gate_bounds_f32" if dtype == torch.float32 else "gate_bounds_f64",
+                   kernels.ptr(H), kernels.ptr(r), B, R, D, H.stride(0), r.stride(0),
+                   kernels.ptr(cov), kernels.ptr(noise), kernels.ptr(thresh),
+                   kernels.ptr(pass_sure), kernels.ptr(fail_sure))
+    return pass_sure, fail_sure
+
+
+def _gate(bounds, gamma, H, r, rows_true, cov, obs_noise, chi2_table, dof):
     R = H.shape[1]
     thresh = chi2_table[torch.clamp(dof, 0, chi2_table.shape[0] - 1).long()]
     if R <= GATE_TIER:
-        return gamma_of(H, r) < thresh
-    rtr = (r * r).sum(-1)
-    tr = ((H @ cov) * H).sum((1, 2))
-    pass_sure = rtr < thresh * obs_noise
-    fail_sure = rtr > thresh * (obs_noise + tr)
+        return gamma(H, r, cov, obs_noise) < thresh
+    pass_sure, fail_sure = bounds(H, r, cov, obs_noise, thresh)
     undecided = ~(pass_sure | fail_sure)
     any_undecided, fits = to_host(torch.stack([undecided.any(),
                                                rows_true.max() <= GATE_TIER]))
     if not any_undecided:
         return pass_sure
     if fits:
-        return gamma_of(H[:, :GATE_TIER], r[:, :GATE_TIER]) < thresh
-    return gamma_of(H, r) < thresh
+        return gamma(H[:, :GATE_TIER], r[:, :GATE_TIER], cov, obs_noise) < thresh
+    return gamma(H, r, cov, obs_noise) < thresh
+
+
+def gating_test_batch(H, r, rows_true, cov, obs_noise, chi2_table, dof):
+    """Chi-square gate per feature block: H (B,R,D), r (B,R).  Blocks taller
+    than GATE_TIER first try the eigenvalue bounds r'r / (s2 + tr HPH') <=
+    gamma <= r'r / s2; the exact Cholesky runs only when a block is
+    undecided, on the 32-row prefix when every block fits in it.  Runs the
+    K10 kernels on CUDA tensors."""
+    if H.device.type == "cuda":
+        kernels.observe("gating_test_batch", (H, r, rows_true, cov, obs_noise, chi2_table, dof))
+    return _gate(gate_bounds, gate_gamma, H, r, rows_true, cov, obs_noise, chi2_table, dof)
+
+
+def gating_test_batch_plain(H, r, rows_true, cov, obs_noise, chi2_table, dof):
+    return _gate(gate_bounds_plain, gate_gamma_plain, H, r, rows_true, cov, obs_noise,
+                 chi2_table, dof)
 
 
 def update_tiers(D: int):
@@ -143,23 +289,69 @@ def update_tiers(D: int):
     return T1, 2 * D
 
 
-def apply_update_rank12(state: FilterState, params: MsckfParams, B, r, cols):
-    """EKF update for a stack nonzero only in the 12 columns ``cols`` (the
-    camera-prune update), in the push-through form that never inverts P12:
-    W = s2 I + B'B P12, B' S^-1 r = W^-1 B'r, B' S^-1 B = W^-1 B'B."""
-    dtype = state.cov.dtype
-    P = state.cov
+def rank12_update_plain(P, B, r, cols, obs_noise):
     Pc = P[:, cols]
     P12 = Pc[cols, :]
     BtB = B.T @ B
     Btr = B.T @ r
-    W = params.obs_noise * torch.eye(12, dtype=dtype, device=P.device) + BtB @ P12
+    W = obs_noise * torch.eye(12, dtype=P.dtype, device=P.device) + BtB @ P12
     bsr = torch.linalg.solve(W, Btr)
     G = torch.linalg.solve(W, BtB)
     G = (G + G.T) / 2.0
     delta = Pc @ bsr
     P_new = P - Pc @ G @ Pc.T
-    return _inject_delta(state, delta, (P_new + P_new.T) / 2.0)
+    return delta, (P_new + P_new.T) / 2.0
+
+
+def rank12_update(P, B, r, cols, obs_noise):
+    """The camera-prune update for a stack nonzero only in the 12 columns
+    ``cols``, in the push-through form that never inverts P12:
+    W = s2 I + B'B P12, B' S^-1 r = W^-1 B'r, B' S^-1 B = W^-1 B'B.
+    P (D,D), B (n,12), r (n,), cols (12,).  Returns (delta (D,), the
+    symmetrised P_new (D,D))."""
+    if P.device.type == "cpu":
+        return rank12_update_plain(P, B, r, cols, obs_noise)
+    if P.device.type != "cuda":
+        raise ValueError(f"K12 runs on CUDA tensors, got {P.device}")
+    kernels.observe("rank12_update", (P, B, r, cols, obs_noise))
+    out = _rank12_kernel(P, B, r, cols, obs_noise)
+    rank12_update.launches += 1
+    return out
+
+
+rank12_update.launches = 0
+
+
+def _rank12_kernel(P, B, r, cols, obs_noise):
+    dtype = P.dtype
+    entry = {torch.float32: "rank12_f32", torch.float64: "rank12_f64"}.get(dtype)
+    if entry is None:
+        raise ValueError(f"K12 takes float32 or float64, got {dtype}")
+    P = P.contiguous()
+    B, r = B.to(dtype).contiguous(), r.to(dtype).contiguous()
+    cols = cols.to(torch.int64).contiguous()
+    noise = obs_noise.to(dtype).reshape(1).contiguous()
+    kernels.check_cuda(P, B, r, cols, noise)
+    D, n = P.shape[0], B.shape[0]
+    if P.shape != (D, D) or B.shape != (n, 12) or r.shape != (n,) or cols.shape != (12,):
+        raise ValueError(f"rank12_update: P {tuple(P.shape)}, B {tuple(B.shape)}, "
+                         f"r {tuple(r.shape)}, cols {tuple(cols.shape)}")
+    delta = torch.empty((D,), dtype=dtype, device=P.device)
+    P_new = torch.empty_like(P)
+    kernels.launch(entry, kernels.ptr(P), D, kernels.ptr(B), kernels.ptr(r), n,
+                   kernels.ptr(cols), kernels.ptr(noise), kernels.ptr(delta),
+                   kernels.ptr(P_new))
+    return delta, P_new
+
+
+def apply_update_rank12(state: FilterState, params: MsckfParams, B, r, cols):
+    """EKF update of the camera prune (``rank12_update``, kernel K12 on CUDA
+    tensors), injected into the state.  Returns (state, too_large)."""
+    return _inject_delta(state, *rank12_update(state.cov, B, r, cols, params.obs_noise))
+
+
+def apply_update_rank12_plain(state: FilterState, params: MsckfParams, B, r, cols):
+    return _inject_delta(state, *rank12_update_plain(state.cov, B, r, cols, params.obs_noise))
 
 
 def apply_update(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):

@@ -11,8 +11,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from uav_airvision_tpu.config import Config
-
+from ..config import Config
 from ..device import get_device, to_host
 from .frontend.params import FrontendParams, make_frontend_params
 from .frontend.pipeline import FrontendState, frontend_step, init_frontend_state
@@ -57,8 +56,10 @@ def frames_from_prebatch(pb, cam0, cam1, device) -> VioFrame:
 
 
 def init_vio_state(config: Config, gyro_bias=None, acc_mean=None,
-                   mparams: MsckfParams = None, device=None) -> VioState:
-    device = mparams.obs_noise.device if mparams is not None else get_device(device or "cpu")
+                   mparams: MsckfParams = None, device="cuda") -> VioState:
+    """The initial state on ``mparams``' device when given, else on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = mparams.obs_noise.device if mparams is not None else get_device(device)
     mparams = mparams or make_params(config, device)
     return VioState(frontend=init_frontend_state(config, device),
                     filter=init_state(config, mparams, gyro_bias, acc_mean))

@@ -1,0 +1,103 @@
+"""Where the main path's time goes on the card: frames/s, host syncs and CUDA
+launches per frame, and the device's busy share.
+
+    python -m uav_airvision_tpu_torch.profile_main [--frames 200] [--window 100 160]
+
+Renders the bench world as chip_smoke.py does (euroc_config, seed 5), runs
+``run_sequence`` over it once to warm up, then once more timed (host clock
+around a synchronised run; ``device.host_syncs`` counted), then runs the
+first ``window[0]`` frames again and profiles frames ``window[0]:window[1]``
+with ``torch.profiler`` (CPU and CUDA activities).  From the profile:
+kernel launches per frame (``cudaLaunchKernel`` and ``cuLaunchKernel``
+calls), device time per frame (the CUDA kernels' self time) and its share
+of the window's wall time, and the most frequent kernels.  Prints one JSON
+line with the card's name and power limit.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def render(n_frames: int):
+    from .config import euroc_config
+    from .simulation.world import StereoWorld
+    from .streaming.prebatch import prebatch_imu
+
+    config = euroc_config()
+    world = StereoWorld(config)
+    dur = n_frames / 20.0
+    imu_t, imu_w, imu_a = world.imu_stream(dur)
+    fts = world.frame_times(dur)
+    rng = np.random.default_rng(5)
+    cam0, cam1 = zip(*(world.render_frame(t, rng) for t in fts))
+    pb = prebatch_imu(fts, imu_t, imu_w, imu_a, config.capacity.max_imu_per_frame,
+                      config.capacity.imu_init_msgs)
+    return config, pb, np.stack(cam0), np.stack(cam1)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--frames", type=int, default=200)
+    parser.add_argument("--window", type=int, nargs=2, default=(100, 160))
+    args = parser.parse_args(argv)
+    a, b = args.window
+    if not 0 <= a < b <= args.frames:
+        parser.error("the window must lie inside the frames")
+
+    from . import device
+    from .models import vio
+
+    dev = device.get_device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    config, pb, cam0, cam1 = render(args.frames)
+    frames = vio.frames_from_prebatch(pb, cam0, cam1, dev)
+
+    vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)  # warm-up, kernel build
+    torch.cuda.synchronize()
+    syncs0 = device.host_syncs["sync"]
+    t0 = time.perf_counter()
+    vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = (device.host_syncs["sync"] - syncs0) / args.frames
+
+    head = vio.VioFrame(*(x[:a] for x in frames))
+    window = vio.VioFrame(*(x[a:b] for x in frames))
+    state, _ = vio.run_sequence(config, head, pb.gyro_bias, pb.acc_mean)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        vio.run_sequence(config, window, pb.gyro_bias, pb.acc_mean, state=state)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    n = b - a
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                         "cudaLaunchKernelExC"))
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.count)[:12]
+    print(json.dumps({
+        "card": smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed",
+        "frames": args.frames, "frames_per_s": args.frames / wall, "wall_s": wall,
+        "host_syncs_per_frame": syncs, "window": [a, b],
+        "launches_per_frame": launches / n,
+        "device_ms_per_frame": device_us / 1e3 / n,
+        "profiled_wall_ms_per_frame": prof_wall * 1e3 / n,
+        "device_busy_share": device_us / 1e6 / prof_wall,
+        "top_kernels_by_count": [[e.key[:80], e.count / n, e.self_device_time_total / e.count]
+                                 for e in top]}))
+
+
+if __name__ == "__main__":
+    main()
