@@ -276,6 +276,47 @@ def test_apply_update_matches_jax(blocks, n_rows):
     assert bool(twarn) == bool(jwarn)
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n_rows", [60, 200, 700], ids=["T1", "T2", "QR"])
+def test_ekf_update_plain_matches_jax(blocks, n_rows, dtype):
+    """K11's plain version (delta and the covariance, before the injection)
+    against the JAX update on each row tier.  float64 within 1e-9 of
+    max(|P|, 1).  float32: both sides factor S = H P H' + s2 I in float32,
+    whose condition number (~tr(H P H') / s2, ~1e3 for this stack) scales
+    the rounding of either one, so the two float32 results are held within
+    1e-4 of max(|P|, 1) of each other and of the float64 update."""
+    state, params, _ = blocks
+    D = state.cov.shape[0]
+    rng = np.random.default_rng(n_rows)
+    H = np.zeros((1680, D))
+    H[:n_rows, 21:] = rng.normal(0, 0.05, (n_rows, D - 21))
+    H[:n_rows, :21] = rng.normal(0, 0.005, (n_rows, 21))
+    r = np.zeros(1680)
+    r[:n_rows] = rng.normal(0, 0.01, n_rows)
+    npdt = np.dtype(dtype)
+    tol = 1e-9 if dtype == "float64" else 1e-4
+    tdt = torch.float64 if dtype == "float64" else torch.float32
+    jst = to_jax(state)._replace(cov=jnp.asarray(state.cov.numpy().astype(npdt)))
+    jparams = to_jax(params)._replace(obs_noise=jnp.asarray(params.obs_noise.numpy().astype(npdt)))
+    want, _ = jax.jit(jupd.apply_update)(jst, jparams, jnp.asarray(H.astype(npdt)),
+                                         jnp.asarray(r.astype(npdt)),
+                                         jnp.asarray(n_rows, jnp.int32))
+    args = (torch.as_tensor(H).to(tdt), torch.as_tensor(r).to(tdt),
+            params.obs_noise.to(tdt), n_rows)
+    delta, P_new = tupd.ekf_update(state.cov.to(tdt), *args)
+    assert delta.dtype == P_new.dtype == tdt and torch.equal(P_new, P_new.T)
+    assert tupd.update_tier(1680, D, n_rows) == {60: "T1", 200: "T2", 700: "QR"}[n_rows]
+    assert_close(P_new.numpy(), want.cov, tol, "cov")
+    delta64, P64 = tupd.ekf_update_plain(state.cov, torch.as_tensor(H), torch.as_tensor(r),
+                                         params.obs_noise, n_rows)
+    assert_close(P_new.numpy(), P64.numpy(), tol, "cov against float64")
+    assert float((delta.double() - delta64).abs().max()) <= (
+        tol * 10 * max(float(delta64.abs().max()), 1e-3))
+    if dtype == "float64":  # the injected state moves by the same delta
+        got, _ = tupd.apply_update(state, params, *args[:2], rows_true=n_rows)
+        assert_close((got.imu.p - state.imu.p).numpy(), delta[12:15].numpy(), 1e-12, "p += delta")
+
+
 def test_apply_update_rank12_matches_jax(blocks):
     state, params, _ = blocks
     rng = np.random.default_rng(12)

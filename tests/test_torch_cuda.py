@@ -6,9 +6,11 @@ one (no JAX needed):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The front-end kernels run at small shapes (chip_smoke.py repeats those
-checks at the main path's shapes); the back-end kernels run at the main
-path's shapes, on a filter state that the port's plain back-end builds on
-the host from the oracle scenario (41 frames: a 19-camera window).
+checks at the main path's shapes), the camera models, the per-cell top-k
+and the ranking kernels at the main path's sizes on random inputs; the
+back-end kernels run at the main path's shapes, on a filter state that the
+port's plain back-end builds on the host from the oracle scenario (41
+frames: a 19-camera window).
 """
 
 import numpy as np
@@ -24,7 +26,7 @@ from uav_airvision_tpu_torch.config import euroc_config
 from uav_airvision_tpu_torch.models.msckf import (
     propagation, step, triangulation, update)
 from uav_airvision_tpu_torch.models.msckf.state import init_state, make_params
-from uav_airvision_tpu_torch.ops import fast, lk, pyramid
+from uav_airvision_tpu_torch.ops import camera, fast, gridops, lk, pyramid
 
 pytestmark = pytest.mark.cuda
 
@@ -309,3 +311,138 @@ def test_rank12_kernel_matches_plain(dev, host_states, dtype, singular):
     assert torch.equal(got.cov, got.cov.T)
     for a, b in ((got.cov, want.cov), (got.imu.p, want.imu.p), (got.cams.p, want.cams.p)):
         assert float((a - b).abs().max()) <= tol * max(scale, 1.0)
+
+
+@pytest.mark.parametrize("model,coeffs", [
+    ("radtan", (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)),
+    ("equidistant", (-0.0113, 0.0052, -0.0021, 0.0005))])
+def test_camera_kernel_matches_plain(dev, model, coeffs):
+    """K7: normalized outputs within 1e-6, pixel outputs within one float32
+    ulp at 752 px (two for the fused prologue's re-distorted points, whose
+    undistorted input already differs by an ulp of the normalized
+    coordinate times fx, and for the warp); the fused prologue equals the
+    kernel's two calls bit for bit; one camera's values and one set per
+    point."""
+    ulp = 2.0 ** -14
+    rng = np.random.default_rng(7)
+    pts = torch.as_tensor(rng.uniform([5, 5], [747, 475], (408, 2)), dtype=torch.float32,
+                          device=dev)
+    intr = torch.tensor([458.654, 457.296, 367.215, 248.375], device=dev)
+    co = torch.tensor(coeffs, device=dev)
+    R = torch.as_tensor(np.linalg.qr(np.eye(3) + 0.01 * rng.normal(size=(3, 3)))[0],
+                        dtype=torch.float32, device=dev)
+    R = R * torch.sign(torch.diagonal(R))[None, :]
+    n0 = [fn.launches for fn in camera.WRAPPERS]
+    for rect in (None, R):
+        got = camera.undistort_points(pts, intr, model, co, rect)
+        want = camera.undistort_points_plain(pts, intr, model, co, rect)
+        assert float((got - want).abs().max()) <= 1e-6
+    got = camera.undistort_points(pts, intr, model, co, None, (460.0, 459.0, 370.0, 240.0))
+    want = camera.undistort_points_plain(pts, intr, model, co, None, (460.0, 459.0, 370.0, 240.0))
+    assert float((got - want).abs().max()) <= ulp
+    per_intr = torch.cat([intr[:, None].expand(4, 204), (intr * 1.01)[:, None].expand(4, 204)], 1)
+    per_co = torch.cat([co[:, None].expand(4, 204), (co * 0.9)[:, None].expand(4, 204)], 1)
+    got = camera.undistort_points(pts, per_intr, model, per_co)
+    want = camera.undistort_points_plain(pts, per_intr, model, per_co)
+    assert float((got - want).abs().max()) <= 1e-6
+    und, dis = camera.undistort_distort_points(pts, intr, model, co, R)
+    pund, pdis = camera.undistort_distort_points_plain(pts, intr, model, co, R)
+    assert float((und - pund).abs().max()) <= 1e-6 and float((dis - pdis).abs().max()) <= 2 * ulp
+    two = camera.undistort_points(pts, intr, model, co, R)
+    assert torch.equal(und, two) and torch.equal(dis, camera.distort_points(two, intr, model, co))
+    assert float((camera.distort_points(pund, intr, model, co)
+                  - camera.distort_points_plain(pund, intr, model, co)).abs().max()) <= ulp
+    # the plain version forms K R K^-1 by two library products (another
+    # order, fused multiply-adds): two ulp at this test's ~1 degree rotation
+    got = camera.homography_warp_points(pts, R, intr)
+    assert float((got - camera.homography_warp_points_plain(pts, R, intr)).abs().max()) <= 2 * ulp
+    assert all(fn.launches > n for fn, n in zip(camera.WRAPPERS, n0))
+
+
+@pytest.mark.parametrize("H,W", [(480, 752), (97, 131)])
+@pytest.mark.parametrize("k", [5, 8])
+def test_grid_topk_kernel_exact(dev, H, W, k):
+    """K5: exact, with heavy ties, an empty cell and cells padded with -1."""
+    rng = np.random.default_rng(H + k)
+    score = rng.integers(-1, 4, (H, W)).astype(np.int32)
+    score[: H // 4, : W // 5] = 0
+    score[H // 2, W // 2] = 2 ** 31 - 1
+    score = torch.as_tensor(score, device=dev)
+    n0 = gridops.dense_grid_topk.launches
+    got = gridops.dense_grid_topk(score, 4, 5, k)
+    assert gridops.dense_grid_topk.launches == n0 + 1
+    for g, w in zip(got, gridops.dense_grid_topk_plain(score, 4, 5, k)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [20, 100, 160, 204, 256, 1024])
+def test_grid_ranking_kernels_exact(dev, n):
+    """K8: every entry point exact, with heavy ties and invalid entries."""
+    rng = np.random.default_rng(n)
+    cell = torch.as_tensor(rng.integers(0, 20, n), dtype=torch.int32, device=dev)
+    pri = torch.as_tensor(rng.integers(0, 3, n), dtype=torch.float32, device=dev)
+    arr = torch.as_tensor(rng.integers(0, 6, n), dtype=torch.int32, device=dev)
+    valid = torch.as_tensor(rng.uniform(size=n) < 0.7, device=dev)
+
+    def same(got, want):
+        return all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+    rank, perm = gridops.rank_in_cell(cell, pri, arr, valid, 20)
+    assert same((rank, perm), gridops.rank_in_cell_plain(cell, pri, arr, valid, 20))
+    keep = valid & (rank < 2)
+    assert same(gridops.kept_order_stats(perm, keep, cell, valid, 20),
+                gridops.kept_order_stats_plain(perm, keep, cell, valid, 20))
+    for slots in (104, max(int(keep.sum()), 1)):
+        assert same(gridops.compact_kept(perm, keep, slots),
+                    gridops.compact_kept_plain(perm, keep, slots))
+    key = arr.clone()
+    key[::5] = 2 ** 31 - 1
+    for k in (16, 128, n + 7):
+        assert torch.equal(gridops.smallest_k_indices(key, k),
+                           gridops.smallest_k_indices_plain(key, k))
+    for mask in (valid, torch.zeros_like(valid), torch.ones_like(valid)):
+        assert torch.equal(gridops.stable_compact_indices(mask, n),
+                           gridops.stable_compact_indices_plain(mask, n))
+    assert all(fn.launches > 0 for fn in gridops.K8_WRAPPERS)
+    with pytest.raises(ValueError, match="float32"):
+        gridops.rank_in_cell(cell, pri.double(), arr, valid, 20)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n_rows", [60, 144, 250, 700], ids=["T1", "T1_full", "T2", "QR"])
+def test_ekf_update_kernel_matches_plain(dev, host_states, dtype, n_rows):
+    """K11 on a real covariance: float64 within 1e-10 of max(|P|, 1) and of
+    max|delta|; float32 P within 1e-5 of max(|P|, 1) and delta within 1e-4 of
+    max|delta| of the float64 plain version, or within 4 x the float32 plain
+    version's own distance from it where that is larger (both feel S's
+    condition number).  Zero rows inside the stack stay exact; P_new is
+    exactly symmetric; a failed factorisation is NaN."""
+    cfg, state, params, _ = _card_state(dev, host_states, dtype)
+    D = state.cov.shape[0]
+    rng = np.random.default_rng(n_rows)
+    H = torch.zeros((1680, D), dtype=torch.float64, device=dev)
+    H[:n_rows, 21:] = torch.as_tensor(rng.normal(0, 0.05, (n_rows, D - 21)), device=dev)
+    r = torch.zeros(1680, dtype=torch.float64, device=dev)
+    r[:n_rows] = torch.as_tensor(rng.normal(0, 0.01, n_rows), device=dev)
+    H[7], r[7] = 0.0, 0.0
+    want_d, want_P = update.ekf_update_plain(state.cov.double(), H, r, params.obs_noise.double(),
+                                             n_rows)
+    tdt = state.cov.dtype
+    args = (state.cov, H.to(tdt), r.to(tdt), params.obs_noise, n_rows)
+    n0 = update.ekf_update.launches
+    d, Pn = update.ekf_update(*args)
+    assert update.ekf_update.launches == n0 + 1
+    pd, pPn = update.ekf_update_plain(*args)
+    sc_d, sc_P = float(want_d.abs().max()), max(float(want_P.abs().max()), 1.0)
+    e_d, e_P = float((d - want_d).abs().max()), float((Pn - want_P).abs().max())
+    if dtype == "float64":
+        assert e_d <= 1e-10 * sc_d and e_P <= 1e-10 * sc_P
+    else:
+        assert e_d <= max(1e-4 * sc_d, 4 * float((pd - want_d).abs().max()))
+        assert e_P <= max(1e-5 * sc_P, 4 * float((pPn - want_P).abs().max()))
+    assert torch.equal(Pn, Pn.T)
+    got, _ = update.apply_update(state, params, *args[1:3], n_rows)
+    assert torch.equal(got.cov, Pn)
+    bad = -1e6 * torch.eye(D, dtype=tdt, device=dev)
+    d, Pn = update.ekf_update(bad, *args[1:])
+    assert bool(d.isnan().all()) and bool(Pn.isnan().all())

@@ -222,3 +222,127 @@ def test_lk_matches_jax(n_levels, max_iter_upper):
     both = ts & js
     assert both.sum() >= 20
     np.testing.assert_allclose(tn[both], jn[both], atol=1e-3, rtol=0)
+
+
+def _score_map(case, H, W):
+    """int32 score maps as the NMS leaves them: mostly zero, with ties."""
+    rng = np.random.default_rng(len(case))
+    if case == "heavy_ties":
+        return rng.integers(-1, 6, (H, W)).astype(np.int32)
+    score = np.zeros((H, W), np.int32)
+    n = H * W // 200
+    score[rng.integers(0, H, n), rng.integers(0, W, n)] = rng.integers(1, 4, n)
+    if case == "empty_cells":  # whole cells without a corner, one with fewer than k
+        score[: H // 2] = 0
+        score[H // 2:, : W // 5] = 0
+        score[H - 3, 5] = 7
+    return score
+
+
+@pytest.mark.parametrize("case,H,W", [("heavy_ties", 480, 752), ("sparse", 480, 752),
+                                      ("empty_cells", 480, 752), ("sparse", 97, 131)])
+@pytest.mark.parametrize("k", [5, 8])
+def test_dense_grid_topk_exact(case, H, W, k):
+    """K5's plain version (what the wrapper runs on CPU tensors) against the
+    JAX function, exactly: ties by in-cell index, cells padded with -1
+    (neither 752 nor 131 is a multiple of 5), empty cells."""
+    score = _score_map(case, H, W)
+    want = jgrid.dense_grid_topk(jnp.asarray(score), 4, 5, k)
+    got = tgrid.dense_grid_topk(torch.as_tensor(score), 4, 5, k)
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if case == "empty_cells":
+        assert (got[2].numpy() <= 0).any()
+
+
+@pytest.mark.parametrize("n", [20, 100, 160, 204, 256])
+def test_k8_ranking_exact(n):
+    """K8's plain versions against the JAX functions, exactly, with heavy
+    ties in every key, invalid entries and the sizes the main path uses."""
+    rng = np.random.default_rng(n)
+    n_cells = 20
+    cell = rng.integers(0, n_cells, n).astype(np.int32)
+    primary = rng.integers(0, 3, n).astype(np.float32)
+    arrival = rng.integers(0, 6, n).astype(np.int32)
+    valid = rng.uniform(size=n) < 0.7
+    j_rank, j_perm = jgrid.rank_in_cell(jnp.asarray(cell), jnp.asarray(primary),
+                                        jnp.asarray(arrival), jnp.asarray(valid), n_cells)
+    t_rank, t_perm = tgrid.rank_in_cell(torch.as_tensor(cell), torch.as_tensor(primary),
+                                        torch.as_tensor(arrival), torch.as_tensor(valid),
+                                        n_cells)
+    np.testing.assert_array_equal(t_rank.numpy(), np.asarray(j_rank))
+    np.testing.assert_array_equal(t_perm.numpy(), np.asarray(j_perm))
+    assert t_rank.dtype == t_perm.dtype == torch.int32
+    keep = valid & (np.asarray(j_rank) < 2)
+    for w, g in zip(jgrid.kept_order_stats(j_perm, jnp.asarray(keep), jnp.asarray(cell),
+                                           jnp.asarray(valid), n_cells),
+                    tgrid.kept_order_stats(t_perm, torch.as_tensor(keep),
+                                           torch.as_tensor(cell), torch.as_tensor(valid),
+                                           n_cells)):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for slots in (104, max(int(keep.sum()), 1)):
+        for w, g in zip(jgrid.compact_kept(j_perm, jnp.asarray(keep), slots),
+                        tgrid.compact_kept(t_perm, torch.as_tensor(keep), slots)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    key = rng.integers(0, 9, n).astype(np.int32)
+    key[::5] = np.iinfo(np.int32).max  # the back-end's "not a candidate" key
+    for k in (16, 64, 128):
+        np.testing.assert_array_equal(
+            tgrid.smallest_k_indices(torch.as_tensor(key), k).numpy(),
+            np.asarray(jgrid.smallest_k_indices(jnp.asarray(key), k)))
+    for mask in (valid, np.zeros(n, bool), np.ones(n, bool)):
+        np.testing.assert_array_equal(
+            tgrid.stable_compact_indices(torch.as_tensor(mask), n).numpy(),
+            np.asarray(jgrid.stable_compact_indices(jnp.asarray(mask), n)))
+
+
+@pytest.mark.parametrize("rectify", [False, True], ids=["plain", "rectified"])
+@pytest.mark.parametrize("model,coeffs", [
+    ("radtan", (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)),
+    ("equidistant", (-0.0113, 0.0052, -0.0021, 0.0005)),
+])
+def test_camera_k7_forms_match(model, coeffs, rectify):
+    """K7's plain versions against the JAX functions in the forms the main
+    path calls them: one camera's values for all points and one set per
+    point (the two-camera publish), and the fused stereo prologue against
+    the JAX package's two calls.  Normalized points within 1e-6, pixels
+    within one float32 ulp at 752 px, as test_camera_model_matches."""
+    px_ulp = float(np.spacing(np.float32(752.0)))
+    rng = np.random.default_rng(9)
+    intr0 = np.array([458.654, 457.296, 367.215, 248.375], np.float32)
+    intr1 = np.array([457.587, 456.134, 379.999, 255.238], np.float32)
+    co0 = np.array(coeffs, np.float32)
+    co1 = (co0 * 0.9).astype(np.float32)
+    F = 104
+    pts = rng.uniform([5, 5], [747, 475], (2 * F, 2)).astype(np.float32)
+    R = np.array([[0.9998, -0.0175, 0.0087], [0.0174, 0.9998, 0.0087],
+                  [-0.0089, -0.0085, 0.9999]], np.float32) if rectify else None
+    jR = None if R is None else jnp.asarray(R)
+    tR = None if R is None else torch.as_tensor(R)
+    # per-point values: cam0's for the first F points, cam1's for the rest
+    per_pt = [np.concatenate([np.full(F, a), np.full(F, b)]).astype(np.float32)
+              for a, b in zip(np.concatenate([intr0, co0]), np.concatenate([intr1, co1]))]
+    want = jcam.undistort_points(jnp.asarray(pts), tuple(map(jnp.asarray, per_pt[:4])), model,
+                                 tuple(map(jnp.asarray, per_pt[4:])), rectification=jR)
+    got = tcam.undistort_points(torch.as_tensor(pts), torch.as_tensor(np.stack(per_pt[:4])),
+                                model, torch.as_tensor(np.stack(per_pt[4:])), rectification=tR)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    if rectify:
+        und_j = jcam.undistort_points(jnp.asarray(pts), jnp.asarray(intr0), model,
+                                      jnp.asarray(co0), rectification=jR)
+        dis_j = jcam.distort_points(und_j, jnp.asarray(intr0), model, jnp.asarray(co0))
+        und_t, dis_t = tcam.undistort_distort_points(
+            torch.as_tensor(pts), torch.as_tensor(intr0), model, torch.as_tensor(co0), tR)
+        np.testing.assert_allclose(und_t.numpy(), np.asarray(und_j), atol=1e-6, rtol=0)
+        # the port's undistorted points differ by an ulp of the normalized
+        # coordinate, which fx carries into the pixel: two ulp here
+        np.testing.assert_allclose(dis_t.numpy(), np.asarray(dis_j), atol=2 * px_ulp, rtol=0)
+    else:
+        new = (460.0, 459.0, 370.0, 240.0)
+        want = jcam.undistort_points(jnp.asarray(pts), jnp.asarray(intr0), model,
+                                     jnp.asarray(co0), new_intrinsics=new)
+        got = tcam.undistort_points(torch.as_tensor(pts), torch.as_tensor(intr0), model,
+                                    torch.as_tensor(co0), new_intrinsics=new)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=px_ulp, rtol=0)

@@ -6,10 +6,12 @@ Full-width 752x480 StereoWorld frames go through the port's ``run_sequence``
 scans).  The config shrinks the window to 8 cameras and the IMU init to 40
 messages, and the frames start where the trajectory starts to move, so that
 within 16 frames the first frame, temporal tracking, the lost-feature update
-and the rank-12 prune all run.
+and the rank-12 prune all run.  The streaming orchestrator (``vio.VIO``) is
+fed the same frames and IMU messages and held to both.
 """
 
 import dataclasses
+from queue import Queue
 
 import numpy as np
 import jax
@@ -29,6 +31,10 @@ from uav_airvision_tpu_torch.config import Config as TConfig
 from uav_airvision_tpu_torch.models import vio as tvio
 from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
 from uav_airvision_tpu_torch.models.frontend.pipeline import frontend_step
+from uav_airvision_tpu_torch.simulation.world import StereoWorld as TStereoWorld
+from uav_airvision_tpu_torch.streaming.dataset import imu_msg, stereo_msg
+from uav_airvision_tpu_torch.utils.trajectory import TrajectoryWriter
+from uav_airvision_tpu_torch import vio as tstream
 
 N_FRAMES = 16
 K_CONVERT = 8  # the JAX front-end state after this frame is converted
@@ -141,6 +147,101 @@ def test_slice_matches_jax_per_frame(both_runs):
             np.testing.assert_allclose(tout.q.numpy(), jout.q, atol=1e-4, rtol=0)
             assert int(tout.n_cams) == int(jout.n_cams)
     assert n_active >= 8 and n_prune >= 1 and n_lost >= 1
+
+
+def _messages(cfg, frames):
+    """The slice's IMU and stereo messages, as the streaming API takes them."""
+    imu_t, imu_w, imu_a = TStereoWorld(cfg).imu_stream(T0 + N_FRAMES / 20.0 + 0.1)
+    fts = T0 + TStereoWorld(cfg).frame_times(N_FRAMES / 20.0)
+    imu = [imu_msg(t, w, a) for t, w, a in zip(imu_t, imu_w, imu_a)]
+    img = [stereo_msg(t, c0, c1, None, None)
+           for t, c0, c1 in zip(fts, frames.cam0.numpy(), frames.cam1.numpy())]
+    return imu, img
+
+
+def test_streaming_matches_batch_and_jax(both_runs, tmp_path):
+    """The same frames and IMU messages, fed synchronously in timestamp order
+    (IMU first on ties) through ``VIO(device="cpu")``, give the poses of the
+    port's ``run_sequence`` within 1e-5 m / 1e-5, the same timestamps, and
+    the JAX package's within the slice's tolerances (p 1e-3 m, q 1e-4); one
+    host read per published pose.  Not exactly equal: ``prebatch_imu`` cuts
+    the front-end's rotation window on rebased times and the orchestrator
+    on absolute ones, and at frame 1 the sample stamped 1.49 s lies on the
+    boundary prev_t - 0.01 (1.49 >= 1.5 - 0.01, but 1.49 - 1.5 < -0.01 in
+    float64): one sample more in the mean angular velocity, 1.8e-4 rad/s.
+    That moves the LK seeds of frame 1, LK stops within its 0.01 px
+    precision of another point, and the tracks carry it on: 4.8e-8 m in
+    frame 1's pose, 1.7e-6 m by frame 15.  With frames that start at time 0
+    the windows are the same and so are the poses."""
+    cfg, pb, frames, _, port, ref, _ = both_runs
+    imu, img = _messages(cfg, frames)
+    writer = TrajectoryWriter(path=str(tmp_path / "traj.txt"))
+    v = tstream.VIO(cfg, Queue(), Queue(), trajectory_writer=writer, device="cpu")
+    events = sorted([(m.timestamp, 0, m) for m in imu] + [(m.timestamp, 1, m) for m in img],
+                    key=lambda e: e[:2])
+    for _, kind, m in events:
+        (v.process_imu_msg if kind == 0 else v.process_stereo_msg)(m)
+        while not v._publish_queue.empty():
+            v._publish(v._read(v._publish_queue.get()))
+    np.testing.assert_array_equal(v.gyro_bias, pb.gyro_bias)
+    np.testing.assert_array_equal(v.acc_mean, pb.acc_mean)
+    active = [k for k, (out, _) in enumerate(port) if bool(out.active)]
+    assert len(v.results) == len(active) == N_FRAMES and v.publish_reads == N_FRAMES
+    traj = np.loadtxt(writer.path, ndmin=2)
+    for row, res, k in zip(traj, v.results, active):
+        tout, jout = port[k][0], ref[k][0]
+        assert abs(res.timestamp - (pb.time_base + float(tout.timestamp))) < 1e-9
+        np.testing.assert_allclose(row[1:4], tout.p.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(row[4:8], tout.q.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(row[1:4], jout.p, atol=1e-3, rtol=0)
+        np.testing.assert_allclose(row[4:8], jout.q, atol=1e-4, rtol=0)
+        # T_imu_body is the identity in this config: the body pose is the IMU pose
+        np.testing.assert_allclose(res.pose.t, row[1:4], atol=1e-9)
+        assert res.cam0_pose.R.shape == (3, 3) and np.isfinite(res.velocity).all()
+
+
+@pytest.mark.parametrize("fault", [None, "step", "publish"])
+def test_streaming_threads_join(both_runs, tmp_path, monkeypatch, fault):
+    """Queues in, ``None`` sentinels, three threads: ``join`` returns with
+    one pose per active frame; an exception in the device step or in the
+    publish thread still unblocks ``join`` and is raised by it."""
+    cfg, _, frames, _, _, _, _ = both_runs
+    imu, img = _messages(cfg, frames)
+    n = 3
+    if fault == "step":
+        real_step, calls = tstream.vio_step, []
+
+        def step(*args):
+            calls.append(1)
+            if len(calls) == 2:
+                raise ValueError("injected step fault")
+            return real_step(*args)
+
+        monkeypatch.setattr(tstream, "vio_step", step)
+    img_q, imu_q = Queue(), Queue()
+    v = tstream.VIO(cfg, img_q, imu_q, device="cpu",
+                    trajectory_writer=TrajectoryWriter(path=str(tmp_path / "traj.txt")))
+    if fault == "publish":
+        monkeypatch.setattr(v, "_publish", lambda o: 1 / 0)
+    v.start()
+    for m in imu:
+        imu_q.put(m)
+    imu_q.put(None)
+    v.imu_thread.join(timeout=60)
+    assert not v.imu_thread.is_alive() and v.is_gravity_set
+    for m in img[:n]:
+        img_q.put(m)
+    img_q.put(None)
+    if fault is None:
+        v.join()
+        assert len(v.results) == n
+    else:
+        with pytest.raises(RuntimeError, match="error in one of its threads") as err:
+            v.join()
+        assert isinstance(err.value.__cause__,
+                          ValueError if fault == "step" else ZeroDivisionError)
+        assert len(v.results) == (1 if fault == "step" else 0)
+    assert not v.img_thread.is_alive() and not v.publish_thread.is_alive()
 
 
 def test_port_imports_without_jax():

@@ -1,13 +1,16 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
 package, its own copies of the JAX-free modules (config, simulated world,
-IMU prebatching, trajectory writer, metrics) behave as the JAX package's
-do, its entry points default to the card, and each kernel wrapper runs its
-plain version, bit for bit, on CPU tensors.
+IMU prebatching, trajectory writer, metrics, transforms, dataset readers,
+data publisher) behave as the JAX package's do, its entry points default to
+the card, and each kernel wrapper runs its plain version, bit for bit, on
+CPU tensors.
 """
 
 import ast
 import dataclasses
+import time
 from pathlib import Path
+from queue import Queue
 
 import numpy as np
 import pytest
@@ -16,17 +19,25 @@ import torch
 from uav_airvision_tpu import config as jconfig
 from uav_airvision_tpu.evaluation import metrics as jmetrics
 from uav_airvision_tpu.simulation.world import StereoWorld as JStereoWorld
+from uav_airvision_tpu.streaming import dataset as jdataset
+from uav_airvision_tpu.streaming import publisher as jpublisher
 from uav_airvision_tpu.streaming.prebatch import prebatch_imu as j_prebatch_imu
 from uav_airvision_tpu.utils import trajectory as jtrajectory
+from uav_airvision_tpu.utils import transforms as jtransforms
 from uav_airvision_tpu_torch import config as tconfig
 from uav_airvision_tpu_torch import device, kernels
 from uav_airvision_tpu_torch.evaluation import metrics as tmetrics
 from uav_airvision_tpu_torch.models import vio
 from uav_airvision_tpu_torch.models.msckf import triangulation as ttri
 from uav_airvision_tpu_torch.models.msckf import update as tupd
+from uav_airvision_tpu_torch.ops import camera as tcam
+from uav_airvision_tpu_torch.ops import gridops as tgrid
 from uav_airvision_tpu_torch.simulation.world import StereoWorld as TStereoWorld
+from uav_airvision_tpu_torch.streaming import dataset as tdataset
+from uav_airvision_tpu_torch.streaming import publisher as tpublisher
 from uav_airvision_tpu_torch.streaming.prebatch import prebatch_imu as t_prebatch_imu
 from uav_airvision_tpu_torch.utils import trajectory as ttrajectory
+from uav_airvision_tpu_torch.utils import transforms as ttransforms
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -103,6 +114,113 @@ def test_metrics_and_trajectory_copies_equal_jax(tmp_path):
     assert paths[0].read_bytes() == paths[1].read_bytes()
 
 
+def test_transforms_copy_equals_jax():
+    rng = np.random.default_rng(4)
+
+    def iso(mod):
+        q, _ = np.linalg.qr(rng.normal(size=(2, 3, 3)))
+        return q, rng.normal(size=(2, 3))
+
+    (Ra, ta), (Rb, tb) = iso(None), iso(None)
+    pts = rng.normal(size=(2, 3))
+    for fn, args in (("inverse", ((Ra, ta),)), ("compose", ((Ra, ta), (Rb, tb))),
+                     ("matrix", ((Ra, ta),))):
+        got = getattr(ttransforms, fn)(*(ttransforms.Isometry(*a) for a in args))
+        want = getattr(jtransforms, fn)(*(jtransforms.Isometry(*a) for a in args))
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=0, atol=1e-15)
+    np.testing.assert_allclose(
+        ttransforms.apply(ttransforms.Isometry(Ra, ta), pts).numpy(),
+        np.asarray(jtransforms.apply(jtransforms.Isometry(Ra, ta), pts)), rtol=0, atol=1e-15)
+    eye_t, eye_j = ttransforms.identity(batch_shape=(2,)), jtransforms.identity(batch_shape=(2,))
+    np.testing.assert_array_equal(np.asarray(eye_t.R), np.asarray(eye_j.R))
+    m = ttransforms.matrix(ttransforms.Isometry(Ra, ta))
+    back = ttransforms.from_matrix(m)
+    np.testing.assert_array_equal(np.asarray(back.R), Ra)
+    assert ttransforms.Isometry._fields == jtransforms.Isometry._fields
+
+
+def _fake_euroc(root: Path):
+    """A EuRoC directory tree with 12 IMU rows, 4 stereo pairs (empty .png
+    files: nothing is decoded) and 5 ground-truth rows."""
+    t0 = 1_403_715_273_262_142_976
+    for cam in ("cam0", "cam1"):
+        (root / "mav0" / cam / "data").mkdir(parents=True)
+        for k in range(4):
+            (root / "mav0" / cam / "data" / f"{t0 + 50_000_000 * (k + 1)}.png").touch()
+    rng = np.random.default_rng(2)
+    (root / "mav0" / "imu0").mkdir()
+    rows = np.column_stack([t0 + 5_000_000 * np.arange(12) + 20_000_000, rng.normal(size=(12, 6))])
+    np.savetxt(root / "mav0" / "imu0" / "data.csv", rows, delimiter=",", header="t,w,a",
+               fmt=["%d"] + ["%.9f"] * 6)
+    (root / "mav0" / "state_groundtruth_estimate0").mkdir()
+    gt = np.column_stack([t0 + 50_000_000 * np.arange(5), rng.normal(size=(5, 16))])
+    np.savetxt(root / "mav0" / "state_groundtruth_estimate0" / "data.csv", gt, delimiter=",",
+               header="t", fmt=["%d"] + ["%.9f"] * 16)
+
+
+def test_dataset_copy_equals_jax(tmp_path, monkeypatch):
+    """The port's EuRoC readers give the same messages, start times and
+    offsets as the JAX package's on the same directory; without OpenCV the
+    image reader raises and says why."""
+    _fake_euroc(tmp_path)
+    for name in ("imu_msg", "img_msg", "stereo_msg", "gt_msg"):
+        assert getattr(tdataset, name)._fields == getattr(jdataset, name)._fields
+    monkeypatch.setattr(tdataset.ImageReader, "read", lambda self, path: path)
+    monkeypatch.setattr(jdataset.ImageReader, "read", lambda self, path: path)
+    got, want = tdataset.EuRoCDataset(str(tmp_path)), jdataset.EuRoCDataset(str(tmp_path))
+    for offset in (0.0, 0.01):
+        got.set_starttime(offset)
+        want.set_starttime(offset)
+        assert got.starttime == want.starttime and got.stereo.starttime == want.stereo.starttime
+        for a, b in zip(got.imu.arrays(), want.imu.arrays()):
+            np.testing.assert_array_equal(a, b)
+        assert [tuple(m[:3]) for m in got.stereo] == [tuple(m[:3]) for m in want.stereo]
+        assert len(list(got.imu)) == len(list(want.imu)) > 0
+        for key, val in got.groundtruth.load().items():
+            np.testing.assert_array_equal(val, want.groundtruth.load()[key])
+    monkeypatch.undo()
+    monkeypatch.setattr(tdataset, "cv2", None)
+    with pytest.raises(RuntimeError, match="OpenCV"):
+        tdataset.ImageReader(["x.png"], [0.0]).read("x.png")
+
+
+@pytest.mark.parametrize("duration", [float("inf"), 0.1])
+def test_publisher_copy_equals_jax(duration):
+    """Both DataPublishers replay the same stream into the same queue
+    contents (messages before the start dropped, the duration cut, the
+    ``None`` sentinel), no earlier than each message's deadline."""
+    msgs = [tdataset.imu_msg(t, None, None) for t in (-0.01, 0.0, 0.05, 0.1, 0.15, 0.2)]
+    assert tpublisher._PACING_SLACK_S == jpublisher._PACING_SLACK_S
+    seen = []
+    for mod in (tpublisher, jpublisher):
+        q = Queue()
+
+        class Stream:
+            starttime = 0.0
+
+            def __iter__(self):
+                return iter(msgs)
+
+        pub = mod.DataPublisher(Stream(), q, duration=duration, ratio=5.0)
+        t0 = time.time()
+        pub.start(t0)
+        out = []
+        while True:
+            m = q.get(timeout=5)
+            out.append((m, time.time() - t0))
+            if m is None:
+                break
+        pub.publish_thread.join(timeout=5)
+        assert not pub.publish_thread.is_alive()
+        for m, dt in out[:-1]:
+            assert dt >= m.timestamp / 5.0
+        seen.append([m for m, _ in out])
+    assert seen[0] == seen[1]
+    assert len(seen[0]) == (6 if duration == float("inf") else 4)
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     """get_device() means the card; without CUDA it raises instead of falling
     back to the CPU, and so do init_vio_state and the CLI by default."""
@@ -120,6 +238,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         main.main(["--synthetic", "0.1"])
     assert inspect.signature(device.get_device).parameters["name"].default == "cuda"
+    # the streaming orchestrator and the CLI's realtime mode too
+    from uav_airvision_tpu_torch.vio import VIO
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VIO(tconfig.euroc_config(), Queue(), Queue())
+    assert inspect.signature(VIO.__init__).parameters["device"].default == "cuda"
+    assert VIO(tconfig.euroc_config(), Queue(), Queue(), device="cpu").device == CPU
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main.main(["--mode", "realtime", "--synthetic", "0.1"])
 
 
 @pytest.fixture(scope="module")
@@ -136,8 +263,10 @@ def filter_state():
 
 
 def _launch_counts():
-    return (ttri.triangulate.launches, tupd.feature_block.launches, tupd.gate_bounds.launches,
-            tupd.gate_gamma.launches, tupd.rank12_update.launches)
+    fns = (ttri.triangulate, tupd.feature_block, tupd.gate_bounds, tupd.gate_gamma,
+           tupd.rank12_update, tupd.ekf_update, tgrid.dense_grid_topk, *tgrid.K8_WRAPPERS,
+           *tcam.WRAPPERS)
+    return tuple(fn.launches for fn in fns)
 
 
 def _assert_identical(got, want):
@@ -151,7 +280,8 @@ def _assert_identical(got, want):
                                               and torch.equal(got.nan_to_num(), want.nan_to_num()))
 
 
-@pytest.mark.parametrize("kernel", ["K13", "K9", "K9_prune", "K10", "K12"])
+@pytest.mark.parametrize("kernel", ["K13", "K9", "K9_prune", "K10", "K12", "K11", "K5", "K8",
+                                    "K7"])
 def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
     """On CPU tensors each kernel's public wrapper returns exactly what its
     plain version returns, counts no launch and reports no call to the
@@ -187,6 +317,58 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
             for m in (32, H.shape[1]):
                 args = (H[:, :m], r[:, :m] * scale, state.cov, params.obs_noise)
                 _assert_identical(tupd.gate_gamma(*args), tupd.gate_gamma_plain(*args))
+    elif kernel == "K11":
+        rng = np.random.default_rng(11)
+        D = state.cov.shape[0]
+        for n_rows in (60, 200, 700):
+            H = torch.zeros((1680, D), dtype=torch.float64)
+            H[:n_rows, 21:] = torch.as_tensor(rng.normal(0, 0.05, (n_rows, D - 21)))
+            r = torch.zeros(1680, dtype=torch.float64)
+            r[:n_rows] = torch.as_tensor(rng.normal(0, 0.01, n_rows))
+            args = (state.cov, H, r, params.obs_noise, n_rows)
+            _assert_identical(tupd.ekf_update(*args), tupd.ekf_update_plain(*args))
+            got, warn = tupd.apply_update(state, params, H, r, n_rows)
+            want, pwarn = tupd.apply_update_plain(state, params, H, r, n_rows)
+            _assert_identical(tuple(torch.utils._pytree.tree_leaves(got)) + (warn,),
+                              tuple(torch.utils._pytree.tree_leaves(want)) + (pwarn,))
+    elif kernel == "K5":
+        score = torch.as_tensor(np.random.default_rng(5).integers(-1, 4, (97, 131)), dtype=torch.int32)
+        _assert_identical(tgrid.dense_grid_topk(score, 4, 5, 5),
+                          tgrid.dense_grid_topk_plain(score, 4, 5, 5))
+    elif kernel == "K8":
+        rng = np.random.default_rng(8)
+        n = 100
+        cell = torch.as_tensor(rng.integers(0, 20, n), dtype=torch.int32)
+        pri = torch.as_tensor(rng.integers(0, 3, n), dtype=torch.float32)
+        arr = torch.as_tensor(rng.integers(0, 9, n), dtype=torch.int32)
+        valid = torch.as_tensor(rng.uniform(size=n) < 0.7)
+        rank, perm = tgrid.rank_in_cell(cell, pri, arr, valid, 20)
+        _assert_identical((rank, perm), tgrid.rank_in_cell_plain(cell, pri, arr, valid, 20))
+        keep = valid & (rank < 2)
+        _assert_identical(tgrid.kept_order_stats(perm, keep, cell, valid, 20),
+                          tgrid.kept_order_stats_plain(perm, keep, cell, valid, 20))
+        _assert_identical(tgrid.compact_kept(perm, keep, 104),
+                          tgrid.compact_kept_plain(perm, keep, 104))
+        _assert_identical(tgrid.smallest_k_indices(arr, 16), tgrid.smallest_k_indices_plain(arr, 16))
+        _assert_identical(tgrid.stable_compact_indices(valid, n),
+                          tgrid.stable_compact_indices_plain(valid, n))
+    elif kernel == "K7":
+        rng = np.random.default_rng(7)
+        pts = torch.as_tensor(rng.uniform([5, 5], [747, 475], (50, 2)), dtype=torch.float32)
+        intr = torch.tensor([458.654, 457.296, 367.215, 248.375])
+        co = torch.tensor([-0.2834, 0.0739, 0.00019, 1.76e-05])
+        R = torch.as_tensor(np.linalg.qr(np.eye(3) + 0.01 * rng.normal(size=(3, 3)))[0],
+                            dtype=torch.float32)
+        for model in ("radtan", "equidistant"):
+            _assert_identical(tcam.undistort_points(pts, intr, model, co, R),
+                              tcam.undistort_points_plain(pts, intr, model, co, R))
+            _assert_identical(tcam.distort_points(pts / 500, intr, model, co),
+                              tcam.distort_points_plain(pts / 500, intr, model, co))
+            und, dis = tcam.undistort_distort_points(pts, intr, model, co, R)
+            _assert_identical(und, tcam.undistort_points_plain(pts, intr, model, co, R))
+            _assert_identical(dis, tcam.distort_points_plain(und, intr, model, co))
+        _assert_identical(tcam.homography_warp_points(pts, R, intr),
+                          tcam.homography_warp_points_plain(pts, R, intr))
     else:
         rng = np.random.default_rng(12)
         cols = torch.cat([21 + 6 * 4 + torch.arange(6), 21 + 6 * 9 + torch.arange(6)])
@@ -213,4 +395,13 @@ def test_wrappers_raise_on_other_devices(filter_state):
     with pytest.raises(ValueError, match="K10"):
         tupd.gate_gamma(H, torch.zeros((2, 77), device=meta), state.cov.to(meta),
                         params.obs_noise.to(meta))
+    with pytest.raises(ValueError, match="K11"):
+        tupd.ekf_update(state.cov.to(meta), H[0], H[0, :, 0], params.obs_noise.to(meta), 5)
+    with pytest.raises(ValueError, match="K5"):
+        tgrid.dense_grid_topk(torch.zeros((40, 50), dtype=torch.int32, device=meta), 4, 5, 5)
+    with pytest.raises(ValueError, match="K8"):
+        tgrid.stable_compact_indices(torch.zeros(8, dtype=torch.bool, device=meta), 8)
+    with pytest.raises(ValueError, match="K7"):
+        tcam.homography_warp_points(torch.zeros((4, 2), device=meta), torch.eye(3, device=meta),
+                                    torch.ones(4, device=meta))
 

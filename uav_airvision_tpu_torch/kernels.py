@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -75,14 +76,40 @@ SIGNATURES = {
     # P, D, B, r, n, cols, obs_noise, delta_out, P_out, stream
     "rank12_f32": [P, I, P, P, I, P, P, P, P, P],
     "rank12_f64": [P, I, P, P, I, P, P, P, P, P],
+    # pts, n, intr, field stride, point stride, coef, field stride, point
+    # stride, model, (R, new_intr,) out..., stream
+    "camera_undistort": [P, I, P, I, I, P, I, I, I, P, P, P, P],
+    "camera_distort": [P, I, P, I, I, P, I, I, I, P, P],
+    "camera_undistort_distort": [P, I, P, I, I, P, I, I, I, P, P, P, P],
+    # pts, n, intr, field stride, point stride, R, out, stream
+    "camera_warp": [P, I, P, I, I, P, P, P],
+    # score, H, W, grid_row, grid_col, cell_h, cell_w, k, ys, xs, vals, stream
+    "grid_topk_i32": [P, I, I, I, I, I, I, I, P, P, P, P],
+    # cell, primary, arrival, valid, n, n_cells, rank, perm, stream
+    "grid_rank_in_cell": [P, P, P, P, I, I, P, P, P],
+    # perm, keep, cell, valid, n, n_cells, global_rank, cell_rank, n_kept, stream
+    "grid_kept_order_stats": [P, P, P, P, I, I, P, P, P, P],
+    # perm, keep, n, n_slots, sel, selm, stream
+    "grid_compact_kept": [P, P, I, I, P, P, P],
+    # key, n, k, out, stream
+    "grid_smallest_k": [P, I, I, P, P],
+    # mask, n, fill, out, stream
+    "grid_stable_compact": [P, I, I, P, P],
+    # P, D, H, r, m, obs_noise, work, delta_out, P_out, stream
+    "ekf_update_f32": [P, I, P, P, I, P, P, P, P, P],
+    "ekf_update_f64": [P, I, P, P, I, P, P, P, P, P],
+    # H, r, n, D, work, R_out, qtr_out, stream
+    "ekf_qr_f32": [P, P, I, I, P, P, P, P],
+    "ekf_qr_f64": [P, P, I, I, P, P, P, P],
 }
 
 _lib = None
+_lib_lock = threading.Lock()
 build_info: dict = {}
 
-# An optional callable(name, args): the back-end kernels' wrappers pass it
-# the arguments of every call they launch on the card (chip_smoke.py
-# records the main path's calls through it).
+# An optional callable(name, args): the wrappers of the back-end, grid and
+# camera kernels pass it the arguments of every call they launch on the card
+# (chip_smoke.py records the main path's calls through it).
 observer = None
 
 
@@ -146,14 +173,19 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
+    """The loaded library; the first caller builds it.  Safe to enter from
+    several threads (the streaming orchestrator's image thread may be the
+    first to launch): one builds, the others wait for it."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
+        with _lib_lock:
+            if _lib is None:
+                handle = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = handle
     return _lib
 
 

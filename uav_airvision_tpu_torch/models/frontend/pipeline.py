@@ -121,11 +121,11 @@ def _normalize_publish(ids, cam0, cam1, valid, params: FrontendParams, config: C
     F = cam0.shape[0]
     calib = config.calib
     if calib.cam0_distortion_model == calib.cam1_distortion_model:
-        def pair(a, b):
-            return torch.cat([a.expand(F), b.expand(F)])
+        def pair(a, b):  # (4, 2F): cam0's values for the first F points, then cam1's
+            return torch.cat([a[:, None].expand(4, F), b[:, None].expand(4, F)], dim=1)
 
-        intr = tuple(pair(a, b) for a, b in zip(params.cam0_intrinsics, params.cam1_intrinsics))
-        coeffs = tuple(pair(a, b) for a, b in zip(params.cam0_coeffs, params.cam1_coeffs))
+        intr = pair(params.cam0_intrinsics, params.cam1_intrinsics)
+        coeffs = pair(params.cam0_coeffs, params.cam1_coeffs)
         und = camera.undistort_points(torch.cat([cam0, cam1]), intr,
                                       calib.cam0_distortion_model, coeffs)
         und0, und1 = und[:F], und[F:]

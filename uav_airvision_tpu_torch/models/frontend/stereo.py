@@ -27,10 +27,9 @@ def stereo_match(pyr0: Pyramid, pyr1: Pyramid, cam0_pts, valid,
     R0to1 = params.R_cam1_imu.T @ params.R_cam0_imu
     model = config.calib.cam0_distortion_model
 
-    und0_rect = camera.undistort_points(cam0_pts, params.cam0_intrinsics, model,
-                                        params.cam0_coeffs, rectification=R0to1)
-    proj1 = camera.distort_points(und0_rect, params.cam0_intrinsics, model,
-                                  params.cam0_coeffs)
+    # undistort + rectify into cam1's frame, then re-distort: one K7 launch
+    _, proj1 = camera.undistort_distort_points(cam0_pts, params.cam0_intrinsics, model,
+                                               params.cam0_coeffs, R0to1)
 
     if n_fwd_levels is not None:
         n_fwd = n_fwd_levels

@@ -331,11 +331,18 @@ def _prune_sized(state: FilterState, params: MsckfParams, config: Config, rm, tw
         r_s = torch.where(include[:, None], r_blk, 0.0).reshape(Kp * 5)
         state, warn = apply_update_rank12(state, params, B, r_s, cols)
     warn = warn | (n_two > Kp)
+    return _compact_window(state, rm, count), warn
 
-    # delete the involved observations, compact the window and covariance
+
+def _compact_window(state: FilterState, rm, count: int) -> FilterState:
+    """Delete the two pruned cameras ``rm``: their observations, their window
+    slots and their covariance rows and columns, the rest moved up."""
     table, cams = state.features, state.cams
+    dtype = state.cov.dtype
+    dev = state.cov.device
+    N = table.obs_mask.shape[1]
     slots = torch.arange(N, device=dev)
-    doomed = (slots == r0) | (slots == r1)
+    doomed = (slots == rm[0]) | (slots == rm[1])
     obs_mask = table.obs_mask & ~doomed[None, :]
     keep = stable_compact_indices(~doomed, N).clamp(0, N - 1).long()
     live = slots < (count - 2)
@@ -357,7 +364,7 @@ def _prune_sized(state: FilterState, params: MsckfParams, config: Config, rm, tw
                           live.repeat_interleave(6)])
     P = state.cov[idx][:, idx]
     P = torch.where(row_live[:, None] & row_live[None, :], P, 0.0)
-    return state._replace(cams=cams, features=table, cov=P), warn
+    return state._replace(cams=cams, features=table, cov=P)
 
 
 def online_reset(state: FilterState, params: MsckfParams, config: Config):

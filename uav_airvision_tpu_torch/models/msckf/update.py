@@ -6,10 +6,11 @@ The JAX ``lax.cond`` tiers (gate bounds / 32-row gate tier, update row
 tiers T1/T2/QR) are kept as Python branches on values read back from the
 device, so each branch computes what the JAX branch computes.
 
-Three kernels carry the marginalization path on CUDA tensors, each beside
+Four kernels carry the marginalization path on CUDA tensors, each beside
 its plain PyTorch version (``<name>_plain``, which CPU tensors run):
 K9 ``feature_block`` (``csrc/feature_block.cu``), K10 ``gate_bounds`` and
-``gate_gamma`` (``csrc/gate.cu``, the two pieces of ``gating_test_batch``)
+``gate_gamma`` (``csrc/gate.cu``, the two pieces of ``gating_test_batch``),
+K11 ``ekf_update`` (``csrc/ekf_update.cu``, the update of ``apply_update``)
 and K12 ``rank12_update`` (``csrc/rank12.cu``, the update of
 ``apply_update_rank12``).
 """
@@ -354,17 +355,12 @@ def apply_update_rank12_plain(state: FilterState, params: MsckfParams, B, r, col
     return _inject_delta(state, *rank12_update_plain(state.cov, B, r, cols, params.obs_noise))
 
 
-def apply_update(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):
-    """EKF update from the stacked zero-padded buffer.  ``rows_true`` (a
-    Python int) picks the row tier: zero padding rows give zero gain columns,
-    so a prefix covering every true row is the same update; past T2 a thin
-    QR compresses the stack first.  Non-Joseph P <- P - K H P, kept."""
+def ekf_update_plain(P, H_buf, r_buf, obs_noise, rows_true=None):
     dtype = H_buf.dtype
     D = H_buf.shape[1]
-    P = state.cov
 
     def gain(H, r):
-        S = H @ P @ H.T + params.obs_noise * torch.eye(H.shape[0], dtype=dtype, device=P.device)
+        S = H @ P @ H.T + obs_noise * torch.eye(H.shape[0], dtype=dtype, device=P.device)
         HP = H @ P
         K = torch.cholesky_solve(HP, _cholesky(S), upper=False).T
         return K @ r, K @ H
@@ -380,7 +376,93 @@ def apply_update(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_tru
         Q, R = torch.linalg.qr(H_buf, mode="reduced")
         delta, KH = gain(R, Q.T @ r_buf)
     P_new = P - KH @ P
-    return _inject_delta(state, delta, (P_new + P_new.T) / 2.0)
+    return delta, (P_new + P_new.T) / 2.0
+
+
+def ekf_update(P, H_buf, r_buf, obs_noise, rows_true=None):
+    """The EKF update from the stacked zero-padded buffer: H_buf (R, D),
+    r_buf (R,), P (D, D).  ``rows_true`` (a Python int) picks the row tier:
+    zero padding rows give zero gain columns, so a prefix covering every true
+    row is the same update; past T2 a thin QR compresses the stack first.
+    Non-Joseph P <- P - K H P, kept.  Returns (delta (D,), the symmetrised
+    P_new (D, D)); a factorisation that fails gives NaN.  Kernel K11
+    (``csrc/ekf_update.cu``) on CUDA tensors; shapes are dynamic there, so
+    on the T1 and T2 tiers it takes the ``rows_true`` prefix itself."""
+    if P.device.type == "cpu":
+        return ekf_update_plain(P, H_buf, r_buf, obs_noise, rows_true)
+    if P.device.type != "cuda":
+        raise ValueError(f"K11 runs on CUDA tensors, got {P.device}")
+    kernels.observe("ekf_update", (P, H_buf, r_buf, obs_noise, rows_true))
+    out = _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true)
+    ekf_update.launches += 1
+    ekf_update.tiers[update_tier(H_buf.shape[0], H_buf.shape[1], rows_true)] += 1
+    return out
+
+
+ekf_update.launches = 0
+ekf_update.tiers = {"T1": 0, "T2": 0, "QR": 0, "all": 0}  # calls per row tier
+
+
+def update_tier(n_rows: int, D: int, rows_true) -> str:
+    """The row tier ``ekf_update`` takes: "all" (every row of a buffer no
+    taller than T2), "T1", "T2" or "QR"."""
+    T1, T2 = update_tiers(D)
+    if rows_true is None or n_rows <= T2:
+        return "all"
+    return "T1" if rows_true <= T1 else ("T2" if rows_true <= T2 else "QR")
+
+
+def _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true):
+    dtype, dev = P.dtype, P.device
+    suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
+    if suffix is None:
+        raise ValueError(f"K11 takes float32 or float64, got {dtype}")
+    P = P.contiguous()
+    H_buf, r_buf = H_buf.to(dtype).contiguous(), r_buf.to(dtype).contiguous()
+    noise = obs_noise.to(dtype).reshape(1).contiguous()
+    kernels.check_cuda(P, H_buf, r_buf, noise)
+    n_rows, D = H_buf.shape
+    if P.shape != (D, D) or r_buf.shape != (n_rows,):
+        raise ValueError(f"ekf_update: P {tuple(P.shape)}, H {tuple(H_buf.shape)}, "
+                         f"r {tuple(r_buf.shape)}")
+    if update_tiers(D)[1] > 1024:
+        raise ValueError(f"K11 factors at most 1024 rows in one block, T2 = {2 * D}")
+    tier = update_tier(n_rows, D, rows_true)
+    if tier == "QR":
+        # only the first rows_true rows hold data; the rest reflect to zeros
+        n = min(max(int(rows_true), D), n_rows)
+        work = torch.empty((n * (D + 1),), dtype=dtype, device=dev)
+        H = torch.empty((D, D), dtype=dtype, device=dev)
+        r = torch.empty((D,), dtype=dtype, device=dev)
+        kernels.launch(f"ekf_qr_{suffix}", kernels.ptr(H_buf), kernels.ptr(r_buf), n, D,
+                       kernels.ptr(work), kernels.ptr(H), kernels.ptr(r))
+    elif tier == "all":
+        H, r = H_buf, r_buf
+    else:
+        # rows past rows_true are zero padding and change nothing (the tier
+        # argument): the kernel factors the true rows only, not the tier's
+        m = max(int(rows_true), 1)
+        H, r = H_buf[:m], r_buf[:m]
+    m = H.shape[0]
+    work = torch.empty((2 * D * m + m * m + D * D,), dtype=dtype, device=dev)
+    delta = torch.empty((D,), dtype=dtype, device=dev)
+    P_new = torch.empty_like(P)
+    kernels.launch(f"ekf_update_{suffix}", kernels.ptr(P), D, kernels.ptr(H), kernels.ptr(r), m,
+                   kernels.ptr(noise), kernels.ptr(work), kernels.ptr(delta), kernels.ptr(P_new))
+    return delta, P_new
+
+
+def apply_update(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):
+    """EKF update from the stacked zero-padded buffer (``ekf_update``, kernel
+    K11 on CUDA tensors), injected into the state.  Returns (state,
+    too_large)."""
+    return _inject_delta(state, *ekf_update(state.cov, H_buf, r_buf, params.obs_noise,
+                                            rows_true))
+
+
+def apply_update_plain(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):
+    return _inject_delta(state, *ekf_update_plain(state.cov, H_buf, r_buf, params.obs_noise,
+                                                  rows_true))
 
 
 def _inject_delta(state: FilterState, delta, P_new):

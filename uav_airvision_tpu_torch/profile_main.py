@@ -10,8 +10,10 @@ first ``window[0]`` frames again and profiles frames ``window[0]:window[1]``
 with ``torch.profiler`` (CPU and CUDA activities).  From the profile:
 kernel launches per frame (``cudaLaunchKernel`` and ``cuLaunchKernel``
 calls), device time per frame (the CUDA kernels' self time) and its share
-of the window's wall time, and the most frequent kernels.  Prints one JSON
-line with the card's name and power limit.  Needs a CUDA device.
+of the window's wall time, and the most frequent kernels.  The index glue
+K15 (``augment_state``, the prune's window compaction, ``online_reset``) runs
+under profiler spans, and the launches made under each are counted.  Prints
+one JSON line with the card's name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,6 +44,36 @@ def render(n_frames: int):
     return config, pb, np.stack(cam0), np.stack(cam1)
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+K15_FUNCTIONS = ("augment_state", "_compact_window", "online_reset")
+
+
+def span_functions(module, names, prefix):
+    """Rebind ``module.<name>`` so each call runs under a profiler span
+    ``<prefix> <name>``; returns the originals for ``restore``."""
+    originals = {name: getattr(module, name) for name in names}
+    for name, fn in originals.items():
+        def spanned(*args, _fn=fn, _label=f"{prefix} {name}", **kwargs):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kwargs)
+
+        setattr(module, name, spanned)
+    return originals
+
+
+def count_under(events, prefix, names=LAUNCH_CALLS):
+    """{span: number of events named in ``names`` below it in the CPU call
+    tree} for the spans whose name starts with ``prefix``."""
+    def below(ev):
+        return sum((c.name in names) + below(c) for c in ev.cpu_children)
+
+    counts = {}
+    for ev in events:
+        if ev.name.startswith(prefix):
+            counts[ev.name] = counts.get(ev.name, 0) + below(ev)
+    return counts
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=200)
@@ -53,6 +85,7 @@ def main(argv=None):
 
     from . import device
     from .models import vio
+    from .models.msckf import step
 
     dev = device.get_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -74,17 +107,23 @@ def main(argv=None):
     state, _ = vio.run_sequence(config, head, pb.gyro_bias, pb.acc_mean)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        vio.run_sequence(config, window, pb.gyro_bias, pb.acc_mean, state=state)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
+    originals = span_functions(step, K15_FUNCTIONS, "K15")
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            vio.run_sequence(config, window, pb.gyro_bias, pb.acc_mean, state=state)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(step, name, fn)
     n = b - a
+    k15 = count_under(prof.events(), "K15")
     events = prof.key_averages()
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                         "cudaLaunchKernelExC"))
+    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+    # the spans show up on the device side too, as long as the kernels under them
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0 and not e.key.startswith("K15")]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.count)[:12]
     print(json.dumps({
@@ -92,6 +131,7 @@ def main(argv=None):
         "frames": args.frames, "frames_per_s": args.frames / wall, "wall_s": wall,
         "host_syncs_per_frame": syncs, "window": [a, b],
         "launches_per_frame": launches / n,
+        "k15_launches_per_frame": {name: c / n for name, c in sorted(k15.items())},
         "device_ms_per_frame": device_us / 1e3 / n,
         "profiled_wall_ms_per_frame": prof_wall * 1e3 / n,
         "device_busy_share": device_us / 1e6 / prof_wall,
