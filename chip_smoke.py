@@ -81,10 +81,33 @@
    sample of its own timestamp, so this run is held to the ground truth
    (>= 150 finite poses, ATE max under ATE_BAR_M, every kernel launched, no
    thread died), not to the batch run's digits.
-7. Prints the per-kernel JSON line (launches of the batch run, max error,
-   ms, plain ms, the bound and what binds it, the library call's ms where
-   one PyTorch call does most of the function), then the result line
-   ``{"ok": true, "device": {...}}`` last.  Any failure exits nonzero.
+7. [compact]: the bench world through ``run_sequence`` under
+   ``frontend.lk_compact_windows`` with the triangulation motion check on
+   (``translation_threshold`` 0.05 m), warm (recorded) and timed, counters
+   at 0 before the timed run.  Checks: every kernel of that path launched
+   (P1 and K1's level entry in place of K1's one launch), the motion check
+   rejected some features, >= 150 active finite poses, ATE max under
+   COMPACT_ATE_BAR_M, the first 40 frames within 1e-4 m of the host path.
+   Prints frames/s, host syncs and CUDA launches per frame (torch.profiler
+   over PROFILE_WINDOW).  Then [P1]: ``extract_windows`` bit-exact against
+   its plain version on every recorded call, timed beside one indexing
+   call that gathers the same windows; and [K1 level]: K1's level entry
+   against its plain version on the recorded calls (K1's bars).
+8. [exact]: the compat facade (``ImageProcessor`` / ``MSCKF``) message by
+   message over the same frames under the reference-semantics
+   configuration (scripts/diag_long_drift.py's ``exact`` variant plus the
+   stacked camera-prune update ``prune_rank12=False``), counters at 0
+   before it.  Checks: every kernel of that path launched, >= 150 finite
+   poses, ATE max under EXACT_ATE_BAR_M, the poses within FACADE_TOL_M of
+   ``run_sequence``'s under the same configuration, and every EKF update
+   it took on the QR tier (real stacked-prune calls) against the float64
+   plain version with check_ekf_update's float32 bars.  Prints the row
+   tiers, frames/s, host syncs and CUDA launches per frame.
+9. Prints the per-kernel JSON line (launches of the batch run, for P1 of
+   the compact run; max error, ms, plain ms, the bound and what binds it,
+   the library call's ms where one PyTorch call does most of the
+   function), then the result line ``{"ok": true, "device": {...}}`` last.
+   Any failure exits nonzero.
 
 Bounds: bytes each input read once and each output written once over
 3.35 TB/s, against the operations counted from this run's shapes over
@@ -115,6 +138,21 @@ STREAM_TOL_M = 1e-4  # streamed poses against the batch run's (equal windows: ~1
 PX_ULP = 2.0 ** -14  # one float32 ulp at 752 px (6.1e-5 px)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# The two further configurations, as tools/jax_ate_bar.py defines them, and
+# their bars: 1.25 x the JAX package's ATE max on the same 200 frames
+# rendered without cv2 (CPU; PERF.md): compact 0.032856 m, exact 0.027146 m
+VARIANTS = {
+    "compact": {"frontend": {"lk_compact_windows": True},
+                "triangulation": {"translation_threshold": 0.05}},
+    "exact": {"frontend": {"lk_max_iteration": 30, "lk_max_iteration_upper": 0,
+                           "lk_temporal_levels": 0, "stereo_seeded": False,
+                           "stereo_full_backward": True, "exact_adder_mask": True},
+              "filter": {"prune_rank12": False}},
+}
+COMPACT_ATE_BAR_M = 0.0411
+EXACT_ATE_BAR_M = 0.0339
+FACADE_TOL_M = 1e-3  # facade poses against run_sequence's (another time base)
+PROFILE_WINDOW = (100, 130)  # frames profiled for the variants' launches per frame
 
 
 FAILURES: list = []
@@ -160,6 +198,14 @@ def bound(n_bytes: float, ops: float):
     bytes over the memory rate or operations over the float32 rate."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def variant_config(config, name):
+    import dataclasses
+
+    return dataclasses.replace(config, **{
+        group: dataclasses.replace(getattr(config, group), **fields)
+        for group, fields in VARIANTS[name].items()})
 
 
 def render_bench_world(n_frames: int):
@@ -209,12 +255,23 @@ def check_kernels(config, frames, dev):
     # ~20 integer operations per output pixel (two separable 5-tap passes)
     k2_bound = bound(nbytes(cam0, got.flat),
                      20 * sum(lv.numel() for lv in got.levels[1:]))
+    # the library's pyramid step: F.conv2d of the 5x5 binomial at stride 2
+    # on each REFLECT_101-padded level (padded beforehand), three steps summed
+    import torch.nn.functional as tnf
+
+    w5 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev)
+    k5 = (w5[:, None] * w5[None, :] / 256.0).reshape(1, 1, 5, 5)
+    pad = pyramid.LK_PAD
+    srcs = [tnf.pad(lv[pad:-pad, pad:-pad][None, None], (2, 2, 2, 2), mode="reflect")
+            for lv in got.levels[:-1]]
+    k2_lib = sum(cuda_ms(lambda x=x: tnf.conv2d(x, k5, stride=2)) for x in srcs)
     res["K2"] = (0.0,
                  cuda_ms(lambda: pyramid.build_pyramid_padded(cam0, fe.pyramid_levels)),
                  cuda_ms(lambda: pyramid.build_pyramid_padded_plain(cam0, fe.pyramid_levels)),
-                 *k2_bound)
+                 *k2_bound, k2_lib)
     print(f"[K2] pyramid 480x752 -> 4 padded levels: exact; "
-          f"{res['K2'][1]:.4f} ms vs plain {res['K2'][2]:.4f} ms")
+          f"{res['K2'][1]:.4f} ms vs plain {res['K2'][2]:.4f} ms; F.conv2d 5x5 stride 2 on "
+          f"the three padded levels {k2_lib:.4f} ms")
 
     # K4+K6: FAST + the 104-point detection mask + NMS, exactly equal
     pts, valid = state.cam0, state.valid
@@ -351,18 +408,31 @@ class Recorder:
         "distort_points": ("K7 distort_points", lambda a: a[0].shape[0]),
         "undistort_distort_points": ("K7 undistort_distort_points", lambda a: a[0].shape[0]),
         "homography_warp_points": ("K7 homography_warp_points", lambda a: a[0].shape[0]),
+        "extract_windows": ("P1", lambda a: (a[1].shape[0], a[3])),
+        "pyramidal_lk_level": ("K1 level", lambda a: (a[2].shape[0], a[6])),
     }
 
     def __init__(self):
         self.calls, self.counts, self.history = {}, {}, {}
+        self.qr_calls = []  # every EKF update on the QR tier
+        self.motion = None  # [features the motion check decided, rejected], on the card
 
     def __call__(self, name, args):
+        if name == "check_motion":  # count on the card: no host read in the run
+            import torch
+
+            need, ok = args
+            n = torch.stack([need.sum(), (need & ~ok).sum()])
+            self.motion = n if self.motion is None else self.motion + n
+            return
         label, shape = self.KEYS[name]
         key = (label, shape(args))
         self.calls[key] = args
         n = self.counts[key] = self.counts.get(key, 0) + 1
         if n <= 2 or n % 40 == 0:  # a few earlier calls of each shape, too
             self.history.setdefault(key, []).append(args)
+        if key == ("K11", "QR"):
+            self.qr_calls.append(args)
 
     def __enter__(self):
         from uav_airvision_tpu_torch import kernels
@@ -496,11 +566,15 @@ def check_backend_kernels(rec: Recorder, config, params):
         # of ~5 FLOP per entry over the 4 n_obs x (4 + 6 n_obs) live tile
         ops = float((n_obs * 400 + 15 * 4 * n_obs * (4 + 6 * n_obs)).sum())
         b = bound(nbytes(*a[:10], H, r, rows), ops)
+        # the library's nullspace basis: a complete QR of the stacked feature
+        # Jacobians H_f (B, 4N, 3), from which the projection is one product
+        Hf = upd.stacked_tile(*a[:10])[0][:, :, :3].contiguous()
+        lib = cuda_ms(lambda: torch.linalg.qr(Hf, mode="complete"))
         print(f"[K9] feature_block B={B} x N={N} -> {tuple(H.shape)}: error {err:.3e} of the "
-              f"block maximum; {ms:.4f} ms vs plain {pms:.4f} ms; bound {b[0] * 1e3:.3f} us "
-              f"({b[1]})")
+              f"block maximum; {ms:.4f} ms vs plain {pms:.4f} ms; torch.linalg.qr of the "
+              f"{tuple(Hf.shape)} H_f stack {lib:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
         if (B, N) == rec.most_frequent("K9"):
-            res["K9"] = (abs_err, ms, pms, *b)
+            res["K9"] = (abs_err, ms, pms, *b, lib)
 
     # K10: the recorded gate calls at forced residual scales and row tiers
     gates = rec.of("K10")
@@ -565,10 +639,16 @@ def check_backend_kernels(rec: Recorder, config, params):
             ops += float((2 * nz * D * D + nz * (nz + 1) * D + nz ** 3 / 3 + nz ** 2).sum())
             n_bytes += nbytes(*a) + H.element_size() * H.shape[0]
         timed.append(f"{entry} {shape} ({rec.counts[(f'K10 {entry}', shape)]} calls)")
+        if entry == "gamma":  # the library's factorisation of the same S
+            cov, noise = a[2], a[3]
+            S = (H @ cov @ H.transpose(1, 2)
+                 + noise * torch.eye(H.shape[1], dtype=H.dtype, device=H.device))
+            lib = cuda_ms(lambda: torch.linalg.cholesky_ex(S))
     b = bound(n_bytes, ops)
     print(f"[K10] {' + '.join(timed)}: {ms:.4f} ms vs plain {pms:.4f} ms; "
-          f"bound {b[0] * 1e3:.3f} us ({b[1]})")
-    res["K10"] = (gate_err, ms, pms, *b)
+          f"torch.linalg.cholesky_ex of gamma's S {lib:.4f} ms; bound {b[0] * 1e3:.3f} us "
+          f"({b[1]})")
+    res["K10"] = (gate_err, ms, pms, *b, lib)
 
     # K12: the recorded prune updates, and one with an exactly singular P12
     calls = rec.of("K12")
@@ -597,10 +677,17 @@ def check_backend_kernels(rec: Recorder, config, params):
         # 26 FLOP per entry of sym(P - Pc G Pc')
         ops = 2 * n * 156 + 3 * 12 ** 3 + 13 * 144 + 2 * D * 156 + 26 * D * D
         b = bound(nbytes(P, Bm, rr, cols, noise, delta, P_new), ops)
+        # the library's solve of the same 12x12 system W X = [B'r | B'B]
+        P12 = P[cols][:, cols]
+        BtB = Bm.T @ Bm
+        W = noise * torch.eye(12, dtype=P.dtype, device=P.device) + BtB @ P12
+        rhs = torch.cat([(Bm.T @ rr)[:, None], BtB], dim=1)
+        lib = cuda_ms(lambda: torch.linalg.solve(W, rhs))
         print(f"[K12] rank-12 update, {label}, P12 rank {rank}: error {err:.3e}; {ms:.4f} ms "
-              f"vs plain {pms:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
+              f"vs plain {pms:.4f} ms; torch.linalg.solve of the 12x12 system {lib:.4f} ms; "
+              f"bound {b[0] * 1e3:.3f} us ({b[1]})")
         if label == f"B {rec.most_frequent('K12')}":
-            res["K12"] = (err, ms, pms, *b)
+            res["K12"] = (err, ms, pms, *b, lib)
     return res
 
 
@@ -747,10 +834,14 @@ def check_gridops(rec: Recorder):
     # of n keys, n log2 n comparisons of ~3 operations (cell, primary, arrival)
     ops = sum(3 * a[0].shape[0] * math.log2(max(a[0].shape[0], 2)) for _, _, a in timed)
     b = bound(n_bytes, ops)
+    # the library: one stable torch.sort of each entry point's n keys
+    keys = [a[0].to(torch.int64).contiguous() for _, _, a in timed]
+    lib = sum(cuda_ms(lambda k=k: torch.sort(k, stable=True)) for k in keys)
     print(f"[K8] {n_calls} recorded calls, n in {sorted(shapes)}: exact; "
           f"{' + '.join(f'{k[3:]} {sh}' for k, sh, _ in timed)}: {ms:.4f} ms vs plain "
-          f"{pms:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
-    res["K8"] = (0.0, ms, pms, *b, None)
+          f"{pms:.4f} ms; torch.sort(stable=True) of the same n keys {lib:.4f} ms; "
+          f"bound {b[0] * 1e3:.3f} us ({b[1]})")
+    res["K8"] = (0.0, ms, pms, *b, lib)
     return res
 
 
@@ -994,6 +1085,274 @@ def run_stream(config, world, imu, fts, cam0, cam1, batch_t, batch_p, wrappers, 
     return launches
 
 
+def check_extract(rec: Recorder):
+    """P1 against its plain version on the compact run's recorded calls:
+    bit-exact.  Times at the most frequent shape, beside one indexing call
+    that gathers the same windows."""
+    import torch
+
+    from uav_airvision_tpu_torch.ops import extract
+
+    calls = rec.samples("P1")
+    if not calls:
+        fail("the compact run made no window extract call")
+        return {}
+    err = 0.0
+    for shape, a in calls:
+        got, want = extract.extract_windows(*a), extract.extract_windows_plain(*a)
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            fail(f"P1 extract_windows {shape} differs from its plain version")
+    shape = rec.most_frequent("P1")
+    level, oy, ox, n = rec.of("P1")[shape]
+    a = (level, oy, ox, n)
+    ms = cuda_ms(lambda: extract.extract_windows(*a))
+    pms = cuda_ms(lambda: extract.extract_windows_plain(*a), reps=10)
+    ar = torch.arange(n, device=level.device)
+    rows = (oy.long()[:, None] + ar)[:, :, None]
+    cols = (ox.long()[:, None] + ar)[:, None, :]
+    lib = cuda_ms(lambda: level[rows, cols])
+    F = oy.shape[0]
+    b = bound(2 * F * n * n * level.element_size() + 2 * F * oy.element_size(), 0.0)
+    print(f"[P1] extract_windows, {len(calls)} recorded calls (F, n) in "
+          f"{sorted({sh for sh, _ in calls})}: bit-exact; at {shape} "
+          f"({rec.counts[('P1', shape)]} calls) {ms:.4f} ms vs plain {pms:.4f} ms; the "
+          f"indexing call level[rows, cols] {lib:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
+    return {"P1": (err, ms, pms, *b, lib)}
+
+
+def check_lk_level(rec: Recorder):
+    """K1's level entry against its plain version on the compact run's
+    recorded calls: at level 0 the status agrees on >= 99% of points and
+    points that both track lie within 1e-3 px (K1's bar); above level 0
+    >= 99% of the valid points lie within 1e-3 px and the next level's
+    window origins agree on >= 99%.  Timed at the most frequent shape."""
+    import torch
+
+    from uav_airvision_tpu_torch.ops import lk
+
+    calls = rec.samples("K1 level")
+    if not calls:
+        fail("the compact run made no K1 level call")
+        return
+    worst = 0.0
+    for shape, a in calls:
+        kp, kd, ks = lk.pyramidal_lk_level(*a)
+        pp, pd, ps = lk.pyramidal_lk_level_plain(*a)
+        valid, L = a[3], a[6]
+        if L == 0:
+            agree = float((ks == ps).float().mean())
+            both = ks & ps
+            err = float((kp - pp)[both].abs().max()) if bool(both.any()) else 0.0
+            ok = agree >= 0.99 and err <= 1e-3
+            what = f"status agreement {agree:.4f}, max err {err:.3e} px"
+        else:
+            close = ((kp - pp).abs().amax(1) <= 1e-3)[valid]
+            des_same = (kd == pd).all(1)[valid]
+            agree = float(close.float().mean()) if len(close) else 1.0
+            err = float((kp - pp)[valid].abs().amax(1)[close].max()) if bool(close.any()) else 0.0
+            d_agree = float(des_same.float().mean()) if len(des_same) else 1.0
+            ok = agree >= 0.99 and d_agree >= 0.99
+            what = (f"{agree:.4f} of valid points within 1e-3 px (max {err:.3e}), next "
+                    f"origins equal on {d_agree:.4f}")
+        worst = max(worst, err)
+        if not ok:
+            fail(f"K1 level entry {shape}: {what}")
+    shape = rec.most_frequent("K1 level")
+    a = rec.of("K1 level")[shape]
+    ms = cuda_ms(lambda: lk.pyramidal_lk_level(*a))
+    pms = cuda_ms(lambda: lk.pyramidal_lk_level_plain(*a), reps=10)
+    print(f"[K1 level] pyramidal_lk_level, {len(calls)} recorded calls (F, L) in "
+          f"{sorted({sh for sh, _ in calls})}: within the bars (max err {worst:.3e} px); at "
+          f"{shape} ({rec.counts[('K1 level', shape)]} calls) {ms:.4f} ms vs plain {pms:.4f} ms")
+
+
+def profile_launches(config, frames, pb):
+    """CUDA launches per frame of ``run_sequence`` under ``config`` over
+    PROFILE_WINDOW (torch.profiler, as profile_main.py counts them)."""
+    import torch
+
+    from uav_airvision_tpu_torch.models import vio
+    from uav_airvision_tpu_torch.profile_main import LAUNCH_CALLS
+
+    a, b = PROFILE_WINDOW
+    state, _ = vio.run_sequence(config, vio.VioFrame(*(x[:a] for x in frames)), pb.gyro_bias,
+                                pb.acc_mean)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        vio.run_sequence(config, vio.VioFrame(*(x[a:b] for x in frames)), pb.gyro_bias,
+                         pb.acc_mean, state=state)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS) / (b - a)
+
+
+def _zero(wrappers):
+    for fns in wrappers.values():
+        for fn in fns:
+            fn.launches = 0
+
+
+def _per_entry(wrappers):
+    return {f"{name} {fn.__name__}": fn.launches for name, fns in wrappers.items() for fn in fns}
+
+
+def run_compact(base, frames, pb, world, wrappers, off_path):
+    """[compact]: the bench world through run_sequence under
+    frontend.lk_compact_windows with the triangulation motion check on.
+    ``off_path``: the entry points this configuration does not run.
+    Returns (per-entry launches of the timed run, P1's result)."""
+    import numpy as np
+    import torch
+
+    from uav_airvision_tpu_torch import device
+    from uav_airvision_tpu_torch.models import vio
+
+    config = variant_config(base, "compact")
+    with Recorder() as rec:
+        vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
+    torch.cuda.synchronize()
+    decided, rejected = (int(x) for x in rec.motion.cpu()) if rec.motion is not None else (0, 0)
+    _zero(wrappers)
+    syncs0 = device.host_syncs["sync"]
+    t0 = time.time()
+    _, outs = vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    syncs = (device.host_syncs["sync"] - syncs0) / N_FRAMES
+    per_entry = _per_entry(wrappers)
+    n = frames.timestamp.shape[0]
+    print(f"[compact] timed run: {n} frames in {wall:.3f} s = {n / wall:.2f} frames/s; "
+          f"{syncs:.2f} host syncs/frame; P1 {per_entry['P1 extract_windows'] / n:.2f} and K1 "
+          f"level {per_entry['K1 pyramidal_lk_level'] / n:.2f} launches/frame; launches "
+          f"{per_entry}")
+    for name, k in per_entry.items():
+        if k == 0 and name not in off_path:
+            fail(f"[compact] the compact path never launched kernel {name}")
+    print(f"[compact] motion check (translation_threshold "
+          f"{config.triangulation.translation_threshold} m): {rejected} of {decided} features "
+          f"rejected before triangulation (warm run)")
+    if rejected == 0:
+        fail("[compact] the motion check rejected no feature")
+    act = outs.active.cpu().numpy()
+    p = outs.p.cpu().numpy()
+    if not np.isfinite(p).all() or act.sum() < MIN_ACTIVE:
+        fail(f"[compact] {int(act.sum())} active frames, finite poses {np.isfinite(p).all()}")
+    err = np.linalg.norm(p[act] - world.groundtruth(pb.timestamps[act]), axis=1)
+    print(f"[compact] {int(act.sum())} active frames; ATE max {float(err.max()):.5f} m, rmse "
+          f"{float(np.sqrt(np.mean(err ** 2))):.5f} m (bar {COMPACT_ATE_BAR_M} m)")
+    if not float(err.max()) < COMPACT_ATE_BAR_M:
+        fail(f"[compact] ATE max {float(err.max()):.5f} m is not under the bar")
+    n_ref = 40
+    _, ref = vio.run_sequence(config, vio.VioFrame(*(x[:n_ref].cpu() for x in frames)),
+                              pb.gyro_bias, pb.acc_mean)
+    ref_act = ref.active.numpy()
+    dp = float(np.abs(ref.p.numpy()[ref_act] - p[:n_ref][ref_act]).max())
+    print(f"[compact] first {n_ref} frames against the plain PyTorch path on the host: max "
+          f"pose difference {dp:.3e} m over {int(ref_act.sum())} active frames")
+    if not np.array_equal(ref_act, act[:n_ref]) or not dp < 1e-4:
+        fail(f"[compact] the card's poses differ from the host reference by {dp:.3e} m")
+    print(f"[compact] CUDA launches per frame over frames {PROFILE_WINDOW}: "
+          f"{profile_launches(config, frames, pb):.1f}")
+    check_lk_level(rec)
+    return per_entry, check_extract(rec)
+
+
+def run_exact(base, world, imu, fts, cam0, cam1, frames, pb, wrappers, off_path):
+    """[exact]: the compat facade, message by message, over the bench world
+    under the reference-semantics configuration (scripts/diag_long_drift.py's
+    exact variant + the stacked camera-prune update), held to run_sequence
+    under the same configuration and to the ATE bar; every EKF update of the
+    QR tier checked against the float64 plain version."""
+    import numpy as np
+    import torch
+
+    from uav_airvision_tpu_torch import compat, device
+    from uav_airvision_tpu_torch.models import vio
+    from uav_airvision_tpu_torch.models.msckf import update as upd
+    from uav_airvision_tpu_torch.streaming.dataset import imu_msg, stereo_msg
+
+    config = variant_config(base, "exact")
+    dev = frames.cam0.device
+    ip, filt = compat.ImageProcessor(config, dev), compat.MSCKF(config, dev)
+    imu_t, imu_w, imu_a = imu
+    _zero(wrappers)
+    upd.ekf_update.tiers = dict.fromkeys(upd.ekf_update.tiers, 0)
+    syncs0 = device.host_syncs["sync"]
+    results, k = [], 0
+    t0 = time.time()
+    with Recorder() as rec:
+        for t, c0, c1 in zip(fts, cam0, cam1):
+            while k < len(imu_t) and imu_t[k] <= t:
+                m = imu_msg(imu_t[k], imu_w[k], imu_a[k])
+                ip.imu_callback(m)
+                filt.imu_callback(m)
+                k += 1
+            out = filt.feature_callback(ip.stereo_callback(stereo_msg(t, c0, c1, None, None)))
+            if out is not None:
+                results.append(out)
+    wall = time.time() - t0
+    syncs = (device.host_syncs["sync"] - syncs0) / len(fts)
+    per_entry = _per_entry(wrappers)
+    tiers = dict(upd.ekf_update.tiers)
+    print(f"[exact] facade: {len(fts)} frames in {wall:.3f} s = {len(fts) / wall:.2f} frames/s, "
+          f"{len(results)} poses; {syncs:.2f} host syncs/frame; EKF updates per row tier "
+          f"{tiers}; launches {per_entry}")
+    for name, n in per_entry.items():
+        if n == 0 and name not in off_path:
+            fail(f"[exact] the facade's path never launched kernel {name}")
+    ts = np.array([r.timestamp for r in results])
+    pos = np.array([r.position for r in results])
+    if len(results) < MIN_ACTIVE or not np.isfinite(pos).all():
+        fail(f"[exact] {len(results)} poses, finite {np.isfinite(pos).all()}")
+        return
+    err = np.linalg.norm(pos - world.groundtruth(ts), axis=1)
+    print(f"[exact] ATE max {float(err.max()):.5f} m, rmse {float(np.sqrt(np.mean(err ** 2))):.5f}"
+          f" m (bar {EXACT_ATE_BAR_M} m)")
+    if not float(err.max()) < EXACT_ATE_BAR_M:
+        fail(f"[exact] ATE max {float(err.max()):.5f} m is not under the bar")
+    _, outs = vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
+    act = outs.active.cpu().numpy()
+    bt = pb.time_base + outs.timestamp.cpu().numpy().astype(np.float64)[act]
+    bp = outs.p.cpu().numpy()[act]
+    if len(bt) != len(ts) or not np.abs(bt - ts).max() < 1e-5:
+        fail(f"[exact] the facade published {len(ts)} poses, run_sequence {len(bt)}")
+    else:
+        dp = float(np.abs(bp - pos).max())
+        print(f"[exact] facade against run_sequence on the same frames: max pose difference "
+              f"{dp:.3e} m over {len(ts)} poses (tolerance {FACADE_TOL_M} m)")
+        if not dp < FACADE_TOL_M:
+            fail(f"[exact] the facade's poses differ from run_sequence's by {dp:.3e} m")
+    print(f"[exact] CUDA launches per frame over frames {PROFILE_WINDOW} (run_sequence): "
+          f"{profile_launches(config, frames, pb):.1f}")
+    # every QR-tier update of the facade's run against the float64 plain version
+    qr = None
+    for P, H, r, noise, rows in rec.qr_calls:
+        want_d, want_P = upd.ekf_update_plain(P.double(), H.double(), r.double(), noise.double(),
+                                              rows)
+        sc_d, sc_P = float(want_d.abs().max()), max(float(want_P.abs().max()), 1.0)
+        d, Pn = upd.ekf_update(P, H, r, noise, rows)
+        pd, pPn = upd.ekf_update_plain(P, H, r, noise, rows)
+        e_d, e_P = float((d - want_d).abs().max()), float((Pn - want_P).abs().max())
+        p_d, p_P = float((pd - want_d).abs().max()), float((pPn - want_P).abs().max())
+        ok = e_d <= max(1e-4 * sc_d, 4 * p_d) and e_P <= max(1e-5 * sc_P, 4 * p_P)
+        if not (ok and torch.equal(Pn, Pn.T) and bool(torch.isfinite(Pn).all())):
+            fail(f"[exact] K11 QR {rows} rows: delta error {e_d:.3e} of {sc_d:.3e} (plain "
+                 f"{p_d:.3e}), P error {e_P:.3e} of {sc_P:.3e} (plain {p_P:.3e})")
+        qr = (max(e_d / sc_d, qr[0] if qr else 0.0), max(e_P / sc_P, qr[1] if qr else 0.0),
+              (P, H, r, noise, rows))
+    if qr is None:
+        print("[exact] the stacked prune took no QR-tier update")
+        return
+    a = qr[2]
+    ms = cuda_ms(lambda: upd.ekf_update(*a))
+    pms = cuda_ms(lambda: upd.ekf_update_plain(*a), reps=10)
+    print(f"[exact] K11 on the QR tier: {len(rec.qr_calls)} real calls (stacked prune, "
+          f"{a[1].shape[0]}-row buffer), float32 against the float64 plain version: delta within "
+          f"{qr[0]:.3e} of its max, P within {qr[1]:.3e} of max(|P|, 1); the last call "
+          f"({a[4]} true rows) {ms:.4f} ms vs plain {pms:.4f} ms")
+
+
 def main() -> int:
     try:
         import torch
@@ -1001,6 +1360,7 @@ def main() -> int:
         fatal("PyTorch is not installed")
     if not torch.cuda.is_available():
         fatal("torch.cuda.is_available() is False: this smoke test needs a GPU")
+    t_start = time.time()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
@@ -1014,7 +1374,7 @@ def main() -> int:
     from uav_airvision_tpu_torch.models import vio
     from uav_airvision_tpu_torch.models.msckf import propagation, triangulation, update
     from uav_airvision_tpu_torch.models.msckf.state import make_params
-    from uav_airvision_tpu_torch.ops import camera, fast, gridops, lk, pyramid
+    from uav_airvision_tpu_torch.ops import camera, extract, fast, gridops, lk, pyramid
 
     dev = device.get_device("cuda")
     t0 = time.time()
@@ -1047,7 +1407,8 @@ def main() -> int:
     results.update(check_camera(rec))
 
     # every entry point the main path launches (camera.distort_points runs
-    # there only inside the fused stereo prologue)
+    # there only inside the fused stereo prologue); P1 and K1's level entry
+    # run on the compact path only
     wrappers = {"K1": [lk.pyramidal_lk], "K2": [pyramid.build_pyramid_padded],
                 "K4+K6": [fast.detect_fast], "K14": [propagation.propagate],
                 "K13": [triangulation.triangulate], "K9": [update.feature_block],
@@ -1130,6 +1491,21 @@ def main() -> int:
     for lagged in (True, False):
         run_stream(config, world, imu, fts, cam0, cam1, batch_t, p[act].astype(np.float64),
                    wrappers, lagged=lagged)
+
+    # the two further configurations, each with every counter at 0 before it
+    every = {**wrappers, "K1": [lk.pyramidal_lk, lk.pyramidal_lk_level],
+             "P1": [extract.extract_windows]}
+    t0 = time.time()
+    compact_launches, p1 = run_compact(config, frames, pb, world, every,
+                                       off_path={"K1 pyramidal_lk"})
+    results.update(p1)
+    t1 = time.time()
+    run_exact(config, world, imu, fts, cam0, cam1, frames, pb, every,
+              off_path={"K1 pyramidal_lk_level", "P1 extract_windows", "K12 rank12_update"})
+    print(f"[time] {time.time() - t_start:.1f} s in all; [compact] {t1 - t0:.1f} s, [exact] "
+          f"{time.time() - t1:.1f} s")
+    launches["P1"] = compact_launches["P1 extract_windows"]
+    sources["P1"] = ("extract.cu", "scripts/exp_gather.py:82", "extract_windows")
 
     if FAILURES:
         fatal(f"{len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))

@@ -30,6 +30,7 @@ from uav_airvision_tpu_torch.models.msckf import state as tstate
 from uav_airvision_tpu_torch.models.msckf import step as tstep
 from uav_airvision_tpu_torch.models.msckf import triangulation as ttri
 from uav_airvision_tpu_torch.models.msckf import update as tupd
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
 JAX_TYPES = {c.__name__: c for c in (jstate.FilterState, jstate.ImuState, jstate.CamWindow,
@@ -411,17 +412,192 @@ def test_convert_round_trip_exact(port_run):
             np.testing.assert_allclose(b.numpy(), c.numpy(), rtol=1e-6, atol=1e-7)
 
 
-def test_unported_options_raise():
-    from uav_airvision_tpu_torch.models.frontend import pipeline as tpipe
+# every option of the port's config that the default path leaves off, with
+# the JAX package's field names; each must run (none raises)
+OPTIONS = [("frontend", dict(exact_adder_mask=True)), ("frontend", dict(stereo_full_backward=True)),
+           ("frontend", dict(stereo_seeded=False)), ("frontend", dict(stereo_fwd_levels=2)),
+           ("frontend", dict(lk_compact_windows=True)),
+           ("frontend", dict(stereo_seed_fallback=False)),
+           ("filter", dict(prune_rank12=False)), ("triangulation", dict(translation_threshold=0.05))]
 
-    for fe in (dict(exact_adder_mask=True), dict(stereo_full_backward=True),
-               dict(stereo_seeded=False), dict(stereo_fwd_levels=2),
-               dict(lk_compact_windows=True)):
-        cfg = tconfig.euroc_config()
-        cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, **fe))
-        with pytest.raises(NotImplementedError):
-            tpipe.check_supported(cfg)
-    cfg = tconfig.euroc_config()
-    cfg = dataclasses.replace(cfg, filter=dataclasses.replace(cfg.filter, prune_rank12=False))
-    with pytest.raises(NotImplementedError):
-        tstep.check_supported(cfg)
+
+def _run_frames(state, params, cfg, frames, ks):
+    outs = []
+    for k in ks:
+        fr = tstep.FrameInput(**{n: (v if n == "active" else torch.as_tensor(v))
+                                 for n, v in frames[k].items()})
+        state, out = tstep.backend_step(state, fr, params, cfg)
+        outs.append(out)
+    return state, outs
+
+
+def test_ported_options_run(scenario64, blocks):
+    """Each of the eight options that the port refused before it ported them
+    runs: the front-end ones through two frames of frontend_step (first
+    frame, then tracking), the back-end ones through frames 41-44 of the
+    oracle scenario (lost-feature updates and a camera prune)."""
+    from uav_airvision_tpu_torch.models.frontend import pipeline as tpipe
+    from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
+    from tests.test_torch_ops import shifted, textured
+
+    frames = scenario64[2]
+    state41, params, _ = blocks
+    base = tconfig.euroc_config()
+    img0 = textured(120, 160, seed=3, cell=5)
+    img2 = shifted(img0, 1.5, -0.8)
+    pairs = [(torch.as_tensor(a), torch.as_tensor(shifted(a, -6.0, 0.4))) for a in (img0, img2)]
+    for group, over in OPTIONS:
+        cfg = dataclasses.replace(base, **{group: dataclasses.replace(getattr(base, group),
+                                                                      **over)})
+        if group == "frontend":
+            fparams = make_frontend_params(cfg, CPU)
+            st = tpipe.init_frontend_state(cfg, CPU)
+            for c0, c1 in pairs:
+                st, out = tpipe.frontend_step(st, c0, c1, torch.zeros(3), torch.tensor(0.05),
+                                              fparams, cfg)
+            assert int(out.mask.sum()) > 0 and torch.isfinite(out.uv).all(), over
+        else:
+            cfg = dataclasses.replace(cfg, dtype="float64")
+            _, outs = _run_frames(state41, params, cfg, frames, range(41, 45))
+            assert any(int(o.n_prune_feats) > 0 for o in outs), over
+            assert all(torch.isfinite(o.p).all() for o in outs), over
+
+
+@pytest.fixture(scope="module")
+def pre_prune(scenario64, blocks):
+    """The port's float64 filter state as the first camera prune after frame
+    41 receives it (a full 20-camera window), captured from backend_step."""
+    cfg, _, frames = scenario64
+    state41, params, _ = blocks
+    captured = []
+    orig = tstep.prune_cam_states
+
+    def spy(state, params, config, count):
+        if count >= config.filter.max_cam_state_size:
+            captured.append((state, count))
+        return orig(state, params, config, count)
+
+    tstep.prune_cam_states = spy
+    try:
+        _run_frames(state41, params, port_config(cfg), frames, range(41, 45))
+    finally:
+        tstep.prune_cam_states = orig
+    state, count = captured[0]
+    return state, params, count
+
+
+@pytest.mark.parametrize("rank12", [True, False], ids=["rank12", "stacked"])
+def test_prune_cam_states_matches_jax(pre_prune, rank12):
+    """The camera prune under both update forms against JAX
+    ``prune_cam_states`` on the same state, float64 within 1e-9 (the bars of
+    test_apply_update_matches_jax).  ``stacked`` (filter.prune_rank12=False)
+    scatters the gated 5-row blocks into the max_prune_rows buffer in map
+    order and runs the EKF update (K11's plain version) on its row tier."""
+    state, params, count = pre_prune
+    cfg = euroc_config(dtype="float64")
+    cfg = dataclasses.replace(cfg, filter=dataclasses.replace(cfg.filter, prune_rank12=rank12))
+    tcfg = port_config(cfg)
+    jst, jparams = to_jax(state), to_jax(params)
+    want, jwarn = jax.jit(functools.partial(jstep.prune_cam_states, params=jparams,
+                                            config=cfg))(jst)
+    got, twarn, n_two = tstep.prune_cam_states(state, params, tcfg, count)
+    assert n_two > 0
+    for a, b, name in ((got.imu.p, want.imu.p, "p"), (got.imu.q, want.imu.q, "q"),
+                       (got.cams.p, want.cams.p, "cams.p"), (got.cams.q, want.cams.q, "cams.q"),
+                       (got.cov, want.cov, "cov")):
+        assert_close(a.numpy(), b, 1e-9, name)
+    assert int(got.cams.count) == int(want.cams.count) == count - 2
+    np.testing.assert_array_equal(got.features.obs_mask.numpy(), np.asarray(want.features.obs_mask))
+    assert bool(twarn) == bool(jwarn)
+    # the two forms are the same update
+    other = dataclasses.replace(tcfg, filter=dataclasses.replace(tcfg.filter,
+                                                                 prune_rank12=not rank12))
+    alt, _, _ = tstep.prune_cam_states(state, params, other, count)
+    assert_close(alt.cov.numpy(), got.cov.numpy(), 1e-9, "rank-12 vs stacked")
+
+
+@pytest.mark.parametrize("threshold", [0.2, 0.4, 0.6])
+def test_check_motion_matches_jax(threshold):
+    """The triangulation motion check (translation_threshold >= 0) against
+    JAX ``check_motion`` per feature: identical decisions."""
+    rng = np.random.default_rng(int(threshold * 100))
+    cam_q, cam_p, obs, mask, R, t = _random_views_inputs(rng, 48)
+    tri_cfg = dataclasses.replace(euroc_config().triangulation, translation_threshold=threshold)
+    t_tri_cfg = dataclasses.replace(tconfig.euroc_config().triangulation,
+                                    translation_threshold=threshold)
+
+    @jax.jit
+    def jax_motion(obs, mask):
+        def one(o, m):
+            views = jtri.build_views(jnp.asarray(cam_q), jnp.asarray(cam_p), o, m,
+                                     jnp.asarray(R), jnp.asarray(t))
+            first_z = o[jnp.argmax(m), :2]
+            return jtri.check_motion(views, m, first_z, tri_cfg, jnp.asarray(cam_q),
+                                     jnp.asarray(cam_p))
+        return jax.vmap(one)(obs, mask)
+
+    want = np.asarray(jax_motion(jnp.asarray(obs), jnp.asarray(mask)))
+    got = ttri.check_motion(torch.as_tensor(cam_q), torch.as_tensor(cam_p), torch.as_tensor(obs),
+                            torch.as_tensor(mask), t_tri_cfg)
+    assert 0 < want.sum() < len(want)  # both outcomes occur
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("option", ["stereo_fwd_levels", "stereo_full_backward",
+                                    "stereo_seeded=False", "stereo_seed_fallback=False",
+                                    "lk_compact_windows"])
+def test_stereo_match_options_match_jax(option):
+    """``stereo_match`` as the front-end calls it under each stereo option,
+    against JAX: inlier flags equal on >= 98% of points and matched points
+    within 1e-3 px where both keep them (the LK bar of test_torch_ops.py).
+    stereo_seeded=False: rotation-projected seeds, the full pyramid;
+    stereo_seed_fallback=False: always the disparity seeds on
+    stereo_seeded_levels levels."""
+    from uav_airvision_tpu.models.frontend import stereo as jstereo
+    from uav_airvision_tpu.models.frontend.params import make_frontend_params as j_fparams
+    from uav_airvision_tpu.ops import extract as jext
+    from uav_airvision_tpu.ops import pyramid as jpyr
+    from uav_airvision_tpu_torch.models.frontend import stereo as tstereo
+    from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
+    from uav_airvision_tpu_torch.ops import pyramid as tpyr
+    from tests.test_torch_ops import shifted, textured
+
+    over = {"stereo_fwd_levels": dict(stereo_fwd_levels=2),
+            "stereo_full_backward": dict(stereo_full_backward=True),
+            "stereo_seeded=False": dict(stereo_seeded=False),
+            "stereo_seed_fallback=False": dict(stereo_seed_fallback=False),
+            "lk_compact_windows": dict(lk_compact_windows=True)}[option]
+    cfg = euroc_config()
+    # lk_static_iters=False: the same steps as a while loop (config.py), a
+    # shorter JAX compile; the port has one form
+    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, **over,
+                                                                lk_static_iters=False))
+    tcfg = port_config(cfg)
+    H, W = 240, 320
+    img0 = textured(H, W, seed=11, cell=6)
+    img1 = shifted(img0, -4.3, 0.6)
+    rng = np.random.default_rng(12)
+    pts = rng.uniform([15, 15], [W - 15, H - 15], (96, 2)).astype(np.float32)
+    valid = rng.uniform(size=96) < 0.9
+    seeded = option == "stereo_seed_fallback=False"
+    seed = (pts + np.array([-4.0, 0.5], np.float32)
+            + rng.normal(0, 0.7, (96, 2)).astype(np.float32))
+    seed_ok = rng.uniform(size=96) < 0.8
+    kw = dict(n_fwd_levels=cfg.frontend.stereo_seeded_levels) if seeded else {}
+    jp0 = jext.band_pyramid(jpyr.build_pyramid_padded(jnp.asarray(img0), 3), dtype=jnp.bfloat16)
+    jp1 = jext.band_pyramid(jpyr.build_pyramid_padded(jnp.asarray(img1), 3), dtype=jnp.bfloat16)
+    jargs = (jnp.asarray(seed), jnp.asarray(seed_ok)) if seeded else (None, None)
+    jcall = jax.jit(lambda a, b, p, v, s, o: jstereo.stereo_match(
+        a, b, p, v, j_fparams(cfg), cfg, init_cam1=s, init_ok=o, **kw))
+    jp, jin = jcall(jp0, jp1, jnp.asarray(pts), jnp.asarray(valid), *jargs)
+    targs = (torch.as_tensor(seed), torch.as_tensor(seed_ok)) if seeded else (None, None)
+    tp, tin = tstereo.stereo_match(tpyr.build_pyramid_padded(torch.as_tensor(img0), 3),
+                                   tpyr.build_pyramid_padded(torch.as_tensor(img1), 3),
+                                   torch.as_tensor(pts), torch.as_tensor(valid),
+                                   make_frontend_params(tcfg, CPU), tcfg, init_cam1=targs[0],
+                                   init_ok=targs[1], **kw)
+    jp, jin, tp, tin = np.asarray(jp), np.asarray(jin), tp.numpy(), tin.numpy()
+    assert (tin == jin).mean() >= 0.98
+    both = tin & jin
+    assert both.sum() >= 30
+    np.testing.assert_allclose(tp[both], jp[both], atol=1e-3, rtol=0)

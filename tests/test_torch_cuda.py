@@ -26,7 +26,7 @@ from uav_airvision_tpu_torch.config import euroc_config
 from uav_airvision_tpu_torch.models.msckf import (
     propagation, step, triangulation, update)
 from uav_airvision_tpu_torch.models.msckf.state import init_state, make_params
-from uav_airvision_tpu_torch.ops import camera, fast, gridops, lk, pyramid
+from uav_airvision_tpu_torch.ops import camera, extract, fast, gridops, lk, pyramid
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +81,73 @@ def test_lk_kernel_matches_plain(dev, n_levels, upper):
     valid = torch.ones(40, dtype=torch.bool, device=dev)
     args = dict(max_iter=10, n_levels=n_levels, max_iter_upper=upper)
     kn, ks = lk.pyramidal_lk(p0, p1, pts, pts, valid, **args)
+    pn, ps = lk.pyramidal_lk_plain(p0, p1, pts, pts, valid, **args)
+    assert (ks == ps).float().mean() >= 0.99
+    both = ks & ps
+    assert int(both.sum()) >= 20
+    assert float((kn[both] - pn[both]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("F,n", [(104, 32), (208, 32), (128, 36)])
+def test_extract_kernel_exact(dev, F, n):
+    """P1 equals its plain version bit for bit, on a pyramid level view, with
+    origins given as the strided columns of one (F, 2) tensor, some of them
+    out of range (clamped by both)."""
+    pyr = pyramid.build_pyramid_padded(torch.as_tensor(_image(480, 752, 9), device=dev), 3)
+    rng = np.random.default_rng(F)
+    for level in pyr.levels[:3]:
+        HP, WP = level.shape
+        des = torch.as_tensor(np.stack([rng.integers(-3, HP - n + 4, F),
+                                        rng.integers(-3, WP - n + 4, F)], 1),
+                              dtype=torch.int32, device=dev)
+        got = extract.extract_windows(level, des[:, 0], des[:, 1], n)
+        assert torch.equal(got, extract.extract_windows_plain(level, des[:, 0], des[:, 1], n))
+
+
+def _compact_inputs(dev):
+    img0 = _image(120, 160, 4)
+    img1 = np.roll(img0, (2, -3), axis=(0, 1))
+    p0 = pyramid.build_pyramid_padded(torch.as_tensor(img0, device=dev), 3)
+    p1 = pyramid.build_pyramid_padded(torch.as_tensor(img1, device=dev), 3)
+    rng = np.random.default_rng(5)
+    pts = torch.as_tensor(rng.uniform([1, 1], [158, 118], (40, 2)), dtype=torch.float32,
+                          device=dev)
+    return p0, p1, pts, torch.ones(40, dtype=torch.bool, device=dev)
+
+
+@pytest.mark.parametrize("L", [3, 1, 0])
+def test_lk_level_kernel_matches_plain(dev, L):
+    """K1's level entry against its plain version on the same windows: at
+    level 0 status on >= 99% of points and positions within 1e-3 px; above
+    it positions within 1e-3 px and the next level's origins on >= 99%."""
+    p0, p1, pts, valid = _compact_inputs(dev)
+    des = lk.compact_origin(pts, p1.levels[L], L)
+    win = extract.extract_windows(p1.levels[L], des[:, 0], des[:, 1], 32)
+    args = (p0, pts, pts, valid, win, des, L, 15, 10 if L == 0 else 5, 0.01, 1e-4)
+    kp, kd, ks = lk.pyramidal_lk_level(*args)
+    pp, pd, ps = lk.pyramidal_lk_level_plain(*args)
+    if L == 0:
+        assert kd is None and pd is None
+        assert (ks == ps).float().mean() >= 0.99
+        both = ks & ps
+        assert int(both.sum()) >= 20
+        assert float((kp[both] - pp[both]).abs().max()) <= 1e-3
+    else:
+        assert ks is None and ps is None
+        assert ((kp - pp).abs().amax(1) <= 1e-3).float().mean() >= 0.99
+        assert (kd == pd).all(1).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("n_levels,upper", [(2, 5), (4, 5), (1, None)])
+def test_lk_compact_kernel_matches_plain(dev, n_levels, upper):
+    """The compact-window tracker (P1 + K1's level entry per level) against
+    its plain version: K1's bars."""
+    p0, p1, pts, valid = _compact_inputs(dev)
+    args = dict(max_iter=10, n_levels=n_levels, max_iter_upper=upper, compact_windows=True)
+    n0 = (extract.extract_windows.launches, lk.pyramidal_lk_level.launches, lk.pyramidal_lk.launches)
+    kn, ks = lk.pyramidal_lk(p0, p1, pts, pts, valid, **args)
+    assert (extract.extract_windows.launches - n0[0], lk.pyramidal_lk_level.launches - n0[1],
+            lk.pyramidal_lk.launches - n0[2]) == (n_levels, n_levels, 0)
     pn, ps = lk.pyramidal_lk_plain(p0, p1, pts, pts, valid, **args)
     assert (ks == ps).float().mean() >= 0.99
     both = ks & ps

@@ -23,10 +23,12 @@ from uav_airvision_tpu.ops import gridops as jgrid
 from uav_airvision_tpu.ops import lk as jlk
 from uav_airvision_tpu.ops import pyramid as jpyr
 from uav_airvision_tpu_torch.ops import camera as tcam
+from uav_airvision_tpu_torch.ops import extract as textract
 from uav_airvision_tpu_torch.ops import fast as tfast
 from uav_airvision_tpu_torch.ops import gridops as tgrid
 from uav_airvision_tpu_torch.ops import lk as tlk
 from uav_airvision_tpu_torch.ops import pyramid as tpyr
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def textured(H, W, seed=0, cell=8):
@@ -191,14 +193,18 @@ def _lk_points(rng, H, W):
     return pts, init, valid
 
 
-@pytest.mark.parametrize("n_levels,max_iter_upper", [(2, 5), (4, 5), (1, None)],
-                         ids=["two-level-seeded", "four-level", "level0-only"])
-def test_lk_matches_jax(n_levels, max_iter_upper):
+@pytest.mark.parametrize("n_levels,max_iter_upper,compact",
+                         [(2, 5, False), (4, 5, False), (1, None, False), (4, 5, True)],
+                         ids=["two-level-seeded", "four-level", "level0-only", "compact"])
+def test_lk_matches_jax(n_levels, max_iter_upper, compact):
     """Status agrees on >= 99% of points and agreeing points lie within
     1e-3 px.  The tolerance is needed because JAX samples the window with
     one-hot matmuls over 48-px bands while the port reads four bilinear taps,
     so sums run in another order; a point near a convergence or freeze
-    threshold can then end one iteration apart."""
+    threshold can then end one iteration apart.  ``compact``: both sides
+    iterate on each level's exact 32-px search span (JAX
+    ``compact_windows=True``; the port's kernel P1 + K1 level entry path),
+    whose uniform freeze bounds differ from the default band snap."""
     H, W = 120, 160
     img0 = textured(H, W, seed=7, cell=6)
     img1 = shifted(img0, 2.6, -1.7)
@@ -208,20 +214,79 @@ def test_lk_matches_jax(n_levels, max_iter_upper):
     jp1 = jext.band_pyramid(jpyr.build_pyramid_padded(jnp.asarray(img1), 3), dtype=jnp.bfloat16)
     jlk_call = jax.jit(functools.partial(
         jlk.pyramidal_lk_banded, win=15, max_iter=10, eps=0.01, min_eig_threshold=1e-4,
-        n_levels=n_levels, static_iters=True, max_iter_upper=max_iter_upper))
+        n_levels=n_levels, static_iters=True, max_iter_upper=max_iter_upper,
+        compact_windows=compact))
     jn, js = jlk_call(jp0, jp1, jnp.asarray(pts), jnp.asarray(init), jnp.asarray(valid))
     tp0 = tpyr.build_pyramid_padded(torch.as_tensor(img0), 3)
     tp1 = tpyr.build_pyramid_padded(torch.as_tensor(img1), 3)
     tn, ts = tlk.pyramidal_lk(tp0, tp1, torch.as_tensor(pts), torch.as_tensor(init),
                               torch.as_tensor(valid), win=15, max_iter=10, eps=0.01,
                               min_eig_threshold=1e-4, n_levels=n_levels,
-                              max_iter_upper=max_iter_upper)
+                              max_iter_upper=max_iter_upper, compact_windows=compact)
     jn, js = np.asarray(jn), np.asarray(js)
     tn, ts = tn.numpy(), ts.numpy()
     assert (ts == js).mean() >= 0.99
     both = ts & js
     assert both.sum() >= 20
     np.testing.assert_allclose(tn[both], jn[both], atol=1e-3, rtol=0)
+
+
+def _exp_gather_p1(img, F, n):
+    """``pallas_extract`` of scripts/exp_gather.py, the repository's Pallas
+    kernel P1, loaded from its source (importing the script runs its
+    benchmark) with its globals F, WIN, BF, img bound here, and run by
+    Pallas in interpret mode on the CPU."""
+    import ast
+    import types
+    from pathlib import Path
+
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "exp_gather.py"
+    tree = ast.parse(path.read_text())
+    body = [node for node in tree.body if isinstance(node, ast.FunctionDef)
+            and node.name in ("_kernel", "pallas_extract")]
+    ns = dict(pl=types.SimpleNamespace(
+        pallas_call=functools.partial(pl.pallas_call, interpret=True),
+        program_id=pl.program_id, ds=pl.ds, BlockSpec=pl.BlockSpec),
+        pltpu=pltpu, jax=jax, F=F, WIN=n, BF=8, img=img)
+    exec(compile(ast.Module(body=body, type_ignores=[]), str(path), "exec"), ns)
+    return ns["pallas_extract"]
+
+
+@pytest.mark.parametrize("HP,WP,F,n", [(514, 786, 128, 36), (274, 410, 208, 32)],
+                         ids=["script", "compact-level1"])
+def test_extract_windows_matches_pallas(HP, WP, F, n):
+    """P1's plain version is bit-exact against the Pallas kernel itself (run
+    in interpret mode) at the script's shape and at the compact LK's
+    (level 1 of 752x480, 32-px windows, 208 stereo points), and against the
+    JAX package's one-hot ``_shift_extract`` of the same windows out of
+    48-px blocks; out-of-range origins are clamped as the compact LK
+    clamps des."""
+    rng = np.random.default_rng(F)
+    img = rng.integers(0, 256, (HP, WP)).astype(np.float32)
+    oy = rng.integers(0, HP - n + 1, F).astype(np.int32)
+    ox = rng.integers(0, WP - n + 1, F).astype(np.int32)
+    oy[:2], ox[:2] = (0, HP - n), (WP - n, 0)  # the image's corners
+    want = np.asarray(_exp_gather_p1(jnp.asarray(img), F, n)(jnp.asarray(oy), jnp.asarray(ox)))
+    got = textract.extract_windows(torch.as_tensor(img), torch.as_tensor(oy),
+                                   torch.as_tensor(ox), n)
+    assert got.dtype == torch.float32 and got.shape == (F, n, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # _shift_extract of the same windows out of 48-px blocks at (oy - ry, ox - rx)
+    bw = 48
+    ry = rng.integers(0, bw - n + 1, F).astype(np.int32)
+    rx = rng.integers(0, bw - n + 1, F).astype(np.int32)
+    by, bx = np.clip(oy - ry, 0, HP - bw), np.clip(ox - rx, 0, WP - bw)
+    blocks = np.stack([img[y:y + bw, x:x + bw] for y, x in zip(by, bx)])
+    shift = np.asarray(jlk._shift_extract(jnp.asarray(blocks), jnp.asarray(oy - by),
+                                          jnp.asarray(ox - bx), n))
+    np.testing.assert_array_equal(got.numpy(), shift)
+    # origins past the edges clamp to the last window inside
+    far = textract.extract_windows(torch.as_tensor(img), torch.tensor([-5, HP], dtype=torch.int32),
+                                   torch.tensor([WP, -1], dtype=torch.int32), n)
+    np.testing.assert_array_equal(far.numpy(), want[:2])
 
 
 def _score_map(case, H, W):

@@ -35,6 +35,7 @@ from uav_airvision_tpu_torch.simulation.world import StereoWorld as TStereoWorld
 from uav_airvision_tpu_torch.streaming.dataset import imu_msg, stereo_msg
 from uav_airvision_tpu_torch.utils.trajectory import TrajectoryWriter
 from uav_airvision_tpu_torch import vio as tstream
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 N_FRAMES = 16
 K_CONVERT = 8  # the JAX front-end state after this frame is converted

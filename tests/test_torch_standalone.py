@@ -31,13 +31,17 @@ from uav_airvision_tpu_torch.models import vio
 from uav_airvision_tpu_torch.models.msckf import triangulation as ttri
 from uav_airvision_tpu_torch.models.msckf import update as tupd
 from uav_airvision_tpu_torch.ops import camera as tcam
+from uav_airvision_tpu_torch.ops import extract as textract
 from uav_airvision_tpu_torch.ops import gridops as tgrid
+from uav_airvision_tpu_torch.ops import lk as tlk
+from uav_airvision_tpu_torch.ops import pyramid as tpyr
 from uav_airvision_tpu_torch.simulation.world import StereoWorld as TStereoWorld
 from uav_airvision_tpu_torch.streaming import dataset as tdataset
 from uav_airvision_tpu_torch.streaming import publisher as tpublisher
 from uav_airvision_tpu_torch.streaming.prebatch import prebatch_imu as t_prebatch_imu
 from uav_airvision_tpu_torch.utils import trajectory as ttrajectory
 from uav_airvision_tpu_torch.utils import transforms as ttransforms
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -265,7 +269,7 @@ def filter_state():
 def _launch_counts():
     fns = (ttri.triangulate, tupd.feature_block, tupd.gate_bounds, tupd.gate_gamma,
            tupd.rank12_update, tupd.ekf_update, tgrid.dense_grid_topk, *tgrid.K8_WRAPPERS,
-           *tcam.WRAPPERS)
+           *tcam.WRAPPERS, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk)
     return tuple(fn.launches for fn in fns)
 
 
@@ -281,7 +285,7 @@ def _assert_identical(got, want):
 
 
 @pytest.mark.parametrize("kernel", ["K13", "K9", "K9_prune", "K10", "K12", "K11", "K5", "K8",
-                                    "K7"])
+                                    "K7", "P1", "K1_level"])
 def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
     """On CPU tensors each kernel's public wrapper returns exactly what its
     plain version returns, counts no launch and reports no call to the
@@ -352,6 +356,24 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
         _assert_identical(tgrid.smallest_k_indices(arr, 16), tgrid.smallest_k_indices_plain(arr, 16))
         _assert_identical(tgrid.stable_compact_indices(valid, n),
                           tgrid.stable_compact_indices_plain(valid, n))
+    elif kernel in ("P1", "K1_level"):
+        img = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (120, 160)),
+                              dtype=torch.uint8)
+        pyr = tpyr.build_pyramid_padded(img, 3)
+        pts = torch.as_tensor(np.random.default_rng(2).uniform([5, 5], [155, 115], (30, 2)),
+                              dtype=torch.float32)
+        des = tlk.compact_origin(pts, pyr.levels[1], 1)
+        args = (pyr.levels[1], des[:, 0], des[:, 1], 32)
+        win = textract.extract_windows(*args)
+        _assert_identical(win, textract.extract_windows_plain(*args))
+        if kernel == "K1_level":
+            for L in (1, 0):
+                largs = (pyr, pts, pts, torch.ones(30, dtype=torch.bool), win, des, L)
+                got = [x for x in tlk.pyramidal_lk_level(*largs) if x is not None]
+                _assert_identical(tuple(got), tuple(x for x in tlk.pyramidal_lk_level_plain(*largs)
+                                                    if x is not None))
+                des = tlk.compact_origin(pts, pyr.levels[0], 0)
+                win = textract.extract_windows(pyr.levels[0], des[:, 0], des[:, 1], 32)
     elif kernel == "K7":
         rng = np.random.default_rng(7)
         pts = torch.as_tensor(rng.uniform([5, 5], [747, 475], (50, 2)), dtype=torch.float32)
@@ -404,4 +426,11 @@ def test_wrappers_raise_on_other_devices(filter_state):
     with pytest.raises(ValueError, match="K7"):
         tcam.homography_warp_points(torch.zeros((4, 2), device=meta), torch.eye(3, device=meta),
                                     torch.ones(4, device=meta))
+    origins = torch.zeros(4, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="P1"):
+        textract.extract_windows(torch.zeros((40, 50), device=meta), origins, origins, 32)
+    with pytest.raises(ValueError, match="K1"):
+        tlk.pyramidal_lk_level(None, torch.zeros((4, 2), device=meta), torch.zeros((4, 2), device=meta),
+                               origins.bool(), torch.zeros((4, 32, 32), device=meta),
+                               torch.zeros((4, 2), dtype=torch.int32, device=meta), 0)
 

@@ -28,6 +28,16 @@
 // Bound on the card: latency.  Each point is one block of 256 threads and
 // each Gauss-Newton step is one dependent round of loads + a reduction; a
 // frame launches ~104-204 blocks, under two waves of the 132 SMs.
+//
+// Second entry point, ``pyramidal_lk_level``: ONE level of the same
+// tracker for frontend.lk_compact_windows (lk.py:199-218).  There the JAX
+// package cuts each level's exact 32-px search span at
+// des = clip(floor(corner0) - 8, 0, HP - 32) out of its band and iterates
+// on that window, so the freeze bounds become uniform: origin des and
+// ub = min(16, HP - 16 - des) (= 16, since des <= HP - 32).  The caller
+// fetches the windows with kernel P1 (csrc/extract.cu) and this entry reads
+// its samples from them; it also writes the next finer level's des, so the
+// host computes des once per LK call, for the coarsest level.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +104,157 @@ __device__ void block_sum(float (&v)[K], float* scratch /* kWarps*K */) {
   }
 }
 
+struct Template {
+  float gx, gy;  // this thread's gradient pixel (zero for threads >= 225)
+  float a11, a12, a22, bt1, bt2, inv_det;
+  bool good;     // valid & corner in the image & det > 1e-12
+  bool status;   // the level-0 gate (min eigenvalue), meaningful at level 0
+};
+
+// The template of one level (lk.py:380-433): the 18x18 raw window of the
+// PREVIOUS image around the point, bilinear-shifted, Scharr/32, G and the
+// template part of b.  Every thread returns the same sums.
+__device__ Template level_template(const Level& pl, float prev_x, float prev_y, float scale,
+                                   bool is_valid, float min_eig_thr, float* s_raw,
+                                   float* s_T, float* s_red) {
+  const int tid = threadIdx.x;
+  const bool owner = tid < kWin * kWin;
+  const int pi = owner ? tid / kWin : 0, pj = owner ? tid % kWin : 0;
+  const float half = 0.5f * (kWin - 1);
+  const float cx = (prev_x * scale - half) + (float)kPad;
+  const float cy = (prev_y * scale - half) + (float)kPad;
+  const float fcx = floorf(cx), fcy = floorf(cy);
+  const int ry0 = clampi((int)fcy - 1, 0, pl.HP - kN);
+  const int rx0 = clampi((int)fcx - 1, 0, pl.WP - kN);
+  for (int k = tid; k < kN * kN; k += kThreads)
+    s_raw[k] = pl.img[(size_t)(ry0 + k / kN) * pl.WP + rx0 + k % kN];
+  __syncthreads();
+  const float ax = cx - fcx, ay = cy - fcy;
+  const float w00 = (1.f - ax) * (1.f - ay), w01 = ax * (1.f - ay);
+  const float w10 = (1.f - ax) * ay, w11 = ax * ay;
+  for (int k = tid; k < kT * kT; k += kThreads) {
+    const int r = k / kT, c = k % kT;
+    s_T[k] = w00 * s_raw[r * kN + c] + w01 * s_raw[r * kN + c + 1] +
+             w10 * s_raw[(r + 1) * kN + c] + w11 * s_raw[(r + 1) * kN + c + 1];
+  }
+  __syncthreads();
+  Template t;
+  float gI = 0.f, gx = 0.f, gy = 0.f;
+  if (owner) {
+    const float sm0 = 3.f / 32.f, sm1 = 10.f / 32.f, sm2 = 3.f / 32.f;
+    gI = s_T[(pi + 1) * kT + pj + 1];
+    float v[3], w[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float t0 = s_T[pi * kT + pj + c], t1 = s_T[(pi + 1) * kT + pj + c],
+                  t2 = s_T[(pi + 2) * kT + pj + c];
+      v[c] = sm0 * t0 + sm1 * t1 + sm2 * t2;
+      w[c] = (-1.f * t0 + 0.f * t1) + 1.f * t2;
+    }
+    gx = (-1.f * v[0] + 0.f * v[1]) + 1.f * v[2];
+    gy = sm0 * w[0] + sm1 * w[1] + sm2 * w[2];
+    const float ys = cy + (float)pi, xs = cx + (float)pj;
+    const bool inside = ys >= (float)kPad && ys <= (float)(pl.HP - 1 - kPad) &&
+                        xs >= (float)kPad && xs <= (float)(pl.WP - 1 - kPad);
+    if (!inside) {
+      gx = 0.f;
+      gy = 0.f;
+    }
+  }
+  float sums[5] = {gx * gx, gx * gy, gy * gy, gI * gx, gI * gy};
+  block_sum<5>(sums, s_red);
+  t.gx = gx;
+  t.gy = gy;
+  t.a11 = sums[0];
+  t.a12 = sums[1];
+  t.a22 = sums[2];
+  t.bt1 = sums[3];
+  t.bt2 = sums[4];
+  const float det = t.a11 * t.a22 - t.a12 * t.a12;
+  t.inv_det = det > 1e-12f ? 1.f / det : 0.f;
+  const float ipx = fcx - (float)kPad, ipy = fcy - (float)kPad;
+  const bool in_prev = ipx >= (float)(-kWin) && ipx < (float)pl.W &&
+                       ipy >= (float)(-kWin) && ipy < (float)pl.H;
+  t.good = is_valid && in_prev && det > 1e-12f;
+  const float d = t.a11 - t.a22;
+  const float min_eig =
+      (t.a22 + t.a11 - sqrtf(d * d + 4.f * t.a12 * t.a12)) / (2.f * kWin * kWin);
+  t.status = is_valid && in_prev && min_eig >= min_eig_thr && det > 1e-12f;
+  return t;
+}
+
+// The gated Gauss-Newton steps of one level (lk.py:248-288) from (px, py),
+// level coordinates.  The sample corner is clamped to [o, o + ub] (padded
+// coordinates) and read from ``src``: the pixel of padded row o_y + s has
+// row index r_off + s there, row stride ``ld`` (the whole level: r_off =
+// o_y; a search window cut at o: r_off = 0).
+__device__ void gauss_newton(const Template& t, const float* src, int ld, int r_off,
+                             int c_off, int oy, int ox, float uby, float ubx, int H,
+                             int W, int it_max, float eps2, float* s_red, float& px,
+                             float& py) {
+  const int tid = threadIdx.x;
+  const bool owner = tid < kWin * kWin;
+  const int pi = owner ? tid / kWin : 0, pj = owner ? tid % kWin : 0;
+  const float half = 0.5f * (kWin - 1);
+  bool conv = !t.good;
+  float pdx = 0.f, pdy = 0.f;
+  for (int it = 0; it < it_max && !conv; ++it) {
+    const float sx = fminf(fmaxf(((px - half) + (float)kPad) - (float)ox, 0.f), ubx);
+    const float sy = fminf(fmaxf(((py - half) + (float)kPad) - (float)oy, 0.f), uby);
+    const float bx = floorf(sx), by = floorf(sy);
+    const float fx = sx - bx, fy = sy - by;
+    float bj[2] = {0.f, 0.f};
+    if (owner) {
+      const float* row0 = src + (size_t)(r_off + (int)by + pi) * ld + c_off + (int)bx + pj;
+      const float* row1 = row0 + ld;
+      const float t0 = (1.f - fy) * row0[0] + fy * row1[0];
+      const float t1 = (1.f - fy) * row0[1] + fy * row1[1];
+      const float J = t0 * (1.f - fx) + t1 * fx;
+      bj[0] = J * t.gx;
+      bj[1] = J * t.gy;
+    }
+    block_sum<2>(bj, s_red);
+    const float b1 = bj[0] - t.bt1, b2 = bj[1] - t.bt2;
+    const float dx = (t.a12 * b2 - t.a22 * b1) * t.inv_det;
+    const float dy = (t.a12 * b1 - t.a11 * b2) * t.inv_det;
+    const float nx = px + dx, ny = py + dy;
+    const bool inb = floorf(nx - half) >= (float)(-kWin) && floorf(nx - half) < (float)W &&
+                     floorf(ny - half) >= (float)(-kWin) && floorf(ny - half) < (float)H;
+    const float ncx = (nx - half) + (float)kPad, ncy = (ny - half) + (float)kPad;
+    const bool in_win = ncx - (float)ox >= 0.f && ncx - (float)ox <= ubx &&
+                        ncy - (float)oy >= 0.f && ncy - (float)oy <= uby;
+    const bool step = in_win;  // conv is false and good holds inside the loop
+    if (step) {
+      px = nx;
+      py = ny;
+    }
+    const bool small = dx * dx + dy * dy <= eps2;
+    const bool flip = it > 0 && fabsf(dx + pdx) < 0.01f && fabsf(dy + pdy) < 0.01f;
+    if (step && flip) {
+      px = px - dx * 0.5f;
+      py = py - dy * 0.5f;
+    }
+    conv = small || flip || !inb || !in_win;
+    pdx = dx;
+    pdy = dy;
+  }
+}
+
+// OpenCV's final status drop on the level-0 point (lk.py:447-456).
+__device__ bool in_image(float x, float y, int H0, int W0) {
+  const float half = 0.5f * (kWin - 1);
+  return floorf(x - half) >= (float)(-kWin) && floorf(x - half) < (float)W0 &&
+         floorf(y - half) >= (float)(-kWin) && floorf(y - half) < (float)H0;
+}
+
+// The compact search window's origin at a level (lk.py:188-194), [y, x].
+__device__ int2 compact_origin(float x, float y, float scale, const Level& l) {
+  const float half = 0.5f * (kWin - 1);
+  const float cx = (x * scale - half) + (float)kPad, cy = (y * scale - half) + (float)kPad;
+  return make_int2(clampi((int)floorf(cy) - 8, 0, l.HP - kNeed),
+                   clampi((int)floorf(cx) - 8, 0, l.WP - kNeed));
+}
+
 __global__ void __launch_bounds__(kThreads)
 lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr,
           int H0, int W0, const float* __restrict__ prev_pts,
@@ -106,11 +267,7 @@ lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr
   __shared__ float s_red[kWarps * 5];
 
   const int f = blockIdx.x;
-  const int tid = threadIdx.x;
-  const bool owner = tid < kWin * kWin;
-  const int pi = owner ? tid / kWin : 0, pj = owner ? tid % kWin : 0;
   const bool is_valid = valid[f] != 0;
-  const float half = 0.5f * (kWin - 1);
   const float prev_x = prev_pts[2 * f], prev_y = prev_pts[2 * f + 1];
   float next_x = init_pts[2 * f], next_y = init_pts[2 * f + 1];
   bool status = false;
@@ -119,137 +276,74 @@ lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr
     const Level pl = level_of(prev_pyr, H0, W0, L);
     const Level cl = level_of(curr_pyr, H0, W0, L);
     const float scale = 1.0f / (float)(1 << L);
-
-    // ---- template (lk.py:380-433) ----
-    const float cx = (prev_x * scale - half) + (float)kPad;
-    const float cy = (prev_y * scale - half) + (float)kPad;
-    const float fcx = floorf(cx), fcy = floorf(cy);
-    const int ry0 = clampi((int)fcy - 1, 0, pl.HP - kN);
-    const int rx0 = clampi((int)fcx - 1, 0, pl.WP - kN);
-    for (int k = tid; k < kN * kN; k += kThreads)
-      s_raw[k] = pl.img[(size_t)(ry0 + k / kN) * pl.WP + rx0 + k % kN];
-    __syncthreads();
-    const float ax = cx - fcx, ay = cy - fcy;
-    const float w00 = (1.f - ax) * (1.f - ay), w01 = ax * (1.f - ay);
-    const float w10 = (1.f - ax) * ay, w11 = ax * ay;
-    for (int k = tid; k < kT * kT; k += kThreads) {
-      const int r = k / kT, c = k % kT;
-      s_T[k] = w00 * s_raw[r * kN + c] + w01 * s_raw[r * kN + c + 1] +
-               w10 * s_raw[(r + 1) * kN + c] + w11 * s_raw[(r + 1) * kN + c + 1];
-    }
-    __syncthreads();
-    float gI = 0.f, gx = 0.f, gy = 0.f;
-    if (owner) {
-      const float sm0 = 3.f / 32.f, sm1 = 10.f / 32.f, sm2 = 3.f / 32.f;
-      gI = s_T[(pi + 1) * kT + pj + 1];
-      float v[3], w[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float t0 = s_T[pi * kT + pj + c], t1 = s_T[(pi + 1) * kT + pj + c],
-                    t2 = s_T[(pi + 2) * kT + pj + c];
-        v[c] = sm0 * t0 + sm1 * t1 + sm2 * t2;
-        w[c] = (-1.f * t0 + 0.f * t1) + 1.f * t2;
-      }
-      gx = (-1.f * v[0] + 0.f * v[1]) + 1.f * v[2];
-      gy = sm0 * w[0] + sm1 * w[1] + sm2 * w[2];
-      const float ys = cy + (float)pi, xs = cx + (float)pj;
-      const bool inside = ys >= (float)kPad && ys <= (float)(pl.HP - 1 - kPad) &&
-                          xs >= (float)kPad && xs <= (float)(pl.WP - 1 - kPad);
-      if (!inside) {
-        gx = 0.f;
-        gy = 0.f;
-      }
-    }
-    float sums[5] = {gx * gx, gx * gy, gy * gy, gI * gx, gI * gy};
-    block_sum<5>(sums, s_red);
-    const float a11 = sums[0], a12 = sums[1], a22 = sums[2];
-    const float bt1 = sums[3], bt2 = sums[4];
-    const float det = a11 * a22 - a12 * a12;
-    const float inv_det = det > 1e-12f ? 1.f / det : 0.f;
-    const float ipx = fcx - (float)kPad, ipy = fcy - (float)kPad;
-    const bool in_prev = ipx >= (float)(-kWin) && ipx < (float)pl.W &&
-                         ipy >= (float)(-kWin) && ipy < (float)pl.H;
-    const bool good = is_valid && in_prev && det > 1e-12f;
-    if (L == 0) {
-      const float d = a11 - a22;
-      const float min_eig =
-          (a22 + a11 - sqrtf(d * d + 4.f * a12 * a12)) / (2.f * kWin * kWin);
-      status = is_valid && in_prev && min_eig >= min_eig_thr && det > 1e-12f;
-    }
+    const Template t =
+        level_template(pl, prev_x, prev_y, scale, is_valid, min_eig_thr, s_raw, s_T, s_red);
+    if (L == 0) status = t.status;
 
     // ---- search window (lk.py:188-219, extract.py:164-173) ----
     float px = next_x * scale, py = next_y * scale;
-    const float c0x = (px - half) + (float)kPad, c0y = (py - half) + (float)kPad;
-    const int des_y = clampi((int)floorf(c0y) - 8, 0, cl.HP - kNeed);
-    const int des_x = clampi((int)floorf(c0x) - 8, 0, cl.WP - kNeed);
+    const int2 des = compact_origin(next_x, next_y, scale, cl);
     const int nbr = max(1, ceil_div(cl.HP - kBw, kStride) + 1);
     const int nbc = max(1, ceil_div(cl.WP - kBw, kStride) + 1);
-    const int oy = kStride * min(des_y / kStride, nbr - 1);
-    const int ox = kStride * min(des_x / kStride, nbc - 1);
+    const int oy = kStride * min(des.x / kStride, nbr - 1);
+    const int ox = kStride * min(des.y / kStride, nbc - 1);
     const float uby = (float)min(kBw - (kWin + 1), cl.HP - (kWin + 1) - oy);
     const float ubx = (float)min(kBw - (kWin + 1), cl.WP - (kWin + 1) - ox);
 
-    // ---- Gauss-Newton (lk.py:248-288) ----
     const int it_max = (L == 0 || max_iter_upper <= 0) ? max_iter : max_iter_upper;
-    bool conv = !good;
-    float pdx = 0.f, pdy = 0.f;
-    for (int it = 0; it < it_max && !conv; ++it) {
-      const float sx = fminf(fmaxf(((px - half) + (float)kPad) - (float)ox, 0.f), ubx);
-      const float sy = fminf(fmaxf(((py - half) + (float)kPad) - (float)oy, 0.f), uby);
-      const float bx = floorf(sx), by = floorf(sy);
-      const float fx = sx - bx, fy = sy - by;
-      float bj[2] = {0.f, 0.f};
-      if (owner) {
-        const int r0 = oy + (int)by + pi, c0 = ox + (int)bx + pj;
-        const float* row0 = cl.img + (size_t)r0 * cl.WP + c0;
-        const float* row1 = row0 + cl.WP;
-        const float t0 = (1.f - fy) * row0[0] + fy * row1[0];
-        const float t1 = (1.f - fy) * row0[1] + fy * row1[1];
-        const float J = t0 * (1.f - fx) + t1 * fx;
-        bj[0] = J * gx;
-        bj[1] = J * gy;
-      }
-      block_sum<2>(bj, s_red);
-      const float b1 = bj[0] - bt1, b2 = bj[1] - bt2;
-      const float dx = (a12 * b2 - a22 * b1) * inv_det;
-      const float dy = (a12 * b1 - a11 * b2) * inv_det;
-      const float nx = px + dx, ny = py + dy;
-      const bool inb = floorf(nx - half) >= (float)(-kWin) &&
-                       floorf(nx - half) < (float)cl.W &&
-                       floorf(ny - half) >= (float)(-kWin) &&
-                       floorf(ny - half) < (float)cl.H;
-      const float ncx = (nx - half) + (float)kPad, ncy = (ny - half) + (float)kPad;
-      const bool in_win = ncx - (float)ox >= 0.f && ncx - (float)ox <= ubx &&
-                          ncy - (float)oy >= 0.f && ncy - (float)oy <= uby;
-      const bool step = in_win;  // conv is false and good holds inside the loop
-      if (step) {
-        px = nx;
-        py = ny;
-      }
-      const bool small = dx * dx + dy * dy <= eps2;
-      const bool flip = it > 0 && fabsf(dx + pdx) < 0.01f && fabsf(dy + pdy) < 0.01f;
-      if (step && flip) {
-        px = px - dx * 0.5f;
-        py = py - dy * 0.5f;
-      }
-      conv = small || flip || !inb || !in_win;
-      pdx = dx;
-      pdy = dy;
-    }
+    gauss_newton(t, cl.img, cl.WP, oy, ox, oy, ox, uby, ubx, cl.H, cl.W, it_max, eps2,
+                 s_red, px, py);
     next_x = px * (float)(1 << L);
     next_y = py * (float)(1 << L);
     __syncthreads();  // s_raw / s_T are rewritten by the next level
   }
 
-  if (tid == 0) {
-    const float half0 = 0.5f * (kWin - 1);
-    const bool inb = floorf(next_x - half0) >= (float)(-kWin) &&
-                     floorf(next_x - half0) < (float)W0 &&
-                     floorf(next_y - half0) >= (float)(-kWin) &&
-                     floorf(next_y - half0) < (float)H0;
+  if (threadIdx.x == 0) {
     out_pts[2 * f] = next_x;
     out_pts[2 * f + 1] = next_y;
-    out_status[f] = status && inb;
+    out_status[f] = status && in_image(next_x, next_y, H0, W0);
+  }
+}
+
+// One level L of the compact-window tracker.  windows: (F, 32, 32), the
+// search window of each point cut out of the current level at des (F, 2)
+// [y, x]; pts_in / pts_out: full-resolution points before / after the
+// level.  For L > 0 writes des_next, the origin at level L - 1 of pts_out;
+// at L = 0 writes the status.
+__global__ void __launch_bounds__(kThreads)
+lk_level_kernel(const float* __restrict__ prev_pyr, int H0, int W0,
+                const float* __restrict__ prev_pts, const float* __restrict__ pts_in,
+                const uint8_t* __restrict__ valid, const float* __restrict__ windows,
+                const int32_t* __restrict__ des, int L, int it_max, float eps2,
+                float min_eig_thr, float* __restrict__ pts_out,
+                int32_t* __restrict__ des_next, uint8_t* __restrict__ out_status) {
+  __shared__ float s_raw[kN * kN];
+  __shared__ float s_T[kT * kT];
+  __shared__ float s_red[kWarps * 5];
+
+  const int f = blockIdx.x;
+  const Level pl = level_of(prev_pyr, H0, W0, L);  // the current level has its size
+  const float scale = 1.0f / (float)(1 << L);
+  const Template t = level_template(pl, prev_pts[2 * f], prev_pts[2 * f + 1], scale,
+                                    valid[f] != 0, min_eig_thr, s_raw, s_T, s_red);
+  float px = pts_in[2 * f] * scale, py = pts_in[2 * f + 1] * scale;
+  const int oy = des[2 * f], ox = des[2 * f + 1];
+  const float uby = (float)min(kNeed - (kWin + 1), pl.HP - (kWin + 1) - oy);
+  const float ubx = (float)min(kNeed - (kWin + 1), pl.WP - (kWin + 1) - ox);
+  gauss_newton(t, windows + (size_t)f * kNeed * kNeed, kNeed, 0, 0, oy, ox, uby, ubx, pl.H,
+               pl.W, it_max, eps2, s_red, px, py);
+  if (threadIdx.x == 0) {
+    const float nx = px * (float)(1 << L), ny = py * (float)(1 << L);
+    pts_out[2 * f] = nx;
+    pts_out[2 * f + 1] = ny;
+    if (L > 0) {
+      const int2 d = compact_origin(nx, ny, 1.0f / (float)(1 << (L - 1)),
+                                    level_of(prev_pyr, H0, W0, L - 1));
+      des_next[2 * f] = d.x;
+      des_next[2 * f + 1] = d.y;
+    } else {
+      out_status[f] = t.status && in_image(nx, ny, H0, W0);
+    }
   }
 }
 
@@ -266,5 +360,18 @@ extern "C" int pyramidal_lk(const void* prev_pyr, const void* curr_pyr, int H0,
       (const float*)prev_pts, (const float*)init_pts, (const uint8_t*)valid,
       n_levels, max_iter, max_iter_upper, eps2, min_eig, (float*)out_pts,
       (uint8_t*)out_status);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pyramidal_lk_level(const void* prev_pyr, int H0, int W0, const void* prev_pts,
+                                  const void* pts_in, const void* valid, const void* windows,
+                                  const void* des, int F, int L, int it_max, float eps2,
+                                  float min_eig, void* pts_out, void* des_next,
+                                  void* out_status, void* stream) {
+  if (F == 0) return 0;
+  lk_level_kernel<<<F, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)prev_pyr, H0, W0, (const float*)prev_pts, (const float*)pts_in,
+      (const uint8_t*)valid, (const float*)windows, (const int32_t*)des, L, it_max, eps2,
+      min_eig, (float*)pts_out, (int32_t*)des_next, (uint8_t*)out_status);
   return (int)cudaGetLastError();
 }

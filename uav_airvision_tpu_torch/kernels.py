@@ -54,6 +54,11 @@ SIGNATURES = {
     # prev_pyr, curr_pyr, H0, W0, prev_pts, init_pts, valid, F, n_levels,
     # max_iter, max_iter_upper, eps2, min_eig, out_pts, out_status, stream
     "pyramidal_lk": [P, P, I, I, P, P, P, I, I, I, I, F, F, P, P, P],
+    # prev_pyr, H0, W0, prev_pts, pts_in, valid, windows, des, F, L, it_max,
+    # eps2, min_eig, pts_out, des_next, out_status, stream
+    "pyramidal_lk_level": [P, I, I, P, P, P, P, P, I, I, I, F, F, P, P, P, P],
+    # img, HP, WP, oy, ox, origin stride, F, n, out, stream
+    "extract_windows": [P, I, I, P, P, I, I, I, P, P],
     # imu_t, imu_w, imu_a, imu_mask, I, state_in, qc, cov_in, D,
     # state_out, cov_out, stream
     "propagate_f32": [P, P, P, P, I, P, P, P, I, P, P, P],
@@ -107,8 +112,9 @@ _lib = None
 _lib_lock = threading.Lock()
 build_info: dict = {}
 
-# An optional callable(name, args): the wrappers of the back-end, grid and
-# camera kernels pass it the arguments of every call they launch on the card
+# An optional callable(name, args): the wrappers of the back-end, grid,
+# camera, extract and LK-level kernels pass it the arguments of every call
+# they launch on the card, and the back-end its motion-check decisions
 # (chip_smoke.py records the main path's calls through it).
 observer = None
 

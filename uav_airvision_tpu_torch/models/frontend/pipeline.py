@@ -11,7 +11,12 @@ The JAX state carries banded template rows of the previous frame
 instead (``FrontendState.prev_pyr``), which the temporal LK reads its
 templates from.  The two ``lax.cond`` decisions become Python branches: the
 first frame is the state without a pyramid, and the seed fallback reads the
-number of seeds back from the device.
+number of seeds back from the device (only where the fallback can fire:
+seeded stereo with ``stereo_seed_fallback``).  Every front-end option of the
+JAX package's config runs: ``exact_adder_mask`` (the reference's order of
+stereo, mask and candidate stereo), ``stereo_seeded``,
+``stereo_seed_fallback``, ``stereo_fwd_levels``, ``stereo_full_backward``
+and ``lk_compact_windows`` (ops/lk.py).
 """
 
 from __future__ import annotations
@@ -53,23 +58,6 @@ class FrontendOutput(NamedTuple):
     after_matching: torch.Tensor
     after_ransac: torch.Tensor
     n_seed: torch.Tensor
-
-
-def check_supported(config: Config) -> None:
-    """The port implements the default front-end path only; knobs that
-    change results raise instead of being ignored."""
-    fe = config.frontend
-    unsupported = {
-        "exact_adder_mask": fe.exact_adder_mask,
-        "stereo_full_backward": fe.stereo_full_backward,
-        "stereo_seeded=False": not fe.stereo_seeded,
-        "stereo_fwd_levels>=0": fe.stereo_fwd_levels >= 0,
-        "lk_compact_windows": fe.lk_compact_windows,
-        "stereo_seed_fallback=False": not fe.stereo_seed_fallback,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"front-end options not ported: {', '.join(bad)}")
 
 
 def temporal_lk_levels(config: Config) -> int:
@@ -142,7 +130,6 @@ def frontend_step(state: FrontendState, cam0_img, cam1_img, mean_ang_vel, dt,
                   params: FrontendParams, config: Config):
     """One stereo frame through the front-end; returns (state, FrontendOutput).
     ``cam0_img``/``cam1_img`` are (H, W) uint8 tensors."""
-    check_supported(config)
     fe = config.frontend
     pyr0 = pyramid.build_pyramid_padded(cam0_img, fe.pyramid_levels)
     pyr1 = pyramid.build_pyramid_padded(cam1_img, fe.pyramid_levels)
@@ -207,36 +194,53 @@ def _track_frame(state: FrontendState, cam0_img, pyr0, pyr1, mean_ang_vel, dt,
         n_levels=temporal_lk_levels(config), win=fe.patch_size,
         max_iter=fe.lk_max_iteration, eps=fe.lk_track_precision,
         min_eig_threshold=fe.lk_min_eig_threshold,
-        max_iter_upper=fe.lk_max_iteration_upper or None)
+        max_iter_upper=fe.lk_max_iteration_upper or None,
+        compact_windows=fe.lk_compact_windows)
     st = st & (curr[:, 0] >= 0) & (curr[:, 0] <= W - 1) & (curr[:, 1] >= 0) \
         & (curr[:, 1] <= H - 1)
     after_tracking = st.to(i32).sum().to(i32)
+    n_seed = None  # the seeds' count where the stereo is seeded (JAX: 0 elsewhere)
 
-    # The detection mask is built from the temporally tracked points, so the
-    # tracked-feature and new-candidate stereo matches run as one LK batch.
-    apts, ascore, aarrival, avalid = _detection_candidates(
-        cam0_img, curr, st, config, fe.grid_max_feature_num)
-    both_pts = torch.cat([curr, apts])
-    both_valid = torch.cat([st, avalid])
-    # disparity seeds: tracked features at their previous disparity, new
-    # candidates at their nearest tracked neighbour's
-    d_prev = state.cam1 - state.cam0
-    trk_ok = st & state.valid
-    n_seed = trk_ok.to(i32).sum()
-    dist2 = ((apts[:, None, :] - curr[None, :, :]) ** 2).sum(-1)
-    dist2 = torch.where(trk_ok[None, :], dist2, torch.inf)
-    nn = torch.argmin(dist2, dim=1)
-    seed = torch.cat([curr + d_prev, apts + d_prev[nn]])
-    seed_ok = torch.cat([trk_ok, (n_seed > 0).expand(apts.shape[0])])
-    if to_host(n_seed) >= fe.stereo_seed_min_tracked:
-        both_cam1, both_inlier = stereo_match(
-            pyr0, pyr1, both_pts, both_valid, params, config, init_cam1=seed,
-            init_ok=seed_ok, n_fwd_levels=fe.stereo_seeded_levels)
-    else:  # starvation recovery: too few tracks to trust the seeds
-        both_cam1, both_inlier = stereo_match(pyr0, pyr1, both_pts, both_valid,
-                                              params, config)
-    cam1_curr, match = both_cam1[:F], both_inlier[:F]
-    acam1, ainlier = both_cam1[F:], both_inlier[F:]
+    if fe.exact_adder_mask:
+        # the reference's order: stereo-match the temporal tracks, mask around
+        # the survivors, then stereo-match the new candidates separately
+        cam1_curr, match = stereo_match(pyr0, pyr1, curr, st, params, config)
+        apts, ascore, aarrival, avalid = _detection_candidates(
+            cam0_img, curr, st & match, config, fe.grid_max_feature_num)
+        acam1, ainlier = stereo_match(pyr0, pyr1, apts, avalid, params, config)
+    else:
+        # The detection mask is built from the temporally tracked points, so
+        # the tracked-feature and new-candidate stereo matches run as one LK
+        # batch.
+        apts, ascore, aarrival, avalid = _detection_candidates(
+            cam0_img, curr, st, config, fe.grid_max_feature_num)
+        both_pts = torch.cat([curr, apts])
+        both_valid = torch.cat([st, avalid])
+        if fe.stereo_seeded:
+            # disparity seeds: tracked features at their previous disparity,
+            # new candidates at their nearest tracked neighbour's
+            d_prev = state.cam1 - state.cam0
+            trk_ok = st & state.valid
+            n_seed = trk_ok.to(i32).sum()
+            dist2 = ((apts[:, None, :] - curr[None, :, :]) ** 2).sum(-1)
+            dist2 = torch.where(trk_ok[None, :], dist2, torch.inf)
+            nn = torch.argmin(dist2, dim=1)
+            seed = torch.cat([curr + d_prev, apts + d_prev[nn]])
+            seed_ok = torch.cat([trk_ok, (n_seed > 0).expand(apts.shape[0])])
+            # starvation recovery, where enabled: too few tracks to trust the
+            # seeds (the one host read of the front-end)
+            if fe.stereo_seed_fallback and to_host(n_seed) < fe.stereo_seed_min_tracked:
+                both_cam1, both_inlier = stereo_match(pyr0, pyr1, both_pts, both_valid,
+                                                      params, config)
+            else:
+                both_cam1, both_inlier = stereo_match(
+                    pyr0, pyr1, both_pts, both_valid, params, config, init_cam1=seed,
+                    init_ok=seed_ok, n_fwd_levels=fe.stereo_seeded_levels)
+        else:  # the reference's rotation-projected seeds and full pyramid
+            both_cam1, both_inlier = stereo_match(pyr0, pyr1, both_pts, both_valid,
+                                                  params, config)
+        cam1_curr, match = both_cam1[:F], both_inlier[:F]
+        acam1, ainlier = both_cam1[F:], both_inlier[F:]
 
     tracked = st & match
     after_matching = tracked.to(i32).sum().to(i32)
@@ -281,6 +285,8 @@ def _track_frame(state: FrontendState, cam0_img, pyr0, pyr1, mean_ang_vel, dt,
         valid=selm,
         next_id=(state.next_id + a_kept).to(i32),
     )
+    if n_seed is None:
+        n_seed = torch.zeros((), dtype=i32, device=dev)
     counters = (before_tracking, after_tracking, after_matching, after_matching,
                 n_seed.to(i32))
     return new_state, counters

@@ -42,13 +42,16 @@ def stereo_match(pyr0: Pyramid, pyr1: Pyramid, cam0_pts, valid,
         pyr0, pyr1, cam0_pts, seed, valid, win=fe.patch_size,
         max_iter=fe.lk_max_iteration, eps=fe.lk_track_precision,
         min_eig_threshold=fe.lk_min_eig_threshold, n_levels=n_fwd,
-        max_iter_upper=fe.lk_max_iteration_upper or None)
-    # backward pass for the fwd/bwd gate: level 0 only
+        max_iter_upper=fe.lk_max_iteration_upper or None,
+        compact_windows=fe.lk_compact_windows)
+    # backward pass for the fwd/bwd gate: level 0 only, or the full pyramid
+    # under stereo_full_backward (the reference's)
     p0r, _ = lk.pyramidal_lk(
         pyr1, pyr0, p1, cam0_pts, valid, win=fe.patch_size,
         max_iter=fe.stereo_bwd_max_iter or fe.lk_max_iteration,
         eps=fe.lk_track_precision, min_eig_threshold=fe.lk_min_eig_threshold,
-        n_levels=1)
+        n_levels=None if fe.stereo_full_backward else 1,
+        compact_windows=fe.lk_compact_windows)
 
     err = torch.linalg.norm(cam0_pts - p0r, dim=-1)
     disp = torch.abs(proj1[:, 1] - p1[:, 1])

@@ -2,7 +2,8 @@
 upsert, lost-feature marginalization, camera-pair pruning and online reset.
 
 Port of uav_airvision_tpu/models/msckf/step.py (``backend_step`` and the
-functions it calls; the fleet variants are not ported).  Each ``lax.cond``
+functions it calls, under every filter and triangulation option; the fleet
+variants are not ported).  Each ``lax.cond``
 becomes a Python branch on values read back from the device with
 ``device.to_host`` (one read per decision group), and each
 ``.at[].set(mode="drop")`` scatter becomes a scatter into a dump row
@@ -15,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import kernels
 from ...config import Config
 from ...device import to_host
 from ...ops.gridops import set_drop, smallest_k_indices, stable_compact_indices
@@ -56,13 +58,6 @@ class StepOutput(NamedTuple):
     n_prune_feats: torch.Tensor
     R_imu_cam0: torch.Tensor
     t_cam0_imu: torch.Tensor
-
-
-def check_supported(config: Config) -> None:
-    if not config.filter.prune_rank12:
-        raise NotImplementedError("prune_rank12=False is not ported")
-    if config.triangulation.translation_threshold >= 0:
-        raise NotImplementedError("the triangulation motion check is not ported")
 
 
 def augment_state(state: FilterState, t) -> FilterState:
@@ -164,12 +159,20 @@ def _drop_lost_short(state: FilterState) -> FilterState:
 def _triangulate_selected(state: FilterState, params: MsckfParams, config: Config, sel,
                           sel_ok):
     """Triangulate the not-yet-initialized features among ``sel`` over all
-    their observations; returns (state with positions, init_fail)."""
+    their observations, behind the motion check where it is on; returns
+    (state with positions, init_fail)."""
     table, cams = state.features, state.cams
     need_init = sel_ok & ~table.initialized[sel]
-    new_pos, tri_ok = tri.triangulate(cams.q, cams.p, table.obs[sel], table.obs_mask[sel],
+    obs_mask = table.obs_mask[sel]
+    new_pos, tri_ok = tri.triangulate(cams.q, cams.p, table.obs[sel], obs_mask,
                                       params.R_cam0_cam1, params.t_cam0_cam1,
                                       config.triangulation, active=need_init)
+    if config.triangulation.translation_threshold >= 0:  # the motion check (JAX :191-196)
+        motion_ok = tri.check_motion(cams.q, cams.p, table.obs[sel], obs_mask,
+                                     config.triangulation)
+        if motion_ok.device.type == "cuda":
+            kernels.observe("check_motion", (need_init, motion_ok))
+        tri_ok = tri_ok & motion_ok
     init_done = need_init & tri_ok
     table = table._replace(
         position=table.position.index_put((sel,), torch.where(init_done[:, None], new_pos,
@@ -178,15 +181,29 @@ def _triangulate_selected(state: FilterState, params: MsckfParams, config: Confi
     return state._replace(features=table), need_init & ~tri_ok
 
 
+def _stack_blocks(include, prefix, H_blk, r_blk, R_BUF: int):
+    """The included (B, BLK, D) blocks and (B, BLK) residuals placed at their
+    row prefixes in an R_BUF-row buffer, with one scatter-add: rows past a
+    block's true height are exact zeros, so overlapping blocks only add
+    zeros.  Returns (H_buf (R_BUF, D), r_buf (R_BUF,))."""
+    B, BLK, D = H_blk.shape
+    dev = H_blk.device
+    row_idx = torch.where(include[:, None], prefix[:, None] + torch.arange(BLK, device=dev),
+                          R_BUF).reshape(-1)
+    H_buf = torch.zeros((R_BUF + 1, D), dtype=H_blk.dtype, device=dev).index_add(
+        0, row_idx, H_blk.reshape(B * BLK, D))[:R_BUF]
+    r_buf = torch.zeros((R_BUF + 1,), dtype=r_blk.dtype, device=dev).index_add(
+        0, row_idx, r_blk.reshape(B * BLK))[:R_BUF]
+    return H_buf, r_buf
+
+
 def _remove_lost_once(state: FilterState, params: MsckfParams, config: Config,
                       row_cap: int, L: int):
     """One marginalization pass over up to L lost candidates (map order).
     Returns (state, warn, n_overflow, rows_total) with Python ints."""
     cap = config.capacity
     table, cams = state.features, state.cams
-    dtype = state.cov.dtype
     dev = state.cov.device
-    M, N = table.obs_mask.shape
     D = cap.state_dim
     obs_count = table.obs_mask.to(torch.int32).sum(1)
     lost = table.valid & ~_seen_now(table, cams.count)
@@ -215,16 +232,7 @@ def _remove_lost_once(state: FilterState, params: MsckfParams, config: Config,
     rows_inc = torch.where(include, rows_f, 0)
     rows_total = rows_inc.sum()
 
-    # place every block with one scatter-add: rows past a block's true
-    # height are exact zeros, so overlapping blocks only add zeros
-    R_BUF = cap.max_update_rows
-    BLK = 4 * N - 3
-    row_idx = torch.where(include[:, None], prefix[:, None] + torch.arange(BLK, device=dev),
-                          R_BUF).reshape(-1)
-    H_buf = torch.zeros((R_BUF + 1, D), dtype=dtype, device=dev).index_add(
-        0, row_idx, H_blk.reshape(L * BLK, D))[:R_BUF]
-    r_buf = torch.zeros((R_BUF + 1,), dtype=dtype, device=dev).index_add(
-        0, row_idx, r_blk.reshape(L * BLK))[:R_BUF]
+    H_buf, r_buf = _stack_blocks(include, prefix, H_blk, r_blk, cap.max_update_rows)
 
     any_update, n_rows, n_over = to_host(torch.stack(
         [include.any().to(torch.int64), rows_total.to(torch.int64), n_overflow.to(torch.int64)]))
@@ -326,10 +334,21 @@ def _prune_sized(state: FilterState, params: MsckfParams, config: Config, rm, tw
                                 torch.full((Kp,), 2, dtype=torch.int32, device=dev))
     include = proc & gate_ok
     warn = torch.zeros((), dtype=torch.bool, device=dev)
-    if to_host(include.any()):
-        B = torch.where(include[:, None, None], H12, 0.0).reshape(Kp * 5, 12)
-        r_s = torch.where(include[:, None], r_blk, 0.0).reshape(Kp * 5)
-        state, warn = apply_update_rank12(state, params, B, r_s, cols)
+    if config.filter.prune_rank12:
+        if to_host(include.any()):
+            B = torch.where(include[:, None, None], H12, 0.0).reshape(Kp * 5, 12)
+            r_s = torch.where(include[:, None], r_blk, 0.0).reshape(Kp * 5)
+            state, warn = apply_update_rank12(state, params, B, r_s, cols)
+    else:
+        # the stacked update (JAX :560-583): the gated blocks scattered in map
+        # order into the max_prune_rows buffer, then K11 on its row tier
+        rows_inc = torch.where(include, rows_f, 0)
+        H_buf, r_buf = _stack_blocks(include, torch.cumsum(rows_inc, 0) - rows_inc, H_blk,
+                                     r_blk, config.capacity.max_prune_rows)
+        any_update, n_rows = to_host(torch.stack([include.any().to(torch.int64),
+                                                  rows_inc.sum().to(torch.int64)]))
+        if any_update:
+            state, warn = apply_update(state, params, H_buf, r_buf, n_rows)
     warn = warn | (n_two > Kp)
     return _compact_window(state, rm, count), warn
 
@@ -400,7 +419,6 @@ def online_reset(state: FilterState, params: MsckfParams, config: Config):
 
 def backend_step(state: FilterState, frame: FrameInput, params: MsckfParams, config: Config):
     """One stereo frame through the estimator; returns (state, StepOutput)."""
-    check_supported(config)
     dev = state.cov.device
     dtype = state.cov.dtype
 

@@ -177,6 +177,29 @@ def _finish(v: TriangulationViews, x):
     return pos, ok
 
 
+def check_motion(cam_q, cam_p, obs, obs_mask, tri: TriangulationConfig):
+    """The baseline check before triangulation (JAX triangulation.py:294-314,
+    reference feature_motion_checker.py:16-45), batched over B features: the
+    camera translation from a feature's first to its last observation,
+    orthogonal to the first observation's ray, must exceed
+    ``translation_threshold``.  cam_q (N,4), cam_p (N,3), obs (B,N,4),
+    obs_mask (B,N).  Returns (B,) bool.  Plain PyTorch on the views' inputs
+    (no kernel: the JAX package's is an XLA function)."""
+    B, N = obs_mask.shape
+    m = obs_mask.to(torch.int32)
+    first = torch.argmax(m, dim=1)
+    last = (N - 1) - torch.argmax(m.flip(1), dim=1)
+    R_first = quat.to_rotation(cam_q[first]).transpose(-1, -2)  # cam -> world
+    z = _take(obs, first)[:, :2]
+    direction = torch.cat([z, torch.ones_like(z[:, :1])], dim=-1)
+    direction = direction / torch.linalg.norm(direction, dim=-1, keepdim=True)
+    direction = torch.einsum("bij,bj->bi", R_first, direction)
+    translation = cam_p[last] - cam_p[first]
+    parallel = (translation * direction).sum(-1)
+    ortho = translation - parallel[:, None] * direction
+    return torch.linalg.norm(ortho, dim=-1) > tri.translation_threshold
+
+
 def triangulate_plain(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri: TriangulationConfig,
                       active=None):
     return triangulate_views(build_views(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1), tri,

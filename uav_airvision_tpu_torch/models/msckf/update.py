@@ -64,8 +64,11 @@ def stereo_jacobian(cam_q, cam_p, cam_q_null, cam_p_null, p_w, z, gravity, R_c0c
     return H_x, H_f, z - pred
 
 
-def feature_block_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
-                        R_c0c1, t_c0c1, state_dim):
+def stacked_tile(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity, R_c0c1,
+                 t_c0c1):
+    """[H_f | r | H_x] (B, 4N, 4 + 21 + 6N) of B features, the observing
+    slots' rows first, and n_obs (B,): the tile that ``feature_block``
+    projects onto the left nullspace of H_f."""
     B, N = obs_mask.shape
     dtype = p_w.dtype
     Hx, Hf, r = stereo_jacobian(cams_q, cams_p, cams_qn, cams_pn, p_w[:, None, :], obs,
@@ -88,10 +91,16 @@ def feature_block_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gr
     H_cam = torch.einsum("brs,bsij->brisj", P, Hx).reshape(B, 4 * N, 6 * N)
     H_xj = torch.cat([torch.zeros((B, 4 * N, IMU_DIM), dtype=dtype, device=obs.device),
                       H_cam], dim=-1)
+    return torch.cat([H_fj, r_j[..., None], H_xj], dim=-1), n_obs
 
+
+def feature_block_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
+                        R_c0c1, t_c0c1, state_dim):
     # three Householder reflections applied to [H_f | r | H_x]
-    T = torch.cat([H_fj, r_j[..., None], H_xj], dim=-1)  # (B, 4N, 4+D)
-    rows = torch.arange(4 * N, device=obs.device)
+    T, n_obs = stacked_tile(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
+                            R_c0c1, t_c0c1)  # (B, 4N, 4+D)
+    dtype = T.dtype
+    rows = torch.arange(T.shape[1], device=obs.device)
     for j in range(3):
         x = torch.where(rows >= j, T[..., j], 0.0)
         normx = torch.sqrt((x * x).sum(-1))
