@@ -7,7 +7,8 @@
    ``uav_airvision_tpu_torch/csrc`` (nvcc, sm_90a, one process per source).
 2. Front-end kernels against their plain PyTorch versions on the card, at
    main-path shapes, on a rendered 752x480 bench-world frame pair: K2
-   (pyramid) and K4+K6 (FAST + mask + NMS) exactly, K1 (LK; temporal 104
+   (both cameras' pyramids in one launch, and one camera's) and K4+K6
+   (FAST + mask + NMS) exactly, K1 (LK; temporal 104
    points x 2 levels, stereo forward 204 x 2, backward 204 x level 0) status
    agreeing on >= 99% of points and agreeing points within 1e-3 px.
 3. Main path, warm run: the bench world as bench.py renders it
@@ -29,10 +30,15 @@
      one-view block, where the projection is all cancellation); the phase
      also prints how far each is from the float64 plain version, and the
      views and depth of the block on which they differ most;
-   - K10 (gate; bounds on the 77-row blocks, gamma on the 5-, 32- and
-     77-row prefixes, residual scales 1e-3, 1, 10, 30, 1e3): gamma within
-     1e-4 relative, bound flags and decisions identical except within 1e-4
-     of a threshold;
+   - K10 (the whole gate in one launch, on every recorded shape: the
+     77-row blocks on the 32-row and the full tier, the prune's 5-row
+     blocks; residual scales 1e-3, 1, 10, 30, 1e3 and one that puts a block
+     in the bounds' undecided band): decisions identical to the plain
+     version's and to its pieces' (the bounds' pass flags where they decide
+     every block, else gamma < thresh on the tier's rows) except where
+     gamma lies within 1e-4 of the threshold or r'r within 1e-4 of a bound;
+     where the kernel computes gamma, within 1e-4 relative of the plain
+     gamma, NaN where it is (max_abs_err: gamma's at scale 1);
    - K12 (rank-12 prune update, as recorded and with an exactly singular
      P12): P_new and delta within 1e-4 of max(|P|, 1).
    - K7 (camera models: the stereo prologue, the epilogue's and the
@@ -56,8 +62,12 @@
      larger (S has s2 on its diagonal, so its condition number, which both
      float32 solves feel, is bounded by tr(H P H') / s2).
    Median times by CUDA events, warm; the JSON line's times and bound are
-   those of each kernel's (each entry point's) most frequent shape.
+   those of each kernel's (each entry point's) most frequent shape (K10:
+   the sum over its two most frequent shapes).
 5. Main path, timed run: every launch counter set to 0 just before it.
+   (The warm run already checked one K2 launch per frame and one K10
+   launch per gate call.)  Prints the host syncs and, by torch.profiler,
+   the CUDA launches per frame.
    Checks: every kernel (each entry point on the path) launched, finite
    poses, >= 150 active frames, ATE max (per-frame |p - groundtruth|, no
    alignment) under ATE_BAR_M.  The first 40 frames also run through the
@@ -245,33 +255,40 @@ def check_kernels(config, frames, dev):
     cam0, cam1 = frames.cam0[2], frames.cam1[2]
     res = {}
 
-    # K2: every padded level exactly equal, both cameras
-    for cam in (cam0, cam1):
-        got = pyramid.build_pyramid_padded(cam, fe.pyramid_levels)
-        want = pyramid.build_pyramid_padded_plain(cam, fe.pyramid_levels)
-        err = max(float((g - w).abs().max()) for g, w in zip(got.levels, want.levels))
-        if err != 0.0:
-            fail(f"K2 pyramid differs from its plain version by {err}")
+    # K2: both cameras' padded levels from one launch, exactly equal
+    got = pyramid.build_pyramid_pair(cam0, cam1, fe.pyramid_levels)
+    want = pyramid.build_pyramid_pair_plain(cam0, cam1, fe.pyramid_levels)
+    err = max(float((g - w).abs().max()) for gp, wp in zip(got, want)
+              for g, w in zip(gp.levels, wp.levels))
+    if err != 0.0:
+        fail(f"K2 pyramid pair differs from its plain version by {err}")
+    one = pyramid.build_pyramid_padded(cam0, fe.pyramid_levels)
+    if not all(torch.equal(g, w) for g, w in zip(one.levels, want[0].levels)):
+        fail("K2 one-camera pyramid differs from its plain version")
     # ~20 integer operations per output pixel (two separable 5-tap passes)
-    k2_bound = bound(nbytes(cam0, got.flat),
-                     20 * sum(lv.numel() for lv in got.levels[1:]))
+    k2_bound = bound(nbytes(cam0, cam1, got[0].flat, got[1].flat),
+                     20 * sum(lv.numel() for p in got for lv in p.levels[1:]))
     # the library's pyramid step: F.conv2d of the 5x5 binomial at stride 2
-    # on each REFLECT_101-padded level (padded beforehand), three steps summed
+    # on the (2, 1, H, W) batch of both cameras' REFLECT_101-padded levels
+    # (padded beforehand), three steps summed
     import torch.nn.functional as tnf
 
     w5 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev)
     k5 = (w5[:, None] * w5[None, :] / 256.0).reshape(1, 1, 5, 5)
     pad = pyramid.LK_PAD
-    srcs = [tnf.pad(lv[pad:-pad, pad:-pad][None, None], (2, 2, 2, 2), mode="reflect")
-            for lv in got.levels[:-1]]
+    srcs = [tnf.pad(torch.stack([a[pad:-pad, pad:-pad], b[pad:-pad, pad:-pad]])[:, None],
+                    (2, 2, 2, 2), mode="reflect")
+            for a, b in zip(got[0].levels[:-1], got[1].levels[:-1])]
     k2_lib = sum(cuda_ms(lambda x=x: tnf.conv2d(x, k5, stride=2)) for x in srcs)
+    one_ms = cuda_ms(lambda: pyramid.build_pyramid_padded(cam0, fe.pyramid_levels))
     res["K2"] = (0.0,
-                 cuda_ms(lambda: pyramid.build_pyramid_padded(cam0, fe.pyramid_levels)),
-                 cuda_ms(lambda: pyramid.build_pyramid_padded_plain(cam0, fe.pyramid_levels)),
+                 cuda_ms(lambda: pyramid.build_pyramid_pair(cam0, cam1, fe.pyramid_levels)),
+                 cuda_ms(lambda: pyramid.build_pyramid_pair_plain(cam0, cam1, fe.pyramid_levels)),
                  *k2_bound, k2_lib)
-    print(f"[K2] pyramid 480x752 -> 4 padded levels: exact; "
-          f"{res['K2'][1]:.4f} ms vs plain {res['K2'][2]:.4f} ms; F.conv2d 5x5 stride 2 on "
-          f"the three padded levels {k2_lib:.4f} ms")
+    print(f"[K2] pyramid pair 2 x 480x752 -> 2 x 4 padded levels, one launch: exact; "
+          f"{res['K2'][1]:.4f} ms vs plain {res['K2'][2]:.4f} ms; one camera {one_ms:.4f} ms; "
+          f"F.conv2d 5x5 stride 2 on the (2, 1, H, W) batch, three levels {k2_lib:.4f} ms; "
+          f"bound {k2_bound[0] * 1e3:.3f} us ({k2_bound[1]})")
 
     # K4+K6: FAST + the 104-point detection mask + NMS, exactly equal
     pts, valid = state.cam0, state.valid
@@ -303,8 +320,7 @@ def check_kernels(config, frames, dev):
           f"{res['K4+K6'][1]:.4f} ms vs plain {res['K4+K6'][2]:.4f} ms")
 
     # K1: the three LK call shapes of a tracked frame
-    pyr0 = pyramid.build_pyramid_padded(cam0, fe.pyramid_levels)
-    pyr1 = pyramid.build_pyramid_padded(cam1, fe.pyramid_levels)
+    pyr0, pyr1 = pyramid.build_pyramid_pair(cam0, cam1, fe.pyramid_levels)
     curr, st = lk.pyramidal_lk(state.prev_pyr, pyr0, state.cam0, state.cam0, state.valid,
                                n_levels=2, max_iter=10, max_iter_upper=5)
     ks_, kscore = fast.detect_fast(cam0, fe.fast_threshold, curr, st)
@@ -393,8 +409,6 @@ class Recorder:
         "triangulate": ("K13", lambda a: a[2].shape[0]),
         "feature_block": ("K9", lambda a: tuple(a[5].shape)),
         "gating_test_batch": ("K10", lambda a: tuple(a[0].shape)),
-        "gate_bounds": ("K10 bounds", lambda a: tuple(a[0].shape)),
-        "gate_gamma": ("K10 gamma", lambda a: tuple(a[0].shape)),
         "rank12_update": ("K12", lambda a: tuple(a[1].shape)),
         "ekf_update": ("K11", lambda a: _update_tier(a)),
         "dense_grid_topk": ("K5", lambda a: a[3]),
@@ -475,11 +489,118 @@ def _rows_needed(H, r):
     return (torch.where(nz, idx, -1).amax(1) + 1).to(torch.float64).cpu()
 
 
+def check_gate(rec: Recorder):
+    """K10 against its plain version and the plain pieces on the recorded
+    gate calls at forced residual scales and row tiers; timed at its two
+    most frequent shapes.  Returns {"K10": (...)}."""
+    import torch
+
+    from uav_airvision_tpu_torch.models.msckf import update as upd
+
+    gates = rec.of("K10")
+    gate_err = 0.0
+    for shape, a in sorted(gates.items()):
+        H, r, rows, cov, noise, table, dof = a
+        B, R = r.shape
+        thresh = table[torch.clamp(dof, 0, table.shape[0] - 1).long()]
+        tiers = [rows] if R <= 32 else [rows, torch.full_like(rows, R)]
+        tr = ((H @ cov) * H).sum((1, 2))
+        # beside the uniform scales, one that puts the first block with a
+        # residual at the geometric middle of its undecided band, the rest
+        # on the pass side: the gamma branch on every block
+        rtr0 = (r * r).sum(-1)
+        first = int(torch.nonzero(rtr0 > 0)[0, 0]) if bool((rtr0 > 0).any()) else 0
+        mid = torch.sqrt(thresh * torch.sqrt(noise * (noise + tr)) / rtr0.clamp(min=1e-30))
+        forced = torch.where(torch.arange(B, device=H.device) == first, mid,
+                             torch.full_like(mid, 1e-3))
+        scales = {**{f"{s:g}": s for s in (1e-3, 1.0, 10.0, 30.0, 1e3)},
+                  "one undecided": forced[:, None]}
+        solved = []
+        for label, scale in scales.items():
+            rs = r * scale
+            rtr = (rs * rs).sum(-1)
+            ps, fs = upd.gate_bounds_plain(H, rs, cov, noise, thresh)
+            undecided = bool((~(ps | fs)).any())
+            near_b = ((rtr - thresh * noise).abs() <= 1e-4 * rtr) | (
+                (rtr - thresh * (noise + tr)).abs() <= 1e-4 * rtr)
+            for rt in tiers:
+                got = upd.gating_test_batch(H, rs, rt, cov, noise, table, dof)
+                want = upd.gating_test_batch_plain(H, rs, rt, cov, noise, table, dof)
+                m = R if R <= 32 or int(rt.max()) > 32 else 32
+                gamma = upd.gate_gamma_plain(H[:, :m], rs[:, :m], cov, noise)
+                near = ((gamma - thresh).abs() <= 1e-4 * thresh) | near_b
+                bad = (got != want) & ~near
+                if bool(bad.any()):
+                    fail(f"K10 {tuple(shape)} scale {label}, max rows {int(rt.max())}: "
+                         f"decisions differ on {int(bad.sum())} blocks")
+                # the plain pieces: decided by the bounds, every block takes
+                # pass_sure; else gamma < thresh on the tier's rows, and the
+                # kernel's gamma within 1e-4 relative of the plain gamma
+                solve = R <= 32 or undecided
+                piece = gamma < thresh if solve else ps
+                if not bool(((got == piece) | near).all()):
+                    fail(f"K10 {tuple(shape)} scale {label}, max rows {int(rt.max())}: the "
+                         f"decisions differ from the plain {'gamma' if solve else 'bounds'}")
+                if not solve:
+                    continue
+                _, g = upd._gate_kernel(H, rs, rt, cov, noise, table, dof, with_gamma=True)
+                same_nan = torch.equal(g.isnan(), gamma.isnan())
+                rel = float(((g - gamma).abs() / gamma.abs().clamp(min=1e-30)).nan_to_num().max())
+                if label == "1":
+                    gate_err = max(gate_err, float((g - gamma).abs().nan_to_num().max()))
+                if not same_nan or not rel <= 1e-4:
+                    fail(f"K10 gamma {tuple(shape)} scale {label} on {m} rows: relative error "
+                         f"{rel:.3e}, NaN pattern equal {same_nan}")
+                if R > 32:
+                    solved.append(f"{label}/{m}")
+        print(f"[K10] gate {tuple(shape)}: decisions agree with the plain version and its "
+              f"pieces, gamma within 1e-4, at scales {'/'.join(scales)} on the "
+              f"{'/'.join(str(int(t.max())) for t in tiers)}-row tiers"
+              + (f"; gamma ran at scale/rows {', '.join(dict.fromkeys(solved))}"
+                 if solved else ""))
+    if not any(shape[1] > 32 for shape in gates):
+        fail("the warm run made no 77-row gate call")
+        return {}
+    # timed at its two most frequent shapes in the warm run (the lost
+    # features' 77-row gate and the prune's 5-row gate)
+    top = sorted(gates, key=lambda sh: (-rec.counts[("K10", sh)], str(sh)))[:2]
+    ms, pms, n_bytes, ops, timed, lib = 0.0, 0.0, 0, 0.0, [], None
+    for shape in top:
+        a = gates[shape]
+        H, r, rows, cov, noise, table, dof = a
+        B, R, D = H.shape
+        t_ms = cuda_ms(lambda: upd.gating_test_batch(*a))
+        ms += t_ms
+        pms += cuda_ms(lambda: upd.gating_test_batch_plain(*a), reps=10)
+        thresh = table[torch.clamp(dof, 0, table.shape[0] - 1).long()]
+        ps, fs = upd.gate_bounds_plain(H, r, cov, noise, thresh)
+        solve = R <= 32 or bool((~(ps | fs)).any())
+        if R > 32:  # H P over the rows that hold data (2 nz D^2) and the trace
+            nz = _rows_needed(H, r)
+            ops += float((2 * nz * D * D + 2 * nz * D).sum())
+        if solve:  # and S's lower triangle, the Cholesky and the border row on the tier
+            m = R if R <= 32 or int(rows.max()) > 32 else 32
+            nz = _rows_needed(H[:, :m], r[:, :m])
+            ops += float((2 * nz * D * D + nz * (nz + 1) * D + nz ** 3 / 3 + nz ** 2).sum())
+        n_bytes += nbytes(H, r, rows, cov, noise, table, dof) + B
+        timed.append(f"{tuple(shape)} ({rec.counts[('K10', shape)]} calls, "
+                     f"{'gamma' if solve else 'bounds only'}) {t_ms:.4f} ms")
+        if R <= 32:  # the library's factorisation of the same S
+            S = (H @ cov @ H.transpose(1, 2)
+                 + noise * torch.eye(R, dtype=H.dtype, device=H.device))
+            lib = cuda_ms(lambda: torch.linalg.cholesky_ex(S))
+    b = bound(n_bytes, ops)
+    print(f"[K10] gating_test_batch, one launch a call: {' + '.join(timed)} = {ms:.4f} ms vs "
+          f"plain {pms:.4f} ms; torch.linalg.cholesky_ex of the 5-row gate's S "
+          f"{lib if lib is None else f'{lib:.4f}'} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
+    return {"K10": (gate_err, ms, pms, *b, lib)}
+
+
 def check_backend_kernels(rec: Recorder, config, params):
     """K13, K9, K10 and K12 against their plain versions on the calls the
     warm run recorded, and on forced cases.  Returns {name: (max_abs_err,
     ms, plain_ms, bound_ms, bound_by)} with the times and bound at each
-    kernel's (each K10 entry point's) most frequent shape in the warm run."""
+    kernel's most frequent shape in the warm run (K10: its two)."""
     import torch
 
     from uav_airvision_tpu_torch.models.msckf import triangulation as tri
@@ -576,79 +697,7 @@ def check_backend_kernels(rec: Recorder, config, params):
         if (B, N) == rec.most_frequent("K9"):
             res["K9"] = (abs_err, ms, pms, *b, lib)
 
-    # K10: the recorded gate calls at forced residual scales and row tiers
-    gates = rec.of("K10")
-    gate_err = 0.0
-    for shape, a in sorted(gates.items()):
-        H, r, rows, cov, noise, table, dof = a
-        tiers = [rows] if H.shape[1] <= 32 else [rows, torch.full_like(rows, H.shape[1])]
-        thresh = table[torch.clamp(dof, 0, table.shape[0] - 1).long()]
-        for scale in (1e-3, 1.0, 10.0, 30.0, 1e3):
-            rs = r * scale
-            for rt in tiers:
-                got = upd.gating_test_batch(H, rs, rt, cov, noise, table, dof)
-                want = upd.gating_test_batch_plain(H, rs, rt, cov, noise, table, dof)
-                gamma = upd.gate_gamma_plain(H, rs, cov, noise)
-                near = (gamma - thresh).abs() <= 1e-4 * thresh
-                if not bool(((got == want) | near).all()):
-                    fail(f"K10 {tuple(shape)} scale {scale}: decisions differ on "
-                         f"{int(((got != want) & ~near).sum())} blocks")
-            for m in sorted({min(H.shape[1], 32), H.shape[1]}):
-                g = upd.gate_gamma(H[:, :m], rs[:, :m], cov, noise)
-                w = upd.gate_gamma_plain(H[:, :m], rs[:, :m], cov, noise)
-                same_nan = torch.equal(g.isnan(), w.isnan())
-                rel = float(((g - w).abs() / w.abs().clamp(min=1e-30)).nan_to_num().max())
-                if scale == 1.0:
-                    gate_err = max(gate_err, float((g - w).abs().nan_to_num().max()))
-                if not same_nan or not rel <= 1e-4:
-                    fail(f"K10 gamma {tuple(H[:, :m].shape)} scale {scale}: relative "
-                         f"error {rel:.3e}, NaN pattern equal {same_nan}")
-            if H.shape[1] > 32:
-                ps, fs = upd.gate_bounds(H, rs, cov, noise, thresh)
-                pps, pfs = upd.gate_bounds_plain(H, rs, cov, noise, thresh)
-                rtr = (rs * rs).sum(-1)
-                tr = ((H @ cov) * H).sum((1, 2))
-                near = ((rtr - thresh * noise).abs() <= 1e-4 * rtr) | (
-                    (rtr - thresh * (noise + tr)).abs() <= 1e-4 * rtr)
-                if not bool(((ps == pps) & (fs == pfs) | near).all()):
-                    fail(f"K10 bounds {tuple(shape)} scale {scale}: flags differ")
-        print(f"[K10] gate {tuple(shape)}: decisions, bounds and gamma agree at scales "
-              f"1e-3..1e3 on the {'/'.join(str(int(t.max())) for t in tiers)}-row tiers")
-    if not any(shape[1] > 32 for shape in gates):
-        fail("the warm run made no 77-row gate call")
-        return res
-    # each entry point timed at its most frequent shape in the warm run
-    ms, pms, n_bytes, ops, timed = 0.0, 0.0, 0, 0.0, []
-    for entry, kernel, plain in (("bounds", upd.gate_bounds, upd.gate_bounds_plain),
-                                 ("gamma", upd.gate_gamma, upd.gate_gamma_plain)):
-        shape = rec.most_frequent(f"K10 {entry}")
-        if shape is None:
-            fail(f"the warm run made no gate_{entry} call")
-            return res
-        a = rec.of(f"K10 {entry}")[shape]
-        ms += cuda_ms(lambda: kernel(*a))
-        pms += cuda_ms(lambda: plain(*a), reps=10)
-        H, nz, D = a[0], _rows_needed(a[0], a[1]), a[0].shape[2]
-        if entry == "bounds":
-            # H P over the rows that hold data (2 nz D^2) and the trace
-            ops += float((2 * nz * D * D + 2 * nz * D).sum())
-            n_bytes += nbytes(*a) + 2 * H.shape[0]
-        else:
-            # and S's lower triangle (nz^2 D), the Cholesky (nz^3 / 3) and
-            # the border row
-            ops += float((2 * nz * D * D + nz * (nz + 1) * D + nz ** 3 / 3 + nz ** 2).sum())
-            n_bytes += nbytes(*a) + H.element_size() * H.shape[0]
-        timed.append(f"{entry} {shape} ({rec.counts[(f'K10 {entry}', shape)]} calls)")
-        if entry == "gamma":  # the library's factorisation of the same S
-            cov, noise = a[2], a[3]
-            S = (H @ cov @ H.transpose(1, 2)
-                 + noise * torch.eye(H.shape[1], dtype=H.dtype, device=H.device))
-            lib = cuda_ms(lambda: torch.linalg.cholesky_ex(S))
-    b = bound(n_bytes, ops)
-    print(f"[K10] {' + '.join(timed)}: {ms:.4f} ms vs plain {pms:.4f} ms; "
-          f"torch.linalg.cholesky_ex of gamma's S {lib:.4f} ms; bound {b[0] * 1e3:.3f} us "
-          f"({b[1]})")
-    res["K10"] = (gate_err, ms, pms, *b, lib)
+    res.update(check_gate(rec))
 
     # K12: the recorded prune updates, and one with an exactly singular P12
     calls = rec.of("K12")
@@ -1394,11 +1443,20 @@ def main() -> int:
 
     # main path, warm run, recording the back-end kernels' calls
     t0 = time.time()
+    k2_0, k10_0 = pyramid.build_pyramid_pair.launches, update.gating_test_batch.launches
     with Recorder() as rec:
         state, _ = vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
     torch.cuda.synchronize()
     print(f"[main] warm run: {N_FRAMES} frames in {time.time() - t0:.2f} s; calls per shape "
           f"{ {f'{k[0]} {k[1]}': n for k, n in sorted(rec.counts.items(), key=str)} }")
+    k2_n = pyramid.build_pyramid_pair.launches - k2_0
+    k10_calls = sum(n for k, n in rec.counts.items() if k[0] == "K10")
+    k10_n = update.gating_test_batch.launches - k10_0
+    print(f"[main] warm run: K2 {k2_n} launches for {N_FRAMES} frames, K10 {k10_n} launches "
+          f"for {k10_calls} gate calls")
+    if k2_n != N_FRAMES or k10_n != k10_calls:
+        fail(f"K2 launched {k2_n} times for {N_FRAMES} frames, K10 {k10_n} times for "
+             f"{k10_calls} gate calls: one launch each expected")
     params = make_params(config, dev)
     results["K14"] = check_propagate(state.filter, params, frames, N_FRAMES // 2)
     results.update(check_backend_kernels(rec, config, params))
@@ -1409,10 +1467,10 @@ def main() -> int:
     # every entry point the main path launches (camera.distort_points runs
     # there only inside the fused stereo prologue); P1 and K1's level entry
     # run on the compact path only
-    wrappers = {"K1": [lk.pyramidal_lk], "K2": [pyramid.build_pyramid_padded],
+    wrappers = {"K1": [lk.pyramidal_lk], "K2": [pyramid.build_pyramid_pair],
                 "K4+K6": [fast.detect_fast], "K14": [propagation.propagate],
                 "K13": [triangulation.triangulate], "K9": [update.feature_block],
-                "K10": [update.gate_bounds, update.gate_gamma],
+                "K10": [update.gating_test_batch],
                 "K12": [update.rank12_update], "K11": [update.ekf_update],
                 "K5": [gridops.dense_grid_topk], "K8": list(gridops.K8_WRAPPERS),
                 "K7": [camera.undistort_distort_points, camera.undistort_points,
@@ -1450,10 +1508,13 @@ def main() -> int:
           f"rmse {ate_rmse:.5f} m (bar {ATE_BAR_M} m)")
     if not ate_max < ATE_BAR_M:
         fail(f"ATE max {ate_max:.5f} m is not under the bar {ATE_BAR_M} m")
+    print(f"[main] K2 {launches['K2'] / N_FRAMES:.2f} launches/frame, K10 "
+          f"{launches['K10'] / N_FRAMES:.2f}; CUDA launches per frame over frames "
+          f"{PROFILE_WINDOW}: {profile_launches(config, frames, pb):.1f}")
 
     sources = {"K1": ("lk.cu", "uav_airvision_tpu/ops/lk.py:341", "pyramidal_lk"),
                "K2": ("pyramid.cu", "uav_airvision_tpu/ops/pyramid.py:115",
-                      "build_pyramid_padded"),
+                      "build_pyramid_pair"),
                "K4+K6": ("fast.cu", "uav_airvision_tpu/ops/fast.py:103", "fast_detect_masked"),
                "K14": ("propagate.cu", "uav_airvision_tpu/models/msckf/propagation.py:88",
                        "propagate"),

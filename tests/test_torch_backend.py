@@ -256,6 +256,63 @@ def test_feature_block_and_gate_match_jax(blocks):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _gate_cases(H, r, cov, s2, thresh):
+    """Per-block residual scales that force each branch of the gate: r'r
+    far under the pass bound (1e-3 of it), far over the fail bound (1e3 x),
+    or at the geometric middle of the undecided band between them."""
+    rtr = (r * r).sum(-1)
+    tr = ((H @ cov) * H).sum((1, 2))
+    targets = {"pass": 1e-3 * thresh * s2, "fail": 1e3 * thresh * (s2 + tr),
+               "undecided": thresh * torch.sqrt(s2 * (s2 + tr))}
+    return {k: torch.sqrt(v / rtr) for k, v in targets.items()}
+
+
+def test_gate_selection_matches_jax(blocks):
+    """The gate's selection (bounds only, the 32-row tier, all rows) against
+    the jitted JAX function, on forced cases: every block decided and
+    passing; decided blocks mixing pass and fail; one undecided block with
+    max(rows_true) <= 32 and with max(rows_true) > 32; R <= 32 prefixes."""
+    state, params, sel = blocks
+    D = state.cov.shape[0]
+    jst, jparams = to_jax(state), to_jax(params)
+    jH, jr, _ = _jax_feature_blocks(jst, jparams, sel, D)
+    H, r = torch.as_tensor(np.array(jH)), torch.as_tensor(np.array(jr))
+    B, R = r.shape
+    dof = state.features.obs_mask[sel].sum(1).to(torch.int32) - 1
+    thresh = params.chi2_table[dof.long()]
+    s2 = params.obs_noise
+    scale = _gate_cases(H, r, state.cov, s2, thresh)
+    odd = torch.arange(B) % 2 == 1
+    one = torch.arange(B) == B // 2
+    cases = {
+        "all pass": (scale["pass"], torch.full((B,), 20), (B, 0, 0)),
+        "pass and fail": (torch.where(odd, scale["fail"], scale["pass"]), torch.full((B,), 20),
+                          (B - int(odd.sum()), int(odd.sum()), 0)),
+        "undecided, rows <= 32": (torch.where(one, scale["undecided"], scale["pass"]),
+                                  torch.full((B,), 20), (B - 1, 0, 1)),
+        "undecided, rows > 32": (torch.where(one, scale["undecided"], scale["fail"]),
+                                 torch.full((B,), R), (0, B - 1, 1)),
+    }
+    jgate = jax.jit(jupd.gating_test_batch)
+    for name, (sc, rows_true, counts) in cases.items():
+        rs = r * sc[:, None]
+        ps, fs = tupd.gate_bounds_plain(H, rs, state.cov, s2, thresh)
+        assert (int(ps.sum()), int(fs.sum()), int((~(ps | fs)).sum())) == counts, name
+        rows_true = rows_true.to(torch.int32)
+        want = jgate(jH, jnp.asarray(rs.numpy()), jnp.asarray(rows_true.numpy()), jst.cov,
+                     jparams.obs_noise, jparams.chi2_table, jnp.asarray(dof.numpy()))
+        got = tupd.gating_test_batch(H, rs, rows_true, state.cov, s2, params.chi2_table, dof)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=name)
+    # R <= 32: gamma on every row of the prefix, the bounds never consulted
+    rs = r * torch.where(one, scale["undecided"], scale["pass"])[:, None]
+    rows_true = torch.full((B,), 20, dtype=torch.int32)
+    want = jgate(jH[:, :32], jnp.asarray(rs[:, :32].numpy()), jnp.asarray(rows_true.numpy()),
+                 jst.cov, jparams.obs_noise, jparams.chi2_table, jnp.asarray(dof.numpy()))
+    got = tupd.gating_test_batch(H[:, :32], rs[:, :32], rows_true, state.cov, s2,
+                                 params.chi2_table, dof)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg="R <= 32")
+
+
 @pytest.mark.parametrize("n_rows", [60, 200, 700], ids=["T1", "T2", "QR"])
 def test_apply_update_matches_jax(blocks, n_rows):
     state, params, sel = blocks

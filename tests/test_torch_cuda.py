@@ -45,13 +45,38 @@ def _image(H, W, seed):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-@pytest.mark.parametrize("H,W", [(96, 128), (121, 163)])
+@pytest.mark.parametrize("H,W", [(96, 128), (121, 163), (480, 752), (95, 131)])
 def test_pyramid_kernel_exact(dev, H, W):
-    img = torch.as_tensor(_image(H, W, 1), device=dev)
-    got = pyramid.build_pyramid_padded(img, 3)
-    want = pyramid.build_pyramid_padded_plain(img, 3)
-    for g, w in zip(got.levels, want.levels):
+    """K2, one camera and the pair: every level equal to the plain version,
+    one launch per call.  752 px rows are staged by the bulk copy, odd
+    widths and an image at an odd address by byte loads."""
+    img0 = torch.as_tensor(_image(H, W, 1), device=dev)
+    img1 = torch.as_tensor(_image(H, W, 2), device=dev)
+    n1, n2 = pyramid.build_pyramid_padded.launches, pyramid.build_pyramid_pair.launches
+    got = pyramid.build_pyramid_padded(img0, 3)
+    pair = pyramid.build_pyramid_pair(img0, img1, 3)
+    assert pyramid.build_pyramid_padded.launches == n1 + 1
+    assert pyramid.build_pyramid_pair.launches == n2 + 1
+    want = pyramid.build_pyramid_pair_plain(img0, img1, 3)
+    for g, w in zip(got.levels, want[0].levels):
         assert torch.equal(g, w)
+    for g, w in zip(pair, want):
+        assert all(torch.equal(a, b) for a, b in zip(g.levels, w.levels))
+    odd = torch.empty(H * W + 1, dtype=torch.uint8, device=dev)[1:].view(H, W)
+    odd.copy_(img1)
+    got = pyramid.build_pyramid_pair(img0, odd, 3)[1]
+    assert all(torch.equal(a, b) for a, b in zip(got.levels, want[1].levels))
+
+
+@pytest.mark.parametrize("levels", [0, 1, 2, 5])
+def test_pyramid_kernel_levels(dev, levels):
+    """K2 at other level counts (the coarsest level's bands set every
+    level's): equal to the plain version."""
+    img0, img1 = (torch.as_tensor(_image(480, 752, s), device=dev) for s in (3, 4))
+    pair = pyramid.build_pyramid_pair(img0, img1, levels)
+    for g, w in zip(pair, pyramid.build_pyramid_pair_plain(img0, img1, levels)):
+        assert g.n_levels == levels + 1
+        assert all(torch.equal(a, b) for a, b in zip(g.levels, w.levels))
 
 
 def test_fast_kernel_exact(dev):
@@ -302,17 +327,36 @@ def test_feature_block_kernel_matches_plain(dev, host_states, dtype, N, B):
     assert not bool(H.abs().amax(2)[below].any())
 
 
+def _gate_scales(H, r, cov, s2, thresh):
+    """Per-block residual scales that put r'r far under the pass bound, far
+    over the fail bound, or at the geometric middle of the undecided band."""
+    rtr = (r * r).sum(-1)
+    tr = ((H @ cov) * H).sum((1, 2))
+    targets = {"pass": 1e-3 * thresh * s2, "fail": 1e3 * thresh * (s2 + tr),
+               "undecided": thresh * torch.sqrt(s2 * (s2 + tr))}
+    return {k: torch.sqrt(v / rtr) for k, v in targets.items()}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_gate_kernels_match_plain(dev, host_states, dtype):
-    """K10: gamma within 1e-4 (float32) / 1e-9 (float64) relative, and the
-    gate's decisions identical except where gamma lies within 1e-4 of the
-    threshold, at residual scales on the pass side, in the undecided band
-    and on the fail side; the 77-row and the 32-row tier and the 5-row
-    prune blocks."""
+    """K10: one launch per gate call and no host read; gamma, where the
+    kernel computes it, within 1e-4 (float32) / 1e-9 (float64) relative of
+    the plain version's, NaN where it is; the decisions equal the plain
+    version's except where gamma (on either tier) lies within 1e-4 of the
+    threshold or r'r within 1e-4 of a bound, at residual scales
+    on the pass side, in the undecided band and on the fail side, forced
+    per block (all pass, pass and fail, one undecided block on each tier),
+    on the 77-row blocks (16 and, walked by the co-resident blocks, 300
+    features), the 32- and 5-row prefixes and the 5-row prune blocks; the
+    same decisions with P at an address that is not 16-byte aligned; a
+    failed factorisation gives the plain version's decision."""
+    from uav_airvision_tpu_torch import device
+
     state, params, args = _blocks(dev, host_states, dtype, 20, 16)
     H, r, rows = update.feature_block_plain(*args)
     H, r = H.contiguous(), r.contiguous()
-    dof = args[5].sum(1).to(torch.int32) - 1
+    B, R = r.shape
+    dof = args[5].sum(1) - 1  # int64, as on the lost-feature path
     _, _, args2 = _blocks(dev, host_states, dtype, 2, 64)
     H2, r2, rows2 = update.feature_block_plain(*args2)
     cols = torch.cat([21 + 6 * 3 + torch.arange(6, device=dev),
@@ -320,32 +364,55 @@ def test_gate_kernels_match_plain(dev, host_states, dtype):
     H5 = torch.zeros((64, 5, H.shape[2]), dtype=H.dtype, device=dev).index_copy(
         2, cols, H2[:, :, 21:33])
     dof5 = torch.full((64,), 2, dtype=torch.int32, device=dev)
-    rtol = 1e-4 if dtype == "float32" else 1e-9
-    cases = [(H, r * s, rt, dof) for s in (1e-3, 1.0, 10.0, 30.0, 1e3)
-             for rt in (rows, torch.full_like(rows, 77))]
+    s2, table, cov = params.obs_noise, params.chi2_table, state.cov
+    sc = _gate_scales(H, r, cov, s2, table[dof])
+    odd, one = torch.arange(B, device=dev) % 2 == 1, torch.arange(B, device=dev) == B // 2
+    full, short = torch.full_like(rows, R), torch.full_like(rows, 20)
+    cases = [(H, r * s, rt, dof) for s in (1e-3, 1.0, 10.0, 30.0, 1e3) for rt in (rows, full)]
+    cases += [(H, r * f[:, None], rt, dof) for f, rt in (
+        (sc["pass"], short), (torch.where(odd, sc["fail"], sc["pass"]), short),
+        (torch.where(one, sc["undecided"], sc["pass"]), short),
+        (torch.where(one, sc["undecided"], sc["fail"]), full))]
+    cases += [(H[:, :m], r[:, :m] * sc["undecided"][:, None], rows, dof) for m in (32, 5)]
     cases += [(H5, r2 * s, rows2, dof5) for s in (1e-3, 1.0, 30.0, 1e3)]
-    n_b, n_g = update.gate_bounds.launches, update.gate_gamma.launches
+    idx = torch.arange(300, device=dev) % B
+    cases += [(H[idx], (r * f[:, None])[idx], rows[idx], dof[idx])
+              for f in (sc["pass"], torch.where(one, sc["undecided"], sc["pass"]))]
+    rtol = 1e-4 if dtype == "float32" else 1e-9
+    cov_odd = torch.empty(cov.numel() + 1, dtype=cov.dtype, device=dev)[1:].view(cov.shape)
+    cov_odd.copy_(cov)
     for Hc, rc, rt, d in cases:
-        thresh = params.chi2_table[d.long()]
-        got = update.gating_test_batch(Hc, rc, rt, state.cov, params.obs_noise,
-                                       params.chi2_table, d)
-        want = update.gating_test_batch_plain(Hc, rc, rt, state.cov, params.obs_noise,
-                                              params.chi2_table, d)
-        gamma = update.gate_gamma_plain(Hc, rc, state.cov, params.obs_noise)
-        near = (gamma - thresh).abs() <= 1e-4 * thresh
-        assert bool(((got == want) | near).all())
+        n, syncs = update.gating_test_batch.launches, device.host_syncs["sync"]
+        got = update.gating_test_batch(Hc, rc, rt, cov, s2, table, d)
+        assert update.gating_test_batch.launches == n + 1
+        assert device.host_syncs["sync"] == syncs
+        assert got.shape == (Hc.shape[0],) and got.dtype == torch.bool
+        want = update.gating_test_batch_plain(Hc, rc, rt, cov, s2, table, d)
+        thresh = table[d]
+        near = torch.zeros_like(got)
         for m in {min(Hc.shape[1], 32), Hc.shape[1]}:
-            g = update.gate_gamma(Hc[:, :m], rc[:, :m], state.cov, params.obs_noise)
-            w = update.gate_gamma_plain(Hc[:, :m], rc[:, :m], state.cov, params.obs_noise)
-            assert _rel_err(g, w) <= rtol
-        if Hc.shape[1] > 32:
-            ps, fs = update.gate_bounds(Hc, rc, state.cov, params.obs_noise, thresh)
-            pps, pfs = update.gate_bounds_plain(Hc, rc, state.cov, params.obs_noise, thresh)
-            assert torch.equal(ps, pps) and torch.equal(fs, pfs)
-    assert update.gate_bounds.launches > n_b and update.gate_gamma.launches > n_g
-    # a factorisation that fails gives NaN, as the plain version's
+            gamma = update.gate_gamma_plain(Hc[:, :m], rc[:, :m], cov, s2)
+            near |= (gamma - thresh).abs() <= 1e-4 * thresh
+        rtr = (rc * rc).sum(-1)
+        tr = ((Hc @ cov) * Hc).sum((1, 2))
+        near |= ((rtr - thresh * s2).abs() <= 1e-4 * rtr) | (
+            (rtr - thresh * (s2 + tr)).abs() <= 1e-4 * rtr)
+        assert bool(((got == want) | near).all())
+        assert torch.equal(update.gating_test_batch(Hc, rc, rt, cov_odd, s2, table, d), got)
+        # gamma, where the kernel computed it, against the plain version's
+        ps, fs = update.gate_bounds_plain(Hc, rc, cov, s2, thresh)
+        if Hc.shape[1] <= 32 or not bool((ps | fs).all()):
+            m = Hc.shape[1] if Hc.shape[1] <= 32 or int(rt.max()) > 32 else 32
+            _, g = update._gate_kernel(Hc, rc, rt, cov, s2, table, d, with_gamma=True)
+            w = update.gate_gamma_plain(Hc[:, :m], rc[:, :m], cov, s2)
+            assert torch.equal(g.isnan(), w.isnan())
+            assert _rel_err(g.nan_to_num(), w.nan_to_num()) <= rtol
+    # a factorisation that fails: gamma NaN fails the gate, as in the plain version
     bad = -1e6 * torch.eye(H.shape[2], dtype=H.dtype, device=dev)
-    assert bool(update.gate_gamma(H[:2], r[:2], bad, params.obs_noise).isnan().all())
+    for m in (32, R):
+        got = update.gating_test_batch(H[:, :m], r[:, :m], rows, bad, s2, table, dof)
+        assert torch.equal(got, update.gating_test_batch_plain(H[:, :m], r[:, :m], rows, bad, s2,
+                                                               table, dof))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

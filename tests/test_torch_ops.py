@@ -73,6 +73,20 @@ def test_pyramid_levels_exact(H, W):
                                       err_msg=f"level {L}")
 
 
+@pytest.mark.parametrize("H,W", [(96, 128), (480, 752), (95, 131)])
+def test_pyramid_pair_matches_jax(H, W):
+    """Both cameras' pyramids from one call, every level bit-equal to the
+    JAX package's pyramid of each camera."""
+    imgs = [textured(H, W, seed=H + k) for k in range(2)]
+    pair = tpyr.build_pyramid_pair(*(torch.as_tensor(img) for img in imgs), 3)
+    for img, got in zip(imgs, pair):
+        want = jpyr.build_pyramid_padded(jnp.asarray(img), 3)
+        assert got.n_levels == 4
+        for L in range(4):
+            np.testing.assert_array_equal(got.levels[L].numpy(), np.asarray(want[L]),
+                                          err_msg=f"level {L}")
+
+
 def _mask_points(rng, H, W, n=30):
     pts = rng.uniform([0, 0], [W - 1, H - 1], (n, 2)).astype(np.float32)
     pts[:4] = [[1.5, 40.0], [60.2, 2.7], [0.3, 0.9], [2.99, 3.0]]  # x<3 or y<3

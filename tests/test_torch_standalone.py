@@ -267,9 +267,9 @@ def filter_state():
 
 
 def _launch_counts():
-    fns = (ttri.triangulate, tupd.feature_block, tupd.gate_bounds, tupd.gate_gamma,
-           tupd.rank12_update, tupd.ekf_update, tgrid.dense_grid_topk, *tgrid.K8_WRAPPERS,
-           *tcam.WRAPPERS, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk)
+    fns = (ttri.triangulate, tupd.feature_block, tupd.gating_test_batch, tupd.rank12_update, tupd.ekf_update, tgrid.dense_grid_topk, *tgrid.K8_WRAPPERS,
+           *tcam.WRAPPERS, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk,
+           tpyr.build_pyramid_pair, tpyr.build_pyramid_padded)
     return tuple(fn.launches for fn in fns)
 
 
@@ -285,7 +285,7 @@ def _assert_identical(got, want):
 
 
 @pytest.mark.parametrize("kernel", ["K13", "K9", "K9_prune", "K10", "K12", "K11", "K5", "K8",
-                                    "K7", "P1", "K1_level"])
+                                    "K7", "P1", "K1_level", "K2"])
 def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
     """On CPU tensors each kernel's public wrapper returns exactly what its
     plain version returns, counts no launch and reports no call to the
@@ -311,16 +311,18 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
             c.q, c.p, c.q_null, c.p_null, t.obs[sel], t.obs_mask[sel], t.position[sel],
             state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, cfg.capacity.state_dim)
         dof = t.obs_mask[sel].sum(1).to(torch.int32) - 1
-        thresh = params.chi2_table[dof.long()]
         for scale in (1e-3, 10.0, 1e3):
-            gate = (H, r * scale, rows, state.cov, params.obs_noise, params.chi2_table, dof)
-            _assert_identical(tupd.gating_test_batch(*gate), tupd.gating_test_batch_plain(*gate))
-            _assert_identical(tupd.gate_bounds(H, r * scale, state.cov, params.obs_noise, thresh),
-                              tupd.gate_bounds_plain(H, r * scale, state.cov, params.obs_noise,
-                                                     thresh))
-            for m in (32, H.shape[1]):
-                args = (H[:, :m], r[:, :m] * scale, state.cov, params.obs_noise)
-                _assert_identical(tupd.gate_gamma(*args), tupd.gate_gamma_plain(*args))
+            # the 77-row gate on both tiers, and the R <= 32 gate on row prefixes
+            for rows_true in (rows, torch.full_like(rows, H.shape[1])):
+                gate = (H, r * scale, rows_true, state.cov, params.obs_noise, params.chi2_table,
+                        dof)
+                _assert_identical(tupd.gating_test_batch(*gate),
+                                  tupd.gating_test_batch_plain(*gate))
+            for m in (5, 32):
+                gate = (H[:, :m], r[:, :m] * scale, rows, state.cov, params.obs_noise,
+                        params.chi2_table, dof)
+                _assert_identical(tupd.gating_test_batch(*gate),
+                                  tupd.gating_test_batch_plain(*gate))
     elif kernel == "K11":
         rng = np.random.default_rng(11)
         D = state.cov.shape[0]
@@ -374,6 +376,15 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
                                                     if x is not None))
                 des = tlk.compact_origin(pts, pyr.levels[0], 0)
                 win = textract.extract_windows(pyr.levels[0], des[:, 0], des[:, 1], 32)
+    elif kernel == "K2":
+        rng = np.random.default_rng(2)
+        img0, img1 = (torch.as_tensor(rng.integers(0, 256, (95, 131)), dtype=torch.uint8)
+                      for _ in range(2))
+        for got, want in zip(tpyr.build_pyramid_pair(img0, img1, 3),
+                             tpyr.build_pyramid_pair_plain(img0, img1, 3)):
+            _assert_identical(tuple(got.levels), tuple(want.levels))
+        _assert_identical(tuple(tpyr.build_pyramid_padded(img1, 3).levels),
+                          tuple(tpyr.build_pyramid_padded_plain(img1, 3).levels))
     elif kernel == "K7":
         rng = np.random.default_rng(7)
         pts = torch.as_tensor(rng.uniform([5, 5], [747, 475], (50, 2)), dtype=torch.float32)
@@ -414,9 +425,13 @@ def test_wrappers_raise_on_other_devices(filter_state):
                                                 state.features.obs_mask, params.R_cam0_cam1,
                                                 params.t_cam0_cam1)), cfg.triangulation)
     H = torch.zeros((2, 77, 141), device=meta)
+    idx = torch.zeros(2, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="K10"):
-        tupd.gate_gamma(H, torch.zeros((2, 77), device=meta), state.cov.to(meta),
-                        params.obs_noise.to(meta))
+        tupd.gating_test_batch(H, torch.zeros((2, 77), device=meta), idx, state.cov.to(meta),
+                               params.obs_noise.to(meta), params.chi2_table.to(meta), idx)
+    with pytest.raises(ValueError, match="K2"):
+        tpyr.build_pyramid_pair(*(torch.zeros((40, 50), dtype=torch.uint8, device=meta)
+                                  for _ in range(2)), 3)
     with pytest.raises(ValueError, match="K11"):
         tupd.ekf_update(state.cov.to(meta), H[0], H[0, :, 0], params.obs_noise.to(meta), 5)
     with pytest.raises(ValueError, match="K5"):
@@ -434,3 +449,28 @@ def test_wrappers_raise_on_other_devices(filter_state):
                                origins.bool(), torch.zeros((4, 32, 32), device=meta),
                                torch.zeros((4, 2), dtype=torch.int32, device=meta), 0)
 
+
+def test_gate_makes_no_host_read(filter_state):
+    """The 77-row gate with a block in the bounds' undecided band (so the
+    exact test decides) reads nothing back to the host: the JAX function
+    decides in one lax.cond tree, and so does the port, on the device."""
+    cfg, state, params, sel = filter_state
+    c, t = state.cams, state.features
+    H, r, rows = tupd.feature_block_plain(
+        c.q, c.p, c.q_null, c.p_null, t.obs[sel], t.obs_mask[sel], t.position[sel],
+        state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, cfg.capacity.state_dim)
+    dof = t.obs_mask[sel].sum(1).to(torch.int32) - 1
+    thresh = params.chi2_table[dof.long()]
+    # every block's r'r at the geometric middle of its undecided band
+    s2 = params.obs_noise
+    tr = ((H @ state.cov) * H).sum((1, 2))
+    r = r * torch.sqrt(thresh * torch.sqrt(s2 * (s2 + tr)) / (r * r).sum(-1))[:, None]
+    pass_sure, fail_sure = tupd.gate_bounds_plain(H, r, state.cov, s2, thresh)
+    assert H.shape[1] == 77 and not bool((pass_sure | fail_sure).any())
+    before = device.host_syncs["sync"]
+    got = tupd.gating_test_batch(H, r, rows, state.cov, s2, params.chi2_table, dof)
+    assert device.host_syncs["sync"] == before
+    want = tupd.gate_gamma_plain(H, r, state.cov, s2) < thresh
+    if int(rows.max()) <= tupd.GATE_TIER:
+        want = tupd.gate_gamma_plain(H[:, :32], r[:, :32], state.cov, s2) < thresh
+    assert torch.equal(got, want)

@@ -45,9 +45,8 @@ D = ctypes.c_double
 L = ctypes.c_longlong
 # C signatures: every entry point returns int (a cudaError_t).
 SIGNATURES = {
-    # src, src_stride, src_off, Hs, Ws, dst, Ho, Wo, pad, down, stream
-    "pyr_level_u8": [P, I, I, I, I, P, I, I, I, I, P],
-    "pyr_level_f32": [P, I, I, I, I, P, I, I, I, I, P],
+    # img0, img1, n_cam, H, W, n_levels, pad, out, stream
+    "pyramid_u8": [P, P, I, I, I, I, I, P, P],
     # img, H, W, thr, pts, pts_valid, n_pts, score_tmp, corner_tmp,
     # keep_out, score_out, stream
     "fast_detect_masked": [P, I, I, I, P, P, I, P, P, P, P, P],
@@ -71,13 +70,10 @@ SIGNATURES = {
     # R_c0c1, t_c0c1, B, H_out, r_out, rows_out, stream
     "feature_block_f32": [P, P, P, P, I, P, P, P, P, P, P, I, P, P, P, P],
     "feature_block_f64": [P, P, P, P, I, P, P, P, P, P, P, I, P, P, P, P],
-    # H, r, B, R, D, h_stride, r_stride, P, obs_noise, thresh, pass_out,
-    # fail_out, stream
-    "gate_bounds_f32": [P, P, I, I, I, L, L, P, P, P, P, P, P],
-    "gate_bounds_f64": [P, P, I, I, I, L, L, P, P, P, P, P, P],
-    # H, r, B, m, D, h_stride, r_stride, P, obs_noise, gamma_out, stream
-    "gate_gamma_f32": [P, P, I, I, I, L, L, P, P, P, P],
-    "gate_gamma_f64": [P, P, I, I, I, L, L, P, P, P, P],
+    # H, r, B, R, D, h_stride, r_stride, rows_true, dof, dof is int64, P,
+    # obs_noise, table, n_table, out, flags, gamma, stream
+    "gate_f32": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P],
+    "gate_f64": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P],
     # P, D, B, r, n, cols, obs_noise, delta_out, P_out, stream
     "rank12_f32": [P, I, P, P, I, P, P, P, P, P],
     "rank12_f64": [P, I, P, P, I, P, P, P, P, P],

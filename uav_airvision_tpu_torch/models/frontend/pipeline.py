@@ -131,8 +131,7 @@ def frontend_step(state: FrontendState, cam0_img, cam1_img, mean_ang_vel, dt,
     """One stereo frame through the front-end; returns (state, FrontendOutput).
     ``cam0_img``/``cam1_img`` are (H, W) uint8 tensors."""
     fe = config.frontend
-    pyr0 = pyramid.build_pyramid_padded(cam0_img, fe.pyramid_levels)
-    pyr1 = pyramid.build_pyramid_padded(cam1_img, fe.pyramid_levels)
+    pyr0, pyr1 = pyramid.build_pyramid_pair(cam0_img, cam1_img, fe.pyramid_levels)
     if state.prev_pyr is None:
         state2, counters = _first_frame(state, cam0_img, pyr0, pyr1, params, config)
     else:

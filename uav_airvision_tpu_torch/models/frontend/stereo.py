@@ -12,7 +12,7 @@ import torch
 
 from ...config import Config
 from ...ops import camera, lk
-from ...ops.pyramid import LK_PAD, Pyramid
+from ...ops.pyramid import Pyramid
 from ...utils import quaternion as quat
 from .params import FrontendParams
 
@@ -22,8 +22,7 @@ def stereo_match(pyr0: Pyramid, pyr1: Pyramid, cam0_pts, valid,
                  init_cam1=None, init_ok=None, n_fwd_levels=None):
     """Returns (cam1_pts (B, 2), inlier (B,))."""
     fe = config.frontend
-    h = pyr0.levels[0].shape[0] - 2 * LK_PAD
-    w = pyr0.levels[0].shape[1] - 2 * LK_PAD
+    h, w = pyr0.H0, pyr0.W0
     R0to1 = params.R_cam1_imu.T @ params.R_cam0_imu
     model = config.calib.cam0_distortion_model
 

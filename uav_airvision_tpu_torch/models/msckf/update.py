@@ -2,14 +2,16 @@
 left-nullspace projection, the chi-square gate and the EKF updates.
 
 Port of uav_airvision_tpu/models/msckf/update.py, batched over features.
-The JAX ``lax.cond`` tiers (gate bounds / 32-row gate tier, update row
-tiers T1/T2/QR) are kept as Python branches on values read back from the
-device, so each branch computes what the JAX branch computes.
+The JAX ``lax.cond`` tiers of the update (row tiers T1/T2/QR) are kept as
+Python branches on values read back from the device, so each branch
+computes what the JAX branch computes; the gate's (bounds / 32-row tier /
+all rows) is decided on the device, in its kernel or, in the plain
+version, by a branch-free selection.
 
 Four kernels carry the marginalization path on CUDA tensors, each beside
 its plain PyTorch version (``<name>_plain``, which CPU tensors run):
-K9 ``feature_block`` (``csrc/feature_block.cu``), K10 ``gate_bounds`` and
-``gate_gamma`` (``csrc/gate.cu``, the two pieces of ``gating_test_batch``),
+K9 ``feature_block`` (``csrc/feature_block.cu``), K10 ``gating_test_batch``
+(``csrc/gate.cu``, the whole gate in one launch),
 K11 ``ekf_update`` (``csrc/ekf_update.cu``, the update of ``apply_update``)
 and K12 ``rank12_update`` (``csrc/rank12.cu``, the update of
 ``apply_update_rank12``).
@@ -17,10 +19,11 @@ and K12 ``rank12_update`` (``csrc/rank12.cu``, the update of
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ... import kernels
-from ...device import to_host
 from ...utils import quaternion as quat
 from .state import IMU_DIM, FilterState, MsckfParams
 
@@ -173,6 +176,8 @@ def _cholesky(S):
 
 
 def gate_gamma_plain(H, r, cov, obs_noise):
+    """gamma = r' S^-1 r per block, S = H P H' + s2 I: H (B,m,D), r (B,m).
+    A factorisation that fails gives NaN."""
     m = H.shape[1]
     S = H @ cov @ H.transpose(1, 2) + obs_noise * torch.eye(m, dtype=H.dtype, device=H.device)
     y = torch.linalg.solve_triangular(_cholesky(S), r[..., None], upper=False)[..., 0]
@@ -180,118 +185,94 @@ def gate_gamma_plain(H, r, cov, obs_noise):
 
 
 def gate_bounds_plain(H, r, cov, obs_noise, thresh):
+    """The gate's eigenvalue bounds per block: (pass_sure, fail_sure) with
+    pass_sure = r'r < thresh s2 and fail_sure = r'r > thresh (s2 + tr HPH')."""
     rtr = (r * r).sum(-1)
     tr = ((H @ cov) * H).sum((1, 2))
     return rtr < thresh * obs_noise, rtr > thresh * (obs_noise + tr)
 
 
-def _gate_args(H, r, cov, obs_noise):
-    """The kernels' operands: H and r with contiguous rows (a row prefix of a
-    larger block is kept as the view it is), cov and s2 in H's type."""
-    if H.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"K10 takes float32 or float64, got {H.dtype}")
-    B, m, D = H.shape
+def gating_test_batch_plain(H, r, rows_true, cov, obs_noise, chi2_table, dof):
+    """Plain version of kernel K10: the JAX function's lax.cond tree as a
+    branch-free selection, so it reads nothing back to the host either (both
+    gamma tiers are computed and one is selected)."""
+    thresh = chi2_table[torch.clamp(dof, 0, chi2_table.shape[0] - 1).long()]
+    if H.shape[1] <= GATE_TIER:
+        return gate_gamma_plain(H, r, cov, obs_noise) < thresh
+    pass_sure, fail_sure = gate_bounds_plain(H, r, cov, obs_noise, thresh)
+    any_undecided = (~(pass_sure | fail_sure)).any()
+    small = gate_gamma_plain(H[:, :GATE_TIER], r[:, :GATE_TIER], cov, obs_noise) < thresh
+    full = gate_gamma_plain(H, r, cov, obs_noise) < thresh
+    solve = torch.where(rows_true.max() <= GATE_TIER, small, full)
+    return torch.where(any_undecided, solve, pass_sure)
+
+
+def gating_test_batch(H, r, rows_true, cov, obs_noise, chi2_table, dof):
+    """Chi-square gate per feature block: H (B,R,D), r (B,R) (row prefixes
+    of larger blocks are taken as they are, no copy), rows_true and dof
+    (B,).  Blocks taller than GATE_TIER first try the eigenvalue bounds
+    r'r / (s2 + tr HPH') <= gamma <= r'r / s2; the exact Cholesky runs only
+    when a block is undecided, on the 32-row prefix when every block fits
+    in it.  On CUDA tensors one launch of kernel K10 decides the whole gate
+    on the card, with no host read."""
+    if H.device.type == "cpu":
+        return gating_test_batch_plain(H, r, rows_true, cov, obs_noise, chi2_table, dof)
+    if H.device.type != "cuda":
+        raise ValueError(f"K10 runs on CUDA tensors, got {H.device}")
+    kernels.observe("gating_test_batch", (H, r, rows_true, cov, obs_noise, chi2_table, dof))
+    out = _gate_kernel(H, r, rows_true, cov, obs_noise, chi2_table, dof)
+    gating_test_batch.launches += 1
+    return out
+
+
+gating_test_batch.launches = 0
+
+
+def _gate_kernel(H, r, rows_true, cov, obs_noise, chi2_table, dof, with_gamma=False):
+    """K10's launch.  Its operands: H and r with contiguous rows (a row
+    prefix of a larger block is kept as the view it is), cov, s2 and the
+    table in H's type, rows_true int32, dof int32 or int64; at the main
+    path's types nothing is cast or copied, and the one allocation holds the
+    decisions, the bound flags and gamma.  Returns the decisions, and with
+    ``with_gamma`` also gamma (B,), defined where the kernel computed it
+    (R <= 32, or some block undecided by the bounds)."""
+    dtype = H.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"K10 takes float32 or float64, got {dtype}")
+    B, R, D = H.shape
     if H.stride(2) != 1 or H.stride(1) != D:
         H = H.contiguous()
     if r.stride(1) != 1:
         r = r.contiguous()
-    cov = cov.to(H.dtype).contiguous()
-    noise = obs_noise.to(H.dtype).reshape(1).contiguous()
-    if r.shape != (B, m) or cov.shape != (D, D):
-        raise ValueError(f"K10: H {tuple(H.shape)}, r {tuple(r.shape)}, cov {tuple(cov.shape)}")
-    if H.device != cov.device or r.device != cov.device or noise.device != cov.device:
-        raise ValueError(f"K10: tensors on {H.device}, {r.device}, {cov.device}")
-    return H, r, cov, noise
-
-
-def gate_gamma(H, r, cov, obs_noise):
-    """gamma = r' S^-1 r per block, S = H P H' + s2 I: H (B,m,D), r (B,m)
-    (row prefixes of larger blocks are taken as they are, no copy).  A
-    factorisation that fails gives NaN."""
-    if H.device.type == "cpu":
-        return gate_gamma_plain(H, r, cov, obs_noise)
-    if H.device.type != "cuda":
-        raise ValueError(f"K10 runs on CUDA tensors, got {H.device}")
-    kernels.observe("gate_gamma", (H, r, cov, obs_noise))
-    gamma = _gate_gamma_kernel(H, r, cov, obs_noise)
-    gate_gamma.launches += 1
-    return gamma
-
-
-def gate_bounds(H, r, cov, obs_noise, thresh):
-    """The gate's eigenvalue bounds per block: (pass_sure, fail_sure) with
-    pass_sure = r'r < thresh s2 and fail_sure = r'r > thresh (s2 + tr HPH')."""
-    if H.device.type == "cpu":
-        return gate_bounds_plain(H, r, cov, obs_noise, thresh)
-    if H.device.type != "cuda":
-        raise ValueError(f"K10 runs on CUDA tensors, got {H.device}")
-    kernels.observe("gate_bounds", (H, r, cov, obs_noise, thresh))
-    out = _gate_bounds_kernel(H, r, cov, obs_noise, thresh)
-    gate_bounds.launches += 1
-    return out
-
-
-gate_gamma.launches = 0
-gate_bounds.launches = 0
-
-
-def _gate_gamma_kernel(H, r, cov, obs_noise):
-    dtype = H.dtype
-    H, r, cov, noise = _gate_args(H, r, cov, obs_noise)
-    B, m, D = H.shape
-    gamma = torch.empty((B,), dtype=dtype, device=H.device)
-    kernels.launch("gate_gamma_f32" if dtype == torch.float32 else "gate_gamma_f64",
-                   kernels.ptr(H), kernels.ptr(r), B, m, D, H.stride(0), r.stride(0),
-                   kernels.ptr(cov), kernels.ptr(noise), kernels.ptr(gamma))
-    return gamma
-
-
-def _gate_bounds_kernel(H, r, cov, obs_noise, thresh):
-    dtype = H.dtype
-    H, r, cov, noise = _gate_args(H, r, cov, obs_noise)
-    thresh = thresh.to(dtype).contiguous()
-    B, R, D = H.shape
-    if thresh.shape != (B,):
-        raise ValueError(f"gate_bounds: thresh {tuple(thresh.shape)}")
-    pass_sure = torch.empty((B,), dtype=torch.bool, device=H.device)
-    fail_sure = torch.empty((B,), dtype=torch.bool, device=H.device)
-    kernels.launch("gate_bounds_f32" if dtype == torch.float32 else "gate_bounds_f64",
+    if cov.dtype != dtype or not cov.is_contiguous():
+        cov = cov.to(dtype).contiguous()
+    if obs_noise.dtype != dtype:
+        obs_noise = obs_noise.to(dtype)
+    if chi2_table.dtype != dtype or not chi2_table.is_contiguous():
+        chi2_table = chi2_table.to(dtype).contiguous()
+    if rows_true.dtype != torch.int32 or not rows_true.is_contiguous():
+        rows_true = rows_true.to(torch.int32).contiguous()
+    if dof.dtype not in (torch.int32, torch.int64) or not dof.is_contiguous():
+        dof = dof.to(torch.int64).contiguous()
+    if (r.shape != (B, R) or cov.shape != (D, D) or obs_noise.numel() != 1
+            or rows_true.shape != (B,) or dof.shape != (B,) or chi2_table.dim() != 1):
+        raise ValueError(f"K10: H {tuple(H.shape)}, r {tuple(r.shape)}, cov {tuple(cov.shape)}, "
+                         f"rows_true {tuple(rows_true.shape)}, dof {tuple(dof.shape)}")
+    for x in (r, cov, obs_noise, chi2_table, rows_true, dof):
+        if x.device != H.device:
+            raise ValueError(f"K10: tensors on {H.device} and {x.device}")
+    size = H.element_size()
+    off = (2 * B + size - 1) // size * size  # gamma's offset, after decisions and flags
+    buf = torch.empty(off + B * size, dtype=torch.uint8, device=H.device)
+    base = buf.data_ptr()
+    kernels.launch("gate_f32" if dtype == torch.float32 else "gate_f64",
                    kernels.ptr(H), kernels.ptr(r), B, R, D, H.stride(0), r.stride(0),
-                   kernels.ptr(cov), kernels.ptr(noise), kernels.ptr(thresh),
-                   kernels.ptr(pass_sure), kernels.ptr(fail_sure))
-    return pass_sure, fail_sure
-
-
-def _gate(bounds, gamma, H, r, rows_true, cov, obs_noise, chi2_table, dof):
-    R = H.shape[1]
-    thresh = chi2_table[torch.clamp(dof, 0, chi2_table.shape[0] - 1).long()]
-    if R <= GATE_TIER:
-        return gamma(H, r, cov, obs_noise) < thresh
-    pass_sure, fail_sure = bounds(H, r, cov, obs_noise, thresh)
-    undecided = ~(pass_sure | fail_sure)
-    any_undecided, fits = to_host(torch.stack([undecided.any(),
-                                               rows_true.max() <= GATE_TIER]))
-    if not any_undecided:
-        return pass_sure
-    if fits:
-        return gamma(H[:, :GATE_TIER], r[:, :GATE_TIER], cov, obs_noise) < thresh
-    return gamma(H, r, cov, obs_noise) < thresh
-
-
-def gating_test_batch(H, r, rows_true, cov, obs_noise, chi2_table, dof):
-    """Chi-square gate per feature block: H (B,R,D), r (B,R).  Blocks taller
-    than GATE_TIER first try the eigenvalue bounds r'r / (s2 + tr HPH') <=
-    gamma <= r'r / s2; the exact Cholesky runs only when a block is
-    undecided, on the 32-row prefix when every block fits in it.  Runs the
-    K10 kernels on CUDA tensors."""
-    if H.device.type == "cuda":
-        kernels.observe("gating_test_batch", (H, r, rows_true, cov, obs_noise, chi2_table, dof))
-    return _gate(gate_bounds, gate_gamma, H, r, rows_true, cov, obs_noise, chi2_table, dof)
-
-
-def gating_test_batch_plain(H, r, rows_true, cov, obs_noise, chi2_table, dof):
-    return _gate(gate_bounds_plain, gate_gamma_plain, H, r, rows_true, cov, obs_noise,
-                 chi2_table, dof)
+                   kernels.ptr(rows_true), kernels.ptr(dof), int(dof.dtype == torch.int64),
+                   kernels.ptr(cov), kernels.ptr(obs_noise), kernels.ptr(chi2_table),
+                   chi2_table.shape[0], ctypes.c_void_p(base), ctypes.c_void_p(base + B),
+                   ctypes.c_void_p(base + off))
+    out = buf[:B].view(torch.bool)
+    return (out, buf[off:].view(dtype)) if with_gamma else out
 
 
 def update_tiers(D: int):

@@ -6,15 +6,17 @@ which holds them exactly.  All levels of one pyramid live in ONE flat buffer
 (``Pyramid.flat``) so the LK kernel takes a single pointer per pyramid and
 computes each level's offset from the level-0 size.
 
-On a CUDA tensor ``build_pyramid_padded`` launches kernel K2
-(``csrc/pyramid.cu``) once per level; on a CPU tensor it runs the plain
-PyTorch version ``build_pyramid_padded_plain``.
+On CUDA tensors ``build_pyramid_pair`` (both cameras of a frame) and
+``build_pyramid_padded`` (one camera) launch kernel K2 (``csrc/pyramid.cu``)
+once: every level of every camera in one launch, into one allocation.  On
+CPU tensors they run the plain PyTorch versions ``build_pyramid_pair_plain``
+and ``build_pyramid_padded_plain``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import torch
 
@@ -34,27 +36,37 @@ def level_shapes(H: int, W: int, n_levels: int):
 
 @dataclass
 class Pyramid:
-    """Padded levels (level 0 first) as views into one flat float32 buffer."""
+    """Padded levels (level 0 first) in one flat float32 buffer.  ``levels``
+    are views into it, made at their first use: the LK kernels take the
+    flat buffer and the level-0 size alone."""
 
     flat: torch.Tensor
     H0: int
     W0: int
-    levels: List[torch.Tensor]
+    n_levels: int
+    pad: int = LK_PAD
+    _levels: Optional[List[torch.Tensor]] = field(default=None, repr=False, compare=False)
 
     @property
-    def n_levels(self) -> int:
-        return len(self.levels)
+    def levels(self) -> List[torch.Tensor]:
+        if self._levels is None:
+            views, off = [], 0
+            for h, w in level_shapes(self.H0, self.W0, self.n_levels):
+                h, w = h + 2 * self.pad, w + 2 * self.pad
+                views.append(self.flat[off:off + h * w].view(h, w))
+                off += h * w
+            self._levels = views
+        return self._levels
+
+
+def pyramid_size(H: int, W: int, n_levels: int, pad: int = LK_PAD) -> int:
+    """Floats of one padded pyramid (every level)."""
+    return sum((h + 2 * pad) * (w + 2 * pad) for h, w in level_shapes(H, W, n_levels))
 
 
 def empty_pyramid(H: int, W: int, n_levels: int, device, pad: int = LK_PAD) -> Pyramid:
-    shapes = [(h + 2 * pad, w + 2 * pad) for h, w in level_shapes(H, W, n_levels)]
-    flat = torch.empty(sum(h * w for h, w in shapes), dtype=torch.float32,
-                       device=device)
-    levels, off = [], 0
-    for h, w in shapes:
-        levels.append(flat[off:off + h * w].view(h, w))
-        off += h * w
-    return Pyramid(flat, H, W, levels)
+    flat = torch.empty(pyramid_size(H, W, n_levels, pad), dtype=torch.float32, device=device)
+    return Pyramid(flat, H, W, n_levels, pad)
 
 
 def reflect101_index(i: torch.Tensor, n: int) -> torch.Tensor:
@@ -108,28 +120,59 @@ def build_pyramid_padded_plain(img: torch.Tensor, levels: int,
     return pyr
 
 
+def build_pyramid_pair_plain(cam0_img: torch.Tensor, cam1_img: torch.Tensor, levels: int,
+                             pad: int = LK_PAD):
+    """Plain version of ``build_pyramid_pair``: each camera on its own."""
+    return (build_pyramid_padded_plain(cam0_img, levels, pad),
+            build_pyramid_padded_plain(cam1_img, levels, pad))
+
+
+def _pyramid_kernel(imgs, levels: int, pad: int):
+    """One launch of K2 over one or two (H, W) uint8 CUDA images of one
+    shape; their pyramids' flats are views of one allocation."""
+    for img in imgs:
+        if img.device.type != "cuda" or img.dtype != torch.uint8:
+            raise ValueError(f"K2 takes uint8 CUDA images, got {img.dtype} on {img.device}")
+    imgs = [img if img.is_contiguous() else img.contiguous() for img in imgs]
+    kernels.check_cuda(*imgs)
+    H, W = imgs[0].shape
+    if any(img.shape != (H, W) for img in imgs):
+        raise ValueError(f"K2: images of shapes {[tuple(i.shape) for i in imgs]}")
+    n_levels = levels + 1
+    shapes = level_shapes(H, W, n_levels)
+    if not 1 <= n_levels <= 8 or min(min(hw) for hw in shapes) < 3:
+        raise ValueError(f"K2 takes 1 to 8 levels of at least 3 x 3 px, got {shapes}")
+    size = pyramid_size(H, W, n_levels, pad)
+    flat = torch.empty(len(imgs) * size, dtype=torch.float32, device=imgs[0].device)
+    kernels.launch("pyramid_u8", kernels.ptr(imgs[0]), kernels.ptr(imgs[-1]), len(imgs), H, W,
+                   n_levels, pad, kernels.ptr(flat))
+    if len(imgs) == 1:
+        return [Pyramid(flat, H, W, n_levels, pad)]
+    return [Pyramid(part, H, W, n_levels, pad) for part in flat.split(size)]
+
+
+def build_pyramid_pair(cam0_img: torch.Tensor, cam1_img: torch.Tensor, levels: int,
+                       pad: int = LK_PAD):
+    """Both cameras' pyramids, ``levels`` = LK maxLevel (levels+1 padded
+    levels each, level 0 = the input): (Pyramid, Pyramid).  On CUDA images
+    one launch of K2 builds both into one allocation."""
+    if cam0_img.device.type == "cpu" and cam1_img.device.type == "cpu":
+        return build_pyramid_pair_plain(cam0_img, cam1_img, levels, pad)
+    pyr0, pyr1 = _pyramid_kernel([cam0_img, cam1_img], levels, pad)
+    build_pyramid_pair.launches += 1
+    return pyr0, pyr1
+
+
 def build_pyramid_padded(img: torch.Tensor, levels: int, pad: int = LK_PAD) -> Pyramid:
-    """``levels`` = LK maxLevel; returns levels+1 padded levels (level 0 = the
-    input).  ``img`` is (H, W) uint8."""
+    """One camera's pyramid: ``levels`` = LK maxLevel; returns levels+1
+    padded levels (level 0 = the input).  ``img`` is (H, W) uint8; on a
+    CUDA image one launch of K2."""
     if img.device.type == "cpu":
         return build_pyramid_padded_plain(img, levels, pad)
-    if img.device.type != "cuda" or img.dtype != torch.uint8:
-        raise ValueError(f"K2 takes a uint8 CUDA image, got {img.dtype} on {img.device}")
-    img = img.contiguous()
-    kernels.check_cuda(img)
-    H, W = img.shape
-    pyr = empty_pyramid(H, W, levels + 1, img.device, pad)
-    shapes = level_shapes(H, W, levels + 1)
-    kernels.launch("pyr_level_u8", kernels.ptr(img), W, 0, H, W,
-                   kernels.ptr(pyr.levels[0]), H, W, pad, 0)
+    (pyr,) = _pyramid_kernel([img], levels, pad)
     build_pyramid_padded.launches += 1
-    for L in range(1, levels + 1):
-        (hs, ws), (ho, wo) = shapes[L - 1], shapes[L]
-        kernels.launch("pyr_level_f32", kernels.ptr(pyr.levels[L - 1]),
-                       ws + 2 * pad, pad, hs, ws,
-                       kernels.ptr(pyr.levels[L]), ho, wo, pad, 1)
-        build_pyramid_padded.launches += 1
     return pyr
 
 
+build_pyramid_pair.launches = 0
 build_pyramid_padded.launches = 0

@@ -8,9 +8,10 @@ Renders the bench world as chip_smoke.py does (euroc_config, seed 5), runs
 around a synchronised run; ``device.host_syncs`` counted), then runs the
 first ``window[0]`` frames again and profiles frames ``window[0]:window[1]``
 with ``torch.profiler`` (CPU and CUDA activities).  From the profile:
-kernel launches per frame (``cudaLaunchKernel`` and ``cuLaunchKernel``
-calls), device time per frame (the CUDA kernels' self time) and its share
-of the window's wall time, and the most frequent kernels.  The index glue
+kernel launches per frame (``LAUNCH_CALLS``: the runtime's and the
+driver's launch calls, the cluster and the cooperative launches included), device time per frame (the CUDA kernels' self time) and its share
+of the window's wall time, the most frequent kernels, and each
+hand-written kernel's launches per frame and device time per launch (us).  The index glue
 K15 (``augment_state``, the prune's window compaction, ``online_reset``) runs
 under profiler spans, and the launches made under each are counted.  Prints
 one JSON line with the card's name and power limit.  Needs a CUDA device.
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
@@ -44,7 +46,8 @@ def render(n_frames: int):
     return config, pb, np.stack(cam0), np.stack(cam1)
 
 
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cudaLaunchCooperativeKernel")
 K15_FUNCTIONS = ("augment_state", "_compact_window", "online_reset")
 
 
@@ -126,6 +129,10 @@ def main(argv=None):
                and e.self_device_time_total > 0 and not e.key.startswith("K15")]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.count)[:12]
+    # the hand-written kernels of csrc/ (each in an anonymous namespace of its own)
+    ours = sorted([(m.group(1), e) for e in kernels
+                   if (m := re.match(r"(?:void )?\(anonymous namespace\)::([^(]+)", e.key))],
+                  key=lambda x: x[0])
     print(json.dumps({
         "card": smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed",
         "frames": args.frames, "frames_per_s": args.frames / wall, "wall_s": wall,
@@ -136,7 +143,9 @@ def main(argv=None):
         "profiled_wall_ms_per_frame": prof_wall * 1e3 / n,
         "device_busy_share": device_us / 1e6 / prof_wall,
         "top_kernels_by_count": [[e.key[:80], e.count / n, e.self_device_time_total / e.count]
-                                 for e in top]}))
+                                 for e in top],
+        "csrc_kernels": [[name, e.count / n, e.self_device_time_total / e.count]
+                         for name, e in ours]}))
 
 
 if __name__ == "__main__":
