@@ -40,7 +40,10 @@
      where the kernel computes gamma, within 1e-4 relative of the plain
      gamma, NaN where it is (max_abs_err: gamma's at scale 1);
    - K12 (rank-12 prune update, as recorded and with an exactly singular
-     P12): P_new and delta within 1e-4 of max(|P|, 1).
+     P12): P_new and delta within 1e-4 of max(|P|, 1); ``apply_update_rank12``
+     (the same launch ending in the injection) on every field of the new
+     state within 1e-4 of the field's largest entry, P_new equal to the
+     delta entry's.
    - K7 (camera models: the stereo prologue, the epilogue's and the
      publish's undistort, the homography warp, and ``distort_points`` on
      the prologue's output; as recorded with the radtan model and again
@@ -52,10 +55,14 @@
    - K5 (per-cell top-k, k = 8 and k = 5) and K8 (``rank_in_cell``,
      ``kept_order_stats``, ``compact_kept``, ``smallest_k_indices``,
      ``stable_compact_indices`` on every recorded shape): exactly equal;
-   - K11 (the EKF update) at the row tiers T1, T2 and QR, in float32 and
-     float64, on recorded calls; a tier the bench world did not take is
-     reached by stacking a recorded call's rows.  float64: delta and P_new
-     within 1e-10 of max|delta| and max(|P|, 1) of the plain version.
+   - K11 (the EKF update and the injection, one launch) at the row tiers
+     T1, T2 and QR, in float32 and float64, on recorded calls; a tier the
+     bench world did not take is reached by stacking a recorded call's
+     rows.  float64: delta and P_new within 1e-10 of max|delta| and
+     max(|P|, 1) of the plain version, ``apply_update``'s new state within
+     1e-12 of each field's largest entry.  One launch a call
+     (torch.profiler), timed at the recorded rows and at 144 beside
+     ``torch.linalg.solve(S, HP)`` alone, with its device us.
      float32: both held to the float64 plain version, P_new within 1e-5 of
      max(|P|, 1) and delta within 1e-4 of max|delta|, or within 4 x the
      float32 plain version's own distance from float64 where that is
@@ -113,7 +120,16 @@
    it took on the QR tier (real stacked-prune calls) against the float64
    plain version with check_ekf_update's float32 bars.  Prints the row
    tiers, frames/s, host syncs and CUDA launches per frame.
-9. Prints the per-kernel JSON line (launches of the batch run, for P1 of
+9. [limits]: every kernel whose size limit was lifted, past it, against
+   its plain version (K5 k = 9, 12, 40; K8 n = 1025, 1500; K4+K6 1025 and
+   1500 mask points; K2 1440x1080 and 2048x1536 at four levels, exactly,
+   and 752x480 still one launch; K13 N = 65 and 300; K9 N = 35, 49, 70;
+   K10 on those blocks; K11 at D = 561 on T1, T2 = 1,122 rows and QR; K1
+   at window sides 17, 21, 33 on both trackers, K1's bars); then
+   LIMIT_FRAMES frames of run_sequence under LIMITS, counters at 0: every
+   kernel of that path launched, the active frames' poses within 1e-4 m
+   of the port's plain path on the host.
+10. Prints the per-kernel JSON line (launches of the batch run, for P1 of
    the compact run; max error, ms, plain ms, the bound and what binds it,
    the library call's ms where one PyTorch call does most of the
    function), then the result line ``{"ok": true, "device": {...}}`` last.
@@ -409,8 +425,8 @@ class Recorder:
         "triangulate": ("K13", lambda a: a[2].shape[0]),
         "feature_block": ("K9", lambda a: tuple(a[5].shape)),
         "gating_test_batch": ("K10", lambda a: tuple(a[0].shape)),
-        "rank12_update": ("K12", lambda a: tuple(a[1].shape)),
-        "ekf_update": ("K11", lambda a: _update_tier(a)),
+        "apply_update_rank12": ("K12", lambda a: tuple(a[2].shape)),
+        "apply_update": ("K11", lambda a: _update_tier(a)),
         "dense_grid_topk": ("K5", lambda a: a[3]),
         "rank_in_cell": ("K8 rank_in_cell", lambda a: a[0].shape[0]),
         "kept_order_stats": ("K8 kept_order_stats", lambda a: a[0].shape[0]),
@@ -446,7 +462,7 @@ class Recorder:
         if n <= 2 or n % 40 == 0:  # a few earlier calls of each shape, too
             self.history.setdefault(key, []).append(args)
         if key == ("K11", "QR"):
-            self.qr_calls.append(args)
+            self.qr_calls.append(_ekf_args(args))
 
     def __enter__(self):
         from uav_airvision_tpu_torch import kernels
@@ -475,9 +491,31 @@ class Recorder:
 
 
 def _update_tier(a):
+    """The row tier of a recorded apply_update call (state, params, H, r, rows)."""
     from uav_airvision_tpu_torch.models.msckf.update import update_tier
 
-    return update_tier(a[1].shape[0], a[1].shape[1], a[4])
+    return update_tier(a[2].shape[0], a[2].shape[1], a[4])
+
+
+def _ekf_args(a):
+    """(P, H, r, obs_noise, rows) of a recorded apply_update call."""
+    return a[0].cov, a[2], a[3], a[1].obs_noise, a[4]
+
+
+def _state_fields(state):
+    """The fields an EKF update changes, by name."""
+    i, c = state.imu, state.cams
+    return {"q": i.q, "bg": i.bg, "v": i.v, "ba": i.ba, "p": i.p, "R_imu_cam0": i.R_imu_cam0,
+            "t_cam0_imu": i.t_cam0_imu, "cams.q": c.q, "cams.p": c.p, "cov": state.cov}
+
+
+def _state_err(got, want):
+    """The largest difference over the changed fields, each relative to the
+    field's largest entry (at least 1e-30)."""
+    w = _state_fields(want)
+    return max(float((g.double() - w[k].double()).abs().max())
+               / max(float(w[k].double().abs().max()), 1e-30)
+               for k, g in _state_fields(got).items())
 
 
 def _rows_needed(H, r):
@@ -699,42 +737,52 @@ def check_backend_kernels(rec: Recorder, config, params):
 
     res.update(check_gate(rec))
 
-    # K12: the recorded prune updates, and one with an exactly singular P12
+    # K12: the recorded prune updates, and one with an exactly singular P12,
+    # through the delta entry and as the main path calls it (with the injection)
     calls = rec.of("K12")
     if not calls:
         fail("the warm run made no rank-12 prune update")
         return res
     cases = {f"B {k}": v for k, v in calls.items()}
-    P, Bm, rr, cols, noise = calls[max(calls)]
-    P = P.clone()
+    state, params, Bm, rr, cols = calls[max(calls)]
+    P = state.cov.clone()
     P[cols[6:], :] = 0.0  # the second camera's block: P12 of rank 6
     P[:, cols[6:]] = 0.0
-    cases["singular P12"] = (P, Bm, rr, cols, noise)
-    for label, a in cases.items():
+    cases["singular P12"] = (state._replace(cov=P), params, Bm, rr, cols)
+    for label, full in cases.items():
+        state, params = full[0], full[1]
+        a = (state.cov, full[2], full[3], full[4], params.obs_noise)
         P, Bm, rr, cols, noise = a
         rank = int(torch.linalg.matrix_rank(P[cols][:, cols].double()))
         delta, P_new = upd.rank12_update(*a)
         pdelta, pP_new = upd.rank12_update_plain(*a)
         scale = max(float(pP_new.abs().max()), 1.0)
         err = max(float((P_new - pP_new).abs().max()), float((delta - pdelta).abs().max()))
-        if not err <= 1e-4 * scale or not torch.isfinite(P_new).all():
-            fail(f"K12 {label}: error {err:.3e} (max |P| {scale:.3e})")
-        ms = cuda_ms(lambda: upd.rank12_update(*a))
-        pms = cuda_ms(lambda: upd.rank12_update_plain(*a), reps=10)
+        got, warn = upd.apply_update_rank12(*full)
+        want, pwarn = upd.apply_update_rank12_plain(*full)
+        e_state = _state_err(got, want)
+        if (not err <= 1e-4 * scale or not torch.isfinite(P_new).all() or bool(warn) != bool(pwarn)
+                or not torch.equal(got.cov, P_new) or not e_state <= 1e-4):
+            fail(f"K12 {label}: error {err:.3e} (max |P| {scale:.3e}), state {e_state:.3e}")
+        ms = cuda_ms(lambda: upd.apply_update_rank12(*full))
+        pms = cuda_ms(lambda: upd.apply_update_rank12_plain(*full), reps=10)
         n, D = Bm.shape[0], P.shape[0]
         # B'B, B'r, W, the LU and its 13 right-hand sides, Pc G, delta, and
-        # 26 FLOP per entry of sym(P - Pc G Pc')
-        ops = 2 * n * 156 + 3 * 12 ** 3 + 13 * 144 + 2 * D * 156 + 26 * D * D
-        b = bound(nbytes(P, Bm, rr, cols, noise, delta, P_new), ops)
+        # 26 FLOP per entry of sym(P - Pc G Pc'); the injection's few hundred
+        ops = 2 * n * 156 + 3 * 12 ** 3 + 13 * 144 + 2 * D * 156 + 26 * D * D + 40 * D
+        fields = _state_fields(got)
+        b = bound(nbytes(P, Bm, rr, cols, noise, delta, *fields.values())
+                  + nbytes(*_state_fields(state).values()) - nbytes(P), ops)
         # the library's solve of the same 12x12 system W X = [B'r | B'B]
         P12 = P[cols][:, cols]
         BtB = Bm.T @ Bm
         W = noise * torch.eye(12, dtype=P.dtype, device=P.device) + BtB @ P12
         rhs = torch.cat([(Bm.T @ rr)[:, None], BtB], dim=1)
         lib = cuda_ms(lambda: torch.linalg.solve(W, rhs))
-        print(f"[K12] rank-12 update, {label}, P12 rank {rank}: error {err:.3e}; {ms:.4f} ms "
-              f"vs plain {pms:.4f} ms; torch.linalg.solve of the 12x12 system {lib:.4f} ms; "
-              f"bound {b[0] * 1e3:.3f} us ({b[1]})")
+        print(f"[K12] rank-12 update, {label}, P12 rank {rank}: error {err:.3e}, injected state "
+              f"{e_state:.3e} of each field's max; apply_update_rank12 (one launch, the "
+              f"injection in it) {ms:.4f} ms vs plain {pms:.4f} ms; torch.linalg.solve of the "
+              f"12x12 system {lib:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
         if label == f"B {rec.most_frequent('K12')}":
             res["K12"] = (err, ms, pms, *b, lib)
     return res
@@ -894,10 +942,43 @@ def check_gridops(rec: Recorder):
     return res
 
 
+def _cast(tree, dtype):
+    """A state or params tuple with its floating tensors cast to ``dtype``."""
+    import torch
+
+    return torch.utils._pytree.tree_map(
+        lambda x: x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x, tree)
+
+
+def _profile_calls(fn, n=20):
+    """(kernel launches per call, device us per call of csrc kernels whose
+    name holds ``update_kernel`` or ``rank12_kernel``) of ``n`` calls, by
+    torch.profiler."""
+    import torch
+
+    from uav_airvision_tpu_torch.profile_main import LAUNCH_CALLS
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    launches = sum(e.count for e in ev if e.key in LAUNCH_CALLS)
+    dev_us = sum(e.self_device_time_total for e in ev
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and ("update_kernel" in e.key or "rank12_kernel" in e.key))
+    return launches / n, dev_us / n
+
+
 def check_ekf_update(rec: Recorder):
     """K11 against its plain version at the tiers T1, T2 and QR in float32
     and float64, on recorded calls (stacked to reach a tier the run did not
-    take)."""
+    take): the update through ``ekf_update`` and, as the main path calls
+    it, ``apply_update`` (one launch, the injection in it) on every field
+    of the new state."""
     import torch
 
     from uav_airvision_tpu_torch.models.msckf import update as upd
@@ -906,7 +987,7 @@ def check_ekf_update(rec: Recorder):
     if not calls:
         fail("the warm run made no EKF update")
         return {}
-    P0, H0, r0, noise0, rows0 = calls.get("T1") or next(iter(calls.values()))
+    state0, params0, H0, r0, rows0 = calls.get("T1") or next(iter(calls.values()))
     D = H0.shape[1]
     T1, T2 = upd.update_tiers(D)
 
@@ -919,7 +1000,7 @@ def check_ekf_update(rec: Recorder):
         r = torch.zeros_like(r0)
         H[:rows] = H0[idx % rows0] * scale[:, None]
         r[:rows] = r0[idx % rows0] * scale
-        return (P0, H, r, noise0, rows)
+        return (state0, params0, H, r, rows)
 
     cases = {tier: [a] for tier, a in calls.items()}
     for tier, rows in (("T1", T1 - 3), ("T2", T2 - 5), ("QR", 3 * D + 11)):
@@ -929,73 +1010,86 @@ def check_ekf_update(rec: Recorder):
                   f"{rows0} rows to {rows}")
     res = {}
     for tier in ("T1", "T2", "QR"):
-        for P, H, r, noise, rows in cases[tier]:
+        for full in cases[tier]:
+            P, H, r, noise, rows = _ekf_args(full)
             want_d, want_P = upd.ekf_update_plain(P.double(), H.double(), r.double(),
                                                   noise.double(), rows)
+            want_state, want_warn = upd.apply_update_plain(
+                *_cast(full[:2], torch.float64), H.double(), r.double(), rows)
             sc_d, sc_P = float(want_d.abs().max()), max(float(want_P.abs().max()), 1.0)
             for dtype in (torch.float64, torch.float32):
                 a = (P.to(dtype), H.to(dtype), r.to(dtype), noise.to(dtype), rows)
                 d, Pn = upd.ekf_update(*a)
                 pd, pPn = upd.ekf_update_plain(*a)
+                got, warn = upd.apply_update(*_cast(full[:2], dtype), a[1], a[2], rows)
                 e_d = float((d - want_d).abs().max())
                 e_P = float((Pn - want_P).abs().max())
                 p_d = float((pd - want_d).abs().max())
                 p_P = float((pPn - want_P).abs().max())
+                e_s = _state_err(got, want_state)
                 if dtype == torch.float64:
-                    ok = e_d <= 1e-10 * sc_d and e_P <= 1e-10 * sc_P
+                    ok = e_d <= 1e-10 * sc_d and e_P <= 1e-10 * sc_P and e_s <= 1e-12
                 else:
                     ok = e_d <= max(1e-4 * sc_d, 4 * p_d) and e_P <= max(1e-5 * sc_P, 4 * p_P)
-                ok = ok and torch.equal(Pn, Pn.T) and bool(torch.isfinite(Pn).all())
+                ok = (ok and torch.equal(Pn, Pn.T) and bool(torch.isfinite(Pn).all())
+                      and torch.equal(got.cov, Pn) and bool(warn) == bool(want_warn))
                 if not ok:
                     fail(f"K11 {tier} {rows} rows {dtype}: delta error {e_d:.3e} of max "
                          f"{sc_d:.3e} (plain {p_d:.3e}), P error {e_P:.3e} of {sc_P:.3e} "
-                         f"(plain {p_P:.3e})")
+                         f"(plain {p_P:.3e}), injected state {e_s:.3e}")
                 print(f"[K11] {tier} ({rows} rows) {str(dtype)[6:]}: against the float64 plain "
                       f"version, delta {e_d:.3e} of max {sc_d:.3e} (the plain version "
-                      f"{p_d:.3e}), P {e_P:.3e} of {sc_P:.3e} (the plain version {p_P:.3e})")
+                      f"{p_d:.3e}), P {e_P:.3e} of {sc_P:.3e} (the plain version {p_P:.3e}); "
+                      f"apply_update's state {e_s:.3e} of each field's max")
                 if dtype == torch.float32 and tier == "T1":
                     res["err"] = e_P
     # a failed factorisation is NaN, as the plain version's
-    d, Pn = upd.ekf_update(-1e6 * torch.eye(D, dtype=P0.dtype, device=P0.device), H0, r0,
-                           noise0, rows0)
-    if not (bool(d.isnan().all()) and bool(Pn.isnan().all())):
+    bad = state0._replace(cov=-1e6 * torch.eye(D, dtype=H0.dtype, device=H0.device))
+    d, Pn = upd.ekf_update(bad.cov, H0, r0, params0.obs_noise, rows0)
+    got, _ = upd.apply_update(bad, params0, H0, r0, rows0)
+    if not (bool(d.isnan().all()) and bool(Pn.isnan().all()) and bool(got.cov.isnan().all())
+            and bool(got.imu.p.isnan().all())):
         fail("K11: a failed Cholesky did not give NaN")
 
     tier = rec.most_frequent("K11")
-    a = calls[tier]
-    P, H, r, noise, rows = a
-    ms = cuda_ms(lambda: upd.ekf_update(*a))
-    pms = cuda_ms(lambda: upd.ekf_update_plain(*a), reps=10)
-    # the library's solve at the rows the kernel factors (the true-row prefix
-    # on T1 and T2; past T2 the stack's first D rows stand for the D rows of
-    # R), and at the plain version's tier
-    m_tier = {"T1": T1, "T2": T2}.get(tier, D)
-    m = min(rows, m_tier)
+    full = calls[tier]
+    P, H, r, noise, rows = _ekf_args(full)
+    ms = cuda_ms(lambda: upd.apply_update(*full))
+    pms = cuda_ms(lambda: upd.apply_update_plain(*full), reps=10)
+    launches, dev_us = _profile_calls(lambda: upd.apply_update(*full))
+    print(f"[K11] apply_update {tier} ({rows} true rows, {rec.counts[('K11', tier)]} calls): "
+          f"{ms:.4f} ms vs plain {pms:.4f} ms; {launches:.2f} launches and {dev_us:.1f} us "
+          f"on the device per call")
+    if launches != 1.0:
+        fail(f"K11: apply_update made {launches:.2f} launches a call, not one")
+    # the fused call and the library's solve alone, at the recorded call's
+    # rows and at 144 rows (a full T1 stack), in the same call
     lib = {}
-    for mm in (m, m_tier):
-        S = H[:mm] @ P @ H[:mm].T + noise * torch.eye(mm, device=P.device, dtype=P.dtype)
-        HP = H[:mm] @ P
-        lib[mm] = cuda_ms(lambda: torch.linalg.solve(S, HP))
-    a_tier = (P, H, r, noise, m_tier) if tier != "QR" else a
-    ms_tier = cuda_ms(lambda: upd.ekf_update(*a_tier))
+    for full_m in (full, stacked(144)):
+        Pm, Hm, rm, noise_m, mm = _ekf_args(full_m)
+        S = Hm[:mm] @ Pm @ Hm[:mm].T + noise_m * torch.eye(mm, device=Pm.device, dtype=Pm.dtype)
+        HP = Hm[:mm] @ Pm
+        k_ms = cuda_ms(lambda: upd.apply_update(*full_m))
+        l_ms = cuda_ms(lambda: torch.linalg.solve(S, HP))
+        k_launch, k_us = _profile_calls(lambda: upd.apply_update(*full_m))
+        lib[mm] = l_ms
+        print(f"[K11] {mm} rows: apply_update {k_ms:.4f} ms ({k_us:.1f} us on the device, "
+              f"{k_launch:.2f} launches) vs torch.linalg.solve(S, HP) alone {l_ms:.4f} ms")
     nz = float(rows)
     # the least the function needs over the rows that hold data: H P, S's
     # lower triangle, the Cholesky, two substitutions over D columns, K r and
     # P - K (H P) with the symmetrisation; past T2 the Householder QR of the
-    # stack first (2 rows D^2) and then the same at D rows
+    # stack first (2 rows D^2) and then the same at D rows; the injection
     qr_ops = 0.0
     if tier == "QR":
         qr_ops, nz = 2 * nz * D * D, float(D)
     ops = (qr_ops + 2 * nz * D * D + nz * nz * D + nz ** 3 / 3 + 2 * nz * nz * D + 2 * nz * D
-           + 2 * nz * D * D + 3 * D * D)
+           + 2 * nz * D * D + 3 * D * D + 40 * D)
     nz = float(rows)
-    b = bound(2 * nbytes(P) + (nz * (D + 1) + D + 1) * P.element_size(), ops)
-    print(f"[K11] ekf_update {tier} ({rows} true rows, {rec.counts[('K11', tier)]} calls): "
-          f"{ms:.4f} ms vs plain {pms:.4f} ms; torch.linalg.solve(S, HP) alone on the same "
-          f"{m} rows {lib[m]:.4f} ms; on the tier's {m_tier} rows the kernel {ms_tier:.4f} ms, "
-          f"the solve {lib[m_tier]:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
-    lib_ms = lib[m]
-    return {"K11": (res.get("err", 0.0), ms, pms, *b, lib_ms)}
+    b = bound(2 * nbytes(P) + (nz * (D + 1) + D + 1) * P.element_size()
+              + 2 * (nbytes(*_state_fields(full[0]).values()) - nbytes(P)), ops)
+    print(f"[K11] bound {b[0] * 1e3:.3f} us ({b[1]})")
+    return {"K11": (res.get("err", 0.0), ms, pms, *b, lib[rows])}
 
 
 class _StampedQueue:
@@ -1326,7 +1420,7 @@ def run_exact(base, world, imu, fts, cam0, cam1, frames, pb, wrappers, off_path)
     ip, filt = compat.ImageProcessor(config, dev), compat.MSCKF(config, dev)
     imu_t, imu_w, imu_a = imu
     _zero(wrappers)
-    upd.ekf_update.tiers = dict.fromkeys(upd.ekf_update.tiers, 0)
+    upd.apply_update.tiers = dict.fromkeys(upd.apply_update.tiers, 0)
     syncs0 = device.host_syncs["sync"]
     results, k = [], 0
     t0 = time.time()
@@ -1343,7 +1437,7 @@ def run_exact(base, world, imu, fts, cam0, cam1, frames, pb, wrappers, off_path)
     wall = time.time() - t0
     syncs = (device.host_syncs["sync"] - syncs0) / len(fts)
     per_entry = _per_entry(wrappers)
-    tiers = dict(upd.ekf_update.tiers)
+    tiers = dict(upd.apply_update.tiers)
     print(f"[exact] facade: {len(fts)} frames in {wall:.3f} s = {len(fts) / wall:.2f} frames/s, "
           f"{len(results)} poses; {syncs:.2f} host syncs/frame; EKF updates per row tier "
           f"{tiers}; launches {per_entry}")
@@ -1400,6 +1494,253 @@ def run_exact(base, world, imu, fts, cam0, cam1, frames, pb, wrappers, off_path)
           f"{a[1].shape[0]}-row buffer), float32 against the float64 plain version: delta within "
           f"{qr[0]:.3e} of its max, P within {qr[1]:.3e} of max(|P|, 1); the last call "
           f"({a[4]} true rows) {ms:.4f} ms vs plain {pms:.4f} ms")
+
+
+# [limits]: a configuration past the card kernels' old size limits (K5's k,
+# K8's n at the front end and in the map, K4+K6's mask points, K13's and
+# K9's window, K10's block, K1's window side), with the IMU initialisation
+# cut to 40 messages so that most of LIMIT_FRAMES frames reach the back-end
+LIMITS = {"frontend": {"grid_max_feature_num": 10, "patch_size": 21},
+          "capacity": {"max_features": 1100, "max_map_features": 1100, "max_cam_states": 70,
+                       "max_update_rows": 1784, "imu_init_msgs": 40},
+          "filter": {"max_cam_state_size": 70}}
+LIMIT_FRAMES = 30
+
+
+def check_limits_kernels(dev):
+    """Every kernel whose size limit this PR lifted, one step past it (and
+    further), against its plain version: K5, K8, K4+K6 and K2 exactly, K13,
+    K9, K10, K11 and K1 with their bars.  Returns {name: max error}."""
+    import numpy as np
+    import torch
+
+    from uav_airvision_tpu_torch.models.msckf import triangulation as tri
+    from uav_airvision_tpu_torch.models.msckf import update as upd
+    from uav_airvision_tpu_torch.ops import fast, gridops, lk, pyramid
+
+    rng = np.random.default_rng(66)
+    out = {}
+
+    def same(got, want):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
+    # K5: k past 8, on a frame-sized map and with one thread's share holding the winners
+    score = torch.as_tensor(rng.integers(-1, 40, (480, 752)), dtype=torch.int32, device=dev)
+    for k in (9, 12, 40):
+        if not same(gridops.dense_grid_topk(score, 4, 5, k),
+                    gridops.dense_grid_topk_plain(score, 4, 5, k)):
+            fail(f"[limits] K5 k={k} differs from its plain version")
+    # K8: past 1024 elements
+    for n in (1025, 1500):
+        cell = torch.as_tensor(rng.integers(0, 20, n), dtype=torch.int32, device=dev)
+        pri = torch.as_tensor(rng.integers(0, 3, n), dtype=torch.float32, device=dev)
+        arr = torch.as_tensor(rng.integers(0, 6, n), dtype=torch.int32, device=dev)
+        valid = torch.as_tensor(rng.uniform(size=n) < 0.7, device=dev)
+        rank, perm = gridops.rank_in_cell(cell, pri, arr, valid, 20)
+        keep = valid & (rank < 2)
+        ok = (same((rank, perm), gridops.rank_in_cell_plain(cell, pri, arr, valid, 20))
+              and same(gridops.kept_order_stats(perm, keep, cell, valid, 20),
+                       gridops.kept_order_stats_plain(perm, keep, cell, valid, 20))
+              and same(gridops.compact_kept(perm, keep, n),
+                       gridops.compact_kept_plain(perm, keep, n))
+              and same(gridops.smallest_k_indices(arr, 64),
+                       gridops.smallest_k_indices_plain(arr, 64))
+              and same(gridops.stable_compact_indices(valid, n),
+                       gridops.stable_compact_indices_plain(valid, n)))
+        if not ok:
+            fail(f"[limits] K8 n={n} differs from its plain version")
+    # K4+K6: past 1024 mask points
+    img = torch.as_tensor(rng.integers(0, 256, (480, 752)), dtype=torch.uint8, device=dev)
+    for n in (1025, 1500):
+        pts = torch.as_tensor(rng.uniform([0, 0], [752, 480], (n, 2)), dtype=torch.float32,
+                              device=dev)
+        pv = torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev)
+        if not same(fast.detect_fast(img, 20, pts, pv), fast.detect_fast_plain(img, 20, pts, pv)):
+            fail(f"[limits] K4+K6 with {n} mask points differs from its plain version")
+    # K2: four levels at 1440x1080 and 2048x1536 (level passes); 752x480 stays one launch
+    for H, W in ((1080, 1440), (1536, 2048)):
+        a, b = (torch.as_tensor(rng.integers(0, 256, (H, W)), dtype=torch.uint8, device=dev)
+                for _ in range(2))
+        got, want = pyramid.build_pyramid_pair(a, b, 3), pyramid.build_pyramid_pair_plain(a, b, 3)
+        if not all(torch.equal(g.flat, w.flat) for g, w in zip(got, want)):
+            fail(f"[limits] K2 at {W}x{H} differs from its plain version")
+    a = torch.as_tensor(rng.integers(0, 256, (480, 752)), dtype=torch.uint8, device=dev)
+    n_launch, _ = _profile_calls(lambda: pyramid.build_pyramid_pair(a, a, 3), n=5)
+    if n_launch != 1.0:
+        fail(f"[limits] K2 at 752x480 made {n_launch} launches a call")
+    print("[limits] K5 (k = 9, 12, 40), K8 (n = 1025, 1500), K4+K6 (1025, 1500 mask points), "
+          "K2 (1440x1080, 2048x1536 at 4 levels): exact; K2 at 752x480 "
+          f"{n_launch:.0f} launch a call")
+
+    # the back-end kernels on a window of N slots: a random SPD covariance and
+    # poses, features seen from the slots' cameras
+    from uav_airvision_tpu_torch.config import euroc_config
+    from uav_airvision_tpu_torch.models.msckf.state import init_state, make_params
+    from uav_airvision_tpu_torch.utils import quaternion as quat
+
+    def window(N, dtype):
+        cfg = euroc_config(dtype="float64" if dtype == torch.float64 else "float32")
+        params = make_params(cfg, dev)
+        st = init_state(cfg, params, np.zeros(3), np.array([0.0, 0.0, 9.81]))
+        D = 21 + 6 * N
+        A = torch.as_tensor(rng.normal(0, 0.02, (D, D)), device=dev)
+        cov = (A @ A.T / D + 1e-4 * torch.eye(D, dtype=A.dtype, device=dev)).to(dtype)
+        ang = torch.as_tensor(rng.normal(0, 0.02, (N, 3)), device=dev)
+        q = torch.cat([ang / 2, torch.ones((N, 1), device=dev)], 1)
+        q = (q / q.norm(dim=1, keepdim=True)).to(dtype)
+        p = torch.stack([0.02 * torch.arange(N, device=dev, dtype=torch.float64),
+                         torch.zeros(N, device=dev, dtype=torch.float64),
+                         torch.zeros(N, device=dev, dtype=torch.float64)], 1).to(dtype)
+        cams = st.cams._replace(q=q, p=p, q_null=q.clone(), p_null=p.clone(),
+                                timestamp=torch.zeros(N, dtype=dtype, device=dev),
+                                sid=torch.arange(N, dtype=torch.int32, device=dev),
+                                count=torch.tensor(N - 3, dtype=torch.int32, device=dev))
+        st = st._replace(cams=cams, cov=cov)
+        # B features 2-6 m in front, observed by every slot (with noise)
+        B = 16
+        pw = torch.as_tensor(rng.uniform([-1, -1, 2], [1, 1, 6], (B, 3)), device=dev).to(dtype)
+        R = quat.to_rotation(q)
+        pc0 = torch.einsum("nij,bnj->bni", R, pw[:, None, :] - p[None])
+        Rc = params.R_cam0_cam1.to(dtype)
+        pc1 = torch.einsum("ij,bnj->bni", Rc, pc0) + params.t_cam0_cam1.to(dtype)
+        obs = torch.cat([pc0[..., :2] / pc0[..., 2:], pc1[..., :2] / pc1[..., 2:]], -1)
+        obs = obs + torch.as_tensor(rng.normal(0, 1e-3, obs.shape), device=dev).to(dtype)
+        mask = torch.as_tensor(rng.uniform(size=(B, N)) < 0.8, device=dev)
+        return cfg, st, params, pw, obs, mask
+
+    errs = {}
+    for N, dtype in ((65, torch.float32), (300, torch.float64)):
+        cfg, st, params, pw, obs, mask = window(N, dtype)
+        args = (st.cams.q, st.cams.p, obs, mask, params.R_cam0_cam1, params.t_cam0_cam1,
+                cfg.triangulation, None)
+        pos, ok = tri.triangulate(*args)
+        ppos, pok = tri.triangulate_plain(*args)
+        both = ok & pok
+        err = (pos - ppos).abs().max(1).values / ppos.abs().max(1).values.clamp(min=1.0)
+        err = float(err[both].max()) if bool(both.any()) else 0.0
+        errs[f"K13 N={N}"] = err
+        if not torch.equal(ok, pok) or not err <= 1e-3:
+            fail(f"[limits] K13 N={N}: validity differs or error {err:.3e}")
+    for N, dtype in ((35, torch.float64), (49, torch.float32), (70, torch.float32)):
+        cfg, st, params, pw, obs, mask = window(N, dtype)
+        c = st.cams
+        args = (c.q, c.p, c.q_null, c.p_null, obs, mask, pw, st.gravity, params.R_cam0_cam1,
+                params.t_cam0_cam1, 21 + 6 * N)
+        H, r, rows = upd.feature_block(*args)
+        pH, pr, prows = upd.feature_block_plain(*args)
+        sc = torch.maximum(pH.abs().amax((1, 2)), pr.abs().amax(1)).clamp(min=1e-30)
+        err = max(float(((g - w).abs().flatten(1).amax(1) / sc).max())
+                  for g, w in ((H, pH), (r, pr)))
+        errs[f"K9 N={N} {str(dtype)[6:]}"] = err
+        if not torch.equal(rows, prows) or not err <= (3e-5 if dtype == torch.float32 else 1e-10):
+            fail(f"[limits] K9 N={N} {dtype}: error {err:.3e}")
+        # K10 on these blocks (past its shared memory at N = 49 and 70 in float32)
+        dof = mask.sum(1) - 1
+        for scale in (1e-3, 1.0, 1e3):
+            got = upd.gating_test_batch(H, r * scale, rows, st.cov, params.obs_noise,
+                                        params.chi2_table, dof)
+            want = upd.gating_test_batch_plain(H, r * scale, rows, st.cov, params.obs_noise,
+                                               params.chi2_table, dof)
+            thresh = params.chi2_table[dof]
+            gamma = upd.gate_gamma_plain(H, r * scale, st.cov, params.obs_noise)
+            near = (gamma - thresh).abs() <= 1e-4 * thresh
+            if not bool(((got == want) | near).all()):
+                fail(f"[limits] K10 N={N} {dtype} scale {scale}: decisions differ")
+    # K11 at D = 561: T1, T2 = 1122 rows (past the old one-block limit) and QR, float64
+    cfg, st, params, pw, obs, mask = window(90, torch.float64)
+    D = 561
+    for rows in (80, 1122, 1500):
+        H = torch.zeros((1784, D), dtype=torch.float64, device=dev)
+        H[:rows, 21:] = torch.as_tensor(rng.normal(0, 0.05, (rows, D - 21)), device=dev)
+        r = torch.zeros(1784, dtype=torch.float64, device=dev)
+        r[:rows] = torch.as_tensor(rng.normal(0, 0.01, rows), device=dev)
+        got, warn = upd.apply_update(st, params, H, r, rows)
+        want, pwarn = upd.apply_update_plain(st, params, H, r, rows)
+        err = _state_err(got, want)
+        errs[f"K11 D=561 {upd.update_tier(1784, D, rows)}"] = err
+        if not err <= 1e-12 or bool(warn) != bool(pwarn):
+            fail(f"[limits] K11 D=561, {rows} rows: state error {err:.3e}")
+    # K1: window sides 17, 21 and 33 (the looped instantiation), both trackers
+    base = rng.uniform(0, 255, (480 // 6 + 2, 752 // 6 + 2))
+    img0 = np.clip(np.kron(base, np.ones((6, 6)))[:480, :752] + rng.normal(0, 2, (480, 752)),
+                   0, 255).astype(np.uint8)
+    img1 = np.roll(img0, (2, -3), axis=(0, 1))
+    p0 = pyramid.build_pyramid_padded(torch.as_tensor(img0, device=dev), 3)
+    p1 = pyramid.build_pyramid_padded(torch.as_tensor(img1, device=dev), 3)
+    pts = torch.as_tensor(rng.uniform([5, 5], [747, 475], (200, 2)), dtype=torch.float32,
+                          device=dev)
+    valid = torch.ones(200, dtype=torch.bool, device=dev)
+    for win in (17, 21, 33):
+        for compact in (False, True):
+            kw = dict(win=win, max_iter=10, n_levels=4, max_iter_upper=5,
+                      compact_windows=compact)
+            kn, ks = lk.pyramidal_lk(p0, p1, pts, pts, valid, **kw)
+            pn, ps = lk.pyramidal_lk_plain(p0, p1, pts, pts, valid, **kw)
+            agree = float((ks == ps).float().mean())
+            both = ks & ps
+            err = float((kn[both] - pn[both]).abs().max()) if bool(both.any()) else 0.0
+            errs[f"K1 win={win}{' compact' if compact else ''}"] = err
+            if agree < 0.99 or not err <= 1e-3 or int(both.sum()) < 100:
+                fail(f"[limits] K1 win={win} compact={compact}: status agreement {agree:.3f}, "
+                     f"error {err:.3e} px on {int(both.sum())} points")
+    print(f"[limits] against the plain versions: { {k: f'{v:.3e}' for k, v in errs.items()} }")
+    return errs
+
+
+def run_limits(base, world, imu, fts, cam0, cam1, wrappers, off_path):
+    """[limits]: LIMIT_FRAMES frames of the bench world through run_sequence
+    under LIMITS, counters at 0 before it: every kernel of the path launched,
+    finite poses, and the active frames' poses within 1e-4 m of the port's
+    plain path on the host on the same frames."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from uav_airvision_tpu_torch.models import vio
+    from uav_airvision_tpu_torch.streaming.prebatch import prebatch_imu
+
+    config = dataclasses.replace(base, **{
+        group: dataclasses.replace(getattr(base, group), **fields)
+        for group, fields in LIMITS.items()})
+    imu_t, imu_w, imu_a = imu
+    n = LIMIT_FRAMES
+    pb = prebatch_imu(fts[:n], imu_t, imu_w, imu_a, config.capacity.max_imu_per_frame,
+                      config.capacity.imu_init_msgs)
+    dev = torch.device("cuda")
+    frames = vio.frames_from_prebatch(pb, cam0[:n], cam1[:n], dev)
+    vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)  # warm
+    torch.cuda.synchronize()
+    _zero(wrappers)
+    t0 = time.time()
+    _, outs = vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    per_entry = _per_entry(wrappers)
+    print(f"[limits] {n} frames under {LIMITS} in {wall:.2f} s; launches {per_entry}")
+    for name, k in per_entry.items():
+        if k == 0 and name not in off_path:
+            fail(f"[limits] the path never launched kernel {name}")
+    act = outs.active.cpu().numpy()
+    p = outs.p.cpu().numpy()
+    cpu_frames = vio.VioFrame(*(x.cpu() for x in frames))
+    t0 = time.time()
+    _, ref = vio.run_sequence(config, cpu_frames, pb.gyro_bias, pb.acc_mean)
+    ref_act = ref.active.numpy()
+    if not np.isfinite(p[act]).all() or act.sum() < n // 2:
+        fail(f"[limits] {int(act.sum())} active frames, finite {np.isfinite(p[act]).all()}")
+    elif not np.array_equal(ref_act, act):
+        fail("[limits] the host run disagrees on which frames are active")
+    else:
+        dp = float(np.abs(ref.p.numpy()[act] - p[act]).max())
+        err = np.linalg.norm(p[act] - world.groundtruth(pb.timestamps[act]), axis=1)
+        print(f"[limits] {int(act.sum())} active frames; against the plain PyTorch path on the "
+              f"host ({time.time() - t0:.1f} s): max pose difference {dp:.3e} m; ATE max "
+              f"{float(err.max()):.5f} m")
+        if not dp < 1e-4:
+            fail(f"[limits] the card's poses differ from the host reference by {dp:.3e} m")
 
 
 def main() -> int:
@@ -1471,14 +1812,14 @@ def main() -> int:
                 "K4+K6": [fast.detect_fast], "K14": [propagation.propagate],
                 "K13": [triangulation.triangulate], "K9": [update.feature_block],
                 "K10": [update.gating_test_batch],
-                "K12": [update.rank12_update], "K11": [update.ekf_update],
+                "K12": [update.apply_update_rank12], "K11": [update.apply_update],
                 "K5": [gridops.dense_grid_topk], "K8": list(gridops.K8_WRAPPERS),
                 "K7": [camera.undistort_distort_points, camera.undistort_points,
                        camera.homography_warp_points]}
     for fns in wrappers.values():
         for fn in fns:
             fn.launches = 0
-    update.ekf_update.tiers = dict.fromkeys(update.ekf_update.tiers, 0)
+    update.apply_update.tiers = dict.fromkeys(update.apply_update.tiers, 0)
     syncs0 = device.host_syncs["sync"]
     torch.cuda.synchronize()
     t0 = time.time()
@@ -1491,7 +1832,7 @@ def main() -> int:
     syncs = (device.host_syncs["sync"] - syncs0) / N_FRAMES
     print(f"[main] timed run: {N_FRAMES} frames in {wall:.3f} s = {N_FRAMES / wall:.2f} "
           f"frames/s; {syncs:.2f} host syncs/frame; launches {per_entry}")
-    print(f"[main] EKF updates per row tier: {update.ekf_update.tiers}")
+    print(f"[main] EKF updates per row tier: {update.apply_update.tiers}")
     for name, n in per_entry.items():
         if n == 0:
             fail(f"the main path never launched kernel {name}")
@@ -1525,9 +1866,9 @@ def main() -> int:
                "K10": ("gate.cu", "uav_airvision_tpu/models/msckf/update.py:170",
                        "gating_test_batch"),
                "K12": ("rank12.cu", "uav_airvision_tpu/models/msckf/update.py:239",
-                       "rank12_update"),
+                       "apply_update_rank12"),
                "K11": ("ekf_update.cu", "uav_airvision_tpu/models/msckf/update.py:296",
-                       "ekf_update"),
+                       "apply_update"),
                "K5": ("gridops.cu", "uav_airvision_tpu/ops/gridops.py:147", "dense_grid_topk"),
                "K8": ("gridops.cu", "uav_airvision_tpu/ops/gridops.py:58", "rank_in_cell + "
                       "kept_order_stats + compact_kept + smallest_k_indices + "
@@ -1562,9 +1903,14 @@ def main() -> int:
     results.update(p1)
     t1 = time.time()
     run_exact(config, world, imu, fts, cam0, cam1, frames, pb, every,
-              off_path={"K1 pyramidal_lk_level", "P1 extract_windows", "K12 rank12_update"})
+              off_path={"K1 pyramidal_lk_level", "P1 extract_windows",
+                        "K12 apply_update_rank12"})
+    t2 = time.time()
+    check_limits_kernels(dev)
+    run_limits(config, world, imu, fts, cam0, cam1, wrappers,
+               off_path={"K12 apply_update_rank12"})
     print(f"[time] {time.time() - t_start:.1f} s in all; [compact] {t1 - t0:.1f} s, [exact] "
-          f"{time.time() - t1:.1f} s")
+          f"{t2 - t1:.1f} s, [limits] {time.time() - t2:.1f} s")
     launches["P1"] = compact_launches["P1 extract_windows"]
     sources["P1"] = ("extract.cu", "scripts/exp_gather.py:82", "extract_windows")
 

@@ -375,6 +375,72 @@ def test_ekf_update_plain_matches_jax(blocks, n_rows, dtype):
         assert_close((got.imu.p - state.imu.p).numpy(), delta[12:15].numpy(), 1e-12, "p += delta")
 
 
+def _wide_state(state, N, count, seed):
+    """``state`` (float64) with an N-slot window, its poses repeated and
+    nudged, ``count`` of them live, and a random SPD covariance of 21 + 6N
+    rows."""
+    c = state.cams
+    idx = torch.arange(N) % c.q.shape[0]
+    nudge = 1e-3 * (torch.arange(N) // c.q.shape[0]).to(c.p.dtype)[:, None]
+    cams = c._replace(q=c.q[idx], p=c.p[idx] + nudge, q_null=c.q_null[idx],
+                      p_null=c.p_null[idx], timestamp=c.timestamp[idx], sid=c.sid[idx],
+                      count=torch.tensor(count, dtype=torch.int32))
+    D = 21 + 6 * N
+    A = np.random.default_rng(seed).normal(0, 0.02, (D, D))
+    return state._replace(cams=cams, cov=torch.as_tensor(A @ A.T / D + 1e-4 * np.eye(D)))
+
+
+def _cast_tree(tree, dtype):
+    return torch.utils._pytree.tree_map(
+        lambda x: x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x, tree)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("N,n_rows", [(20, None), (20, 60), (20, 200), (20, 700), (90, 80),
+                                      (90, 1122), (90, 1500)],
+                         ids=["all", "T1", "T2", "QR", "N90-T1", "N90-T2", "N90-QR"])
+def test_apply_update_state_matches_jax(blocks, N, n_rows, dtype):
+    """The port's apply_update (the plain version the fused kernel K11 is
+    held to on the card) against JAX apply_update as a whole injected state
+    (IMU pose, velocity, biases, extrinsics, window poses, covariance,
+    too_large) on every row tier: a buffer no taller than T2 ("all"), T1,
+    T2 and QR, at the bench window (D = 141) and at max_cam_states = 90
+    (D = 561, T2 = 1122 rows: past the old one-block limit of K11 and the
+    limits of K13 and K9).  float64 within 1e-9 of max(|x|, 1) per field;
+    float32 within 1e-4 (both factor S in float32)."""
+    state, params, _ = blocks
+    if N != 20:
+        state = _wide_state(state, N, N - 5, N)
+    D = state.cov.shape[0]
+    R = 200 if n_rows is None else (1680 if N == 20 else 1784)
+    m = R if n_rows is None else n_rows
+    rng = np.random.default_rng(D + m)
+    H = np.zeros((R, D))
+    H[:m, 21:] = rng.normal(0, 0.05, (m, D - 21))
+    H[:m, :21] = rng.normal(0, 0.005, (m, 21))
+    r = np.zeros(R)
+    r[:m] = rng.normal(0, 0.01, m)
+    tdt = torch.float64 if dtype == "float64" else torch.float32
+    state, params = _cast_tree(state, tdt), _cast_tree(params, tdt)
+    npdt = np.dtype(dtype)
+    want, jwarn = jax.jit(jupd.apply_update)(to_jax(state), to_jax(params),
+                                             jnp.asarray(H.astype(npdt)),
+                                             jnp.asarray(r.astype(npdt)),
+                                             jnp.asarray(m, jnp.int32))
+    got, twarn = tupd.apply_update(state, params, torch.as_tensor(H).to(tdt),
+                                   torch.as_tensor(r).to(tdt), m)
+    assert tupd.update_tier(R, D, m) == ("all" if n_rows is None else
+                                         "T1" if m <= tupd.update_tiers(D)[0] else
+                                         "T2" if m <= tupd.update_tiers(D)[1] else "QR")
+    tol = 1e-9 if dtype == "float64" else 1e-4
+    for name in ("q", "bg", "v", "ba", "p", "R_imu_cam0", "t_cam0_imu"):
+        assert_close(getattr(got.imu, name).numpy(), getattr(want.imu, name), tol, name)
+    assert_close(got.cams.q.numpy(), want.cams.q, tol, "cams.q")
+    assert_close(got.cams.p.numpy(), want.cams.p, tol, "cams.p")
+    assert_close(got.cov.numpy(), want.cov, tol, "cov")
+    assert got.cov.dtype == tdt and bool(twarn) == bool(jwarn)
+
+
 def test_apply_update_rank12_matches_jax(blocks):
     state, params, _ = blocks
     rng = np.random.default_rng(12)

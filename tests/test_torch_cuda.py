@@ -45,11 +45,14 @@ def _image(H, W, seed):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-@pytest.mark.parametrize("H,W", [(96, 128), (121, 163), (480, 752), (95, 131)])
+@pytest.mark.parametrize("H,W", [(96, 128), (121, 163), (480, 752), (95, 131), (1024, 1280),
+                                 (1080, 1440), (1536, 2048)])
 def test_pyramid_kernel_exact(dev, H, W):
     """K2, one camera and the pair: every level equal to the plain version,
     one launch per call.  752 px rows are staged by the bulk copy, odd
-    widths and an image at an odd address by byte loads."""
+    widths and an image at an odd address by byte loads.  1024x1280 is the
+    largest of these whose band plan fits a block's shared memory at four
+    levels; 1080x1440 (268,208 B) and 1536x2048 take the level passes."""
     img0 = torch.as_tensor(_image(H, W, 1), device=dev)
     img1 = torch.as_tensor(_image(H, W, 2), device=dev)
     n1, n2 = pyramid.build_pyramid_padded.launches, pyramid.build_pyramid_pair.launches
@@ -436,9 +439,9 @@ def test_rank12_kernel_matches_plain(dev, host_states, dtype, singular):
     Bm = torch.as_tensor(rng.normal(0, 0.8, (320, 12)), device=dev).to(state.cov.dtype)
     Bm[25:35] = 0.0
     rr = torch.as_tensor(rng.normal(0, 0.02, 320), device=dev).to(state.cov.dtype)
-    n0 = update.rank12_update.launches
+    n0 = update.apply_update_rank12.launches
     got, _ = update.apply_update_rank12(state, params, Bm, rr, cols)
-    assert update.rank12_update.launches == n0 + 1
+    assert update.apply_update_rank12.launches == n0 + 1
     want, _ = update.apply_update_rank12_plain(state, params, Bm, rr, cols)
     tol = 1e-4 if dtype == "float32" else 1e-10
     scale = float(want.cov.abs().max())
@@ -509,9 +512,11 @@ def test_grid_topk_kernel_exact(dev, H, W, k):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("n", [20, 100, 160, 204, 256, 1024])
+@pytest.mark.parametrize("n", [20, 100, 160, 204, 256, 1024, 1025, 1500, 20000])
 def test_grid_ranking_kernels_exact(dev, n):
-    """K8: every entry point exact, with heavy ties and invalid entries."""
+    """K8: every entry point exact, with heavy ties and invalid entries;
+    past 1024 elements a thread owns several, and at 20000 the keys no
+    longer fit a block's shared memory and are read from device memory."""
     rng = np.random.default_rng(n)
     cell = torch.as_tensor(rng.integers(0, 20, n), dtype=torch.int32, device=dev)
     pri = torch.as_tensor(rng.integers(0, 3, n), dtype=torch.float32, device=dev)
@@ -580,3 +585,276 @@ def test_ekf_update_kernel_matches_plain(dev, host_states, dtype, n_rows):
     bad = -1e6 * torch.eye(D, dtype=tdt, device=dev)
     d, Pn = update.ekf_update(bad, *args[1:])
     assert bool(d.isnan().all()) and bool(Pn.isnan().all())
+
+
+def _launches(fn):
+    """(result, kernel launches the call made), by torch.profiler."""
+    from uav_airvision_tpu_torch.profile_main import LAUNCH_CALLS
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS)
+
+
+def _fields(state):
+    """The fields an EKF update changes."""
+    i, c = state.imu, state.cams
+    return {"q": i.q, "bg": i.bg, "v": i.v, "ba": i.ba, "p": i.p, "R_imu_cam0": i.R_imu_cam0,
+            "t_cam0_imu": i.t_cam0_imu, "cams.q": c.q, "cams.p": c.p, "cov": state.cov}
+
+
+def _wide_state(state, N, count, seed):
+    """``state`` with an N-slot window (its poses repeated, nudged) of which
+    ``count`` are live, and a random SPD covariance of 21 + 6N rows."""
+    c = state.cams
+    idx = torch.arange(N, device=c.q.device) % c.q.shape[0]
+    nudge = 1e-3 * (torch.arange(N, device=c.q.device) // c.q.shape[0])[:, None]
+    cams = c._replace(q=c.q[idx].contiguous(), p=(c.p[idx] + nudge.to(c.p.dtype)).contiguous(),
+                      q_null=c.q_null[idx].contiguous(), p_null=c.p_null[idx].contiguous(),
+                      count=torch.tensor(count, dtype=torch.int32, device=c.q.device))
+    D = 21 + 6 * N
+    rng = np.random.default_rng(seed)
+    A = torch.as_tensor(rng.normal(0, 0.02, (D, D)), device=c.q.device)
+    cov = (A @ A.T / D + 1e-4 * torch.eye(D, dtype=A.dtype, device=A.device))
+    return state._replace(cams=cams, cov=cov.to(state.cov.dtype))
+
+
+@pytest.mark.parametrize("N,n_rows", [(20, 26), (20, 60), (20, 250), (20, 700), (20, None),
+                                      (90, 80), (90, 1122), (90, 1500)],
+                         ids=["T1_26", "T1", "T2", "QR", "all", "N90_T1", "N90_T2", "N90_QR"])
+def test_apply_update_fused_matches_plain(dev, host_states, N, n_rows):
+    """K11 as the main path calls it, the update and the injection in ONE
+    launch (torch.profiler), held to apply_update_plain in float64 on every
+    field of the new state within 1e-12 of the field's largest entry (P_new
+    exactly symmetric, too_large equal); the injection leaves the slots past
+    the window's count as they were.  N = 90 (D = 561, T2 = 1122 rows) is
+    past the old one-block limit of 1024 rows.  And K12's launch, which
+    ends in the same injection, held the same way."""
+    cfg, state, params, _ = _card_state(dev, host_states, "float64")
+    if N != 20:
+        state = _wide_state(state, N, N - 5, N)
+    D = state.cov.shape[0]
+    rng = np.random.default_rng(D + (n_rows or 0))
+    R = 200 if n_rows is None else max(1680, n_rows + 100)
+    m = R if n_rows is None else n_rows
+    H = torch.zeros((R, D), dtype=torch.float64, device=dev)
+    H[:m, 21:] = torch.as_tensor(rng.normal(0, 0.05, (m, D - 21)), device=dev)
+    r = torch.zeros(R, dtype=torch.float64, device=dev)
+    r[:m] = torch.as_tensor(rng.normal(0, 0.01, m), device=dev)
+    n0 = update.apply_update.launches
+    (got, warn), n_launch = _launches(lambda: update.apply_update(state, params, H, r, n_rows))
+    assert n_launch == 1 and update.apply_update.launches == n0 + 1
+    want, pwarn = update.apply_update_plain(state, params, H, r, n_rows)
+    assert bool(warn) == bool(pwarn)
+    for name, g in _fields(got).items():
+        w = _fields(want)[name]
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert float((g - w).abs().max()) <= 1e-12 * float(w.abs().max()), name
+    assert torch.equal(got.cov, got.cov.T)
+    live = state.cams.count
+    assert torch.equal(got.cams.q[live:], state.cams.q[live:])
+    # K12: the prune's two cameras
+    cols = torch.cat([21 + 6 * 4 + torch.arange(6, device=dev),
+                      21 + 6 * 9 + torch.arange(6, device=dev)])
+    Bm = torch.as_tensor(rng.normal(0, 0.8, (320, 12)), device=dev)
+    rr = torch.as_tensor(rng.normal(0, 0.02, 320), device=dev)
+    n0 = update.apply_update_rank12.launches
+    (got, warn), n_launch = _launches(
+        lambda: update.apply_update_rank12(state, params, Bm, rr, cols))
+    assert n_launch == 1 and update.apply_update_rank12.launches == n0 + 1
+    want, pwarn = update.apply_update_rank12_plain(state, params, Bm, rr, cols)
+    assert bool(warn) == bool(pwarn)
+    for name, g in _fields(got).items():
+        w = _fields(want)[name]
+        assert float((g - w).abs().max()) <= 1e-10 * max(float(w.abs().max()), 1.0), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_apply_update_fused_failed_cholesky(dev, host_states, dtype):
+    """A failed factorisation makes delta, P_new and the injected live poses
+    NaN, as the plain version's (too_large stays False: NaN compares
+    False), in one launch."""
+    cfg, state, params, _ = _card_state(dev, host_states, dtype)
+    D = state.cov.shape[0]
+    bad = state._replace(cov=-1e6 * torch.eye(D, dtype=state.cov.dtype, device=dev))
+    rng = np.random.default_rng(1)
+    H = torch.zeros((1680, D), dtype=state.cov.dtype, device=dev)
+    H[:26, 21:] = torch.as_tensor(rng.normal(0, 0.05, (26, D - 21)), device=dev)
+    r = torch.ones(1680, dtype=state.cov.dtype, device=dev)
+    P_new, delta, got, warn = update._ekf_update_kernel(bad.cov, H, r, params.obs_noise, 26, bad)
+    want, pwarn = update.apply_update_plain(bad, params, H, r, 26)
+    assert bool(delta.isnan().all()) and bool(P_new.isnan().all())
+    assert bool(got.cov.isnan().all()) and bool(got.imu.p.isnan().all())
+    assert bool(warn) == bool(pwarn)
+    for name, g in _fields(got).items():
+        assert torch.equal(g.isnan(), _fields(want)[name].isnan()), name
+
+
+@pytest.mark.parametrize("k", [8, 9, 12, 40])
+def test_grid_topk_kernel_past_8(dev, k):
+    """K5 at k = 8 (the old limit) and past it, exact: in cells of 12,000
+    pixels where one thread's strided share holds more than 8 of the
+    winners (it rescans its share), with ties broken by index."""
+    rng = np.random.default_rng(k)
+    score = rng.integers(-1, 4, (240, 250)).astype(np.int32)
+    cells = score.reshape(2, 120, 1, 250).transpose(0, 2, 1, 3).reshape(2, -1)
+    cells[:, ::1024] = 50 + np.arange(cells[:, ::1024].shape[1])
+    cells[:, 7::1024] = 40
+    score = torch.as_tensor(cells.reshape(2, 1, 120, 250).transpose(0, 2, 1, 3)
+                            .reshape(240, 250).copy(), device=dev)
+    got = gridops.dense_grid_topk(score, 2, 1, k)
+    for g, w in zip(got, gridops.dense_grid_topk_plain(score, 2, 1, k)):
+        assert torch.equal(g, w)
+    img = torch.as_tensor(np.random.default_rng(k + 1).integers(-1, 4, (480, 752)),
+                          dtype=torch.int32, device=dev)
+    for g, w in zip(gridops.dense_grid_topk(img, 4, 5, k),
+                    gridops.dense_grid_topk_plain(img, 4, 5, k)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [1024, 1025, 1500, 3000])
+def test_fast_kernel_mask_points(dev, n):
+    """K4+K6 with n mask points (1024 was the most it took): exact; the
+    points pass through shared memory in chunks of 1024."""
+    img = torch.as_tensor(_image(480, 752, 5), device=dev)
+    rng = np.random.default_rng(n)
+    pts = torch.as_tensor(rng.uniform([0, 0], [752, 480], (n, 2)), dtype=torch.float32,
+                          device=dev)
+    valid = torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev)
+    k, s = fast.detect_fast(img, 15, pts, valid)
+    pk, ps = fast.detect_fast_plain(img, 15, pts, valid)
+    assert torch.equal(k, pk) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("dtype,N", [("float32", 64), ("float32", 65), ("float64", 64),
+                                     ("float64", 65), ("float64", 130), ("float64", 300)])
+def test_triangulate_kernel_many_slots(dev, host_states, dtype, N):
+    """K13 with N window slots (64 was the most it took): 2, 4 or 8 slots a
+    lane in registers, past 256 rebuilt at each use.  The window repeats
+    the real one's 20 poses, nudged, and 128 features as in
+    test_triangulate_kernel_matches_plain; K13's bars as at N = 20.  Past
+    65 slots float64 only: in float32 the sums over 2N views (260 at
+    N = 130) round far enough apart in the warp's reductions and the plain
+    version's sums that more than 5% of the unconverged solves end a step
+    apart (3.1e-4 seen), so the four-and-eight-slot code is held in float64."""
+    cfg, state, params, sel = _card_state(dev, host_states, dtype)
+    wide = _wide_state(state, N, N, N)
+    c, t = wide.cams, state.features
+    B = 128
+    f = sel[torch.arange(B, device=dev) % len(sel)]
+    slots = torch.arange(N, device=dev) % 20
+    rng = np.random.default_rng(N)
+    obs = t.obs[f][:, slots]
+    obs[len(sel):] += torch.as_tensor(rng.normal(0, 2e-3, (B - len(sel),) + obs.shape[1:]),
+                                      device=dev).to(obs.dtype)
+    active = torch.as_tensor(rng.uniform(size=B) < 0.85, device=dev)
+    args = (c.q, c.p, obs, t.obs_mask[f][:, slots], params.R_cam0_cam1, params.t_cam0_cam1,
+            cfg.triangulation, active)
+    pos, ok = triangulation.triangulate(*args)
+    ppos, pok = triangulation.triangulate_plain(*args)
+    assert torch.equal(ok, pok)
+    err = (pos - ppos).abs().max(1).values / ppos.abs().max(1).values.clamp(min=1.0)
+    if dtype == "float32":
+        assert float(err.max()) <= 1e-3 and float((err <= 1e-4).float().mean()) >= 0.95
+    else:
+        assert float(err.max()) <= 1e-7
+
+
+@pytest.mark.parametrize("dtype,N", [("float64", 34), ("float64", 35), ("float32", 48),
+                                     ("float32", 49)])
+def test_feature_block_kernel_wide(dev, host_states, dtype, N):
+    """K9 at the last window size whose tile fits a block's shared memory
+    and one past it (the tile then lives in a device workspace): K9's bars
+    as at N = 20."""
+    cfg, state, params, sel = _card_state(dev, host_states, dtype)
+    wide = _wide_state(state, N, N, N)
+    c, t = wide.cams, state.features
+    idx = torch.arange(N, device=dev) % 20
+    B = 16
+    f = sel[torch.arange(B, device=dev) % len(sel)]
+    args = (c.q, c.p, c.q_null, c.p_null, t.obs[f][:, idx], t.obs_mask[f][:, idx],
+            t.position[f], state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, 21 + 6 * N)
+    H, r, rows = update.feature_block(*args)
+    pH, pr, prows = update.feature_block_plain(*args)
+    assert torch.equal(rows, prows)
+    tol = 1e-5 if dtype == "float32" else 1e-10
+    scale = torch.maximum(pH.abs().amax((1, 2)), pr.abs().amax(1)).clamp(min=1e-30)
+    for got, want in ((H, pH), (r, pr)):
+        assert float(((got - want).abs().flatten(1).amax(1) / scale).max()) <= tol
+
+
+@pytest.mark.parametrize("win", [15, 17, 21, 31, 33])
+def test_lk_kernel_window_sides(dev, win):
+    """K1 at window sides other than 15 (the only one it took): the
+    instantiations for 17, 21 and 31 and the looped one at 33, both entry
+    points, held to the plain version with K1's bars."""
+    img0 = _image(240, 320, 4)
+    img1 = np.roll(img0, (2, -3), axis=(0, 1))
+    p0 = pyramid.build_pyramid_padded(torch.as_tensor(img0, device=dev), 3)
+    p1 = pyramid.build_pyramid_padded(torch.as_tensor(img1, device=dev), 3)
+    rng = np.random.default_rng(win)
+    pts = torch.as_tensor(rng.uniform([1, 1], [318, 238], (60, 2)), dtype=torch.float32,
+                          device=dev)
+    valid = torch.ones(60, dtype=torch.bool, device=dev)
+    for compact in (False, True):
+        args = dict(win=win, max_iter=10, n_levels=3, max_iter_upper=5, compact_windows=compact)
+        kn, ks = lk.pyramidal_lk(p0, p1, pts, pts, valid, **args)
+        pn, ps = lk.pyramidal_lk_plain(p0, p1, pts, pts, valid, **args)
+        assert (ks == ps).float().mean() >= 0.99
+        both = ks & ps
+        assert int(both.sum()) >= 20
+        assert float((kn[both] - pn[both]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype,N", [("float32", 35), ("float32", 36), ("float64", 24),
+                                     ("float64", 25)])
+def test_gate_kernel_wide(dev, host_states, dtype, N):
+    """K10 at the last window size whose smallest layout fits a block's
+    shared memory and one past it (each block's H, H P chunk and S then
+    live in a device workspace), on the lost-feature blocks of N slots and
+    their 32-row prefixes: decisions equal to the plain version's except
+    where gamma lies within 1e-4 of the threshold or r'r within 1e-4 of a
+    bound, gamma within 1e-4 (float32) / 1e-9 (float64) relative where the
+    kernel computes it; one launch per call."""
+    cfg, state, params, sel = _card_state(dev, host_states, dtype)
+    wide = _wide_state(state, N, N, N)
+    c, t = wide.cams, state.features
+    B = 16
+    f = sel[torch.arange(B, device=dev) % len(sel)]
+    slots = torch.arange(N, device=dev) % 20
+    H, r, rows = update.feature_block_plain(
+        c.q, c.p, c.q_null, c.p_null, t.obs[f][:, slots], t.obs_mask[f][:, slots],
+        t.position[f], state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, 21 + 6 * N)
+    H, r = H.contiguous(), r.contiguous()
+    dof = t.obs_mask[f][:, slots].sum(1) - 1
+    s2, table, cov = params.obs_noise, params.chi2_table, wide.cov
+    sc = _gate_scales(H, r, cov, s2, table[dof])
+    one = torch.arange(B, device=dev) == B // 2
+    rtol = 1e-4 if dtype == "float32" else 1e-9
+    cases = [(H, r * s, rows) for s in (1e-3, 1.0, 1e3)]
+    cases += [(H, r * torch.where(one, sc["undecided"], sc["pass"])[:, None], rows),
+              (H[:, :32], r[:, :32] * sc["undecided"][:, None], rows)]
+    for Hc, rc, rt in cases:
+        n = update.gating_test_batch.launches
+        got = update.gating_test_batch(Hc, rc, rt, cov, s2, table, dof)
+        assert update.gating_test_batch.launches == n + 1
+        want = update.gating_test_batch_plain(Hc, rc, rt, cov, s2, table, dof)
+        thresh = table[dof]
+        near = torch.zeros_like(got)
+        for m in {min(Hc.shape[1], 32), Hc.shape[1]}:
+            gamma = update.gate_gamma_plain(Hc[:, :m], rc[:, :m], cov, s2)
+            near |= (gamma - thresh).abs() <= 1e-4 * thresh
+        rtr = (rc * rc).sum(-1)
+        tr = ((Hc @ cov) * Hc).sum((1, 2))
+        near |= ((rtr - thresh * s2).abs() <= 1e-4 * rtr) | (
+            (rtr - thresh * (s2 + tr)).abs() <= 1e-4 * rtr)
+        assert bool(((got == want) | near).all())
+        ps, fs = update.gate_bounds_plain(Hc, rc, cov, s2, thresh)
+        if Hc.shape[1] <= 32 or not bool((ps | fs).all()):
+            m = Hc.shape[1] if Hc.shape[1] <= 32 or int(rt.max()) > 32 else 32
+            _, g = update._gate_kernel(Hc, rc, rt, cov, s2, table, dof, with_gamma=True)
+            w = update.gate_gamma_plain(Hc[:, :m], rc[:, :m], cov, s2)
+            assert torch.equal(g.isnan(), w.isnan())
+            assert _rel_err(g.nan_to_num(), w.nan_to_num()) <= rtol

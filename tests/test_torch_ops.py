@@ -73,10 +73,11 @@ def test_pyramid_levels_exact(H, W):
                                       err_msg=f"level {L}")
 
 
-@pytest.mark.parametrize("H,W", [(96, 128), (480, 752), (95, 131)])
+@pytest.mark.parametrize("H,W", [(96, 128), (480, 752), (95, 131), (1080, 1440)])
 def test_pyramid_pair_matches_jax(H, W):
     """Both cameras' pyramids from one call, every level bit-equal to the
-    JAX package's pyramid of each camera."""
+    JAX package's pyramid of each camera (1080x1440: the size whose band
+    plan outgrew the card kernel's shared memory, built there in passes)."""
     imgs = [textured(H, W, seed=H + k) for k in range(2)]
     pair = tpyr.build_pyramid_pair(*(torch.as_tensor(img) for img in imgs), 3)
     for img, got in zip(imgs, pair):
@@ -245,6 +246,59 @@ def test_lk_matches_jax(n_levels, max_iter_upper, compact):
     np.testing.assert_allclose(tn[both], jn[both], atol=1e-3, rtol=0)
 
 
+def test_fast_many_mask_points_exact():
+    """FAST + the detection mask of 1500 points (more than the 1024 the card
+    kernel once staged at a time) against the JAX mask and detector."""
+    H, W = 240, 320
+    img = textured(H, W, seed=11, cell=4)
+    rng = np.random.default_rng(12)
+    pts, valid = _mask_points(rng, H, W, n=1500)
+    jmask = jpipe._detection_mask((H, W), jnp.asarray(pts), jnp.asarray(valid))
+    jkeep, jscore = jfast.detect_fast(jnp.asarray(img), 15, mask=jmask)
+    tkeep, tscore = tfast.detect_fast(torch.as_tensor(img), 15, torch.as_tensor(pts),
+                                      torch.as_tensor(valid))
+    assert 0 < np.asarray(jkeep).sum()
+    np.testing.assert_array_equal(tkeep.numpy(), np.asarray(jkeep))
+    np.testing.assert_array_equal(tscore.numpy(), np.asarray(jscore))
+
+
+@pytest.mark.parametrize("win,compact", [(21, False), (21, True), (33, True)],
+                         ids=["21", "21-compact", "33-compact"])
+def test_lk_window_sides_match_jax(win, compact):
+    """``pyramidal_lk`` at patch sizes 21 and 33 against the JAX tracker,
+    K1's bars (status on >= 99% of points, agreeing points within 1e-3 px).
+    The JAX package's 48-px bands take windows up to 15 only (its banded
+    extraction asserts need + stride <= bw, ops/extract.py:168), so its
+    tracker runs here on bands of 64 (21) and 80 px (33).  The compact
+    windows' result does not depend on the band width; the default freeze
+    bounds do (the port keeps the 48-px band's), so the default tracker is
+    compared at 21 only, where the two band widths give the same tracks on
+    these inputs."""
+    H, W = 240, 320
+    img0 = textured(H, W, seed=7, cell=6)
+    img1 = shifted(img0, 2.6, -1.7)
+    rng = np.random.default_rng(8)
+    pts, init, valid = _lk_points(rng, H, W)
+    bw = {21: 64, 33: 80}[win]
+    jp0, jp1 = (jext.band_pyramid(jpyr.build_pyramid_padded(jnp.asarray(img), 3), bw=bw,
+                                  dtype=jnp.bfloat16) for img in (img0, img1))
+    jn, js = jax.jit(functools.partial(
+        jlk.pyramidal_lk_banded, win=win, max_iter=10, eps=0.01, min_eig_threshold=1e-4,
+        n_levels=4, static_iters=True, max_iter_upper=5, compact_windows=compact))(
+        jp0, jp1, jnp.asarray(pts), jnp.asarray(init), jnp.asarray(valid))
+    tp0, tp1 = (tpyr.build_pyramid_padded(torch.as_tensor(img), 3) for img in (img0, img1))
+    tn, ts = tlk.pyramidal_lk(tp0, tp1, torch.as_tensor(pts), torch.as_tensor(init),
+                              torch.as_tensor(valid), win=win, max_iter=10, eps=0.01,
+                              min_eig_threshold=1e-4, n_levels=4, max_iter_upper=5,
+                              compact_windows=compact)
+    jn, js = np.asarray(jn), np.asarray(js)
+    tn, ts = tn.numpy(), ts.numpy()
+    assert (ts == js).mean() >= 0.99
+    both = ts & js
+    assert both.sum() >= 20
+    np.testing.assert_allclose(tn[both], jn[both], atol=1e-3, rtol=0)
+
+
 def _exp_gather_p1(img, F, n):
     """``pallas_extract`` of scripts/exp_gather.py, the repository's Pallas
     kernel P1, loaded from its source (importing the script runs its
@@ -320,7 +374,7 @@ def _score_map(case, H, W):
 
 @pytest.mark.parametrize("case,H,W", [("heavy_ties", 480, 752), ("sparse", 480, 752),
                                       ("empty_cells", 480, 752), ("sparse", 97, 131)])
-@pytest.mark.parametrize("k", [5, 8])
+@pytest.mark.parametrize("k", [5, 8, 12])
 def test_dense_grid_topk_exact(case, H, W, k):
     """K5's plain version (what the wrapper runs on CPU tensors) against the
     JAX function, exactly: ties by in-cell index, cells padded with -1
@@ -335,10 +389,11 @@ def test_dense_grid_topk_exact(case, H, W, k):
         assert (got[2].numpy() <= 0).any()
 
 
-@pytest.mark.parametrize("n", [20, 100, 160, 204, 256])
+@pytest.mark.parametrize("n", [20, 100, 160, 204, 256, 1500])
 def test_k8_ranking_exact(n):
     """K8's plain versions against the JAX functions, exactly, with heavy
-    ties in every key, invalid entries and the sizes the main path uses."""
+    ties in every key, invalid entries and the sizes the main path uses (and
+    1500, past the 1024 elements the card kernel once took)."""
     rng = np.random.default_rng(n)
     n_cells = 20
     cell = rng.integers(0, n_cells, n).astype(np.int32)

@@ -267,7 +267,9 @@ def filter_state():
 
 
 def _launch_counts():
-    fns = (ttri.triangulate, tupd.feature_block, tupd.gating_test_batch, tupd.rank12_update, tupd.ekf_update, tgrid.dense_grid_topk, *tgrid.K8_WRAPPERS,
+    fns = (ttri.triangulate, tupd.feature_block, tupd.gating_test_batch, tupd.rank12_update,
+           tupd.apply_update_rank12, tupd.ekf_update, tupd.apply_update, tgrid.dense_grid_topk,
+           *tgrid.K8_WRAPPERS,
            *tcam.WRAPPERS, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk,
            tpyr.build_pyramid_pair, tpyr.build_pyramid_padded)
     return tuple(fn.launches for fn in fns)

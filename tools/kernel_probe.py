@@ -1,5 +1,5 @@
-"""Device time per launch of the port's K2 (pyramid) and K10 (gate) kernels,
-alone on the card, by torch.profiler.
+"""Device time per launch of the port's K2 (pyramid), K10 (gate) and K11 (EKF
+update) kernels, alone on the card, by torch.profiler.
 
     python tools/kernel_probe.py [--frames 60]
 
@@ -11,6 +11,10 @@ the first ``--frames`` frames of the bench world (recorded through
 ``kernels.observer``, the latest call of each shape), each launched again
 40 times in a row, beside the same calls with every block forced to the
 bounds' pass side (no gamma) and forced undecided (gamma on every block).
+K11: the latest ``apply_update`` call of that run, its true rows repeated
+(each copy scaled a little differently) to 4 to 282 rows, and past T2 to
+the QR tier, beside ``torch.linalg.solve(S, HP)`` at the same rows, with
+the SM clock cycles of each of the kernel's phases.
 Prints one line per case: the device time of each kernel the call launched
 (us per launch) and the wall time per call by CUDA events.  Needs a CUDA
 device; prints the card's name and power limit first.
@@ -62,6 +66,12 @@ def main(argv=None) -> None:
     from uav_airvision_tpu_torch.profile_main import render
 
     dev = device.get_device("cuda")
+    kernels.lib()
+    ptxas = kernels.build_info.get("ptxas", "").splitlines()
+    for k, line in enumerate(ptxas):  # K11's registers and spills
+        if "Compiling entry" in line and "update_kernel" in line:
+            for x in ptxas[k:k + 4]:
+                print(f"[ptxas] {x.strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed")
@@ -76,9 +86,15 @@ def main(argv=None) -> None:
     probe("K2 pair, cam0 at an odd address", lambda: pyramid.build_pyramid_pair(odd, img1, 3))
     probe("K2 one camera", lambda: pyramid.build_pyramid_padded(img0, 3))
 
-    calls = {}
-    kernels.observer = lambda name, a: calls.__setitem__(tuple(a[0].shape), a) \
-        if name == "gating_test_batch" else None
+    calls, ekf = {}, []
+
+    def record(name, a):
+        if name == "gating_test_batch":
+            calls[tuple(a[0].shape)] = a
+        elif name == "apply_update":
+            ekf[:] = [a]
+
+    kernels.observer = record
     frames = vio.frames_from_prebatch(pb, cam0, cam1, dev)
     vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
     torch.cuda.synchronize()
@@ -96,6 +112,29 @@ def main(argv=None) -> None:
             rs = torch.where(rtr0[:, None] > 0, r * sc[:, None], r)
             probe(f"K10 {shape}, max rows {int(rows.max())}, {label}",
                   lambda: update.gating_test_batch(H, rs, rows, cov, s2, table, dof))
+    state, params, H0, r0, rows0 = ekf[0]
+    D = H0.shape[1]
+    for rows in (4, 8, 16, rows0, 32, 64, 144, 282, 3 * D + 11):
+        idx = torch.arange(rows, device=dev)
+        scale = (1.0 + 0.05 * (idx // rows0)).to(H0.dtype)
+        H = torch.zeros_like(H0)
+        r = torch.zeros_like(r0)
+        H[:rows] = H0[idx % rows0] * scale[:, None]
+        r[:rows] = r0[idx % rows0] * scale
+        tier = update.update_tier(H.shape[0], D, rows)
+        probe(f"K11 apply_update, {rows} rows ({tier})",
+              lambda: update.apply_update(state, params, H, r, rows))
+        clocks = torch.zeros(7, dtype=torch.int64, device=dev)
+        update._ekf_update_kernel(state.cov, H, r, params.obs_noise, rows, state, clocks)
+        c = clocks.tolist()
+        print(f"  K11 phases, SM clock cycles: staging/QR {c[1] - c[0]}, H P {c[2] - c[1]}, "
+              f"S {c[3] - c[2]}, factorisation and solve {c[4] - c[3]}, delta and P_new "
+              f"{c[5] - c[4]}, injection {c[6] - c[5]}; total {c[6] - c[0]}", flush=True)
+        if tier != "QR":
+            S = H[:rows] @ state.cov @ H[:rows].T + params.obs_noise * torch.eye(
+                rows, device=dev, dtype=H.dtype)
+            HP = H[:rows] @ state.cov
+            probe(f"torch.linalg.solve(S, HP), {rows} rows", lambda: torch.linalg.solve(S, HP))
     for shape, a in calls.items():
         if shape[1] <= 32:
             H, cov, s2 = a[0], a[3], a[4]

@@ -11,8 +11,9 @@
 //           corner = bright > thr | dark > thr; score = max(bright, dark) - 1;
 //           3-px border; then the mask (pixel excluded iff some valid point
 //           with floor(x) >= 3 and floor(y) >= 3 lies within 3 px in both
-//           axes; the point list sits in shared memory) zeroes score and
-//           corner BEFORE the NMS, as fast.py:107-110 does;
+//           axes; the point list passes through shared memory in chunks of
+//           1024, so any number of points runs) zeroes score and corner
+//           BEFORE the NMS, as fast.py:107-110 does;
 //   pass 2: keep = corner & score > 0 & score > all 8 neighbours (zero
 //           outside the image).
 // Integer arithmetic throughout, so the result is exact.
@@ -28,7 +29,7 @@ namespace {
 __constant__ int c_dy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
 __constant__ int c_dx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
 
-constexpr int kMaxPts = 1024;
+constexpr int kChunk = 1024;  // mask points staged in shared memory at a time
 
 __global__ void fast_score_masked_kernel(const uint8_t* __restrict__ img, int H,
                                          int W, int thr,
@@ -36,24 +37,16 @@ __global__ void fast_score_masked_kernel(const uint8_t* __restrict__ img, int H,
                                          const uint8_t* __restrict__ pvalid,
                                          int n_pts, int* __restrict__ score_out,
                                          uint8_t* __restrict__ corner_out) {
-  __shared__ int s_ix[kMaxPts];
-  __shared__ int s_iy[kMaxPts];
+  __shared__ int s_ix[kChunk];
+  __shared__ int s_iy[kChunk];
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int k = tid; k < n_pts; k += blockDim.x * blockDim.y) {
-    const int ix = (int)floorf(pts[2 * k]);
-    const int iy = (int)floorf(pts[2 * k + 1]);
-    const bool ok = pvalid[k] && ix >= 3 && iy >= 3;
-    s_ix[k] = ok ? ix : -10;  // the strip then lies fully outside the image
-    s_iy[k] = ok ? iy : -10;
-  }
-  __syncthreads();
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
+  const bool inside = x < W && y < H;  // every thread stays for the chunks' barriers
 
   int score = 0;
   bool corner = false;
-  if (y >= 3 && y < H - 3 && x >= 3 && x < W - 3) {
+  if (inside && y >= 3 && y < H - 3 && x >= 3 && x < W - 3) {
     const int c = img[y * W + x];
     int d[16];
 #pragma unroll
@@ -75,12 +68,25 @@ __global__ void fast_score_masked_kernel(const uint8_t* __restrict__ img, int H,
     corner = bright > thr || dark > thr;
     score = corner ? max(bright, dark) - 1 : 0;
   }
-  for (int k = 0; k < n_pts; ++k) {
-    if (abs(y - s_iy[k]) <= 3 && abs(x - s_ix[k]) <= 3) {
-      score = 0;
-      corner = false;
-      break;
+  bool masked = false;
+  for (int k0 = 0; k0 < n_pts; k0 += kChunk) {
+    const int nk = min(kChunk, n_pts - k0);
+    __syncthreads();  // the previous chunk is read
+    for (int k = tid; k < nk; k += blockDim.x * blockDim.y) {
+      const int ix = (int)floorf(pts[2 * (k0 + k)]);
+      const int iy = (int)floorf(pts[2 * (k0 + k) + 1]);
+      const bool ok = pvalid[k0 + k] && ix >= 3 && iy >= 3;
+      s_ix[k] = ok ? ix : -10;  // the strip then lies fully outside the image
+      s_iy[k] = ok ? iy : -10;
     }
+    __syncthreads();
+    for (int k = 0; k < nk && !masked; ++k)
+      masked = abs(y - s_iy[k]) <= 3 && abs(x - s_ix[k]) <= 3;
+  }
+  if (!inside) return;
+  if (masked) {
+    score = 0;
+    corner = false;
   }
   score_out[y * W + x] = score;
   corner_out[y * W + x] = corner;
@@ -116,7 +122,7 @@ extern "C" int fast_detect_masked(const void* img, int H, int W, int thr,
                                   int n_pts, void* score_tmp, void* corner_tmp,
                                   void* keep_out, void* score_out,
                                   void* stream) {
-  if (n_pts > kMaxPts) return (int)cudaErrorInvalidValue;
+  if (n_pts < 0) return (int)cudaErrorInvalidValue;
   const dim3 block(32, 8);
   const dim3 grid((W + 31) / 32, (H + 7) / 8);
   cudaStream_t s = (cudaStream_t)stream;

@@ -12,7 +12,10 @@
 // rows of its rank among the observing slots, at the columns of its slot.
 // The tile lives in dynamic shared memory without the 21 IMU columns,
 // which are zero and stay zero: 4N x (4 + 6N) values, 39.7 KB in float32
-// and 79.4 KB in float64 at N = 20.  Then the three reflections (sign
+// and 79.4 KB in float64 at N = 20.  Where it does not fit (N >= 35 in
+// float64, N >= 49 in float32) each block keeps its tile in a workspace in
+// device memory that the caller allocates (B tiles), where it stays in L2.
+// Then the three reflections (sign
 // +1 when x[j] >= 0, no reflection when |v|^2 <= 1e-30) run over the tile,
 // and the rows 3.. are written out with the IMU columns as zeros.  Rows
 // past 4 n_obs hold zeros throughout, so they leave as exact zeros.
@@ -104,12 +107,14 @@ feature_block_kernel(const T* __restrict__ cams_q, const T* __restrict__ cams_p,
                      const T* __restrict__ obs, const uint8_t* __restrict__ obs_mask,
                      const T* __restrict__ p_w, const T* __restrict__ gravity,
                      const T* __restrict__ R_c0c1, const T* __restrict__ t_c0c1,
-                     T* __restrict__ H_out, T* __restrict__ r_out, int* __restrict__ rows_out) {
+                     T* __restrict__ H_out, T* __restrict__ r_out, int* __restrict__ rows_out,
+                     T* __restrict__ work) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   const int b = blockIdx.x, tid = threadIdx.x;
   const int R = 4 * N, W = 4 + 6 * N, D = kImu + 6 * N;
-  T* tile = reinterpret_cast<T*>(dyn_smem);  // R x W: [H_f | r | H_x of the slots]
-  T* v = tile + R * W;                        // R
+  // R x W: [H_f | r | H_x of the slots], in shared memory or the workspace
+  T* tile = work != nullptr ? work + (size_t)b * R * W : reinterpret_cast<T*>(dyn_smem);
+  T* v = (work != nullptr ? reinterpret_cast<T*>(dyn_smem) : tile + R * W);  // R
   T* vT = v + R;                              // W
   T* red = vT + W;                            // 32
   int* rank = reinterpret_cast<int*>(red + 32);  // N
@@ -183,18 +188,26 @@ template <typename T>
 int launch(const void* cams_q, const void* cams_p, const void* cams_qn, const void* cams_pn,
            int N, const void* obs, const void* obs_mask, const void* p_w, const void* gravity,
            const void* R_c0c1, const void* t_c0c1, int B, void* H_out, void* r_out,
-           void* rows_out, void* stream) {
-  static size_t smem_allowed = 0;
+           void* rows_out, void* work, void* stream) {
+  static size_t smem_allowed = 0, budget = 0;
   if (N < 1) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  if (budget == 0) budget = msckf::smem_budget(feature_block_kernel<T>);
   const int R = 4 * N, W = 4 + 6 * N;
-  const size_t smem = (size_t)(R * W + R + W + 32) * sizeof(T) + (size_t)N * sizeof(int);
+  const size_t scratch = (size_t)(R + W + 32) * sizeof(T) + (size_t)N * sizeof(int);
+  size_t smem = (size_t)R * W * sizeof(T) + scratch;
+  if (smem > budget) {  // the tiles go to the workspace
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    smem = scratch;
+  } else {
+    work = nullptr;
+  }
   const int err = msckf::allow_smem(feature_block_kernel<T>, smem, &smem_allowed);
   if (err != 0) return err;
   feature_block_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)cams_q, (const T*)cams_p, (const T*)cams_qn, (const T*)cams_pn, N,
       (const T*)obs, (const uint8_t*)obs_mask, (const T*)p_w, (const T*)gravity,
-      (const T*)R_c0c1, (const T*)t_c0c1, (T*)H_out, (T*)r_out, (int*)rows_out);
+      (const T*)R_c0c1, (const T*)t_c0c1, (T*)H_out, (T*)r_out, (int*)rows_out, (T*)work);
   return (int)cudaGetLastError();
 }
 
@@ -204,16 +217,16 @@ extern "C" int feature_block_f32(const void* cams_q, const void* cams_p, const v
                                  const void* cams_pn, int N, const void* obs,
                                  const void* obs_mask, const void* p_w, const void* gravity,
                                  const void* R_c0c1, const void* t_c0c1, int B, void* H_out,
-                                 void* r_out, void* rows_out, void* stream) {
+                                 void* r_out, void* rows_out, void* work, void* stream) {
   return launch<float>(cams_q, cams_p, cams_qn, cams_pn, N, obs, obs_mask, p_w, gravity,
-                       R_c0c1, t_c0c1, B, H_out, r_out, rows_out, stream);
+                       R_c0c1, t_c0c1, B, H_out, r_out, rows_out, work, stream);
 }
 
 extern "C" int feature_block_f64(const void* cams_q, const void* cams_p, const void* cams_qn,
                                  const void* cams_pn, int N, const void* obs,
                                  const void* obs_mask, const void* p_w, const void* gravity,
                                  const void* R_c0c1, const void* t_c0c1, int B, void* H_out,
-                                 void* r_out, void* rows_out, void* stream) {
+                                 void* r_out, void* rows_out, void* work, void* stream) {
   return launch<double>(cams_q, cams_p, cams_qn, cams_pn, N, obs, obs_mask, p_w, gravity,
-                        R_c0c1, t_c0c1, B, H_out, r_out, rows_out, stream);
+                        R_c0c1, t_c0c1, B, H_out, r_out, rows_out, work, stream);
 }

@@ -36,7 +36,10 @@
 // lower triangle with the border row (24 KB).  So the products read shared
 // memory, not L2.  In float64 P (159 KB) does not fit beside them and stays
 // in L2 (in float32 too for a state too large); H P is kept in chunks of 16
-// rows when all of it does not fit.  Both products are register-tiled, as
+// rows when all of it does not fit.  When even that does not fit (float32
+// from 36 window slots, 137-row blocks of 231 columns and up), each block
+// keeps its H, H P chunk and S in a workspace in device memory that the
+// caller allocates, where they stay in L2.  Both products are register-tiled, as
 // shared-memory reads bound them: H P a warp per four rows, a lane per
 // column block (per k 4 reads of H, one per column block of P, for 4
 // products each); S a thread per 4 x 4 tile (8 reads for 16 products).
@@ -92,6 +95,7 @@ struct GateArgs {
   int n_table;
   int p_shared;     // stage P in shared memory
   int hp_full;      // keep all rows of H P (else kChunk rows at a time)
+  T* work;          // past a block's shared memory: H, H P and A of each block here
   uint8_t* out;     // (B,) decisions
   uint8_t* flags;   // (B,) phase 1's bound flags (bit 0 pass, bit 1 fail)
   T* gamma;         // (B,) gamma where it was computed
@@ -418,8 +422,9 @@ __device__ void gamma_decide(const GateArgs<T>& a, int b, int m, const Block<T>&
 
 template <typename T>
 __device__ Block<T> setup(const GateArgs<T>& a, unsigned char* dyn, uint64_t* mbar) {
-  T* base = reinterpret_cast<T*>(dyn);
   const Smem s = layout<T>(a.R, a.D, a.p_shared != 0, a.hp_full != 0);
+  T* base = a.work != nullptr ? a.work + (size_t)blockIdx.x * (s.total / sizeof(T))
+                              : reinterpret_cast<T*>(dyn);
   Block<T> blk{a.P, base + s.h, base + s.hp, base + s.a, a.hp_full != 0};
   if (a.p_shared) {
     stage_p(base + s.p, a.P, a.D * a.D, mbar);
@@ -493,12 +498,12 @@ template <typename T>
 int launch_gate(const void* H, const void* r, int B, int R, int D, long long h_stride,
                 long long r_stride, const void* rows_true, const void* dof, int dof_i64,
                 const void* P, const void* obs_noise, const void* table, int n_table, void* out,
-                void* flags, void* gamma, void* stream) {
+                void* flags, void* gamma, void* work, void* stream) {
   // the card's properties, and per kernel the shared memory allowed and the
   // co-resident blocks at that size, looked up once
   static int sms = 0, optin = 0;
   static size_t small_allowed = 0, tiered_allowed = 0, occ_smem = 0;
-  static int occ_per_sm = 0;
+  static int occ_per_sm = 0;  // 0: not looked up yet for occ_smem
   if (B == 0) return 0;
   if (sms == 0) {
     int dev = 0;
@@ -518,10 +523,18 @@ int launch_gate(const void* H, const void* r, int B, int R, int D, long long h_s
     p_shared = o[0], hp_full = o[1];
     if (layout<T>(R, D, p_shared, hp_full).total + 512 <= (size_t)optin) break;
   }
-  const size_t smem = layout<T>(R, D, p_shared, hp_full).total;
+  size_t smem = layout<T>(R, D, p_shared, hp_full).total;
+  // even H in chunks of H P does not fit: each block's H, H P chunk and S
+  // in the caller's workspace (min(B, co-resident blocks) x layout), in L2
+  T* ws = nullptr;
+  if (smem + 512 > (size_t)optin) {
+    if (work == nullptr) return (int)cudaErrorInvalidValue;
+    ws = (T*)work;
+    smem = 0;
+  }
   GateArgs<T> a{(const T*)H, (const T*)r, B, R, D, h_stride, r_stride,
                 (const int*)rows_true, dof, dof_i64, (const T*)P, (const T*)obs_noise,
-                (const T*)table, n_table, p_shared ? 1 : 0, hp_full ? 1 : 0, (uint8_t*)out,
+                (const T*)table, n_table, p_shared ? 1 : 0, hp_full ? 1 : 0, ws, (uint8_t*)out,
                 (uint8_t*)flags, (T*)gamma};
   if (!tiered) {
     const int err = msckf::allow_smem(gate_small_kernel<T>, smem, &small_allowed);
@@ -531,7 +544,7 @@ int launch_gate(const void* H, const void* r, int B, int R, int D, long long h_s
   }
   int err = msckf::allow_smem(gate_tiered_kernel<T>, smem, &tiered_allowed);
   if (err != 0) return err;
-  if (smem != occ_smem) {
+  if (occ_per_sm == 0 || smem != occ_smem) {
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_per_sm, gate_tiered_kernel<T>,
                                                              kThreads, smem);
     if (err != 0) return err;
@@ -551,19 +564,20 @@ int launch_gate(const void* H, const void* r, int B, int R, int D, long long h_s
 
 // H, r, B, R, D, h_stride, r_stride, rows_true (int32), dof, dof is int64,
 // P, obs_noise, table, n_table, out (B,) uint8, flags (B,) uint8 scratch,
-// gamma (B,) T, stream
+// gamma (B,) T, work (B x the smallest layout's elements, or nullptr where
+// that layout fits a block's shared memory), stream
 extern "C" int gate_f32(const void* H, const void* r, int B, int R, int D, long long h_stride,
                         long long r_stride, const void* rows_true, const void* dof, int dof_i64,
                         const void* P, const void* obs_noise, const void* table, int n_table,
-                        void* out, void* flags, void* gamma, void* stream) {
+                        void* out, void* flags, void* gamma, void* work, void* stream) {
   return launch_gate<float>(H, r, B, R, D, h_stride, r_stride, rows_true, dof, dof_i64, P,
-                            obs_noise, table, n_table, out, flags, gamma, stream);
+                            obs_noise, table, n_table, out, flags, gamma, work, stream);
 }
 
 extern "C" int gate_f64(const void* H, const void* r, int B, int R, int D, long long h_stride,
                         long long r_stride, const void* rows_true, const void* dof, int dof_i64,
                         const void* P, const void* obs_noise, const void* table, int n_table,
-                        void* out, void* flags, void* gamma, void* stream) {
+                        void* out, void* flags, void* gamma, void* work, void* stream) {
   return launch_gate<double>(H, r, B, R, D, h_stride, r_stride, rows_true, dof, dof_i64, P,
-                             obs_noise, table, n_table, out, flags, gamma, stream);
+                             obs_noise, table, n_table, out, flags, gamma, work, stream);
 }

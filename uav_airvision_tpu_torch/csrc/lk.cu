@@ -7,52 +7,70 @@
 // slow; on the card a block simply reads its window taps through L1.  The
 // band layout disappears, but the search-window FREEZE bounds it implied are
 // part of the result and are reproduced exactly:
-//   des = clip(floor(corner0) - 8, 0, HP - 32), o = 16 * min(des / 16, nbr - 1)
-//   with nbr = max(1, ceil((HP - 48) / 16) + 1), ub = min(32, HP - 16 - o);
+//   des = clip(floor(corner0) - 8, 0, HP - (side + 17)),
+//   o = 16 * min(des / 16, nbr - 1) with nbr = max(1, ceil((HP - 48) / 16) + 1),
+//   ub = min(48 - (side + 1), HP - (side + 1) - o) (32 at side 15);
 //   the sample corner is clamped to [o, o + ub] and a Gauss-Newton step is
 //   taken only while the new corner stays inside it.
 //
 // Per level (coarse to fine, all inside the block):
-//   template: the 18x18 raw window at clip(floor(c) - 1, 0, HP - 18) of the
-//     PREVIOUS level, bilinear-shifted to 17x17, Scharr/32 on it, gradients
-//     zeroed outside [17, HP-18] x [17, WP-18]; G = [a11 a12; a12 a22],
+//   template: the (side+3)^2 raw window at clip(floor(c) - 1, 0, HP - side - 3)
+//     of the PREVIOUS level, bilinear-shifted to (side+2)^2, Scharr/32 on
+//     it, gradients zeroed outside [17, HP-18] x [17, WP-18]; G = [a11 a12; a12 a22],
 //     good = valid & corner in image & det > 1e-12; at level 0 also the
 //     min-eigenvalue status;
 //   iterations: J re-sampled bilinearly from the CURRENT level, b = <grad,J>
 //     - <grad,I>, the OpenCV delta, flip-flop halving, eps convergence.
 //     A converged point is frozen for good, so the block exits early.
-// Thread t < 225 owns window pixel (t / 15, t % 15); the sums over the
-// window are block reductions.  Sums run in another order than the JAX
-// package's matmuls, so positions agree to rounding, not bit for bit.
+// The window side is a template parameter, instantiated for every odd side
+// 3 to 31: thread t < side^2 owns window pixel (t / side, t % side) and the
+// block has side^2 threads rounded up to a warp (256 at 15).  Any other side
+// (even, or past 31) takes the instantiation with a runtime side and 1024
+// threads that loop over the pixels.  The template's gradients sit in
+// shared memory; the sums over the window are block reductions.  Sums run
+// in another order than the JAX package's matmuls, so positions agree to
+// rounding, not bit for bit.
 //
-// Bound on the card: latency.  Each point is one block of 256 threads and
+// Bound on the card: latency.  Each point is one block (256 threads at 15) and
 // each Gauss-Newton step is one dependent round of loads + a reduction; a
 // frame launches ~104-204 blocks, under two waves of the 132 SMs.
 //
 // Second entry point, ``pyramidal_lk_level``: ONE level of the same
 // tracker for frontend.lk_compact_windows (lk.py:199-218).  There the JAX
-// package cuts each level's exact 32-px search span at
-// des = clip(floor(corner0) - 8, 0, HP - 32) out of its band and iterates
+// package cuts each level's exact search span (side + 17 px: 32 at 15) at
+// des = clip(floor(corner0) - 8, 0, HP - span) out of its band and iterates
 // on that window, so the freeze bounds become uniform: origin des and
-// ub = min(16, HP - 16 - des) (= 16, since des <= HP - 32).  The caller
-// fetches the windows with kernel P1 (csrc/extract.cu) and this entry reads
-// its samples from them; it also writes the next finer level's des, so the
-// host computes des once per LK call, for the coarsest level.
+// ub = min(16, HP - (side + 1) - des).  The caller fetches the windows with
+// kernel P1 (csrc/extract.cu) and this entry reads its samples from them;
+// it also writes the next finer level's des, so the host computes des once
+// per LK call, for the coarsest level.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "msckf_common.cuh"
+
 namespace {
 
 constexpr int kPad = 17;
-constexpr int kWin = 15;
-constexpr int kN = kWin + 3;       // raw template side
-constexpr int kT = kWin + 2;       // shifted template side
-constexpr int kNeed = kWin + 1 + 16;  // search span (LK_MARGIN = 8)
+constexpr int kMargin = 8;  // LK_MARGIN: the search span is side + 1 + 16
 constexpr int kStride = 16;
 constexpr int kBw = 48;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kLoopThreads = 1024;  // the runtime-side instantiation
+
+// The window side: the template's, or the runtime one (kWin = 0).
+template <int kWin>
+__device__ __forceinline__ int side(int win) {
+  return kWin > 0 ? kWin : win;
+}
+
+
+// Floats of dynamic shared memory: the raw and shifted templates, the two
+// gradient windows, the reduction scratch.
+inline size_t smem_floats(int win) {
+  return (size_t)(win + 3) * (win + 3) + (size_t)(win + 2) * (win + 2) + 2 * (size_t)win * win +
+         32 * 5;
+}
 
 struct Level {
   const float* img;
@@ -81,8 +99,8 @@ __device__ __forceinline__ int ceil_div(int a, int b) {
 
 // Sum K values over the block; every thread gets the totals.
 template <int K>
-__device__ void block_sum(float (&v)[K], float* scratch /* kWarps*K */) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ void block_sum(float (&v)[K], float* scratch /* 32*K */) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     float x = v[k];
@@ -99,60 +117,76 @@ __device__ void block_sum(float (&v)[K], float* scratch /* kWarps*K */) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += scratch[w * K + k];
+    for (int w = 0; w < warps; ++w) s += scratch[w * K + k];
     v[k] = s;
   }
 }
 
+// The block's shared memory: raw (n x n) and shifted (t x t) templates, the
+// gradients of the win x win window, the reduction scratch.
+struct Smem {
+  float *raw, *T, *gx, *gy, *red;
+};
+
+__device__ Smem carve(float* base, int win) {
+  Smem m;
+  m.raw = base;
+  m.T = m.raw + (win + 3) * (win + 3);
+  m.gx = m.T + (win + 2) * (win + 2);
+  m.gy = m.gx + win * win;
+  m.red = m.gy + win * win;
+  return m;
+}
+
 struct Template {
-  float gx, gy;  // this thread's gradient pixel (zero for threads >= 225)
   float a11, a12, a22, bt1, bt2, inv_det;
   bool good;     // valid & corner in the image & det > 1e-12
   bool status;   // the level-0 gate (min eigenvalue), meaningful at level 0
 };
 
-// The template of one level (lk.py:380-433): the 18x18 raw window of the
-// PREVIOUS image around the point, bilinear-shifted, Scharr/32, G and the
-// template part of b.  Every thread returns the same sums.
+// The template of one level (lk.py:380-433): the (win+3)^2 raw window of
+// the PREVIOUS image around the point, bilinear-shifted, Scharr/32, G and
+// the template part of b; the gradients go to shared memory.  Every thread
+// returns the same sums.
+template <int kWin>
 __device__ Template level_template(const Level& pl, float prev_x, float prev_y, float scale,
-                                   bool is_valid, float min_eig_thr, float* s_raw,
-                                   float* s_T, float* s_red) {
+                                   bool is_valid, float min_eig_thr, int win_rt,
+                                   const Smem& sm) {
+  const int win = side<kWin>(win_rt), n = win + 3, nt = win + 2;
   const int tid = threadIdx.x;
-  const bool owner = tid < kWin * kWin;
-  const int pi = owner ? tid / kWin : 0, pj = owner ? tid % kWin : 0;
-  const float half = 0.5f * (kWin - 1);
+  const float half = 0.5f * (win - 1);
   const float cx = (prev_x * scale - half) + (float)kPad;
   const float cy = (prev_y * scale - half) + (float)kPad;
   const float fcx = floorf(cx), fcy = floorf(cy);
-  const int ry0 = clampi((int)fcy - 1, 0, pl.HP - kN);
-  const int rx0 = clampi((int)fcx - 1, 0, pl.WP - kN);
-  for (int k = tid; k < kN * kN; k += kThreads)
-    s_raw[k] = pl.img[(size_t)(ry0 + k / kN) * pl.WP + rx0 + k % kN];
+  const int ry0 = clampi((int)fcy - 1, 0, pl.HP - n);
+  const int rx0 = clampi((int)fcx - 1, 0, pl.WP - n);
+  for (int k = tid; k < n * n; k += blockDim.x)
+    sm.raw[k] = pl.img[(size_t)(ry0 + k / n) * pl.WP + rx0 + k % n];
   __syncthreads();
   const float ax = cx - fcx, ay = cy - fcy;
   const float w00 = (1.f - ax) * (1.f - ay), w01 = ax * (1.f - ay);
   const float w10 = (1.f - ax) * ay, w11 = ax * ay;
-  for (int k = tid; k < kT * kT; k += kThreads) {
-    const int r = k / kT, c = k % kT;
-    s_T[k] = w00 * s_raw[r * kN + c] + w01 * s_raw[r * kN + c + 1] +
-             w10 * s_raw[(r + 1) * kN + c] + w11 * s_raw[(r + 1) * kN + c + 1];
+  for (int k = tid; k < nt * nt; k += blockDim.x) {
+    const int r = k / nt, c = k % nt;
+    sm.T[k] = w00 * sm.raw[r * n + c] + w01 * sm.raw[r * n + c + 1] +
+              w10 * sm.raw[(r + 1) * n + c] + w11 * sm.raw[(r + 1) * n + c + 1];
   }
   __syncthreads();
-  Template t;
-  float gI = 0.f, gx = 0.f, gy = 0.f;
-  if (owner) {
+  float sums[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int q = tid; q < win * win; q += blockDim.x) {
+    const int pi = q / win, pj = q % win;
     const float sm0 = 3.f / 32.f, sm1 = 10.f / 32.f, sm2 = 3.f / 32.f;
-    gI = s_T[(pi + 1) * kT + pj + 1];
+    const float gI = sm.T[(pi + 1) * nt + pj + 1];
     float v[3], w[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float t0 = s_T[pi * kT + pj + c], t1 = s_T[(pi + 1) * kT + pj + c],
-                  t2 = s_T[(pi + 2) * kT + pj + c];
+      const float t0 = sm.T[pi * nt + pj + c], t1 = sm.T[(pi + 1) * nt + pj + c],
+                  t2 = sm.T[(pi + 2) * nt + pj + c];
       v[c] = sm0 * t0 + sm1 * t1 + sm2 * t2;
       w[c] = (-1.f * t0 + 0.f * t1) + 1.f * t2;
     }
-    gx = (-1.f * v[0] + 0.f * v[1]) + 1.f * v[2];
-    gy = sm0 * w[0] + sm1 * w[1] + sm2 * w[2];
+    float gx = (-1.f * v[0] + 0.f * v[1]) + 1.f * v[2];
+    float gy = sm0 * w[0] + sm1 * w[1] + sm2 * w[2];
     const float ys = cy + (float)pi, xs = cx + (float)pj;
     const bool inside = ys >= (float)kPad && ys <= (float)(pl.HP - 1 - kPad) &&
                         xs >= (float)kPad && xs <= (float)(pl.WP - 1 - kPad);
@@ -160,11 +194,16 @@ __device__ Template level_template(const Level& pl, float prev_x, float prev_y, 
       gx = 0.f;
       gy = 0.f;
     }
+    sm.gx[q] = gx;
+    sm.gy[q] = gy;
+    sums[0] += gx * gx;
+    sums[1] += gx * gy;
+    sums[2] += gy * gy;
+    sums[3] += gI * gx;
+    sums[4] += gI * gy;
   }
-  float sums[5] = {gx * gx, gx * gy, gy * gy, gI * gx, gI * gy};
-  block_sum<5>(sums, s_red);
-  t.gx = gx;
-  t.gy = gy;
+  block_sum<5>(sums, sm.red);  // its barriers publish the gradients
+  Template t;
   t.a11 = sums[0];
   t.a12 = sums[1];
   t.a22 = sums[2];
@@ -173,12 +212,12 @@ __device__ Template level_template(const Level& pl, float prev_x, float prev_y, 
   const float det = t.a11 * t.a22 - t.a12 * t.a12;
   t.inv_det = det > 1e-12f ? 1.f / det : 0.f;
   const float ipx = fcx - (float)kPad, ipy = fcy - (float)kPad;
-  const bool in_prev = ipx >= (float)(-kWin) && ipx < (float)pl.W &&
-                       ipy >= (float)(-kWin) && ipy < (float)pl.H;
+  const bool in_prev = ipx >= (float)(-win) && ipx < (float)pl.W &&
+                       ipy >= (float)(-win) && ipy < (float)pl.H;
   t.good = is_valid && in_prev && det > 1e-12f;
   const float d = t.a11 - t.a22;
   const float min_eig =
-      (t.a22 + t.a11 - sqrtf(d * d + 4.f * t.a12 * t.a12)) / (2.f * kWin * kWin);
+      (t.a22 + t.a11 - sqrtf(d * d + 4.f * t.a12 * t.a12)) / (2.f * win * win);
   t.status = is_valid && in_prev && min_eig >= min_eig_thr && det > 1e-12f;
   return t;
 }
@@ -188,14 +227,14 @@ __device__ Template level_template(const Level& pl, float prev_x, float prev_y, 
 // coordinates) and read from ``src``: the pixel of padded row o_y + s has
 // row index r_off + s there, row stride ``ld`` (the whole level: r_off =
 // o_y; a search window cut at o: r_off = 0).
+template <int kWin>
 __device__ void gauss_newton(const Template& t, const float* src, int ld, int r_off,
                              int c_off, int oy, int ox, float uby, float ubx, int H,
-                             int W, int it_max, float eps2, float* s_red, float& px,
-                             float& py) {
+                             int W, int it_max, float eps2, int win_rt, const Smem& sm,
+                             float& px, float& py) {
+  const int win = side<kWin>(win_rt);
   const int tid = threadIdx.x;
-  const bool owner = tid < kWin * kWin;
-  const int pi = owner ? tid / kWin : 0, pj = owner ? tid % kWin : 0;
-  const float half = 0.5f * (kWin - 1);
+  const float half = 0.5f * (win - 1);
   bool conv = !t.good;
   float pdx = 0.f, pdy = 0.f;
   for (int it = 0; it < it_max && !conv; ++it) {
@@ -204,22 +243,23 @@ __device__ void gauss_newton(const Template& t, const float* src, int ld, int r_
     const float bx = floorf(sx), by = floorf(sy);
     const float fx = sx - bx, fy = sy - by;
     float bj[2] = {0.f, 0.f};
-    if (owner) {
+    for (int q = tid; q < win * win; q += blockDim.x) {
+      const int pi = q / win, pj = q % win;
       const float* row0 = src + (size_t)(r_off + (int)by + pi) * ld + c_off + (int)bx + pj;
       const float* row1 = row0 + ld;
       const float t0 = (1.f - fy) * row0[0] + fy * row1[0];
       const float t1 = (1.f - fy) * row0[1] + fy * row1[1];
       const float J = t0 * (1.f - fx) + t1 * fx;
-      bj[0] = J * t.gx;
-      bj[1] = J * t.gy;
+      bj[0] += J * sm.gx[q];
+      bj[1] += J * sm.gy[q];
     }
-    block_sum<2>(bj, s_red);
+    block_sum<2>(bj, sm.red);
     const float b1 = bj[0] - t.bt1, b2 = bj[1] - t.bt2;
     const float dx = (t.a12 * b2 - t.a22 * b1) * t.inv_det;
     const float dy = (t.a12 * b1 - t.a11 * b2) * t.inv_det;
     const float nx = px + dx, ny = py + dy;
-    const bool inb = floorf(nx - half) >= (float)(-kWin) && floorf(nx - half) < (float)W &&
-                     floorf(ny - half) >= (float)(-kWin) && floorf(ny - half) < (float)H;
+    const bool inb = floorf(nx - half) >= (float)(-win) && floorf(nx - half) < (float)W &&
+                     floorf(ny - half) >= (float)(-win) && floorf(ny - half) < (float)H;
     const float ncx = (nx - half) + (float)kPad, ncy = (ny - half) + (float)kPad;
     const bool in_win = ncx - (float)ox >= 0.f && ncx - (float)ox <= ubx &&
                         ncy - (float)oy >= 0.f && ncy - (float)oy <= uby;
@@ -241,30 +281,38 @@ __device__ void gauss_newton(const Template& t, const float* src, int ld, int r_
 }
 
 // OpenCV's final status drop on the level-0 point (lk.py:447-456).
-__device__ bool in_image(float x, float y, int H0, int W0) {
-  const float half = 0.5f * (kWin - 1);
-  return floorf(x - half) >= (float)(-kWin) && floorf(x - half) < (float)W0 &&
-         floorf(y - half) >= (float)(-kWin) && floorf(y - half) < (float)H0;
+__device__ bool in_image(float x, float y, int H0, int W0, int win) {
+  const float half = 0.5f * (win - 1);
+  return floorf(x - half) >= (float)(-win) && floorf(x - half) < (float)W0 &&
+         floorf(y - half) >= (float)(-win) && floorf(y - half) < (float)H0;
 }
 
 // The compact search window's origin at a level (lk.py:188-194), [y, x].
-__device__ int2 compact_origin(float x, float y, float scale, const Level& l) {
-  const float half = 0.5f * (kWin - 1);
+__device__ int2 compact_origin(float x, float y, float scale, const Level& l, int win) {
+  const float half = 0.5f * (win - 1);
+  const int need = win + 1 + 2 * kMargin;
   const float cx = (x * scale - half) + (float)kPad, cy = (y * scale - half) + (float)kPad;
-  return make_int2(clampi((int)floorf(cy) - 8, 0, l.HP - kNeed),
-                   clampi((int)floorf(cx) - 8, 0, l.WP - kNeed));
+  return make_int2(clampi((int)floorf(cy) - kMargin, 0, l.HP - need),
+                   clampi((int)floorf(cx) - kMargin, 0, l.WP - need));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Threads of a block of the instantiation (its launch bound).
+template <int kWin>
+constexpr int block_threads() {
+  return kWin > 0 ? (kWin * kWin + 31) / 32 * 32 : kLoopThreads;
+}
+
+template <int kWin>
+__global__ void __launch_bounds__(block_threads<kWin>())
 lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr,
           int H0, int W0, const float* __restrict__ prev_pts,
           const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
           int n_levels, int max_iter, int max_iter_upper, float eps2,
           float min_eig_thr, float* __restrict__ out_pts,
-          uint8_t* __restrict__ out_status) {
-  __shared__ float s_raw[kN * kN];
-  __shared__ float s_T[kT * kT];
-  __shared__ float s_red[kWarps * 5];
+          uint8_t* __restrict__ out_status, int win_rt) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int win = side<kWin>(win_rt);
+  const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
 
   const int f = blockIdx.x;
   const bool is_valid = valid[f] != 0;
@@ -276,75 +324,115 @@ lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr
     const Level pl = level_of(prev_pyr, H0, W0, L);
     const Level cl = level_of(curr_pyr, H0, W0, L);
     const float scale = 1.0f / (float)(1 << L);
-    const Template t =
-        level_template(pl, prev_x, prev_y, scale, is_valid, min_eig_thr, s_raw, s_T, s_red);
+    const Template t = level_template<kWin>(pl, prev_x, prev_y, scale, is_valid, min_eig_thr,
+                                            win_rt, sm);
     if (L == 0) status = t.status;
 
     // ---- search window (lk.py:188-219, extract.py:164-173) ----
     float px = next_x * scale, py = next_y * scale;
-    const int2 des = compact_origin(next_x, next_y, scale, cl);
+    const int2 des = compact_origin(next_x, next_y, scale, cl, win);
     const int nbr = max(1, ceil_div(cl.HP - kBw, kStride) + 1);
     const int nbc = max(1, ceil_div(cl.WP - kBw, kStride) + 1);
     const int oy = kStride * min(des.x / kStride, nbr - 1);
     const int ox = kStride * min(des.y / kStride, nbc - 1);
-    const float uby = (float)min(kBw - (kWin + 1), cl.HP - (kWin + 1) - oy);
-    const float ubx = (float)min(kBw - (kWin + 1), cl.WP - (kWin + 1) - ox);
+    const float uby = (float)min(kBw - (win + 1), cl.HP - (win + 1) - oy);
+    const float ubx = (float)min(kBw - (win + 1), cl.WP - (win + 1) - ox);
 
     const int it_max = (L == 0 || max_iter_upper <= 0) ? max_iter : max_iter_upper;
-    gauss_newton(t, cl.img, cl.WP, oy, ox, oy, ox, uby, ubx, cl.H, cl.W, it_max, eps2,
-                 s_red, px, py);
+    gauss_newton<kWin>(t, cl.img, cl.WP, oy, ox, oy, ox, uby, ubx, cl.H, cl.W, it_max, eps2,
+                       win_rt, sm, px, py);
     next_x = px * (float)(1 << L);
     next_y = py * (float)(1 << L);
-    __syncthreads();  // s_raw / s_T are rewritten by the next level
+    __syncthreads();  // the templates are rewritten by the next level
   }
 
   if (threadIdx.x == 0) {
     out_pts[2 * f] = next_x;
     out_pts[2 * f + 1] = next_y;
-    out_status[f] = status && in_image(next_x, next_y, H0, W0);
+    out_status[f] = status && in_image(next_x, next_y, H0, W0, win);
   }
 }
 
-// One level L of the compact-window tracker.  windows: (F, 32, 32), the
-// search window of each point cut out of the current level at des (F, 2)
-// [y, x]; pts_in / pts_out: full-resolution points before / after the
-// level.  For L > 0 writes des_next, the origin at level L - 1 of pts_out;
-// at L = 0 writes the status.
-__global__ void __launch_bounds__(kThreads)
+// One level L of the compact-window tracker.  windows: (F, need, need)
+// with need = side + 17, the search window of each point cut out of the
+// current level at des (F, 2) [y, x]; pts_in / pts_out: full-resolution
+// points before / after the level.  For L > 0 writes des_next, the origin
+// at level L - 1 of pts_out; at L = 0 writes the status.
+template <int kWin>
+__global__ void __launch_bounds__(block_threads<kWin>())
 lk_level_kernel(const float* __restrict__ prev_pyr, int H0, int W0,
                 const float* __restrict__ prev_pts, const float* __restrict__ pts_in,
                 const uint8_t* __restrict__ valid, const float* __restrict__ windows,
                 const int32_t* __restrict__ des, int L, int it_max, float eps2,
                 float min_eig_thr, float* __restrict__ pts_out,
-                int32_t* __restrict__ des_next, uint8_t* __restrict__ out_status) {
-  __shared__ float s_raw[kN * kN];
-  __shared__ float s_T[kT * kT];
-  __shared__ float s_red[kWarps * 5];
+                int32_t* __restrict__ des_next, uint8_t* __restrict__ out_status, int win_rt) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int win = side<kWin>(win_rt), need = win + 1 + 2 * kMargin;
+  const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
 
   const int f = blockIdx.x;
   const Level pl = level_of(prev_pyr, H0, W0, L);  // the current level has its size
   const float scale = 1.0f / (float)(1 << L);
-  const Template t = level_template(pl, prev_pts[2 * f], prev_pts[2 * f + 1], scale,
-                                    valid[f] != 0, min_eig_thr, s_raw, s_T, s_red);
+  const Template t = level_template<kWin>(pl, prev_pts[2 * f], prev_pts[2 * f + 1], scale,
+                                          valid[f] != 0, min_eig_thr, win_rt, sm);
   float px = pts_in[2 * f] * scale, py = pts_in[2 * f + 1] * scale;
   const int oy = des[2 * f], ox = des[2 * f + 1];
-  const float uby = (float)min(kNeed - (kWin + 1), pl.HP - (kWin + 1) - oy);
-  const float ubx = (float)min(kNeed - (kWin + 1), pl.WP - (kWin + 1) - ox);
-  gauss_newton(t, windows + (size_t)f * kNeed * kNeed, kNeed, 0, 0, oy, ox, uby, ubx, pl.H,
-               pl.W, it_max, eps2, s_red, px, py);
+  const float uby = (float)min(need - (win + 1), pl.HP - (win + 1) - oy);
+  const float ubx = (float)min(need - (win + 1), pl.WP - (win + 1) - ox);
+  gauss_newton<kWin>(t, windows + (size_t)f * need * need, need, 0, 0, oy, ox, uby, ubx,
+                     pl.H, pl.W, it_max, eps2, win_rt, sm, px, py);
   if (threadIdx.x == 0) {
     const float nx = px * (float)(1 << L), ny = py * (float)(1 << L);
     pts_out[2 * f] = nx;
     pts_out[2 * f + 1] = ny;
     if (L > 0) {
       const int2 d = compact_origin(nx, ny, 1.0f / (float)(1 << (L - 1)),
-                                    level_of(prev_pyr, H0, W0, L - 1));
+                                    level_of(prev_pyr, H0, W0, L - 1), win);
       des_next[2 * f] = d.x;
       des_next[2 * f + 1] = d.y;
     } else {
-      out_status[f] = t.status && in_image(nx, ny, H0, W0);
+      out_status[f] = t.status && in_image(nx, ny, H0, W0, win);
     }
   }
+}
+
+// The instantiation for a side: one per odd side 3..31, else the looped one.
+#define LK_SIDES(X) \
+  X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(17) X(19) X(21) X(23) X(25) X(27) X(29) X(31)
+
+using LkFn = decltype(&lk_kernel<0>);
+using LevelFn = decltype(&lk_level_kernel<0>);
+
+LkFn pick_lk(int win) {
+  switch (win) {
+#define LK_CASE(w) \
+  case w:          \
+    return lk_kernel<w>;
+    LK_SIDES(LK_CASE)
+#undef LK_CASE
+    default:
+      return lk_kernel<0>;
+  }
+}
+
+LevelFn pick_level(int win) {
+  switch (win) {
+#define LK_CASE(w) \
+  case w:          \
+    return lk_level_kernel<w>;
+    LK_SIDES(LK_CASE)
+#undef LK_CASE
+    default:
+      return lk_level_kernel<0>;
+  }
+}
+
+inline bool looped(int win) { return win > 31 || win % 2 == 0; }
+
+// Allow the looped instantiation's shared memory past 48 KB (large sides).
+template <typename K>
+int prepare(K kernel, int win, size_t* allowed) {
+  return looped(win) ? msckf::allow_smem(kernel, smem_floats(win) * sizeof(float), allowed) : 0;
 }
 
 }  // namespace
@@ -353,13 +441,19 @@ extern "C" int pyramidal_lk(const void* prev_pyr, const void* curr_pyr, int H0,
                             int W0, const void* prev_pts, const void* init_pts,
                             const void* valid, int F, int n_levels, int max_iter,
                             int max_iter_upper, float eps2, float min_eig,
-                            void* out_pts, void* out_status, void* stream) {
+                            void* out_pts, void* out_status, int win, void* stream) {
+  static size_t allowed = 0;
+  if (win < 1) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
-  lk_kernel<<<F, kThreads, 0, (cudaStream_t)stream>>>(
+  const LkFn kernel = pick_lk(win);
+  const int err = prepare(kernel, win, &allowed);
+  if (err != 0) return err;
+  const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
+  kernel<<<F, threads, smem_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
       (const float*)prev_pyr, (const float*)curr_pyr, H0, W0,
       (const float*)prev_pts, (const float*)init_pts, (const uint8_t*)valid,
       n_levels, max_iter, max_iter_upper, eps2, min_eig, (float*)out_pts,
-      (uint8_t*)out_status);
+      (uint8_t*)out_status, win);
   return (int)cudaGetLastError();
 }
 
@@ -367,11 +461,17 @@ extern "C" int pyramidal_lk_level(const void* prev_pyr, int H0, int W0, const vo
                                   const void* pts_in, const void* valid, const void* windows,
                                   const void* des, int F, int L, int it_max, float eps2,
                                   float min_eig, void* pts_out, void* des_next,
-                                  void* out_status, void* stream) {
+                                  void* out_status, int win, void* stream) {
+  static size_t allowed = 0;
+  if (win < 1) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
-  lk_level_kernel<<<F, kThreads, 0, (cudaStream_t)stream>>>(
+  const LevelFn kernel = pick_level(win);
+  const int err = prepare(kernel, win, &allowed);
+  if (err != 0) return err;
+  const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
+  kernel<<<F, threads, smem_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
       (const float*)prev_pyr, H0, W0, (const float*)prev_pts, (const float*)pts_in,
       (const uint8_t*)valid, (const float*)windows, (const int32_t*)des, L, it_max, eps2,
-      min_eig, (float*)pts_out, (int32_t*)des_next, (uint8_t*)out_status);
+      min_eig, (float*)pts_out, (int32_t*)des_next, (uint8_t*)out_status, win);
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,15 @@
 // source row lies in its band, once.  No level is read back from device
 // memory.
 //
+// Past what a block's shared memory holds (the band buffers grow with the
+// image: at 4 levels 1440x1080 needs 268,208 B, 2048x1536 more than
+// 500 KB), the same entry builds the levels in passes instead: one launch
+// writes level 0 of both cameras from the images, then one launch a level
+// computes it from the previous padded level in device memory (L2), a
+// thread per padded pixel, with the same integer arithmetic, so the result
+// is the same bit for bit.  752x480 and every size up to 1280x1024 at 4
+// levels take the one cluster launch.
+//
 // Bound on the card: bytes.  At 480x752 one camera reads 0.36 MB and
 // writes four padded float32 levels of 562,564 px in all, 2.25 MB (0.78 us
 // at 3.35 TB/s; 1.56 us for the pair).  At this size the launch and the
@@ -45,6 +54,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "msckf_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -305,6 +316,57 @@ pyramid_kernel(const uint8_t* __restrict__ img0, const uint8_t* __restrict__ img
   cluster.sync();  // no block leaves while a neighbour may still read its shared memory
 }
 
+// The level-by-level plan's passes.  Level 0 of camera blockIdx.y, a run of
+// padded rows a block, from the image.
+__global__ void __launch_bounds__(kThreads)
+level0_kernel(const uint8_t* __restrict__ img0, const uint8_t* __restrict__ img1, int H, int W,
+              int pad, long long size, float* __restrict__ out) {
+  const int cam = blockIdx.y, HP = H + 2 * pad;
+  copy_level0(cam ? img1 : img0, H, W, pad, (int)blockIdx.x * HP / (int)gridDim.x,
+              ((int)blockIdx.x + 1) * HP / (int)gridDim.x, out + cam * size);
+}
+
+// Padded level L of camera blockIdx.y from padded level L-1 (hs x ws
+// unpadded) in device memory: a thread per padded pixel, grid-strided.
+__global__ void __launch_bounds__(kThreads)
+level_kernel(float* __restrict__ out, long long size, long long src_off, int hs, int ws,
+             long long dst_off, int h, int w, int pad) {
+  const float* src = out + blockIdx.y * size + src_off;
+  float* dst = out + blockIdx.y * size + dst_off;
+  const int WPs = ws + 2 * pad, WP = w + 2 * pad;
+  const long long n = (long long)(h + 2 * pad) * WP;
+  const int kw[5] = {1, 4, 6, 4, 1};
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int y = reflect101((int)(e / WP) - pad, h), x = reflect101((int)(e % WP) - pad, w);
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const float* row = src + (long long)(fold(2 * y + k - 2, hs) + pad) * WPs + pad;
+      int sum = 0;
+#pragma unroll
+      for (int j = 0; j < 5; ++j) sum += kw[j] * (int)row[fold(2 * x + j - 2, ws)];
+      acc += kw[k] * sum;
+    }
+    dst[e] = (float)((acc + 128) >> 8);
+  }
+}
+
+// The passes: level 0, then one launch a level.
+int pyramid_passes(const Plan& p, const uint8_t* img0, const uint8_t* img1, int n_cam, int pad,
+                   float* out, cudaStream_t stream) {
+  level0_kernel<<<dim3(kCopy, n_cam), kThreads, 0, stream>>>(img0, img1, p.h[0], p.w[0], pad,
+                                                              p.size, out);
+  int err = (int)cudaGetLastError();
+  for (int L = 1; L < p.n && err == 0; ++L) {
+    level_kernel<<<dim3(64, n_cam), kThreads, 0, stream>>>(out, p.size, p.out[L - 1],
+                                                          p.h[L - 1], p.w[L - 1], p.out[L],
+                                                          p.h[L], p.w[L], pad);
+    err = (int)cudaGetLastError();
+  }
+  return err;
+}
+
 }  // namespace
 
 // img0, img1 (uint8 (H, W), contiguous; img1 unused for one camera),
@@ -313,9 +375,14 @@ pyramid_kernel(const uint8_t* __restrict__ img0, const uint8_t* __restrict__ img
 extern "C" int pyramid_u8(const void* img0, const void* img1, int n_cam, int H, int W,
                           int n_levels, int pad, void* out, void* stream) {
   static unsigned smem_allowed = 0;
+  static size_t budget = 0;
   if (n_levels < 1 || n_levels > kMaxLevels || n_cam < 1 || n_cam > 2)
     return (int)cudaErrorInvalidValue;
   const Plan p = make_plan(H, W, n_levels, pad);
+  if (budget == 0) budget = msckf::smem_budget(pyramid_kernel);
+  if (p.smem > budget)
+    return pyramid_passes(p, (const uint8_t*)img0, (const uint8_t*)img1, n_cam, pad,
+                          (float*)out, (cudaStream_t)stream);
   if (p.smem > 48 * 1024 && p.smem > smem_allowed) {
     const int err = (int)cudaFuncSetAttribute(
         pyramid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);

@@ -1,9 +1,10 @@
 // K12: the rank-12 EKF update of the camera prune, in push-through form.
 //
 // Replaces uav_airvision_tpu/models/msckf/update.py::apply_update_rank12
-// (:239) up to the error-state injection (which stays in PyTorch, shared
-// with the full update).  With B (n x 12) nonzero only in the 12 columns
-// ``cols`` of the two pruned cameras, Pc = P[:, cols], P12 = Pc[cols]:
+// (:239) with the error-state injection (_inject_delta :359), which block 0
+// runs once it has delta (msckf_common.cuh, shared with K11).  With B
+// (n x 12) nonzero only in the 12 columns ``cols`` of the two pruned
+// cameras, Pc = P[:, cols], P12 = Pc[cols]:
 //   W = s2 I + B^T B P12 (not symmetric), [bsr | X] = W^-1 [B^T r | B^T B]
 //   by LU with partial pivoting (never inverting P12, which can be exactly
 //   singular after an IMU dropout), G = (X + X^T) / 2,
@@ -11,7 +12,8 @@
 // Every block solves the small system itself (a few thousand FLOP, the
 // same arithmetic in every block, so the same bits) and then writes a band
 // of kRows rows of P_new, reading the transposed entries it needs from P:
-// one launch, no cross-block step.  Block 0 also writes delta.
+// one launch, no cross-block step.  Block 0 also writes delta and the
+// injected state.
 //
 // Bound on the card: bytes.  P is read and P_new written once (159 KB in
 // float32 at D = 141); the work is ~1.2 MFLOP.
@@ -32,7 +34,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T* __restrict__ r,
               int n, const int64_t* __restrict__ cols, const T* __restrict__ obs_noise,
-              T* __restrict__ delta, T* __restrict__ P_out) {
+              T* __restrict__ delta, T* __restrict__ P_out, const msckf::InjectIn<T> state,
+              uint8_t* __restrict__ too_large) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   T* Pc = reinterpret_cast<T*>(dyn_smem);  // D x 12
   T* PcG = Pc + D * 12;                     // D x 12
@@ -127,6 +130,10 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T*
       for (int a = 0; a < 12; ++a) acc += Pc[i * 12 + a] * bsr[a];
       delta[i] = acc;
     }
+    if (state.q != nullptr) {  // uniform over the block
+      __syncthreads();         // delta is complete
+      msckf::inject(delta, state, delta + D, too_large);
+    }
   }
   __syncthreads();
 
@@ -146,27 +153,36 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T*
 
 template <typename T>
 int launch(const void* P, int D, const void* Bm, const void* r, int n, const void* cols,
-           const void* obs_noise, void* delta, void* P_out, void* stream) {
+           const void* obs_noise, void* out, const void* q, const void* bg, const void* v,
+           const void* ba, const void* p, const void* R, const void* t, const void* cam_q,
+           const void* cam_p, int N, const void* count, void* too_large, void* stream) {
   static size_t smem_allowed = 0;
   const size_t smem = (size_t)2 * D * 12 * sizeof(T);
   const int err = msckf::allow_smem(rank12_kernel<T>, smem, &smem_allowed);
   if (err != 0) return err;
   rank12_kernel<T><<<(D + kRows - 1) / kRows, kThreads, smem, (cudaStream_t)stream>>>(
       (const T*)P, D, (const T*)Bm, (const T*)r, n, (const int64_t*)cols, (const T*)obs_noise,
-      (T*)delta, (T*)P_out);
+      (T*)out + (size_t)D * D, (T*)out,
+      msckf::InjectIn<T>{(const T*)q, (const T*)bg, (const T*)v, (const T*)ba, (const T*)p,
+                         (const T*)R, (const T*)t, (const T*)cam_q, (const T*)cam_p,
+                         (const int*)count, N},
+      (uint8_t*)too_large);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int rank12_f32(const void* P, int D, const void* Bm, const void* r, int n,
-                          const void* cols, const void* obs_noise, void* delta, void* P_out,
-                          void* stream) {
-  return launch<float>(P, D, Bm, r, n, cols, obs_noise, delta, P_out, stream);
-}
-
-extern "C" int rank12_f64(const void* P, int D, const void* Bm, const void* r, int n,
-                          const void* cols, const void* obs_noise, void* delta, void* P_out,
-                          void* stream) {
-  return launch<double>(P, D, Bm, r, n, cols, obs_noise, delta, P_out, stream);
-}
+// P, D, B, r, n, cols, obs_noise, out (P_new, delta, then the injected
+// state), the state's q, bg, v, ba, p, R_imu_cam0, t_cam0_imu, cam_q, cam_p
+// (all nullptr: no injection), N, count, too_large, stream
+#define RANK12_ENTRY(NAME, T)                                                                \
+  extern "C" int NAME(const void* P, int D, const void* Bm, const void* r, int n,            \
+                      const void* cols, const void* obs_noise, void* out, const void* q,     \
+                      const void* bg, const void* v, const void* ba, const void* p,          \
+                      const void* R, const void* t, const void* cam_q, const void* cam_p,    \
+                      int N, const void* count, void* too_large, void* stream) {             \
+    return launch<T>(P, D, Bm, r, n, cols, obs_noise, out, q, bg, v, ba, p, R, t, cam_q,     \
+                     cam_p, N, count, too_large, stream);                                    \
+  }
+RANK12_ENTRY(rank12_f32, float)
+RANK12_ENTRY(rank12_f64, double)

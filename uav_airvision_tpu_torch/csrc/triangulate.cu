@@ -5,9 +5,11 @@
 // (:159, in its static form _triangulate_static :235) together with
 // build_views (:41).  The JAX package materialises (B, 2N, 3, 3) view
 // rotations and vmaps the solve over features.  Here a warp takes one
-// feature and each lane one camera slot (both stereo views of it, in
-// registers); warp-shuffle sums give the 3x3 normal equations and the
-// cost.  The recurrence is the static form's:
+// feature and each lane the camera slots lane, lane + 32, ... (both stereo
+// views of each, in registers: kSlots = 2, 4 or 8 slots a lane, chosen
+// from N at the launch; past 256 slots a lane rebuilds a slot's views from
+// the window each time it needs them, the same arithmetic); warp-shuffle
+// sums give the 3x3 normal equations and the cost.  The recurrence is the static form's:
 //   - at most inner_loop_max_iteration damped solves in total, the inner
 //     counter shared across outer iterations;
 //   - a new linearisation only at a group start (the first step and after
@@ -31,7 +33,6 @@
 namespace {
 
 constexpr int kWarps = 4;  // features per block
-constexpr int kSlots = 2;  // camera slots per lane: N <= 64
 
 template <typename T>
 struct View {
@@ -84,7 +85,7 @@ __device__ inline void cross(const T a[3], const T b[3], T c[3]) {
   c[2] = a[0] * b[1] - a[1] * b[0];
 }
 
-template <typename T>
+template <typename T, int kSlots>
 __global__ void __launch_bounds__(kWarps * 32)
 triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int N,
                    const T* __restrict__ obs, const uint8_t* __restrict__ obs_mask,
@@ -120,10 +121,12 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
     ta[i] = cam_p[3 * first + i];
   }
 
-  // this lane's slots: both views, observations, mask
-  View<T> view[kSlots][2];
-  T z[kSlots][4];
-  bool m[kSlots];
+  // this lane's slots lane + 32 k: both views, observations, mask (kSlots
+  // = 0: rebuilt from the window at each use)
+  constexpr int kHeld = kSlots > 0 ? kSlots : 1;
+  View<T> view[kHeld][2];
+  T z[kHeld][4];
+  bool m[kHeld];
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
     const int s = lane + 32 * k;
@@ -133,6 +136,22 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
       for (int c = 0; c < 4; ++c) z[k][c] = z_b[4 * s + c];
     }
   }
+  // f(views, z) for each observing slot of this lane, in slot order
+  auto for_slots = [&](auto&& f) {
+    if constexpr (kSlots > 0) {
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+        if (m[k]) f(view[k], z[k]);
+    } else {
+      for (int s = lane; s < N; s += 32) {
+        if (m_b[s] == 0) continue;
+        View<T> v[2];
+        slot_views(cam_q, cam_p, s, Ra, ta, Rc1c0, tc1c0, v[0], v[1]);
+        const T zs[4] = {z_b[4 * s], z_b[4 * s + 1], z_b[4 * s + 2], z_b[4 * s + 3]};
+        f(v, zs);
+      }
+    }
+  };
 
   // closed-form initial guess from the anchor slot's stereo pair
   T x[3];
@@ -155,16 +174,14 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
 
   auto total_cost = [&](const T xx[3]) -> T {
     T acc = T(0);
-#pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      if (!m[k]) continue;
+    for_slots([&](const View<T>* vs, const T* zs) {
       for (int c = 0; c < 2; ++c) {
         T h[3];
-        project(view[k][c], xx, h);
-        const T d0 = h[0] / h[2] - z[k][2 * c], d1 = h[1] / h[2] - z[k][2 * c + 1];
+        project(vs[c], xx, h);
+        const T d0 = h[0] / h[2] - zs[2 * c], d1 = h[1] / h[2] - zs[2 * c + 1];
         acc += d0 * d0 + d1 * d1;
       }
-    }
+    });
     return msckf::warp_sum(acc);
   };
 
@@ -183,11 +200,9 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
     if (!alive) break;
     if (group_start) {  // Huber-weighted normal equations at x
       T acc[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {
-        if (!m[k]) continue;
+      for_slots([&](const View<T>* vs, const T* zs) {
         for (int c = 0; c < 2; ++c) {
-          const View<T>& v = view[k][c];
+          const View<T>& v = vs[c];
           T h[3];
           project(v, x, h);
           const T h3 = h[2], hh = h3 * h3;
@@ -198,7 +213,7 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
             J0[i] = W0[i] / h3 - W2[i] * (h[0] / hh);
             J1[i] = W1[i] / h3 - W2[i] * (h[1] / hh);
           }
-          const T r0 = h[0] / h3 - z[k][2 * c], r1 = h[1] / h3 - z[k][2 * c + 1];
+          const T r0 = h[0] / h3 - zs[2 * c], r1 = h[1] / h3 - zs[2 * c + 1];
           const T e = sqrt(r0 * r0 + r1 * r1);
           const T w = e <= huber_eps ? T(1) : huber_eps / (T(2) * e);
           const T w2 = w * w;
@@ -210,7 +225,7 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
           acc[5] += w2 * J0[2] * J0[2] + w2 * J1[2] * J1[2];
           for (int i = 0; i < 3; ++i) acc[6 + i] += w2 * J0[i] * r0 + w2 * J1[i] * r1;
         }
-      }
+      });
       for (int i = 0; i < 6; ++i) A[i] = msckf::warp_sum(acc[i]);
       for (int i = 0; i < 3; ++i) bv[i] = msckf::warp_sum(acc[6 + i]);
       ++outer;
@@ -250,15 +265,13 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
   // back to the world frame; every observing view must see it in front
   const T fin[3] = {x[0] / x[2], x[1] / x[2], T(1) / x[2]};
   bool good = true;
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    if (!m[k]) continue;
+  for_slots([&](const View<T>* vs, const T*) {
     for (int c = 0; c < 2; ++c) {
-      const View<T>& v = view[k][c];
+      const View<T>& v = vs[c];
       const T depth = (v.R[6] * fin[0] + v.R[7] * fin[1] + v.R[8] * fin[2]) + v.t[2];
       good = good && depth > T(0);
     }
-  }
+  });
   good = __all_sync(0xffffffffu, good);
   if (lane == 0) {
     for (int i = 0; i < 3; ++i)
@@ -272,9 +285,13 @@ int launch(const void* cam_q, const void* cam_p, int N, const void* obs, const v
            const void* R_c0c1, const void* t_c0c1, const void* active, int B, double huber_eps,
            double precision, double damping, int outer_max, int inner_max, void* pos, void* ok,
            void* stream) {
-  if (N > 32 * kSlots) return (int)cudaErrorInvalidValue;
+  if (N < 1) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  triangulate_kernel<T><<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, (cudaStream_t)stream>>>(
+  // slots a lane holds in registers: 2, 4 or 8; past 256 slots, rebuilt at each use
+  auto kernel = N <= 64 ? triangulate_kernel<T, 2>
+                : N <= 128 ? triangulate_kernel<T, 4>
+                : N <= 256 ? triangulate_kernel<T, 8> : triangulate_kernel<T, 0>;
+  kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const T*)cam_q, (const T*)cam_p, N, (const T*)obs, (const uint8_t*)obs_mask,
       (const T*)R_c0c1, (const T*)t_c0c1, (const uint8_t*)active, B, (T)huber_eps,
       (T)precision, (T)damping, outer_max, inner_max, (T*)pos, (uint8_t*)ok);

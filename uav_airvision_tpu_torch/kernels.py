@@ -38,11 +38,21 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
+# Dynamic shared memory a block may take on the H100 (its opt-in limit,
+# 232,448 B) less 1 KB for the kernels' static shared memory: a wrapper
+# allocates a device workspace where a kernel's tile needs more (the kernel
+# itself checks against the device's own limit).
+SMEM_PER_BLOCK = 232448 - 1024
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 D = ctypes.c_double
 L = ctypes.c_longlong
+# The state an EKF update injects into (msckf_common.cuh::InjectIn): the
+# IMU's q, bg, v, ba, p, R_imu_cam0, t_cam0_imu, the window's q and p, N,
+# count, and the too_large flag out.
+INJECT = [P, P, P, P, P, P, P, P, P, I, P, P]
 # C signatures: every entry point returns int (a cudaError_t).
 SIGNATURES = {
     # img0, img1, n_cam, H, W, n_levels, pad, out, stream
@@ -51,11 +61,11 @@ SIGNATURES = {
     # keep_out, score_out, stream
     "fast_detect_masked": [P, I, I, I, P, P, I, P, P, P, P, P],
     # prev_pyr, curr_pyr, H0, W0, prev_pts, init_pts, valid, F, n_levels,
-    # max_iter, max_iter_upper, eps2, min_eig, out_pts, out_status, stream
-    "pyramidal_lk": [P, P, I, I, P, P, P, I, I, I, I, F, F, P, P, P],
+    # max_iter, max_iter_upper, eps2, min_eig, out_pts, out_status, win, stream
+    "pyramidal_lk": [P, P, I, I, P, P, P, I, I, I, I, F, F, P, P, I, P],
     # prev_pyr, H0, W0, prev_pts, pts_in, valid, windows, des, F, L, it_max,
-    # eps2, min_eig, pts_out, des_next, out_status, stream
-    "pyramidal_lk_level": [P, I, I, P, P, P, P, P, I, I, I, F, F, P, P, P, P],
+    # eps2, min_eig, pts_out, des_next, out_status, win, stream
+    "pyramidal_lk_level": [P, I, I, P, P, P, P, P, I, I, I, F, F, P, P, P, I, P],
     # img, HP, WP, oy, ox, origin stride, F, n, out, stream
     "extract_windows": [P, I, I, P, P, I, I, I, P, P],
     # imu_t, imu_w, imu_a, imu_mask, I, state_in, qc, cov_in, D,
@@ -67,16 +77,16 @@ SIGNATURES = {
     "triangulate_f32": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P],
     "triangulate_f64": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P],
     # cams_q, cams_p, cams_qn, cams_pn, N, obs, obs_mask, p_w, gravity,
-    # R_c0c1, t_c0c1, B, H_out, r_out, rows_out, stream
-    "feature_block_f32": [P, P, P, P, I, P, P, P, P, P, P, I, P, P, P, P],
-    "feature_block_f64": [P, P, P, P, I, P, P, P, P, P, P, I, P, P, P, P],
+    # R_c0c1, t_c0c1, B, H_out, r_out, rows_out, work, stream
+    "feature_block_f32": [P, P, P, P, I, P, P, P, P, P, P, I, P, P, P, P, P],
+    "feature_block_f64": [P, P, P, P, I, P, P, P, P, P, P, I, P, P, P, P, P],
     # H, r, B, R, D, h_stride, r_stride, rows_true, dof, dof is int64, P,
-    # obs_noise, table, n_table, out, flags, gamma, stream
-    "gate_f32": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P],
-    "gate_f64": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P],
-    # P, D, B, r, n, cols, obs_noise, delta_out, P_out, stream
-    "rank12_f32": [P, I, P, P, I, P, P, P, P, P],
-    "rank12_f64": [P, I, P, P, I, P, P, P, P, P],
+    # obs_noise, table, n_table, out, flags, gamma, work, stream
+    "gate_f32": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, P],
+    "gate_f64": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, P],
+    # P, D, B, r, n, cols, obs_noise, out, *INJECT, stream
+    "rank12_f32": [P, I, P, P, I, P, P, P, *INJECT, P],
+    "rank12_f64": [P, I, P, P, I, P, P, P, *INJECT, P],
     # pts, n, intr, field stride, point stride, coef, field stride, point
     # stride, model, (R, new_intr,) out..., stream
     "camera_undistort": [P, I, P, I, I, P, I, I, I, P, P, P, P],
@@ -96,12 +106,9 @@ SIGNATURES = {
     "grid_smallest_k": [P, I, I, P, P],
     # mask, n, fill, out, stream
     "grid_stable_compact": [P, I, I, P, P],
-    # P, D, H, r, m, obs_noise, work, delta_out, P_out, stream
-    "ekf_update_f32": [P, I, P, P, I, P, P, P, P, P],
-    "ekf_update_f64": [P, I, P, P, I, P, P, P, P, P],
-    # H, r, n, D, work, R_out, qtr_out, stream
-    "ekf_qr_f32": [P, P, I, I, P, P, P, P],
-    "ekf_qr_f64": [P, P, I, I, P, P, P, P],
+    # P, D, H, r, m, qr, obs_noise, work, out, *INJECT, clocks, stream
+    "ekf_update_f32": [P, I, P, P, I, I, P, P, P, *INJECT, P, P],
+    "ekf_update_f64": [P, I, P, P, I, I, P, P, P, *INJECT, P, P],
 }
 
 _lib = None

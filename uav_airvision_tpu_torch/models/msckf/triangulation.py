@@ -245,8 +245,6 @@ def _triangulate_kernel(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri, active
             or R_c0c1.shape != (3, 3) or t_c0c1.shape != (3,)
             or (active is not None and active.shape != (B,))):
         raise ValueError("triangulate: inconsistent window / observation shapes")
-    if N > 64:
-        raise ValueError(f"the K13 kernel takes at most 64 camera slots, got {N}")
     pos = torch.empty((B, 3), dtype=dtype, device=dev)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     kernels.launch(entry, kernels.ptr(cam_q), kernels.ptr(cam_p), N, kernels.ptr(obs),

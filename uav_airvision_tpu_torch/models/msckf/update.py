@@ -12,9 +12,10 @@ Four kernels carry the marginalization path on CUDA tensors, each beside
 its plain PyTorch version (``<name>_plain``, which CPU tensors run):
 K9 ``feature_block`` (``csrc/feature_block.cu``), K10 ``gating_test_batch``
 (``csrc/gate.cu``, the whole gate in one launch),
-K11 ``ekf_update`` (``csrc/ekf_update.cu``, the update of ``apply_update``)
-and K12 ``rank12_update`` (``csrc/rank12.cu``, the update of
-``apply_update_rank12``).
+K11 ``apply_update`` (``csrc/ekf_update.cu``: the update and the error-state
+injection in one launch; ``ekf_update`` is its entry without the injection)
+and K12 ``apply_update_rank12`` (``csrc/rank12.cu``, likewise, and
+``rank12_update``).
 """
 
 from __future__ import annotations
@@ -161,10 +162,17 @@ def _feature_block_kernel(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, 
     H = torch.empty((B, R, D), dtype=dtype, device=dev)
     r = torch.empty((B, R), dtype=dtype, device=dev)
     rows = torch.empty((B,), dtype=torch.int32, device=dev)
+    # the block's 4N x (4 + 6N) tile and its scratch; past the shared memory
+    # a block holds, each block's tile lives in a device workspace
+    tile = 4 * N * (4 + 6 * N)
+    smem = (tile + 4 * N + 4 + 6 * N + 32) * p_w.element_size() + 4 * N
+    work = (torch.empty((B * tile,), dtype=dtype, device=dev)
+            if smem > kernels.SMEM_PER_BLOCK else None)
     kernels.launch(entry, *(kernels.ptr(x) for x in (cams_q, cams_p, cams_qn, cams_pn)), N,
                    kernels.ptr(obs), kernels.ptr(obs_mask), kernels.ptr(p_w),
                    kernels.ptr(gravity), kernels.ptr(R_c0c1), kernels.ptr(t_c0c1), B,
-                   kernels.ptr(H), kernels.ptr(r), kernels.ptr(rows))
+                   kernels.ptr(H), kernels.ptr(r), kernels.ptr(rows),
+                   kernels.ptr(work) if work is not None else None)
     return H, r, rows
 
 
@@ -233,8 +241,9 @@ def _gate_kernel(H, r, rows_true, cov, obs_noise, chi2_table, dof, with_gamma=Fa
     prefix of a larger block is kept as the view it is), cov, s2 and the
     table in H's type, rows_true int32, dof int32 or int64; at the main
     path's types nothing is cast or copied, and the one allocation holds the
-    decisions, the bound flags and gamma.  Returns the decisions, and with
-    ``with_gamma`` also gamma (B,), defined where the kernel computed it
+    decisions, the bound flags, gamma and, for blocks too large for a
+    block's shared memory, the kernel's workspace.  Returns the decisions,
+    and with ``with_gamma`` also gamma (B,), defined where the kernel computed it
     (R <= 32, or some block undecided by the bounds)."""
     dtype = H.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -263,14 +272,19 @@ def _gate_kernel(H, r, rows_true, cov, obs_noise, chi2_table, dof, with_gamma=Fa
             raise ValueError(f"K10: tensors on {H.device} and {x.device}")
     size = H.element_size()
     off = (2 * B + size - 1) // size * size  # gamma's offset, after decisions and flags
-    buf = torch.empty(off + B * size, dtype=torch.uint8, device=H.device)
+    # where even the kernel's smallest layout (H, 16 rows of H P, S) does not
+    # fit a block's shared memory, each block's goes to a workspace after gamma
+    block = R * D + 16 * D + (R + 1) * (R | 1)
+    work = B * block if (block * size + 512 > kernels.SMEM_PER_BLOCK) else 0
+    buf = torch.empty(off + (B + work) * size, dtype=torch.uint8, device=H.device)
     base = buf.data_ptr()
     kernels.launch("gate_f32" if dtype == torch.float32 else "gate_f64",
                    kernels.ptr(H), kernels.ptr(r), B, R, D, H.stride(0), r.stride(0),
                    kernels.ptr(rows_true), kernels.ptr(dof), int(dof.dtype == torch.int64),
                    kernels.ptr(cov), kernels.ptr(obs_noise), kernels.ptr(chi2_table),
                    chi2_table.shape[0], ctypes.c_void_p(base), ctypes.c_void_p(base + B),
-                   ctypes.c_void_p(base + off))
+                   ctypes.c_void_p(base + off),
+                   ctypes.c_void_p(base + off + B * size) if work else None)
     out = buf[:B].view(torch.bool)
     return (out, buf[off:].view(dtype)) if with_gamma else out
 
@@ -299,46 +313,118 @@ def rank12_update(P, B, r, cols, obs_noise):
     ``cols``, in the push-through form that never inverts P12:
     W = s2 I + B'B P12, B' S^-1 r = W^-1 B'r, B' S^-1 B = W^-1 B'B.
     P (D,D), B (n,12), r (n,), cols (12,).  Returns (delta (D,), the
-    symmetrised P_new (D,D))."""
+    symmetrised P_new (D,D)).  On CUDA tensors one launch of kernel K12
+    (``csrc/rank12.cu``) without the injection; the main path calls
+    ``apply_update_rank12``."""
     if P.device.type == "cpu":
         return rank12_update_plain(P, B, r, cols, obs_noise)
     if P.device.type != "cuda":
         raise ValueError(f"K12 runs on CUDA tensors, got {P.device}")
     kernels.observe("rank12_update", (P, B, r, cols, obs_noise))
-    out = _rank12_kernel(P, B, r, cols, obs_noise)
+    P_new, delta, _, _ = _rank12_kernel(P, B, r, cols, obs_noise)
     rank12_update.launches += 1
-    return out
+    return delta, P_new
 
 
 rank12_update.launches = 0
 
 
-def _rank12_kernel(P, B, r, cols, obs_noise):
+def _operand(x, dtype):
+    return x if x.dtype == dtype and x.is_contiguous() else x.to(dtype).contiguous()
+
+
+def _update_launch(P, state, work: int):
+    """What the EKF update kernels (K11, K12) take beside their operands:
+    ONE allocation holding P_new (D, D), delta (D,), with a ``state`` the
+    injected fields (msckf_common.cuh::inject_size) and the too_large flag,
+    and ``work`` values of workspace; and the injection's arguments (the
+    state's fields, nullptr without a state).  The main path's state fields
+    are contiguous and of P's type, so nothing is cast or copied and only
+    the pointers are taken (as ints: ctypes passes them as void*).  Returns
+    (vals, flag, work pointer, injection arguments, the operands to keep
+    alive)."""
+    dtype, D = P.dtype, P.shape[0]
+    N = state.cams.q.shape[0] if state is not None else 0
+    n_out = D * D + D + (28 + 7 * N if state is not None else 0)
+    size = P.element_size()
+    n_out = (n_out * size + 15) // 16 * 16 // size  # the workspace starts 16-byte aligned
+    buf = torch.empty((n_out + work) * size + 1, dtype=torch.uint8, device=P.device)
+    vals = buf[:(n_out + work) * size].view(dtype)
+    flag = buf[(n_out + work) * size:].view(torch.bool).reshape(())
+    base = vals.data_ptr()
+    if state is None:
+        return vals, flag, base + n_out * size, [None] * 9 + [0, None, None], ()
+    imu, cams = state.imu, state.cams
+    ops = [imu.q, imu.bg, imu.v, imu.ba, imu.p, imu.R_imu_cam0, imu.t_cam0_imu, cams.q, cams.p,
+           cams.count]
+    dev = P.get_device()
+    for k, x in enumerate(ops):
+        want = torch.int32 if k == 9 else dtype
+        if x.dtype != want or not x.is_contiguous():
+            ops[k] = x = x.to(want).contiguous()
+        if x.get_device() != dev:
+            raise ValueError(f"EKF update: state tensors on {x.device} and P on {P.device}")
+    if (ops[0].numel() != 4 or ops[5].numel() != 9 or ops[7].numel() != 4 * N
+            or ops[8].numel() != 3 * N or D != IMU_DIM + 6 * N):
+        raise ValueError(f"EKF update: a window of {N} slots and a covariance of {D} rows")
+    inject = [x.data_ptr() for x in ops[:9]] + [N, ops[9].data_ptr(), flag.data_ptr()]
+    return vals, flag, base + n_out * size, inject, ops
+
+
+def _injected(state: FilterState, vals, flag, D: int):
+    """The state with the fields an update kernel wrote into ``vals``:
+    views of the one allocation, no copy."""
+    N = state.cams.q.shape[0]
+    o = D * D + D
+    q, bg, v, ba, p, R, t, cq, cp = vals[o:o + 28 + 7 * N].split_with_sizes(
+        (4, 3, 3, 3, 3, 9, 3, 4 * N, 3 * N))
+    imu = state.imu._replace(q=q, bg=bg, v=v, ba=ba, p=p, R_imu_cam0=R.view(3, 3), t_cam0_imu=t)
+    cams = state.cams._replace(q=cq.view(N, 4), p=cp.view(N, 3))
+    return state._replace(imu=imu, cams=cams, cov=vals[:D * D].view(D, D)), flag
+
+
+def _rank12_kernel(P, B, r, cols, obs_noise, state=None):
+    """K12's launch; with a ``state`` it ends in the injection.  Returns
+    (P_new, delta, the injected state or None, too_large or None)."""
     dtype = P.dtype
     entry = {torch.float32: "rank12_f32", torch.float64: "rank12_f64"}.get(dtype)
     if entry is None:
         raise ValueError(f"K12 takes float32 or float64, got {dtype}")
     P = P.contiguous()
-    B, r = B.to(dtype).contiguous(), r.to(dtype).contiguous()
-    cols = cols.to(torch.int64).contiguous()
-    noise = obs_noise.to(dtype).reshape(1).contiguous()
+    B, r = _operand(B, dtype), _operand(r, dtype)
+    cols = cols if cols.dtype == torch.int64 and cols.is_contiguous() else (
+        cols.to(torch.int64).contiguous())
+    noise = _operand(obs_noise, dtype).reshape(1)
     kernels.check_cuda(P, B, r, cols, noise)
     D, n = P.shape[0], B.shape[0]
     if P.shape != (D, D) or B.shape != (n, 12) or r.shape != (n,) or cols.shape != (12,):
         raise ValueError(f"rank12_update: P {tuple(P.shape)}, B {tuple(B.shape)}, "
                          f"r {tuple(r.shape)}, cols {tuple(cols.shape)}")
-    delta = torch.empty((D,), dtype=dtype, device=P.device)
-    P_new = torch.empty_like(P)
-    kernels.launch(entry, kernels.ptr(P), D, kernels.ptr(B), kernels.ptr(r), n,
-                   kernels.ptr(cols), kernels.ptr(noise), kernels.ptr(delta),
-                   kernels.ptr(P_new))
-    return delta, P_new
+    vals, flag, _, inject, _keep = _update_launch(P, state, 0)
+    kernels.launch(entry, P.data_ptr(), D, B.data_ptr(), r.data_ptr(), n, cols.data_ptr(),
+                   noise.data_ptr(), vals.data_ptr(), *inject)
+    P_new, delta = vals[:D * D].view(D, D), vals[D * D:D * D + D]
+    if state is None:
+        return P_new, delta, None, None
+    return (P_new, delta, *_injected(state, vals, flag, D))
 
 
 def apply_update_rank12(state: FilterState, params: MsckfParams, B, r, cols):
-    """EKF update of the camera prune (``rank12_update``, kernel K12 on CUDA
-    tensors), injected into the state.  Returns (state, too_large)."""
-    return _inject_delta(state, *rank12_update(state.cov, B, r, cols, params.obs_noise))
+    """EKF update of the camera prune (``rank12_update``), injected into the
+    state.  Returns (state, too_large).  On CUDA tensors ONE launch of
+    kernel K12 computes the update and the injection; the new state's
+    changed fields are views of its one allocation."""
+    if state.cov.device.type == "cpu":
+        return apply_update_rank12_plain(state, params, B, r, cols)
+    if state.cov.device.type != "cuda":
+        raise ValueError(f"K12 runs on CUDA tensors, got {state.cov.device}")
+    kernels.observe("apply_update_rank12", (state, params, B, r, cols))
+    _, _, new_state, too_large = _rank12_kernel(state.cov, B, r, cols, params.obs_noise, state)
+    apply_update_rank12.launches += 1
+    return new_state, too_large
+
+
+apply_update_rank12.launches = 0
 
 
 def apply_update_rank12_plain(state: FilterState, params: MsckfParams, B, r, cols):
@@ -375,22 +461,20 @@ def ekf_update(P, H_buf, r_buf, obs_noise, rows_true=None):
     zero padding rows give zero gain columns, so a prefix covering every true
     row is the same update; past T2 a thin QR compresses the stack first.
     Non-Joseph P <- P - K H P, kept.  Returns (delta (D,), the symmetrised
-    P_new (D, D)); a factorisation that fails gives NaN.  Kernel K11
-    (``csrc/ekf_update.cu``) on CUDA tensors; shapes are dynamic there, so
-    on the T1 and T2 tiers it takes the ``rows_true`` prefix itself."""
+    P_new (D, D)); a factorisation that fails gives NaN.  On CUDA tensors
+    one launch of kernel K11 (``csrc/ekf_update.cu``) without the
+    injection; the main path calls ``apply_update``."""
     if P.device.type == "cpu":
         return ekf_update_plain(P, H_buf, r_buf, obs_noise, rows_true)
     if P.device.type != "cuda":
         raise ValueError(f"K11 runs on CUDA tensors, got {P.device}")
     kernels.observe("ekf_update", (P, H_buf, r_buf, obs_noise, rows_true))
-    out = _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true)
+    P_new, delta, _, _ = _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true)
     ekf_update.launches += 1
-    ekf_update.tiers[update_tier(H_buf.shape[0], H_buf.shape[1], rows_true)] += 1
-    return out
+    return delta, P_new
 
 
 ekf_update.launches = 0
-ekf_update.tiers = {"T1": 0, "T2": 0, "QR": 0, "all": 0}  # calls per row tier
 
 
 def update_tier(n_rows: int, D: int, rows_true) -> str:
@@ -402,52 +486,76 @@ def update_tier(n_rows: int, D: int, rows_true) -> str:
     return "T1" if rows_true <= T1 else ("T2" if rows_true <= T2 else "QR")
 
 
-def _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true):
-    dtype, dev = P.dtype, P.device
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _update_layout(m: int, D: int) -> int:
+    """Values of K11's working arrays for m rows (ekf_update.cu::layout):
+    P, H', [HP | r], S, delta and 1 / U_jj, some rows padded to fours."""
+    mp, Cs = _round4(m), _round4(D + 1)
+    return _round4(D * D) + D * mp + m * Cs + m * mp + _round4(D) + mp
+
+
+def _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true, state=None, clocks=None):
+    """K11's launch: the whole update of the row tier ``rows_true`` selects,
+    and with a ``state`` the injection, in one launch of one block.  On the
+    T1 and T2 tiers the kernel factors the true rows only (the rows past
+    ``rows_true`` are zero padding and change nothing), on the QR tier it
+    first compresses the stack's first max(rows_true, D) rows.  The one
+    allocation holds the outputs and the workspace.  ``clocks``, an int64
+    CUDA tensor of 7, receives the SM clock at the kernel's phase
+    boundaries (tools/kernel_probe.py).  Returns (P_new, delta, the injected
+    state or None, too_large or None)."""
+    dtype = P.dtype
     suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
     if suffix is None:
         raise ValueError(f"K11 takes float32 or float64, got {dtype}")
-    P = P.contiguous()
-    H_buf, r_buf = H_buf.to(dtype).contiguous(), r_buf.to(dtype).contiguous()
-    noise = obs_noise.to(dtype).reshape(1).contiguous()
+    P, H_buf, r_buf, noise = (_operand(x, dtype) for x in (P, H_buf, r_buf, obs_noise))
     kernels.check_cuda(P, H_buf, r_buf, noise)
     n_rows, D = H_buf.shape
     if P.shape != (D, D) or r_buf.shape != (n_rows,):
         raise ValueError(f"ekf_update: P {tuple(P.shape)}, H {tuple(H_buf.shape)}, "
                          f"r {tuple(r_buf.shape)}")
-    if update_tiers(D)[1] > 1024:
-        raise ValueError(f"K11 factors at most 1024 rows in one block, T2 = {2 * D}")
     tier = update_tier(n_rows, D, rows_true)
+    C = D + 1
     if tier == "QR":
         # only the first rows_true rows hold data; the rest reflect to zeros
-        n = min(max(int(rows_true), D), n_rows)
-        work = torch.empty((n * (D + 1),), dtype=dtype, device=dev)
-        H = torch.empty((D, D), dtype=dtype, device=dev)
-        r = torch.empty((D,), dtype=dtype, device=dev)
-        kernels.launch(f"ekf_qr_{suffix}", kernels.ptr(H_buf), kernels.ptr(r_buf), n, D,
-                       kernels.ptr(work), kernels.ptr(H), kernels.ptr(r))
-    elif tier == "all":
-        H, r = H_buf, r_buf
+        m = min(max(int(rows_true), D), n_rows)
+        work = _round4(m * C) + max(m + 33 * C + 32, _update_layout(D, D))
     else:
-        # rows past rows_true are zero padding and change nothing (the tier
-        # argument): the kernel factors the true rows only, not the tier's
-        m = max(int(rows_true), 1)
-        H, r = H_buf[:m], r_buf[:m]
-    m = H.shape[0]
-    work = torch.empty((2 * D * m + m * m + D * D,), dtype=dtype, device=dev)
-    delta = torch.empty((D,), dtype=dtype, device=dev)
-    P_new = torch.empty_like(P)
-    kernels.launch(f"ekf_update_{suffix}", kernels.ptr(P), D, kernels.ptr(H), kernels.ptr(r), m,
-                   kernels.ptr(noise), kernels.ptr(work), kernels.ptr(delta), kernels.ptr(P_new))
-    return delta, P_new
+        m = n_rows if tier == "all" else max(int(rows_true), 1)
+        work = _update_layout(m, D)
+    vals, flag, work_ptr, inject, _keep = _update_launch(P, state, work)
+    kernels.launch(f"ekf_update_{suffix}", P.data_ptr(), D, H_buf.data_ptr(), r_buf.data_ptr(),
+                   m, int(tier == "QR"), noise.data_ptr(), work_ptr, vals.data_ptr(), *inject,
+                   clocks.data_ptr() if clocks is not None else None)
+    P_new, delta = vals[:D * D].view(D, D), vals[D * D:D * D + D]
+    if state is None:
+        return P_new, delta, None, None
+    return (P_new, delta, *_injected(state, vals, flag, D))
 
 
 def apply_update(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):
-    """EKF update from the stacked zero-padded buffer (``ekf_update``, kernel
-    K11 on CUDA tensors), injected into the state.  Returns (state,
-    too_large)."""
-    return _inject_delta(state, *ekf_update(state.cov, H_buf, r_buf, params.obs_noise,
-                                            rows_true))
+    """EKF update from the stacked zero-padded buffer (``ekf_update``),
+    injected into the state.  Returns (state, too_large).  On CUDA tensors
+    ONE launch of kernel K11 computes the update on its row tier and the
+    injection; the new state's changed fields are views of its one
+    allocation."""
+    if state.cov.device.type == "cpu":
+        return apply_update_plain(state, params, H_buf, r_buf, rows_true)
+    if state.cov.device.type != "cuda":
+        raise ValueError(f"K11 runs on CUDA tensors, got {state.cov.device}")
+    kernels.observe("apply_update", (state, params, H_buf, r_buf, rows_true))
+    _, _, new_state, too_large = _ekf_update_kernel(state.cov, H_buf, r_buf, params.obs_noise,
+                                                    rows_true, state)
+    apply_update.launches += 1
+    apply_update.tiers[update_tier(H_buf.shape[0], H_buf.shape[1], rows_true)] += 1
+    return new_state, too_large
+
+
+apply_update.launches = 0
+apply_update.tiers = {"T1": 0, "T2": 0, "QR": 0, "all": 0}  # calls per row tier
 
 
 def apply_update_plain(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):
@@ -457,7 +565,8 @@ def apply_update_plain(state: FilterState, params: MsckfParams, H_buf, r_buf, ro
 
 def _inject_delta(state: FilterState, delta, P_new):
     """Error-state correction: quaternion boxplus for IMU, extrinsic and
-    camera states, the new covariance, and the update-magnitude warning."""
+    camera states, the new covariance, and the update-magnitude warning
+    (the plain version of the injection that ends kernels K11 and K12)."""
     d_imu = delta[:IMU_DIM]
     imu = state.imu
     dq = quat.small_angle_quaternion(d_imu[:3])

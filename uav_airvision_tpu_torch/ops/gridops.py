@@ -235,9 +235,7 @@ def dense_grid_topk(score: torch.Tensor, grid_row: int, grid_col: int, k: int):
     """Top-k pixels per grid cell of a dense (H, W) score map, ordered by
     (value desc, in-cell flat index asc).  Returns (ys, xs, vals), each
     (grid_row*grid_col, k); vals <= 0 are empty slots (cells pad with -1).
-    The kernel takes an int32 map; its limits on k (K5) and on n (K8: one
-    block, one thread per element) are ``kMaxK`` and ``kMaxN`` in
-    ``csrc/gridops.cu``, and a call past them raises from the launch."""
+    The kernel takes an int32 map and any k up to the cell's pixel count."""
     if not _on_cuda(score, "K5"):
         return dense_grid_topk_plain(score, grid_row, grid_col, k)
     kernels.observe("dense_grid_topk", (score, grid_row, grid_col, k))

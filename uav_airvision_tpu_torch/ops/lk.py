@@ -1,6 +1,6 @@
 """Batched pyramidal Lucas-Kanade optical flow with OpenCV semantics.
 
-Port of uav_airvision_tpu/ops/lk.py::pyramidal_lk_banded: window 15x15,
+Port of uav_airvision_tpu/ops/lk.py::pyramidal_lk_banded: window win x win (15 by default),
 Scharr/32 template gradients zeroed outside the image, G computed once per
 level at the previous point, bilinear re-sampling of J per iteration, eps
 convergence plus OpenCV's flip-flop halving, the level-0 min-eigenvalue and
@@ -13,7 +13,7 @@ and search windows from ``curr_pyr``; the temporal tracker passes the
 previous frame's cam0 pyramid as ``prev_pyr``.
 
 On a CUDA tensor ``pyramidal_lk`` launches kernel K1 (``csrc/lk.cu``, one
-block per point); on a CPU tensor it runs ``pyramidal_lk_plain``, batched
+block per point, any window side); on a CPU tensor it runs ``pyramidal_lk_plain``, batched
 over points.  Under ``frontend.lk_compact_windows`` the JAX package cuts
 each level's exact 32-px search span and iterates on it, which makes the
 freeze bounds uniform (origin des, span 16): there the port runs, per
@@ -249,8 +249,8 @@ def pyramidal_lk_level(prev_pyr: Pyramid, prev_pts, pts, valid, windows, des, L:
                                         it_max, eps, min_eig_threshold)
     if pts.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {pts.device}")
-    if win != 15:
-        raise NotImplementedError("the LK kernel is built for a 15x15 window")
+    if win < 1:
+        raise ValueError(f"K1 takes a window side of at least 1, got {win}")
     need = win + 1 + 2 * LK_MARGIN
     F = pts.shape[0]
     prev_pts = prev_pts.to(torch.float32).contiguous()
@@ -273,7 +273,7 @@ def pyramidal_lk_level(prev_pyr: Pyramid, prev_pts, pts, valid, windows, des, L:
                    kernels.ptr(windows), kernels.ptr(des), F, L, int(it_max),
                    float(eps * eps), float(min_eig_threshold), kernels.ptr(out),
                    kernels.ptr(des_next) if des_next is not None else None,
-                   kernels.ptr(status) if status is not None else None)
+                   kernels.ptr(status) if status is not None else None, int(win))
     pyramidal_lk_level.launches += 1
     return out, des_next, status
 
@@ -315,8 +315,8 @@ def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid
                                   max_iter_upper, compact_windows)
     if prev_pts.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA tensors, got {prev_pts.device}")
-    if win != 15:
-        raise NotImplementedError("the LK kernel is built for a 15x15 window")
+    if win < 1:
+        raise ValueError(f"K1 takes a window side of at least 1, got {win}")
     if (prev_pyr.H0, prev_pyr.W0) != (curr_pyr.H0, curr_pyr.W0):
         raise ValueError("prev and curr pyramids differ in size")
     if n_levels is None:
@@ -342,7 +342,7 @@ def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid
                    kernels.ptr(init_pts), kernels.ptr(valid), F, n_levels,
                    int(max_iter), int(max_iter_upper or 0), float(eps * eps),
                    float(min_eig_threshold), kernels.ptr(out_pts),
-                   kernels.ptr(out_status))
+                   kernels.ptr(out_status), int(win))
     pyramidal_lk.launches += 1
     return out_pts, out_status
 

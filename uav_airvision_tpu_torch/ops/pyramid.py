@@ -8,7 +8,9 @@ computes each level's offset from the level-0 size.
 
 On CUDA tensors ``build_pyramid_pair`` (both cameras of a frame) and
 ``build_pyramid_padded`` (one camera) launch kernel K2 (``csrc/pyramid.cu``)
-once: every level of every camera in one launch, into one allocation.  On
+once: every level of every camera in one launch, into one allocation (past
+what a block's shared memory holds, as at 1440x1080 with four levels, the
+same entry builds the levels in passes, one launch a level).  On
 CPU tensors they run the plain PyTorch versions ``build_pyramid_pair_plain``
 and ``build_pyramid_padded_plain``.
 """

@@ -12,9 +12,12 @@ kernel launches per frame (``LAUNCH_CALLS``: the runtime's and the
 driver's launch calls, the cluster and the cooperative launches included), device time per frame (the CUDA kernels' self time) and its share
 of the window's wall time, the most frequent kernels, and each
 hand-written kernel's launches per frame and device time per launch (us).  The index glue
-K15 (``augment_state``, the prune's window compaction, ``online_reset``) runs
-under profiler spans, and the launches made under each are counted.  Prints
-one JSON line with the card's name and power limit.  Needs a CUDA device.
+K15 (``augment_state``, the prune's window compaction, ``online_reset``) and
+the EKF updates (``apply_update``, K11, and ``apply_update_rank12``, K12,
+as the back-end step calls them) run under profiler spans, and the launches
+made under each are counted (per frame for K15, per call for the updates).
+Prints one JSON line with the card's name and power limit.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ def render(n_frames: int):
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cudaLaunchCooperativeKernel")
 K15_FUNCTIONS = ("augment_state", "_compact_window", "online_reset")
+EKF_FUNCTIONS = ("apply_update", "apply_update_rank12")
 
 
 def span_functions(module, names, prefix):
@@ -65,15 +69,17 @@ def span_functions(module, names, prefix):
 
 
 def count_under(events, prefix, names=LAUNCH_CALLS):
-    """{span: number of events named in ``names`` below it in the CPU call
-    tree} for the spans whose name starts with ``prefix``."""
+    """{span: [number of events named in ``names`` below it in the CPU call
+    tree, number of spans]} for the spans whose name starts with ``prefix``."""
     def below(ev):
         return sum((c.name in names) + below(c) for c in ev.cpu_children)
 
     counts = {}
     for ev in events:
         if ev.name.startswith(prefix):
-            counts[ev.name] = counts.get(ev.name, 0) + below(ev)
+            c = counts.setdefault(ev.name, [0, 0])
+            c[0] += below(ev)
+            c[1] += 1
     return counts
 
 
@@ -111,6 +117,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     originals = span_functions(step, K15_FUNCTIONS, "K15")
+    originals.update(span_functions(step, EKF_FUNCTIONS, "EKF"))
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -122,11 +129,12 @@ def main(argv=None):
             setattr(step, name, fn)
     n = b - a
     k15 = count_under(prof.events(), "K15")
+    ekf = count_under(prof.events(), "EKF")
     events = prof.key_averages()
     launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
     # the spans show up on the device side too, as long as the kernels under them
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0 and not e.key.startswith("K15")]
+               and e.self_device_time_total > 0 and not e.key.startswith(("K15", "EKF"))]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.count)[:12]
     # the hand-written kernels of csrc/ (each in an anonymous namespace of its own)
@@ -138,7 +146,8 @@ def main(argv=None):
         "frames": args.frames, "frames_per_s": args.frames / wall, "wall_s": wall,
         "host_syncs_per_frame": syncs, "window": [a, b],
         "launches_per_frame": launches / n,
-        "k15_launches_per_frame": {name: c / n for name, c in sorted(k15.items())},
+        "k15_launches_per_frame": {name: c[0] / n for name, c in sorted(k15.items())},
+        "ekf_launches_per_call": {name: [c[0] / c[1], c[1]] for name, c in sorted(ekf.items())},
         "device_ms_per_frame": device_us / 1e3 / n,
         "profiled_wall_ms_per_frame": prof_wall * 1e3 / n,
         "device_busy_share": device_us / 1e6 / prof_wall,
