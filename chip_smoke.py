@@ -44,17 +44,26 @@
      (the same launch ending in the injection) on every field of the new
      state within 1e-4 of the field's largest entry, P_new equal to the
      delta entry's.
-   - K7 (camera models: the stereo prologue, the epilogue's and the
-     publish's undistort, the homography warp, and ``distort_points`` on
-     the prologue's output; as recorded with the radtan model and again
-     with equidistant coefficients): normalized outputs within 1e-6, pixel
-     outputs within one float32 ulp at 752 px (6.1e-5 px), two for the
-     prologue's re-distorted points (its undistorted input already differs
-     by an ulp of the normalized coordinate, times fx); the fused prologue
-     equal, bit for bit, to the kernel's two separate calls;
+   - K7 (camera models: the stereo prologue, the publish's undistort, and
+     ``distort_points`` on the prologue's output; as recorded with the
+     radtan model and again with equidistant coefficients): normalized
+     outputs within 1e-6, pixel outputs within one float32 ulp at 752 px
+     (6.1e-5 px), two for the prologue's re-distorted points (its
+     undistorted input already differs by an ulp of the normalized
+     coordinate, times fx); the fused prologue equal, bit for bit, to the
+     kernel's two separate calls.  The fused prediction
+     (``predict_warp_points``) on every call of the warm run: the rotation
+     within 4 float32 ulps of 1.0, the points within 4 ulps at 752 px (the
+     plain version's 3x3 products fuse multiply-adds), and
+     ``homography_warp_points`` on the same points within two.  The fused
+     stereo gate (``stereo_gate``) on every call, radtan and equidistant:
+     decisions identical to the plain version's, each flip printed with
+     its distance from the nearer threshold, more than 8 ulps failing;
    - K5 (per-cell top-k, k = 8 and k = 5) and K8 (``rank_in_cell``,
      ``kept_order_stats``, ``compact_kept``, ``smallest_k_indices``,
-     ``stable_compact_indices`` on every recorded shape): exactly equal;
+     ``stable_compact_indices`` on every recorded shape, and the fused
+     per-cell selection ``select_track`` on every call of the warm run):
+     exactly equal;
    - K11 (the EKF update and the injection, one launch) at the row tiers
      T1, T2 and QR, in float32 and float64, on recorded calls; a tier the
      bench world did not take is reached by stacking a recorded call's
@@ -121,7 +130,8 @@
    plain version with check_ekf_update's float32 bars.  Prints the row
    tiers, frames/s, host syncs and CUDA launches per frame.
 9. [limits]: every kernel whose size limit was lifted, past it, against
-   its plain version (K5 k = 9, 12, 40; K8 n = 1025, 1500; K4+K6 1025 and
+   its plain version (K5 k = 9, 12, 40; K8 n = 1025, 1500, and
+   ``select_track`` at 1,100 slots and 200 candidates; K4+K6 1025 and
    1500 mask points; K2 1440x1080 and 2048x1536 at four levels, exactly,
    and 752x480 still one launch; K13 N = 65 and 300; K9 N = 35, 49, 70;
    K10 on those blocks; K11 at D = 561 on T1, T2 = 1,122 rows and QR; K1
@@ -438,9 +448,15 @@ class Recorder:
         "distort_points": ("K7 distort_points", lambda a: a[0].shape[0]),
         "undistort_distort_points": ("K7 undistort_distort_points", lambda a: a[0].shape[0]),
         "homography_warp_points": ("K7 homography_warp_points", lambda a: a[0].shape[0]),
+        "select_track": ("K8 select_track", lambda a: (a[0].shape[0], a[5].shape[0])),
+        "predict_warp_points": ("K7 predict_warp_points", lambda a: a[0].shape[0]),
+        "stereo_gate": ("K7 stereo_gate", lambda a: a[0].shape[0]),
         "extract_windows": ("P1", lambda a: (a[1].shape[0], a[3])),
         "pyramidal_lk_level": ("K1 level", lambda a: (a[2].shape[0], a[6])),
     }
+    # kinds whose every call is kept (the fused front-end entry points: a
+    # few hundred small calls a run)
+    EVERY_CALL = {"K8 select_track", "K7 predict_warp_points", "K7 stereo_gate"}
 
     def __init__(self):
         self.calls, self.counts, self.history = {}, {}, {}
@@ -459,7 +475,7 @@ class Recorder:
         key = (label, shape(args))
         self.calls[key] = args
         n = self.counts[key] = self.counts.get(key, 0) + 1
-        if n <= 2 or n % 40 == 0:  # a few earlier calls of each shape, too
+        if n <= 2 or n % 40 == 0 or label in self.EVERY_CALL:  # a few earlier calls, too
             self.history.setdefault(key, []).append(args)
         if key == ("K11", "QR"):
             self.qr_calls.append(_ekf_args(args))
@@ -791,8 +807,7 @@ def check_backend_kernels(rec: Recorder, config, params):
 def _timed_sum(rec: Recorder, entries):
     """Sum over entry points of the kernel's and the plain version's median
     ms at the entry point's most frequent shape.  ``entries``: (kind, kernel,
-    plain).  Returns (ms, plain_ms, [(kind, shape, args)])."""
-    ms = pms = 0.0
+    plain).  Returns (ms, plain_ms, [(kind, shape, args, ms, plain_ms)])."""
     timed = []
     for kind, kernel, plain in entries:
         shape = rec.most_frequent(kind)
@@ -800,52 +815,84 @@ def _timed_sum(rec: Recorder, entries):
             fail(f"the warm run made no {kind} call")
             continue
         a = rec.of(kind)[shape]
-        ms += cuda_ms(lambda: kernel(*a))
-        pms += cuda_ms(lambda: plain(*a), reps=10)
-        timed.append((kind, shape, a))
-    return ms, pms, timed
+        timed.append((kind, shape, a, cuda_ms(lambda: kernel(*a)),
+                      cuda_ms(lambda: plain(*a), reps=10)))
+    return sum(t[3] for t in timed), sum(t[4] for t in timed), timed
 
 
-def check_camera(rec: Recorder):
-    """K7 against its plain version on the recorded calls, with the recorded
-    (radtan) model and with equidistant coefficients."""
+def _ulps_from(value, thresh):
+    """|value - thresh| in float32 ulps of ``thresh``, elementwise (numpy)."""
+    import numpy as np
+
+    thresh = np.float32(thresh)
+    return np.abs(np.asarray(value, np.float32) - thresh) / np.spacing(np.abs(thresh))
+
+
+def _gate_flips(kind, a, got, want):
+    """Report each point whose stereo-gate decision differs between the
+    kernel and the plain version, with the distance of the nearest cut's
+    value (the fwd/bwd error, the epipolar residual) from its threshold in
+    float32 ulps; fail past 8.  Returns the largest such distance."""
     import torch
 
     from uav_airvision_tpu_torch.ops import camera
 
-    # the entry points on the main path (distort_points is checked below on
-    # the prologue's output)
-    entries = [
-        ("K7 undistort_distort_points", camera.undistort_distort_points,
-         camera.undistort_distort_points_plain),
-        ("K7 undistort_points", camera.undistort_points, camera.undistort_points_plain),
-        ("K7 homography_warp_points", camera.homography_warp_points,
-         camera.homography_warp_points_plain),
-    ]
+    flips = torch.nonzero(got != want)[:, 0]
+    if len(flips) == 0:
+        return 0.0
+    cam0, p1, p0r, intr, model, coeffs, E, fwd_bwd, thresh = (a[0], a[1], a[2], a[6], a[7], a[8],
+                                                              a[9], a[10], a[12])
+    epi = camera.epipolar_residual_plain(cam0, p1, intr, model, coeffs, E)
+    thr = thresh * (4.0 / (2.0 * intr[0] + 2.0 * intr[1]))
+    err = torch.linalg.norm(cam0 - p0r, dim=-1)
+    worst = 0.0
+    for i in flips.tolist():
+        near = min(float(_ulps_from(float(epi[i]), float(thr))),
+                   float(_ulps_from(float(err[i]), fwd_bwd)))
+        worst = max(worst, near)
+        print(f"{kind} {cam0.shape[0]} points, {model}: point {i} flips (kernel "
+              f"{bool(got[i])}, plain {bool(want[i])}); residual {float(epi[i]):.9g} against "
+              f"{float(thr):.9g}, fwd/bwd error {float(err[i]):.9g} against {fwd_bwd}: "
+              f"{near:.1f} ulps from the nearer threshold")
+        if not near <= 8:
+            fail(f"{kind}: a decision flips {near:.1f} ulps from its threshold (> 8)")
+    return worst
+
+
+def check_camera(rec: Recorder):
+    """K7 against its plain version on the recorded calls, with the recorded
+    (radtan) model and with equidistant coefficients; the fused prediction
+    and stereo gate on every call of the warm run."""
+    import torch
+
+    from uav_airvision_tpu_torch.ops import camera
+
     equi = (-0.0113, 0.0052, -0.0021, 0.0005)
+
+    def equidistant(coeffs):
+        co = torch.tensor(equi, dtype=torch.float32, device=coeffs.device)
+        return co[:, None].expand(4, coeffs.shape[1]) if coeffs.ndim == 2 else co
+
+    # the stereo prologue and the publish (distort_points is checked below on
+    # the prologue's output)
     worst = 0.0
     n_calls = 0
-    for kind, kernel, plain in entries:
+    for kind, kernel, plain in [
+            ("K7 undistort_distort_points", camera.undistort_distort_points,
+             camera.undistort_distort_points_plain),
+            ("K7 undistort_points", camera.undistort_points, camera.undistort_points_plain)]:
         for shape, a in rec.samples(kind):
-            variants = [a]
-            if "warp" not in kind:  # the same call under the equidistant model
-                coeffs = a[3]
-                co = torch.tensor(equi, dtype=torch.float32, device=a[0].device)
-                co = co[:, None].expand(4, coeffs.shape[1]) if coeffs.ndim == 2 else co
-                variants.append((a[0], a[1], "equidistant", co) + tuple(a[4:]))
-            for v in variants:
+            for v in (a, (a[0], a[1], "equidistant", equidistant(a[3])) + tuple(a[4:])):
                 got, want = kernel(*v), plain(*v)
                 got = got if isinstance(got, tuple) else (got,)
                 want = want if isinstance(want, tuple) else (want,)
                 # undistorted points are normalized coordinates, the rest pixels
-                tols = (1e-6, 2 * PX_ULP) if len(got) == 2 else (
-                    (PX_ULP,) if "warp" in kind else (1e-6,))
+                tols = (1e-6, 2 * PX_ULP) if len(got) == 2 else (1e-6,)
                 for g, w, tol in zip(got, want, tols):
                     err = float((g - w).abs().max())
                     worst = max(worst, err)
                     if not err <= tol or not torch.isfinite(g).all():
-                        fail(f"{kind} {shape} {v[2] if 'warp' not in kind else ''}: "
-                             f"error {err:.3e} > {tol:.1e}")
+                        fail(f"{kind} {shape} {v[2]}: error {err:.3e} > {tol:.1e}")
                 n_calls += 1
                 if "undistort_distort" in kind:  # distort_points alone, on that output
                     two = camera.undistort_points(v[0], v[1], v[2], v[3], v[4])
@@ -859,18 +906,84 @@ def check_camera(rec: Recorder):
                     worst = max(worst, err)
                     if not err <= PX_ULP:
                         fail(f"K7 distort_points {shape} {v[2]}: error {err:.3e} px")
+
+    # the prediction: the rotation within 4 float32 ulps of 1.0, the points
+    # within 4 ulps at 752 px; the homography warp alone (off the main path
+    # since the fused entry point) on the same points and rotation
+    calls = rec.samples("K7 predict_warp_points")
+    e_rot = e_pts = e_warp = 0.0
+    for _, a in calls:
+        (got, R), (want, pR) = camera.predict_warp_points(*a), camera.predict_warp_points_plain(*a)
+        e_rot = max(e_rot, float((R - pR).abs().max()))
+        e_pts = max(e_pts, float((got - want).abs().max()))
+        e_warp = max(e_warp, float((camera.homography_warp_points(a[0], pR, a[4])
+                                    - camera.homography_warp_points_plain(a[0], pR, a[4]))
+                                   .abs().max()))
+    worst = max(worst, e_pts)
+    if not (e_rot <= 4 * 2.0 ** -23 and e_pts <= 4 * PX_ULP and e_warp <= 2 * PX_ULP) or not calls:
+        fail(f"K7 predict_warp_points on {len(calls)} calls: rotation error {e_rot:.3e} "
+             f"(bar {4 * 2.0 ** -23:.2e}), points {e_pts:.3e} px (bar {4 * PX_ULP:.2e}); "
+             f"homography_warp_points {e_warp:.3e} px (bar {2 * PX_ULP:.2e})")
+    print(f"[K7] predict_warp_points, every call of the warm run ({len(calls)}): rotation "
+          f"within {e_rot:.3e} of the plain version (4 ulps of 1.0: {4 * 2.0 ** -23:.2e}), "
+          f"points within {e_pts:.3e} px ({4 * PX_ULP:.2e}); homography_warp_points on the "
+          f"same points within {e_warp:.3e} px")
+
+    # the stereo gate: decisions identical, any flip reported with its
+    # distance from the threshold (> 8 ulps fails); also under equidistant
+    # coefficients
+    calls = rec.samples("K7 stereo_gate")
+    n_pts = n_flips = 0
+    near = 0.0
+    for _, a in calls:
+        for v in (a, a[:7] + ("equidistant", equidistant(a[8])) + a[9:]):
+            got, want = camera.stereo_gate(*v), camera.stereo_gate_plain(*v)
+            n_pts += got.shape[0]
+            n_flips += int((got != want).sum())
+            near = max(near, _gate_flips("K7 stereo_gate", v, got, want))
+    if not calls:
+        fail("the warm run made no K7 stereo_gate call")
+    print(f"[K7] stereo_gate, every call of the warm run ({len(calls)}) x radtan/equidistant: "
+          f"{n_flips} of {n_pts} decisions differ from the plain version (the farthest "
+          f"{near:.1f} ulps from its threshold; bar 8)")
+
+    for kind, fn, kernel in (("K7 predict_warp_points", camera.predict_warp_points,
+                              "predict_warp_kernel"),
+                             ("K7 stereo_gate", camera.stereo_gate, "stereo_gate_kernel")):
+        a = rec.of(kind).get(rec.most_frequent(kind))
+        if a is None:
+            continue
+        n_launch, dev_us = _profile_calls(lambda: fn(*a), kernels=(kernel,))
+        print(f"[K7] {kind[3:]} {a[0].shape[0]} points: {n_launch:.2f} launches a call "
+              f"(torch.profiler, 20 calls), {dev_us:.1f} us a call on the device")
+        if n_launch != 1.0:
+            fail(f"{kind} made {n_launch} launches a call")
+
+    entries = [("K7 undistort_distort_points", camera.undistort_distort_points,
+                camera.undistort_distort_points_plain),
+               ("K7 undistort_points", camera.undistort_points, camera.undistort_points_plain),
+               ("K7 predict_warp_points", camera.predict_warp_points,
+                camera.predict_warp_points_plain),
+               ("K7 stereo_gate", camera.stereo_gate, camera.stereo_gate_plain)]
     ms, pms, timed = _timed_sum(rec, entries)
     n_bytes = ops = 0
-    for kind, shape, a in timed:
-        n_pts = a[0].reshape(-1, 2).shape[0]
-        outs = 2 if "undistort_distort" in kind else 1
-        n_bytes += 8 * n_pts * (1 + outs) + 32 + 36  # points in and out, 8 values, R
-        ops += n_pts * (30 if "warp" in kind else 100 * outs)  # 5 fixed-point iterations
+    for kind, shape, a, _, _ in timed:
+        n = a[0].reshape(-1, 2).shape[0]
+        if "stereo_gate" in kind:  # four point sets and two flags in, a flag out; E, camera
+            n_bytes += n * (32 + 3) + 32 + 36
+            ops += n * 230  # two undistorts (5 fixed-point iterations each) and the cuts
+        elif "predict" in kind:  # points in and out, rate, dt, R, intrinsics; R out
+            n_bytes += 16 * n + 12 + 4 + 36 + 16 + 36
+            ops += 30 * n + 150  # the warp; Rodrigues and K R K^-1 once
+        else:
+            outs = 2 if "undistort_distort" in kind else 1
+            n_bytes += 8 * n * (1 + outs) + 32 + 36  # points in and out, 8 values, R
+            ops += n * 100 * outs
     b = bound(n_bytes, ops)
     print(f"[K7] camera models, {n_calls} recorded calls x radtan/equidistant: max error "
           f"{worst:.3e} (normalized 1e-6, pixels {PX_ULP:.1e}); "
-          f"{' + '.join(f'{k[3:]} {sh}' for k, sh, _ in timed)}: {ms:.4f} ms vs plain "
-          f"{pms:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
+          f"{' + '.join(f'{k[3:]} {sh} {m:.4f} (plain {pm:.4f})' for k, sh, _, m, pm in timed)}"
+          f" = {ms:.4f} ms vs plain {pms:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
     return {"K7": (worst, ms, pms, *b, None)}
 
 
@@ -915,29 +1028,58 @@ def check_gridops(rec: Recorder):
               f"bound {b[0] * 1e3:.3f} us ({b[1]})")
         res["K5"] = (0.0, ms, pms, *b, sort_ms)
 
+    # the five entry points (the first frame's selection and the back-end's)
+    # and the fused selection of a tracked frame, on every recorded call
     entries = [(f"K8 {fn.__name__}", fn, getattr(gridops, fn.__name__ + "_plain"))
-               for fn in gridops.K8_WRAPPERS]
+               for fn in gridops.K8_WRAPPERS + (gridops.select_track,)]
     n_calls, shapes = 0, set()
     for kind, kernel, plain in entries:
         for shape, a in rec.samples(kind):
             n_calls += 1
-            shapes.add(shape if isinstance(shape, int) else shape[0])
+            shapes.add(shape if isinstance(shape, int) else sum(shape) if "select" in kind
+                       else shape[0])
             if not same(kernel(*a), plain(*a)):
                 fail(f"{kind} {shape} differs from its plain version")
+    n_select = len(rec.samples("K8 select_track"))
+    if n_select == 0:
+        fail("the warm run made no K8 select_track call")
     ms, pms, timed = _timed_sum(rec, entries)
-    n_bytes = sum(sum(nbytes(x) for x in a if isinstance(x, torch.Tensor)) for _, _, a in timed)
-    n_bytes += sum(8 * a[0].shape[0] for _, _, a in timed)  # outputs: at most two int32 arrays
-    # what the functions need, not the kernels' pairwise count: a stable sort
-    # of n keys, n log2 n comparisons of ~3 operations (cell, primary, arrival)
-    ops = sum(3 * a[0].shape[0] * math.log2(max(a[0].shape[0], 2)) for _, _, a in timed)
+    n_bytes = ops = 0
+    keys = []
+    for kind, _, a, _, _ in timed:
+        n_bytes += sum(nbytes(x) for x in a if isinstance(x, torch.Tensor))
+        if "select" in kind:
+            F, C = a[0].shape[0], a[5].shape[0]
+            n = F + C
+            # outputs: ids, lifetime, cam0, cam1, valid, next_id; what the
+            # function needs: the candidates' sort, the count, the prune sort
+            # and the compaction, ~3 operations a comparison
+            n_bytes += 25 * F + 4
+            ops += 3 * (C * math.log2(C) + 2 * n * math.log2(n))
+            keys.append(torch.cat([a[3], a[7]]).to(torch.int64))
+        else:
+            n = a[0].shape[0]
+            n_bytes += 8 * n  # outputs: at most two int32 arrays
+            # not the kernels' pairwise count: a stable sort of n keys,
+            # n log2 n comparisons of ~3 operations (cell, primary, arrival)
+            ops += 3 * n * math.log2(max(n, 2))
+            keys.append(a[0].to(torch.int64).contiguous())
     b = bound(n_bytes, ops)
+    sel = rec.of("K8 select_track").get(rec.most_frequent("K8 select_track"))
+    if sel is not None:  # one launch a call, and its device time
+        n_launch, dev_us = _profile_calls(lambda: gridops.select_track(*sel),
+                                          kernels=("select_track_kernel",))
+        print(f"[K8] select_track {sel[0].shape[0]} + {sel[5].shape[0]}: {n_launch:.2f} launches "
+              f"a call (torch.profiler, 20 calls), {dev_us:.1f} us a call on the device")
+        if n_launch != 1.0:
+            fail(f"K8 select_track made {n_launch} launches a call")
     # the library: one stable torch.sort of each entry point's n keys
-    keys = [a[0].to(torch.int64).contiguous() for _, _, a in timed]
     lib = sum(cuda_ms(lambda k=k: torch.sort(k, stable=True)) for k in keys)
-    print(f"[K8] {n_calls} recorded calls, n in {sorted(shapes)}: exact; "
-          f"{' + '.join(f'{k[3:]} {sh}' for k, sh, _ in timed)}: {ms:.4f} ms vs plain "
-          f"{pms:.4f} ms; torch.sort(stable=True) of the same n keys {lib:.4f} ms; "
-          f"bound {b[0] * 1e3:.3f} us ({b[1]})")
+    print(f"[K8] {n_calls} recorded calls (select_track: every call of the warm run, "
+          f"{n_select}), n in {sorted(shapes)}: exact; "
+          f"{' + '.join(f'{k[3:]} {sh} {m:.4f} (plain {pm:.4f})' for k, sh, _, m, pm in timed)}"
+          f" = {ms:.4f} ms vs plain {pms:.4f} ms; torch.sort(stable=True) of the same n keys "
+          f"{lib:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
     res["K8"] = (0.0, ms, pms, *b, lib)
     return res
 
@@ -950,10 +1092,9 @@ def _cast(tree, dtype):
         lambda x: x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x, tree)
 
 
-def _profile_calls(fn, n=20):
+def _profile_calls(fn, n=20, kernels=("update_kernel", "rank12_kernel")):
     """(kernel launches per call, device us per call of csrc kernels whose
-    name holds ``update_kernel`` or ``rank12_kernel``) of ``n`` calls, by
-    torch.profiler."""
+    name holds one of ``kernels``) of ``n`` calls, by torch.profiler."""
     import torch
 
     from uav_airvision_tpu_torch.profile_main import LAUNCH_CALLS
@@ -969,7 +1110,7 @@ def _profile_calls(fn, n=20):
     launches = sum(e.count for e in ev if e.key in LAUNCH_CALLS)
     dev_us = sum(e.self_device_time_total for e in ev
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and ("update_kernel" in e.key or "rank12_kernel" in e.key))
+                 and any(k in e.key for k in kernels))
     return launches / n, dev_us / n
 
 
@@ -1551,6 +1692,27 @@ def check_limits_kernels(dev):
                        gridops.stable_compact_indices_plain(valid, n)))
         if not ok:
             fail(f"[limits] K8 n={n} differs from its plain version")
+    # K8's fused selection at the configuration's 1,100 slots and 200
+    # candidates (n = 1,300): ties in every key, one cell overflowing
+    F, C, n_cells = 1100, 200, 20
+    for crowd in (False, True):
+        curr = rng.uniform([0, 0], [751, 479], (F, 2))
+        if crowd:
+            curr[: F // 2] = rng.uniform([0, 0], [150, 119], (F // 2, 2))
+        apts = np.stack([rng.integers(0, 752, C), rng.integers(0, 480, C)], 1)
+        f32 = dict(dtype=torch.float32, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        args = (torch.as_tensor(curr, **f32), torch.as_tensor(curr - 10, **f32),
+                torch.as_tensor(rng.uniform(size=F) < 0.8, device=dev),
+                torch.as_tensor(rng.integers(0, 5000, F), **i32),
+                torch.as_tensor(rng.integers(1, 4, F), **i32), torch.as_tensor(apts, **f32),
+                torch.as_tensor(rng.integers(0, 4, C), **i32),
+                torch.as_tensor(rng.integers(0, 5, C), **i32),
+                torch.as_tensor(rng.uniform(size=C) < 0.7, device=dev),
+                torch.as_tensor(apts - 10, **f32), torch.tensor(77, **i32), 4, 5, 480, 752, 3,
+                C // n_cells)
+        if not same(gridops.select_track(*args), gridops.select_track_plain(*args)):
+            fail(f"[limits] K8 select_track F={F}, C={C} differs from its plain version")
     # K4+K6: past 1024 mask points
     img = torch.as_tensor(rng.integers(0, 256, (480, 752)), dtype=torch.uint8, device=dev)
     for n in (1025, 1500):
@@ -1570,7 +1732,8 @@ def check_limits_kernels(dev):
     n_launch, _ = _profile_calls(lambda: pyramid.build_pyramid_pair(a, a, 3), n=5)
     if n_launch != 1.0:
         fail(f"[limits] K2 at 752x480 made {n_launch} launches a call")
-    print("[limits] K5 (k = 9, 12, 40), K8 (n = 1025, 1500), K4+K6 (1025, 1500 mask points), "
+    print("[limits] K5 (k = 9, 12, 40), K8 (n = 1025, 1500; select_track 1,100 + 200), K4+K6 "
+          "(1025, 1500 mask points), "
           "K2 (1440x1080, 2048x1536 at 4 levels): exact; K2 at 752x480 "
           f"{n_launch:.0f} launch a call")
 
@@ -1806,16 +1969,18 @@ def main() -> int:
     results.update(check_camera(rec))
 
     # every entry point the main path launches (camera.distort_points runs
-    # there only inside the fused stereo prologue); P1 and K1's level entry
-    # run on the compact path only
+    # there only inside the fused stereo prologue, the homography warp only
+    # inside the fused prediction; K8's first three entry points on the first
+    # frame); P1 and K1's level entry run on the compact path only
     wrappers = {"K1": [lk.pyramidal_lk], "K2": [pyramid.build_pyramid_pair],
                 "K4+K6": [fast.detect_fast], "K14": [propagation.propagate],
                 "K13": [triangulation.triangulate], "K9": [update.feature_block],
                 "K10": [update.gating_test_batch],
                 "K12": [update.apply_update_rank12], "K11": [update.apply_update],
-                "K5": [gridops.dense_grid_topk], "K8": list(gridops.K8_WRAPPERS),
+                "K5": [gridops.dense_grid_topk],
+                "K8": [*gridops.K8_WRAPPERS, gridops.select_track],
                 "K7": [camera.undistort_distort_points, camera.undistort_points,
-                       camera.homography_warp_points]}
+                       camera.predict_warp_points, camera.stereo_gate]}
     for fns in wrappers.values():
         for fn in fns:
             fn.launches = 0
@@ -1870,11 +2035,11 @@ def main() -> int:
                "K11": ("ekf_update.cu", "uav_airvision_tpu/models/msckf/update.py:296",
                        "apply_update"),
                "K5": ("gridops.cu", "uav_airvision_tpu/ops/gridops.py:147", "dense_grid_topk"),
-               "K8": ("gridops.cu", "uav_airvision_tpu/ops/gridops.py:58", "rank_in_cell + "
-                      "kept_order_stats + compact_kept + smallest_k_indices + "
+               "K8": ("gridops.cu", "uav_airvision_tpu/ops/gridops.py:58", "select_track + "
+                      "rank_in_cell + kept_order_stats + compact_kept + smallest_k_indices + "
                       "stable_compact_indices"),
-               "K7": ("camera.cu", "uav_airvision_tpu/ops/camera.py:99", "undistort_points + "
-                      "distort_points + homography_warp_points")}
+               "K7": ("camera.cu", "uav_airvision_tpu/ops/camera.py:99", "predict_warp_points "
+                      "+ stereo_gate + undistort_distort_points + undistort_points")}
     # the same frames through the port's plain PyTorch path on the host
     n_ref = 40
     cpu_frames = vio.VioFrame(*(x[:n_ref].cpu() for x in frames))

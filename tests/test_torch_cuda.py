@@ -21,7 +21,8 @@ import torch
 # oracle is imported from it directly because, run with --noconftest,
 # another installed package named "tests" can shadow this directory
 from oracle.synthetic import make_scenario, window_imu
-from uav_airvision_tpu_torch import convert
+from torch_select_inputs import CASES, select_inputs
+from uav_airvision_tpu_torch import convert, kernels
 from uav_airvision_tpu_torch.config import euroc_config
 from uav_airvision_tpu_torch.models.msckf import (
     propagation, step, triangulation, update)
@@ -545,6 +546,110 @@ def test_grid_ranking_kernels_exact(dev, n):
     assert all(fn.launches > 0 for fn in gridops.K8_WRAPPERS)
     with pytest.raises(ValueError, match="float32"):
         gridops.rank_in_cell(cell, pri.double(), arr, valid, 20)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("F,C,workspace", [(104, 100, False), (104, 100, True),
+                                           (925, 100, False), (1100, 200, False)],
+                         ids=["n204", "n204_workspace", "n1025", "n1300"])
+def test_select_track_kernel_exact(dev, F, C, workspace, case, monkeypatch):
+    """K8's fused per-cell selection equal to its plain version, bit for
+    bit on all six outputs, in one launch: at the main path's 104 slots and
+    100 candidates, past 1,024 entries, at the [limits] configuration's
+    1,300, and with the working arrays forced out of shared memory into the
+    device workspace."""
+    if workspace:
+        monkeypatch.setattr(kernels, "SMEM_PER_BLOCK", 0)
+    arrays, statics = select_inputs(F + C + len(case), F, C, case)
+    args = (*(torch.as_tensor(x, device=dev) for x in arrays), *statics)
+    n0 = gridops.select_track.launches
+    got = gridops.select_track(*args)
+    assert gridops.select_track.launches == n0 + 1
+    want = gridops.select_track_plain(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+def test_select_track_kernel_past_shared_memory(dev):
+    """K8's fused selection at 14,200 entries, whose working arrays outgrow
+    a block's shared memory (the device workspace): exact."""
+    arrays, statics = select_inputs(3, 14000, 200, "ties")
+    args = (*(torch.as_tensor(x, device=dev) for x in arrays), *statics)
+    for g, w in zip(gridops.select_track(*args), gridops.select_track_plain(*args)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("w", [(0.0, 0.0, 0.0), (0.3, -0.2, 0.1), (2.0, 1.0, -3.0)],
+                         ids=["zero", "hover", "fast"])
+@pytest.mark.parametrize("n", [104, 300])
+def test_predict_warp_kernel_matches_plain(dev, w, n):
+    """K7's fused prediction: the rotation within 4 float32 ulps of 1.0 and
+    the warped points within 4 ulps at 752 px of the plain version (whose
+    3x3 products go through the library with fused multiply-adds); the
+    identity at zero rate; one launch."""
+    from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
+
+    p = make_frontend_params(euroc_config(), dev)
+    rng = np.random.default_rng(n)
+    pts = torch.as_tensor(rng.uniform([5, 5], [747, 475], (n, 2)), dtype=torch.float32,
+                          device=dev)
+    wv = torch.tensor(w, dtype=torch.float32, device=dev)
+    dt = torch.tensor(0.05, dtype=torch.float32, device=dev)
+    n0 = camera.predict_warp_points.launches
+    got, R = camera.predict_warp_points(pts, wv, dt, p.R_cam0_imu, p.cam0_intrinsics)
+    assert camera.predict_warp_points.launches == n0 + 1
+    want, pR = camera.predict_warp_points_plain(pts, wv, dt, p.R_cam0_imu, p.cam0_intrinsics)
+    assert float((R - pR).abs().max()) <= 4 * 2.0 ** -23
+    assert float((got - want).abs().max()) <= 4 * 2.0 ** -14
+    if not any(w):
+        assert torch.equal(R, torch.eye(3, device=dev))
+
+
+def _ulps_from(value, thresh):
+    """|value - thresh| in float32 ulps of ``thresh``."""
+    spacing = torch.as_tensor(np.spacing(np.abs(thresh.detach().cpu().numpy()).astype(np.float32)),
+                              device=value.device)
+    return (value - thresh).abs() / spacing
+
+
+@pytest.mark.parametrize("model", ["radtan", "equidistant"])
+def test_stereo_gate_kernel_matches_plain(dev, model):
+    """K7's fused stereo gate: decisions identical to the plain version's,
+    except where a cut's value lies within 8 float32 ulps of its threshold
+    (the plain version's norms and the epipolar line's product go through
+    the library with fused multiply-adds); one launch."""
+    from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
+
+    cfg = euroc_config()
+    fe = cfg.frontend
+    p = make_frontend_params(cfg, dev)
+    co = p.cam0_coeffs if model == "radtan" else torch.tensor(
+        [-0.0113, 0.0052, -0.0021, 0.0005], device=dev)
+    rng = np.random.default_rng(21)
+    B = 204
+    cam0 = rng.uniform([5, 5], [747, 475], (B, 2))
+    p1 = cam0 - np.stack([rng.uniform(0, 40, B), rng.uniform(-3, 3, B)], 1)
+    p1[:4] = [[-0.5, 100], [751.99, 50], [100, -0.25], [100, 479.5]]
+    p0r = cam0 + rng.normal(0, 2, (B, 2))
+    cam0, p1, p0r = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (cam0, p1, p0r))
+    valid = torch.as_tensor(rng.uniform(size=B) < 0.9, device=dev)
+    st = torch.as_tensor(rng.uniform(size=B) < 0.9, device=dev)
+    _, proj1 = camera.undistort_distort_points(cam0, p.cam0_intrinsics, model, co, p.R0to1)
+    args = (cam0, p1, p0r, proj1, valid, st, p.cam0_intrinsics, model, co, p.E,
+            fe.fwd_bwd_error_px, fe.max_vertical_disparity_px, fe.stereo_threshold, 480, 752)
+    n0 = camera.stereo_gate.launches
+    got = camera.stereo_gate(*args)
+    assert camera.stereo_gate.launches == n0 + 1
+    want = camera.stereo_gate_plain(*args)
+    flips = got != want
+    if bool(flips.any()):
+        epi = camera.epipolar_residual_plain(cam0, p1, p.cam0_intrinsics, model, co, p.E)
+        fx, fy = p.cam0_intrinsics[0], p.cam0_intrinsics[1]
+        thr = fe.stereo_threshold * (4.0 / (2.0 * fx + 2.0 * fy))
+        err = torch.linalg.norm(cam0 - p0r, dim=-1)
+        near = torch.minimum(_ulps_from(epi, thr.expand(B)),
+                             _ulps_from(err, torch.full_like(err, fe.fwd_bwd_error_px)))
+        assert bool((near[flips] <= 8).all())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

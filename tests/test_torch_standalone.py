@@ -269,8 +269,8 @@ def filter_state():
 def _launch_counts():
     fns = (ttri.triangulate, tupd.feature_block, tupd.gating_test_batch, tupd.rank12_update,
            tupd.apply_update_rank12, tupd.ekf_update, tupd.apply_update, tgrid.dense_grid_topk,
-           *tgrid.K8_WRAPPERS,
-           *tcam.WRAPPERS, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk,
+           *tgrid.K8_WRAPPERS, tgrid.select_track,
+           *tcam.WRAPPERS, tcam.predict_warp_points, tcam.stereo_gate, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk,
            tpyr.build_pyramid_pair, tpyr.build_pyramid_padded)
     return tuple(fn.launches for fn in fns)
 
@@ -360,6 +360,11 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
         _assert_identical(tgrid.smallest_k_indices(arr, 16), tgrid.smallest_k_indices_plain(arr, 16))
         _assert_identical(tgrid.stable_compact_indices(valid, n),
                           tgrid.stable_compact_indices_plain(valid, n))
+        from torch_select_inputs import select_inputs
+
+        arrays, statics = select_inputs(8, 104, 100, "ties")
+        args = (*map(torch.as_tensor, arrays), *statics)
+        _assert_identical(tgrid.select_track(*args), tgrid.select_track_plain(*args))
     elif kernel in ("P1", "K1_level"):
         img = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (120, 160)),
                               dtype=torch.uint8)
@@ -404,6 +409,15 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
             _assert_identical(dis, tcam.distort_points_plain(und, intr, model, co))
         _assert_identical(tcam.homography_warp_points(pts, R, intr),
                           tcam.homography_warp_points_plain(pts, R, intr))
+        w, dt = torch.tensor([0.3, -0.2, 0.1]), torch.tensor(0.05)
+        _assert_identical(tcam.predict_warp_points(pts, w, dt, R, intr),
+                          tcam.predict_warp_points_plain(pts, w, dt, R, intr))
+        p0r = pts + torch.as_tensor(rng.normal(0, 2, (50, 2)), dtype=torch.float32)
+        p1 = pts - torch.as_tensor(rng.uniform(0, 40, (50, 2)), dtype=torch.float32)
+        flags = torch.as_tensor(rng.uniform(size=(2, 50)) < 0.9)
+        gate = (pts, p1, p0r, p1, flags[0], flags[1], intr, "radtan", co, R, 3.0, 20.0, 5.0, 480,
+                752)
+        _assert_identical(tcam.stereo_gate(*gate), tcam.stereo_gate_plain(*gate))
     else:
         rng = np.random.default_rng(12)
         cols = torch.cat([21 + 6 * 4 + torch.arange(6), 21 + 6 * 9 + torch.arange(6)])

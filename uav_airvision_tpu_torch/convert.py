@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .config import Config
-from .models.frontend.params import FrontendParams
+from .models.frontend.params import FrontendParams, stereo_geometry
 from .models.frontend.pipeline import FrontendState
 from .models.msckf.state import CamWindow, FeatureTable, FilterState, ImuState, MsckfParams
 from .ops.pyramid import build_pyramid_padded
@@ -33,10 +33,17 @@ def _is_namedtuple(x) -> bool:
 
 
 def to_torch(tree, device):
-    """NamedTuple tree of arrays -> the port's NamedTuple tree of tensors."""
+    """NamedTuple tree of arrays -> the port's NamedTuple tree of tensors.
+    The JAX ``FrontendParams`` lacks the stereo geometry (``R0to1``, ``E``)
+    that the port forms once: it is formed from the converted fields."""
     if _is_namedtuple(tree):
         cls = PORT_TYPES[type(tree).__name__]
-        return cls(*(to_torch(getattr(tree, f), device) for f in cls._fields))
+        fields = {f: to_torch(getattr(tree, f), device) for f in cls._fields if hasattr(tree, f)}
+        if cls is FrontendParams and "E" not in fields:
+            fields["R0to1"], fields["E"] = stereo_geometry(
+                fields["R_cam0_imu"], fields["R_cam1_imu"], fields["t_cam0_imu"],
+                fields["t_cam1_imu"])
+        return cls(**fields)
     return torch.as_tensor(np.array(tree), device=device)
 
 

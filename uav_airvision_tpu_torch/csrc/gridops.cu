@@ -24,6 +24,16 @@
 // compact_kept walk the sorted order (positions q, element perm[q]) so they
 // need no inverse permutation.
 //
+// grid_select_track_f32 is the front-end's whole per-cell selection of a
+// tracked frame in one launch of one block (the JAX package's
+// models/frontend/pipeline.py:388-440, where eager PyTorch took ~60
+// launches): the cells of the tracked points and the new candidates, the
+// candidates' rank, ids and insertion order, the per-cell counts and their
+// overflow, the prune rank, and the compaction of the kept entries in prune
+// order into the F slots, gathered.  Each phase counts predecessors as the
+// entry points above do, on keys staged in shared memory (or a device
+// workspace past it), with a barrier between phases.
+//
 // Bound on the card: bytes (K5 reads the 480 x 752 int32 map once, 1.4 MB;
 // K8 a few KB), each far below a microsecond: launch-latency kernels.
 
@@ -293,6 +303,225 @@ stable_compact_kernel(const bool* __restrict__ mask, int n, int fill, int* __res
   }
 }
 
+// The selection's key of an entry: its cell (n_cells where it takes no
+// part, kOut once a phase has excluded it), its arrival and its primary key,
+// one 16-byte load.
+struct __align__(16) SelKey {
+  int cell;
+  int arr;
+  float pri;
+  int pad;
+};
+constexpr int kOut = 0x7fffffff;  // a cell after every real one
+
+// Does entry j (key kj) come before entry i (key ki) under (cell asc,
+// primary desc, arrival asc, index asc)?
+__device__ inline bool key_before(const SelKey& kj, int j, const SelKey& ki, int i) {
+  return kj.cell < ki.cell ||
+         (kj.cell == ki.cell &&
+          (kj.pri > ki.pri || (kj.pri == ki.pri && (kj.arr < ki.arr || (kj.arr == ki.arr && j < i)))));
+}
+
+// Entries of [j0, j1) before entry i within i's cell / in the whole order,
+// counted by the ``sub`` lanes of a group (a power of two, aligned in its
+// warp), each taking every sub-th entry; every lane of the warp calls it
+// (an idle group with j1 = j0).
+template <bool kInCell>
+__device__ inline int count_before(const SelKey* key, int j0, int j1, int i, int lane, int sub) {
+  const SelKey ki = key[i];
+  int r = 0;
+#pragma unroll 4
+  for (int j = j0 + lane; j < j1; j += sub) {
+    const SelKey kj = key[j];
+    r += (kInCell ? kj.cell == ki.cell : true) && key_before(kj, j, ki, i);
+  }
+  for (int o = sub >> 1; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
+  return r;
+}
+
+// The selection's working arrays for n = F + C entries: the keys (n), the
+// candidates' rank and id (C each), the per-cell counts, the kept entries
+// in order (F), the flags (n bytes).
+__host__ __device__ inline size_t select_bytes(int F, int C, int n_cells) {
+  return (size_t)16 * (F + C) + (size_t)4 * (2 * C + n_cells + F) + (F + C);
+}
+
+// Flags of an entry of the selection (tracked slots, then candidates)
+constexpr unsigned char kInlier = 1;  // tracked, or a stereo-matched candidate
+constexpr unsigned char kNew = 2;     // a candidate among its cell's best grid_min
+constexpr unsigned char kKeep = 4;    // survives the per-cell prune
+
+struct SelectIn {
+  const float* curr;       // (F, 2) tracked points in this frame
+  const float* cam1_curr;  // (F, 2)
+  const bool* tracked;     // (F,)
+  const int* ids;          // (F,)
+  const int* lifetime;     // (F,)
+  const float* apts;       // (C, 2) candidates
+  const int* ascore;       // (C,)
+  const int* aarrival;     // (C,)
+  const bool* ainlier;     // (C,)
+  const float* acam1;      // (C, 2)
+  const int* next_id;      // ()
+};
+
+// Output: ids (F,) int32, lifetime (F,) int32, cam0 (F, 2), cam1 (F, 2),
+// next_id () int32, valid (F,) bool, packed in this order in ``out``.  The
+// working arrays sit in dynamic shared memory (kStaged) or in ``work``.
+// The counting phases give each entry a group of ``sub`` lanes, which
+// count the entries before it (a 16-byte key a step, every group of a warp
+// on the same key) and sum by shuffles; an entry a phase has ruled out gets
+// the cell kOut, so later counts need no flag.
+template <bool kStaged>
+__global__ void __launch_bounds__(kMaxThreads)
+select_track_kernel(SelectIn in, int F, int C, int grid_row, int grid_col, int H, int W,
+                    int grid_min, int grid_max, int sub, unsigned char* __restrict__ out,
+                    unsigned char* work) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  __shared__ int s_kept[2];  // candidates kept (new ids), entries kept by the prune
+  const int n = F + C, n_cells = grid_row * grid_col, tid = threadIdx.x;
+  const int lane = tid & (sub - 1), group = tid / sub, groups = blockDim.x / sub;
+  unsigned char* base = kStaged ? dyn_smem : work;
+  SelKey* key = reinterpret_cast<SelKey*>(base);
+  int* arank = reinterpret_cast<int*>(key + n);
+  int* aid = arank + C;
+  int* count = aid + C;
+  int* sel = count + n_cells;
+  unsigned char* flag = reinterpret_cast<unsigned char*>(sel + F);
+  // gridops.cell_of_points: floor(coordinate / cell size), IEEE division
+  const float cell_h = (float)((H + grid_row - 1) / grid_row);
+  const float cell_w = (float)((W + grid_col - 1) / grid_col);
+
+  // 1. cells (n_cells for entries not inlier), the candidates' keys
+  if (tid < 2) s_kept[tid] = 0;
+  for (int c = tid; c < n_cells; c += blockDim.x) count[c] = 0;
+  for (int i = tid; i < n; i += blockDim.x) {
+    const bool cand = i >= F;
+    const int j = cand ? i - F : i;
+    const float* pts = cand ? in.apts : in.curr;
+    const bool v = cand ? in.ainlier[j] : in.tracked[j];
+    SelKey k;
+    k.cell = v ? (int)floorf(pts[2 * j + 1] / cell_h) * grid_col +
+                     (int)floorf(pts[2 * j] / cell_w)
+               : n_cells;
+    k.arr = cand ? in.aarrival[j] : 0;
+    k.pri = cand ? (float)in.ascore[j] : 0.0f;
+    k.pad = 0;
+    key[i] = k;
+    flag[i] = v ? kInlier : 0;
+  }
+  __syncthreads();
+
+  // 2. the candidates' rank in their cell under (score desc, arrival,
+  // index): the best grid_min of each cell are new features
+  for (int i0 = F; i0 < n; i0 += groups) {
+    const int i = i0 + group;
+    const int r = count_before<true>(key, F, i < n ? n : F, i < n ? i : F, lane, sub);
+    if (i < n && lane == 0) {
+      arank[i - F] = r;
+      if ((flag[i] & kInlier) && r < grid_min) flag[i] |= kNew;
+    }
+  }
+  __syncthreads();
+  for (int i = F + tid; i < n; i += blockDim.x)  // only the new features from here on
+    if (!(flag[i] & kNew)) key[i].cell = kOut;
+  __syncthreads();
+
+  // 3. the per-cell counts of the combined set (tracked + new), and the
+  // new features' ids in candidate order
+  int n_new = 0;
+  for (int i = tid; i < n; i += blockDim.x) {
+    const int ci = key[i].cell;  // a cell outside the grid counts nowhere, as in the one-hot sum
+    if ((i < F ? (flag[i] & kInlier) : (flag[i] & kNew)) && ci >= 0 && ci < n_cells)
+      atomicAdd(&count[ci], 1);
+    n_new += i >= F && (flag[i] & kNew);
+  }
+  if (n_new != 0) atomicAdd(&s_kept[0], n_new);
+  const int base_id = *in.next_id;
+  for (int i0 = F; i0 < n; i0 += groups) {
+    const int i = i0 + group;
+    const bool act = i < n && (flag[i] & kNew);
+    const int g = count_before<false>(key, F, act ? n : F, act ? i : F, lane, sub);
+    if (i < n && lane == 0) aid[i - F] = act ? base_id + g : -1;
+  }
+  __syncthreads();
+
+  // 4. the prune's keys: lifetime first (desc) where the cell overflows,
+  // then the insertion order (tracked slots, then the new features by cell
+  // and rank), then the index
+  for (int i = tid; i < n; i += blockDim.x) {
+    const bool cand = i >= F;
+    const unsigned char fi = flag[i];
+    const bool v = cand ? (fi & kNew) : (fi & kInlier);
+    SelKey k = key[i];
+    const int life = cand ? 1 : in.lifetime[i] + 1;
+    k.pri = v && count[min(max(k.cell, 0), n_cells - 1)] > grid_max ? (float)life : 0.0f;
+    k.arr = cand ? F + ((fi & kNew) ? arank[i - F] : 0) : i;
+    k.cell = v ? k.cell : n_cells;
+    key[i] = k;
+    flag[i] = v ? fi : 0;
+  }
+  __syncthreads();
+
+  // 5. the prune: the best grid_max of each cell stay
+  for (int i0 = 0; i0 < n; i0 += groups) {
+    const int i = i0 + group;
+    const bool act = i < n && flag[i];
+    const int r = count_before<true>(key, 0, act ? n : 0, act ? i : 0, lane, sub);
+    if (act && lane == 0 && r < grid_max) flag[i] |= kKeep;
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += blockDim.x)  // only the kept entries from here on
+    if (!(flag[i] & kKeep)) key[i].cell = kOut;
+  __syncthreads();
+
+  // 6. the kept entries in prune order: the r-th goes to slot r
+  int n_kept = 0;
+  for (int i = tid; i < n; i += blockDim.x) n_kept += (flag[i] & kKeep) != 0;
+  if (n_kept != 0) atomicAdd(&s_kept[1], n_kept);
+  for (int i0 = 0; i0 < n; i0 += groups) {
+    const int i = i0 + group;
+    const bool act = i < n && (flag[i] & kKeep);
+    const int r = count_before<false>(key, 0, act ? n : 0, act ? i : 0, lane, sub);
+    if (act && lane == 0 && r < F) sel[r] = i;
+  }
+  __syncthreads();
+
+  // 7. gather into the F slots; empty slots hold -1, 0 and 0.0
+  int* o_ids = reinterpret_cast<int*>(out);
+  int* o_life = o_ids + F;
+  float* o_cam0 = reinterpret_cast<float*>(o_life + F);
+  float* o_cam1 = o_cam0 + 2 * F;
+  int* o_next = reinterpret_cast<int*>(o_cam1 + 2 * F);
+  bool* o_valid = reinterpret_cast<bool*>(o_next + 1);
+  const int total = s_kept[1];
+  for (int s = tid; s < F; s += blockDim.x) {
+    int id = -1, life = 0;
+    float x0 = 0.0f, y0 = 0.0f, x1 = 0.0f, y1 = 0.0f;
+    if (s < total) {
+      const int i = sel[s];
+      const bool cand = i >= F;
+      const int j = cand ? i - F : i;
+      const float* p0 = cand ? in.apts : in.curr;
+      const float* p1 = cand ? in.acam1 : in.cam1_curr;
+      id = cand ? aid[j] : in.ids[j];
+      life = cand ? 1 : in.lifetime[j] + 1;
+      x0 = p0[2 * j];
+      y0 = p0[2 * j + 1];
+      x1 = p1[2 * j];
+      y1 = p1[2 * j + 1];
+    }
+    o_ids[s] = id;
+    o_life[s] = life;
+    o_cam0[2 * s] = x0;
+    o_cam0[2 * s + 1] = y0;
+    o_cam1[2 * s] = x1;
+    o_cam1[2 * s + 1] = y1;
+    o_valid[s] = s < total;
+  }
+  if (tid == 0) *o_next = base_id + s_kept[0];
+}
+
 inline int block_for(int n) {
   return n <= 32 ? 32 : (n >= kMaxThreads ? kMaxThreads : (n + 31) / 32 * 32);
 }
@@ -362,4 +591,36 @@ extern "C" int grid_stable_compact(const void* mask, int n, int fill, void* out,
   if (n < 1) return (int)cudaErrorInvalidValue;
   return launch_k8(stable_compact_kernel, &budget, &allowed, n, (size_t)n, stream,
                    (const bool*)mask, n, fill, (int*)out);
+}
+
+extern "C" int grid_select_track_f32(const void* curr, const void* cam1_curr, const void* tracked,
+                                     const void* ids, const void* lifetime, int F,
+                                     const void* apts, const void* ascore, const void* aarrival,
+                                     const void* ainlier, const void* acam1, int C,
+                                     const void* next_id, int grid_row, int grid_col, int H,
+                                     int W, int grid_min, int grid_max, void* out, void* work,
+                                     void* stream) {
+  static size_t allowed = 0;
+  if (F < 1 || C < 1 || grid_row < 1 || grid_col < 1) return (int)cudaErrorInvalidValue;
+  const SelectIn in{(const float*)curr, (const float*)cam1_curr, (const bool*)tracked,
+                    (const int*)ids, (const int*)lifetime, (const float*)apts,
+                    (const int*)ascore, (const int*)aarrival, (const bool*)ainlier,
+                    (const float*)acam1, (const int*)next_id};
+  // lanes per entry: as many as a 1024-thread block gives every entry
+  int sub = 1;
+  while (sub < 32 && block_for(F + C) * sub * 2 <= kMaxThreads) sub *= 2;
+  const int threads = block_for(F + C) * sub;
+  if (work != nullptr) {
+    select_track_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(
+        in, F, C, grid_row, grid_col, H, W, grid_min, grid_max, sub, (unsigned char*)out,
+        (unsigned char*)work);
+  } else {
+    const size_t smem = select_bytes(F, C, grid_row * grid_col);
+    const int err = msckf::allow_smem(select_track_kernel<true>, smem, &allowed);
+    if (err != 0) return err;
+    select_track_kernel<true><<<1, threads, smem, (cudaStream_t)stream>>>(
+        in, F, C, grid_row, grid_col, H, W, grid_min, grid_max, sub, (unsigned char*)out,
+        nullptr);
+  }
+  return (int)cudaGetLastError();
 }

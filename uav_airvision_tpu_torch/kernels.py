@@ -94,6 +94,11 @@ SIGNATURES = {
     "camera_undistort_distort": [P, I, P, I, I, P, I, I, I, P, P, P, P],
     # pts, n, intr, field stride, point stride, R, out, stream
     "camera_warp": [P, I, P, I, I, P, P, P],
+    # pts, n, mean_ang_vel, dt, R_cam_imu, intr, out, stream
+    "camera_predict_warp": [P, I, P, P, P, P, P, P],
+    # cam0, p1, p0r, proj1, valid, st_fwd, n, intr, coef, model, E, fwd_bwd,
+    # max_vdisp, thresh, h, w, inlier, stream
+    "camera_stereo_gate": [P, P, P, P, P, P, I, P, P, I, P, F, F, F, I, I, P, P],
     # score, H, W, grid_row, grid_col, cell_h, cell_w, k, ys, xs, vals, stream
     "grid_topk_i32": [P, I, I, I, I, I, I, I, P, P, P, P],
     # cell, primary, arrival, valid, n, n_cells, rank, perm, stream
@@ -106,6 +111,10 @@ SIGNATURES = {
     "grid_smallest_k": [P, I, I, P, P],
     # mask, n, fill, out, stream
     "grid_stable_compact": [P, I, I, P, P],
+    # curr, cam1_curr, tracked, ids, lifetime, F, apts, ascore, aarrival,
+    # ainlier, acam1, C, next_id, grid_row, grid_col, H, W, grid_min,
+    # grid_max, out, work, stream
+    "grid_select_track_f32": [P, P, P, P, P, I, P, P, P, P, P, I, P, I, I, I, I, I, I, P, P, P],
     # P, D, H, r, m, qr, obs_noise, work, out, *INJECT, clocks, stream
     "ekf_update_f32": [P, I, P, P, I, I, P, P, P, *INJECT, P, P],
     "ekf_update_f64": [P, I, P, P, I, I, P, P, P, *INJECT, P, P],
@@ -208,13 +217,21 @@ def check_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel inputs must be contiguous")
 
 
+_entries: dict = {}
+
+
 def launch(name: str, *args) -> None:
-    """Call a C entry point on the current stream; raise on a launch error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), name)(*args, stream)
+    """Call a C entry point on the current stream; raise on a launch error.
+    Each entry point is looked up once; the stream is passed as its raw
+    handle."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(lib(), name)
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed with cudaError {err}")
 
 
-def ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's device address, for a ``void*`` argument."""
+    return t.data_ptr()

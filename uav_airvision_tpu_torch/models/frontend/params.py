@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from ...config import Config
+from ...utils.quaternion import skew
 
 
 class FrontendParams(NamedTuple):
@@ -20,6 +21,10 @@ class FrontendParams(NamedTuple):
     R_cam1_imu: torch.Tensor
     t_cam0_imu: torch.Tensor  # (3,)
     t_cam1_imu: torch.Tensor
+    # the stereo matcher's rectification (cam0 -> cam1) and essential
+    # matrix, (3,3) each, formed once here as the matcher formed them
+    R0to1: torch.Tensor
+    E: torch.Tensor
 
 
 def make_frontend_params(config: Config, device, dtype=torch.float32) -> FrontendParams:
@@ -29,13 +34,26 @@ def make_frontend_params(config: Config, device, dtype=torch.float32) -> Fronten
     def t(x):
         return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype, device=device)
 
+    R_cam0_imu, R_cam1_imu = t(T0[:3, :3]), t(T1[:3, :3])
+    t_cam0_imu, t_cam1_imu = t(T0[:3, 3]), t(T1[:3, 3])
+    R0to1, E = stereo_geometry(R_cam0_imu, R_cam1_imu, t_cam0_imu, t_cam1_imu)
     return FrontendParams(
         cam0_intrinsics=t(config.calib.cam0_intrinsics),
         cam0_coeffs=t(config.calib.cam0_distortion_coeffs),
         cam1_intrinsics=t(config.calib.cam1_intrinsics),
         cam1_coeffs=t(config.calib.cam1_distortion_coeffs),
-        R_cam0_imu=t(T0[:3, :3]),
-        R_cam1_imu=t(T1[:3, :3]),
-        t_cam0_imu=t(T0[:3, 3]),
-        t_cam1_imu=t(T1[:3, 3]),
+        R_cam0_imu=R_cam0_imu,
+        R_cam1_imu=R_cam1_imu,
+        t_cam0_imu=t_cam0_imu,
+        t_cam1_imu=t_cam1_imu,
+        R0to1=R0to1,
+        E=E,
     )
+
+
+def stereo_geometry(R_cam0_imu, R_cam1_imu, t_cam0_imu, t_cam1_imu):
+    """(R0to1, E): the stereo matcher's rectification cam0 -> cam1 and its
+    essential matrix, as the JAX package's matcher forms them."""
+    R0to1 = R_cam1_imu.T @ R_cam0_imu
+    t01 = R_cam1_imu.T @ (t_cam0_imu - t_cam1_imu)
+    return R0to1, skew(t01) @ R0to1

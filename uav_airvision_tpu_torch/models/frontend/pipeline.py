@@ -28,8 +28,10 @@ import torch
 from ...config import Config
 from ...device import to_host
 from ...ops import camera, fast, gridops, lk, pyramid
+# the fused calls by name, so that profile_main.py can span them here
+from ...ops.camera import predict_warp_points, predicted_rotation
+from ...ops.gridops import select_track
 from ...ops.pyramid import Pyramid
-from ...utils.quaternion import skew
 from .params import FrontendParams
 from .stereo import stereo_match
 
@@ -78,19 +80,9 @@ def init_frontend_state(config: Config, device) -> FrontendState:
     )
 
 
-def rodrigues(rvec):
-    theta = torch.linalg.norm(rvec)
-    safe = torch.where(theta > 1e-12, theta, torch.ones_like(theta))
-    K = skew(rvec / safe)
-    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
-    R = eye + torch.sin(theta) * K + (1.0 - torch.cos(theta)) * (K @ K)
-    return torch.where(theta > 1e-12, R, eye)
-
-
 def predicted_rotations(mean_ang_vel, dt, params: FrontendParams):
-    cam0_mean = params.R_cam0_imu.T @ mean_ang_vel
-    cam1_mean = params.R_cam1_imu.T @ mean_ang_vel
-    return rodrigues(cam0_mean * dt).T, rodrigues(cam1_mean * dt).T
+    return (predicted_rotation(mean_ang_vel, dt, params.R_cam0_imu),
+            predicted_rotation(mean_ang_vel, dt, params.R_cam1_imu))
 
 
 def _detection_candidates(img, mask_pts, mask_valid, config: Config, per_cell: int):
@@ -180,14 +172,15 @@ def _track_frame(state: FrontendState, cam0_img, pyr0, pyr1, mean_ang_vel, dt,
                  params: FrontendParams, config: Config):
     fe = config.frontend
     F = config.capacity.max_features
-    n_cells = fe.grid_num
     H, W = cam0_img.shape
     i32 = torch.int32
-    cam0_R_p_c, _ = predicted_rotations(mean_ang_vel, dt, params)
 
     prev_pts, prev_valid = state.cam0, state.valid
     before_tracking = prev_valid.to(i32).sum().to(i32)
-    pred = camera.homography_warp_points(prev_pts, cam0_R_p_c, params.cam0_intrinsics)
+    # the IMU-rotation prediction (cam0's: the JAX package computes cam1's
+    # too and drops it) and the K R K^-1 warp, one K7 launch
+    pred, _ = predict_warp_points(prev_pts, mean_ang_vel, dt, params.R_cam0_imu,
+                               params.cam0_intrinsics)
     curr, st = lk.pyramidal_lk(
         state.prev_pyr, pyr0, prev_pts, pred, prev_valid,
         n_levels=temporal_lk_levels(config), win=fe.patch_size,
@@ -244,48 +237,15 @@ def _track_frame(state: FrontendState, cam0_img, pyr0, pyr1, mean_ang_vel, dt,
     tracked = st & match
     after_matching = tracked.to(i32).sum().to(i32)
 
-    tr_cell = gridops.cell_of_points(curr, fe.grid_row, fe.grid_col, H, W)
-    tr_life = state.lifetime + 1
-    acell = gridops.cell_of_points(apts, fe.grid_row, fe.grid_col, H, W)
-    arank, aperm = gridops.rank_in_cell(acell, ascore.to(torch.float32), aarrival,
-                                        ainlier, n_cells)
-    akeep = ainlier & (arank < fe.grid_min_feature_num)
-    a_grank, a_crank, a_kept = gridops.kept_order_stats(aperm, akeep, acell, ainlier,
-                                                        n_cells)
-    aids = torch.where(akeep, state.next_id + a_grank, -1).to(i32)
-
-    # combine tracked + new, prune per cell
-    C = apts.shape[0]
-    dev = curr.device
-    all_cell = torch.cat([tr_cell, acell])
-    all_life = torch.cat([tr_life, torch.ones((C,), dtype=i32, device=dev)])
-    all_valid = torch.cat([tracked, akeep])
-    all_ids = torch.cat([state.ids, aids])
-    all_cam0 = torch.cat([curr, apts])
-    all_cam1 = torch.cat([cam1_curr, acam1])
-    arrival = torch.cat([torch.arange(F, dtype=i32, device=dev), F + a_crank.to(i32)])
-
-    cells = torch.arange(n_cells, device=dev)
-    onehot = (all_cell[:, None] == cells[None, :]) & all_valid[:, None]
-    overflow = onehot.to(i32).sum(0) > fe.grid_max_feature_num
-    of_this = torch.where(all_valid, overflow[all_cell.clamp(0, n_cells - 1).long()],
-                          False)
-    sort_life = torch.where(of_this, all_life, 0)
-    prank, pperm = gridops.rank_in_cell(all_cell, sort_life.to(torch.float32), arrival,
-                                        all_valid, n_cells)
-    keep = all_valid & (prank < fe.grid_max_feature_num)
-    sel, selm = gridops.compact_kept(pperm, keep, F)
-    sel = sel.long()
-    new_state = state._replace(
-        ids=torch.where(selm, all_ids[sel], -1).to(i32),
-        lifetime=torch.where(selm, all_life[sel], 0).to(i32),
-        cam0=torch.where(selm[:, None], all_cam0[sel], 0.0),
-        cam1=torch.where(selm[:, None], all_cam1[sel], 0.0),
-        valid=selm,
-        next_id=(state.next_id + a_kept).to(i32),
-    )
+    # the per-cell selection (new ids, prune, compaction), one K8 launch
+    ids, lifetime, cam0, cam1, valid, next_id = select_track(
+        curr, cam1_curr, tracked, state.ids, state.lifetime, apts, ascore, aarrival, ainlier,
+        acam1, state.next_id, fe.grid_row, fe.grid_col, H, W, fe.grid_min_feature_num,
+        fe.grid_max_feature_num)
+    new_state = state._replace(ids=ids, lifetime=lifetime, cam0=cam0, cam1=cam1, valid=valid,
+                               next_id=next_id)
     if n_seed is None:
-        n_seed = torch.zeros((), dtype=i32, device=dev)
+        n_seed = torch.zeros((), dtype=i32, device=curr.device)
     counters = (before_tracking, after_tracking, after_matching, after_matching,
                 n_seed.to(i32))
     return new_state, counters

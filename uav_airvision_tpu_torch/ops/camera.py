@@ -7,7 +7,10 @@ scalars (shared by all points), or a (4, n) tensor or four (n,) tensors
 
 On CUDA tensors ``undistort_points``, ``distort_points``,
 ``homography_warp_points`` and the fused stereo prologue
-``undistort_distort_points`` launch kernel K7 (``csrc/camera.cu``, float32);
+``undistort_distort_points`` launch kernel K7 (``csrc/camera.cu``, float32),
+as do two entry points that fuse the camera model with the front-end's glue
+around it: ``predict_warp_points`` (the IMU-rotation prediction and the
+warp) and ``stereo_gate`` (the stereo matcher's cuts after the backward LK);
 CPU tensors run the plain versions (``<name>_plain``)."""
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils.quaternion import skew
 
 UNDISTORT_ITERS = 5
 
@@ -121,6 +125,52 @@ def homography_warp_points_plain(pts_px, R_p_c, intrinsics):
     h = torch.cat([pts_px, torch.ones_like(pts_px[..., :1])], dim=-1)
     w = torch.einsum("ij,...j->...i", H, h)
     return w[..., :2] / w[..., 2:3]
+
+
+def rodrigues(rvec):
+    """Axis-angle -> rotation matrix (cv2.Rodrigues closed form)."""
+    theta = torch.linalg.norm(rvec)
+    safe = torch.where(theta > 1e-12, theta, torch.ones_like(theta))
+    K = skew(rvec / safe)
+    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
+    R = eye + torch.sin(theta) * K + (1.0 - torch.cos(theta)) * (K @ K)
+    return torch.where(theta > 1e-12, R, eye)
+
+
+def predicted_rotation(mean_ang_vel, dt, R_cam_imu):
+    """A camera's inter-frame rotation R_p_c from the mean gyro rate."""
+    return rodrigues((R_cam_imu.T @ mean_ang_vel) * dt).T
+
+
+def predict_warp_points_plain(pts_px, mean_ang_vel, dt, R_cam_imu, intrinsics):
+    R_p_c = predicted_rotation(mean_ang_vel, dt, R_cam_imu)
+    return homography_warp_points_plain(pts_px, R_p_c, intrinsics), R_p_c
+
+
+def epipolar_residual_plain(cam0_pts, p1, intrinsics, model, coeffs, E):
+    """The reference's epipolar residual |u1_x l_0| / |l[:2]|, l = E [u0 1]',
+    with both sides undistorted by the one (cam0's) model; normalized
+    units."""
+    B = cam0_pts.shape[0]
+    und_both = undistort_points_plain(torch.cat([cam0_pts, p1]), intrinsics, model, coeffs)
+    und0, und1 = und_both[:B], und_both[B:]
+    ones = torch.ones_like(und0[:, :1])
+    pt0_h = torch.cat([und0, ones], dim=-1)
+    pt1_h = torch.cat([und1, ones], dim=-1)
+    line = pt0_h @ E.T
+    return torch.abs(pt1_h[:, 0] * line[:, 0]) / torch.linalg.norm(line[:, :2], dim=-1)
+
+
+def stereo_gate_plain(cam0_pts, p1, p0r, proj1, valid, st_fwd, intrinsics, model, coeffs, E,
+                      fwd_bwd_px, max_vdisp_px, threshold, h, w):
+    err = torch.linalg.norm(cam0_pts - p0r, dim=-1)
+    disp = torch.abs(proj1[:, 1] - p1[:, 1])
+    inlier = valid & st_fwd & (err < fwd_bwd_px) & (disp < max_vdisp_px)
+    inlier = inlier & (p1[:, 0] >= 0) & (p1[:, 0] < w) & (p1[:, 1] >= 0) & (p1[:, 1] < h)
+    err_epi = epipolar_residual_plain(cam0_pts, p1, intrinsics, model, coeffs, E)
+    fx, fy = intrinsics[0], intrinsics[1]
+    norm_unit = 4.0 / (2.0 * fx + 2.0 * fy)
+    return inlier & (err_epi <= threshold * norm_unit)
 
 
 def _on_cuda(pts) -> bool:
@@ -249,7 +299,70 @@ def homography_warp_points(pts_px, R_p_c, intrinsics):
     return out.reshape(pts_px.shape)
 
 
+def _check(t, dtype, shape, what):
+    if t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+        raise ValueError(f"K7 {what}: expected contiguous {shape} {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def predict_warp_points(pts_px, mean_ang_vel, dt, R_cam_imu, intrinsics):
+    """The temporal tracker's prediction: (``pts_px`` warped by K R K^-1,
+    R) with R the camera's inter-frame rotation from the mean gyro rate over
+    ``dt`` (``predicted_rotation``).  The kernel takes (F, 2) points, a (3,)
+    rate, a one-element dt, a (3, 3) extrinsic rotation and (4,)
+    intrinsics, all float32."""
+    if not _on_cuda(pts_px):
+        return predict_warp_points_plain(pts_px, mean_ang_vel, dt, R_cam_imu, intrinsics)
+    kernels.observe("predict_warp_points", (pts_px, mean_ang_vel, dt, R_cam_imu, intrinsics))
+    n = pts_px.shape[0]
+    f32 = torch.float32
+    _check(pts_px, f32, (n, 2), "points")
+    _check(mean_ang_vel, f32, (3,), "angular velocity")
+    if dt.dtype != f32 or dt.numel() != 1:
+        raise ValueError(f"K7 dt: expected one float32 value, got {tuple(dt.shape)} {dt.dtype}")
+    _check(R_cam_imu, f32, (3, 3), "rotation")
+    _check(intrinsics, f32, (4,), "intrinsics")
+    out = torch.empty((2 * n + 9,), dtype=f32, device=pts_px.device)
+    kernels.launch("camera_predict_warp", pts_px.data_ptr(), n, mean_ang_vel.data_ptr(),
+                   dt.data_ptr(), R_cam_imu.data_ptr(), intrinsics.data_ptr(), out.data_ptr())
+    predict_warp_points.launches += 1
+    return out[:2 * n].view(n, 2), out[2 * n:].view(3, 3)
+
+
+def stereo_gate(cam0_pts, p1, p0r, proj1, valid, st_fwd, intrinsics, model, coeffs, E,
+                fwd_bwd_px, max_vdisp_px, threshold, h, w):
+    """The stereo matcher's inlier decision after the backward LK: valid,
+    forward-tracked, fwd/bwd error under ``fwd_bwd_px``, vertical disparity
+    against the rotation projection ``proj1`` under ``max_vdisp_px``, ``p1``
+    inside the (h, w) image, and the reference's epipolar residual with both
+    sides undistorted by this (cam0's) model within ``threshold`` pixels.
+    The kernel takes (B, 2) float32 points, (B,) bools, one camera's (4,)
+    intrinsics and coefficients and the (3, 3) essential matrix ``E``."""
+    if not _on_cuda(cam0_pts):
+        return stereo_gate_plain(cam0_pts, p1, p0r, proj1, valid, st_fwd, intrinsics, model,
+                                 coeffs, E, fwd_bwd_px, max_vdisp_px, threshold, h, w)
+    kernels.observe("stereo_gate", (cam0_pts, p1, p0r, proj1, valid, st_fwd, intrinsics, model,
+                                    coeffs, E, fwd_bwd_px, max_vdisp_px, threshold, h, w))
+    B = cam0_pts.shape[0]
+    f32 = torch.float32
+    for t, what in ((cam0_pts, "cam0 points"), (p1, "cam1 points"), (p0r, "back-tracked points"),
+                    (proj1, "projected points")):
+        _check(t, f32, (B, 2), what)
+    _check(valid, torch.bool, (B,), "valid")
+    _check(st_fwd, torch.bool, (B,), "status")
+    _check(intrinsics, f32, (4,), "intrinsics")
+    _check(coeffs, f32, (4,), "coefficients")
+    _check(E, f32, (3, 3), "essential matrix")
+    out = torch.empty((B,), dtype=torch.bool, device=cam0_pts.device)
+    kernels.launch("camera_stereo_gate", cam0_pts.data_ptr(), p1.data_ptr(), p0r.data_ptr(),
+                   proj1.data_ptr(), valid.data_ptr(), st_fwd.data_ptr(), B,
+                   intrinsics.data_ptr(), coeffs.data_ptr(), _model_flag(model), E.data_ptr(),
+                   fwd_bwd_px, max_vdisp_px, threshold, int(h), int(w), out.data_ptr())
+    stereo_gate.launches += 1
+    return out
+
+
 WRAPPERS = (undistort_points, distort_points, undistort_distort_points,
             homography_warp_points)
-for _fn in WRAPPERS:
+for _fn in WRAPPERS + (predict_warp_points, stereo_gate):
     _fn.launches = 0

@@ -4,7 +4,9 @@ Port of uav_airvision_tpu/ops/gridops.py.  Every function reproduces a
 stable lexsort bit for bit.  On CUDA tensors ``dense_grid_topk`` (K5) and
 ``rank_in_cell``, ``kept_order_stats``, ``compact_kept``,
 ``smallest_k_indices`` and ``stable_compact_indices`` (K8) launch the kernels
-of ``csrc/gridops.cu``; CPU tensors run the plain versions beside them
+of ``csrc/gridops.cu``, as does ``select_track``, the front-end's whole
+per-cell selection of a tracked frame (JAX models/frontend/pipeline.py:
+388-440) in one K8 launch; CPU tensors run the plain versions beside them
 (``<name>_plain``): the pairwise (n, n) strict-order forms, and for the
 top-k the first k of a stable descending sort, which orders ties by flat
 index ascending exactly like the JAX package's repeated first-argmax passes.
@@ -96,8 +98,14 @@ def stable_compact_indices(mask: torch.Tensor, fill: int) -> torch.Tensor:
 def cell_of_points(pts, grid_row, grid_col, img_h, img_w):
     grid_h = int(math.ceil(img_h / grid_row))
     grid_w = int(math.ceil(img_w / grid_col))
-    row = torch.floor(pts[..., 1] / grid_h).to(torch.int32)
-    col = torch.floor(pts[..., 0] / grid_w).to(torch.int32)
+    # divide by tensors on the points' device: PyTorch's CUDA division by a
+    # Python number multiplies by its reciprocal, which floors a few points
+    # just below a cell edge into the other cell (the JAX package and K8's
+    # select_track divide)
+    h = torch.full((), grid_h, dtype=pts.dtype, device=pts.device)
+    w = torch.full((), grid_w, dtype=pts.dtype, device=pts.device)
+    row = torch.floor(pts[..., 1] / h).to(torch.int32)
+    col = torch.floor(pts[..., 0] / w).to(torch.int32)
     return row * grid_col + col
 
 
@@ -210,6 +218,94 @@ def compact_kept(perm, keep, n_slots):
     return sel, selm
 
 
+def select_track_plain(curr, cam1_curr, tracked, ids, lifetime, apts, ascore, aarrival, ainlier,
+                       acam1, next_id, grid_row, grid_col, H, W, grid_min, grid_max):
+    i32 = torch.int32
+    F, C = curr.shape[0], apts.shape[0]
+    n_cells = grid_row * grid_col
+    dev = curr.device
+    tr_cell = cell_of_points(curr, grid_row, grid_col, H, W)
+    tr_life = lifetime + 1
+    acell = cell_of_points(apts, grid_row, grid_col, H, W)
+    arank, aperm = rank_in_cell_plain(acell, ascore.to(torch.float32), aarrival, ainlier,
+                                      n_cells)
+    akeep = ainlier & (arank < grid_min)
+    a_grank, a_crank, a_kept = kept_order_stats_plain(aperm, akeep, acell, ainlier, n_cells)
+    aids = torch.where(akeep, next_id + a_grank, -1).to(i32)
+
+    # combine tracked + new, prune per cell
+    all_cell = torch.cat([tr_cell, acell])
+    all_life = torch.cat([tr_life, torch.ones((C,), dtype=i32, device=dev)])
+    all_valid = torch.cat([tracked, akeep])
+    all_ids = torch.cat([ids, aids])
+    all_cam0 = torch.cat([curr, apts])
+    all_cam1 = torch.cat([cam1_curr, acam1])
+    arrival = torch.cat([torch.arange(F, dtype=i32, device=dev), F + a_crank.to(i32)])
+
+    cells = torch.arange(n_cells, device=dev)
+    onehot = (all_cell[:, None] == cells[None, :]) & all_valid[:, None]
+    overflow = onehot.to(i32).sum(0) > grid_max
+    of_this = torch.where(all_valid, overflow[all_cell.clamp(0, n_cells - 1).long()], False)
+    sort_life = torch.where(of_this, all_life, 0)
+    prank, pperm = rank_in_cell_plain(all_cell, sort_life.to(torch.float32), arrival, all_valid,
+                                      n_cells)
+    keep = all_valid & (prank < grid_max)
+    sel, selm = compact_kept_plain(pperm, keep, F)
+    sel = sel.long()
+    return (torch.where(selm, all_ids[sel], -1).to(i32),
+            torch.where(selm, all_life[sel], 0).to(i32),
+            torch.where(selm[:, None], all_cam0[sel], 0.0),
+            torch.where(selm[:, None], all_cam1[sel], 0.0),
+            selm,
+            (next_id + a_kept).to(i32))
+
+
+def select_track(curr, cam1_curr, tracked, ids, lifetime, apts, ascore, aarrival, ainlier, acam1,
+                 next_id, grid_row, grid_col, H, W, grid_min, grid_max):
+    """The per-cell selection of a tracked frame: the stereo-matched
+    candidates' best ``grid_min`` per cell become new features (ids from
+    ``next_id`` in candidate order), the tracked features (``tracked``, with
+    their ``ids`` and ``lifetime``) and the new ones are pruned to
+    ``grid_max`` per cell (by lifetime in a cell that overflows), and the
+    kept entries fill the F slots in prune order.  Returns the new (ids,
+    lifetime, cam0, cam1, valid, next_id).  The kernel takes the F tracked
+    and C candidate entries as the front-end makes them: float32 (F, 2) and
+    (C, 2) points, int32 ids, lifetimes, scores and arrivals, bool flags and
+    a 0-dim int32 ``next_id``."""
+    args = (curr, cam1_curr, tracked, ids, lifetime, apts, ascore, aarrival, ainlier, acam1,
+            next_id, grid_row, grid_col, H, W, grid_min, grid_max)
+    if not _on_cuda(curr, "K8"):
+        return select_track_plain(*args)
+    kernels.observe("select_track", args)
+    F, C = curr.shape[0], apts.shape[0]
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    for t, dtype, shape in ((curr, f32, (F, 2)), (cam1_curr, f32, (F, 2)), (tracked, b8, (F,)),
+                            (ids, i32, (F,)), (lifetime, i32, (F,)), (apts, f32, (C, 2)),
+                            (ascore, i32, (C,)), (aarrival, i32, (C,)), (ainlier, b8, (C,)),
+                            (acam1, f32, (C, 2)), (next_id, i32, ())):
+        if t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"select_track: expected contiguous {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    # one allocation: the outputs (ids, lifetime, cam0, cam1, next_id,
+    # valid), then the working arrays where they outgrow shared memory
+    n_out = (24 * F + 4 + F + 15) // 16 * 16
+    ws = 16 * (F + C) + 4 * (2 * C + grid_row * grid_col + F) + F + C  # gridops.cu select_bytes
+    buf = torch.empty((n_out + ws if ws > kernels.SMEM_PER_BLOCK else n_out,),
+                      dtype=torch.uint8, device=curr.device)
+    base = buf.data_ptr()
+    kernels.launch("grid_select_track_f32", curr.data_ptr(), cam1_curr.data_ptr(),
+                   tracked.data_ptr(), ids.data_ptr(), lifetime.data_ptr(), F, apts.data_ptr(),
+                   ascore.data_ptr(), aarrival.data_ptr(), ainlier.data_ptr(), acam1.data_ptr(), C,
+                   next_id.data_ptr(), int(grid_row), int(grid_col), int(H), int(W),
+                   int(grid_min), int(grid_max), base,
+                   base + n_out if buf.shape[0] > n_out else None)
+    select_track.launches += 1
+    ints = buf[:24 * F + 4].view(i32)
+    pts = ints[2 * F:6 * F].view(f32)
+    return (ints[:F], ints[F:2 * F], pts[:2 * F].view(F, 2), pts[2 * F:].view(F, 2),
+            buf[24 * F + 4:25 * F + 4].view(b8), ints[6 * F])
+
+
 def _cell_shape(H, W, grid_row, grid_col):
     return int(math.ceil(H / grid_row)), int(math.ceil(W / grid_col))
 
@@ -254,5 +350,5 @@ def dense_grid_topk(score: torch.Tensor, grid_row: int, grid_col: int, k: int):
 
 K8_WRAPPERS = (rank_in_cell, kept_order_stats, compact_kept, smallest_k_indices,
                stable_compact_indices)
-for _fn in (dense_grid_topk,) + K8_WRAPPERS:
+for _fn in (dense_grid_topk, select_track) + K8_WRAPPERS:
     _fn.launches = 0

@@ -12,12 +12,16 @@ kernel launches per frame (``LAUNCH_CALLS``: the runtime's and the
 driver's launch calls, the cluster and the cooperative launches included), device time per frame (the CUDA kernels' self time) and its share
 of the window's wall time, the most frequent kernels, and each
 hand-written kernel's launches per frame and device time per launch (us).  The index glue
-K15 (``augment_state``, the prune's window compaction, ``online_reset``) and
+K15 (``augment_state``, the prune's window compaction, ``online_reset``),
 the EKF updates (``apply_update``, K11, and ``apply_update_rank12``, K12,
-as the back-end step calls them) run under profiler spans, and the launches
-made under each are counted (per frame for K15, per call for the updates).
-Prints one JSON line with the card's name and power limit.  Needs a CUDA
-device.
+as the back-end step calls them) and the front-end's fused calls (the
+per-cell selection ``select_track`` and the prediction
+``predict_warp_points`` as ``pipeline`` calls them, the stereo gate
+``stereo_gate`` as ``stereo`` calls it) run
+under profiler spans, and the launches made under each are counted (per
+frame for K15; per call and per frame for the rest).  A span absent from the
+profiled code (an older tree) reports nothing.  Prints one JSON line with
+the card's name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,9 +61,11 @@ EKF_FUNCTIONS = ("apply_update", "apply_update_rank12")
 
 def span_functions(module, names, prefix):
     """Rebind ``module.<name>`` so each call runs under a profiler span
-    ``<prefix> <name>``; returns the originals for ``restore``."""
-    originals = {name: getattr(module, name) for name in names}
-    for name, fn in originals.items():
+    ``<prefix> <name>``; returns {(module, name): original} for restoring.
+    Names the module lacks are skipped."""
+    originals = {(module, name): getattr(module, name) for name in names
+                 if hasattr(module, name)}
+    for (_, name), fn in originals.items():
         def spanned(*args, _fn=fn, _label=f"{prefix} {name}", **kwargs):
             with torch.profiler.record_function(_label):
                 return _fn(*args, **kwargs)
@@ -70,13 +76,15 @@ def span_functions(module, names, prefix):
 
 def count_under(events, prefix, names=LAUNCH_CALLS):
     """{span: [number of events named in ``names`` below it in the CPU call
-    tree, number of spans]} for the spans whose name starts with ``prefix``."""
+    tree, number of spans]} for the spans whose name starts with ``prefix``.
+    Only the host side of a span counts: the profiler also lists each span
+    once more on the device side, without children."""
     def below(ev):
         return sum((c.name in names) + below(c) for c in ev.cpu_children)
 
     counts = {}
     for ev in events:
-        if ev.name.startswith(prefix):
+        if ev.name.startswith(prefix) and ev.device_type == torch.autograd.DeviceType.CPU:
             c = counts.setdefault(ev.name, [0, 0])
             c[0] += below(ev)
             c[1] += 1
@@ -95,6 +103,7 @@ def main(argv=None):
     from . import device
     from .models import vio
     from .models.msckf import step
+    from .models.frontend import pipeline, stereo
 
     dev = device.get_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -118,6 +127,9 @@ def main(argv=None):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     originals = span_functions(step, K15_FUNCTIONS, "K15")
     originals.update(span_functions(step, EKF_FUNCTIONS, "EKF"))
+    # the front-end's fused calls, spanned where the front-end calls them
+    originals.update(span_functions(pipeline, ("select_track", "predict_warp_points"), "FE"))
+    originals.update(span_functions(stereo, ("stereo_gate",), "FE"))
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -125,16 +137,17 @@ def main(argv=None):
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
     finally:
-        for name, fn in originals.items():
-            setattr(step, name, fn)
+        for (module, name), fn in originals.items():
+            setattr(module, name, fn)
     n = b - a
     k15 = count_under(prof.events(), "K15")
     ekf = count_under(prof.events(), "EKF")
+    fe = count_under(prof.events(), "FE")
     events = prof.key_averages()
     launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
     # the spans show up on the device side too, as long as the kernels under them
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0 and not e.key.startswith(("K15", "EKF"))]
+               and e.self_device_time_total > 0 and not e.key.startswith(("K15", "EKF", "FE"))]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.count)[:12]
     # the hand-written kernels of csrc/ (each in an anonymous namespace of its own)
@@ -148,6 +161,9 @@ def main(argv=None):
         "launches_per_frame": launches / n,
         "k15_launches_per_frame": {name: c[0] / n for name, c in sorted(k15.items())},
         "ekf_launches_per_call": {name: [c[0] / c[1], c[1]] for name, c in sorted(ekf.items())},
+        # [launches per call, calls, launches per frame]
+        "frontend_launches": {name: [c[0] / c[1], c[1], c[0] / n]
+                              for name, c in sorted(fe.items())},
         "device_ms_per_frame": device_us / 1e3 / n,
         "profiled_wall_ms_per_frame": prof_wall * 1e3 / n,
         "device_busy_share": device_us / 1e6 / prof_wall,
