@@ -10,7 +10,10 @@
    (both cameras' pyramids in one launch, and one camera's) and K4+K6
    (FAST + mask + NMS) exactly, K1 (LK; temporal 104
    points x 2 levels, stereo forward 204 x 2, backward 204 x level 0) status
-   agreeing on >= 99% of points and agreeing points within 1e-3 px.
+   agreeing on >= 99% of points and agreeing points within 1e-3 px; after
+   the warm run (3.) K1 again, with the same bars, on a few of the warm
+   run's recorded calls of each shape (temporal, stereo forward and
+   backward), each shape timed through the wrapper and on the device.
 3. Main path, warm run: the bench world as bench.py renders it
    (euroc_config, seed 5, 200 frames) through ``run_sequence`` on the card,
    with an observer (``kernels.observer``) recording the arguments of the
@@ -18,7 +21,9 @@
 4. Back-end kernels against their plain versions on those recorded calls
    (real filter states of the bench world), plus forced cases the bench
    world may not reach:
-   - K14 (propagation, 11 IMU samples): within 1e-5 relative;
+   - K14 (propagation, on every call of the warm run and a forced call of
+     11 IMU samples): every field it writes within 1e-5 relative, one
+     launch a call; timed through the wrapper and on the device;
    - K13 (triangulation, every recorded B and B = 128): validity identical,
      positions within 1e-4 of max(|p|, 1) for 95% of the features and within
      1e-3 for each (a cost comparison that ties within rounding can take the
@@ -135,7 +140,8 @@
    1500 mask points; K2 1440x1080 and 2048x1536 at four levels, exactly,
    and 752x480 still one launch; K13 N = 65 and 300; K9 N = 35, 49, 70;
    K10 on those blocks; K11 at D = 561 on T1, T2 = 1,122 rows and QR; K1
-   at window sides 17, 21, 33 on both trackers, K1's bars); then
+   at window sides 17, 21, 33 on both trackers, K1's bars; K14 at D = 441,
+   float32 and float64, its bars 1e-5 and 1e-12 relative); then
    LIMIT_FRAMES frames of run_sequence under LIMITS, counters at 0: every
    kernel of that path launched, the active frames' poses within 1e-4 m
    of the port's plain path on the host.
@@ -376,8 +382,11 @@ def check_kernels(config, frames, dev):
                  f"{int(both_ok.sum())} tracked")
         ms = cuda_ms(lambda: lk.pyramidal_lk(pp, cp, p0, p1, v, **args))
         pms = cuda_ms(lambda: lk.pyramidal_lk_plain(pp, cp, p0, p1, v, **args), reps=10)
+        _, us = _profile_calls(lambda: lk.pyramidal_lk(pp, cp, p0, p1, v, **args),
+                               kernels=("lk_kernel",))
         print(f"[K1] {label}: status agreement {agree:.4f}, max err {err:.3e} px "
-              f"({int(both_ok.sum())} tracked); {ms:.4f} ms vs plain {pms:.4f} ms")
+              f"({int(both_ok.sum())} tracked); {ms:.4f} ms through the wrapper, {us:.1f} us "
+              f"on the device, vs plain {pms:.4f} ms")
         err_all, ms_all, plain_all = max(err_all, err), ms_all + ms, plain_all + pms
         # per valid point and level, the (15+2)^2 patch of the previous image
         # (template and its gradients) and at least one of the current image;
@@ -391,8 +400,18 @@ def check_kernels(config, frames, dev):
     return res
 
 
-def check_propagate(filter_state, params, frames, k):
-    """K14 against its plain version on a real covariance."""
+def _prop_err(got, want):
+    """The largest difference over the fields K14 writes, each relative to
+    the field's largest entry."""
+    fields = ("q", "v", "p", "q_null", "v_null", "p_null", "timestamp")
+    pairs = [(got.cov, want.cov)] + [(getattr(got.imu, f), getattr(want.imu, f)) for f in fields]
+    return max(float((g - w).abs().max() / w.abs().max().clamp(min=1e-30)) for g, w in pairs)
+
+
+def check_propagate(rec, filter_state, params, frames, k):
+    """K14 against its plain version on every call of the warm run (real
+    filter states and IMU slices) and on a forced 11-sample call; timed
+    (and its device us and launches a call taken) on the forced call."""
     import torch
 
     from uav_airvision_tpu_torch.models.msckf import propagation
@@ -407,23 +426,66 @@ def check_propagate(filter_state, params, frames, k):
     n_valid = int(frames.imu_mask[k].sum())
     got = propagation.propagate(*args)
     want = propagation.propagate_plain(*args)
-    err = 0.0
-    for g, w in ((got.cov, want.cov), (got.imu.q, want.imu.q), (got.imu.v, want.imu.v),
-                 (got.imu.p, want.imu.p), (got.imu.q_null, want.imu.q_null)):
-        err = max(err, float((g - w).abs().max() / w.abs().max().clamp(min=1e-30)))
+    err = _prop_err(got, want)
     abs_err = float((got.cov - want.cov).abs().max())
     if not err <= 1e-5 or not torch.isfinite(got.cov).all():
         fail(f"K14 propagate: relative error {err:.3e} > 1e-5")
+    calls = rec.samples("K14")
+    worst, bad = 0.0, 0
+    for shape, a in calls:
+        e = _prop_err(propagation.propagate(*a), propagation.propagate_plain(*a))
+        worst = max(worst, e)
+        bad += not e <= 1e-5
+    if not calls or bad:
+        fail(f"K14 propagate: {bad} of {len(calls)} recorded calls past 1e-5 relative "
+             f"(worst {worst:.3e})")
     ms = cuda_ms(lambda: propagation.propagate(*args))
     pms = cuda_ms(lambda: propagation.propagate_plain(*args), reps=10)
-    print(f"[K14] propagate {n_valid} IMU samples, {tuple(got.cov.shape)} covariance: "
-          f"relative error {err:.3e}; {ms:.4f} ms vs plain {pms:.4f} ms")
-    # per valid sample ~119 kFLOP of 21x21 products (Fdt^2, Fdt^3, the
-    # composition, Phi G, Q); then Phi P_ii Phi^T, Phi P_ic, the symmetrization
+    launches, us = _profile_calls(lambda: propagation.propagate(*args),
+                                  kernels=("propagate_kernel",))
+    if launches != 1.0:
+        fail(f"K14 propagate made {launches:.2f} launches a call, not one")
+    print(f"[K14] propagate, every call of the warm run ({len(calls)}, shapes "
+          f"{sorted({sh for sh, _ in calls})}): max relative error {worst:.3e} (bar 1e-5); "
+          f"forced {n_valid} IMU samples, {tuple(got.cov.shape)} covariance: relative error "
+          f"{err:.3e}; {ms:.4f} ms through the wrapper, {us:.1f} us on the device, "
+          f"{launches:.2f} launches a call, vs plain {pms:.4f} ms")
+    # per valid sample ~22 kFLOP: the transition and noise by 3x3 block
+    # (Q = (Phi G qc) (Phi G)^T: 8 kFLOP) and one fold step (two 15x15
+    # products: 13.5 kFLOP); then Phi P_ii Phi^T, Phi P_ic, the symmetrization
     D = filter_state.cov.shape[0]
-    ops = n_valid * 119_000 + 2 * 2 * 21 ** 3 + 2 * 21 * 21 * (D - 21) + D * D
+    ops = n_valid * 22_000 + 2 * 2 * 21 ** 3 + 2 * 21 * 21 * (D - 21) + D * D
     b = bound(nbytes(filter_state.cov, got.cov, *args[2:]), ops)
     return abs_err, ms, pms, *b
+
+
+def check_lk_recorded(rec):
+    """K1 against its plain version on the warm run's recorded calls (the
+    temporal, stereo forward and backward calls; a few calls of each shape),
+    with K1's bars; each shape timed through the wrapper and on the device."""
+    from uav_airvision_tpu_torch.ops import lk
+
+    calls = rec.samples("K1")
+    if not calls:
+        fail("the warm run made no K1 call")
+        return
+    worst = 0.0
+    for shape, a in calls:
+        kn, ks = lk.pyramidal_lk(*a)
+        pn, ps = lk.pyramidal_lk_plain(*a)
+        agree = float((ks == ps).float().mean())
+        both = ks & ps
+        err = float((kn[both] - pn[both]).abs().max()) if bool(both.any()) else 0.0
+        worst = max(worst, err)
+        if agree < 0.99 or err > 1e-3:
+            fail(f"K1 recorded call {shape}: status agreement {agree:.4f}, max err {err:.2e} px")
+    for shape, a in sorted(rec.of("K1").items()):
+        ms = cuda_ms(lambda: lk.pyramidal_lk(*a))
+        _, us = _profile_calls(lambda: lk.pyramidal_lk(*a), kernels=("lk_kernel",))
+        print(f"[K1] recorded (F, levels) {shape} ({rec.counts[('K1', shape)]} calls): "
+              f"{ms:.4f} ms through the wrapper, {us:.1f} us on the device")
+    print(f"[K1] pyramidal_lk, {len(calls)} recorded calls (F, levels) in "
+          f"{sorted({sh for sh, _ in calls})}: within the bars (max err {worst:.3e} px)")
 
 
 class Recorder:
@@ -453,10 +515,12 @@ class Recorder:
         "stereo_gate": ("K7 stereo_gate", lambda a: a[0].shape[0]),
         "extract_windows": ("P1", lambda a: (a[1].shape[0], a[3])),
         "pyramidal_lk_level": ("K1 level", lambda a: (a[2].shape[0], a[6])),
+        "propagate": ("K14", lambda a: (tuple(a[0].cov.shape), a[2].shape[0])),
+        "pyramidal_lk": ("K1", lambda a: (a[2].shape[0], a[9])),
     }
     # kinds whose every call is kept (the fused front-end entry points: a
     # few hundred small calls a run)
-    EVERY_CALL = {"K8 select_track", "K7 predict_warp_points", "K7 stereo_gate"}
+    EVERY_CALL = {"K8 select_track", "K7 predict_warp_points", "K7 stereo_gate", "K14"}
 
     def __init__(self):
         self.calls, self.counts, self.history = {}, {}, {}
@@ -472,6 +536,8 @@ class Recorder:
             self.motion = n if self.motion is None else self.motion + n
             return
         label, shape = self.KEYS[name]
+        if label == "K14":  # propagation reads the IMU state and the covariance only
+            args = (args[0]._replace(features=None, cams=None), *args[1:])
         key = (label, shape(args))
         self.calls[key] = args
         n = self.counts[key] = self.counts.get(key, 0) + 1
@@ -1825,6 +1891,22 @@ def check_limits_kernels(dev):
         errs[f"K11 D=561 {upd.update_tier(1784, D, rows)}"] = err
         if not err <= 1e-12 or bool(warn) != bool(pwarn):
             fail(f"[limits] K11 D=561, {rows} rows: state error {err:.3e}")
+    # K14 at the configuration's window (70 slots: D = 441), float32 and float64
+    from uav_airvision_tpu_torch.models.msckf import propagation
+
+    for dtype in (torch.float32, torch.float64):
+        cfg, st, params, pw, obs, mask = window(70, dtype)
+        I = cfg.capacity.max_imu_per_frame
+        live = torch.arange(I, device=dev) < 11
+        imu_t = torch.where(live, st.imu.timestamp + 0.005 * torch.arange(1, I + 1, device=dev,
+                                                                         dtype=dtype), 0.0)
+        w = torch.as_tensor(rng.normal(0, 0.3, (I, 3)), device=dev).to(dtype)
+        a = torch.as_tensor(rng.normal([0, 0, 9.81], 0.5, (I, 3)), device=dev).to(dtype)
+        args = (st, params, imu_t, w, a, live)
+        err = _prop_err(propagation.propagate(*args), propagation.propagate_plain(*args))
+        errs[f"K14 D=441 {str(dtype)[6:]}"] = err
+        if not err <= (1e-5 if dtype == torch.float32 else 1e-12):
+            fail(f"[limits] K14 D=441 {dtype}: relative error {err:.3e}")
     # K1: window sides 17, 21 and 33 (the looped instantiation), both trackers
     base = rng.uniform(0, 255, (480 // 6 + 2, 752 // 6 + 2))
     img0 = np.clip(np.kron(base, np.ones((6, 6)))[:480, :752] + rng.normal(0, 2, (480, 752)),
@@ -1962,7 +2044,8 @@ def main() -> int:
         fail(f"K2 launched {k2_n} times for {N_FRAMES} frames, K10 {k10_n} times for "
              f"{k10_calls} gate calls: one launch each expected")
     params = make_params(config, dev)
-    results["K14"] = check_propagate(state.filter, params, frames, N_FRAMES // 2)
+    results["K14"] = check_propagate(rec, state.filter, params, frames, N_FRAMES // 2)
+    check_lk_recorded(rec)
     results.update(check_backend_kernels(rec, config, params))
     results.update(check_ekf_update(rec))
     results.update(check_gridops(rec))

@@ -160,14 +160,29 @@ def test_lost_overflow_second_pass_matches_jax(scenario64, jax_step64):
     assert np.diff(n_feat).min() < -cfg.capacity.max_lost_per_frame  # both passes ran
 
 
-@pytest.mark.parametrize("dtype,n_valid", [("float32", 11), ("float32", 40),
-                                           ("float64", 11), ("float64", 40)])
+# the IMU slices K14 is held to: n valid samples packed first, or the first
+# 24 slots with holes (masked samples that still carry their timestamps)
+PROP_CASES = [11, 40, 0, 1, 64, "holes"]
+PROP_HOLES = np.array([4, 5, 6, 13, 20])
+
+
+def prop_mask(case, I):
+    if case == "holes":
+        mask = np.arange(I) < 24
+        mask[PROP_HOLES] = False
+        return mask
+    return np.arange(I) < case
+
+
+@pytest.mark.parametrize("dtype,n_valid", [(d, n) for n in (11, 40) for d in ("float32", "float64")]
+                         + [(d, n) for n in PROP_CASES[2:] for d in ("float32", "float64")])
 def test_propagate_plain_matches_jax(dtype, n_valid):
     """K14's plain version: relative error <= 1e-5 in float32 (sums in
-    another order), <= 1e-12 in float64."""
+    another order), <= 1e-12 in float64; with no valid sample, one, a full
+    64-slot slice, and a slice with holes."""
     cfg = euroc_config(dtype=dtype)
     npdt = np.dtype(dtype)
-    rng = np.random.default_rng(n_valid)
+    rng = np.random.default_rng(n_valid if isinstance(n_valid, int) else 99)
     jparams = jstate.make_params(cfg)
     js = jstate.init_state(cfg, jparams, np.array([2e-3, -1e-3, 5e-4]),
                            np.array([0.3, -0.2, 9.79]))
@@ -186,13 +201,14 @@ def test_propagate_plain_matches_jax(dtype, n_valid):
         timestamp=jnp.asarray(npdt.type(3.0)))
     js = js._replace(imu=imu, cov=jnp.asarray((A @ A.T + 0.01 * np.eye(D)).astype(npdt)))
     I = cfg.capacity.max_imu_per_frame
+    mask = prop_mask(n_valid, I)
+    n = int(np.nonzero(mask)[0].max()) + 1 if mask.any() else 0  # slots with a time
     imu_t = np.zeros(I, npdt)
-    imu_t[:n_valid] = 3.0 + 0.005 * np.arange(1, n_valid + 1)
+    imu_t[:n] = 3.0 + 0.005 * np.arange(1, n + 1)
     imu_w = np.zeros((I, 3), npdt)
-    imu_w[:n_valid] = rng.normal(0, 0.3, (n_valid, 3))
+    imu_w[:n] = rng.normal(0, 0.3, (n, 3))
     imu_a = np.zeros((I, 3), npdt)
-    imu_a[:n_valid] = rng.normal([0, 0, 9.81], 0.5, (n_valid, 3))
-    mask = np.arange(I) < n_valid
+    imu_a[:n] = rng.normal([0, 0, 9.81], 0.5, (n, 3))
     want = jax.jit(jprop.propagate)(js, jparams, jnp.asarray(imu_t), jnp.asarray(imu_w),
                                     jnp.asarray(imu_a), jnp.asarray(mask))
     got = tprop.propagate(convert.to_torch(js, CPU), convert.to_torch(jparams, CPU),
@@ -203,6 +219,30 @@ def test_propagate_plain_matches_jax(dtype, n_valid):
         assert_close(getattr(got.imu, f).numpy(), getattr(want.imu, f), tol, f)
     assert int(got.imu.sid) == int(want.imu.sid)
     assert_close(got.cov.numpy(), want.cov, tol, "cov")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("L", [0, 1, 5, 11, 16, 17, 40, 64])
+def test_fold_pairs_up_to_the_next_power_of_two_exact(dtype, L):
+    """K14 folds the (Phi_i, Q_i) pairs only up to the next power of two
+    above the last valid slot L: the identity pairs past it compose exactly,
+    so that fold equals the plain version's over the whole 64-slot slice
+    bit for bit (holes inside the first L slots included)."""
+    rng = np.random.default_rng(L)
+    I, d = 64, 21
+    Phi = np.tile(np.eye(d), (I, 1, 1))
+    Q = np.zeros((I, d, d))
+    live = np.arange(I) < L
+    live[PROP_HOLES[PROP_HOLES < L - 1]] = False
+    n = int(live.sum())
+    Phi[live] += rng.normal(0, 0.1, (n, d, d))
+    A = rng.normal(0, 0.1, (n, d, d))
+    Q[live] = A @ A.transpose(0, 2, 1)
+    Phi, Q = torch.as_tensor(Phi, dtype=dtype), torch.as_tensor(Q, dtype=dtype)
+    n2 = 1 << max(L - 1, 0).bit_length()
+    full = tprop.fold_pairs(Phi, Q)
+    cut = tprop.fold_pairs(Phi[:n2], Q[:n2])
+    assert torch.equal(full[0], cut[0]) and torch.equal(full[1], cut[1])
 
 
 @pytest.fixture(scope="module")

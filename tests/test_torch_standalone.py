@@ -28,6 +28,7 @@ from uav_airvision_tpu_torch import config as tconfig
 from uav_airvision_tpu_torch import device, kernels
 from uav_airvision_tpu_torch.evaluation import metrics as tmetrics
 from uav_airvision_tpu_torch.models import vio
+from uav_airvision_tpu_torch.models.msckf import propagation as tprop
 from uav_airvision_tpu_torch.models.msckf import triangulation as ttri
 from uav_airvision_tpu_torch.models.msckf import update as tupd
 from uav_airvision_tpu_torch.ops import camera as tcam
@@ -63,6 +64,38 @@ def test_port_imports_no_jax(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "uav_airvision_tpu"), f"{path.name} imports {name}"
+
+
+def _relative_imports(path: Path):
+    """(line, dotted module) of every relative import of a module, resolved
+    against its package, and for ``from . import x`` each name x."""
+    pkg = path.relative_to(ROOT).with_suffix("").parts[:-1]
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.ImportFrom) and node.level > 0:
+            base = pkg[:len(pkg) - (node.level - 1)]
+            if node.module:
+                yield node.lineno, (*base, *node.module.split(".")), ()
+            else:
+                yield node.lineno, base, tuple(a.name for a in node.names)
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "uav_airvision_tpu_torch").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_relative_imports_resolve(path):
+    """Every relative import of a port module names a module the port has
+    (a bare ``except`` once hid an import of a module the port lacks), and
+    ``from . import x`` a submodule or a name of the package's __init__."""
+    for line, parts, names in _relative_imports(path):
+        target = ROOT.joinpath(*parts)
+        module = target.with_suffix(".py")
+        assert module.is_file() or (target / "__init__.py").is_file(), (
+            f"{path.name}:{line} imports {'.'.join(parts)}, which the port does not have")
+        for name in names:
+            init = (target / "__init__.py")
+            defined = name in {n.id for n in ast.walk(ast.parse(init.read_text()))
+                               if isinstance(n, ast.Name)} if init.is_file() else False
+            assert ((target / f"{name}.py").is_file() or (target / name / "__init__.py").is_file()
+                    or defined), f"{path.name}:{line} imports {name} from {'.'.join(parts)}"
 
 
 @pytest.mark.parametrize("make", [lambda m: m.euroc_config(),
@@ -271,7 +304,7 @@ def _launch_counts():
            tupd.apply_update_rank12, tupd.ekf_update, tupd.apply_update, tgrid.dense_grid_topk,
            *tgrid.K8_WRAPPERS, tgrid.select_track,
            *tcam.WRAPPERS, tcam.predict_warp_points, tcam.stereo_gate, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk,
-           tpyr.build_pyramid_pair, tpyr.build_pyramid_padded)
+           tpyr.build_pyramid_pair, tpyr.build_pyramid_padded, tprop.propagate)
     return tuple(fn.launches for fn in fns)
 
 
@@ -287,7 +320,7 @@ def _assert_identical(got, want):
 
 
 @pytest.mark.parametrize("kernel", ["K13", "K9", "K9_prune", "K10", "K12", "K11", "K5", "K8",
-                                    "K7", "P1", "K1_level", "K2"])
+                                    "K7", "P1", "K1_level", "K2", "K14", "K1"])
 def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
     """On CPU tensors each kernel's public wrapper returns exactly what its
     plain version returns, counts no launch and reports no call to the
@@ -365,6 +398,28 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
         arrays, statics = select_inputs(8, 104, 100, "ties")
         args = (*map(torch.as_tensor, arrays), *statics)
         _assert_identical(tgrid.select_track(*args), tgrid.select_track_plain(*args))
+    elif kernel == "K14":
+        I = cfg.capacity.max_imu_per_frame
+        rng = np.random.default_rng(14)
+        t0 = float(state.imu.timestamp)
+        for n in (0, 11):
+            imu_t = torch.where(torch.arange(I) < n, t0 + 0.005 * torch.arange(1, I + 1), 0.0)
+            w = torch.as_tensor(rng.normal(0, 0.3, (I, 3)))
+            a = torch.as_tensor(rng.normal([0, 0, 9.81], 0.5, (I, 3)))
+            args = (state, params, imu_t.double(), w, a, torch.arange(I) < n)
+            _assert_identical(tuple(torch.utils._pytree.tree_leaves(tprop.propagate(*args))),
+                              tuple(torch.utils._pytree.tree_leaves(tprop.propagate_plain(*args))))
+    elif kernel == "K1":
+        rng = np.random.default_rng(1)
+        img0, img1 = (torch.as_tensor(rng.integers(0, 256, (120, 160)), dtype=torch.uint8)
+                      for _ in range(2))
+        p0, p1 = tpyr.build_pyramid_padded(img0, 3), tpyr.build_pyramid_padded(img1, 3)
+        pts = torch.as_tensor(rng.uniform([5, 5], [155, 115], (30, 2)), dtype=torch.float32)
+        valid = torch.as_tensor(rng.uniform(size=30) < 0.9)
+        for kw in (dict(n_levels=2, max_iter_upper=5), dict(n_levels=1)):
+            _assert_identical(tlk.pyramidal_lk(p0, p1, pts, pts + 1.5, valid, max_iter=10, **kw),
+                              tlk.pyramidal_lk_plain(p0, p1, pts, pts + 1.5, valid, max_iter=10,
+                                                     **kw))
     elif kernel in ("P1", "K1_level"):
         img = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (120, 160)),
                               dtype=torch.uint8)

@@ -1,5 +1,6 @@
-"""Device time per launch of the port's K2 (pyramid), K10 (gate) and K11 (EKF
-update) kernels, alone on the card, by torch.profiler.
+"""Device time per launch of the port's K2 (pyramid), K10 (gate), K11 (EKF
+update), K14 (IMU propagation) and K1 (LK) kernels, alone on the card, by
+torch.profiler.
 
     python tools/kernel_probe.py [--frames 60]
 
@@ -14,7 +15,13 @@ bounds' pass side (no gamma) and forced undecided (gamma on every block).
 K11: the latest ``apply_update`` call of that run, its true rows repeated
 (each copy scaled a little differently) to 4 to 282 rows, and past T2 to
 the QR tier, beside ``torch.linalg.solve(S, HP)`` at the same rows, with
-the SM clock cycles of each of the kernel's phases.
+the SM clock cycles of each of the kernel's phases.  K14: a 141 and a 441
+covariance (20 and 70 window slots) with 1, 11 and 64 valid IMU samples of
+the 64-slot slice, float32, with the SM clock cycles of its four phases
+(the state chain, Phi_i and Q_i, the fold, the covariance pass).  K1: the
+latest ``pyramidal_lk`` call of each shape in the run (the temporal,
+stereo forward and backward calls), and each 2-level call again with its
+level 0 alone (n_levels 1): the difference is level 1's.
 Prints one line per case: the device time of each kernel the call launched
 (us per launch) and the wall time per call by CUDA events.  Needs a CUDA
 device; prints the card's name and power limit first.
@@ -61,7 +68,7 @@ def main(argv=None) -> None:
 
     from uav_airvision_tpu_torch import device, kernels
     from uav_airvision_tpu_torch.models import vio
-    from uav_airvision_tpu_torch.models.msckf import update
+    from uav_airvision_tpu_torch.models.msckf import propagation, update
     from uav_airvision_tpu_torch.ops import pyramid
     from uav_airvision_tpu_torch.profile_main import render
 
@@ -86,13 +93,15 @@ def main(argv=None) -> None:
     probe("K2 pair, cam0 at an odd address", lambda: pyramid.build_pyramid_pair(odd, img1, 3))
     probe("K2 one camera", lambda: pyramid.build_pyramid_padded(img0, 3))
 
-    calls, ekf = {}, []
+    calls, ekf, lk_calls = {}, [], {}
 
     def record(name, a):
         if name == "gating_test_batch":
             calls[tuple(a[0].shape)] = a
         elif name == "apply_update":
             ekf[:] = [a]
+        elif name == "pyramidal_lk":
+            lk_calls[(a[2].shape[0], a[9])] = a
 
     kernels.observer = record
     frames = vio.frames_from_prebatch(pb, cam0, cam1, dev)
@@ -135,6 +144,14 @@ def main(argv=None) -> None:
                 rows, device=dev, dtype=H.dtype)
             HP = H[:rows] @ state.cov
             probe(f"torch.linalg.solve(S, HP), {rows} rows", lambda: torch.linalg.solve(S, HP))
+    probe_propagate(config, dev)
+    from uav_airvision_tpu_torch.ops import lk
+
+    for (F, levels), a in sorted(lk_calls.items()):
+        probe(f"K1 pyramidal_lk, {F} points x {levels} level(s)", lambda: lk.pyramidal_lk(*a))
+        if levels == 2:
+            one = (*a[:9], 1, a[10])
+            probe(f"K1 pyramidal_lk, {F} points, level 0 alone", lambda: lk.pyramidal_lk(*one))
     for shape, a in calls.items():
         if shape[1] <= 32:
             H, cov, s2 = a[0], a[3], a[4]
@@ -142,6 +159,44 @@ def main(argv=None) -> None:
             probe(f"torch.linalg.cholesky_ex of the {shape} gate's S",
                   lambda: torch.linalg.cholesky_ex(S))
 
+
+def probe_propagate(config, dev) -> None:
+    """K14 on a random SPD covariance and IMU slice (float32): device us a
+    launch and the SM clock cycles of its phases."""
+    import dataclasses
+
+    import numpy as np
+
+    from uav_airvision_tpu_torch.models.msckf import propagation
+    from uav_airvision_tpu_torch.models.msckf.state import init_state, make_params
+
+    rng = np.random.default_rng(14)
+    params = make_params(config, dev)
+    I = config.capacity.max_imu_per_frame
+    for N in (20, 70):
+        cfg = dataclasses.replace(config, capacity=dataclasses.replace(
+            config.capacity, max_cam_states=N))
+        state = init_state(cfg, params, np.zeros(3), np.array([0.0, 0.0, 9.81]))
+        D = 21 + 6 * N
+        A = torch.as_tensor(rng.normal(0, 0.05, (D, D)), device=dev)
+        state = state._replace(cov=(A @ A.T / D + 1e-3 * torch.eye(D, device=dev, dtype=A.dtype))
+                               .to(state.cov.dtype))
+        dt = state.cov.dtype
+        w = torch.as_tensor(rng.normal(0, 0.3, (I, 3)), device=dev).to(dt)
+        a = torch.as_tensor(rng.normal([0, 0, 9.81], 0.5, (I, 3)), device=dev).to(dt)
+        for n in (1, 11, 64):
+            live = torch.arange(I, device=dev) < n
+            t = torch.where(live, 0.005 * torch.arange(1, I + 1, device=dev, dtype=dt), 0.0)
+            args = (state, params, t, w, a, live)
+            probe(f"K14 propagate, D = {D}, {n} valid IMU samples", lambda: propagation.propagate(*args))
+            clocks = torch.zeros(10, dtype=torch.int64, device=dev)
+            propagation.propagate(*args, clocks=clocks)
+            c = clocks.tolist()
+            steps = "/".join(str(c[k] - c[k - 1]) for k in range(2, 7))
+            print(f"  K14 phases, SM clock cycles: inputs {c[1] - c[0]}, state chain {c[6] - c[1]} "
+                  f"(steps: integrators/products/rotations/sums/constraints {steps}), Phi_i and "
+                  f"Q_i {c[7] - c[6]}, fold {c[8] - c[7]}, first 21 rows and columns "
+                  f"{c[9] - c[8]}; total {c[9] - c[0]}", flush=True)
 
 if __name__ == "__main__":
     main()

@@ -68,10 +68,11 @@ SIGNATURES = {
     "pyramidal_lk_level": [P, I, I, P, P, P, P, P, I, I, I, F, F, P, P, P, I, P],
     # img, HP, WP, oy, ox, origin stride, F, n, out, stream
     "extract_windows": [P, I, I, P, P, I, I, I, P, P],
-    # imu_t, imu_w, imu_a, imu_mask, I, state_in, qc, cov_in, D,
-    # state_out, cov_out, stream
-    "propagate_f32": [P, P, P, P, I, P, P, P, I, P, P, P],
-    "propagate_f64": [P, P, P, P, I, P, P, P, I, P, P, P],
+    # imu_t, imu_w, imu_a, imu_mask, I, q, p, v, bg, ba, q_null, p_null,
+    # v_null, timestamp, gravity, sid, qc, cov_in, D, state_out, sid_out,
+    # cov_out, work, clocks, stream
+    "propagate_f32": [P, P, P, P, I, *[P] * 10, P, P, P, I, P, P, P, P, P, P],
+    "propagate_f64": [P, P, P, P, I, *[P] * 10, P, P, P, I, P, P, P, P, P, P],
     # cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B, huber_eps,
     # precision, damping, outer_max, inner_max, pos_out, ok_out, stream
     "triangulate_f32": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P],

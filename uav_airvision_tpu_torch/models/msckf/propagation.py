@@ -1,7 +1,8 @@
 """IMU propagation: error-state transition and covariance, OC-EKF
 constrained.  Port of uav_airvision_tpu/models/msckf/propagation.py.
 
-``propagate`` launches kernel K14 (``csrc/propagate.cu``, one block) on a
+``propagate`` launches kernel K14 (``csrc/propagate.cu``: one launch of one
+block, in the same four phases, folding with the same association) on a
 CUDA state and runs the plain PyTorch version ``propagate_plain`` on a CPU
 state.  The plain version keeps the JAX package's batched phases: prefix
 products of the per-sample quaternion integrators, RK4 velocity/position as
@@ -35,6 +36,26 @@ def _omega_mat(gyro, half_dt):
     exact = c * eye4 + s * Omega
     approx = c * (eye4 + Omega * half_dt[:, None, None])
     return torch.where(big[:, None, None], exact, approx)
+
+
+def fold_pairs(Phi, Q):
+    """The composition of the per-sample (Phi_i, Q_i) (n, d, d): adjacent
+    pairs fold as (Phi_b Phi_a, (Phi_b Q_a) Phi_b^T + Q_b), level by level,
+    the stack padded with identity pairs to a power of two (the JAX
+    package's association).  Returns (Phi_tot, Q_tot)."""
+    n, d = Phi.shape[0], Phi.shape[-1]
+    if n & (n - 1):
+        n2 = 1 << (n - 1).bit_length()
+        eye = torch.eye(d, dtype=Phi.dtype, device=Phi.device)
+        Phi = torch.cat([Phi, eye.expand(n2 - n, d, d)])
+        Q = torch.cat([Q, torch.zeros((n2 - n, d, d), dtype=Q.dtype, device=Q.device)])
+        n = n2
+    while n > 1:
+        Pa, Qa, Pb, Qb = Phi[0::2], Q[0::2], Phi[1::2], Q[1::2]
+        Phi = Pb @ Pa
+        Q = Pb @ Qa @ Pb.transpose(-1, -2) + Qb
+        n //= 2
+    return Phi[0], Q[0]
 
 
 def propagate_plain(state: FilterState, params: MsckfParams, imu_t, imu_w, imu_a,
@@ -117,19 +138,7 @@ def propagate_plain(state: FilterState, params: MsckfParams, imu_t, imu_w, imu_a
     Q = torch.einsum("nik,k,njk->nij", PhiG, qc, PhiG) * dt[:, None, None]
     Q = torch.where(m[:, None, None], Q, 0.0)
 
-    # pairwise fold of (Phi_b Phi_a, Phi_b Q_a Phi_b^T + Q_b); identity pads
-    n = I
-    if n & (n - 1):
-        n2 = 1 << (n - 1).bit_length()
-        Phi = torch.cat([Phi, eyeI.expand(n2 - n, IMU_DIM, IMU_DIM)])
-        Q = torch.cat([Q, torch.zeros((n2 - n, IMU_DIM, IMU_DIM), dtype=dtype, device=dev)])
-        n = n2
-    while n > 1:
-        Pa, Qa, Pb, Qb = Phi[0::2], Q[0::2], Phi[1::2], Q[1::2]
-        Phi = Pb @ Pa
-        Q = Pb @ Qa @ Pb.transpose(-1, -2) + Qb
-        n //= 2
-    Phi_tot, Q_tot = Phi[0], Q[0]
+    Phi_tot, Q_tot = fold_pairs(Phi, Q)
 
     cov = state.cov.clone()
     P_ii = Phi_tot @ cov[:IMU_DIM, :IMU_DIM] @ Phi_tot.T + Q_tot
@@ -157,45 +166,81 @@ def propagate_plain(state: FilterState, params: MsckfParams, imu_t, imu_w, imu_a
     return state._replace(imu=imu, cov=cov)
 
 
+# The kernel's layout (csrc/propagate.cu): 24 (Phi, Q) nodes of 2 x 15 x 15
+# values in shared memory, then the staged inputs (8 per IMU slot and 48),
+# the slots (163 values each) and, past 16 slots, a chunk root (a node) per
+# 16 slots of the next power of two: in shared memory where they fit, else
+# in a device workspace.
+_NODE_VALS, _SLOT_VALS, _FIXED_VALS = 450, 163, 24 * 450
+_ENTRIES = {torch.float32: "propagate_f32", torch.float64: "propagate_f64"}
+_FIELD_SIZES = (4, 3, 3, 3, 3, 4, 3, 3, 1, 3)
+
+
+def _workspace_values(I: int, itemsize: int) -> int:
+    """Values of the device workspace K14 needs for I IMU slots (0 when its
+    inputs, slots and roots fit the block's shared memory)."""
+    n2 = 1 << max(I - 1, 0).bit_length()
+    rest = I * (8 + _SLOT_VALS) + 48 + (n2 // 16 if n2 > 16 else 0) * _NODE_VALS
+    return rest if (_FIXED_VALS + rest) * itemsize > kernels.SMEM_PER_BLOCK else 0
+
+
 def propagate(state: FilterState, params: MsckfParams, imu_t, imu_w, imu_a,
-              imu_mask) -> FilterState:
+              imu_mask, clocks=None) -> FilterState:
     """Propagate the IMU state and covariance over one frame's padded IMU
-    slice (valid samples packed first)."""
+    slice (valid samples packed first).  ``clocks``, an int64 tensor of 10
+    on the card, receives the propagating block's SM clock at its start,
+    when its inputs are staged, at the end of each of the state chain's
+    five steps, of the first leaves, of the fold and of the first 21 rows
+    and columns (tools/kernel_probe.py)."""
     cov = state.cov
     if cov.device.type == "cpu":
         return propagate_plain(state, params, imu_t, imu_w, imu_a, imu_mask)
     if cov.device.type != "cuda":
         raise ValueError(f"K14 runs on CUDA tensors, got {cov.device}")
-    entry = {torch.float32: "propagate_f32", torch.float64: "propagate_f64"}.get(cov.dtype)
-    if entry is None:
-        raise ValueError(f"K14 takes float32 or float64, got {cov.dtype}")
     dtype = cov.dtype
+    entry = _ENTRIES.get(dtype)
+    if entry is None:
+        raise ValueError(f"K14 takes float32 or float64, got {dtype}")
     imu = state.imu
-    st_in = torch.cat([imu.q, imu.p, imu.v, imu.bg, imu.ba, imu.q_null, imu.p_null,
-                       imu.v_null, imu.timestamp[None], state.gravity]).to(dtype).contiguous()
-    imu_t = imu_t.to(dtype).contiguous()
-    imu_w = imu_w.to(dtype).contiguous()
-    imu_a = imu_a.to(dtype).contiguous()
-    imu_mask = imu_mask.to(torch.bool).contiguous()
-    qc = params.noise_qc_diag.to(dtype).contiguous()
-    cov = cov.contiguous()
-    kernels.check_cuda(cov, st_in, imu_t, imu_w, imu_a, imu_mask, qc)
-    I = imu_t.shape[0]
-    if (cov.shape[0] != cov.shape[1] or cov.shape[0] < IMU_DIM or imu_w.shape != (I, 3)
-            or imu_a.shape != (I, 3) or imu_mask.shape != (I,)):
-        raise ValueError("propagate: inconsistent covariance / IMU slice shapes")
-    st_out = torch.empty((21,), dtype=dtype, device=cov.device)
-    cov_out = torch.empty_like(cov)
-    kernels.launch(entry, kernels.ptr(imu_t), kernels.ptr(imu_w), kernels.ptr(imu_a),
-                   kernels.ptr(imu_mask), I, kernels.ptr(st_in),
-                   kernels.ptr(qc), kernels.ptr(cov), cov.shape[0],
-                   kernels.ptr(st_out), kernels.ptr(cov_out))
+    kernels.observe("propagate", (state, params, imu_t, imu_w, imu_a, imu_mask))
+    # the state's fields go to the kernel one pointer each: cast or copy only
+    # what is not already contiguous in the covariance's type
+    ins = [imu_t, imu_w, imu_a, params.noise_qc_diag, imu.q, imu.p, imu.v, imu.bg, imu.ba,
+           imu.q_null, imu.p_null, imu.v_null, imu.timestamp, state.gravity]
+    for k, x in enumerate(ins):
+        if x.dtype != dtype or not x.is_contiguous():
+            ins[k] = x.to(dtype).contiguous()
+    if imu_mask.dtype != torch.bool or not imu_mask.is_contiguous():
+        imu_mask = imu_mask.to(torch.bool).contiguous()
+    if not cov.is_contiguous():
+        cov = cov.contiguous()
+    sid = imu.sid
+    kernels.check_cuda(cov, imu_mask, sid, *ins)
+    I, D = ins[0].shape[0], cov.shape[0]
+    if (cov.shape != (D, D) or D < IMU_DIM or ins[1].shape != (I, 3) or ins[2].shape != (I, 3)
+            or imu_mask.shape != (I,) or ins[3].numel() != 12 or sid.dtype != torch.int32
+            or tuple(x.numel() for x in ins[4:]) != _FIELD_SIZES):
+        raise ValueError("propagate: inconsistent covariance / IMU slice / state shapes")
+    # one allocation: the covariance, the 21 state values and the sequence
+    # id, then the workspace (16-byte aligned) if the slots need one
+    ws = _workspace_values(I, cov.element_size())
+    n_out = D * D + 22
+    if ws:
+        n_out = -(-n_out * cov.element_size() // 16) * 16 // cov.element_size()
+    buf = torch.empty((n_out + ws,), dtype=dtype, device=cov.device)
+    st = buf[D * D:D * D + 22]
+    ptr = kernels.ptr
+    kernels.launch(entry, *(ptr(x) for x in ins[:3]), ptr(imu_mask), I,
+                   *(ptr(x) for x in ins[4:]), ptr(sid), ptr(ins[3]), ptr(cov), D,
+                   ptr(st), ptr(st) + 21 * cov.element_size(), ptr(buf),
+                   ptr(buf) + n_out * cov.element_size() if ws else None,
+                   ptr(clocks) if clocks is not None else None)
     propagate.launches += 1
     imu = imu._replace(
-        q=st_out[0:4], v=st_out[4:7], p=st_out[7:10], timestamp=st_out[10],
-        q_null=st_out[11:15], v_null=st_out[15:18], p_null=st_out[18:21],
-        sid=imu.sid + 1)
-    return state._replace(imu=imu, cov=cov_out)
+        q=st[0:4], v=st[4:7], p=st[7:10], timestamp=st[10],
+        q_null=st[11:15], v_null=st[15:18], p_null=st[18:21],
+        sid=st[21:].view(torch.int32)[0])
+    return state._replace(imu=imu, cov=buf[:D * D].view(D, D))
 
 
 propagate.launches = 0

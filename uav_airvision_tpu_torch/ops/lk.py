@@ -13,8 +13,9 @@ and search windows from ``curr_pyr``; the temporal tracker passes the
 previous frame's cam0 pyramid as ``prev_pyr``.
 
 On a CUDA tensor ``pyramidal_lk`` launches kernel K1 (``csrc/lk.cu``, one
-block per point, any window side); on a CPU tensor it runs ``pyramidal_lk_plain``, batched
-over points.  Under ``frontend.lk_compact_windows`` the JAX package cuts
+warp per point over each level's search band staged in shared memory, any
+window side); on a CPU tensor it runs ``pyramidal_lk_plain``, batched over
+points.  Under ``frontend.lk_compact_windows`` the JAX package cuts
 each level's exact 32-px search span and iterates on it, which makes the
 freeze bounds uniform (origin des, span 16): there the port runs, per
 level, kernel P1 (``ops/extract.py``) for the windows and K1's level entry
@@ -335,6 +336,8 @@ def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid
     if prev_pts.shape != (F, 2) or init_pts.shape != (F, 2) or valid.shape != (F,):
         raise ValueError(f"points {tuple(prev_pts.shape)}, {tuple(init_pts.shape)}, "
                          f"valid {tuple(valid.shape)}")
+    kernels.observe("pyramidal_lk", (prev_pyr, curr_pyr, prev_pts, init_pts, valid, win,
+                                     max_iter, eps, min_eig_threshold, n_levels, max_iter_upper))
     out_pts = torch.empty_like(prev_pts)
     out_status = torch.empty((F,), dtype=torch.bool, device=prev_pts.device)
     kernels.launch("pyramidal_lk", kernels.ptr(prev_pyr.flat), kernels.ptr(curr_pyr.flat),

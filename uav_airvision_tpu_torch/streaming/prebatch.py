@@ -124,32 +124,19 @@ def prebatch_imu(frame_ts, imu_t, imu_w, imu_a, max_imu_per_frame,
     )
 
 
-def load_euroc_arrays(dataset, use_native=True):
+def load_euroc_arrays(dataset, use_native=False):
     """Pull time-aligned numpy arrays out of an EuRoCDataset (images decoded
     eagerly — batch mode).  Returns (frame_ts, cam0 (T,H,W) u8, cam1, imu arrays).
 
-    Prefers the native multithreaded PNG decoder (runtime/loader.cpp); falls
-    back to the per-image cv2 path."""
+    The port decodes with cv2, image by image: it has no copy of the JAX
+    package's native multithreaded PNG decoder (runtime/loader.cpp) yet, so
+    ``use_native`` (kept for the JAX package's signature) must stay False."""
+    if use_native:
+        raise ValueError("the port has no native PNG decoder: use_native must be False")
     imu_t, imu_w, imu_a = dataset.imu.arrays()
 
     keep = dataset.cam0.timestamps >= dataset.cam0.starttime
     ts = np.asarray(dataset.cam0.timestamps)[keep]
-    paths0 = [p for p, k in zip(dataset.cam0.paths, keep) if k]
-    paths1 = [p for p, k in zip(dataset.cam1.paths, keep) if k]
-
-    cam0 = cam1 = None
-    if use_native and paths0:
-        try:
-            from ..runtime import native
-            import cv2
-
-            probe = cv2.imread(paths0[0], -1)
-            h, w = probe.shape[:2]
-            cam0 = native.decode_pngs(paths0, h, w)
-            cam1 = native.decode_pngs(paths1, h, w)
-        except Exception:
-            cam0 = cam1 = None
-    if cam0 is None:
-        cam0 = np.stack([msg.image for msg in dataset.cam0]).astype(np.uint8)
-        cam1 = np.stack([msg.image for msg in dataset.cam1]).astype(np.uint8)
+    cam0 = np.stack([msg.image for msg in dataset.cam0]).astype(np.uint8)
+    cam1 = np.stack([msg.image for msg in dataset.cam1]).astype(np.uint8)
     return ts, cam0, cam1, imu_t, imu_w, imu_a
