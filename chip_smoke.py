@@ -141,7 +141,9 @@
    and 752x480 still one launch; K13 N = 65 and 300; K9 N = 35, 49, 70;
    K10 on those blocks; K11 at D = 561 on T1, T2 = 1,122 rows and QR; K1
    at window sides 17, 21, 33 on both trackers, K1's bars; K14 at D = 441,
-   float32 and float64, its bars 1e-5 and 1e-12 relative); then
+   float32 and float64, its bars 1e-5 and 1e-12 relative, with 64 IMU
+   slots and with 256 (float32) or 128 (float64), past the block's shared
+   memory: the device workspace); then
    LIMIT_FRAMES frames of run_sequence under LIMITS, counters at 0: every
    kernel of that path launched, the active frames' poses within 1e-4 m
    of the port's plain path on the host.
@@ -1891,22 +1893,32 @@ def check_limits_kernels(dev):
         errs[f"K11 D=561 {upd.update_tier(1784, D, rows)}"] = err
         if not err <= 1e-12 or bool(warn) != bool(pwarn):
             fail(f"[limits] K11 D=561, {rows} rows: state error {err:.3e}")
-    # K14 at the configuration's window (70 slots: D = 441), float32 and float64
+    # K14 at the configuration's window (70 slots: D = 441), float32 and
+    # float64; then on the same state with a slice too long for the block's
+    # shared memory (128 IMU slots in float64, 256 in float32: the device
+    # workspace), all but the last 5 slots valid
     from uav_airvision_tpu_torch.models.msckf import propagation
 
+    wrng = np.random.default_rng(141)
     for dtype in (torch.float32, torch.float64):
         cfg, st, params, pw, obs, mask = window(70, dtype)
-        I = cfg.capacity.max_imu_per_frame
-        live = torch.arange(I, device=dev) < 11
-        imu_t = torch.where(live, st.imu.timestamp + 0.005 * torch.arange(1, I + 1, device=dev,
-                                                                         dtype=dtype), 0.0)
-        w = torch.as_tensor(rng.normal(0, 0.3, (I, 3)), device=dev).to(dtype)
-        a = torch.as_tensor(rng.normal([0, 0, 9.81], 0.5, (I, 3)), device=dev).to(dtype)
-        args = (st, params, imu_t, w, a, live)
-        err = _prop_err(propagation.propagate(*args), propagation.propagate_plain(*args))
-        errs[f"K14 D=441 {str(dtype)[6:]}"] = err
-        if not err <= (1e-5 if dtype == torch.float32 else 1e-12):
-            fail(f"[limits] K14 D=441 {dtype}: relative error {err:.3e}")
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        big = 256 if dtype == torch.float32 else 128
+        for I, n, r in ((cfg.capacity.max_imu_per_frame, 11, rng), (big, big - 5, wrng)):
+            ws = propagation._workspace_values(I, st.cov.element_size())
+            if (ws > 0) != (I == big):
+                fail(f"[limits] K14 {I} slots {dtype}: workspace of {ws} values unexpected")
+            live = torch.arange(I, device=dev) < n
+            imu_t = torch.where(live, st.imu.timestamp + 0.005 * torch.arange(
+                1, I + 1, device=dev, dtype=dtype), 0.0)
+            w = torch.as_tensor(r.normal(0, 0.3, (I, 3)), device=dev).to(dtype)
+            a = torch.as_tensor(r.normal([0, 0, 9.81], 0.5, (I, 3)), device=dev).to(dtype)
+            args = (st, params, imu_t, w, a, live)
+            err = _prop_err(propagation.propagate(*args), propagation.propagate_plain(*args))
+            name = f"K14 D=441 {str(dtype)[6:]}" + (f" {I} slots" if I == big else "")
+            errs[name] = err
+            if not err <= tol:
+                fail(f"[limits] {name}: relative error {err:.3e}")
     # K1: window sides 17, 21 and 33 (the looped instantiation), both trackers
     base = rng.uniform(0, 255, (480 // 6 + 2, 752 // 6 + 2))
     img0 = np.clip(np.kron(base, np.ones((6, 6)))[:480, :752] + rng.normal(0, 2, (480, 752)),

@@ -225,7 +225,30 @@ def test_propagate_kernel_cases(dev, dtype, n_valid, N):
     D = 141 and at the [limits] window's D = 441; one launch a call (the
     holes check that folding only up to the next power of two above the
     last valid slot gives the plain version's 64-slot fold)."""
+    _propagate_case(dev, dtype, n_valid, N, euroc_config(dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype,I", [("float64", 128), ("float32", 256)])
+@pytest.mark.parametrize("n_valid", [11, 100, "full", "holes"])
+@pytest.mark.parametrize("N", [20, 70])
+def test_propagate_kernel_workspace(dev, dtype, I, n_valid, N):
+    """K14 with an IMU slice too long for the block's shared memory (128
+    slots in float64, 256 in float32): its slots and chunk roots live in
+    the device workspace.  Held to the plain version with the bars of
+    test_propagate_kernel_cases."""
     cfg = euroc_config(dtype=dtype)
+    cfg = dataclasses.replace(cfg, capacity=dataclasses.replace(cfg.capacity,
+                                                                max_imu_per_frame=I))
+    itemsize = 8 if dtype == "float64" else 4
+    assert propagation._workspace_values(I, itemsize) > 0
+    assert propagation._workspace_values(64, itemsize) == 0
+    _propagate_case(dev, dtype, I if n_valid == "full" else n_valid, N, cfg)
+
+
+def _propagate_case(dev, dtype, n_valid, N, cfg):
+    """One K14 call against its plain version at D = 21 + 6 N, the slice
+    of ``cfg``'s length with its first ``n_valid`` slots valid (or 24 with
+    holes at PROP_HOLES)."""
     params = make_params(cfg, dev)
     state = init_state(cfg, params, np.array([2e-3, -1e-3, 5e-4]), np.array([0.3, -0.2, 9.79]))
     rng = np.random.default_rng(N)
@@ -297,8 +320,8 @@ def test_lk_kernel_points(dev, F, win):
     level) at the main path's point counts, the [limits] configuration's
     1,300 and one point, with points on band boundaries and image edges,
     at sides 3 to 33: one launch a call (n_levels level launches), status
-    agreeing on >= 99% of points, and >= 99% of the points both track
-    within 1e-3 px of the plain version.  At side 3 G (9 pixels) is often
+    agreeing on >= 99% of points, and every point both track within 1e-3 px
+    of the plain version (K1's bars).  At side 3 G (9 pixels) is often
     near-singular and most points oscillate without converging within
     max_iter, so where they end depends on the sum order: even the float32
     plain version often ends more than 1e-3 px from the float64 one.
@@ -323,8 +346,8 @@ def test_lk_kernel_points(dev, F, win):
         both = ks & ps
         assert int(both.sum()) >= (1 if F == 1 else F // 2)
         if win > 3:
-            close = float(((kn[both] - pn[both]).abs().amax(1) <= 1e-3).float().mean())
-            assert close >= 0.99, (compact, close)
+            err = float((kn[both] - pn[both]).abs().max())
+            assert err <= 1e-3, (compact, err)
             continue
         wide = [dataclasses.replace(p, flat=p.flat.double(), _levels=None) for p in (p0, p1)]
         dn, ds = lk.pyramidal_lk_plain(*wide, pts.double(), pts.double(), valid, **args)

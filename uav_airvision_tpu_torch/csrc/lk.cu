@@ -1,28 +1,19 @@
-// K1: OpenCV-semantics pyramidal Lucas-Kanade, one warp per point.
+// K1: OpenCV-semantics pyramidal Lucas-Kanade, one thread block per point.
 //
 // Replaces uav_airvision_tpu/ops/lk.py::pyramidal_lk_banded (with
 // _iterate_level :145, _patches_from_raw :87, _bilinear_axis_weights :134
 // and ops/extract.py::block_of :164).  The JAX package pre-tiles every level
 // into 48x48 bands and samples with one-hot matmuls because TPU gathers are
-// slow.  The band layout disappears here, but the search-window FREEZE
-// bounds it implied are part of the result and are reproduced exactly:
+// slow; on the card a block simply reads its window taps through L1.  The
+// band layout disappears, but the search-window FREEZE bounds it implied are
+// part of the result and are reproduced exactly:
 //   des = clip(floor(corner0) - 8, 0, HP - (side + 17)),
 //   o = 16 * min(des / 16, nbr - 1) with nbr = max(1, ceil((HP - 48) / 16) + 1),
 //   ub = min(48 - (side + 1), HP - (side + 1) - o) (32 at side 15);
 //   the sample corner is clamped to [o, o + ub] and a Gauss-Newton step is
 //   taken only while the new corner stays inside it.
-// Those bounds fix, before the first iteration, every pixel a level's
-// iterations can read (the (ub + side + 1)^2 band at o), but staging that
-// band in shared memory does not pay on the card: a level's iterations
-// touch a (side + 1)^2 window that stays in L1 from one iteration to the
-// next, and copying the 48x48 band (cp.async, 4-byte granules: the padded
-// rows are not 16-byte aligned) took ~5x the cycles of all the level's
-// iterations (tools/lk_band_probe.py).  The iterations read the level in
-// place; what is staged is the template: each warp loads every level's
-// raw template window into its shared memory at once, so their global
-// loads overlap, before the first level's iterations.
 //
-// Per level (coarse to fine, all inside the warp):
+// Per level (coarse to fine, all inside the block):
 //   template: the (side+3)^2 raw window at clip(floor(c) - 1, 0, HP - side - 3)
 //     of the PREVIOUS level, bilinear-shifted to (side+2)^2, Scharr/32 on
 //     it, gradients zeroed outside [17, HP-18] x [17, WP-18]; G = [a11 a12; a12 a22],
@@ -30,29 +21,19 @@
 //     min-eigenvalue status;
 //   iterations: J re-sampled bilinearly from the CURRENT level, b = <grad,J>
 //     - <grad,I>, the OpenCV delta, flip-flop halving, eps convergence.
-//     A converged point stops its own warp's iterations only.
-// Each lane owns the window pixels lane, lane + 32, ... (8 at side 15); the
-// sums over the window (G's three, b's two) are warp shuffle reductions
-// with no block barrier.  One warp issues its point's whole window, so the
-// kernel is bound by instruction issue: the sums over the window (G, the
-// template's b and each step's b) accumulate by fused multiply-adds, while
-// the elementwise arithmetic (the shift, Scharr, each pixel's bilinear J)
-// keeps the plain version's operations (the build's -fmad=false): a
-// non-converging point's end moves with any rounding of J.  The window side is a template parameter,
-// instantiated for every odd side 3 to 31, with a lane's gradients in
-// registers; any other side (even, or past 31) takes the instantiation
-// with a runtime side, its gradients in shared memory.  A block holds up
-// to four points (four warps), fewer where a warp's shared memory (a raw
-// template window a level and the shifted window: 3.7 KB at side 15 and
-// two levels) would not fit four.  Sums
-// run in another order than the JAX package's matmuls, so positions agree
-// to rounding, not bit for bit.
+//     A converged point is frozen for good, so the block exits early.
+// The window side is a template parameter, instantiated for every odd side
+// 3 to 31: thread t < side^2 owns window pixel (t / side, t % side) and the
+// block has side^2 threads rounded up to a warp (256 at 15).  Any other side
+// (even, or past 31) takes the instantiation with a runtime side and 1024
+// threads that loop over the pixels.  The template's gradients sit in
+// shared memory; the sums over the window are block reductions.  Sums run
+// in another order than the JAX package's matmuls, so positions agree to
+// rounding, not bit for bit.
 //
-// Bound on the card: latency.  A point's Gauss-Newton steps are a
-// dependent chain (per step: a bilinear sample of the lane's pixels, L1
-// hits after the first step, and two 5-step shuffle reductions); a
-// frame's ~104-204 points are ~26-51 blocks of four warps, one wave of the
-// 132 SMs.
+// Bound on the card: latency.  Each point is one block (256 threads at 15) and
+// each Gauss-Newton step is one dependent round of loads + a reduction; a
+// frame launches ~104-204 blocks, under two waves of the 132 SMs.
 //
 // Second entry point, ``pyramidal_lk_level``: ONE level of the same
 // tracker for frontend.lk_compact_windows (lk.py:199-218).  There the JAX
@@ -60,10 +41,9 @@
 // des = clip(floor(corner0) - 8, 0, HP - span) out of its band and iterates
 // on that window, so the freeze bounds become uniform: origin des and
 // ub = min(16, HP - (side + 1) - des).  The caller fetches the windows with
-// kernel P1 (csrc/extract.cu); this entry reads its samples from them; it
-// also writes the next finer
-// level's des, so the host computes des once per LK call, for the
-// coarsest level.
+// kernel P1 (csrc/extract.cu) and this entry reads its samples from them;
+// it also writes the next finer level's des, so the host computes des once
+// per LK call, for the coarsest level.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,7 +56,7 @@ constexpr int kPad = 17;
 constexpr int kMargin = 8;  // LK_MARGIN: the search span is side + 1 + 16
 constexpr int kStride = 16;
 constexpr int kBw = 48;
-constexpr int kMaxWarps = 4;  // points a block
+constexpr int kLoopThreads = 1024;  // the runtime-side instantiation
 
 // The window side: the template's, or the runtime one (kWin = 0).
 template <int kWin>
@@ -84,11 +64,12 @@ __device__ __forceinline__ int side(int win) {
   return kWin > 0 ? kWin : win;
 }
 
-// Floats of one warp's shared memory: a raw template window for each of
-// ``levels`` levels, the shifted window and, for the runtime side, the two
-// gradient windows.
-__host__ __device__ inline int warp_floats(int win, int levels, bool grads) {
-  return levels * (win + 3) * (win + 3) + (win + 2) * (win + 2) + (grads ? 2 * win * win : 0);
+
+// Floats of dynamic shared memory: the raw and shifted templates, the two
+// gradient windows, the reduction scratch.
+inline size_t smem_floats(int win) {
+  return (size_t)(win + 3) * (win + 3) + (size_t)(win + 2) * (win + 2) + 2 * (size_t)win * win +
+         32 * 5;
 }
 
 struct Level {
@@ -116,68 +97,45 @@ __device__ __forceinline__ int ceil_div(int a, int b) {
   return a >= 0 ? (a + b - 1) / b : -((-a) / b);
 }
 
-// Sum over the warp, butterfly: every lane adds the same two partials at
-// each step, so every lane holds the same total, bit for bit.
-__device__ __forceinline__ float warp_sum(float x) {
+// Sum K values over the block; every thread gets the totals.
+template <int K>
+__device__ void block_sum(float (&v)[K], float* scratch /* 32*K */) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int k = 0; k < K; ++k) {
+    float x = v[k];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    v[k] = x;
+  }
+  __syncthreads();
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) scratch[warp * K + k] = v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += scratch[w * K + k];
+    v[k] = s;
+  }
 }
 
-// One warp's shared memory: the raw (n x n) template windows, a level
-// each, the shifted (t x t) template, the gradients of the win x win
-// window (runtime side).
-struct WarpSmem {
-  float *raw, *T, *gx, *gy;
+// The block's shared memory: raw (n x n) and shifted (t x t) templates, the
+// gradients of the win x win window, the reduction scratch.
+struct Smem {
+  float *raw, *T, *gx, *gy, *red;
 };
 
-__device__ WarpSmem carve(float* base, int win, int levels, bool grads) {
-  WarpSmem m;
+__device__ Smem carve(float* base, int win) {
+  Smem m;
   m.raw = base;
-  m.T = m.raw + levels * (win + 3) * (win + 3);
-  m.gx = grads ? m.T + (win + 2) * (win + 2) : nullptr;
-  m.gy = grads ? m.gx + win * win : nullptr;
+  m.T = m.raw + (win + 3) * (win + 3);
+  m.gx = m.T + (win + 2) * (win + 2);
+  m.gy = m.gx + win * win;
+  m.red = m.gy + win * win;
   return m;
-}
-
-// The raw (win+3)^2 template window of a point at a level (its corner
-// clip(floor(c) - 1, 0, HP - win - 3)) into ``raw``, by one warp.
-template <int kWin>
-__device__ __forceinline__ void load_raw(const Level& pl, float prev_x, float prev_y, float scale,
-                                         int win_rt, float* raw) {
-  const int win = side<kWin>(win_rt), n = win + 3;
-  const int lane = threadIdx.x & 31;
-  const float half = 0.5f * (win - 1);
-  const int ry0 = clampi((int)floorf((prev_y * scale - half) + (float)kPad) - 1, 0, pl.HP - n);
-  const int rx0 = clampi((int)floorf((prev_x * scale - half) + (float)kPad) - 1, 0, pl.WP - n);
-#pragma unroll 4
-  for (int k = lane; k < n * n; k += 32) raw[k] = pl.img[(size_t)(ry0 + k / n) * pl.WP + rx0 + k % n];
-}
-
-// A lane's window pixels lane + 32 j: their count, and their gradients in
-// registers for a compile-time side.
-template <int kWin>
-struct Grads {
-  static constexpr int kN = kWin > 0 ? (kWin * kWin + 31) / 32 : 1;
-  float gx[kN], gy[kN];
-  int off[kN];  // the pixels' offsets in the level's sample source
-};
-
-template <int kWin>
-__device__ __forceinline__ int pixels_per_lane(int win) {
-  return kWin > 0 ? Grads<kWin>::kN : (win * win + 31) / 32;
-}
-
-template <int kWin>
-__device__ __forceinline__ float& grad_x(Grads<kWin>& g, const WarpSmem& sm, int j, int q) {
-  if constexpr (kWin > 0) return g.gx[j];
-  else return sm.gx[q];
-}
-
-template <int kWin>
-__device__ __forceinline__ float& grad_y(Grads<kWin>& g, const WarpSmem& sm, int j, int q) {
-  if constexpr (kWin > 0) return g.gy[j];
-  else return sm.gy[q];
 }
 
 struct Template {
@@ -186,39 +144,36 @@ struct Template {
   bool status;   // the level-0 gate (min eigenvalue), meaningful at level 0
 };
 
-// The template of one level (lk.py:380-433), by one warp: the (win+3)^2
-// raw window of the PREVIOUS image around the point (``raw``, loaded by
-// load_raw), bilinear-shifted, Scharr/32, G and the template part of b;
-// each lane keeps its pixels' gradients.  Every lane returns the same sums.
+// The template of one level (lk.py:380-433): the (win+3)^2 raw window of
+// the PREVIOUS image around the point, bilinear-shifted, Scharr/32, G and
+// the template part of b; the gradients go to shared memory.  Every thread
+// returns the same sums.
 template <int kWin>
 __device__ Template level_template(const Level& pl, float prev_x, float prev_y, float scale,
                                    bool is_valid, float min_eig_thr, int win_rt,
-                                   const float* raw, const WarpSmem& sm, Grads<kWin>& gr) {
+                                   const Smem& sm) {
   const int win = side<kWin>(win_rt), n = win + 3, nt = win + 2;
-  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x;
   const float half = 0.5f * (win - 1);
   const float cx = (prev_x * scale - half) + (float)kPad;
   const float cy = (prev_y * scale - half) + (float)kPad;
   const float fcx = floorf(cx), fcy = floorf(cy);
-  __syncwarp();  // raw is in
+  const int ry0 = clampi((int)fcy - 1, 0, pl.HP - n);
+  const int rx0 = clampi((int)fcx - 1, 0, pl.WP - n);
+  for (int k = tid; k < n * n; k += blockDim.x)
+    sm.raw[k] = pl.img[(size_t)(ry0 + k / n) * pl.WP + rx0 + k % n];
+  __syncthreads();
   const float ax = cx - fcx, ay = cy - fcy;
   const float w00 = (1.f - ax) * (1.f - ay), w01 = ax * (1.f - ay);
   const float w10 = (1.f - ax) * ay, w11 = ax * ay;
-  for (int k = lane; k < nt * nt; k += 32) {
+  for (int k = tid; k < nt * nt; k += blockDim.x) {
     const int r = k / nt, c = k % nt;
-    sm.T[k] = w00 * raw[r * n + c] + w01 * raw[r * n + c + 1] + w10 * raw[(r + 1) * n + c] +
-              w11 * raw[(r + 1) * n + c + 1];
+    sm.T[k] = w00 * sm.raw[r * n + c] + w01 * sm.raw[r * n + c + 1] +
+              w10 * sm.raw[(r + 1) * n + c] + w11 * sm.raw[(r + 1) * n + c + 1];
   }
-  __syncwarp();
+  __syncthreads();
   float sums[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  const int npl = pixels_per_lane<kWin>(win);
-#pragma unroll
-  for (int j = 0; j < npl; ++j) {
-    const int q = lane + 32 * j;
-    if (q >= win * win) {
-      if constexpr (kWin > 0) gr.gx[j] = gr.gy[j] = 0.f;
-      continue;
-    }
+  for (int q = tid; q < win * win; q += blockDim.x) {
     const int pi = q / win, pj = q % win;
     const float sm0 = 3.f / 32.f, sm1 = 10.f / 32.f, sm2 = 3.f / 32.f;
     const float gI = sm.T[(pi + 1) * nt + pj + 1];
@@ -228,9 +183,9 @@ __device__ Template level_template(const Level& pl, float prev_x, float prev_y, 
       const float t0 = sm.T[pi * nt + pj + c], t1 = sm.T[(pi + 1) * nt + pj + c],
                   t2 = sm.T[(pi + 2) * nt + pj + c];
       v[c] = sm0 * t0 + sm1 * t1 + sm2 * t2;
-      w[c] = t2 - t0;  // (-1 t0 + 0 t1) + 1 t2, exactly
+      w[c] = (-1.f * t0 + 0.f * t1) + 1.f * t2;
     }
-    float gx = v[2] - v[0];
+    float gx = (-1.f * v[0] + 0.f * v[1]) + 1.f * v[2];
     float gy = sm0 * w[0] + sm1 * w[1] + sm2 * w[2];
     const float ys = cy + (float)pi, xs = cx + (float)pj;
     const bool inside = ys >= (float)kPad && ys <= (float)(pl.HP - 1 - kPad) &&
@@ -239,17 +194,15 @@ __device__ Template level_template(const Level& pl, float prev_x, float prev_y, 
       gx = 0.f;
       gy = 0.f;
     }
-    grad_x(gr, sm, j, q) = gx;
-    grad_y(gr, sm, j, q) = gy;
-    sums[0] = fmaf(gx, gx, sums[0]);
-    sums[1] = fmaf(gx, gy, sums[1]);
-    sums[2] = fmaf(gy, gy, sums[2]);
-    sums[3] = fmaf(gI, gx, sums[3]);
-    sums[4] = fmaf(gI, gy, sums[4]);
+    sm.gx[q] = gx;
+    sm.gy[q] = gy;
+    sums[0] += gx * gx;
+    sums[1] += gx * gy;
+    sums[2] += gy * gy;
+    sums[3] += gI * gx;
+    sums[4] += gI * gy;
   }
-#pragma unroll
-  for (int k = 0; k < 5; ++k) sums[k] = warp_sum(sums[k]);
-  if constexpr (kWin == 0) __syncwarp();  // the gradients in shared memory
+  block_sum<5>(sums, sm.red);  // its barriers publish the gradients
   Template t;
   t.a11 = sums[0];
   t.a12 = sums[1];
@@ -270,25 +223,18 @@ __device__ Template level_template(const Level& pl, float prev_x, float prev_y, 
 }
 
 // The gated Gauss-Newton steps of one level (lk.py:248-288) from (px, py),
-// level coordinates, by one warp.  The sample corner is clamped to
-// [o, o + ub] (padded coordinates) and read from ``src``: the pixel of
-// padded row o_y + s has row index r_off + s there, row stride ``ld``.
+// level coordinates.  The sample corner is clamped to [o, o + ub] (padded
+// coordinates) and read from ``src``: the pixel of padded row o_y + s has
+// row index r_off + s there, row stride ``ld`` (the whole level: r_off =
+// o_y; a search window cut at o: r_off = 0).
 template <int kWin>
-__device__ void gauss_newton(const Template& t, Grads<kWin>& gr, const WarpSmem& sm,
-                             const float* src, int ld, int r_off, int c_off, int oy, int ox,
-                             float uby, float ubx, int H, int W, int it_max, float eps2,
-                             int win_rt, float& px, float& py) {
+__device__ void gauss_newton(const Template& t, const float* src, int ld, int r_off,
+                             int c_off, int oy, int ox, float uby, float ubx, int H,
+                             int W, int it_max, float eps2, int win_rt, const Smem& sm,
+                             float& px, float& py) {
   const int win = side<kWin>(win_rt);
-  const int lane = threadIdx.x & 31;
-  const int npl = pixels_per_lane<kWin>(win);
+  const int tid = threadIdx.x;
   const float half = 0.5f * (win - 1);
-  if constexpr (kWin > 0) {
-#pragma unroll
-    for (int j = 0; j < npl; ++j) {
-      const int q = lane + 32 * j;
-      gr.off[j] = (q / win) * ld + q % win;
-    }
-  }
   bool conv = !t.good;
   float pdx = 0.f, pdy = 0.f;
   for (int it = 0; it < it_max && !conv; ++it) {
@@ -296,24 +242,19 @@ __device__ void gauss_newton(const Template& t, Grads<kWin>& gr, const WarpSmem&
     const float sy = fminf(fmaxf(((py - half) + (float)kPad) - (float)oy, 0.f), uby);
     const float bx = floorf(sx), by = floorf(sy);
     const float fx = sx - bx, fy = sy - by;
-    const float* base = src + (size_t)(r_off + (int)by) * ld + c_off + (int)bx;
-    float b1 = 0.f, b2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < npl; ++j) {
-      const int q = lane + 32 * j;
-      if (q >= win * win) continue;
-      const float* row0;
-      if constexpr (kWin > 0) row0 = base + gr.off[j];
-      else row0 = base + (q / win) * ld + q % win;
+    float bj[2] = {0.f, 0.f};
+    for (int q = tid; q < win * win; q += blockDim.x) {
+      const int pi = q / win, pj = q % win;
+      const float* row0 = src + (size_t)(r_off + (int)by + pi) * ld + c_off + (int)bx + pj;
       const float* row1 = row0 + ld;
       const float t0 = (1.f - fy) * row0[0] + fy * row1[0];
       const float t1 = (1.f - fy) * row0[1] + fy * row1[1];
       const float J = t0 * (1.f - fx) + t1 * fx;
-      b1 = fmaf(J, grad_x(gr, sm, j, q), b1);
-      b2 = fmaf(J, grad_y(gr, sm, j, q), b2);
+      bj[0] += J * sm.gx[q];
+      bj[1] += J * sm.gy[q];
     }
-    b1 = warp_sum(b1) - t.bt1;
-    b2 = warp_sum(b2) - t.bt2;
+    block_sum<2>(bj, sm.red);
+    const float b1 = bj[0] - t.bt1, b2 = bj[1] - t.bt2;
     const float dx = (t.a12 * b2 - t.a22 * b1) * t.inv_det;
     const float dy = (t.a12 * b1 - t.a11 * b2) * t.inv_det;
     const float nx = px + dx, ny = py + dy;
@@ -355,40 +296,36 @@ __device__ int2 compact_origin(float x, float y, float scale, const Level& l, in
                    clampi((int)floorf(cx) - kMargin, 0, l.WP - need));
 }
 
+// Threads of a block of the instantiation (its launch bound).
 template <int kWin>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+constexpr int block_threads() {
+  return kWin > 0 ? (kWin * kWin + 31) / 32 * 32 : kLoopThreads;
+}
+
+template <int kWin>
+__global__ void __launch_bounds__(block_threads<kWin>())
 lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr,
           int H0, int W0, const float* __restrict__ prev_pts,
-          const float* __restrict__ init_pts, const uint8_t* __restrict__ valid, int F,
+          const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
           int n_levels, int max_iter, int max_iter_upper, float eps2,
           float min_eig_thr, float* __restrict__ out_pts,
           uint8_t* __restrict__ out_status, int win_rt) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  const int win = side<kWin>(win_rt), n = win + 3;
-  const int warp = threadIdx.x >> 5;
-  const int f = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (f >= F) return;  // whole warps: no block barrier follows
-  const WarpSmem sm = carve(
-      reinterpret_cast<float*>(dyn_smem) + warp * warp_floats(win, n_levels, kWin == 0), win,
-      n_levels, kWin == 0);
-  Grads<kWin> gr;
+  const int win = side<kWin>(win_rt);
+  const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
 
+  const int f = blockIdx.x;
   const bool is_valid = valid[f] != 0;
   const float prev_x = prev_pts[2 * f], prev_y = prev_pts[2 * f + 1];
   float next_x = init_pts[2 * f], next_y = init_pts[2 * f + 1];
   bool status = false;
-  // every level's template window at once: the templates do not depend on
-  // the tracking, so their loads overlap
-  for (int L = 0; L < n_levels; ++L)
-    load_raw<kWin>(level_of(prev_pyr, H0, W0, L), prev_x, prev_y, 1.0f / (float)(1 << L),
-                   win_rt, sm.raw + L * n * n);
 
   for (int L = n_levels - 1; L >= 0; --L) {
     const Level pl = level_of(prev_pyr, H0, W0, L);
     const Level cl = level_of(curr_pyr, H0, W0, L);
     const float scale = 1.0f / (float)(1 << L);
     const Template t = level_template<kWin>(pl, prev_x, prev_y, scale, is_valid, min_eig_thr,
-                                            win_rt, sm.raw + L * n * n, sm, gr);
+                                            win_rt, sm);
     if (L == 0) status = t.status;
 
     // ---- search window (lk.py:188-219, extract.py:164-173) ----
@@ -402,14 +339,14 @@ lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr
     const float ubx = (float)min(kBw - (win + 1), cl.WP - (win + 1) - ox);
 
     const int it_max = (L == 0 || max_iter_upper <= 0) ? max_iter : max_iter_upper;
-    gauss_newton<kWin>(t, gr, sm, cl.img, cl.WP, oy, ox, oy, ox, uby, ubx, cl.H, cl.W, it_max,
-                       eps2, win_rt, px, py);
+    gauss_newton<kWin>(t, cl.img, cl.WP, oy, ox, oy, ox, uby, ubx, cl.H, cl.W, it_max, eps2,
+                       win_rt, sm, px, py);
     next_x = px * (float)(1 << L);
     next_y = py * (float)(1 << L);
-    __syncwarp();  // the shifted template is rewritten by the next level
+    __syncthreads();  // the templates are rewritten by the next level
   }
 
-  if ((threadIdx.x & 31) == 0) {
+  if (threadIdx.x == 0) {
     out_pts[2 * f] = next_x;
     out_pts[2 * f + 1] = next_y;
     out_status[f] = status && in_image(next_x, next_y, H0, W0, win);
@@ -422,35 +359,29 @@ lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr
 // points before / after the level.  For L > 0 writes des_next, the origin
 // at level L - 1 of pts_out; at L = 0 writes the status.
 template <int kWin>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(block_threads<kWin>())
 lk_level_kernel(const float* __restrict__ prev_pyr, int H0, int W0,
                 const float* __restrict__ prev_pts, const float* __restrict__ pts_in,
                 const uint8_t* __restrict__ valid, const float* __restrict__ windows,
-                const int32_t* __restrict__ des, int F, int L, int it_max, float eps2,
+                const int32_t* __restrict__ des, int L, int it_max, float eps2,
                 float min_eig_thr, float* __restrict__ pts_out,
                 int32_t* __restrict__ des_next, uint8_t* __restrict__ out_status, int win_rt) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   const int win = side<kWin>(win_rt), need = win + 1 + 2 * kMargin;
-  const int warp = threadIdx.x >> 5;
-  const int f = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (f >= F) return;  // whole warps: no block barrier follows
-  const WarpSmem sm = carve(reinterpret_cast<float*>(dyn_smem) + warp * warp_floats(win, 1, kWin == 0),
-                            win, 1, kWin == 0);
-  Grads<kWin> gr;
+  const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
 
+  const int f = blockIdx.x;
   const Level pl = level_of(prev_pyr, H0, W0, L);  // the current level has its size
   const float scale = 1.0f / (float)(1 << L);
-  const float prev_x = prev_pts[2 * f], prev_y = prev_pts[2 * f + 1];
-  load_raw<kWin>(pl, prev_x, prev_y, scale, win_rt, sm.raw);
-  const Template t = level_template<kWin>(pl, prev_x, prev_y, scale, valid[f] != 0, min_eig_thr,
-                                          win_rt, sm.raw, sm, gr);
+  const Template t = level_template<kWin>(pl, prev_pts[2 * f], prev_pts[2 * f + 1], scale,
+                                          valid[f] != 0, min_eig_thr, win_rt, sm);
   float px = pts_in[2 * f] * scale, py = pts_in[2 * f + 1] * scale;
   const int oy = des[2 * f], ox = des[2 * f + 1];
   const float uby = (float)min(need - (win + 1), pl.HP - (win + 1) - oy);
   const float ubx = (float)min(need - (win + 1), pl.WP - (win + 1) - ox);
-  gauss_newton<kWin>(t, gr, sm, windows + (size_t)f * need * need, need, 0, 0, oy, ox, uby, ubx,
-                     pl.H, pl.W, it_max, eps2, win_rt, px, py);
-  if ((threadIdx.x & 31) == 0) {
+  gauss_newton<kWin>(t, windows + (size_t)f * need * need, need, 0, 0, oy, ox, uby, ubx,
+                     pl.H, pl.W, it_max, eps2, win_rt, sm, px, py);
+  if (threadIdx.x == 0) {
     const float nx = px * (float)(1 << L), ny = py * (float)(1 << L);
     pts_out[2 * f] = nx;
     pts_out[2 * f + 1] = ny;
@@ -465,7 +396,7 @@ lk_level_kernel(const float* __restrict__ prev_pyr, int H0, int W0,
   }
 }
 
-// The instantiation for a side: one per odd side 3..31, else the runtime one.
+// The instantiation for a side: one per odd side 3..31, else the looped one.
 #define LK_SIDES(X) \
   X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(17) X(19) X(21) X(23) X(25) X(27) X(29) X(31)
 
@@ -498,23 +429,10 @@ LevelFn pick_level(int win) {
 
 inline bool looped(int win) { return win > 31 || win % 2 == 0; }
 
-// Warps a block and its dynamic shared memory at side ``win``: four points
-// where four warps' shared memory fits, else as many as fit; the kernel's
-// budget is read and its limit raised past 48 KB once per instantiation
-// (slot 0: the runtime side) and size.
+// Allow the looped instantiation's shared memory past 48 KB (large sides).
 template <typename K>
-int plan(K kernel, int win, int levels, size_t (&allowed)[33], size_t (&budgets)[33],
-         int* warps, size_t* smem) {
-  const int slot = looped(win) ? 0 : win;
-  const size_t per = (size_t)warp_floats(win, levels, looped(win)) * sizeof(float);
-  if (budgets[slot] == 0) budgets[slot] = msckf::smem_budget(kernel);
-  const size_t budget = budgets[slot];
-  int w = kMaxWarps;
-  while (w > 1 && w * per > budget) --w;
-  if (w * per > budget) return (int)cudaErrorInvalidValue;
-  *warps = w;
-  *smem = w * per;
-  return msckf::allow_smem(kernel, *smem, &allowed[slot]);
+int prepare(K kernel, int win, size_t* allowed) {
+  return looped(win) ? msckf::allow_smem(kernel, smem_floats(win) * sizeof(float), allowed) : 0;
 }
 
 }  // namespace
@@ -524,18 +442,16 @@ extern "C" int pyramidal_lk(const void* prev_pyr, const void* curr_pyr, int H0,
                             const void* valid, int F, int n_levels, int max_iter,
                             int max_iter_upper, float eps2, float min_eig,
                             void* out_pts, void* out_status, int win, void* stream) {
-  static size_t allowed[33] = {}, budgets[33] = {};
+  static size_t allowed = 0;
   if (win < 1) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
   const LkFn kernel = pick_lk(win);
-  int warps = 0;
-  size_t smem = 0;
-  if (n_levels < 1) return (int)cudaErrorInvalidValue;
-  const int err = plan(kernel, win, n_levels, allowed, budgets, &warps, &smem);
+  const int err = prepare(kernel, win, &allowed);
   if (err != 0) return err;
-  kernel<<<(F + warps - 1) / warps, warps * 32, smem, (cudaStream_t)stream>>>(
+  const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
+  kernel<<<F, threads, smem_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
       (const float*)prev_pyr, (const float*)curr_pyr, H0, W0,
-      (const float*)prev_pts, (const float*)init_pts, (const uint8_t*)valid, F,
+      (const float*)prev_pts, (const float*)init_pts, (const uint8_t*)valid,
       n_levels, max_iter, max_iter_upper, eps2, min_eig, (float*)out_pts,
       (uint8_t*)out_status, win);
   return (int)cudaGetLastError();
@@ -546,17 +462,16 @@ extern "C" int pyramidal_lk_level(const void* prev_pyr, int H0, int W0, const vo
                                   const void* des, int F, int L, int it_max, float eps2,
                                   float min_eig, void* pts_out, void* des_next,
                                   void* out_status, int win, void* stream) {
-  static size_t allowed[33] = {}, budgets[33] = {};
+  static size_t allowed = 0;
   if (win < 1) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
   const LevelFn kernel = pick_level(win);
-  int warps = 0;
-  size_t smem = 0;
-  const int err = plan(kernel, win, 1, allowed, budgets, &warps, &smem);
+  const int err = prepare(kernel, win, &allowed);
   if (err != 0) return err;
-  kernel<<<(F + warps - 1) / warps, warps * 32, smem, (cudaStream_t)stream>>>(
+  const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
+  kernel<<<F, threads, smem_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
       (const float*)prev_pyr, H0, W0, (const float*)prev_pts, (const float*)pts_in,
-      (const uint8_t*)valid, (const float*)windows, (const int32_t*)des, F, L, it_max, eps2,
+      (const uint8_t*)valid, (const float*)windows, (const int32_t*)des, L, it_max, eps2,
       min_eig, (float*)pts_out, (int32_t*)des_next, (uint8_t*)out_status, win);
   return (int)cudaGetLastError();
 }

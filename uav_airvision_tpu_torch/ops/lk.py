@@ -13,9 +13,8 @@ and search windows from ``curr_pyr``; the temporal tracker passes the
 previous frame's cam0 pyramid as ``prev_pyr``.
 
 On a CUDA tensor ``pyramidal_lk`` launches kernel K1 (``csrc/lk.cu``, one
-warp per point over each level's search band staged in shared memory, any
-window side); on a CPU tensor it runs ``pyramidal_lk_plain``, batched over
-points.  Under ``frontend.lk_compact_windows`` the JAX package cuts
+block per point, any window side); on a CPU tensor it runs ``pyramidal_lk_plain``, batched
+over points.  Under ``frontend.lk_compact_windows`` the JAX package cuts
 each level's exact 32-px search span and iterates on it, which makes the
 freeze bounds uniform (origin des, span 16): there the port runs, per
 level, kernel P1 (``ops/extract.py``) for the windows and K1's level entry
