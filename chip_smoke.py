@@ -13,7 +13,10 @@
    agreeing on >= 99% of points and agreeing points within 1e-3 px; after
    the warm run (3.) K1 again, with the same bars, on a few of the warm
    run's recorded calls of each shape (temporal, stereo forward and
-   backward), each shape timed through the wrapper and on the device.
+   backward), each shape timed through the wrapper and on the device; and
+   K4+K6 on every call of the warm run, exactly, one launch a call, its
+   quick rejection and its branch-free arithmetic timed on the same call
+   (through the wrapper and on the device).
 3. Main path, warm run: the bench world as bench.py renders it
    (euroc_config, seed 5, 200 frames) through ``run_sequence`` on the card,
    with an observer (``kernels.observer``) recording the arguments of the
@@ -28,13 +31,18 @@
      positions within 1e-4 of max(|p|, 1) for 95% of the features and within
      1e-3 for each (a cost comparison that ties within rounding can take the
      other LM branch, and an unconverged solve ends a step apart);
-   - K9 (feature block, N = 20 and the prune's N = 2): H_proj, r_proj within
+   - K9 (feature block through its row-indexed entry ``feature_block_rows``,
+     the call sites' gathers and ``proc`` masks in its launch; every call of
+     the warm run, N = 20 and the prune's N = 2): H_proj, r_proj within
      3e-5 (N = 20) / 1e-4 (N = 2: the reflections of two close views
-     cancel) of each block's largest entry, rows_true exact.  Both sides
-     are float32 and sum the reflections in another order (1.8e-5 seen on a
-     one-view block, where the projection is all cancellation); the phase
-     also prints how far each is from the float64 plain version, and the
-     views and depth of the block on which they differ most;
+     cancel) of each block's largest entry, rows_true exact, masked blocks
+     zero, one launch a call (device us printed).  Both sides are float32
+     and sum the reflections in another order; the phase also runs every
+     gathered block (the padding's one-view blocks too, where the
+     projection is all cancellation) through ``feature_block`` and prints
+     how far the kernel and the float32 plain version are from the float64
+     plain version, and the views and depth of the block on which they
+     differ most;
    - K10 (the whole gate in one launch, on every recorded shape: the
      77-row blocks on the 32-row and the full tier, the prune's 5-row
      blocks; residual scales 1e-3, 1, 10, 30, 1e3 and one that puts a block
@@ -138,7 +146,8 @@
    its plain version (K5 k = 9, 12, 40; K8 n = 1025, 1500, and
    ``select_track`` at 1,100 slots and 200 candidates; K4+K6 1025 and
    1500 mask points; K2 1440x1080 and 2048x1536 at four levels, exactly,
-   and 752x480 still one launch; K13 N = 65 and 300; K9 N = 35, 49, 70;
+   and 752x480 still one launch; K13 N = 65 and 300; K9 N = 35, 49, 70
+   through ``feature_block_rows`` (one block masked);
    K10 on those blocks; K11 at D = 561 on T1, T2 = 1,122 rows and QR; K1
    at window sides 17, 21, 33 on both trackers, K1's bars; K14 at D = 441,
    float32 and float64, its bars 1e-5 and 1e-12 relative, with 64 IMU
@@ -498,6 +507,10 @@ class Recorder:
     KEYS = {  # wrapper: (label, shape from its arguments)
         "triangulate": ("K13", lambda a: a[2].shape[0]),
         "feature_block": ("K9", lambda a: tuple(a[5].shape)),
+        "feature_block_rows": ("K9 rows", lambda a: (a[7].shape[0], a[4].shape[1]
+                                                     if a[13] is None else a[13].shape[0])),
+        "detect_fast": ("K4+K6", lambda a: (tuple(a[0].shape),
+                                            0 if a[2] is None else a[2].shape[0])),
         "gating_test_batch": ("K10", lambda a: tuple(a[0].shape)),
         "apply_update_rank12": ("K12", lambda a: tuple(a[2].shape)),
         "apply_update": ("K11", lambda a: _update_tier(a)),
@@ -522,7 +535,8 @@ class Recorder:
     }
     # kinds whose every call is kept (the fused front-end entry points: a
     # few hundred small calls a run)
-    EVERY_CALL = {"K8 select_track", "K7 predict_warp_points", "K7 stereo_gate", "K14"}
+    EVERY_CALL = {"K8 select_track", "K7 predict_warp_points", "K7 stereo_gate", "K14",
+                  "K4+K6", "K9 rows"}
 
     def __init__(self):
         self.calls, self.counts, self.history = {}, {}, {}
@@ -769,56 +783,7 @@ def check_backend_kernels(rec: Recorder, config, params):
         if B == rec.most_frequent("K13"):
             res["K13"] = (abs_err, ms, pms, *b)
 
-    # K9: the lost features' N = 20 blocks and the prune's N = 2 blocks
-    calls = rec.of("K9")
-    for (B, N), a in sorted(calls.items()):
-        H, r, rows = upd.feature_block(*a)
-        pH, pr, prows = upd.feature_block_plain(*a)
-        scale = torch.maximum(pH.abs().amax((1, 2)), pr.abs().amax(1)).clamp(min=1e-30)
-        err = max(float(((g - w).abs().flatten(1).amax(1) / scale).max())
-                  for g, w in ((H, pH), (r, pr)))
-        abs_err = max(float((H - pH).abs().max()), float((r - pr).abs().max()))
-        # float32 against float32: the reflections are summed in another
-        # order, and a block that the projection leaves almost nothing of (a
-        # feature seen in one view keeps one row of four) is all cancellation
-        # in both, so the two differ by up to the sum of what each is off the
-        # float64 result (1.8e-5 seen on such a block of the bench world)
-        tol = 3e-5 if N > 2 else 1e-4
-        a64 = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point() else x
-                    for x in a)
-        H64, r64, _ = upd.feature_block_plain(*a64)
-        e_k, e_p = (max(float(((g - w).abs().flatten(1).amax(1) / scale).max())
-                        for g, w in pair) for pair in (((H, H64), (r, r64)),
-                                                       ((pH, H64), (pr, r64))))
-        worst = int(((H - pH).abs().flatten(1).amax(1) / scale).argmax())
-        seen = a[5][worst]
-        cams = a[1][seen]
-        base = float(torch.cdist(cams, cams).max())
-        depth = float((a[6][worst] - cams).norm(dim=1).min())
-        print(f"[K9] B={B} N={N}: against the float64 plain version the kernel is {e_k:.3e} "
-              f"off, the float32 plain version {e_p:.3e}; the block where the two differ most "
-              f"has {int(seen.sum())} view(s) over a baseline of {base:.3f} m at depth "
-              f"{depth:.2f} m")
-        if not torch.equal(rows, prows) or not err <= tol:
-            fail(f"K9 B={B} N={N}: error {err:.3e} of the block maximum, rows equal "
-                 f"{torch.equal(rows, prows)}")
-        ms = cuda_ms(lambda: upd.feature_block(*a))
-        pms = cuda_ms(lambda: upd.feature_block_plain(*a), reps=10)
-        n_obs = a[5].sum(1).to(torch.float64)
-        # ~400 FLOP per observing slot for its Jacobians; three reflections
-        # of ~5 FLOP per entry over the 4 n_obs x (4 + 6 n_obs) live tile
-        ops = float((n_obs * 400 + 15 * 4 * n_obs * (4 + 6 * n_obs)).sum())
-        b = bound(nbytes(*a[:10], H, r, rows), ops)
-        # the library's nullspace basis: a complete QR of the stacked feature
-        # Jacobians H_f (B, 4N, 3), from which the projection is one product
-        Hf = upd.stacked_tile(*a[:10])[0][:, :, :3].contiguous()
-        lib = cuda_ms(lambda: torch.linalg.qr(Hf, mode="complete"))
-        print(f"[K9] feature_block B={B} x N={N} -> {tuple(H.shape)}: error {err:.3e} of the "
-              f"block maximum; {ms:.4f} ms vs plain {pms:.4f} ms; torch.linalg.qr of the "
-              f"{tuple(Hf.shape)} H_f stack {lib:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
-        if (B, N) == rec.most_frequent("K9"):
-            res["K9"] = (abs_err, ms, pms, *b, lib)
-
+    res.update(check_feature_rows(rec))
     res.update(check_gate(rec))
 
     # K12: the recorded prune updates, and one with an exactly singular P12,
@@ -870,6 +835,152 @@ def check_backend_kernels(rec: Recorder, config, params):
         if label == f"B {rec.most_frequent('K12')}":
             res["K12"] = (err, ms, pms, *b, lib)
     return res
+
+
+def _gathered(a):
+    """feature_block's arguments of a recorded feature_block_rows call (the
+    map rows and window slots gathered as the call sites once did)."""
+    cq, cp, cqn, cpn, obs, mask, pos, sel, proc, g, Rc, tc, D, rm = a
+    if rm is not None:
+        cq, cp, cqn, cpn, obs, mask = cq[rm], cp[rm], cqn[rm], cpn[rm], obs[:, rm], mask[:, rm]
+    return (cq, cp, cqn, cpn, obs[sel], mask[sel], pos[sel], g, Rc, tc, D)
+
+
+def check_feature_rows(rec: Recorder):
+    """K9 through its row-indexed entry on every call of the warm run (the
+    lost features' N = 20 blocks and the prune's N = 2 blocks): H_proj and
+    r_proj within 3e-5 (N = 20) / 1e-4 (N = 2: the reflections of two close
+    views cancel) of each block's largest entry, rows_true exact, blocks
+    whose proc is false zeros; one launch a call.  The same calls' gathered
+    blocks through ``feature_block`` (every block, the padding too) show how
+    far the kernel and the float32 plain version are from the float64 plain
+    version, and where they differ most (the views and depth of that
+    block).  Returns {"K9": (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)} at the most frequent shape."""
+    import torch
+
+    from uav_airvision_tpu_torch.models.msckf import update as upd
+
+    res = {}
+    samples = rec.samples("K9 rows")
+    if not samples:
+        fail("the warm run made no feature_block_rows call")
+        return res
+    worst = {}  # shape: [largest error of the block maximum, absolute error, calls]
+    for (B, N), a in samples:
+        H, r, rows = upd.feature_block_rows(*a[:13], rm=a[13])
+        pH, pr, prows = upd.feature_block_rows_plain(*a[:13], rm=a[13])
+        proc = a[8]
+        scale = torch.maximum(pH.abs().amax((1, 2)), pr.abs().amax(1)).clamp(min=1e-30)
+        err = max(float(((g - w).abs().flatten(1).amax(1) / scale).max())
+                  for g, w in ((H, pH), (r, pr)))
+        abs_err = max(float((H - pH).abs().max()), float((r - pr).abs().max()))
+        tol = 3e-5 if N > 2 else 1e-4
+        zero = not (bool(H[~proc].any()) or bool(r[~proc].any()) or bool(rows[~proc].any()))
+        if not torch.equal(rows, prows) or not err <= tol or not zero:
+            fail(f"K9 rows B={B} N={N}: error {err:.3e} of the block maximum, rows equal "
+                 f"{torch.equal(rows, prows)}, padding zero {zero}")
+        w = worst.setdefault((B, N), [0.0, 0.0, 0])
+        w[0], w[1], w[2] = max(w[0], err), max(w[1], abs_err), w[2] + 1
+    for (B, N), w in sorted(worst.items()):
+        a = rec.of("K9 rows")[(B, N)]
+        g = _gathered(a)
+        # every gathered block, the padding's one-view blocks too, against
+        # the float64 plain version
+        H, r, _ = upd.feature_block(*g)
+        pH, pr, _ = upd.feature_block_plain(*g)
+        g64 = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point() else x
+                    for x in g)
+        H64, r64, _ = upd.feature_block_plain(*g64)
+        sc = torch.maximum(H64.abs().amax((1, 2)), r64.abs().amax(1)).clamp(min=1e-30)
+
+        def off(h, v):
+            return torch.maximum((h.double() - H64).abs().flatten(1).amax(1),
+                                 (v.double() - r64).abs().flatten(1).amax(1)) / sc
+
+        e_k, e_p = off(H, r), off(pH, pr)
+        b = int((e_k - e_p).abs().argmax())
+        seen = g[5][b]
+        cams = g[1][seen]
+        base = float(torch.cdist(cams, cams).max()) if int(seen.sum()) else 0.0
+        depth = float((g[6][b] - cams).norm(dim=1).min()) if int(seen.sum()) else 0.0
+        views = g[5].sum(1)
+        one = views == 1
+        one_txt = (f"; on the {int(one.sum())} one-view block(s) the kernel is "
+                   f"{float(e_k[one].max()):.3e} off float64, the float32 plain version "
+                   f"{float(e_p[one].max()):.3e}" if bool(one.any()) else "")
+        print(f"[K9] B={B} N={N}: {w[2]} recorded calls through feature_block_rows, largest "
+              f"error {w[0]:.3e} of the block maximum (bar {3e-5 if N > 2 else 1e-4}); every "
+              f"gathered block through feature_block against the float64 plain version: the "
+              f"kernel {float(e_k.max()):.3e} off, the float32 plain version "
+              f"{float(e_p.max()):.3e}{one_txt}; they differ most on a block of "
+              f"{int(seen.sum())} view(s) over a baseline of {base:.3f} m at depth "
+              f"{depth:.2f} m")
+        kw = dict(rm=a[13])
+        n_launch, dev_us = _profile_calls(lambda: upd.feature_block_rows(*a[:13], **kw),
+                                          kernels=("feature_block_kernel",))
+        if n_launch != 1.0:
+            fail(f"K9 rows B={B} N={N}: {n_launch} launches a call")
+        ms = cuda_ms(lambda: upd.feature_block_rows(*a[:13], **kw))
+        pms = cuda_ms(lambda: upd.feature_block_rows_plain(*a[:13], **kw), reps=10)
+        proc = a[8]
+        n_obs = (g[5].sum(1) * proc).to(torch.float64)
+        # per computed block: ~400 FLOP a view for its Jacobians, ~30 a column
+        # for w_j, ~6 an output value on its 4 n_obs live rows
+        D = 21 + 6 * N
+        ops = float((n_obs * 400 + 90 * N + 6 * 4 * n_obs * D).sum())
+        Hout, rout, rowsout = upd.feature_block_rows(*a[:13], **kw)
+        # the kernel reads the map rows it is given, the window, sel and proc
+        b_in = nbytes(*g[:7], *g[7:10], a[7], a[8]) + (nbytes(a[13]) if a[13] is not None else 0)
+        bnd = bound(b_in + nbytes(Hout, rout, rowsout), ops)
+        # the library's nullspace basis: a complete QR of the stacked feature
+        # Jacobians H_f (B, 4N, 3), from which the projection is one product
+        Hf = upd.stacked_tile(*g[:10])[0][:, :, :3].contiguous()
+        lib = cuda_ms(lambda: torch.linalg.qr(Hf, mode="complete"))
+        print(f"[K9] feature_block_rows B={B} x N={N} -> {tuple(Hout.shape)}: {n_launch:.0f} "
+              f"launch a call, {dev_us:.2f} us on the device; {ms:.4f} ms through the wrapper "
+              f"vs plain {pms:.4f} ms; torch.linalg.qr of the {tuple(Hf.shape)} H_f stack "
+              f"{lib:.4f} ms; bound {bnd[0] * 1e3:.3f} us ({bnd[1]})")
+        if (B, N) == rec.most_frequent("K9 rows"):
+            res["K9"] = (w[1], ms, pms, *bnd, lib)
+    return res
+
+
+def check_fast_recorded(rec: Recorder):
+    """K4+K6 on every call of the warm run: keep and score equal to the plain
+    version's, bit for bit; one launch a call; the quick rejection and the
+    branch-free arithmetic timed on the most frequent call (wrapper ms and
+    device us)."""
+    import torch
+
+    from uav_airvision_tpu_torch.ops import fast
+
+    samples = rec.samples("K4+K6")
+    if not samples:
+        fail("the warm run made no detect_fast call")
+        return
+    bad = 0
+    for _, a in samples:
+        got, want = fast.detect_fast(*a), fast.detect_fast_plain(*a)
+        bad += not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    if bad:
+        fail(f"K4+K6 differs from its plain version on {bad} of {len(samples)} recorded calls")
+    a = rec.of("K4+K6")[rec.most_frequent("K4+K6")]
+    n_launch, dev_us = _profile_calls(lambda: fast.detect_fast(*a), kernels=("fast_tile_kernel",))
+    if n_launch != 1.0:
+        fail(f"K4+K6: {n_launch} launches a call")
+    pts = (a[2], a[3]) if a[2] is not None else (None, None)
+    times = {}
+    for reject in (True, False):
+        _, us = _profile_calls(lambda: fast._fast_kernel(a[0], a[1], *pts, reject),
+                               kernels=("fast_tile_kernel",))
+        times[reject] = (cuda_ms(lambda: fast._fast_kernel(a[0], a[1], *pts, reject)), us)
+    print(f"[K4+K6] {len(samples)} recorded calls ({sorted({sh for sh, _ in samples})}): "
+          f"{'exact' if not bad else f'{bad} differ'}; {n_launch:.0f} launch a call, "
+          f"{dev_us:.2f} us on the device; quick rejection {times[True][0]:.4f} ms through the "
+          f"wrapper, {times[True][1]:.2f} us on the device; branch-free "
+          f"{times[False][0]:.4f} ms, {times[False][1]:.2f} us (the wrapper runs "
+          f"{'the quick rejection' if fast.QUICK_REJECT else 'branch-free'})")
 
 
 def _timed_sum(rec: Recorder, entries):
@@ -1859,8 +1970,12 @@ def check_limits_kernels(dev):
         c = st.cams
         args = (c.q, c.p, c.q_null, c.p_null, obs, mask, pw, st.gravity, params.R_cam0_cam1,
                 params.t_cam0_cam1, 21 + 6 * N)
-        H, r, rows = upd.feature_block(*args)
-        pH, pr, prows = upd.feature_block_plain(*args)
+        # through the main path's entry: the map rows 0.. B-1, one block masked
+        sel = torch.arange(mask.shape[0], device=dev)
+        proc = sel != 3
+        rargs = (*args[:7], sel, proc, *args[7:])
+        H, r, rows = upd.feature_block_rows(*rargs)
+        pH, pr, prows = upd.feature_block_rows_plain(*rargs)
         sc = torch.maximum(pH.abs().amax((1, 2)), pr.abs().amax(1)).clamp(min=1e-30)
         err = max(float(((g - w).abs().flatten(1).amax(1) / sc).max())
                   for g, w in ((H, pH), (r, pr)))
@@ -1868,6 +1983,7 @@ def check_limits_kernels(dev):
         if not torch.equal(rows, prows) or not err <= (3e-5 if dtype == torch.float32 else 1e-10):
             fail(f"[limits] K9 N={N} {dtype}: error {err:.3e}")
         # K10 on these blocks (past its shared memory at N = 49 and 70 in float32)
+        H, r, rows = upd.feature_block(*args)
         dof = mask.sum(1) - 1
         for scale in (1e-3, 1.0, 1e3):
             got = upd.gating_test_batch(H, r * scale, rows, st.cov, params.obs_noise,
@@ -2058,6 +2174,7 @@ def main() -> int:
     params = make_params(config, dev)
     results["K14"] = check_propagate(rec, state.filter, params, frames, N_FRAMES // 2)
     check_lk_recorded(rec)
+    check_fast_recorded(rec)
     results.update(check_backend_kernels(rec, config, params))
     results.update(check_ekf_update(rec))
     results.update(check_gridops(rec))
@@ -2069,7 +2186,7 @@ def main() -> int:
     # frame); P1 and K1's level entry run on the compact path only
     wrappers = {"K1": [lk.pyramidal_lk], "K2": [pyramid.build_pyramid_pair],
                 "K4+K6": [fast.detect_fast], "K14": [propagation.propagate],
-                "K13": [triangulation.triangulate], "K9": [update.feature_block],
+                "K13": [triangulation.triangulate], "K9": [update.feature_block_rows],
                 "K10": [update.gating_test_batch],
                 "K12": [update.apply_update_rank12], "K11": [update.apply_update],
                 "K5": [gridops.dense_grid_topk],
@@ -2122,7 +2239,7 @@ def main() -> int:
                "K13": ("triangulate.cu",
                        "uav_airvision_tpu/models/msckf/triangulation.py:159", "triangulate"),
                "K9": ("feature_block.cu", "uav_airvision_tpu/models/msckf/update.py:103",
-                      "feature_block"),
+                      "feature_block_rows"),
                "K10": ("gate.cu", "uav_airvision_tpu/models/msckf/update.py:170",
                        "gating_test_batch"),
                "K12": ("rank12.cu", "uav_airvision_tpu/models/msckf/update.py:239",

@@ -296,6 +296,79 @@ def test_feature_block_and_gate_match_jax(blocks):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _two_view_slots(t):
+    """The two window slots that the most features are seen from together
+    (the prune's ``rm``), and those features."""
+    both = (t.obs_mask[:, :, None] & t.obs_mask[:, None, :] & t.valid[:, None, None]).sum(0)
+    both.fill_diagonal_(0)
+    i, j = divmod(int(both.argmax()), both.shape[0])
+    rm = torch.tensor(sorted((i, j)))
+    return rm, torch.nonzero(t.valid & (t.obs_mask[:, rm].sum(1) == 2))[:, 0][:16]
+
+
+@pytest.mark.parametrize("site", ["lost", "prune"])
+def test_feature_block_rows_matches_jax_call_sites(blocks, site):
+    """The plain ``feature_block_rows`` (K9's row-indexed entry, which the
+    back-end's two call sites call) against the JAX package's call-site
+    sequence on the same state (``step.py``: the lost features' blocks, a
+    cond on ``proc`` per map row; the prune's blocks over the two slots
+    ``rm``, their 12 columns masked by ``proc``): float64 within 1e-9,
+    rows exact.  ``sel`` ends in padding rows whose ``proc`` is false, as
+    ``smallest_k_indices`` pads it, and ``proc`` is false on some real rows."""
+    state, params, sel = blocks
+    c, t = state.cams, state.features
+    D = euroc_config(dtype="float64").capacity.state_dim
+    N = c.q.shape[0]
+    rm = None
+    if site == "prune":
+        rm, sel = _two_view_slots(t)
+        assert len(sel) >= 4
+    rng = np.random.default_rng(9)
+    sel = torch.cat([sel, torch.as_tensor(rng.integers(0, t.obs.shape[0], 8))])
+    proc = torch.as_tensor(rng.uniform(size=len(sel)) < 0.75)
+    proc[-8:] = False
+    H, r, rows = tupd.feature_block_rows(c.q, c.p, c.q_null, c.p_null, t.obs, t.obs_mask,
+                                         t.position, sel, proc, state.gravity,
+                                         params.R_cam0_cam1, params.t_cam0_cam1, D, rm=rm)
+    jst, jparams = to_jax(state), to_jax(params)
+    jc, jt = jst.cams, jst.features
+    fb = functools.partial(jupd.feature_block, gravity=jst.gravity,
+                           R_c0c1=jparams.R_cam0_cam1, t_c0c1=jparams.t_cam0_cam1, state_dim=D)
+    jsel, jproc = jnp.asarray(sel.numpy()), jnp.asarray(proc.numpy())
+    if rm is None:
+        def block_one(slot, is_proc):
+            def run(_):
+                return fb(jc.q, jc.p, jc.q_null, jc.p_null, jt.obs[slot], jt.obs_mask[slot],
+                          jt.position[slot])
+
+            def skip(_):
+                return (jnp.zeros((4 * N - 3, D), jnp.float64),
+                        jnp.zeros((4 * N - 3,), jnp.float64), jnp.zeros((), jnp.int32))
+
+            return jax.lax.cond(is_proc, run, skip, None)
+
+        jH, jr, jrows = jax.jit(jax.vmap(block_one))(jsel, jproc)
+    else:
+        jrm = jnp.asarray(rm.numpy())
+
+        def block_one(slot):
+            H, r, rows = fb(jc.q[jrm], jc.p[jrm], jc.q_null[jrm], jc.p_null[jrm],
+                            jt.obs[slot][jrm], jt.obs_mask[slot][jrm], jt.position[slot])
+            return H[:, tstate.IMU_DIM:tstate.IMU_DIM + 12], r, rows
+
+        jH, jr, jrows = jax.jit(jax.vmap(block_one))(jsel)
+        jH = jnp.where(jproc[:, None, None], jH, 0.0)
+        jr = jnp.where(jproc[:, None], jr, 0.0)
+        jrows = jnp.where(jproc, jrows, 0)
+        assert not bool(H[:, :, :tstate.IMU_DIM].any())
+        H = H[:, :, tstate.IMU_DIM:]
+        assert set(t.obs_mask[sel[proc]][:, rm].sum(1).tolist()) == {2}
+    assert_close(H.numpy(), jH, 1e-9, "H_proj")
+    assert_close(r.numpy(), jr, 1e-9, "r_proj")
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+    assert not bool(H[~proc].any()) and not bool(rows[~proc].any())
+
+
 def _gate_cases(H, r, cov, s2, thresh):
     """Per-block residual scales that force each branch of the gate: r'r
     far under the pass bound (1e-3 of it), far over the fail bound (1e3 x),

@@ -969,8 +969,8 @@ def test_grid_topk_kernel_past_8(dev, k):
 
 @pytest.mark.parametrize("n", [1024, 1025, 1500, 3000])
 def test_fast_kernel_mask_points(dev, n):
-    """K4+K6 with n mask points (1024 was the most it took): exact; the
-    points pass through shared memory in chunks of 1024."""
+    """K4+K6 with n mask points (1024 was the most it took): exact; each
+    block takes every point whose 7x7 box meets its tile."""
     img = torch.as_tensor(_image(480, 752, 5), device=dev)
     rng = np.random.default_rng(n)
     pts = torch.as_tensor(rng.uniform([0, 0], [752, 480], (n, 2)), dtype=torch.float32,
@@ -1018,9 +1018,9 @@ def test_triangulate_kernel_many_slots(dev, host_states, dtype, N):
 @pytest.mark.parametrize("dtype,N", [("float64", 34), ("float64", 35), ("float32", 48),
                                      ("float32", 49)])
 def test_feature_block_kernel_wide(dev, host_states, dtype, N):
-    """K9 at the last window size whose tile fits a block's shared memory
-    and one past it (the tile then lives in a device workspace): K9's bars
-    as at N = 20."""
+    """K9 at the window sizes around the old limit of its dense tile in a
+    block's shared memory (35 slots in float64, 49 in float32; the kernel
+    now holds O(N) values): K9's bars as at N = 20."""
     cfg, state, params, sel = _card_state(dev, host_states, dtype)
     wide = _wide_state(state, N, N, N)
     c, t = wide.cams, state.features
@@ -1111,3 +1111,180 @@ def test_gate_kernel_wide(dev, host_states, dtype, N):
             w = update.gate_gamma_plain(Hc[:, :m], rc[:, :m], cov, s2)
             assert torch.equal(g.isnan(), w.isnan())
             assert _rel_err(g.nan_to_num(), w.nan_to_num()) <= rtol
+
+
+def _corner_image(H, W, seed, kind):
+    """Images with many FAST corners: uniform noise, or a flat grey field
+    with isolated black and white pixels (rings all brighter or all darker
+    than their centre)."""
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        return rng.integers(0, 256, (H, W)).astype(np.uint8)
+    img = np.full((H, W), 128, np.uint8)
+    n = H * W // 20
+    img[rng.integers(0, H, n), rng.integers(0, W, n)] = rng.choice([0, 255], n)
+    return img
+
+
+@pytest.mark.parametrize("H,W", [(480, 752), (1080, 1440), (31, 29), (16, 32), (5, 9)])
+@pytest.mark.parametrize("n", [0, 104, 1500])
+def test_fast_kernel_one_launch_exact(dev, H, W, n):
+    """K4+K6, one launch a call, bit for bit equal to its plain version on
+    the blocky texture, on noise and on isolated dots (every quick-rejection
+    outcome), with 0, 104 or 1500 mask points: random ones, points on the
+    32x16 tiles' corners and edges (and half a pixel off them), and points
+    with floor(x) < 3 or floor(y) < 3 (which mask nothing).  The odd sizes
+    are no multiple of the tile and stage by byte loads; an image at an odd
+    address does too.  The branch-free arithmetic gives the same result."""
+    rng = np.random.default_rng(H * W + n)
+    pts = rng.uniform([-3, -3], [W + 3, H + 3], (n, 2))
+    if n:
+        ex, ey = np.meshgrid(np.arange(0, W + 1, 32), np.arange(0, H + 1, 16))
+        edge = np.stack([ex.ravel(), ey.ravel()], 1).astype(np.float64)
+        edge = np.concatenate([edge, edge - 0.5, edge + [16.0, 0.0], edge + [0.0, 8.0]])
+        k = min(len(edge), n // 2)
+        pts[:k] = edge[:k]
+        pts[k:k + 4] = [[2.9, 40.0], [40.0, 2.5], [1.0, 1.0], [3.0, 3.0]][: max(0, min(4, n - k))]
+    pts = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(rng.uniform(size=n) < 0.9, device=dev)
+    args = (pts, valid) if n else ()
+    for kind in ("blocky", "noise", "dots"):
+        img = _image(H, W, 7) if kind == "blocky" else _corner_image(H, W, 8, kind)
+        img = torch.as_tensor(img, device=dev)
+        odd = torch.empty(H * W + 1, dtype=torch.uint8, device=dev)[1:].view(H, W)
+        odd.copy_(img)
+        for thr in (15, 40):
+            want = fast.detect_fast_plain(img, thr, *args)
+            n0 = fast.detect_fast.launches
+            got = fast.detect_fast(img, thr, *args)
+            assert fast.detect_fast.launches == n0 + 1
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            assert torch.equal(got[0], got[1] > 0)
+            for im, reject in ((odd, True), (img, False)):
+                g = fast._fast_kernel(im, thr, *(args or (None, None)), reject)
+                assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+    if (H, W) == (480, 752):
+        from uav_airvision_tpu_torch.profile_main import LAUNCH_CALLS
+
+        fast.detect_fast(img, 15, *args)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fast.detect_fast(img, 15, *args)
+            torch.cuda.synchronize()
+        assert sum(e.count for e in prof.key_averages() if e.key in LAUNCH_CALLS) == 1
+
+
+def _two_view_slots(t):
+    """The two window slots that the most features are seen from together
+    (the prune's ``rm``), and those features."""
+    both = (t.obs_mask[:, :, None] & t.obs_mask[:, None, :] & t.valid[:, None, None]).sum(0)
+    both.fill_diagonal_(0)
+    i, j = divmod(int(both.argmax()), both.shape[0])
+    rm = torch.tensor(sorted((i, j)), device=t.obs.device)
+    return rm, torch.nonzero(t.valid & (t.obs_mask[:, rm].sum(1) == 2))[:, 0]
+
+
+def _rows_inputs(dev, host_states, dtype, N):
+    """``feature_block_rows`` arguments (less ``proc``) over an N-slot window
+    (N = 2: the prune's form, the two slots ``rm`` of the 20-slot window;
+    N = 1 the slot that sees the most features; N > 20 the window repeated) and 40 map
+    rows: the real features seen by the window (repeated) and padding rows,
+    three of which are rewritten as a feature cut to one view, one cut to no
+    view and (N > 2) one whose point sits on the centre of a camera that
+    sees it (non-finite Jacobians and residual there, scrubbed).  Returns
+    (args, rm, the special rows' positions in ``sel``)."""
+    cfg, state, params, sel = _card_state(dev, host_states, dtype)
+    c, t = state.cams, state.features
+    obs, mask, pos = t.obs.clone(), t.obs_mask.clone(), t.position.clone()
+    rm = None
+    if N == 2:
+        rm, base = _two_view_slots(t)
+    elif N != 20:
+        if N > 20:
+            idx = torch.arange(N, device=dev) % 20
+            c = _wide_state(state, N, N, N).cams
+        else:  # the slots that see the most features
+            idx = torch.sort(torch.argsort((mask & t.valid[:, None]).sum(0), descending=True,
+                                           stable=True)[:N]).values
+            c = c._replace(q=c.q[idx], p=c.p[idx], q_null=c.q_null[idx], p_null=c.p_null[idx])
+        obs, mask = obs[:, idx].contiguous(), mask[:, idx].contiguous()
+        base = torch.nonzero(t.valid & mask.any(1))[:, 0] if N < 20 else sel
+    else:
+        base = sel
+    assert len(base) >= 2
+    M = obs.shape[0]
+    rng = np.random.default_rng(N)
+    pad = torch.as_tensor(rng.choice(np.setdiff1d(np.arange(M), base.cpu().numpy()), 8,
+                                     replace=False), device=dev)
+    rows = torch.cat([base[torch.arange(32, device=dev) % len(base)], pad])
+    slots = rm if rm is not None else torch.arange(mask.shape[1], device=dev)
+    one, none, bad = (int(x) for x in pad[:3])
+    for dst, src in ((one, base[0]), (none, base[0]), (bad, base[1])):
+        obs[dst], mask[dst], pos[dst] = obs[src], mask[src], pos[src]
+    seen = torch.nonzero(mask[one][slots])[:, 0]
+    mask[one, slots[seen[1:]]] = False
+    mask[none, slots] = False
+    if N > 2:  # with one or two views the scrub would leave a degenerate H_f
+        first = slots[torch.nonzero(mask[bad][slots])[0, 0]]
+        pos[bad] = c.p[first]
+    args = (c.q, c.p, c.q_null, c.p_null, obs, mask, pos, rows, state.gravity,
+            params.R_cam0_cam1, params.t_cam0_cam1, 21 + 6 * c.q.shape[0])
+    return args, rm, torch.arange(32, 35, device=dev)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("N", [1, 2, 20, 35, 49, 70])
+@pytest.mark.parametrize("proc_kind", ["all", "none", "mixed"])
+def test_feature_block_rows_kernel_matches_plain(dev, host_states, dtype, N, proc_kind):
+    """K9's row-indexed entry (the gathers, the blocks and the ``proc``
+    masking in one launch) against its plain version (the call sites'
+    code): rows_true exact; H_proj and r_proj within 1e-10 (float64) of each
+    block's largest entry of [H_proj | r_proj]; in float32 within 3e-5 (1e-4
+    for the prune's N = 2 blocks) where the block observes its feature from
+    two views or more.  A one-view block is all cancellation in float32
+    (its one row is what the three reflections leave of four; both float32
+    versions are up to ~4e-3 of its largest entry off float64): there the
+    bar is taken of the unprojected block's largest entry.  Blocks whose ``proc`` is false are
+    zeros with rows 0; a non-finite Jacobian is scrubbed to 0 as in the
+    plain version."""
+    args, rm, special = _rows_inputs(dev, host_states, dtype, N)
+    B = args[7].shape[0]
+    rng = np.random.default_rng(B + N)
+    proc = {"all": torch.ones(B, dtype=torch.bool, device=dev),
+            "none": torch.zeros(B, dtype=torch.bool, device=dev),
+            "mixed": torch.as_tensor(rng.uniform(size=B) < 0.7, device=dev)}[proc_kind]
+    if proc_kind == "mixed":
+        proc[special] = True
+    full = (*args[:8], proc, *args[8:])
+    n0 = update.feature_block_rows.launches
+    H, r, rows = update.feature_block_rows(*full, rm=rm)
+    assert update.feature_block_rows.launches == n0 + 1
+    pH, pr, prows = update.feature_block_rows_plain(*full, rm=rm)
+    assert torch.equal(rows, prows)
+    assert not bool(H[~proc].any()) and not bool(r[~proc].any()) and not bool(rows[~proc].any())
+    scale = torch.maximum(pH.abs().amax((1, 2)), pr.abs().amax(1)).clamp(min=1e-30)
+
+    def err(g, w, h, v):
+        return torch.maximum((g - w).abs().flatten(1).amax(1),
+                             (h - v).abs().flatten(1).amax(1)) / scale
+
+    e = err(H, pH, r, pr)
+    if dtype == "float64":
+        assert float(e.max()) <= 1e-10
+        return
+    mask = args[5][args[7]] if rm is None else args[5][args[7]][:, rm]
+    views = mask.sum(1)
+    tol = 1e-4 if N == 2 else 3e-5
+    assert float(torch.cat([e[views >= 2], e.new_zeros(1)]).max()) <= tol
+    one = proc & (views == 1)
+    if bool(one.any()):
+        # the unprojected blocks' largest entries
+        c_q, c_p, c_qn, c_pn, obs, obs_mask, pos, sel = full[:8]
+        if rm is not None:
+            c_q, c_p, c_qn, c_pn = c_q[rm], c_p[rm], c_qn[rm], c_pn[rm]
+            obs, obs_mask = obs[:, rm], obs_mask[:, rm]
+        T0, _ = update.stacked_tile(c_q, c_p, c_qn, c_pn, obs[sel], obs_mask[sel], pos[sel],
+                                    *full[9:12])
+        e_in = err(H, pH, r, pr) * scale / T0.abs().flatten(1).amax(1).clamp(min=1e-30)
+        assert float(e_in[one].max()) <= tol

@@ -300,7 +300,7 @@ def filter_state():
 
 
 def _launch_counts():
-    fns = (ttri.triangulate, tupd.feature_block, tupd.gating_test_batch, tupd.rank12_update,
+    fns = (ttri.triangulate, tupd.feature_block, tupd.feature_block_rows, tupd.gating_test_batch, tupd.rank12_update,
            tupd.apply_update_rank12, tupd.ekf_update, tupd.apply_update, tgrid.dense_grid_topk,
            *tgrid.K8_WRAPPERS, tgrid.select_track,
            *tcam.WRAPPERS, tcam.predict_warp_points, tcam.stereo_gate, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk,
@@ -319,7 +319,7 @@ def _assert_identical(got, want):
                                               and torch.equal(got.nan_to_num(), want.nan_to_num()))
 
 
-@pytest.mark.parametrize("kernel", ["K13", "K9", "K9_prune", "K10", "K12", "K11", "K5", "K8",
+@pytest.mark.parametrize("kernel", ["K13", "K9", "K9_prune", "K9_rows", "K9_rows_prune", "K10", "K12", "K11", "K5", "K8",
                                     "K7", "P1", "K1_level", "K2", "K14", "K1"])
 def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
     """On CPU tensors each kernel's public wrapper returns exactly what its
@@ -335,6 +335,13 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
         args = (c.q, c.p, t.obs[sel], t.obs_mask[sel], params.R_cam0_cam1, params.t_cam0_cam1,
                 cfg.triangulation, active)
         _assert_identical(ttri.triangulate(*args), ttri.triangulate_plain(*args))
+    elif kernel.startswith("K9_rows"):
+        rm = torch.tensor([3, 7]) if kernel == "K9_rows_prune" else None
+        proc = torch.arange(len(sel)) % 4 != 1
+        args = (c.q, c.p, c.q_null, c.p_null, t.obs, t.obs_mask, t.position, sel, proc,
+                state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, cfg.capacity.state_dim)
+        _assert_identical(tupd.feature_block_rows(*args, rm=rm),
+                          tupd.feature_block_rows_plain(*args, rm=rm))
     elif kernel.startswith("K9"):
         rm = torch.tensor([3, 7]) if kernel == "K9_prune" else torch.arange(c.q.shape[0])
         args = (c.q[rm], c.p[rm], c.q_null[rm], c.p_null[rm], t.obs[sel][:, rm],

@@ -1,13 +1,17 @@
-"""Device time per launch of the port's K2 (pyramid), K10 (gate), K11 (EKF
-update), K14 (IMU propagation) and K1 (LK) kernels, alone on the card, by
-torch.profiler.
+"""Device time per launch of the port's K2 (pyramid), K4+K6 (FAST), K9
+(feature block), K10 (gate), K11 (EKF update), K14 (IMU propagation) and K1
+(LK) kernels, alone on the card, by torch.profiler.
 
     python tools/kernel_probe.py [--frames 60]
 
 K2: both cameras of a 480x752 pair at 1 to 4 levels (the step from one
 level count to the next is what the band blocks spend on that level), one
 image at an address that is not 16-byte aligned (the staging's byte-load
-path) and one camera.  K10: the gate calls that ``run_sequence`` makes on
+path) and one camera.  K4+K6: the latest frame's call of the run below, with
+the quick rejection and with the branch-free arithmetic.  K9: the latest
+``feature_block_rows`` call of each shape (the lost features' and the
+prune's), with the launcher's split of a feature's rows over blocks and
+with 1, 2, 4 and 8 blocks a feature.  K10: the gate calls that ``run_sequence`` makes on
 the first ``--frames`` frames of the bench world (recorded through
 ``kernels.observer``, the latest call of each shape), each launched again
 40 times in a row, beside the same calls with every block forced to the
@@ -93,10 +97,14 @@ def main(argv=None) -> None:
     probe("K2 pair, cam0 at an odd address", lambda: pyramid.build_pyramid_pair(odd, img1, 3))
     probe("K2 one camera", lambda: pyramid.build_pyramid_padded(img0, 3))
 
-    calls, ekf, lk_calls = {}, [], {}
+    calls, ekf, lk_calls, fast_calls, k9_calls = {}, [], {}, {}, {}
 
     def record(name, a):
-        if name == "gating_test_batch":
+        if name == "detect_fast":
+            fast_calls[tuple(a[0].shape)] = a
+        elif name == "feature_block_rows":
+            k9_calls[(a[7].shape[0], a[4].shape[1] if a[13] is None else a[13].shape[0])] = a
+        elif name == "gating_test_batch":
             calls[tuple(a[0].shape)] = a
         elif name == "apply_update":
             ekf[:] = [a]
@@ -108,6 +116,7 @@ def main(argv=None) -> None:
     vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
     torch.cuda.synchronize()
     kernels.observer = None
+    probe_fast_k9(fast_calls, k9_calls)
     for shape, a in sorted(calls.items()):
         H, r, rows, cov, s2, table, dof = a
         thresh = table[torch.clamp(dof, 0, table.shape[0] - 1).long()]
@@ -158,6 +167,47 @@ def main(argv=None) -> None:
             S = H @ cov @ H.transpose(1, 2) + s2 * torch.eye(shape[1], device=dev)
             probe(f"torch.linalg.cholesky_ex of the {shape} gate's S",
                   lambda: torch.linalg.cholesky_ex(S))
+
+
+def probe_fast_k9(fast_calls, k9_calls) -> None:
+    """K4+K6 on the run's latest frame, with its quick rejection and with
+    the branch-free arithmetic; K9's row-indexed entry on the run's latest
+    call of each shape, with the launcher's blocks per feature and with 1,
+    2, 4 and 8."""
+    from uav_airvision_tpu_torch.models.msckf import update
+    from uav_airvision_tpu_torch.ops import fast
+
+    for shape, (img, thr, pts, valid) in sorted(fast_calls.items()):
+        n = 0 if pts is None else pts.shape[0]
+        for reject in (True, False):
+            probe(f"K4+K6 detect_fast {shape}, {n} mask points, "
+                  f"{'quick rejection' if reject else 'branch-free'}",
+                  lambda: fast._fast_kernel(img, thr, pts, valid, reject))
+            clocks = torch.zeros(6, dtype=torch.int64, device=img.device)
+            fast._fast_kernel(img, thr, pts, valid, reject, clocks)
+            c = clocks.tolist()
+            print(f"  K4+K6 phases of the middle block, SM clock cycles: staging {c[1] - c[0]}, "
+                  f"mask {c[2] - c[1]}, candidates {c[3] - c[2]}, scores {c[4] - c[3]}, NMS "
+                  f"and stores {c[5] - c[4]}; total {c[5] - c[0]}", flush=True)
+    for (B, N), a in sorted(k9_calls.items()):
+        cq, cp, cqn, cpn, obs, mask, pos, sel, proc, g, Rc, tc, _, rm = a
+        for split in (0, 1, 2, 4, 8):
+            probe(f"K9 feature_block_rows B={B} x N={N}, {int(proc.sum())} blocks computed, "
+                  f"{'the launcher' + chr(39) + 's' if split == 0 else split} block(s) a feature",
+                  lambda: update._feature_block_kernel(cq, cp, cqn, cpn, obs, mask, pos, g, Rc,
+                                                       tc, sel=sel, proc=proc, rm=rm,
+                                                       split=split))
+        # block 0's phases, on the call's first block (computed)
+        clocks = torch.zeros(6, dtype=torch.int64, device=obs.device)
+        first = torch.ones_like(proc)
+        update._feature_block_kernel(cq, cp, cqn, cpn, obs, mask, pos, g, Rc, tc, sel=sel,
+                                     proc=first, rm=rm, clocks=clocks)
+        c = clocks.tolist()
+        print(f"  K9 phases of block 0 (feature {int(sel[0])}, "
+              f"{int((mask[sel[0]] if rm is None else mask[sel[0]][rm]).sum())} views), SM "
+              f"clock cycles: ranks {c[1] - c[0]}, Jacobians {c[2] - c[1]}, reflections "
+              f"{c[3] - c[2]}, w_j {c[4] - c[3]}, rows {c[5] - c[4]}; total {c[5] - c[0]}",
+              flush=True)
 
 
 def probe_propagate(config, dev) -> None:

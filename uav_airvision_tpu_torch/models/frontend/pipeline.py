@@ -27,9 +27,10 @@ import torch
 
 from ...config import Config
 from ...device import to_host
-from ...ops import camera, fast, gridops, lk, pyramid
+from ...ops import camera, gridops, lk, pyramid
 # the fused calls by name, so that profile_main.py can span them here
 from ...ops.camera import predict_warp_points, predicted_rotation
+from ...ops.fast import detect_fast
 from ...ops.gridops import select_track
 from ...ops.pyramid import Pyramid
 from .params import FrontendParams
@@ -88,7 +89,7 @@ def predicted_rotations(mean_ang_vel, dt, params: FrontendParams):
 def _detection_candidates(img, mask_pts, mask_valid, config: Config, per_cell: int):
     """FAST + mask + NMS + per-cell top-k: flat (pts, score, arrival, valid)."""
     fe = config.frontend
-    keep, score = fast.detect_fast(img, fe.fast_threshold, mask_pts, mask_valid)
+    keep, score = detect_fast(img, fe.fast_threshold, mask_pts, mask_valid)
     ys, xs, vals = gridops.dense_grid_topk(score, fe.grid_row, fe.grid_col, per_cell)
     C = fe.grid_num * per_cell
     ys, xs, vals = ys.reshape(C), xs.reshape(C), vals.reshape(C)

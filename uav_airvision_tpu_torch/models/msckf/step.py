@@ -25,7 +25,7 @@ from . import triangulation as tri
 from .propagation import propagate
 from .state import (IMU_DIM, INT32_MAX, CamWindow, FeatureTable, FilterState, MsckfParams,
                     reset_cov)
-from .update import apply_update, apply_update_rank12, feature_block, gating_test_batch
+from .update import apply_update, apply_update_rank12, feature_block_rows, gating_test_batch
 
 LOST_SMALL = 16  # lost-feature batch of the common case (JAX small tier)
 MAX_BUDGET_ROWS = 1500  # the reference's Jacobian-stack row cap
@@ -216,12 +216,9 @@ def _remove_lost_once(state: FilterState, params: MsckfParams, config: Config,
     state, init_fail = _triangulate_selected(state, params, config, sel, sel_mask)
     table = state.features
     proc = sel_mask & ~init_fail
-    H_blk, r_blk, rows_f = feature_block(
-        cams.q, cams.p, cams.q_null, cams.p_null, table.obs[sel], table.obs_mask[sel],
-        table.position[sel], state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, D)
-    H_blk = torch.where(proc[:, None, None], H_blk, 0.0)
-    r_blk = torch.where(proc[:, None], r_blk, 0.0)
-    rows_f = torch.where(proc, rows_f, 0)
+    H_blk, r_blk, rows_f = feature_block_rows(
+        cams.q, cams.p, cams.q_null, cams.p_null, table.obs, table.obs_mask, table.position,
+        sel, proc, state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, D)
     dof = table.obs_mask[sel].to(torch.int32).sum(1) - 1
     gate_ok = gating_test_batch(H_blk, r_blk, rows_f, state.cov, params.obs_noise,
                                 params.chi2_table, dof)
@@ -319,13 +316,10 @@ def _prune_sized(state: FilterState, params: MsckfParams, config: Config, rm, tw
     proc = sel_two & ~init_fail
 
     # Jacobian blocks over the two involved cameras only
-    H, r_blk, rows_f = feature_block(
-        cams.q[rm], cams.p[rm], cams.q_null[rm], cams.p_null[rm], table.obs[sel][:, rm],
-        table.obs_mask[sel][:, rm], table.position[sel], state.gravity,
-        params.R_cam0_cam1, params.t_cam0_cam1, D)
-    rows_f = torch.where(proc, rows_f, 0)
-    H12 = torch.where(proc[:, None, None], H[:, :, IMU_DIM:IMU_DIM + 12], 0.0)
-    r_blk = torch.where(proc[:, None], r_blk, 0.0)
+    H, r_blk, rows_f = feature_block_rows(
+        cams.q, cams.p, cams.q_null, cams.p_null, table.obs, table.obs_mask, table.position,
+        sel, proc, state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, D, rm=rm)
+    H12 = H[:, :, IMU_DIM:IMU_DIM + 12]
     cols = torch.cat([IMU_DIM + 6 * r0 + torch.arange(6, device=dev),
                       IMU_DIM + 6 * r1 + torch.arange(6, device=dev)])
     H_blk = torch.zeros((Kp, 5, D), dtype=dtype, device=dev).index_copy(2, cols, H12)

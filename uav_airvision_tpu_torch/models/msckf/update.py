@@ -10,8 +10,9 @@ version, by a branch-free selection.
 
 Four kernels carry the marginalization path on CUDA tensors, each beside
 its plain PyTorch version (``<name>_plain``, which CPU tensors run):
-K9 ``feature_block`` (``csrc/feature_block.cu``), K10 ``gating_test_batch``
-(``csrc/gate.cu``, the whole gate in one launch),
+K9 ``feature_block`` and ``feature_block_rows`` (``csrc/feature_block.cu``;
+the second with the back-end's gathers and masks in its launch), K10
+``gating_test_batch`` (``csrc/gate.cu``, the whole gate in one launch),
 K11 ``apply_update`` (``csrc/ekf_update.cu``: the update and the error-state
 injection in one launch; ``ekf_update`` is its entry without the injection)
 and K12 ``apply_update_rank12`` (``csrc/rank12.cu``, likewise, and
@@ -141,38 +142,93 @@ def feature_block(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
 feature_block.launches = 0
 
 
+def feature_block_rows_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, position, sel,
+                             proc, gravity, R_c0c1, t_c0c1, state_dim, rm=None):
+    """The back-end's call sites of ``feature_block`` as they stood: the
+    gathers of the map rows ``sel`` (and of the window slots ``rm``), the
+    blocks, and the blocks whose ``proc`` is false set to zeros, rows 0."""
+    if rm is None:
+        H, r, rows = feature_block_plain(cams_q, cams_p, cams_qn, cams_pn, obs[sel],
+                                         obs_mask[sel], position[sel], gravity, R_c0c1,
+                                         t_c0c1, state_dim)
+    else:
+        H, r, rows = feature_block_plain(cams_q[rm], cams_p[rm], cams_qn[rm], cams_pn[rm],
+                                         obs[sel][:, rm], obs_mask[sel][:, rm], position[sel],
+                                         gravity, R_c0c1, t_c0c1, state_dim)
+    H = torch.where(proc[:, None, None], H, 0.0)
+    r = torch.where(proc[:, None], r, 0.0)
+    rows = torch.where(proc, rows, 0)
+    return H, r, rows
+
+
+def feature_block_rows(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, position, sel, proc,
+                       gravity, R_c0c1, t_c0c1, state_dim, rm=None):
+    """``feature_block`` of the map rows ``sel`` (B,) of the feature table
+    (obs (M, Nw, 4), obs_mask (M, Nw), position (M, 3)) over the window's
+    Nw slots, or over its slots ``rm`` (2,) only (the camera prune: N = 2).
+    A block whose ``proc`` (B,) is false is zeros with rows_true 0.  On CUDA
+    tensors one launch of K9 gathers, computes and masks."""
+    dev = obs.device
+    if dev.type == "cpu":
+        return feature_block_rows_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask,
+                                        position, sel, proc, gravity, R_c0c1, t_c0c1,
+                                        state_dim, rm)
+    if dev.type != "cuda":
+        raise ValueError(f"K9 runs on CUDA tensors, got {dev}")
+    args = (cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, position, gravity, R_c0c1, t_c0c1)
+    kernels.observe("feature_block_rows", (cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask,
+                                           position, sel, proc, gravity, R_c0c1, t_c0c1,
+                                           state_dim, rm))
+    out = _feature_block_kernel(*args, sel=sel, proc=proc, rm=rm)
+    feature_block_rows.launches += 1
+    return out
+
+
+feature_block_rows.launches = 0
+
+
 def _feature_block_kernel(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
-                          R_c0c1, t_c0c1):
+                          R_c0c1, t_c0c1, sel=None, proc=None, rm=None, split=0, clocks=None):
+    """K9's launch.  Without ``sel`` block b is row b of obs / p_w; without
+    ``rm`` the blocks run over every window slot; without ``proc`` every
+    block is computed.  ``split``: blocks per feature (0: the launcher's
+    choice); ``clocks``: an int64 (6,) tensor for the SM clock at the start
+    of block 0 and at the end of each of its five phases."""
     dtype, dev = p_w.dtype, p_w.device
     entry = {torch.float32: "feature_block_f32", torch.float64: "feature_block_f64"}.get(dtype)
     if entry is None:
         raise ValueError(f"K9 takes float32 or float64, got {dtype}")
-    B, N = obs_mask.shape
     cams_q, cams_p, cams_qn, cams_pn, obs, p_w, gravity, R_c0c1, t_c0c1 = (
         x.to(dtype).contiguous()
         for x in (cams_q, cams_p, cams_qn, cams_pn, obs, p_w, gravity, R_c0c1, t_c0c1))
     obs_mask = obs_mask.to(torch.bool).contiguous()
-    kernels.check_cuda(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
-                       R_c0c1, t_c0c1)
-    if (cams_q.shape != (N, 4) or cams_qn.shape != (N, 4) or cams_p.shape != (N, 3)
-            or cams_pn.shape != (N, 3) or obs.shape != (B, N, 4) or p_w.shape != (B, 3)
-            or gravity.shape != (3,) or R_c0c1.shape != (3, 3) or t_c0c1.shape != (3,)):
+    M, Nw = obs_mask.shape
+    proc = proc.to(torch.bool) if proc is not None else None
+    sel, proc, rm = (x.contiguous() if x is not None else None for x in (sel, proc, rm))
+    idx = [x for x in (sel, proc, rm) if x is not None]
+    kernels.check_cuda(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity, R_c0c1,
+                       t_c0c1, *idx)
+    N = Nw if rm is None else rm.shape[0]
+    B = M if sel is None else sel.shape[0]
+    if (cams_q.shape != (Nw, 4) or cams_qn.shape != (Nw, 4) or cams_p.shape != (Nw, 3)
+            or cams_pn.shape != (Nw, 3) or obs.shape != (M, Nw, 4) or p_w.shape != (M, 3)
+            or gravity.shape != (3,) or R_c0c1.shape != (3, 3) or t_c0c1.shape != (3,)
+            or (sel is not None and (sel.dtype != torch.int64 or sel.shape != (B,)))
+            or (rm is not None and (rm.dtype != torch.int64 or rm.shape != (N,)))
+            or (proc is not None and proc.shape != (B,))):
         raise ValueError("feature_block: inconsistent window / observation shapes")
-    R, D = 4 * N - 3, IMU_DIM + 6 * N
-    H = torch.empty((B, R, D), dtype=dtype, device=dev)
-    r = torch.empty((B, R), dtype=dtype, device=dev)
+    H = torch.empty((B, 4 * N - 3, IMU_DIM + 6 * N), dtype=dtype, device=dev)
+    r = torch.empty((B, 4 * N - 3), dtype=dtype, device=dev)
     rows = torch.empty((B,), dtype=torch.int32, device=dev)
-    # the block's 4N x (4 + 6N) tile and its scratch; past the shared memory
-    # a block holds, each block's tile lives in a device workspace
-    tile = 4 * N * (4 + 6 * N)
-    smem = (tile + 4 * N + 4 + 6 * N + 32) * p_w.element_size() + 4 * N
-    work = (torch.empty((B * tile,), dtype=dtype, device=dev)
-            if smem > kernels.SMEM_PER_BLOCK else None)
-    kernels.launch(entry, *(kernels.ptr(x) for x in (cams_q, cams_p, cams_qn, cams_pn)), N,
-                   kernels.ptr(obs), kernels.ptr(obs_mask), kernels.ptr(p_w),
-                   kernels.ptr(gravity), kernels.ptr(R_c0c1), kernels.ptr(t_c0c1), B,
-                   kernels.ptr(H), kernels.ptr(r), kernels.ptr(rows),
-                   kernels.ptr(work) if work is not None else None)
+
+    def opt(x):
+        return kernels.ptr(x) if x is not None else None
+
+    kernels.launch(entry, *(kernels.ptr(x) for x in (cams_q, cams_p, cams_qn, cams_pn)),
+                   opt(rm), N, Nw, kernels.ptr(obs), kernels.ptr(obs_mask), kernels.ptr(p_w),
+                   opt(sel), opt(proc), kernels.ptr(gravity), kernels.ptr(R_c0c1),
+                   kernels.ptr(t_c0c1), B, kernels.ptr(H), kernels.ptr(r), kernels.ptr(rows),
+                   int(split), opt(clocks))
     return H, r, rows
 
 

@@ -91,35 +91,48 @@ def detect_fast_plain(img, threshold: int, mask_pts=None, mask_valid=None):
     return keep, torch.where(keep, score, 0)
 
 
+# K4+K6 runs the quick rejection of non-corners (``csrc/fast.cu``); False
+# runs its branch-free arithmetic instead (both exact)
+QUICK_REJECT = True
+
+
 def detect_fast(img: torch.Tensor, threshold: int, mask_pts=None, mask_valid=None):
     """FAST + optional 7x7 exclusion mask + NMS on a (H, W) uint8 image.
     Returns (keep (H, W) bool, score (H, W) int32)."""
     if img.device.type == "cpu":
         return detect_fast_plain(img, threshold, mask_pts, mask_valid)
-    if img.device.type != "cuda" or img.dtype != torch.uint8:
-        raise ValueError(f"K4 takes a uint8 CUDA image, got {img.dtype} on {img.device}")
-    img = img.contiguous()
-    H, W = img.shape
-    dev = img.device
-    if mask_pts is None:
-        pts = torch.zeros((0, 2), dtype=torch.float32, device=dev)
-        pvalid = torch.zeros((0,), dtype=torch.bool, device=dev)
-    else:
-        pts = mask_pts.to(torch.float32).contiguous()
-        pvalid = mask_valid.to(torch.bool).contiguous()
-        if pts.ndim != 2 or pts.shape[1] != 2 or pvalid.shape != pts.shape[:1]:
-            raise ValueError(f"mask points {tuple(pts.shape)} / valid {tuple(pvalid.shape)}")
-    kernels.check_cuda(img, pts, pvalid)
-    score_tmp = torch.empty((H, W), dtype=torch.int32, device=dev)
-    corner_tmp = torch.empty((H, W), dtype=torch.bool, device=dev)
-    keep = torch.empty((H, W), dtype=torch.bool, device=dev)
-    score = torch.empty((H, W), dtype=torch.int32, device=dev)
-    kernels.launch("fast_detect_masked", kernels.ptr(img), H, W, int(threshold),
-                   kernels.ptr(pts), kernels.ptr(pvalid), pts.shape[0],
-                   kernels.ptr(score_tmp), kernels.ptr(corner_tmp),
-                   kernels.ptr(keep), kernels.ptr(score))
+    kernels.observe("detect_fast", (img, threshold, mask_pts, mask_valid))
+    out = _fast_kernel(img, threshold, mask_pts, mask_valid, QUICK_REJECT)
     detect_fast.launches += 1
-    return keep, score
+    return out
 
 
 detect_fast.launches = 0
+
+
+def _fast_kernel(img, threshold, mask_pts, mask_valid, reject: bool, clocks=None):
+    """K4+K6's one launch: keep and score are its only allocations.
+    ``clocks``: an int64 (6,) tensor for the SM clock at the start of the
+    middle block and at the end of each of its five phases."""
+    if img.device.type != "cuda" or img.dtype != torch.uint8 or img.ndim != 2:
+        raise ValueError(f"K4 takes a (H, W) uint8 CUDA image, got {img.dtype} "
+                         f"{tuple(img.shape)} on {img.device}")
+    img = img.contiguous()
+    H, W = img.shape
+    if mask_pts is None:
+        pts = pvalid = img  # never read: no points
+        n = 0
+    else:
+        pts = mask_pts.to(torch.float32).contiguous()  # no copy when already so
+        pvalid = mask_valid.to(torch.bool).contiguous()
+        if pts.ndim != 2 or pts.shape[1] != 2 or pvalid.shape != pts.shape[:1]:
+            raise ValueError(f"mask points {tuple(pts.shape)} / valid {tuple(pvalid.shape)}")
+        n = pts.shape[0]
+    kernels.check_cuda(img, pts, pvalid)
+    keep = torch.empty((H, W), dtype=torch.bool, device=img.device)
+    score = torch.empty((H, W), dtype=torch.int32, device=img.device)
+    kernels.launch("fast_detect_masked", kernels.ptr(img), H, W, int(threshold),
+                   kernels.ptr(pts), kernels.ptr(pvalid), n, kernels.ptr(keep),
+                   kernels.ptr(score), int(reject),
+                   kernels.ptr(clocks) if clocks is not None else None)
+    return keep, score

@@ -17,8 +17,10 @@ the EKF updates (``apply_update``, K11, and ``apply_update_rank12``, K12,
 as the back-end step calls them) and the front-end's fused calls (the
 per-cell selection ``select_track`` and the prediction
 ``predict_warp_points`` as ``pipeline`` calls them, the stereo gate
-``stereo_gate`` as ``stereo`` calls it) run
-under profiler spans, and the launches made under each are counted (per
+``stereo_gate`` as ``stereo`` calls it, and FAST ``detect_fast`` as
+``pipeline`` calls it) and
+K9's row-indexed entry ``feature_block_rows`` as the back-end step calls it
+run under profiler spans, and the launches made under each are counted (per
 frame for K15; per call and per frame for the rest).  A span absent from the
 profiled code (an older tree) reports nothing.  Prints one JSON line with
 the card's name and power limit.  Needs a CUDA device.
@@ -128,8 +130,12 @@ def main(argv=None):
     originals = span_functions(step, K15_FUNCTIONS, "K15")
     originals.update(span_functions(step, EKF_FUNCTIONS, "EKF"))
     # the front-end's fused calls, spanned where the front-end calls them
-    originals.update(span_functions(pipeline, ("select_track", "predict_warp_points"), "FE"))
+    originals.update(span_functions(pipeline, ("select_track", "predict_warp_points",
+                                               "detect_fast"), "FE"))
     originals.update(span_functions(stereo, ("stereo_gate",), "FE"))
+    # K9's row-indexed entry, where the back-end calls it (its gathers and
+    # masks inside)
+    originals.update(span_functions(step, ("feature_block_rows",), "BE"))
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -143,11 +149,12 @@ def main(argv=None):
     k15 = count_under(prof.events(), "K15")
     ekf = count_under(prof.events(), "EKF")
     fe = count_under(prof.events(), "FE")
+    be = count_under(prof.events(), "BE")
     events = prof.key_averages()
     launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
     # the spans show up on the device side too, as long as the kernels under them
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0 and not e.key.startswith(("K15", "EKF", "FE"))]
+               and e.self_device_time_total > 0 and not e.key.startswith(("K15", "EKF", "FE", "BE"))]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.count)[:12]
     # the hand-written kernels of csrc/ (each in an anonymous namespace of its own)
@@ -164,6 +171,8 @@ def main(argv=None):
         # [launches per call, calls, launches per frame]
         "frontend_launches": {name: [c[0] / c[1], c[1], c[0] / n]
                               for name, c in sorted(fe.items())},
+        "backend_launches": {name: [c[0] / c[1], c[1], c[0] / n]
+                             for name, c in sorted(be.items())},
         "device_ms_per_frame": device_us / 1e3 / n,
         "profiled_wall_ms_per_frame": prof_wall * 1e3 / n,
         "device_busy_share": device_us / 1e6 / prof_wall,
