@@ -14,9 +14,8 @@
    the warm run (3.) K1 again, with the same bars, on a few of the warm
    run's recorded calls of each shape (temporal, stereo forward and
    backward), each shape timed through the wrapper and on the device; and
-   K4+K6 on every call of the warm run, exactly, one launch a call, its
-   quick rejection and its branch-free arithmetic timed on the same call
-   (through the wrapper and on the device).
+   K4+K6 on every call of the warm run, exactly, one launch a call (device
+   us printed).
 3. Main path, warm run: the bench world as bench.py renders it
    (euroc_config, seed 5, 200 frames) through ``run_sequence`` on the card,
    with an observer (``kernels.observer``) recording the arguments of the
@@ -948,9 +947,7 @@ def check_feature_rows(rec: Recorder):
 
 def check_fast_recorded(rec: Recorder):
     """K4+K6 on every call of the warm run: keep and score equal to the plain
-    version's, bit for bit; one launch a call; the quick rejection and the
-    branch-free arithmetic timed on the most frequent call (wrapper ms and
-    device us)."""
+    version's, bit for bit; one launch a call (device us printed)."""
     import torch
 
     from uav_airvision_tpu_torch.ops import fast
@@ -969,18 +966,9 @@ def check_fast_recorded(rec: Recorder):
     n_launch, dev_us = _profile_calls(lambda: fast.detect_fast(*a), kernels=("fast_tile_kernel",))
     if n_launch != 1.0:
         fail(f"K4+K6: {n_launch} launches a call")
-    pts = (a[2], a[3]) if a[2] is not None else (None, None)
-    times = {}
-    for reject in (True, False):
-        _, us = _profile_calls(lambda: fast._fast_kernel(a[0], a[1], *pts, reject),
-                               kernels=("fast_tile_kernel",))
-        times[reject] = (cuda_ms(lambda: fast._fast_kernel(a[0], a[1], *pts, reject)), us)
     print(f"[K4+K6] {len(samples)} recorded calls ({sorted({sh for sh, _ in samples})}): "
           f"{'exact' if not bad else f'{bad} differ'}; {n_launch:.0f} launch a call, "
-          f"{dev_us:.2f} us on the device; quick rejection {times[True][0]:.4f} ms through the "
-          f"wrapper, {times[True][1]:.2f} us on the device; branch-free "
-          f"{times[False][0]:.4f} ms, {times[False][1]:.2f} us (the wrapper runs "
-          f"{'the quick rejection' if fast.QUICK_REJECT else 'branch-free'})")
+          f"{dev_us:.2f} us on the device")
 
 
 def _timed_sum(rec: Recorder, entries):

@@ -1135,7 +1135,7 @@ def test_fast_kernel_one_launch_exact(dev, H, W, n):
     32x16 tiles' corners and edges (and half a pixel off them), and points
     with floor(x) < 3 or floor(y) < 3 (which mask nothing).  The odd sizes
     are no multiple of the tile and stage by byte loads; an image at an odd
-    address does too.  The branch-free arithmetic gives the same result."""
+    address does too."""
     rng = np.random.default_rng(H * W + n)
     pts = rng.uniform([-3, -3], [W + 3, H + 3], (n, 2))
     if n:
@@ -1160,9 +1160,8 @@ def test_fast_kernel_one_launch_exact(dev, H, W, n):
             assert fast.detect_fast.launches == n0 + 1
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
             assert torch.equal(got[0], got[1] > 0)
-            for im, reject in ((odd, True), (img, False)):
-                g = fast._fast_kernel(im, thr, *(args or (None, None)), reject)
-                assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+            g = fast.detect_fast(odd, thr, *args)
+            assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
     if (H, W) == (480, 752):
         from uav_airvision_tpu_torch.profile_main import LAUNCH_CALLS
 

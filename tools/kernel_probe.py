@@ -7,11 +7,10 @@
 K2: both cameras of a 480x752 pair at 1 to 4 levels (the step from one
 level count to the next is what the band blocks spend on that level), one
 image at an address that is not 16-byte aligned (the staging's byte-load
-path) and one camera.  K4+K6: the latest frame's call of the run below, with
-the quick rejection and with the branch-free arithmetic.  K9: the latest
-``feature_block_rows`` call of each shape (the lost features' and the
-prune's), with the launcher's split of a feature's rows over blocks and
-with 1, 2, 4 and 8 blocks a feature.  K10: the gate calls that ``run_sequence`` makes on
+path) and one camera.  K4+K6: the latest frame's call of the run below.
+K9: the latest ``feature_block_rows`` call of each shape (the lost
+features' and the prune's).  Both with the SM clock cycles of their phases.
+K10: the gate calls that ``run_sequence`` makes on
 the first ``--frames`` frames of the bench world (recorded through
 ``kernels.observer``, the latest call of each shape), each launched again
 40 times in a row, beside the same calls with every block forced to the
@@ -170,44 +169,36 @@ def main(argv=None) -> None:
 
 
 def probe_fast_k9(fast_calls, k9_calls) -> None:
-    """K4+K6 on the run's latest frame, with its quick rejection and with
-    the branch-free arithmetic; K9's row-indexed entry on the run's latest
-    call of each shape, with the launcher's blocks per feature and with 1,
-    2, 4 and 8."""
+    """K4+K6 on the run's latest frame and K9's row-indexed entry on the
+    run's latest call of each shape, each with the SM clock cycles of its
+    phases."""
     from uav_airvision_tpu_torch.models.msckf import update
     from uav_airvision_tpu_torch.ops import fast
 
     for shape, (img, thr, pts, valid) in sorted(fast_calls.items()):
         n = 0 if pts is None else pts.shape[0]
-        for reject in (True, False):
-            probe(f"K4+K6 detect_fast {shape}, {n} mask points, "
-                  f"{'quick rejection' if reject else 'branch-free'}",
-                  lambda: fast._fast_kernel(img, thr, pts, valid, reject))
-            clocks = torch.zeros(6, dtype=torch.int64, device=img.device)
-            fast._fast_kernel(img, thr, pts, valid, reject, clocks)
-            c = clocks.tolist()
-            print(f"  K4+K6 phases of the middle block, SM clock cycles: staging {c[1] - c[0]}, "
-                  f"mask {c[2] - c[1]}, candidates {c[3] - c[2]}, scores {c[4] - c[3]}, NMS "
-                  f"and stores {c[5] - c[4]}; total {c[5] - c[0]}", flush=True)
+        probe(f"K4+K6 detect_fast {shape}, {n} mask points",
+              lambda: fast.detect_fast(img, thr, pts, valid))
+        clocks = torch.zeros(6, dtype=torch.int64, device=img.device)
+        fast._fast_kernel(img, thr, pts, valid, clocks)
+        c = clocks.tolist()
+        print(f"  K4+K6 phases of the middle block, SM clock cycles: staging {c[1] - c[0]}, "
+              f"mask {c[2] - c[1]}, candidates {c[3] - c[2]}, scores {c[4] - c[3]}, NMS and "
+              f"stores {c[5] - c[4]}; total {c[5] - c[0]}", flush=True)
     for (B, N), a in sorted(k9_calls.items()):
-        cq, cp, cqn, cpn, obs, mask, pos, sel, proc, g, Rc, tc, _, rm = a
-        for split in (0, 1, 2, 4, 8):
-            probe(f"K9 feature_block_rows B={B} x N={N}, {int(proc.sum())} blocks computed, "
-                  f"{'the launcher' + chr(39) + 's' if split == 0 else split} block(s) a feature",
-                  lambda: update._feature_block_kernel(cq, cp, cqn, cpn, obs, mask, pos, g, Rc,
-                                                       tc, sel=sel, proc=proc, rm=rm,
-                                                       split=split))
-        # block 0's phases, on the call's first block (computed)
+        cq, cp, cqn, cpn, obs, mask, pos, sel, proc, g, Rc, tc, D, rm = a
+        probe(f"K9 feature_block_rows B={B} x N={N}, {int(proc.sum())} blocks computed",
+              lambda: update.feature_block_rows(*a[:13], rm=rm))
+        # block 0's phases, with every block computed
         clocks = torch.zeros(6, dtype=torch.int64, device=obs.device)
-        first = torch.ones_like(proc)
         update._feature_block_kernel(cq, cp, cqn, cpn, obs, mask, pos, g, Rc, tc, sel=sel,
-                                     proc=first, rm=rm, clocks=clocks)
+                                     proc=torch.ones_like(proc), rm=rm, clocks=clocks)
         c = clocks.tolist()
         print(f"  K9 phases of block 0 (feature {int(sel[0])}, "
               f"{int((mask[sel[0]] if rm is None else mask[sel[0]][rm]).sum())} views), SM "
-              f"clock cycles: ranks {c[1] - c[0]}, Jacobians {c[2] - c[1]}, reflections "
-              f"{c[3] - c[2]}, w_j {c[4] - c[3]}, rows {c[5] - c[4]}; total {c[5] - c[0]}",
-              flush=True)
+              f"clock cycles: staging and ranks {c[1] - c[0]}, Jacobians {c[2] - c[1]}, "
+              f"reflections {c[3] - c[2]}, w_j {c[4] - c[3]}, rows {c[5] - c[4]}; total "
+              f"{c[5] - c[0]}", flush=True)
 
 
 def probe_propagate(config, dev) -> None:

@@ -29,17 +29,16 @@
 //      8 neighbours (zero outside the image); keep and score go out once.
 // Integer arithmetic throughout, so the result is exact.
 //
-// The quick rejection (template flag ``Reject``): a 9-long arc of the
-// 16-ring covers 9 consecutive positions, and any 8 consecutive positions
+// The quick rejection: a 9-long arc of the 16-ring covers 9 consecutive
+// positions, and any 8 consecutive positions
 // of the ring hold exactly two of the compass positions 0, 4, 8, 12 (they
 // are 4 apart).  A bright corner needs all 9 differences of some arc above
 // thr, so at least two compass differences above thr; a dark one likewise
 // below -thr.  A pixel with fewer than two compass differences above thr
 // and fewer than two below -thr therefore has bright <= thr and dark <= thr:
-// no corner, score 0, which is what the full test gives it.  The rejection
-// keeps such pixels off the candidate list; the branch-free arithmetic
-// lists every pixel inside the border and not under the mask.  Both are
-// exact; the wrapper picks one (ops/fast.py QUICK_REJECT).
+// no corner, score 0, which is what the full test gives it, and stays off
+// the candidate list.  (Listing every pixel inside the border, with no
+// rejection, measured slower on the card.)
 //
 // Bound on the card: bytes (the image in, keep and score out: 2.2 MB at
 // 752x480, 0.65 us).  Without the candidate list the arc test of every
@@ -76,7 +75,6 @@ __device__ inline void best_arcs(const int d[16], int& bright, int& dark) {
   dark = (int)(short)(best >> 16);
 }
 
-template <bool Reject>
 __global__ void __launch_bounds__(kThreads)
 fast_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int thr, bool vec,
                  const float* __restrict__ pts, const uint8_t* __restrict__ pvalid, int n_pts,
@@ -144,15 +142,15 @@ fast_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int thr, bool ve
   if (timed) clocks[2] = clock64();
 
   // 3. score and corner over the region, zeroed under the mask: first the
-  //    candidates (interior, unmasked, and with the quick rejection past the
-  //    compass test) into a list, then the arc test on the list, so that
-  //    every lane of a warp scores a candidate
+  //    candidates (interior, unmasked and past the compass test) into a
+  //    list, then the arc test on the list, so that every lane of a warp
+  //    scores a candidate
   for (int e0 = 0; e0 < RH * RW; e0 += kThreads) {
     const int e = e0 + tid, ry = e / RW, rx = e % RW;
     const int y = y0 - 1 + ry, x = x0 - 1 + rx;
     bool cand = e < RH * RW && y >= 3 && y < H - 3 && x >= 3 && x < W - 3 &&
                 !((s_mask[ry] >> rx) & 1ull);
-    if (Reject && cand) {
+    if (cand) {
       const int sy = ry + 3, sx = rx + SX - 1, c = s_img[sy][sx];
       const int d0 = s_img[sy - 3][sx] - c, d4 = s_img[sy][sx + 3] - c;
       const int d8 = s_img[sy + 3][sx] - c, d12 = s_img[sy][sx - 3] - c;
@@ -209,24 +207,17 @@ fast_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int thr, bool ve
 
 }  // namespace
 
-// reject: 1 runs the quick rejection, 0 the branch-free arithmetic;
 // clocks (6 int64, or null): the SM clock of the middle block at its start
 // and at the end of each phase (staging, mask, candidates, scores, NMS).
 extern "C" int fast_detect_masked(const void* img, int H, int W, int thr, const void* pts,
                                   const void* pts_valid, int n_pts, void* keep_out,
-                                  void* score_out, int reject, void* clocks, void* stream) {
+                                  void* score_out, void* clocks, void* stream) {
   if (n_pts < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
   if (H == 0 || W == 0) return 0;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
   const bool vec = W % 16 == 0 && (uintptr_t)img % 16 == 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (reject)
-    fast_tile_kernel<true><<<grid, kThreads, 0, s>>>(
-        (const uint8_t*)img, H, W, thr, vec, (const float*)pts, (const uint8_t*)pts_valid,
-        n_pts, (uint8_t*)keep_out, (int*)score_out, (long long*)clocks);
-  else
-    fast_tile_kernel<false><<<grid, kThreads, 0, s>>>(
-        (const uint8_t*)img, H, W, thr, vec, (const float*)pts, (const uint8_t*)pts_valid,
-        n_pts, (uint8_t*)keep_out, (int*)score_out, (long long*)clocks);
+  fast_tile_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)img, H, W, thr, vec, (const float*)pts, (const uint8_t*)pts_valid, n_pts,
+      (uint8_t*)keep_out, (int*)score_out, (long long*)clocks);
   return (int)cudaGetLastError();
 }

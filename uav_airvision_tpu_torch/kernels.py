@@ -57,9 +57,8 @@ INJECT = [P, P, P, P, P, P, P, P, P, I, P, P]
 SIGNATURES = {
     # img0, img1, n_cam, H, W, n_levels, pad, out, stream
     "pyramid_u8": [P, P, I, I, I, I, I, P, P],
-    # img, H, W, thr, pts, pts_valid, n_pts, keep_out, score_out, reject,
-    # clocks, stream
-    "fast_detect_masked": [P, I, I, I, P, P, I, P, P, I, P, P],
+    # img, H, W, thr, pts, pts_valid, n_pts, keep_out, score_out, clocks, stream
+    "fast_detect_masked": [P, I, I, I, P, P, I, P, P, P, P],
     # prev_pyr, curr_pyr, H0, W0, prev_pts, init_pts, valid, F, n_levels,
     # max_iter, max_iter_upper, eps2, min_eig, out_pts, out_status, win, stream
     "pyramidal_lk": [P, P, I, I, P, P, P, I, I, I, I, F, F, P, P, I, P],
@@ -78,10 +77,9 @@ SIGNATURES = {
     "triangulate_f32": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P],
     "triangulate_f64": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P],
     # cams_q, cams_p, cams_qn, cams_pn, rm, N, Nw, obs, obs_mask, p_w, sel,
-    # proc, gravity, R_c0c1, t_c0c1, B, H_out, r_out, rows_out, split, clocks,
-    # stream
-    "feature_block_f32": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, I, P, P],
-    "feature_block_f64": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, I, P, P],
+    # proc, gravity, R_c0c1, t_c0c1, B, H_out, r_out, rows_out, clocks, stream
+    "feature_block_f32": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, P, P],
+    "feature_block_f64": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, P, P],
     # H, r, B, R, D, h_stride, r_stride, rows_true, dof, dof is int64, P,
     # obs_noise, table, n_table, out, flags, gamma, work, stream
     "gate_f32": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, P],

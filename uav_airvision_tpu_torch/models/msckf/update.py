@@ -188,12 +188,11 @@ feature_block_rows.launches = 0
 
 
 def _feature_block_kernel(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
-                          R_c0c1, t_c0c1, sel=None, proc=None, rm=None, split=0, clocks=None):
+                          R_c0c1, t_c0c1, sel=None, proc=None, rm=None, clocks=None):
     """K9's launch.  Without ``sel`` block b is row b of obs / p_w; without
     ``rm`` the blocks run over every window slot; without ``proc`` every
-    block is computed.  ``split``: blocks per feature (0: the launcher's
-    choice); ``clocks``: an int64 (6,) tensor for the SM clock at the start
-    of block 0 and at the end of each of its five phases."""
+    block is computed.  ``clocks``: an int64 (6,) tensor for the SM clock
+    at the start of block 0 and at the end of each of its five phases."""
     dtype, dev = p_w.dtype, p_w.device
     entry = {torch.float32: "feature_block_f32", torch.float64: "feature_block_f64"}.get(dtype)
     if entry is None:
@@ -228,7 +227,7 @@ def _feature_block_kernel(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, 
                    opt(rm), N, Nw, kernels.ptr(obs), kernels.ptr(obs_mask), kernels.ptr(p_w),
                    opt(sel), opt(proc), kernels.ptr(gravity), kernels.ptr(R_c0c1),
                    kernels.ptr(t_c0c1), B, kernels.ptr(H), kernels.ptr(r), kernels.ptr(rows),
-                   int(split), opt(clocks))
+                   opt(clocks))
     return H, r, rows
 
 

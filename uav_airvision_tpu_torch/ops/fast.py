@@ -91,18 +91,13 @@ def detect_fast_plain(img, threshold: int, mask_pts=None, mask_valid=None):
     return keep, torch.where(keep, score, 0)
 
 
-# K4+K6 runs the quick rejection of non-corners (``csrc/fast.cu``); False
-# runs its branch-free arithmetic instead (both exact)
-QUICK_REJECT = True
-
-
 def detect_fast(img: torch.Tensor, threshold: int, mask_pts=None, mask_valid=None):
     """FAST + optional 7x7 exclusion mask + NMS on a (H, W) uint8 image.
     Returns (keep (H, W) bool, score (H, W) int32)."""
     if img.device.type == "cpu":
         return detect_fast_plain(img, threshold, mask_pts, mask_valid)
     kernels.observe("detect_fast", (img, threshold, mask_pts, mask_valid))
-    out = _fast_kernel(img, threshold, mask_pts, mask_valid, QUICK_REJECT)
+    out = _fast_kernel(img, threshold, mask_pts, mask_valid)
     detect_fast.launches += 1
     return out
 
@@ -110,7 +105,7 @@ def detect_fast(img: torch.Tensor, threshold: int, mask_pts=None, mask_valid=Non
 detect_fast.launches = 0
 
 
-def _fast_kernel(img, threshold, mask_pts, mask_valid, reject: bool, clocks=None):
+def _fast_kernel(img, threshold, mask_pts, mask_valid, clocks=None):
     """K4+K6's one launch: keep and score are its only allocations.
     ``clocks``: an int64 (6,) tensor for the SM clock at the start of the
     middle block and at the end of each of its five phases."""
@@ -133,6 +128,5 @@ def _fast_kernel(img, threshold, mask_pts, mask_valid, reject: bool, clocks=None
     score = torch.empty((H, W), dtype=torch.int32, device=img.device)
     kernels.launch("fast_detect_masked", kernels.ptr(img), H, W, int(threshold),
                    kernels.ptr(pts), kernels.ptr(pvalid), n, kernels.ptr(keep),
-                   kernels.ptr(score), int(reject),
-                   kernels.ptr(clocks) if clocks is not None else None)
+                   kernels.ptr(score), kernels.ptr(clocks) if clocks is not None else None)
     return keep, score
