@@ -1,6 +1,7 @@
 """Device time per launch of the port's K2 (pyramid), K4+K6 (FAST), K9
-(feature block), K10 (gate), K11 (EKF update), K14 (IMU propagation) and K1
-(LK) kernels, alone on the card, by torch.profiler.
+(feature block), K5 (per-cell top-k), K12 (rank-12 prune update), K10
+(gate), K11 (EKF update), K14 (IMU propagation) and K1 (LK) kernels, alone
+on the card, by torch.profiler.
 
     python tools/kernel_probe.py [--frames 60]
 
@@ -9,7 +10,9 @@ level count to the next is what the band blocks spend on that level), one
 image at an address that is not 16-byte aligned (the staging's byte-load
 path) and one camera.  K4+K6: the latest frame's call of the run below.
 K9: the latest ``feature_block_rows`` call of each shape (the lost
-features' and the prune's).  Both with the SM clock cycles of their phases.
+features' and the prune's).  K5: the run's latest call.  K12: the run's
+latest prune call, and the same call on a 70-slot window (D = 441).  Each
+of these with the SM clock cycles of its phases.
 K10: the gate calls that ``run_sequence`` makes on
 the first ``--frames`` frames of the bench world (recorded through
 ``kernels.observer``, the latest call of each shape), each launched again
@@ -96,10 +99,12 @@ def main(argv=None) -> None:
     probe("K2 pair, cam0 at an odd address", lambda: pyramid.build_pyramid_pair(odd, img1, 3))
     probe("K2 one camera", lambda: pyramid.build_pyramid_padded(img0, 3))
 
-    calls, ekf, lk_calls, fast_calls, k9_calls = {}, [], {}, {}, {}
+    calls, ekf, lk_calls, fast_calls, k9_calls, k5_k12 = {}, [], {}, {}, {}, {}
 
     def record(name, a):
-        if name == "detect_fast":
+        if name in ("dense_grid_topk", "apply_update_rank12"):
+            k5_k12[name] = a
+        elif name == "detect_fast":
             fast_calls[tuple(a[0].shape)] = a
         elif name == "feature_block_rows":
             k9_calls[(a[7].shape[0], a[4].shape[1] if a[13] is None else a[13].shape[0])] = a
@@ -116,6 +121,7 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     kernels.observer = None
     probe_fast_k9(fast_calls, k9_calls)
+    probe_topk_rank12(k5_k12, config, dev)
     for shape, a in sorted(calls.items()):
         H, r, rows, cov, s2, table, dof = a
         thresh = table[torch.clamp(dof, 0, table.shape[0] - 1).long()]
@@ -199,6 +205,57 @@ def probe_fast_k9(fast_calls, k9_calls) -> None:
               f"clock cycles: staging and ranks {c[1] - c[0]}, Jacobians {c[2] - c[1]}, "
               f"reflections {c[3] - c[2]}, w_j {c[4] - c[3]}, rows {c[5] - c[4]}; total "
               f"{c[5] - c[0]}", flush=True)
+
+
+def probe_topk_rank12(recorded, config, dev) -> None:
+    """K5 on the run's latest call and K12 on its latest prune call, and the
+    same prune call on a 70-slot window (D = 441, a random SPD covariance),
+    each with the SM clock cycles of its phases."""
+    from uav_airvision_tpu_torch.models.msckf import update
+    from uav_airvision_tpu_torch.ops import gridops
+
+    score, gr, gc, k = recorded["dense_grid_topk"]
+    probe(f"K5 dense_grid_topk {tuple(score.shape)}, {gr}x{gc} cells, k = {k}",
+          lambda: gridops.dense_grid_topk(score, gr, gc, k))
+    clocks = torch.zeros(8, dtype=torch.int64, device=dev)
+    gridops._grid_topk_kernel(score, gr, gc, k, clocks)
+    c = clocks.tolist()
+    print(f"  K5 phases of the first cell's block, SM clock cycles: "
+          f"{', '.join(str(c[j] - c[j - 1]) for j in range(1, 8) if c[j])}; total "
+          f"{max(c) - c[0]}", flush=True)
+    state, params, B, r, cols = recorded["apply_update_rank12"]
+    for label, st in (("as recorded", state), ("D = 441", _wide(state, config, 70))):
+        D = st.cov.shape[0]
+        probe(f"K12 apply_update_rank12 {tuple(B.shape)}, {label} (D = {D})",
+              lambda: update.apply_update_rank12(st, params, B, r, cols))
+        clocks = torch.zeros(8, dtype=torch.int64, device=dev)
+        update._rank12_kernel(st.cov, B, r, cols, params.obs_noise, st, clocks)
+        c = clocks.tolist()
+        print(f"  K12 phases of block 0, SM clock cycles: "
+              f"{', '.join(str(c[j] - c[j - 1]) for j in range(1, 8) if c[j])}; total "
+              f"{max(c) - c[0]}", flush=True)
+
+
+def _wide(state, config, N):
+    """A state of an N-slot window (its first slots the recorded window's
+    poses) with a random SPD covariance of 21 + 6N rows."""
+    import dataclasses
+
+    import numpy as np
+
+    from uav_airvision_tpu_torch.models.msckf.state import init_state, make_params
+
+    dev = state.cov.device
+    cfg = dataclasses.replace(config, capacity=dataclasses.replace(
+        config.capacity, max_cam_states=N))
+    wide = init_state(cfg, make_params(config, dev), np.zeros(3), np.array([0.0, 0.0, 9.81]))
+    n = state.cams.q.shape[0]
+    cams = wide.cams._replace(q=wide.cams.q.clone(), p=wide.cams.p.clone(), count=state.cams.count)
+    cams.q[:n], cams.p[:n] = state.cams.q, state.cams.p
+    D = 21 + 6 * N
+    A = torch.as_tensor(np.random.default_rng(12).normal(0, 0.05, (D, D)), device=dev)
+    cov = A @ A.T / D + 1e-3 * torch.eye(D, device=dev, dtype=A.dtype)
+    return state._replace(cams=cams, cov=cov.to(state.cov.dtype).contiguous())
 
 
 def probe_propagate(config, dev) -> None:

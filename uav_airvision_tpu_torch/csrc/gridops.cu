@@ -80,8 +80,10 @@ __device__ void best_of_share(const int* __restrict__ score, int H, int W, int y
 __global__ void __launch_bounds__(kTopkThreads)
 grid_topk_kernel(const int* __restrict__ score, int H, int W, int grid_col, int cell_h,
                  int cell_w, int k, int* __restrict__ ys, int* __restrict__ xs,
-                 int* __restrict__ vals) {
+                 int* __restrict__ vals, long long* __restrict__ clocks) {
   __shared__ unsigned long long warp_best[kTopkThreads / 32];
+  const bool timed = clocks != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
+  if (timed) clocks[0] = clock64();
   __shared__ unsigned long long s_winner;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cell = blockIdx.x;
@@ -92,6 +94,7 @@ grid_topk_kernel(const int* __restrict__ score, int H, int W, int grid_col, int 
   unsigned long long best[kBest];  // descending; 0 is below every real key
   best_of_share(score, H, W, y0, x0, cell_w, cell_sz, false, 0ull, best);
   int taken = 0;  // winners from this thread's share so far
+  if (timed) clocks[1] = clock64();
 
   for (int round = 0; round < k; ++round) {
     unsigned long long m = best[0];
@@ -127,6 +130,7 @@ grid_topk_kernel(const int* __restrict__ score, int H, int W, int grid_col, int 
     }
     __syncthreads();  // s_winner is rewritten next round
   }
+  if (timed) clocks[2] = clock64();
 }
 
 // Number of elements with a nonzero ``local`` over the block (every thread
@@ -544,10 +548,11 @@ int launch_k8(K kernel, size_t* budget, size_t* allowed, int n, size_t bytes, vo
 
 extern "C" int grid_topk_i32(const void* score, int H, int W, int grid_row, int grid_col,
                              int cell_h, int cell_w, int k, void* ys, void* xs, void* vals,
-                             void* stream) {
+                             void* clocks, void* stream) {
   if (k < 1 || k > cell_h * cell_w) return (int)cudaErrorInvalidValue;
   grid_topk_kernel<<<grid_row * grid_col, kTopkThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)score, H, W, grid_col, cell_h, cell_w, k, (int*)ys, (int*)xs, (int*)vals);
+      (const int*)score, H, W, grid_col, cell_h, cell_w, k, (int*)ys, (int*)xs, (int*)vals,
+      (long long*)clocks);
   return (int)cudaGetLastError();
 }
 

@@ -35,18 +35,21 @@ __global__ void __launch_bounds__(kThreads)
 rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T* __restrict__ r,
               int n, const int64_t* __restrict__ cols, const T* __restrict__ obs_noise,
               T* __restrict__ delta, T* __restrict__ P_out, const msckf::InjectIn<T> state,
-              uint8_t* __restrict__ too_large) {
+              uint8_t* __restrict__ too_large, long long* __restrict__ clocks) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   T* Pc = reinterpret_cast<T*>(dyn_smem);  // D x 12
   T* PcG = Pc + D * 12;                     // D x 12
   __shared__ T P12[144], BtB[144], aug[12 * kA], G[144], bsr[12];
   __shared__ int cidx[12], s_piv;
   const int tid = threadIdx.x;
+  const bool timed = clocks != nullptr && blockIdx.x == 0 && tid == 0;
+  if (timed) clocks[0] = clock64();
 
   if (tid < 12) cidx[tid] = (int)cols[tid];
   __syncthreads();
   for (int e = tid; e < D * 12; e += kThreads) Pc[e] = P[(size_t)(e / 12) * D + cidx[e % 12]];
   __syncthreads();
+  if (timed) clocks[1] = clock64();
   if (tid < 144) {
     const int a = tid / 12, c = tid % 12;
     P12[tid] = Pc[cidx[a] * 12 + c];
@@ -62,6 +65,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T*
     aug[a * kA + 12] = acc;
   }
   __syncthreads();
+  if (timed) clocks[2] = clock64();
   if (tid < 144) {
     const int a = tid / 12, c = tid % 12;
     T w = T(0);
@@ -70,6 +74,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T*
     aug[a * kA + 13 + c] = BtB[tid];
   }
   __syncthreads();
+  if (timed) clocks[3] = clock64();
 
   // LU with partial pivoting on the augmented rows (getrf's pivot: the
   // first largest |W_ik|), then back substitution, one thread per column
@@ -110,6 +115,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T*
     }
   }
   __syncthreads();
+  if (timed) clocks[4] = clock64();
   if (tid < 144) {
     const int a = tid / 12, c = tid % 12;
     G[tid] = (aug[a * kA + 13 + c] + aug[c * kA + 13 + a]) / T(2);
@@ -117,6 +123,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T*
     bsr[tid - 144] = aug[(tid - 144) * kA + 12];
   }
   __syncthreads();
+  if (timed) clocks[5] = clock64();
 
   for (int e = tid; e < D * 12; e += kThreads) {
     const int i = e / 12, c = e % 12;
@@ -136,6 +143,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T*
     }
   }
   __syncthreads();
+  if (timed) clocks[6] = clock64();
 
   const int row0 = blockIdx.x * kRows;
   for (int e = tid; e < kRows * D; e += kThreads) {
@@ -149,13 +157,18 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, const T*
     const T xij = P[(size_t)i * D + j] - mij, xji = P[(size_t)j * D + i] - mji;
     P_out[(size_t)i * D + j] = (xij + xji) / T(2);
   }
+  if (clocks != nullptr && blockIdx.x == 0) {
+    __syncthreads();
+    if (tid == 0) clocks[7] = clock64();
+  }
 }
 
 template <typename T>
 int launch(const void* P, int D, const void* Bm, const void* r, int n, const void* cols,
            const void* obs_noise, void* out, const void* q, const void* bg, const void* v,
            const void* ba, const void* p, const void* R, const void* t, const void* cam_q,
-           const void* cam_p, int N, const void* count, void* too_large, void* stream) {
+           const void* cam_p, int N, const void* count, void* too_large, void* clocks,
+           void* stream) {
   static size_t smem_allowed = 0;
   const size_t smem = (size_t)2 * D * 12 * sizeof(T);
   const int err = msckf::allow_smem(rank12_kernel<T>, smem, &smem_allowed);
@@ -166,7 +179,7 @@ int launch(const void* P, int D, const void* Bm, const void* r, int n, const voi
       msckf::InjectIn<T>{(const T*)q, (const T*)bg, (const T*)v, (const T*)ba, (const T*)p,
                          (const T*)R, (const T*)t, (const T*)cam_q, (const T*)cam_p,
                          (const int*)count, N},
-      (uint8_t*)too_large);
+      (uint8_t*)too_large, (long long*)clocks);
   return (int)cudaGetLastError();
 }
 
@@ -174,15 +187,17 @@ int launch(const void* P, int D, const void* Bm, const void* r, int n, const voi
 
 // P, D, B, r, n, cols, obs_noise, out (P_new, delta, then the injected
 // state), the state's q, bg, v, ba, p, R_imu_cam0, t_cam0_imu, cam_q, cam_p
-// (all nullptr: no injection), N, count, too_large, stream
+// (all nullptr: no injection), N, count, too_large, clocks (8 int64 or null: block
+// 0's SM clock at its start and at the end of each of its seven phases), stream
 #define RANK12_ENTRY(NAME, T)                                                                \
   extern "C" int NAME(const void* P, int D, const void* Bm, const void* r, int n,            \
                       const void* cols, const void* obs_noise, void* out, const void* q,     \
                       const void* bg, const void* v, const void* ba, const void* p,          \
                       const void* R, const void* t, const void* cam_q, const void* cam_p,    \
-                      int N, const void* count, void* too_large, void* stream) {             \
+                      int N, const void* count, void* too_large, void* clocks,               \
+                      void* stream) {                                                        \
     return launch<T>(P, D, Bm, r, n, cols, obs_noise, out, q, bg, v, ba, p, R, t, cam_q,     \
-                     cam_p, N, count, too_large, stream);                                    \
+                     cam_p, N, count, too_large, clocks, stream);                            \
   }
 RANK12_ENTRY(rank12_f32, float)
 RANK12_ENTRY(rank12_f64, double)

@@ -438,9 +438,11 @@ def _injected(state: FilterState, vals, flag, D: int):
     return state._replace(imu=imu, cams=cams, cov=vals[:D * D].view(D, D)), flag
 
 
-def _rank12_kernel(P, B, r, cols, obs_noise, state=None):
+def _rank12_kernel(P, B, r, cols, obs_noise, state=None, clocks=None):
     """K12's launch; with a ``state`` it ends in the injection.  Returns
-    (P_new, delta, the injected state or None, too_large or None)."""
+    (P_new, delta, the injected state or None, too_large or None).
+    ``clocks``: an int64 (8,) tensor for block 0's SM clock at its start and
+    at the end of each of its seven phases."""
     dtype = P.dtype
     entry = {torch.float32: "rank12_f32", torch.float64: "rank12_f64"}.get(dtype)
     if entry is None:
@@ -457,7 +459,8 @@ def _rank12_kernel(P, B, r, cols, obs_noise, state=None):
                          f"r {tuple(r.shape)}, cols {tuple(cols.shape)}")
     vals, flag, _, inject, _keep = _update_launch(P, state, 0)
     kernels.launch(entry, P.data_ptr(), D, B.data_ptr(), r.data_ptr(), n, cols.data_ptr(),
-                   noise.data_ptr(), vals.data_ptr(), *inject)
+                   noise.data_ptr(), vals.data_ptr(), *inject,
+                   clocks.data_ptr() if clocks is not None else None)
     P_new, delta = vals[:D * D].view(D, D), vals[D * D:D * D + D]
     if state is None:
         return P_new, delta, None, None
