@@ -51,11 +51,15 @@
      gamma lies within 1e-4 of the threshold or r'r within 1e-4 of a bound;
      where the kernel computes gamma, within 1e-4 relative of the plain
      gamma, NaN where it is (max_abs_err: gamma's at scale 1);
-   - K12 (rank-12 prune update, as recorded and with an exactly singular
-     P12): P_new and delta within 1e-4 of max(|P|, 1); ``apply_update_rank12``
-     (the same launch ending in the injection) on every field of the new
-     state within 1e-4 of the field's largest entry, P_new equal to the
-     delta entry's.
+   - K12 (rank-12 prune update): the main path's row-indexed entry
+     ``apply_update_rank12_rows`` (the call site's masks in the launch) on
+     every recorded prune call, P_new within 1e-4 of max(|P|, 1) and exactly
+     symmetric, every field of the new state within 1e-4 of the field's
+     largest entry, one launch a call (torch.profiler, device us printed);
+     then the dense entries on the latest call's masked stack and with an
+     exactly singular P12: P_new and delta within 1e-4 of max(|P|, 1);
+     ``apply_update_rank12`` (the same launch ending in the injection) on
+     every field within 1e-4, P_new equal to the delta entry's.
    - K7 (camera models: the stereo prologue, the publish's undistort, and
      ``distort_points`` on the prologue's output; as recorded with the
      radtan model and again with equidistant coefficients): normalized
@@ -71,7 +75,8 @@
      stereo gate (``stereo_gate``) on every call, radtan and equidistant:
      decisions identical to the plain version's, each flip printed with
      its distance from the nearer threshold, more than 8 ulps failing;
-   - K5 (per-cell top-k, k = 8 and k = 5) and K8 (``rank_in_cell``,
+   - K5 (per-cell top-k, k = 8 and k = 5, on every call of the warm run;
+     one launch a call, device us printed) and K8 (``rank_in_cell``,
      ``kept_order_stats``, ``compact_kept``, ``smallest_k_indices``,
      ``stable_compact_indices`` on every recorded shape, and the fused
      per-cell selection ``select_track`` on every call of the warm run):
@@ -142,12 +147,15 @@
    plain version with check_ekf_update's float32 bars.  Prints the row
    tiers, frames/s, host syncs and CUDA launches per frame.
 9. [limits]: every kernel whose size limit was lifted, past it, against
-   its plain version (K5 k = 9, 12, 40; K8 n = 1025, 1500, and
+   its plain version (K5 k = 9, 12, 32, 33, 40, 1440x1080 at k = 5 and 8,
+   and k = a cell's every pixel; K8 n = 1025, 1500, and
    ``select_track`` at 1,100 slots and 200 candidates; K4+K6 1025 and
    1500 mask points; K2 1440x1080 and 2048x1536 at four levels, exactly,
    and 752x480 still one launch; K13 N = 65 and 300; K9 N = 35, 49, 70
    through ``feature_block_rows`` (one block masked);
-   K10 on those blocks; K11 at D = 561 on T1, T2 = 1,122 rows and QR; K1
+   K10 on those blocks; K11 at D = 561 on T1, T2 = 1,122 rows and QR; K12's
+   row-indexed entry at D = 441 (float32, float64) and 1,221 (float64),
+   1e-4 / 1e-10 of max(|P|, 1); K1
    at window sides 17, 21, 33 on both trackers, K1's bars; K14 at D = 441,
    float32 and float64, its bars 1e-5 and 1e-12 relative, with 64 IMU
    slots and with 256 (float32) or 128 (float64), past the block's shared
@@ -512,6 +520,7 @@ class Recorder:
                                             0 if a[2] is None else a[2].shape[0])),
         "gating_test_batch": ("K10", lambda a: tuple(a[0].shape)),
         "apply_update_rank12": ("K12", lambda a: tuple(a[2].shape)),
+        "apply_update_rank12_rows": ("K12 rows", lambda a: tuple(a[2].shape)),
         "apply_update": ("K11", lambda a: _update_tier(a)),
         "dense_grid_topk": ("K5", lambda a: a[3]),
         "rank_in_cell": ("K8 rank_in_cell", lambda a: a[0].shape[0]),
@@ -535,7 +544,7 @@ class Recorder:
     # kinds whose every call is kept (the fused front-end entry points: a
     # few hundred small calls a run)
     EVERY_CALL = {"K8 select_track", "K7 predict_warp_points", "K7 stereo_gate", "K14",
-                  "K4+K6", "K9 rows"}
+                  "K4+K6", "K9 rows", "K5", "K12 rows"}
 
     def __init__(self):
         self.calls, self.counts, self.history = {}, {}, {}
@@ -785,18 +794,62 @@ def check_backend_kernels(rec: Recorder, config, params):
     res.update(check_feature_rows(rec))
     res.update(check_gate(rec))
 
-    # K12: the recorded prune updates, and one with an exactly singular P12,
-    # through the delta entry and as the main path calls it (with the injection)
-    calls = rec.of("K12")
+    # K12: the row-indexed entry on every recorded prune call (the main
+    # path's); then the dense entries on the latest call's masked stack, and
+    # with an exactly singular P12
+    calls = rec.samples("K12 rows")
     if not calls:
         fail("the warm run made no rank-12 prune update")
         return res
-    cases = {f"B {k}": v for k, v in calls.items()}
-    state, params, Bm, rr, cols = calls[max(calls)]
-    P = state.cov.clone()
-    P[cols[6:], :] = 0.0  # the second camera's block: P12 of rank 6
-    P[:, cols[6:]] = 0.0
-    cases["singular P12"] = (state._replace(cov=P), params, Bm, rr, cols)
+    worst = worst_abs = 0.0
+    for _, full in calls:
+        got, warn = upd.apply_update_rank12_rows(*full)
+        want, pwarn = upd.apply_update_rank12_rows_plain(*full)
+        scale = max(float(want.cov.abs().max()), 1.0)
+        err_abs = float((got.cov - want.cov).abs().max())
+        err = err_abs / scale
+        e_state = _state_err(got, want)
+        worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+        if (not err <= 1e-4 or not e_state <= 1e-4 or bool(warn) != bool(pwarn)
+                or not torch.equal(got.cov, got.cov.T)):
+            fail(f"K12 rows {tuple(full[2].shape)}: error {err:.3e} of max |P|, state "
+                 f"{e_state:.3e}")
+    state, params, H12, r_blk, include, cols = calls[-1][1]
+    n_inc = int(include.sum())
+    n_launch, dev_us = _profile_calls(lambda: upd.apply_update_rank12_rows(*calls[-1][1]),
+                                      kernels=("rank12_kernel",))
+    if n_launch != 1.0:
+        fail(f"K12 apply_update_rank12_rows made {n_launch} launches a call")
+    ms = cuda_ms(lambda: upd.apply_update_rank12_rows(*calls[-1][1]))
+    pms = cuda_ms(lambda: upd.apply_update_rank12_rows_plain(*calls[-1][1]), reps=10)
+    P, noise, D = state.cov, params.obs_noise, state.cov.shape[0]
+    n = 5 * n_inc
+    # B'B, B'r over the included rows, W, the LU and its 13 right-hand
+    # sides, Pc G, delta, and 26 FLOP per entry of sym(P - Pc G Pc'); the
+    # injection's few hundred
+    ops = 2 * n * 90 + 3 * 12 ** 3 + 13 * 144 + 2 * D * 156 + 26 * D * D + 40 * D
+    got, _ = upd.apply_update_rank12_rows(*calls[-1][1])
+    b = bound(nbytes(*_state_fields(got).values()) + nbytes(*_state_fields(state).values())
+              + n * 13 * P.element_size() + nbytes(include, cols, noise), ops)
+    Bm = torch.where(include[:, None, None], H12, 0.0).reshape(-1, 12)
+    rr = torch.where(include[:, None], r_blk, 0.0).reshape(-1)
+    P12 = P[cols][:, cols]
+    BtB = Bm.T @ Bm
+    W = noise * torch.eye(12, dtype=P.dtype, device=P.device) + BtB @ P12
+    rhs = torch.cat([(Bm.T @ rr)[:, None], BtB], dim=1)
+    lib = cuda_ms(lambda: torch.linalg.solve(W, rhs))
+    print(f"[K12] apply_update_rank12_rows on the {len(calls)} recorded prune calls "
+          f"({sorted({sh for sh, _ in calls})}): error up to {worst:.3e} of max |P|; the "
+          f"latest ({n_inc} of {include.shape[0]} features included): {n_launch:.0f} launch a "
+          f"call, {dev_us:.2f} us on the device; {ms:.4f} ms through the wrapper vs plain "
+          f"{pms:.4f} ms; torch.linalg.solve of the 12x12 system {lib:.4f} ms; bound "
+          f"{b[0] * 1e3:.3f} us ({b[1]})")
+    res["K12"] = (worst_abs, ms, pms, *b, lib)
+    Psing = P.clone()
+    Psing[cols[6:], :] = 0.0  # the second camera's block: P12 of rank 6
+    Psing[:, cols[6:]] = 0.0
+    cases = {"dense stack": (state, params, Bm, rr, cols),
+             "singular P12": (state._replace(cov=Psing), params, Bm, rr, cols)}
     for label, full in cases.items():
         state, params = full[0], full[1]
         a = (state.cov, full[2], full[3], full[4], params.obs_noise)
@@ -812,27 +865,10 @@ def check_backend_kernels(rec: Recorder, config, params):
         if (not err <= 1e-4 * scale or not torch.isfinite(P_new).all() or bool(warn) != bool(pwarn)
                 or not torch.equal(got.cov, P_new) or not e_state <= 1e-4):
             fail(f"K12 {label}: error {err:.3e} (max |P| {scale:.3e}), state {e_state:.3e}")
-        ms = cuda_ms(lambda: upd.apply_update_rank12(*full))
-        pms = cuda_ms(lambda: upd.apply_update_rank12_plain(*full), reps=10)
-        n, D = Bm.shape[0], P.shape[0]
-        # B'B, B'r, W, the LU and its 13 right-hand sides, Pc G, delta, and
-        # 26 FLOP per entry of sym(P - Pc G Pc'); the injection's few hundred
-        ops = 2 * n * 156 + 3 * 12 ** 3 + 13 * 144 + 2 * D * 156 + 26 * D * D + 40 * D
-        fields = _state_fields(got)
-        b = bound(nbytes(P, Bm, rr, cols, noise, delta, *fields.values())
-                  + nbytes(*_state_fields(state).values()) - nbytes(P), ops)
-        # the library's solve of the same 12x12 system W X = [B'r | B'B]
-        P12 = P[cols][:, cols]
-        BtB = Bm.T @ Bm
-        W = noise * torch.eye(12, dtype=P.dtype, device=P.device) + BtB @ P12
-        rhs = torch.cat([(Bm.T @ rr)[:, None], BtB], dim=1)
-        lib = cuda_ms(lambda: torch.linalg.solve(W, rhs))
-        print(f"[K12] rank-12 update, {label}, P12 rank {rank}: error {err:.3e}, injected state "
-              f"{e_state:.3e} of each field's max; apply_update_rank12 (one launch, the "
-              f"injection in it) {ms:.4f} ms vs plain {pms:.4f} ms; torch.linalg.solve of the "
-              f"12x12 system {lib:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
-        if label == f"B {rec.most_frequent('K12')}":
-            res["K12"] = (err, ms, pms, *b, lib)
+        print(f"[K12] rank12_update and apply_update_rank12, {label} {tuple(Bm.shape)}, P12 "
+              f"rank {rank}: error {err:.3e}, injected state {e_state:.3e} of each field's "
+              f"max; apply_update_rank12 {cuda_ms(lambda: upd.apply_update_rank12(*full)):.4f} "
+              f"ms")
     return res
 
 
@@ -1189,10 +1225,16 @@ def check_gridops(rec: Recorder):
         topk_ms = cuda_ms(lambda: torch.topk(cells, k, dim=1))
         # one comparison per pixel and kept slot at most; the map in, 3 k values per cell out
         b = bound(nbytes(score) + 12 * gr * gc * k, 2 * score.numel())
-        print(f"[K5] dense_grid_topk {H}x{W} -> {gr * gc} cells x k={k} ({len(calls)} calls, "
-              f"k=5 and 8, {n_empty} empty slots): exact; {ms:.4f} ms vs plain {pms:.4f} ms; "
-              f"torch.sort of the cells {sort_ms:.4f} ms, torch.topk {topk_ms:.4f} ms; "
-              f"bound {b[0] * 1e3:.3f} us ({b[1]})")
+        n_launch, dev_us = _profile_calls(lambda: gridops.dense_grid_topk(*timed[0][2]),
+                                          kernels=("grid_topk",))
+        if n_launch != 1.0:
+            fail(f"K5 made {n_launch} launches a call")
+        print(f"[K5] dense_grid_topk {H}x{W} -> {gr * gc} cells x k={k} (every call of the "
+              f"warm run, {len(calls)}, k=5 and 8, {n_empty} empty slots): exact; "
+              f"{n_launch:.0f} launch a call, {dev_us:.2f} us on the device; {ms:.4f} ms "
+              f"through the wrapper vs plain {pms:.4f} ms; torch.sort of the cells "
+              f"{sort_ms:.4f} ms, torch.topk {topk_ms:.4f} ms; bound {b[0] * 1e3:.3f} us "
+              f"({b[1]})")
         res["K5"] = (0.0, ms, pms, *b, sort_ms)
 
     # the five entry points (the first frame's selection and the back-end's)
@@ -1834,12 +1876,19 @@ def check_limits_kernels(dev):
         want = want if isinstance(want, (tuple, list)) else (want,)
         return all(torch.equal(g, w) for g, w in zip(got, want))
 
-    # K5: k past 8, on a frame-sized map and with one thread's share holding the winners
+    # K5: k past 8 (the band clusters up to 32, one block a cell past it), on a
+    # frame-sized map; at 1440x1080 (bands of two staging passes); k = a
+    # cell's every pixel
     score = torch.as_tensor(rng.integers(-1, 40, (480, 752)), dtype=torch.int32, device=dev)
-    for k in (9, 12, 40):
+    for k in (9, 12, 32, 33, 40):
         if not same(gridops.dense_grid_topk(score, 4, 5, k),
                     gridops.dense_grid_topk_plain(score, 4, 5, k)):
             fail(f"[limits] K5 k={k} differs from its plain version")
+    big = torch.as_tensor(rng.integers(-1, 40, (1080, 1440)), dtype=torch.int32, device=dev)
+    small = torch.as_tensor(rng.integers(-1, 4, (37, 53)), dtype=torch.int32, device=dev)
+    for m, k in ((big, 5), (big, 8), (small, 10 * 11)):
+        if not same(gridops.dense_grid_topk(m, 4, 5, k), gridops.dense_grid_topk_plain(m, 4, 5, k)):
+            fail(f"[limits] K5 {tuple(m.shape)} k={k} differs from its plain version")
     # K8: past 1024 elements
     for n in (1025, 1500):
         cell = torch.as_tensor(rng.integers(0, 20, n), dtype=torch.int32, device=dev)
@@ -1899,7 +1948,8 @@ def check_limits_kernels(dev):
     n_launch, _ = _profile_calls(lambda: pyramid.build_pyramid_pair(a, a, 3), n=5)
     if n_launch != 1.0:
         fail(f"[limits] K2 at 752x480 made {n_launch} launches a call")
-    print("[limits] K5 (k = 9, 12, 40), K8 (n = 1025, 1500; select_track 1,100 + 200), K4+K6 "
+    print("[limits] K5 (k = 9, 12, 32, 33, 40; 1440x1080 at k = 5, 8; 53x37 at k = 110, a "
+          "cell's every pixel), K8 (n = 1025, 1500; select_track 1,100 + 200), K4+K6 "
           "(1025, 1500 mask points), "
           "K2 (1440x1080, 2048x1536 at 4 levels): exact; K2 at 752x480 "
           f"{n_launch:.0f} launch a call")
@@ -1997,6 +2047,26 @@ def check_limits_kernels(dev):
         errs[f"K11 D=561 {upd.update_tier(1784, D, rows)}"] = err
         if not err <= 1e-12 or bool(warn) != bool(pwarn):
             fail(f"[limits] K11 D=561, {rows} rows: state error {err:.3e}")
+    # K12's row-indexed entry at the configuration's window (70 slots: D =
+    # 441) and at 200 slots (D = 1221, past the old kernel's shared memory in
+    # float64), some features excluded
+    for N, dtype in ((70, torch.float32), (70, torch.float64), (200, torch.float64)):
+        cfg, st, params, pw, obs, mask = window(N, dtype)
+        Hb = torch.as_tensor(rng.normal(0, 0.8, (64, 5, 33)), device=dev).to(dtype)
+        rb = torch.as_tensor(rng.normal(0, 0.02, (64, 5)), device=dev).to(dtype)
+        inc = torch.as_tensor(rng.uniform(size=64) < 0.6, device=dev)
+        cols = torch.cat([21 + 6 * 4 + torch.arange(6, device=dev),
+                          21 + 6 * (N - 5) + torch.arange(6, device=dev)])
+        args = (st, params, Hb[:, :, 21:], rb, inc, cols)
+        got, warn = upd.apply_update_rank12_rows(*args)
+        want, pwarn = upd.apply_update_rank12_rows_plain(*args)
+        scale = max(float(want.cov.abs().max()), 1.0)
+        err = float((got.cov - want.cov).abs().max()) / scale
+        errs[f"K12 D={21 + 6 * N} {str(dtype)[6:]}"] = err
+        tol = 1e-4 if dtype == torch.float32 else 1e-10
+        if (not err <= tol or not _state_err(got, want) <= 1e-4 or bool(warn) != bool(pwarn)
+                or not torch.equal(got.cov, got.cov.T)):
+            fail(f"[limits] K12 D={21 + 6 * N} {dtype}: error {err:.3e} of max |P|")
     # K14 at the configuration's window (70 slots: D = 441), float32 and
     # float64; then on the same state with a slice too long for the block's
     # shared memory (128 IMU slots in float64, 256 in float32: the device
@@ -2176,7 +2246,7 @@ def main() -> int:
                 "K4+K6": [fast.detect_fast], "K14": [propagation.propagate],
                 "K13": [triangulation.triangulate], "K9": [update.feature_block_rows],
                 "K10": [update.gating_test_batch],
-                "K12": [update.apply_update_rank12], "K11": [update.apply_update],
+                "K12": [update.apply_update_rank12_rows], "K11": [update.apply_update],
                 "K5": [gridops.dense_grid_topk],
                 "K8": [*gridops.K8_WRAPPERS, gridops.select_track],
                 "K7": [camera.undistort_distort_points, camera.undistort_points,
@@ -2231,7 +2301,7 @@ def main() -> int:
                "K10": ("gate.cu", "uav_airvision_tpu/models/msckf/update.py:170",
                        "gating_test_batch"),
                "K12": ("rank12.cu", "uav_airvision_tpu/models/msckf/update.py:239",
-                       "apply_update_rank12"),
+                       "apply_update_rank12_rows"),
                "K11": ("ekf_update.cu", "uav_airvision_tpu/models/msckf/update.py:296",
                        "apply_update"),
                "K5": ("gridops.cu", "uav_airvision_tpu/ops/gridops.py:147", "dense_grid_topk"),
@@ -2269,11 +2339,11 @@ def main() -> int:
     t1 = time.time()
     run_exact(config, world, imu, fts, cam0, cam1, frames, pb, every,
               off_path={"K1 pyramidal_lk_level", "P1 extract_windows",
-                        "K12 apply_update_rank12"})
+                        "K12 apply_update_rank12_rows"})
     t2 = time.time()
     check_limits_kernels(dev)
     run_limits(config, world, imu, fts, cam0, cam1, wrappers,
-               off_path={"K12 apply_update_rank12"})
+               off_path={"K12 apply_update_rank12_rows"})
     print(f"[time] {time.time() - t_start:.1f} s in all; [compact] {t1 - t0:.1f} s, [exact] "
           f"{t2 - t1:.1f} s, [limits] {time.time() - t2:.1f} s")
     launches["P1"] = compact_launches["P1 extract_windows"]

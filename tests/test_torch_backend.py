@@ -572,6 +572,38 @@ def test_apply_update_rank12_matches_jax(blocks):
         assert_close(a.numpy(), b, 1e-9, name)
 
 
+@pytest.mark.parametrize("n_in", [1, 9, 16])
+def test_apply_update_rank12_rows_matches_jax(blocks, n_in):
+    """The plain row-indexed K12 entry (what the wrapper runs on CPU
+    tensors) against the JAX package's prune call site: the blocks of the
+    excluded features masked by ``jnp.where``, stacked, then
+    ``apply_update_rank12``; float64 within 1e-9.  16 blocks of 5 rows, of
+    which ``n_in`` are included; the excluded ones hold NaN, which the
+    masks keep out."""
+    state, params, _ = blocks
+    rng = np.random.default_rng(n_in)
+    cols = np.concatenate([21 + 6 * 4 + np.arange(6), 21 + 6 * 9 + np.arange(6)])
+    H = rng.normal(0, 0.8, (16, 5, 33))
+    r_blk = rng.normal(0, 0.02, (16, 5))
+    include = np.zeros(16, bool)
+    include[rng.choice(16, n_in, replace=False)] = True
+    H[~include] = np.nan
+    r_blk[~include] = np.nan
+    jst, jparams = to_jax(state), to_jax(params)
+    jinc = jnp.asarray(include)
+    B = jnp.where(jinc[:, None, None], jnp.asarray(H[:, :, 21:]), 0.0).reshape(80, 12)
+    r_s = jnp.where(jinc[:, None], jnp.asarray(r_blk), 0.0).reshape(80)
+    want, jwarn = jupd.apply_update_rank12(jst, jparams, B, r_s, jnp.asarray(cols))
+    got, twarn = tupd.apply_update_rank12_rows(state, params, torch.as_tensor(H)[:, :, 21:],
+                                               torch.as_tensor(r_blk), torch.as_tensor(include),
+                                               torch.as_tensor(cols))
+    for a, b, name in ((got.imu.p, want.imu.p, "p"), (got.imu.q, want.imu.q, "q"),
+                       (got.cams.p, want.cams.p, "cams.p"), (got.cams.q, want.cams.q, "cams.q"),
+                       (got.cov, want.cov, "cov")):
+        assert_close(a.numpy(), b, 1e-9, name)
+    assert bool(twarn) == bool(jwarn)
+
+
 def _random_views_inputs(rng, n_feats, N=20, noise=0.002):
     """Window poses and stereo observations of landmarks (the style of
     tests/test_triangulation.py), float64."""
@@ -750,6 +782,39 @@ def test_prune_cam_states_matches_jax(pre_prune, rank12):
                                                                  prune_rank12=not rank12))
     alt, _, _ = tstep.prune_cam_states(state, params, other, count)
     assert_close(alt.cov.numpy(), got.cov.numpy(), 1e-9, "rank-12 vs stacked")
+
+
+@pytest.mark.parametrize("gate", ["as_is", "strict"])
+def test_prune_cam_states_rows_entry_matches_jax(pre_prune, gate, monkeypatch):
+    """The rank-12 camera prune goes through K12's row-indexed entry
+    (``apply_update_rank12_rows``, once, with the gate's ``include``) and
+    matches JAX ``prune_cam_states`` on the same state, float64 within
+    1e-9.  ``strict``: the chi-square table scaled by 0.01 in both
+    packages, so that the gate excludes some of the two-view features."""
+    state, params, count = pre_prune
+    if gate == "strict":
+        params = params._replace(chi2_table=params.chi2_table * 0.01)
+    cfg = euroc_config(dtype="float64")
+    calls = []
+    orig = tstep.apply_update_rank12_rows
+
+    def spy(*args):
+        calls.append(args[4].clone())
+        return orig(*args)
+
+    monkeypatch.setattr(tstep, "apply_update_rank12_rows", spy)
+    got, twarn, n_two = tstep.prune_cam_states(state, params, port_config(cfg), count)
+    jst, jparams = to_jax(state), to_jax(params)
+    want, jwarn = jax.jit(functools.partial(jstep.prune_cam_states, params=jparams,
+                                            config=cfg))(jst)
+    assert n_two > 0 and len(calls) == 1
+    if gate == "strict":  # the gate leaves out real two-view features
+        assert 0 < int(calls[0].sum()) < n_two
+    for a, b, name in ((got.imu.p, want.imu.p, "p"), (got.imu.q, want.imu.q, "q"),
+                       (got.cams.p, want.cams.p, "cams.p"), (got.cams.q, want.cams.q, "cams.q"),
+                       (got.cov, want.cov, "cov")):
+        assert_close(a.numpy(), b, 1e-9, name)
+    assert bool(twarn) == bool(jwarn)
 
 
 @pytest.mark.parametrize("threshold", [0.2, 0.4, 0.6])

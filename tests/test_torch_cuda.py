@@ -599,6 +599,86 @@ def test_rank12_kernel_matches_plain(dev, host_states, dtype, singular):
         assert float((a - b).abs().max()) <= tol * max(scale, 1.0)
 
 
+def _prune_blocks(state, Kp, seed, n_in=None):
+    """A prune's K9 output as the main path slices it: H12 the (Kp, 5, 12)
+    columns 21-33 of (Kp, 5, 33) blocks (read in place by K12), r_blk (Kp,
+    5), and ``include`` with ``n_in`` features (or ~60%) included; the
+    excluded blocks hold NaN, which must not reach the update."""
+    rng = np.random.default_rng(seed)
+    dtype, dev = state.cov.dtype, state.cov.device
+    H = torch.as_tensor(rng.normal(0, 0.8, (Kp, 5, 33)), device=dev).to(dtype)
+    r_blk = torch.as_tensor(rng.normal(0, 0.02, (Kp, 5)), device=dev).to(dtype)
+    if n_in is None:
+        include = torch.as_tensor(rng.uniform(size=Kp) < 0.6, device=dev)
+    else:
+        include = torch.zeros(Kp, dtype=torch.bool, device=dev)
+        include[torch.as_tensor(rng.choice(Kp, n_in, replace=False), device=dev)] = True
+    H[~include] = float("nan")
+    r_blk[~include] = float("nan")
+    return H[:, :, 21:], r_blk, include
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("N", [20, 70])
+@pytest.mark.parametrize("singular", [False, True])
+def test_rank12_rows_kernel_matches_plain(dev, host_states, dtype, N, singular):
+    """K12's row-indexed entry (the prune call site's masks in the launch)
+    against its plain version (the masks, then apply_update_rank12's plain
+    version): the covariance and the state within 1e-4 (float32) / 1e-10
+    (float64) of max(|P|, 1), P_new exactly symmetric, one launch a call.
+    D = 141 (the main path's window) and 441 (70 slots), 128 features of 5
+    rows of which ~60% are included; ``singular``: the second camera is
+    past the window's count, so P12 is exactly singular."""
+    cfg, state, params, _ = _card_state(dev, host_states, dtype)
+    if N != 20:
+        state = _wide_state(state, N, N - 5, N)
+    count = int(state.cams.count)
+    r0, r1 = (count - 1, count) if singular else (4, 9)
+    if singular:
+        c = 21 + 6 * r1 + torch.arange(6, device=dev)
+        cov = state.cov.clone()
+        cov[c], cov[:, c] = 0.0, 0.0
+        state = state._replace(cov=cov)
+    cols = torch.cat([21 + 6 * r0 + torch.arange(6, device=dev),
+                      21 + 6 * r1 + torch.arange(6, device=dev)])
+    assert (int(torch.linalg.matrix_rank(state.cov[cols][:, cols].double())) < 12) == singular
+    H12, r_blk, include = _prune_blocks(state, 128, N + singular)
+    n0 = update.apply_update_rank12_rows.launches
+    (got, warn), n_launch = _launches(
+        lambda: update.apply_update_rank12_rows(state, params, H12, r_blk, include, cols))
+    assert n_launch == 1 and update.apply_update_rank12_rows.launches == n0 + 1
+    want, pwarn = update.apply_update_rank12_rows_plain(state, params, H12, r_blk, include, cols)
+    tol = 1e-4 if dtype == "float32" else 1e-10
+    scale = max(float(want.cov.abs().max()), 1.0)
+    assert torch.equal(got.cov, got.cov.T) and bool(warn) == bool(pwarn)
+    for name, g in _fields(got).items():
+        assert float((g - _fields(want)[name]).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_rank12_rows_kernel_one_feature(dev, host_states, dtype):
+    """K12's row-indexed entry on n = 640 rows (128 features of 5) with all
+    but one feature excluded, against its plain version (the bars of
+    test_rank12_kernel_matches_plain), and equal, bit for bit, to the same
+    entry on the included feature's block alone: the excluded features'
+    rows (NaN here) add nothing."""
+    cfg, state, params, _ = _card_state(dev, host_states, dtype)
+    cols = torch.cat([21 + 6 * 4 + torch.arange(6, device=dev),
+                      21 + 6 * 9 + torch.arange(6, device=dev)])
+    H12, r_blk, include = _prune_blocks(state, 128, 1, n_in=1)
+    got, warn = update.apply_update_rank12_rows(state, params, H12, r_blk, include, cols)
+    want, pwarn = update.apply_update_rank12_rows_plain(state, params, H12, r_blk, include, cols)
+    tol = 1e-4 if dtype == "float32" else 1e-10
+    scale = max(float(want.cov.abs().max()), 1.0)
+    assert torch.equal(got.cov, got.cov.T) and bool(warn) == bool(pwarn)
+    for name, g in _fields(got).items():
+        assert float((g - _fields(want)[name]).abs().max()) <= tol * scale, name
+    f = int(torch.nonzero(include)[0, 0])
+    alone, _ = update.apply_update_rank12_rows(state, params, H12[f:f + 1], r_blk[f:f + 1],
+                                               include[f:f + 1], cols)
+    assert torch.equal(alone.cov, got.cov) and torch.equal(alone.imu.p, got.imu.p)
+
+
 @pytest.mark.parametrize("model,coeffs", [
     ("radtan", (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)),
     ("equidistant", (-0.0113, 0.0052, -0.0021, 0.0005))])
@@ -659,6 +739,65 @@ def test_grid_topk_kernel_exact(dev, H, W, k):
     assert gridops.dense_grid_topk.launches == n0 + 1
     for g, w in zip(got, gridops.dense_grid_topk_plain(score, 4, 5, k)):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _topk_exact(score, gr, gc, k, bands=None):
+    """K5 (through the wrapper, or its launch at ``bands`` blocks a cell)
+    equal to its plain version; the wrapper in one launch."""
+    if bands is None:
+        n0 = gridops.dense_grid_topk.launches
+        got = gridops.dense_grid_topk(score, gr, gc, k)
+        assert gridops.dense_grid_topk.launches == n0 + 1
+    else:
+        got = tuple(gridops._grid_topk_kernel(score, gr, gc, k, bands=bands))
+    for g, w in zip(got, gridops.dense_grid_topk_plain(score, gr, gc, k)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bands", [None, 2, 6, 8])
+def test_grid_topk_ties_across_bands(dev, bands):
+    """K5's band clusters: in every cell a tie at the top value straddles
+    the first two bands' boundary (3 pixels on the row above it, 10 on the
+    row below), so the top 8 are the first band's three and the second
+    band's first five by index; the rest of the map ties at small values."""
+    G = bands or 6  # the kernel's default
+    rng = np.random.default_rng(G)
+    padded = rng.integers(-1, 3, (480, 755)).astype(np.int32)  # 4 x 5 cells of 120 x 151
+    cells = padded.reshape(4, 120, 5, 151)
+    edge = 120 // G
+    cells[:, edge - 1, :, [100, 120, 140]] = 50
+    cells[:, edge, :, 0:50:5] = 50
+    score = np.ascontiguousarray(padded[:, :752])
+    _topk_exact(torch.as_tensor(score, device=dev), 4, 5, 8, bands)
+
+
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_grid_topk_winners_in_one_band(dev, k):
+    """K5 with every cell's winners in its last band (the other bands'
+    lists all lose), on a sparse FAST-like map: mostly 0, a few scores."""
+    rng = np.random.default_rng(k)
+    padded = np.where(rng.uniform(size=(480, 755)) < 0.03, rng.integers(1, 30, (480, 755)),
+                      0).astype(np.int32)
+    cells = padded.reshape(4, 120, 5, 151)  # 4 x 5 cells of 120 x 151
+    cells[:, 115:, :, :8] = 90 + rng.integers(0, 3, (4, 5, 5, 8)).transpose(0, 2, 1, 3)
+    score = np.ascontiguousarray(padded[:, :752])
+    _topk_exact(torch.as_tensor(score, device=dev), 4, 5, k)
+
+
+@pytest.mark.parametrize("H,W", [(480, 752), (97, 131), (1080, 1440)])
+@pytest.mark.parametrize("k", [1, 5, 8, 32, "all"])
+def test_grid_topk_band_kernel_exact(dev, H, W, k):
+    """K5 at k = 1, the main path's 5 and 8, 32 (the band clusters' largest)
+    and every pixel of a cell (the 1024-thread path), on maps of 480x752,
+    97x131 (ragged cells padded with -1) and 1080x1440 (bands staged in two
+    passes): exact, with heavy ties, at the map's own address and at one
+    4, 8 and 12 bytes past a 16-byte boundary (the staging's ragged rows)."""
+    rng = np.random.default_rng(H + (0 if k == "all" else k))
+    cell = -(-H // 4) * -(-W // 5)
+    k = cell if k == "all" else k
+    flat = torch.as_tensor(rng.integers(-1, 4, H * W + 3).astype(np.int32), device=dev)
+    for off in (0, 1, 2, 3) if H < 1000 else (0, 1):
+        _topk_exact(flat[off:off + H * W].view(H, W), 4, 5, k)
 
 
 @pytest.mark.parametrize("n", [20, 100, 160, 204, 256, 1024, 1025, 1500, 20000])

@@ -301,7 +301,7 @@ def filter_state():
 
 def _launch_counts():
     fns = (ttri.triangulate, tupd.feature_block, tupd.feature_block_rows, tupd.gating_test_batch, tupd.rank12_update,
-           tupd.apply_update_rank12, tupd.ekf_update, tupd.apply_update, tgrid.dense_grid_topk,
+           tupd.apply_update_rank12, tupd.apply_update_rank12_rows, tupd.ekf_update, tupd.apply_update, tgrid.dense_grid_topk,
            *tgrid.K8_WRAPPERS, tgrid.select_track,
            *tcam.WRAPPERS, tcam.predict_warp_points, tcam.stereo_gate, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk,
            tpyr.build_pyramid_pair, tpyr.build_pyramid_padded, tprop.propagate)
@@ -491,6 +491,14 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
         want, pwarn = tupd.apply_update_rank12_plain(state, params, B, r, cols)
         _assert_identical(tuple(torch.utils._pytree.tree_leaves(got)) + (warn,),
                           tuple(torch.utils._pytree.tree_leaves(want)) + (pwarn,))
+        H12 = torch.as_tensor(rng.normal(0, 0.8, (12, 5, 33)))[:, :, 21:]
+        r_blk = torch.as_tensor(rng.normal(0, 0.02, (12, 5)))
+        include = torch.as_tensor(rng.uniform(size=12) < 0.5)
+        got, warn = tupd.apply_update_rank12_rows(state, params, H12, r_blk, include, cols)
+        want, pwarn = tupd.apply_update_rank12_rows_plain(state, params, H12, r_blk, include,
+                                                          cols)
+        _assert_identical(tuple(torch.utils._pytree.tree_leaves(got)) + (warn,),
+                          tuple(torch.utils._pytree.tree_leaves(want)) + (pwarn,))
     assert _launch_counts() == n0 and not observed
 
 
@@ -512,6 +520,11 @@ def test_wrappers_raise_on_other_devices(filter_state):
                                   for _ in range(2)), 3)
     with pytest.raises(ValueError, match="K11"):
         tupd.ekf_update(state.cov.to(meta), H[0], H[0, :, 0], params.obs_noise.to(meta), 5)
+    with pytest.raises(ValueError, match="K12"):
+        tupd.apply_update_rank12_rows(state._replace(cov=state.cov.to(meta)), params,
+                                      torch.zeros((4, 5, 12), device=meta),
+                                      torch.zeros((4, 5), device=meta),
+                                      torch.ones(4, dtype=torch.bool, device=meta), idx)
     with pytest.raises(ValueError, match="K5"):
         tgrid.dense_grid_topk(torch.zeros((40, 50), dtype=torch.int32, device=meta), 4, 5, 5)
     with pytest.raises(ValueError, match="K8"):

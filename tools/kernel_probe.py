@@ -10,9 +10,11 @@ level count to the next is what the band blocks spend on that level), one
 image at an address that is not 16-byte aligned (the staging's byte-load
 path) and one camera.  K4+K6: the latest frame's call of the run below.
 K9: the latest ``feature_block_rows`` call of each shape (the lost
-features' and the prune's).  K5: the run's latest call.  K12: the run's
-latest prune call, and the same call on a 70-slot window (D = 441).  Each
-of these with the SM clock cycles of its phases.
+features' and the prune's).  K5: the run's latest call (and at 1 to 8
+blocks a cell).  K12: the run's latest prune call, through the row-indexed
+entry and through the dense entry on the same masked stack, and the same
+call on a 70-slot window (D = 441).  Each of these with the SM clock cycles
+of its phases.
 K10: the gate calls that ``run_sequence`` makes on
 the first ``--frames`` frames of the bench world (recorded through
 ``kernels.observer``, the latest call of each shape), each launched again
@@ -102,7 +104,7 @@ def main(argv=None) -> None:
     calls, ekf, lk_calls, fast_calls, k9_calls, k5_k12 = {}, [], {}, {}, {}, {}
 
     def record(name, a):
-        if name in ("dense_grid_topk", "apply_update_rank12"):
+        if name in ("dense_grid_topk", "apply_update_rank12", "apply_update_rank12_rows"):
             k5_k12[name] = a
         elif name == "detect_fast":
             fast_calls[tuple(a[0].shape)] = a
@@ -208,32 +210,53 @@ def probe_fast_k9(fast_calls, k9_calls) -> None:
 
 
 def probe_topk_rank12(recorded, config, dev) -> None:
-    """K5 on the run's latest call and K12 on its latest prune call, and the
-    same prune call on a 70-slot window (D = 441, a random SPD covariance),
-    each with the SM clock cycles of its phases."""
+    """K5 on the run's latest call, at its default and at 1-8 blocks a cell;
+    K12 on the run's latest prune call through the row-indexed entry and
+    through the dense entry on the same masked stack, and the same call on a
+    70-slot window (D = 441, a random SPD covariance); each with the SM
+    clock cycles of its phases."""
     from uav_airvision_tpu_torch.models.msckf import update
     from uav_airvision_tpu_torch.ops import gridops
+
+    def phases(label, c):
+        print(f"  {label} phases, SM clock cycles: "
+              f"{', '.join(str(c[j] - c[j - 1]) for j in range(1, len(c)) if c[j])}; total "
+              f"{max(c) - c[0]}", flush=True)
 
     score, gr, gc, k = recorded["dense_grid_topk"]
     probe(f"K5 dense_grid_topk {tuple(score.shape)}, {gr}x{gc} cells, k = {k}",
           lambda: gridops.dense_grid_topk(score, gr, gc, k))
     clocks = torch.zeros(8, dtype=torch.int64, device=dev)
     gridops._grid_topk_kernel(score, gr, gc, k, clocks)
-    c = clocks.tolist()
-    print(f"  K5 phases of the first cell's block, SM clock cycles: "
-          f"{', '.join(str(c[j] - c[j - 1]) for j in range(1, 8) if c[j])}; total "
-          f"{max(c) - c[0]}", flush=True)
-    state, params, B, r, cols = recorded["apply_update_rank12"]
+    phases("K5 (the first cell's first block)", clocks.tolist())
+    if "bands" in gridops._grid_topk_kernel.__code__.co_varnames:
+        for bands in range(1, 9):
+            probe(f"K5 at {bands} block(s) a cell",
+                  lambda: gridops._grid_topk_kernel(score, gr, gc, k, bands=bands))
+    rows = recorded.get("apply_update_rank12_rows")
+    if rows is not None:
+        state, params, H12, r_blk, include, cols = rows
+        B = torch.where(include[:, None, None], H12, 0.0).reshape(-1, 12)
+        r = torch.where(include[:, None], r_blk, 0.0).reshape(-1)
+        print(f"K12's latest prune call: {int(include.sum())} of {include.shape[0]} features "
+              f"included")
+    else:
+        state, params, B, r, cols = recorded["apply_update_rank12"]
     for label, st in (("as recorded", state), ("D = 441", _wide(state, config, 70))):
         D = st.cov.shape[0]
+        if rows is not None:
+            a = (st, params, H12, r_blk, include, cols)
+            probe(f"K12 apply_update_rank12_rows {tuple(H12.shape)}, {label} (D = {D})",
+                  lambda: update.apply_update_rank12_rows(*a))
+            clocks = torch.zeros(8, dtype=torch.int64, device=dev)
+            update._rank12_kernel(st.cov, H12, r_blk, cols, params.obs_noise, st, clocks,
+                                  include=include)
+            phases("K12 rows (block 1)", clocks.tolist())
         probe(f"K12 apply_update_rank12 {tuple(B.shape)}, {label} (D = {D})",
               lambda: update.apply_update_rank12(st, params, B, r, cols))
         clocks = torch.zeros(8, dtype=torch.int64, device=dev)
         update._rank12_kernel(st.cov, B, r, cols, params.obs_noise, st, clocks)
-        c = clocks.tolist()
-        print(f"  K12 phases of block 0, SM clock cycles: "
-              f"{', '.join(str(c[j] - c[j - 1]) for j in range(1, 8) if c[j])}; total "
-              f"{max(c) - c[0]}", flush=True)
+        phases("K12 dense (block 1)", clocks.tolist())
 
 
 def _wide(state, config, N):

@@ -6,15 +6,37 @@
 // (:58), kept_order_stats (:91) and compact_kept (:129).  Every result
 // equals a stable lexsort's, bit for bit.
 //
-// K5: one block per grid cell.  A pixel's key packs (value, ~in-cell flat
-// index) into 64 bits, so the larger key is the larger value and, on a tie,
-// the smaller index; keys are unique.  Each thread keeps the 8 largest keys
-// of its strided share in registers, then k rounds of a block-wide maximum
-// over the threads' best remaining keys give the cell's winners in order.
-// A thread whose 8 keys are all taken while its share holds more rescans
-// the share for the 8 largest keys below its last winner, so any k up to
-// the cell's pixel count runs (a k <= 8 never rescans).  Pixels of a cell
-// past the image edge hold -1, as the padded map does.
+// K5, k <= 32 (the main path's 5 and 8): a thread-block cluster of G band
+// blocks per grid cell (G = 8 by default, the fastest of 1-8 on the bench
+// world's maps), each block a band of the cell's rows.  A pixel's key packs (value,
+// ~in-cell flat index) into 64 bits, so the larger key is the larger value
+// and, on a tie, the smaller index; keys are unique, so the union of the
+// bands' top-k holds the cell's top-k and the merge below is exact.  A
+// block stages its band by asynchronous copies (cp.async, 16 bytes where a
+// row's segment is aligned, 4 at its ragged ends; each staged row shifted so
+// that its alignment is the map's), rows past the image padded with -1.
+// Each warp then walks rows and columns (no division per pixel): a pixel
+// whose key is at or below the k-th best key the warp holds is rejected by
+// one ballot (most of a FAST map is 0 and fails at once), the survivors are
+// appended to the warp's list of candidates, and when that list nears its
+// 64 keys each lane ranks two of them against all, which keeps the k best
+// and raises the threshold.  A warp's first 32 keys are sorted by a
+// bitonic network of shuffles instead: its first k candidates and
+// threshold.  The warps' lists merge by rank (a key's rank
+// is the number of keys above it among all of them) into the block's k,
+// which go to block rank 0's shared memory (distributed shared memory);
+// after one cluster barrier rank 0 merges the G lists the same way and
+// writes ys, xs, vals.  A band wider than the staging buffer takes several
+// passes.
+//
+// K5, any other k (up to the cell's pixel count) or a cell wider than the
+// staging buffer: one 1024-thread block per cell.  Each thread keeps the 8
+// largest keys of its strided share in registers, then k rounds of a
+// block-wide maximum over the threads' best remaining keys give the cell's
+// winners in order.  A thread whose 8 keys are all taken while its share
+// holds more rescans the share for the 8 largest keys below its last
+// winner.  Pixels of a cell past the image edge hold -1, as the padded map
+// does.
 //
 // K8: n is a few hundred to a few thousand, so one block of up to 1024
 // threads counts, for each element it owns (a strided share), its
@@ -37,10 +59,13 @@
 // Bound on the card: bytes (K5 reads the 480 x 752 int32 map once, 1.4 MB;
 // K8 a few KB), each far below a microsecond: launch-latency kernels.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "msckf_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -131,6 +156,197 @@ grid_topk_kernel(const int* __restrict__ score, int H, int W, int grid_col, int 
     __syncthreads();  // s_winner is rewritten next round
   }
   if (timed) clocks[2] = clock64();
+}
+
+constexpr int kBandThreads = 256;
+constexpr int kBandWarps = kBandThreads / 32;
+constexpr int kBandMaxK = 32;     // the band path's k
+constexpr int kBandDefault = 8;   // band blocks a cell (the cluster's size), at most 8
+constexpr int kWarpBuf = 64;      // a warp's candidate keys: its k best, then the survivors
+constexpr int kStageInts = 9216;  // the staging buffer (36 KB; 45 KB with the keys)
+constexpr unsigned kFull = 0xffffffffu;
+
+// Keys above ``x`` among n keys: independent loads, no branch.
+__device__ inline int count_above(const unsigned long long* keys, int n, unsigned long long x) {
+  int above = 0;
+#pragma unroll 8
+  for (int i = 0; i < n; ++i) above += keys[i] > x;
+  return above;
+}
+
+// A staged row's shift: its element c sits at row[shift + c], so that its
+// 16-byte groups are the map's.  Rows past the image (no real pixel) take 0.
+__device__ inline int row_shift(const int* score, int y, int H, int W, int x0) {
+  return (y < H && x0 < W) ? (int)(((uintptr_t)(score + (size_t)y * W + x0) >> 2) & 3) : 0;
+}
+
+// The warp's 32 keys (one a lane) sorted descending across the lanes
+// (a bitonic network of shuffles).
+__device__ inline unsigned long long warp_sort_desc(unsigned long long x, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const unsigned long long y = __shfl_xor_sync(kFull, x, stride);
+      const bool keep_max = ((lane & size) == 0) == ((lane & stride) == 0);
+      x = keep_max ? (x > y ? x : y) : (x < y ? x : y);
+    }
+  }
+  return x;
+}
+
+// A warp's m candidate keys (unique, nonzero) in buf -> its min(m, k)
+// largest, descending, at the front (0 pads to k); returns that count.
+// Each lane ranks two candidates against all of them.
+__device__ inline int warp_keep_best(unsigned long long* buf, int m, int k, int lane) {
+  __syncwarp();
+  const unsigned long long a = lane < m ? buf[lane] : 0ull;
+  const unsigned long long b = lane + 32 < m ? buf[lane + 32] : 0ull;
+  int ra = 0, rb = 0;
+#pragma unroll 8
+  for (int j = 0; j < m; ++j) {
+    const unsigned long long v = buf[j];
+    ra += v > a;
+    rb += v > b;
+  }
+  __syncwarp();
+  if (a != 0ull && ra < k) buf[ra] = a;
+  if (b != 0ull && rb < k) buf[rb] = b;
+  const int kept = min(m, k);
+  if (lane >= kept && lane < k) buf[lane] = 0ull;
+  __syncwarp();
+  return kept;
+}
+
+// The k largest of n keys (unique; 0 pads, never taken) by rank: the
+// thread of key t counts the keys above it and calls emit(rank, key) when
+// that is under k.  Threads past n do nothing.
+template <typename Emit>
+__device__ inline void keep_best(const unsigned long long* keys, int n, int k, Emit emit) {
+  const int t = threadIdx.x;
+  if (t >= n) return;
+  const unsigned long long x = keys[t];
+  if (x == 0ull) return;
+  const int rank = count_above(keys, n, x);
+  if (rank < k) emit(rank, x);
+}
+
+// One cluster of ``bands`` blocks per cell (cluster rank = band); rows_pass
+// rows of the band are staged at a time, ``stride`` ints a staged row.
+__global__ void __launch_bounds__(kBandThreads)
+grid_topk_band_kernel(const int* __restrict__ score, int H, int W, int grid_col, int cell_h,
+                      int cell_w, int k, int bands, int rows_pass, int stride,
+                      int* __restrict__ ys, int* __restrict__ xs, int* __restrict__ vals,
+                      long long* __restrict__ clocks) {
+  extern __shared__ __align__(16) int stage[];
+  __shared__ unsigned long long s_buf[kBandWarps * kWarpBuf], s_warp[kBandWarps * kBandMaxK];
+  __shared__ unsigned long long s_block[kBandMaxK];
+  __shared__ unsigned long long s_cluster[8 * kBandMaxK];  // rank 0's: every band's k keys
+  // the blocks of a cluster have all started before any writes into rank 0's
+  // shared memory (the wait below, long after this arrive)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int band = (int)cluster.block_rank(), cell = blockIdx.x / bands;
+  const bool timed = clocks != nullptr && blockIdx.x == 0;
+  if (timed && tid == 0) clocks[0] = clock64();
+  const int y0 = (cell / grid_col) * cell_h, x0 = (cell % grid_col) * cell_w;
+  const int r_begin = band * cell_h / bands, r_end = (band + 1) * cell_h / bands;
+  const int nreal_x = max(0, min(cell_w, W - x0));  // columns inside the image
+
+  // the warp's candidates: m keys in buf, all above thr, the k-th best key
+  // held so far (0 until k are held)
+  unsigned long long* buf = s_buf + warp * kWarpBuf;
+  unsigned long long thr = 0ull;
+  int m = 0;
+  bool first = true;  // uniform over the warp
+  for (int ra = r_begin; ra < r_end; ra += rows_pass) {
+    const int nr = min(rows_pass, r_end - ra);
+    for (int r = warp; r < nr; r += kBandWarps) {  // stage: a warp a row
+      const int y = y0 + ra + r;
+      const int nreal = y < H ? nreal_x : 0;
+      const int sh = row_shift(score, y, H, W, x0);
+      const int* g = score + (size_t)y * W + x0;  // read only where nreal > 0
+      int* row = stage + r * stride + sh;
+      const int head = min((4 - sh) & 3, nreal);
+      const int nvec = (nreal - head) >> 2;
+      const int tail = nreal - head - 4 * nvec;
+      const int units = nvec + head + tail + (cell_w - nreal);
+      for (int u = lane; u < units; u += 32) {
+        if (u < nvec) {
+          msckf::cp_async<16>(row + head + 4 * u, g + head + 4 * u);
+        } else {
+          int c = u - nvec;  // the ragged head, the tail, then the padding
+          if (c >= head) c += 4 * nvec;
+          if (c < nreal) msckf::cp_async<4>(row + c, g + c);
+          else row[c] = -1;
+        }
+      }
+    }
+    msckf::cp_async_wait_all();
+    __syncthreads();
+    if (timed && tid == 0 && ra == r_begin) clocks[1] = clock64();
+    for (int r = warp; r < nr; r += kBandWarps) {  // filter: a warp a row
+      const int row_idx = (ra + r) * cell_w;     // in-cell index of column 0
+      const int* row = stage + r * stride + row_shift(score, y0 + ra + r, H, W, x0);
+      for (int c0 = 0; c0 < cell_w; c0 += 128) {  // four columns a lane, loaded first
+        int v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int c = c0 + 32 * u + lane;
+          v[u] = c < cell_w ? row[c] : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int c = c0 + 32 * u + lane;
+          if (c0 + 32 * u >= cell_w) break;  // uniform over the warp
+          const unsigned long long key = c < cell_w ? topk_key(v[u], row_idx + c) : 0ull;
+          if (first) {  // the warp's first 32 keys: its first k candidates, sorted
+            first = false;
+            const unsigned long long sorted = warp_sort_desc(key, lane);
+            m = min(__popc(__ballot_sync(kFull, sorted != 0ull)), k);
+            if (lane < m) buf[lane] = sorted;
+            if (m == k) thr = __shfl_sync(kFull, sorted, k - 1);
+            continue;
+          }
+          const bool keep = key > thr;  // rejected at or below the k-th key held
+          const unsigned ball = __ballot_sync(kFull, keep);
+          if (keep) buf[m + __popc(ball & ((1u << lane) - 1u))] = key;
+          m += __popc(ball);
+          if (m > kWarpBuf - 32) {  // room for the next 32: keep the k best
+            m = warp_keep_best(buf, m, k, lane);
+            if (m == k) thr = buf[k - 1];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next pass restages the buffer
+  }
+  warp_keep_best(buf, m, k, lane);  // the warp's k best, descending, 0 padded
+  if (lane < k) s_warp[warp * k + lane] = buf[lane];
+  if (tid < k) s_block[tid] = 0ull;
+  __syncthreads();
+  if (timed && tid == 0) clocks[2] = clock64();
+  keep_best(s_warp, kBandWarps * k, k, [&](int rank, unsigned long long x) { s_block[rank] = x; });
+  __syncthreads();
+  if (timed && tid == 0) clocks[3] = clock64();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid < k) cluster.map_shared_rank(s_cluster, 0)[band * k + tid] = s_block[tid];
+  if (timed && tid == 0) clocks[4] = clock64();
+  cluster.sync();
+  if (timed && tid == 0) clocks[5] = clock64();
+  if (band != 0) return;
+  keep_best(s_cluster, bands * k, k, [&](int rank, unsigned long long x) {
+    const int idx = (int)(~(unsigned)(x & 0xffffffffull));
+    const int o = cell * k + rank;
+    ys[o] = y0 + idx / cell_w;
+    xs[o] = x0 + idx % cell_w;
+    vals[o] = (int)((unsigned)(x >> 32) ^ 0x80000000u);
+  });
+  if (timed) {
+    __syncthreads();
+    if (tid == 0) clocks[6] = clock64();
+  }
 }
 
 // Number of elements with a nonzero ``local`` over the block (every thread
@@ -546,14 +762,38 @@ int launch_k8(K kernel, size_t* budget, size_t* allowed, int n, size_t bytes, vo
 
 }  // namespace
 
+// bands: the band path's blocks a cell (0: the default); clocks (7 int64 or
+// null): the SM clock of the first cell's block (band 0) at its start and at
+// the end of each phase (the 1024-thread path: three stamps)
 extern "C" int grid_topk_i32(const void* score, int H, int W, int grid_row, int grid_col,
-                             int cell_h, int cell_w, int k, void* ys, void* xs, void* vals,
-                             void* clocks, void* stream) {
-  if (k < 1 || k > cell_h * cell_w) return (int)cudaErrorInvalidValue;
-  grid_topk_kernel<<<grid_row * grid_col, kTopkThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)score, H, W, grid_col, cell_h, cell_w, k, (int*)ys, (int*)xs, (int*)vals,
-      (long long*)clocks);
-  return (int)cudaGetLastError();
+                             int cell_h, int cell_w, int k, int bands, void* ys, void* xs,
+                             void* vals, void* clocks, void* stream) {
+  if (k < 1 || k > cell_h * cell_w || bands < 0 || bands > 8) return (int)cudaErrorInvalidValue;
+  const int stride = (cell_w + 3 + 3) & ~3;  // a row and its shift, whole 16-byte groups
+  if (k > kBandMaxK || stride > kStageInts) {
+    grid_topk_kernel<<<grid_row * grid_col, kTopkThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)score, H, W, grid_col, cell_h, cell_w, k, (int*)ys, (int*)xs, (int*)vals,
+        (long long*)clocks);
+    return (int)cudaGetLastError();
+  }
+  const int b = max(1, min(bands > 0 ? bands : kBandDefault, cell_h));
+  const int rows_pass = min((cell_h + b - 1) / b, kStageInts / stride);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_row * grid_col * b);
+  cfg.blockDim = dim3(kBandThreads);
+  cfg.dynamicSmemBytes = (size_t)rows_pass * stride * sizeof(int);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = b;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, grid_topk_band_kernel, (const int*)score, H, W, grid_col, cell_h,
+                     cell_w, k, b, rows_pass, stride, (int*)ys, (int*)xs, (int*)vals,
+                     (long long*)clocks);
+  return (int)cudaGetLastError();  // the launch's error, cleared for the next launch
 }
 
 extern "C" int grid_rank_in_cell(const void* cell, const void* primary, const void* arrival,

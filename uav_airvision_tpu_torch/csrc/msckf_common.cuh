@@ -53,13 +53,46 @@ __device__ inline T block_sum(T v, T* scratch) {
   return s;
 }
 
-// Raise a kernel's dynamic shared memory limit above the default 48 KB
-// (once per kernel and size).
+// Asynchronous copy of BYTES (4, 8 or 16, both addresses aligned to it)
+// from global to shared memory (cp.async); cp_async_wait_all() waits for
+// this thread's copies, a barrier after it for the block's.
+template <int BYTES>
+__device__ inline void cp_async(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(gmem),
+                 "n"(BYTES)
+                 : "memory");
+}
+
+__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Close this thread's group of copies issued since the last commit; wait
+// until at most N of its groups are still in flight (groups land in order).
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 1 / x, correctly rounded (the value of T(1) / x), without the division's
+// slow path
+__device__ inline float rcp(float x) { return __frcp_rn(x); }
+__device__ inline double rcp(double x) { return __drcp_rn(x); }
+
+// Raise a kernel's dynamic shared memory limit where it and the kernel's
+// static shared memory pass the default 48 KB (once per kernel and size).
 template <typename K>
 inline int allow_smem(K kernel, size_t bytes, size_t* done) {
-  if (bytes <= 48 * 1024 || bytes <= *done) return 0;
-  const int err = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (bytes <= *done) return 0;
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err != 0) return err;
+  if (bytes + attr.sharedSizeBytes > 48 * 1024)
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)bytes);
   if (err == 0) *done = bytes;
   return err;
 }

@@ -84,9 +84,10 @@ SIGNATURES = {
     # obs_noise, table, n_table, out, flags, gamma, work, stream
     "gate_f32": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, P],
     "gate_f64": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, P],
-    # P, D, B, r, n, cols, obs_noise, out, *INJECT, clocks, stream
-    "rank12_f32": [P, I, P, P, I, P, P, P, *INJECT, P, P],
-    "rank12_f64": [P, I, P, P, I, P, P, P, *INJECT, P, P],
+    # P, D, B, n_feat, rows_per, B's feature and row strides, r, r's strides,
+    # include, cols, obs_noise, out, *INJECT, clocks, stream
+    "rank12_f32": [P, I, P, I, I, L, L, P, L, L, P, P, P, P, *INJECT, P, P],
+    "rank12_f64": [P, I, P, I, I, L, L, P, L, L, P, P, P, P, *INJECT, P, P],
     # pts, n, intr, field stride, point stride, coef, field stride, point
     # stride, model, (R, new_intr,) out..., stream
     "camera_undistort": [P, I, P, I, I, P, I, I, I, P, P, P, P],
@@ -99,8 +100,9 @@ SIGNATURES = {
     # cam0, p1, p0r, proj1, valid, st_fwd, n, intr, coef, model, E, fwd_bwd,
     # max_vdisp, thresh, h, w, inlier, stream
     "camera_stereo_gate": [P, P, P, P, P, P, I, P, P, I, P, F, F, F, I, I, P, P],
-    # score, H, W, grid_row, grid_col, cell_h, cell_w, k, ys, xs, vals, clocks, stream
-    "grid_topk_i32": [P, I, I, I, I, I, I, I, P, P, P, P, P],
+    # score, H, W, grid_row, grid_col, cell_h, cell_w, k, bands, ys, xs, vals,
+    # clocks, stream
+    "grid_topk_i32": [P, I, I, I, I, I, I, I, I, P, P, P, P, P],
     # cell, primary, arrival, valid, n, n_cells, rank, perm, stream
     "grid_rank_in_cell": [P, P, P, P, I, I, P, P, P],
     # perm, keep, cell, valid, n, n_cells, global_rank, cell_rank, n_kept, stream

@@ -25,7 +25,8 @@ from . import triangulation as tri
 from .propagation import propagate
 from .state import (IMU_DIM, INT32_MAX, CamWindow, FeatureTable, FilterState, MsckfParams,
                     reset_cov)
-from .update import apply_update, apply_update_rank12, feature_block_rows, gating_test_batch
+from .update import (apply_update, apply_update_rank12_rows, feature_block_rows,
+                     gating_test_batch)
 
 LOST_SMALL = 16  # lost-feature batch of the common case (JAX small tier)
 MAX_BUDGET_ROWS = 1500  # the reference's Jacobian-stack row cap
@@ -329,10 +330,8 @@ def _prune_sized(state: FilterState, params: MsckfParams, config: Config, rm, tw
     include = proc & gate_ok
     warn = torch.zeros((), dtype=torch.bool, device=dev)
     if config.filter.prune_rank12:
-        if to_host(include.any()):
-            B = torch.where(include[:, None, None], H12, 0.0).reshape(Kp * 5, 12)
-            r_s = torch.where(include[:, None], r_blk, 0.0).reshape(Kp * 5)
-            state, warn = apply_update_rank12(state, params, B, r_s, cols)
+        if to_host(include.any()):  # JAX's lax.cond on any_update
+            state, warn = apply_update_rank12_rows(state, params, H12, r_blk, include, cols)
     else:
         # the stacked update (JAX :560-583): the gated blocks scattered in map
         # order into the max_prune_rows buffer, then K11 on its row tier

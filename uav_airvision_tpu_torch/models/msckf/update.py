@@ -16,7 +16,8 @@ the second with the back-end's gathers and masks in its launch), K10
 K11 ``apply_update`` (``csrc/ekf_update.cu``: the update and the error-state
 injection in one launch; ``ekf_update`` is its entry without the injection)
 and K12 ``apply_update_rank12`` (``csrc/rank12.cu``, likewise, and
-``rank12_update``).
+``rank12_update``; ``apply_update_rank12_rows`` with its call site's masks
+in its launch).
 """
 
 from __future__ import annotations
@@ -438,28 +439,46 @@ def _injected(state: FilterState, vals, flag, D: int):
     return state._replace(imu=imu, cams=cams, cov=vals[:D * D].view(D, D)), flag
 
 
-def _rank12_kernel(P, B, r, cols, obs_noise, state=None, clocks=None):
-    """K12's launch; with a ``state`` it ends in the injection.  Returns
-    (P_new, delta, the injected state or None, too_large or None).
-    ``clocks``: an int64 (8,) tensor for block 0's SM clock at its start and
-    at the end of each of its seven phases."""
+def _rank12_kernel(P, B, r, cols, obs_noise, state=None, clocks=None, include=None):
+    """K12's launch; with a ``state`` it ends in the injection.  B is (n, 12)
+    with r (n,), or (K, R, 12) with r (K, R): K features of R rows each, read
+    in place through their strides (B's columns contiguous), those whose
+    ``include`` (K,) is false skipped.  Returns (P_new, delta, the injected
+    state or None, too_large or None).  ``clocks``: an int64 (7,) tensor for
+    the SM clock of block 1 (the first off-diagonal tile pair) at its start
+    and at the end of each of its six phases."""
     dtype = P.dtype
     entry = {torch.float32: "rank12_f32", torch.float64: "rank12_f64"}.get(dtype)
     if entry is None:
         raise ValueError(f"K12 takes float32 or float64, got {dtype}")
     P = P.contiguous()
-    B, r = _operand(B, dtype), _operand(r, dtype)
+    if B.dtype != dtype or B.stride(-1) != 1:
+        B = B.to(dtype).contiguous()
+    if r.dtype != dtype:
+        r = r.to(dtype)
     cols = cols if cols.dtype == torch.int64 and cols.is_contiguous() else (
         cols.to(torch.int64).contiguous())
     noise = _operand(obs_noise, dtype).reshape(1)
-    kernels.check_cuda(P, B, r, cols, noise)
-    D, n = P.shape[0], B.shape[0]
-    if P.shape != (D, D) or B.shape != (n, 12) or r.shape != (n,) or cols.shape != (12,):
+    D, K = P.shape[0], B.shape[0]
+    if (P.shape != (D, D) or B.ndim not in (2, 3) or B.shape[-1] != 12
+            or r.shape != B.shape[:-1] or cols.shape != (12,)
+            or (include is not None and include.shape != (K,))):
         raise ValueError(f"rank12_update: P {tuple(P.shape)}, B {tuple(B.shape)}, "
                          f"r {tuple(r.shape)}, cols {tuple(cols.shape)}")
+    R = B.shape[1] if B.ndim == 3 else 1
+    strides = ((B.stride(0), B.stride(1), r.stride(0), r.stride(1)) if B.ndim == 3
+               else (B.stride(0), 0, r.stride(0), 0))
+    if include is not None and include.dtype != torch.bool:
+        include = include.to(torch.bool)
+    include = include.contiguous() if include is not None else None
+    kernels.check_cuda(P, cols, noise, *(x for x in (include,) if x is not None))
+    for x in (B, r):
+        if x.device != P.device:
+            raise ValueError(f"tensor on {x.device}, expected {P.device}")
     vals, flag, _, inject, _keep = _update_launch(P, state, 0)
-    kernels.launch(entry, P.data_ptr(), D, B.data_ptr(), r.data_ptr(), n, cols.data_ptr(),
-                   noise.data_ptr(), vals.data_ptr(), *inject,
+    kernels.launch(entry, P.data_ptr(), D, B.data_ptr(), K, R, *strides[:2], r.data_ptr(),
+                   *strides[2:], include.data_ptr() if include is not None else None,
+                   cols.data_ptr(), noise.data_ptr(), vals.data_ptr(), *inject,
                    clocks.data_ptr() if clocks is not None else None)
     P_new, delta = vals[:D * D].view(D, D), vals[D * D:D * D + D]
     if state is None:
@@ -487,6 +506,38 @@ apply_update_rank12.launches = 0
 
 def apply_update_rank12_plain(state: FilterState, params: MsckfParams, B, r, cols):
     return _inject_delta(state, *rank12_update_plain(state.cov, B, r, cols, params.obs_noise))
+
+
+def apply_update_rank12_rows_plain(state: FilterState, params: MsckfParams, H12, r_blk,
+                                   include, cols):
+    """The prune's call site as it stood: the features whose ``include`` is
+    false masked to zeros, the blocks stacked, then ``apply_update_rank12``."""
+    K, R = r_blk.shape
+    B = torch.where(include[:, None, None], H12, 0.0).reshape(K * R, 12)
+    r_s = torch.where(include[:, None], r_blk, 0.0).reshape(K * R)
+    return apply_update_rank12_plain(state, params, B, r_s, cols)
+
+
+def apply_update_rank12_rows(state: FilterState, params: MsckfParams, H12, r_blk, include,
+                             cols):
+    """``apply_update_rank12`` of the prune's blocks as K9 leaves them: H12
+    (K, R, 12) (the 12 columns of the two pruned cameras, a strided slice of
+    the (K, R, 21 + 12) blocks is read in place), r_blk (K, R) and include
+    (K,): a feature whose ``include`` is false adds nothing.  Returns
+    (state, too_large).  On CUDA tensors ONE launch of K12 masks, updates
+    and injects."""
+    if state.cov.device.type == "cpu":
+        return apply_update_rank12_rows_plain(state, params, H12, r_blk, include, cols)
+    if state.cov.device.type != "cuda":
+        raise ValueError(f"K12 runs on CUDA tensors, got {state.cov.device}")
+    kernels.observe("apply_update_rank12_rows", (state, params, H12, r_blk, include, cols))
+    _, _, new_state, too_large = _rank12_kernel(state.cov, H12, r_blk, cols, params.obs_noise,
+                                                state, include=include)
+    apply_update_rank12_rows.launches += 1
+    return new_state, too_large
+
+
+apply_update_rank12_rows.launches = 0
 
 
 def ekf_update_plain(P, H_buf, r_buf, obs_noise, rows_true=None):

@@ -13,8 +13,9 @@ driver's launch calls, the cluster and the cooperative launches included), devic
 of the window's wall time, the most frequent kernels, and each
 hand-written kernel's launches per frame and device time per launch (us).  The index glue
 K15 (``augment_state``, the prune's window compaction, ``online_reset``),
-the EKF updates (``apply_update``, K11, and ``apply_update_rank12``, K12,
-as the back-end step calls them) and the front-end's fused calls (the
+the EKF updates (``apply_update``, K11, and ``apply_update_rank12_rows``,
+K12, as the back-end step calls them; ``apply_update_rank12`` where an
+older tree calls it) and the front-end's fused calls (the
 per-cell selection ``select_track`` and the prediction
 ``predict_warp_points`` as ``pipeline`` calls them, the stereo gate
 ``stereo_gate`` as ``stereo`` calls it, and FAST ``detect_fast`` as
@@ -58,7 +59,7 @@ def render(n_frames: int):
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cudaLaunchCooperativeKernel")
 K15_FUNCTIONS = ("augment_state", "_compact_window", "online_reset")
-EKF_FUNCTIONS = ("apply_update", "apply_update_rank12")
+EKF_FUNCTIONS = ("apply_update", "apply_update_rank12", "apply_update_rank12_rows")
 
 
 def span_functions(module, names, prefix):
