@@ -741,34 +741,30 @@ def test_grid_topk_kernel_exact(dev, H, W, k):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-def _topk_exact(score, gr, gc, k, bands=None):
-    """K5 (through the wrapper, or its launch at ``bands`` blocks a cell)
-    equal to its plain version; the wrapper in one launch."""
-    if bands is None:
-        n0 = gridops.dense_grid_topk.launches
-        got = gridops.dense_grid_topk(score, gr, gc, k)
-        assert gridops.dense_grid_topk.launches == n0 + 1
-    else:
-        got = tuple(gridops._grid_topk_kernel(score, gr, gc, k, bands=bands))
+def _topk_exact(score, gr, gc, k):
+    """K5 equal to its plain version, in one launch."""
+    n0 = gridops.dense_grid_topk.launches
+    got = gridops.dense_grid_topk(score, gr, gc, k)
+    assert gridops.dense_grid_topk.launches == n0 + 1
     for g, w in zip(got, gridops.dense_grid_topk_plain(score, gr, gc, k)):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("bands", [None, 2, 6, 8])
-def test_grid_topk_ties_across_bands(dev, bands):
-    """K5's band clusters: in every cell a tie at the top value straddles
-    the first two bands' boundary (3 pixels on the row above it, 10 on the
-    row below), so the top 8 are the first band's three and the second
-    band's first five by index; the rest of the map ties at small values."""
-    G = bands or 6  # the kernel's default
-    rng = np.random.default_rng(G)
+@pytest.mark.parametrize("edge", [1, 3, 5, 7])
+def test_grid_topk_ties_across_bands(dev, edge):
+    """K5's band clusters (8 bands of 15 rows a cell here): in every cell a
+    tie at the top value straddles the boundary between band ``edge`` - 1
+    and band ``edge`` (3 pixels on the row above it, 10 on the row below),
+    so the top 8 are the upper band's three and the lower band's first five
+    by index; the rest of the map ties at small values."""
+    rng = np.random.default_rng(edge)
     padded = rng.integers(-1, 3, (480, 755)).astype(np.int32)  # 4 x 5 cells of 120 x 151
     cells = padded.reshape(4, 120, 5, 151)
-    edge = 120 // G
-    cells[:, edge - 1, :, [100, 120, 140]] = 50
-    cells[:, edge, :, 0:50:5] = 50
+    row = edge * 120 // 8
+    cells[:, row - 1, :, [100, 120, 140]] = 50
+    cells[:, row, :, 0:50:5] = 50
     score = np.ascontiguousarray(padded[:, :752])
-    _topk_exact(torch.as_tensor(score, device=dev), 4, 5, 8, bands)
+    _topk_exact(torch.as_tensor(score, device=dev), 4, 5, 8)
 
 
 @pytest.mark.parametrize("k", [1, 5, 8])

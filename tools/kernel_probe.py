@@ -10,8 +10,7 @@ level count to the next is what the band blocks spend on that level), one
 image at an address that is not 16-byte aligned (the staging's byte-load
 path) and one camera.  K4+K6: the latest frame's call of the run below.
 K9: the latest ``feature_block_rows`` call of each shape (the lost
-features' and the prune's).  K5: the run's latest call (and at 1 to 8
-blocks a cell).  K12: the run's latest prune call, through the row-indexed
+features' and the prune's).  K5: the run's latest call.  K12: the run's latest prune call, through the row-indexed
 entry and through the dense entry on the same masked stack, and the same
 call on a 70-slot window (D = 441).  Each of these with the SM clock cycles
 of its phases.
@@ -210,8 +209,7 @@ def probe_fast_k9(fast_calls, k9_calls) -> None:
 
 
 def probe_topk_rank12(recorded, config, dev) -> None:
-    """K5 on the run's latest call, at its default and at 1-8 blocks a cell;
-    K12 on the run's latest prune call through the row-indexed entry and
+    """K5 on the run's latest call; K12 on the run's latest prune call through the row-indexed entry and
     through the dense entry on the same masked stack, and the same call on a
     70-slot window (D = 441, a random SPD covariance); each with the SM
     clock cycles of its phases."""
@@ -229,10 +227,6 @@ def probe_topk_rank12(recorded, config, dev) -> None:
     clocks = torch.zeros(8, dtype=torch.int64, device=dev)
     gridops._grid_topk_kernel(score, gr, gc, k, clocks)
     phases("K5 (the first cell's first block)", clocks.tolist())
-    if "bands" in gridops._grid_topk_kernel.__code__.co_varnames:
-        for bands in range(1, 9):
-            probe(f"K5 at {bands} block(s) a cell",
-                  lambda: gridops._grid_topk_kernel(score, gr, gc, k, bands=bands))
     rows = recorded.get("apply_update_rank12_rows")
     if rows is not None:
         state, params, H12, r_blk, include, cols = rows

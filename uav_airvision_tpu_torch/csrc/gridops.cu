@@ -6,9 +6,9 @@
 // (:58), kept_order_stats (:91) and compact_kept (:129).  Every result
 // equals a stable lexsort's, bit for bit.
 //
-// K5, k <= 32 (the main path's 5 and 8): a thread-block cluster of G band
-// blocks per grid cell (G = 8 by default, the fastest of 1-8 on the bench
-// world's maps), each block a band of the cell's rows.  A pixel's key packs (value,
+// K5, k <= 32 (the main path's 5 and 8): a thread-block cluster of 8 band
+// blocks per grid cell (of 1 to 8 blocks, 8 and 5 were the fastest on the
+// bench world's maps), each block a band of the cell's rows.  A pixel's key packs (value,
 // ~in-cell flat index) into 64 bits, so the larger key is the larger value
 // and, on a tie, the smaller index; keys are unique, so the union of the
 // bands' top-k holds the cell's top-k and the merge below is exact.  A
@@ -26,8 +26,8 @@
 // is the number of keys above it among all of them) into the block's k,
 // which go to block rank 0's shared memory (distributed shared memory);
 // after one cluster barrier rank 0 merges the G lists the same way and
-// writes ys, xs, vals.  A band wider than the staging buffer takes several
-// passes.
+// writes ys, xs, vals.  A band larger than the staging buffer takes
+// several passes.
 //
 // K5, any other k (up to the cell's pixel count) or a cell wider than the
 // staging buffer: one 1024-thread block per cell.  Each thread keeps the 8
@@ -161,7 +161,7 @@ grid_topk_kernel(const int* __restrict__ score, int H, int W, int grid_col, int 
 constexpr int kBandThreads = 256;
 constexpr int kBandWarps = kBandThreads / 32;
 constexpr int kBandMaxK = 32;     // the band path's k
-constexpr int kBandDefault = 8;   // band blocks a cell (the cluster's size), at most 8
+constexpr int kBands = 8;         // band blocks a cell (the cluster's size), at most 8
 constexpr int kWarpBuf = 64;      // a warp's candidate keys: its k best, then the survivors
 constexpr int kStageInts = 9216;  // the staging buffer (36 KB; 45 KB with the keys)
 constexpr unsigned kFull = 0xffffffffu;
@@ -762,13 +762,13 @@ int launch_k8(K kernel, size_t* budget, size_t* allowed, int n, size_t bytes, vo
 
 }  // namespace
 
-// bands: the band path's blocks a cell (0: the default); clocks (7 int64 or
-// null): the SM clock of the first cell's block (band 0) at its start and at
-// the end of each phase (the 1024-thread path: three stamps)
+// clocks (7 int64 or null): the SM clock of the first cell's block (band 0)
+// at its start and at the end of each phase (the 1024-thread path: three
+// stamps)
 extern "C" int grid_topk_i32(const void* score, int H, int W, int grid_row, int grid_col,
-                             int cell_h, int cell_w, int k, int bands, void* ys, void* xs,
-                             void* vals, void* clocks, void* stream) {
-  if (k < 1 || k > cell_h * cell_w || bands < 0 || bands > 8) return (int)cudaErrorInvalidValue;
+                             int cell_h, int cell_w, int k, void* ys, void* xs, void* vals,
+                             void* clocks, void* stream) {
+  if (k < 1 || k > cell_h * cell_w) return (int)cudaErrorInvalidValue;
   const int stride = (cell_w + 3 + 3) & ~3;  // a row and its shift, whole 16-byte groups
   if (k > kBandMaxK || stride > kStageInts) {
     grid_topk_kernel<<<grid_row * grid_col, kTopkThreads, 0, (cudaStream_t)stream>>>(
@@ -776,7 +776,7 @@ extern "C" int grid_topk_i32(const void* score, int H, int W, int grid_row, int 
         (long long*)clocks);
     return (int)cudaGetLastError();
   }
-  const int b = max(1, min(bands > 0 ? bands : kBandDefault, cell_h));
+  const int b = max(1, min(kBands, cell_h));
   const int rows_pass = min((cell_h + b - 1) / b, kStageInts / stride);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid_row * grid_col * b);

@@ -212,8 +212,8 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   };
   // three groups of copies, in the order they are needed: the first chunk
   // of this block's rows of B and r (the sums), the two tiles (the band),
-  // then Pc (W; issued once the sums are in, its round trip under the
-  // cluster's exchange)
+  // then Pc (W; issued once cols is in shared memory, its round trip under
+  // the sums and the cluster's exchange)
   stage_rows(0, min(n_loc, chunk));
   msckf::cp_async_commit();
   for (int e = tid; tiled && e < kTile * kTile; e += kThreads) {
@@ -229,6 +229,11 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     for (int i = tid; i < n_loc; i += kThreads) flag[i] = include[rank + kCluster * i] ? 1 : 0;
   msckf::cp_async_wait<1>();  // this block's rows of B and r
   __syncthreads();            // and cidx and the flags
+  for (int e = tid; solver && e < D * 12; e += kThreads) {
+    const int i = e / 12, c = e - i * 12;
+    msckf::cp_async<sizeof(T)>(Pc + e, P + (size_t)i * D + cidx[c]);
+  }
+  msckf::cp_async_commit();
   if (timed) clocks[1] = clock64();
   const int* fl = include != nullptr ? flag : nullptr;
 
@@ -265,11 +270,6 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     case 5: store_sums<5>(acc, lane, part); break;
     default: break;
   }
-  for (int e = tid; solver && e < D * 12; e += kThreads) {
-    const int i = e / 12, c = e - i * 12;
-    msckf::cp_async<sizeof(T)>(Pc + e, P + (size_t)i * D + cidx[c]);
-  }
-  msckf::cp_async_commit();
   // the cluster's partial sums, added in rank order by every block: the
   // same bits in every block
   cluster.sync();

@@ -100,9 +100,8 @@ SIGNATURES = {
     # cam0, p1, p0r, proj1, valid, st_fwd, n, intr, coef, model, E, fwd_bwd,
     # max_vdisp, thresh, h, w, inlier, stream
     "camera_stereo_gate": [P, P, P, P, P, P, I, P, P, I, P, F, F, F, I, I, P, P],
-    # score, H, W, grid_row, grid_col, cell_h, cell_w, k, bands, ys, xs, vals,
-    # clocks, stream
-    "grid_topk_i32": [P, I, I, I, I, I, I, I, I, P, P, P, P, P],
+    # score, H, W, grid_row, grid_col, cell_h, cell_w, k, ys, xs, vals, clocks, stream
+    "grid_topk_i32": [P, I, I, I, I, I, I, I, P, P, P, P, P],
     # cell, primary, arrival, valid, n, n_cells, rank, perm, stream
     "grid_rank_in_cell": [P, P, P, P, I, I, P, P, P],
     # perm, keep, cell, valid, n, n_cells, global_rank, cell_rank, n_kept, stream

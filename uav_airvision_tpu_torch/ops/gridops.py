@@ -340,10 +340,10 @@ def dense_grid_topk(score: torch.Tensor, grid_row: int, grid_col: int, k: int):
     return out[0], out[1], out[2]
 
 
-def _grid_topk_kernel(score, grid_row, grid_col, k, clocks=None, bands=0):
-    """K5's launch.  ``bands``: blocks a cell for k <= 32 (0: the kernel's
-    default).  ``clocks``: an int64 (6,) tensor for the SM clock of the first
-    cell's first block at its start and at the end of each of its phases."""
+def _grid_topk_kernel(score, grid_row, grid_col, k, clocks=None):
+    """K5's launch.  ``clocks``: an int64 (7,) tensor for the SM clock of the
+    first cell's first block at its start and at the end of each of its
+    phases."""
     if score.dtype != torch.int32 or score.ndim != 2:
         raise ValueError(f"K5 takes a (H, W) int32 map, got {tuple(score.shape)} {score.dtype}")
     H, W = score.shape
@@ -351,7 +351,7 @@ def _grid_topk_kernel(score, grid_row, grid_col, k, clocks=None, bands=0):
     score = score.contiguous()
     out = torch.empty((3, grid_row * grid_col, k), dtype=torch.int32, device=score.device)
     kernels.launch("grid_topk_i32", kernels.ptr(score), H, W, int(grid_row), int(grid_col),
-                   cell_h, cell_w, int(k), int(bands), kernels.ptr(out[0]), kernels.ptr(out[1]),
+                   cell_h, cell_w, int(k), kernels.ptr(out[0]), kernels.ptr(out[1]),
                    kernels.ptr(out[2]), kernels.ptr(clocks) if clocks is not None else None)
     return out
 
