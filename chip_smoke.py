@@ -53,9 +53,12 @@
      gamma, NaN where it is (max_abs_err: gamma's at scale 1);
    - K12 (rank-12 prune update): the main path's row-indexed entry
      ``apply_update_rank12_rows`` (the call site's masks in the launch) on
-     every recorded prune call, P_new within 1e-4 of max(|P|, 1) and exactly
-     symmetric, every field of the new state within 1e-4 of the field's
-     largest entry, one launch a call (torch.profiler, device us printed);
+     every recorded prune call, P_new and every other field of the new
+     state within 1e-4 of max(|P|, 1) (test_rank12_kernel_matches_plain's
+     bars), P_new exactly symmetric, and the kernel's and the float32 plain
+     version's distance from the float64 plain version printed; on the
+     latest call of each shape also every field within 1e-4 of the field's
+     largest entry; one launch a call (torch.profiler, device us printed);
      then the dense entries on the latest call's masked stack and with an
      exactly singular P12: P_new and delta within 1e-4 of max(|P|, 1);
      ``apply_update_rank12`` (the same launch ending in the injection) on
@@ -801,19 +804,29 @@ def check_backend_kernels(rec: Recorder, config, params):
     if not calls:
         fail("the warm run made no rank-12 prune update")
         return res
-    worst = worst_abs = 0.0
+    # every call: test_rank12_kernel_matches_plain's bars (every changed field
+    # within 1e-4 of max(|P|, 1)), and both float32 versions' distance from
+    # the float64 plain version, field by field relative; the latest call of
+    # each shape also with every field within 1e-4 of its own largest entry
+    worst = worst_abs = k64 = p64 = 0.0
+    latest = {id(a) for a in rec.of("K12 rows").values()}
     for _, full in calls:
         got, warn = upd.apply_update_rank12_rows(*full)
         want, pwarn = upd.apply_update_rank12_rows_plain(*full)
         scale = max(float(want.cov.abs().max()), 1.0)
-        err_abs = float((got.cov - want.cov).abs().max())
+        fg, fw = _state_fields(got), _state_fields(want)
+        err_abs = max(float((fg[k] - fw[k]).abs().max()) for k in fg)
         err = err_abs / scale
-        e_state = _state_err(got, want)
         worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+        ref, _ = upd.apply_update_rank12_rows_plain(*_cast(full[:2], torch.float64),
+                                                    full[2].double(), full[3].double(),
+                                                    *full[4:])
+        k64, p64 = max(k64, _state_err(got, ref)), max(p64, _state_err(want, ref))
+        e_state = _state_err(got, want) if id(full) in latest else 0.0
         if (not err <= 1e-4 or not e_state <= 1e-4 or bool(warn) != bool(pwarn)
                 or not torch.equal(got.cov, got.cov.T)):
-            fail(f"K12 rows {tuple(full[2].shape)}: error {err:.3e} of max |P|, state "
-                 f"{e_state:.3e}")
+            fail(f"K12 rows {tuple(full[2].shape)}: error {err:.3e} of max(|P|, 1), state "
+                 f"{e_state:.3e} of each field's max")
     state, params, H12, r_blk, include, cols = calls[-1][1]
     n_inc = int(include.sum())
     n_launch, dev_us = _profile_calls(lambda: upd.apply_update_rank12_rows(*calls[-1][1]),
@@ -839,7 +852,9 @@ def check_backend_kernels(rec: Recorder, config, params):
     rhs = torch.cat([(Bm.T @ rr)[:, None], BtB], dim=1)
     lib = cuda_ms(lambda: torch.linalg.solve(W, rhs))
     print(f"[K12] apply_update_rank12_rows on the {len(calls)} recorded prune calls "
-          f"({sorted({sh for sh, _ in calls})}): error up to {worst:.3e} of max |P|; the "
+          f"({sorted({sh for sh, _ in calls})}): error up to {worst:.3e} of max(|P|, 1); "
+          f"from the float64 plain version, field by field, the kernel {k64:.3e} and the "
+          f"float32 plain version {p64:.3e}; the "
           f"latest ({n_inc} of {include.shape[0]} features included): {n_launch:.0f} launch a "
           f"call, {dev_us:.2f} us on the device; {ms:.4f} ms through the wrapper vs plain "
           f"{pms:.4f} ms; torch.linalg.solve of the 12x12 system {lib:.4f} ms; bound "
