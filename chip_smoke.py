@@ -827,21 +827,23 @@ def check_backend_kernels(rec: Recorder, config, params):
                 or not torch.equal(got.cov, got.cov.T)):
             fail(f"K12 rows {tuple(full[2].shape)}: error {err:.3e} of max(|P|, 1), state "
                  f"{e_state:.3e} of each field's max")
-    state, params, H12, r_blk, include, cols = calls[-1][1]
+    # timed at the most frequent shape's latest call
+    timed = rec.of("K12 rows")[rec.most_frequent("K12 rows")]
+    state, params, H12, r_blk, include, cols = timed
     n_inc = int(include.sum())
-    n_launch, dev_us = _profile_calls(lambda: upd.apply_update_rank12_rows(*calls[-1][1]),
+    n_launch, dev_us = _profile_calls(lambda: upd.apply_update_rank12_rows(*timed),
                                       kernels=("rank12_kernel",))
     if n_launch != 1.0:
         fail(f"K12 apply_update_rank12_rows made {n_launch} launches a call")
-    ms = cuda_ms(lambda: upd.apply_update_rank12_rows(*calls[-1][1]))
-    pms = cuda_ms(lambda: upd.apply_update_rank12_rows_plain(*calls[-1][1]), reps=10)
+    ms = cuda_ms(lambda: upd.apply_update_rank12_rows(*timed))
+    pms = cuda_ms(lambda: upd.apply_update_rank12_rows_plain(*timed), reps=10)
     P, noise, D = state.cov, params.obs_noise, state.cov.shape[0]
     n = 5 * n_inc
     # B'B, B'r over the included rows, W, the LU and its 13 right-hand
     # sides, Pc G, delta, and 26 FLOP per entry of sym(P - Pc G Pc'); the
     # injection's few hundred
     ops = 2 * n * 90 + 3 * 12 ** 3 + 13 * 144 + 2 * D * 156 + 26 * D * D + 40 * D
-    got, _ = upd.apply_update_rank12_rows(*calls[-1][1])
+    got, _ = upd.apply_update_rank12_rows(*timed)
     b = bound(nbytes(*_state_fields(got).values()) + nbytes(*_state_fields(state).values())
               + n * 13 * P.element_size() + nbytes(include, cols, noise), ops)
     Bm = torch.where(include[:, None, None], H12, 0.0).reshape(-1, 12)
@@ -854,8 +856,8 @@ def check_backend_kernels(rec: Recorder, config, params):
     print(f"[K12] apply_update_rank12_rows on the {len(calls)} recorded prune calls "
           f"({sorted({sh for sh, _ in calls})}): error up to {worst:.3e} of max(|P|, 1); "
           f"from the float64 plain version, field by field, the kernel {k64:.3e} and the "
-          f"float32 plain version {p64:.3e}; the "
-          f"latest ({n_inc} of {include.shape[0]} features included): {n_launch:.0f} launch a "
+          f"float32 plain version {p64:.3e}; the most frequent shape's latest ({n_inc} of "
+          f"{include.shape[0]} features included): {n_launch:.0f} launch a "
           f"call, {dev_us:.2f} us on the device; {ms:.4f} ms through the wrapper vs plain "
           f"{pms:.4f} ms; torch.linalg.solve of the 12x12 system {lib:.4f} ms; bound "
           f"{b[0] * 1e3:.3f} us ({b[1]})")
