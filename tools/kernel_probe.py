@@ -1,7 +1,7 @@
 """Device time per launch of the port's K2 (pyramid), K4+K6 (FAST), K9
-(feature block), K5 (per-cell top-k), K12 (rank-12 prune update), K10
-(gate), K11 (EKF update), K14 (IMU propagation) and K1 (LK) kernels, alone
-on the card, by torch.profiler.
+(feature block), K5 (per-cell top-k), K12 (rank-12 prune update), K13
+(triangulation), K10 (gate), K11 (EKF update), K14 (IMU propagation), K1
+(LK) and P1 (window extract) kernels, alone on the card, by torch.profiler.
 
     python tools/kernel_probe.py [--frames 60]
 
@@ -12,8 +12,13 @@ path) and one camera.  K4+K6: the latest frame's call of the run below.
 K9: the latest ``feature_block_rows`` call of each shape (the lost
 features' and the prune's).  K5: the run's latest call.  K12: the run's latest prune call, through the row-indexed
 entry and through the dense entry on the same masked stack, and the same
-call on a 70-slot window (D = 441).  Each of these with the SM clock cycles
-of its phases.
+call on a 70-slot window (D = 441).  K13: the run's latest triangulation call at
+B = 16 and at its largest B (N = 20), as recorded and with every feature
+active.  Each of these with the SM clock cycles of its phases.  The
+compact-window LK (frontend.lk_compact_windows, the configuration of
+``profile_main.py --config compact``): the latest LK call of each shape
+that ``run_sequence`` makes under it on the same frames, each kernel's
+device us per launch (P1's window extract and K1's level entry per level).
 K10: the gate calls that ``run_sequence`` makes on
 the first ``--frames`` frames of the bench world (recorded through
 ``kernels.observer``, the latest call of each shape), each launched again
@@ -30,7 +35,8 @@ latest ``pyramidal_lk`` call of each shape in the run (the temporal,
 stereo forward and backward calls), and each 2-level call again with its
 level 0 alone (n_levels 1): the difference is level 1's.
 Prints one line per case: the device time of each kernel the call launched
-(us per launch) and the wall time per call by CUDA events.  Needs a CUDA
+(us per launch, and its launches per call where that is not one) and the
+wall time per call by CUDA events.  Needs a CUDA
 device; prints the card's name and power limit first.
 """
 
@@ -56,6 +62,7 @@ def probe(label: str, fn, n: int = 40) -> None:
             fn()
         torch.cuda.synchronize()
     kernels = [f"{e.key.split('(')[0].split('::')[-1][:40]} {e.self_device_time_total / e.count:.2f}"
+               + (f" x{e.count / n:g}" if e.count != n else "")
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -100,10 +107,12 @@ def main(argv=None) -> None:
     probe("K2 pair, cam0 at an odd address", lambda: pyramid.build_pyramid_pair(odd, img1, 3))
     probe("K2 one camera", lambda: pyramid.build_pyramid_padded(img0, 3))
 
-    calls, ekf, lk_calls, fast_calls, k9_calls, k5_k12 = {}, [], {}, {}, {}, {}
+    calls, ekf, lk_calls, fast_calls, k9_calls, k5_k12, k13 = {}, [], {}, {}, {}, {}, {}
 
     def record(name, a):
-        if name in ("dense_grid_topk", "apply_update_rank12", "apply_update_rank12_rows"):
+        if name == "triangulate":
+            k13[a[2].shape[0]] = a
+        elif name in ("dense_grid_topk", "apply_update_rank12", "apply_update_rank12_rows"):
             k5_k12[name] = a
         elif name == "detect_fast":
             fast_calls[tuple(a[0].shape)] = a
@@ -123,6 +132,8 @@ def main(argv=None) -> None:
     kernels.observer = None
     probe_fast_k9(fast_calls, k9_calls)
     probe_topk_rank12(k5_k12, config, dev)
+    probe_triangulate(k13)
+    probe_compact(config, frames, pb)
     for shape, a in sorted(calls.items()):
         H, r, rows, cov, s2, table, dof = a
         thresh = table[torch.clamp(dof, 0, table.shape[0] - 1).long()]
@@ -251,6 +262,54 @@ def probe_topk_rank12(recorded, config, dev) -> None:
         clocks = torch.zeros(8, dtype=torch.int64, device=dev)
         update._rank12_kernel(st.cov, B, r, cols, params.obs_noise, st, clocks)
         phases("K12 dense (block 1)", clocks.tolist())
+
+
+def probe_triangulate(recorded) -> None:
+    """K13 on the run's latest call at B = 16 and at its largest B, as
+    recorded and with every feature active, with the SM clock cycles of
+    block 0's first warp (feature 0) in each phase."""
+    from uav_airvision_tpu_torch.models.msckf import triangulation as tri
+
+    for B in sorted({16, max(recorded)} & set(recorded)):
+        a = recorded[B]
+        active = a[7] if a[7] is not None else torch.ones(B, dtype=torch.bool, device=a[2].device)
+        for label, act in (("as recorded", active), ("all active", torch.ones_like(active))):
+            args = (*a[:7], act)
+            probe(f"K13 triangulate B={B} x N={a[3].shape[1]}, {label} ({int(act.sum())} "
+                  f"active)", lambda: tri.triangulate(*args))
+            clocks = torch.zeros(9, dtype=torch.int64, device=a[2].device)
+            tri._triangulate_kernel(*args, clocks=clocks)
+            c = clocks.tolist()
+            print(f"  K13 phases of feature 0 ({int(a[3][0].sum())} views, {c[8]} steps), SM "
+                  f"clock cycles: anchor and views {c[1] - c[0]}, initial guess and cost "
+                  f"{c[2] - c[1]}, normal equations {c[3]}, solves {c[4]}, trial costs {c[5]}, "
+                  f"loop {c[6] - c[2]}, finish {c[7] - c[6]}; total {c[7] - c[0]}", flush=True)
+
+
+def probe_compact(config, frames, pb) -> None:
+    """The compact-window LK on the latest call of each shape that
+    run_sequence makes under frontend.lk_compact_windows (with the
+    triangulation motion check, as profile_main.py --config compact runs)."""
+    from uav_airvision_tpu_torch.models import vio
+    from uav_airvision_tpu_torch.ops import lk
+    from uav_airvision_tpu_torch.profile_main import variant
+
+    recorded, orig = {}, lk.pyramidal_lk
+
+    def spy(prev_pyr, curr_pyr, prev_pts, *a, **kw):
+        n_levels = kw.get("n_levels") or min(prev_pyr.n_levels, curr_pyr.n_levels)
+        recorded[(prev_pts.shape[0], n_levels)] = ((prev_pyr, curr_pyr, prev_pts, *a), kw)
+        return orig(prev_pyr, curr_pyr, prev_pts, *a, **kw)
+
+    lk.pyramidal_lk = spy
+    try:
+        vio.run_sequence(variant(config, "compact"), frames, pb.gyro_bias, pb.acc_mean)
+        torch.cuda.synchronize()
+    finally:
+        lk.pyramidal_lk = orig
+    for (F, levels), (a, kw) in sorted(recorded.items()):
+        probe(f"compact LK pyramidal_lk, {F} points x {levels} level(s), side {kw['win']}",
+              lambda: lk.pyramidal_lk(*a, **kw))
 
 
 def _wide(state, config, N):

@@ -23,6 +23,12 @@
 // Bound on the card: bytes (a feature reads ~0.5 KB and does ~20 kFLOP),
 // both far below a launch; the chain of ~15 dependent warp reductions
 // sets its time.
+//
+// ``clocks`` (9 int64 or null): the SM clock of block 0's first warp at its
+// start, after the anchor and the views, after the initial guess and cost;
+// the cycles it spent in the normal equations, the solves and the trial
+// costs (summed over its steps); the clock after the loop and after the
+// finish; the number of steps it took.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,10 +98,15 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
                    const T* __restrict__ R_c0c1, const T* __restrict__ t_c0c1,
                    const uint8_t* __restrict__ active, int B, T huber_eps, T precision,
                    T damping, int outer_max, int inner_max, T* __restrict__ pos,
-                   uint8_t* __restrict__ ok) {
+                   uint8_t* __restrict__ ok, long long* __restrict__ clocks) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp
+  // the phase clocks of block 0's first warp (uniform over the warp)
+  const bool timed = clocks != nullptr && b == 0;
+  const bool store = timed && lane == 0;
+  long long tick = timed ? clock64() : 0, ne_cyc = 0, solve_cyc = 0, trial_cyc = 0;
+  if (store) clocks[0] = tick;
   const T* z_b = obs + (size_t)b * N * 4;
   const uint8_t* m_b = obs_mask + (size_t)b * N;
 
@@ -136,6 +147,7 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
       for (int c = 0; c < 4; ++c) z[k][c] = z_b[4 * s + c];
     }
   }
+  if (store) clocks[1] = clock64();
   // f(views, z) for each observing slot of this lane, in slot order
   auto for_slots = [&](auto&& f) {
     if constexpr (kSlots > 0) {
@@ -187,6 +199,8 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
 
   T lam = damping;
   T cost = total_cost(x);
+  if (store) clocks[2] = clock64();
+  int steps = 0;
   bool alive = active == nullptr || active[b] != 0;
   T dnorm = alive ? T(INFINITY) : T(0);
   bool group_start = true;
@@ -198,6 +212,8 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
       alive = alive && outer < outer_max && dnorm > precision;
     }
     if (!alive) break;
+    ++steps;
+    if (timed) tick = clock64();
     if (group_start) {  // Huber-weighted normal equations at x
       T acc[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
       for_slots([&](const View<T>* vs, const T* zs) {
@@ -229,6 +245,11 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
       for (int i = 0; i < 6; ++i) A[i] = msckf::warp_sum(acc[i]);
       for (int i = 0; i < 3; ++i) bv[i] = msckf::warp_sum(acc[6 + i]);
       ++outer;
+      if (timed) {
+        const long long t = clock64();
+        ne_cyc += t - tick;
+        tick = t;
+      }
     }
     // one damped solve (A + lam I) delta = b by Cramer's rule
     const T c0v[3] = {A[0] + lam, A[1], A[2]};
@@ -247,7 +268,13 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
     }
     const T x_new[3] = {x[0] - delta[0], x[1] - delta[1], x[2] - delta[2]};
     const T dnorm_new = sqrt(delta[0] * delta[0] + delta[1] * delta[1] + delta[2] * delta[2]);
+    if (timed) {
+      const long long t = clock64();
+      solve_cyc += t - tick;
+      tick = t;
+    }
     const T cost_new = total_cost(x_new);
+    if (timed) trial_cyc += clock64() - tick;
     const bool better = cost_new < cost;
     if (better) {
       for (int i = 0; i < 3; ++i) x[i] = x_new[i];
@@ -262,6 +289,13 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
     group_start = better;
   }
 
+  if (store) {
+    clocks[3] = ne_cyc;
+    clocks[4] = solve_cyc;
+    clocks[5] = trial_cyc;
+    clocks[6] = clock64();
+    clocks[8] = steps;
+  }
   // back to the world frame; every observing view must see it in front
   const T fin[3] = {x[0] / x[2], x[1] / x[2], T(1) / x[2]};
   bool good = true;
@@ -277,6 +311,7 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
     for (int i = 0; i < 3; ++i)
       pos[3 * b + i] = (Ra[3 * i] * fin[0] + Ra[3 * i + 1] * fin[1] + Ra[3 * i + 2] * fin[2]) + ta[i];
     ok[b] = good ? 1 : 0;
+    if (store) clocks[7] = clock64();
   }
 }
 
@@ -284,7 +319,7 @@ template <typename T>
 int launch(const void* cam_q, const void* cam_p, int N, const void* obs, const void* obs_mask,
            const void* R_c0c1, const void* t_c0c1, const void* active, int B, double huber_eps,
            double precision, double damping, int outer_max, int inner_max, void* pos, void* ok,
-           void* stream) {
+           void* clocks, void* stream) {
   if (N < 1) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   // slots a lane holds in registers: 2, 4 or 8; past 256 slots, rebuilt at each use
@@ -294,7 +329,8 @@ int launch(const void* cam_q, const void* cam_p, int N, const void* obs, const v
   kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, (cudaStream_t)stream>>>(
       (const T*)cam_q, (const T*)cam_p, N, (const T*)obs, (const uint8_t*)obs_mask,
       (const T*)R_c0c1, (const T*)t_c0c1, (const uint8_t*)active, B, (T)huber_eps,
-      (T)precision, (T)damping, outer_max, inner_max, (T*)pos, (uint8_t*)ok);
+      (T)precision, (T)damping, outer_max, inner_max, (T*)pos, (uint8_t*)ok,
+      (long long*)clocks);
   return (int)cudaGetLastError();
 }
 
@@ -304,16 +340,16 @@ extern "C" int triangulate_f32(const void* cam_q, const void* cam_p, int N, cons
                                const void* obs_mask, const void* R_c0c1, const void* t_c0c1,
                                const void* active, int B, double huber_eps, double precision,
                                double damping, int outer_max, int inner_max, void* pos,
-                               void* ok, void* stream) {
+                               void* ok, void* clocks, void* stream) {
   return launch<float>(cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B, huber_eps,
-                       precision, damping, outer_max, inner_max, pos, ok, stream);
+                       precision, damping, outer_max, inner_max, pos, ok, clocks, stream);
 }
 
 extern "C" int triangulate_f64(const void* cam_q, const void* cam_p, int N, const void* obs,
                                const void* obs_mask, const void* R_c0c1, const void* t_c0c1,
                                const void* active, int B, double huber_eps, double precision,
                                double damping, int outer_max, int inner_max, void* pos,
-                               void* ok, void* stream) {
+                               void* ok, void* clocks, void* stream) {
   return launch<double>(cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B, huber_eps,
-                        precision, damping, outer_max, inner_max, pos, ok, stream);
+                        precision, damping, outer_max, inner_max, pos, ok, clocks, stream);
 }

@@ -73,9 +73,9 @@ SIGNATURES = {
     "propagate_f32": [P, P, P, P, I, *[P] * 10, P, P, P, I, P, P, P, P, P, P],
     "propagate_f64": [P, P, P, P, I, *[P] * 10, P, P, P, I, P, P, P, P, P, P],
     # cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B, huber_eps,
-    # precision, damping, outer_max, inner_max, pos_out, ok_out, stream
-    "triangulate_f32": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P],
-    "triangulate_f64": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P],
+    # precision, damping, outer_max, inner_max, pos_out, ok_out, clocks, stream
+    "triangulate_f32": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P, P],
+    "triangulate_f64": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P, P],
     # cams_q, cams_p, cams_qn, cams_pn, rm, N, Nw, obs, obs_mask, p_w, sel,
     # proc, gravity, R_c0c1, t_c0c1, B, H_out, r_out, rows_out, clocks, stream
     "feature_block_f32": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, P, P],

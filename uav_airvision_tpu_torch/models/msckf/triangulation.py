@@ -227,7 +227,12 @@ def triangulate(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri: TriangulationC
 triangulate.launches = 0
 
 
-def _triangulate_kernel(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri, active):
+def _triangulate_kernel(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri, active,
+                        clocks=None):
+    """K13's launch.  ``clocks``: an int64 (9,) tensor for block 0's first
+    warp: its SM clock at the start, after the views and after the initial
+    guess and cost; its cycles in the normal equations, the solves and the
+    trial costs; the clock after the loop and after the finish; its steps."""
     dtype, dev = obs.dtype, obs.device
     entry = {torch.float32: "triangulate_f32", torch.float64: "triangulate_f64"}.get(dtype)
     if entry is None:
@@ -252,5 +257,6 @@ def _triangulate_kernel(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri, active
                    kernels.ptr(active) if active is not None else None, B,
                    float(tri.huber_epsilon), float(tri.estimation_precision),
                    float(tri.initial_damping), int(tri.outer_loop_max_iteration),
-                   int(tri.inner_loop_max_iteration), kernels.ptr(pos), kernels.ptr(ok))
+                   int(tri.inner_loop_max_iteration), kernels.ptr(pos), kernels.ptr(ok),
+                   kernels.ptr(clocks) if clocks is not None else None)
     return pos, ok

@@ -2,9 +2,12 @@
 launches per frame, and the device's busy share.
 
     python -m uav_airvision_tpu_torch.profile_main [--frames 200] [--window 100 160]
+        [--config default|compact]
 
 Renders the bench world as chip_smoke.py does (euroc_config, seed 5), runs
-``run_sequence`` over it once to warm up, then once more timed (host clock
+``run_sequence`` over it (under ``--config``: ``compact`` is chip_smoke.py's
+compact configuration, ``frontend.lk_compact_windows`` with the
+triangulation motion check at 0.05 m) once to warm up, then once more timed (host clock
 around a synchronised run; ``device.host_syncs`` counted), then runs the
 first ``window[0]`` frames again and profiles frames ``window[0]:window[1]``
 with ``torch.profiler`` (CPU and CUDA activities).  From the profile:
@@ -20,8 +23,9 @@ per-cell selection ``select_track`` and the prediction
 ``predict_warp_points`` as ``pipeline`` calls them, the stereo gate
 ``stereo_gate`` as ``stereo`` calls it, and FAST ``detect_fast`` as
 ``pipeline`` calls it) and
-K9's row-indexed entry ``feature_block_rows`` as the back-end step calls it
-run under profiler spans, and the launches made under each are counted (per
+K9's row-indexed entry ``feature_block_rows`` and the triangulation of the
+selected features ``_triangulate_selected`` (K13 with its call site's glue)
+as the back-end step calls them run under profiler spans, and the launches made under each are counted (per
 frame for K15; per call and per frame for the rest).  A span absent from the
 profiled code (an older tree) reports nothing.  Prints one JSON line with
 the card's name and power limit.  Needs a CUDA device.
@@ -54,6 +58,22 @@ def render(n_frames: int):
     pb = prebatch_imu(fts, imu_t, imu_w, imu_a, config.capacity.max_imu_per_frame,
                       config.capacity.imu_init_msgs)
     return config, pb, np.stack(cam0), np.stack(cam1)
+
+
+# The configurations --config selects, as overrides of euroc_config's groups
+# (chip_smoke.py's VARIANTS["compact"])
+CONFIGS = {"default": {},
+           "compact": {"frontend": {"lk_compact_windows": True},
+                       "triangulation": {"translation_threshold": 0.05}}}
+
+
+def variant(config, name: str):
+    """``config`` with the overrides of CONFIGS[name]."""
+    import dataclasses
+
+    return dataclasses.replace(config, **{
+        group: dataclasses.replace(getattr(config, group), **fields)
+        for group, fields in CONFIGS[name].items()})
 
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
@@ -98,6 +118,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=200)
     parser.add_argument("--window", type=int, nargs=2, default=(100, 160))
+    parser.add_argument("--config", choices=sorted(CONFIGS), default="default")
     args = parser.parse_args(argv)
     a, b = args.window
     if not 0 <= a < b <= args.frames:
@@ -112,6 +133,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     config, pb, cam0, cam1 = render(args.frames)
+    config = variant(config, args.config)
     frames = vio.frames_from_prebatch(pb, cam0, cam1, dev)
 
     vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)  # warm-up, kernel build
@@ -134,9 +156,9 @@ def main(argv=None):
     originals.update(span_functions(pipeline, ("select_track", "predict_warp_points",
                                                "detect_fast"), "FE"))
     originals.update(span_functions(stereo, ("stereo_gate",), "FE"))
-    # K9's row-indexed entry, where the back-end calls it (its gathers and
-    # masks inside)
-    originals.update(span_functions(step, ("feature_block_rows",), "BE"))
+    # K9's row-indexed entry and the triangulation of the selected features,
+    # where the back-end calls them (their gathers and masks inside)
+    originals.update(span_functions(step, ("feature_block_rows", "_triangulate_selected"), "BE"))
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -164,7 +186,7 @@ def main(argv=None):
                   key=lambda x: x[0])
     print(json.dumps({
         "card": smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed",
-        "frames": args.frames, "frames_per_s": args.frames / wall, "wall_s": wall,
+        "config": args.config, "frames": args.frames, "frames_per_s": args.frames / wall, "wall_s": wall,
         "host_syncs_per_frame": syncs, "window": [a, b],
         "launches_per_frame": launches / n,
         "k15_launches_per_frame": {name: c[0] / n for name, c in sorted(k15.items())},
