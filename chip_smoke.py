@@ -26,10 +26,18 @@
    - K14 (propagation, on every call of the warm run and a forced call of
      11 IMU samples): every field it writes within 1e-5 relative, one
      launch a call; timed through the wrapper and on the device;
-   - K13 (triangulation, every recorded B and B = 128): validity identical,
-     positions within 1e-4 of max(|p|, 1) for 95% of the features and within
-     1e-3 for each (a cost comparison that ties within rounding can take the
-     other LM branch, and an unconverged solve ends a step apart);
+   - K13 (triangulation through its row entry ``triangulate_rows``, the
+     call site's gathers, need_init, the motion check and the new position
+     and initialized columns in one launch; every call of the warm run, and
+     of the [compact] run under the motion check): initialized and
+     init_fail identical to the plain version's, the new positions within
+     1e-4 of max(|p|, 1) for 95% of the rows and within 1e-3 for each (a
+     cost comparison that ties within rounding can take the other LM
+     branch, and an unconverged solve ends a step apart), every other row
+     unchanged, and every output bit for bit equal to the call site's glue
+     around ``triangulate``, the kernel's separate cost and
+     normal-equation passes (the parent kernel's arithmetic and sum
+     order); one launch a call (device us printed);
    - K9 (feature block through its row-indexed entry ``feature_block_rows``,
      the call sites' gathers and ``proc`` masks in its launch; every call of
      the warm run, N = 20 and the prune's N = 2): H_proj, r_proj within
@@ -54,11 +62,12 @@
    - K12 (rank-12 prune update): the main path's row-indexed entry
      ``apply_update_rank12_rows`` (the call site's masks in the launch) on
      every recorded prune call, P_new and every other field of the new
-     state within 1e-4 of max(|P|, 1) (test_rank12_kernel_matches_plain's
-     bars), P_new exactly symmetric, and the kernel's and the float32 plain
-     version's distance from the float64 plain version printed; on the
-     latest call of each shape also every field within 1e-4 of the field's
-     largest entry; one launch a call (torch.profiler, device us printed);
+     state within 1e-4 of max(|P|, 1) of the float32 plain version's
+     (test_rank12_kernel_matches_plain's bars), P_new exactly symmetric,
+     and each field no farther from the float64 plain version than
+     max(1.25 x the float32 plain version's distance, 1e-4), both relative
+     to the field's largest entry; one launch a call (torch.profiler,
+     device us printed);
      then the dense entries on the latest call's masked stack and with an
      exactly singular P12: P_new and delta within 1e-4 of max(|P|, 1);
      ``apply_update_rank12`` (the same launch ending in the injection) on
@@ -131,14 +140,19 @@
    ``frontend.lk_compact_windows`` with the triangulation motion check on
    (``translation_threshold`` 0.05 m), warm (recorded) and timed, counters
    at 0 before the timed run.  Checks: every kernel of that path launched
-   (P1 and K1's level entry in place of K1's one launch), the motion check
-   rejected some features, >= 150 active finite poses, ATE max under
-   COMPACT_ATE_BAR_M, the first 40 frames within 1e-4 m of the host path.
-   Prints frames/s, host syncs and CUDA launches per frame (torch.profiler
-   over PROFILE_WINDOW).  Then [P1]: ``extract_windows`` bit-exact against
-   its plain version on every recorded call, timed beside one indexing
-   call that gathers the same windows; and [K1 level]: K1's level entry
-   against its plain version on the recorded calls (K1's bars).
+   (K1's compact entry, which stages P1's windows itself, in place of K1's
+   launch), the motion check rejected some features, >= 150 active finite
+   poses, ATE max under COMPACT_ATE_BAR_M, the first 40 frames within
+   1e-4 m of the host path.  Prints frames/s, host syncs and CUDA launches
+   per frame (torch.profiler over PROFILE_WINDOW).  Then [K13] on the run's
+   triangulation calls (as in 4.), and [P1]: K1's compact entry on every
+   compact LK call of the run, one launch a call, bit for bit equal to the
+   route it replaced (P1's ``extract_windows`` and K1's level entry per
+   level): points, status and each level's window origin; against its
+   plain version with K1's bars; timed beside that route.  On that route's
+   calls [K1 level]: K1's level entry against its plain version (K1's
+   bars), and ``extract_windows`` bit-exact against its plain version,
+   timed beside one indexing call that gathers the same windows.
 8. [exact]: the compat facade (``ImageProcessor`` / ``MSCKF``) message by
    message over the same frames under the reference-semantics
    configuration (scripts/diag_long_drift.py's ``exact`` variant plus the
@@ -154,12 +168,14 @@
    and k = a cell's every pixel; K8 n = 1025, 1500, and
    ``select_track`` at 1,100 slots and 200 candidates; K4+K6 1025 and
    1500 mask points; K2 1440x1080 and 2048x1536 at four levels, exactly,
-   and 752x480 still one launch; K13 N = 65 and 300; K9 N = 35, 49, 70
+   and 752x480 still one launch; K13 N = 65 and 300, both entries (the row
+   entry equal to the other); K9 N = 35, 49, 70
    through ``feature_block_rows`` (one block masked);
    K10 on those blocks; K11 at D = 561 on T1, T2 = 1,122 rows and QR; K12's
    row-indexed entry at D = 441 (float32, float64) and 1,221 (float64),
    1e-4 / 1e-10 of max(|P|, 1); K1
-   at window sides 17, 21, 33 on both trackers, K1's bars; K14 at D = 441,
+   at window sides 17, 21, 33 on both trackers, K1's bars, the compact
+   entry bit for bit equal to P1 + the level entry; K14 at D = 441,
    float32 and float64, its bars 1e-5 and 1e-12 relative, with 64 IMU
    slots and with 256 (float32) or 128 (float64), past the block's shared
    memory: the device workspace); then
@@ -167,7 +183,7 @@
    kernel of that path launched, the active frames' poses within 1e-4 m
    of the port's plain path on the host.
 10. Prints the per-kernel JSON line (launches of the batch run, for P1 of
-   the compact run; max error, ms, plain ms, the bound and what binds it,
+   the compact run: K1's compact entry, which does P1's copy; max error, ms, plain ms, the bound and what binds it,
    the library call's ms where one PyTorch call does most of the
    function), then the result line ``{"ok": true, "device": {...}}`` last.
    Any failure exits nonzero.
@@ -516,6 +532,7 @@ class Recorder:
 
     KEYS = {  # wrapper: (label, shape from its arguments)
         "triangulate": ("K13", lambda a: a[2].shape[0]),
+        "triangulate_rows": ("K13 rows", lambda a: a[6].shape[0]),
         "feature_block": ("K9", lambda a: tuple(a[5].shape)),
         "feature_block_rows": ("K9 rows", lambda a: (a[7].shape[0], a[4].shape[1]
                                                      if a[13] is None else a[13].shape[0])),
@@ -541,13 +558,14 @@ class Recorder:
         "stereo_gate": ("K7 stereo_gate", lambda a: a[0].shape[0]),
         "extract_windows": ("P1", lambda a: (a[1].shape[0], a[3])),
         "pyramidal_lk_level": ("K1 level", lambda a: (a[2].shape[0], a[6])),
+        "pyramidal_lk_compact": ("P1 compact", lambda a: (a[2].shape[0], a[9], a[5])),
         "propagate": ("K14", lambda a: (tuple(a[0].cov.shape), a[2].shape[0])),
         "pyramidal_lk": ("K1", lambda a: (a[2].shape[0], a[9])),
     }
     # kinds whose every call is kept (the fused front-end entry points: a
     # few hundred small calls a run)
     EVERY_CALL = {"K8 select_track", "K7 predict_warp_points", "K7 stereo_gate", "K14",
-                  "K4+K6", "K9 rows", "K5", "K12 rows"}
+                  "K4+K6", "K9 rows", "K5", "K12 rows", "K13 rows", "P1 compact"}
 
     def __init__(self):
         self.calls, self.counts, self.history = {}, {}, {}
@@ -555,13 +573,18 @@ class Recorder:
         self.motion = None  # [features the motion check decided, rejected], on the card
 
     def __call__(self, name, args):
-        if name == "check_motion":  # count on the card: no host read in the run
+        if name == "triangulate_rows" and args[10].translation_threshold >= 0:
+            # the motion check's decisions, by its plain version on the call's
+            # rows (on the card: no host read in the run)
             import torch
 
-            need, ok = args
+            from uav_airvision_tpu_torch.models.msckf import triangulation as tri
+
+            cq, cp, obs, mask, _, initialized, sel, sel_ok = args[:8]
+            need = sel_ok & ~initialized[sel]
+            ok = tri.check_motion(cq, cp, obs[sel], mask[sel], args[10])
             n = torch.stack([need.sum(), (need & ~ok).sum()])
             self.motion = n if self.motion is None else self.motion + n
-            return
         label, shape = self.KEYS[name]
         if label == "K14":  # propagation reads the IMU state and the covariance only
             args = (args[0]._replace(features=None, cams=None), *args[1:])
@@ -618,13 +641,19 @@ def _state_fields(state):
             "t_cam0_imu": i.t_cam0_imu, "cams.q": c.q, "cams.p": c.p, "cov": state.cov}
 
 
+def _field_errs(got, want):
+    """{field: the largest difference relative to the field's largest entry
+    (at least 1e-30)} over the changed fields."""
+    w = _state_fields(want)
+    return {k: float((g.double() - w[k].double()).abs().max())
+            / max(float(w[k].double().abs().max()), 1e-30)
+            for k, g in _state_fields(got).items()}
+
+
 def _state_err(got, want):
     """The largest difference over the changed fields, each relative to the
     field's largest entry (at least 1e-30)."""
-    w = _state_fields(want)
-    return max(float((g.double() - w[k].double()).abs().max())
-               / max(float(w[k].double().abs().max()), 1e-30)
-               for k, g in _state_fields(got).items())
+    return max(_field_errs(got, want).values())
 
 
 def _rows_needed(H, r):
@@ -755,45 +784,7 @@ def check_backend_kernels(rec: Recorder, config, params):
 
     res = {}
 
-    # K13: every recorded batch size, and B = 128 by repeating a call
-    calls = rec.of("K13")
-    if not calls:
-        fail("the warm run made no triangulation call")
-        return res
-    if 128 not in calls:
-        a = list(calls[max(calls)])
-        idx = torch.arange(128, device=a[2].device) % a[2].shape[0]
-        a[2], a[3] = a[2][idx], a[3][idx]
-        if a[7] is not None:
-            a[7] = a[7][idx]
-        calls[128] = tuple(a)
-    for B, a in sorted(calls.items()):
-        pos, ok = tri.triangulate(*a)
-        ppos, pok = tri.triangulate_plain(*a)
-        both = ok & pok & torch.isfinite(ppos).all(1)
-        rel = ((pos - ppos).abs().max(1).values / ppos.abs().max(1).values.clamp(min=1.0))[both]
-        err = float(rel.max()) if len(rel) else 0.0
-        abs_err = float((pos - ppos)[both].abs().max()) if bool(both.any()) else 0.0
-        close = float((rel <= 1e-4).float().mean()) if len(rel) else 1.0
-        if not torch.equal(ok, pok) or not err <= 1e-3 or close < 0.95:
-            fail(f"K13 B={B}: validity differs on {int((ok != pok).sum())} features, "
-                 f"position error {err:.3e}, {close:.3f} of features within 1e-4")
-        ms = cuda_ms(lambda: tri.triangulate(*a))
-        pms = cuda_ms(lambda: tri.triangulate_plain(*a), reps=10)
-        n_obs = a[3].sum(1).to(torch.float64)
-        act = a[7] if a[7] is not None else torch.ones_like(ok)
-        # per observing slot ~230 FLOP to build its two views; per view ~27
-        # FLOP for a cost, ~75 for the normal equations, ~7 for the depth
-        # check; an active feature takes at least one step
-        ops = float((n_obs * 230 + 2 * n_obs * (27 + 7) + act * 2 * n_obs * (75 + 27)).sum())
-        b = bound(nbytes(*a[:6], pos, ok) + (nbytes(a[7]) if a[7] is not None else 0), ops)
-        print(f"[K13] triangulate B={B} x N={a[3].shape[1]}: validity identical, max position "
-              f"error {err:.3e} of max(|p|, 1), {close:.3f} of features within 1e-4; "
-              f"{ms:.4f} ms vs plain {pms:.4f} ms; "
-              f"bound {b[0] * 1e3:.3f} us ({b[1]})")
-        if B == rec.most_frequent("K13"):
-            res["K13"] = (abs_err, ms, pms, *b)
-
+    res.update(check_triangulate_rows(rec, "main"))
     res.update(check_feature_rows(rec))
     res.update(check_gate(rec))
 
@@ -804,12 +795,13 @@ def check_backend_kernels(rec: Recorder, config, params):
     if not calls:
         fail("the warm run made no rank-12 prune update")
         return res
-    # every call: test_rank12_kernel_matches_plain's bars (every changed field
-    # within 1e-4 of max(|P|, 1)), and both float32 versions' distance from
-    # the float64 plain version, field by field relative; the latest call of
-    # each shape also with every field within 1e-4 of its own largest entry
+    # every call: test_rank12_kernel_matches_plain's bar against the float32
+    # plain version (every changed field within 1e-4 of max(|P|, 1)), and,
+    # field by field, the kernel's distance from the float64 plain version
+    # within max(1.25 x the float32 plain version's, 1e-4), each relative to
+    # the field's largest entry (test_rank12_rows_kernel_near_float64's bar)
     worst = worst_abs = k64 = p64 = 0.0
-    latest = {id(a) for a in rec.of("K12 rows").values()}
+    n_far = 0
     for _, full in calls:
         got, warn = upd.apply_update_rank12_rows(*full)
         want, pwarn = upd.apply_update_rank12_rows_plain(*full)
@@ -821,12 +813,15 @@ def check_backend_kernels(rec: Recorder, config, params):
         ref, _ = upd.apply_update_rank12_rows_plain(*_cast(full[:2], torch.float64),
                                                     full[2].double(), full[3].double(),
                                                     *full[4:])
-        k64, p64 = max(k64, _state_err(got, ref)), max(p64, _state_err(want, ref))
-        e_state = _state_err(got, want) if id(full) in latest else 0.0
-        if (not err <= 1e-4 or not e_state <= 1e-4 or bool(warn) != bool(pwarn)
+        dk, dp = _field_errs(got, ref), _field_errs(want, ref)
+        k64, p64 = max(k64, max(dk.values())), max(p64, max(dp.values()))
+        far = [k for k in dk if not dk[k] <= max(1.25 * dp[k], 1e-4)]
+        n_far += bool(far)
+        if (not err <= 1e-4 or far or bool(warn) != bool(pwarn)
                 or not torch.equal(got.cov, got.cov.T)):
-            fail(f"K12 rows {tuple(full[2].shape)}: error {err:.3e} of max(|P|, 1), state "
-                 f"{e_state:.3e} of each field's max")
+            fail(f"K12 rows {tuple(full[2].shape)}: error {err:.3e} of max(|P|, 1); from "
+                 f"float64 past max(1.25 x the float32 plain version's, 1e-4) in "
+                 f"{[(k, f'{dk[k]:.3e}', f'{dp[k]:.3e}') for k in far]}")
     # timed at the most frequent shape's latest call
     timed = rec.of("K12 rows")[rec.most_frequent("K12 rows")]
     state, params, H12, r_blk, include, cols = timed
@@ -856,7 +851,9 @@ def check_backend_kernels(rec: Recorder, config, params):
     print(f"[K12] apply_update_rank12_rows on the {len(calls)} recorded prune calls "
           f"({sorted({sh for sh, _ in calls})}): error up to {worst:.3e} of max(|P|, 1); "
           f"from the float64 plain version, field by field, the kernel {k64:.3e} and the "
-          f"float32 plain version {p64:.3e}; the most frequent shape's latest ({n_inc} of "
+          f"float32 plain version {p64:.3e} (each call's fields within max(1.25 x the plain "
+          f"version's, 1e-4) on {len(calls) - n_far} of {len(calls)}); the most frequent "
+          f"shape's latest ({n_inc} of "
           f"{include.shape[0]} features included): {n_launch:.0f} launch a "
           f"call, {dev_us:.2f} us on the device; {ms:.4f} ms through the wrapper vs plain "
           f"{pms:.4f} ms; torch.linalg.solve of the 12x12 system {lib:.4f} ms; bound "
@@ -887,6 +884,89 @@ def check_backend_kernels(rec: Recorder, config, params):
               f"max; apply_update_rank12 {cuda_ms(lambda: upd.apply_update_rank12(*full)):.4f} "
               f"ms")
     return res
+
+
+def check_triangulate_rows(rec: Recorder, run: str):
+    """K13's row entry on every triangulate_rows call that ``run`` recorded:
+    initialized and init_fail identical to the plain version's, the rows
+    that got a position within K13's bars (1e-3 of max(|p|, 1) for each
+    and 1e-4 for 95%: a cost comparison that ties within rounding can take
+    the other LM branch, and an unconverged solve ends a step apart),
+    every other row unchanged; and bit for bit equal to the call site's
+    glue around ``triangulate``, the kernel's separate passes (the
+    parent's kernel's cost and normal-equation passes, its arithmetic and
+    sum order).  Timed at the most frequent shape: one launch a call
+    (torch.profiler), device us.  Returns {"K13": (...)} for the main
+    run."""
+    import torch
+
+    from uav_airvision_tpu_torch.models.msckf import triangulation as tri
+
+    calls = rec.samples("K13 rows")
+    if not calls:
+        fail(f"[K13] the {run} run made no triangulation call")
+        return {}
+    worst = worst_abs = 0.0
+    n_new = n_fail = n_bad = 0
+    close = []
+    for B, a in calls:
+        cq, cp, obs, mask, position, initialized, sel, sel_ok, R, t, cfg = a
+        pos, init, failed = tri.triangulate_rows(*a)
+        ppos, pinit, pfail = tri.triangulate_rows_plain(*a)
+        new = init & ~initialized
+        need = sel_ok & ~initialized[sel]
+        wpos, wok = tri.triangulate(cq, cp, obs[sel], mask[sel], R, t, cfg, active=need)
+        if cfg.translation_threshold >= 0:
+            wok = wok & tri.check_motion(cq, cp, obs[sel], mask[sel], cfg)
+        done = need & wok
+        same = (torch.equal(failed, need & ~wok)
+                and torch.equal(init, initialized.index_put((sel,), initialized[sel] | done))
+                and torch.equal(pos, position.index_put((sel,), torch.where(
+                    done[:, None], wpos, position[sel]))))
+        ok = torch.equal(init, pinit) and torch.equal(failed, pfail) and torch.equal(
+            pos[~new], position[~new])
+        if bool(new.any()):
+            rel = ((pos - ppos).abs().max(1).values
+                   / ppos.abs().max(1).values.clamp(min=1.0))[new]
+            worst = max(worst, float(rel.max()))
+            worst_abs = max(worst_abs, float((pos - ppos)[new].abs().max()))
+            close.append(rel <= 1e-4)
+        n_new += int(new.sum())
+        n_fail += int(failed.sum())
+        if not ok or not same:
+            n_bad += 1
+            fail(f"[K13] {run} run, B={B}: initialized/init_fail/unchanged rows agree with "
+                 f"the plain version {ok}, bit for bit equal to the separate passes {same}")
+    frac = float(torch.cat(close).float().mean()) if close else 1.0
+    if not worst <= 1e-3 or frac < 0.95:
+        fail(f"[K13] {run} run: position error {worst:.3e}, {frac:.3f} within 1e-4")
+    shape = rec.most_frequent("K13 rows")
+    a = rec.of("K13 rows")[shape]
+    n_launch, dev_us = _profile_calls(lambda: tri.triangulate_rows(*a),
+                                      kernels=("triangulate_kernel",))
+    if n_launch != 1.0:
+        fail(f"[K13] triangulate_rows made {n_launch} launches a call")
+    ms = cuda_ms(lambda: tri.triangulate_rows(*a))
+    pms = cuda_ms(lambda: tri.triangulate_rows_plain(*a), reps=10)
+    cq, cp, obs, mask, position, initialized, sel, sel_ok, R, t, cfg = a
+    n_obs = mask[sel].sum(1).to(torch.float64)
+    act = (sel_ok & ~initialized[sel]).to(torch.float64)
+    # per observing slot of an active row ~230 FLOP to build its two views,
+    # per view and pass ~75 for the cost and the normal equations, ~7 for the
+    # depth check; at least two passes (x0 and one trial)
+    ops = float((act * n_obs * (230 + 2 * 2 * 75 + 2 * 7)).sum())
+    M, N = mask.shape
+    b = bound(nbytes(cq, cp, R, t, sel, sel_ok) + float(act.sum()) * N * (4 * obs.element_size() + 1)
+              + 2 * nbytes(position, initialized) + sel.shape[0], ops)
+    print(f"[K13] triangulate_rows, {len(calls)} recorded calls of the {run} run (B in "
+          f"{sorted({B for B, _ in calls})}): {n_new} rows initialized, {n_fail} failed; "
+          f"initialized and init_fail identical to the plain version, positions within "
+          f"{worst:.3e} of max(|p|, 1) ({frac:.3f} within 1e-4), bit for bit equal to the "
+          f"separate passes on {len(calls) - n_bad} of {len(calls)}; at B={shape} "
+          f"({rec.counts[('K13 rows', shape)]} calls): {n_launch:.0f} launch a call, "
+          f"{dev_us:.2f} us on the device, {ms:.4f} ms through the wrapper vs plain "
+          f"{pms:.4f} ms; bound {b[0] * 1e3:.4f} us ({b[1]})")
+    return {"K13": (worst_abs, ms, pms, *b)}
 
 
 def _gathered(a):
@@ -1596,17 +1676,18 @@ def run_stream(config, world, imu, fts, cam0, cam1, batch_t, batch_p, wrappers, 
 
 
 def check_extract(rec: Recorder):
-    """P1 against its plain version on the compact run's recorded calls:
-    bit-exact.  Times at the most frequent shape, beside one indexing call
-    that gathers the same windows."""
+    """P1's standalone entry against its plain version on the window
+    extracts of the compact calls' witness route: bit-exact.  Times at the
+    most frequent shape, beside one indexing call that gathers the same
+    windows.  Returns (ms, plain ms, library ms) at that shape."""
     import torch
 
     from uav_airvision_tpu_torch.ops import extract
 
     calls = rec.samples("P1")
     if not calls:
-        fail("the compact run made no window extract call")
-        return {}
+        fail("the witness route made no window extract call")
+        return None
     err = 0.0
     for shape, a in calls:
         got, want = extract.extract_windows(*a), extract.extract_windows_plain(*a)
@@ -1624,16 +1705,16 @@ def check_extract(rec: Recorder):
     lib = cuda_ms(lambda: level[rows, cols])
     F = oy.shape[0]
     b = bound(2 * F * n * n * level.element_size() + 2 * F * oy.element_size(), 0.0)
-    print(f"[P1] extract_windows, {len(calls)} recorded calls (F, n) in "
-          f"{sorted({sh for sh, _ in calls})}: bit-exact; at {shape} "
-          f"({rec.counts[('P1', shape)]} calls) {ms:.4f} ms vs plain {pms:.4f} ms; the "
-          f"indexing call level[rows, cols] {lib:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
-    return {"P1": (err, ms, pms, *b, lib)}
+    print(f"[P1] extract_windows (the standalone entry), {len(calls)} witness calls (F, n) in "
+          f"{sorted({sh for sh, _ in calls})}: bit-exact (max diff {err:.1e}); at {shape} "
+          f"{ms:.4f} ms vs plain {pms:.4f} ms; the indexing call level[rows, cols] {lib:.4f} "
+          f"ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
+    return ms, pms, lib
 
 
 def check_lk_level(rec: Recorder):
-    """K1's level entry against its plain version on the compact run's
-    recorded calls: at level 0 the status agrees on >= 99% of points and
+    """K1's level entry against its plain version on the level calls of
+    the compact calls' witness route: at level 0 the status agrees on >= 99% of points and
     points that both track lie within 1e-3 px (K1's bar); above level 0
     >= 99% of the valid points lie within 1e-3 px and the next level's
     window origins agree on >= 99%.  Timed at the most frequent shape."""
@@ -1672,9 +1753,85 @@ def check_lk_level(rec: Recorder):
     a = rec.of("K1 level")[shape]
     ms = cuda_ms(lambda: lk.pyramidal_lk_level(*a))
     pms = cuda_ms(lambda: lk.pyramidal_lk_level_plain(*a), reps=10)
-    print(f"[K1 level] pyramidal_lk_level, {len(calls)} recorded calls (F, L) in "
+    print(f"[K1 level] pyramidal_lk_level, {len(calls)} witness calls (F, L) in "
           f"{sorted({sh for sh, _ in calls})}: within the bars (max err {worst:.3e} px); at "
-          f"{shape} ({rec.counts[('K1 level', shape)]} calls) {ms:.4f} ms vs plain {pms:.4f} ms")
+          f"{shape} {ms:.4f} ms vs plain {pms:.4f} ms")
+
+
+def check_compact(rec: Recorder):
+    """[P1]: K1's compact entry (one launch: each level's des, its window
+    staged in shared memory, the template and the steps) on every compact
+    LK call of the compact run, bit for bit equal to the route it replaced
+    (P1's extract and K1's level entry per level, the coarsest des from the
+    host): points, status and each level's window origin.  That route's
+    extracts and level calls (recorded) then go to check_extract and
+    check_lk_level.  Against the plain version on a sample of the calls,
+    with check_lk_level's bars above level 0 (a whole call carries each
+    level's rounding into the next): status on >= 99% of the points and
+    >= 99% of the points both track within 1e-3 px.  Timed at the most
+    frequent shape with its device us, one launch a call.  Returns
+    {"P1": (...)}."""
+    import torch
+
+    from uav_airvision_tpu_torch.ops import lk
+
+    calls = rec.samples("P1 compact")
+    if not calls:
+        fail("[P1] the compact run made no compact LK call")
+        return {}
+    n_same, err, agree, close = 0, 0.0, 1.0, 1.0
+    with Recorder() as witness:
+        for shape, a in calls:
+            pp, cp, prev, init, valid, win, it, eps, eig, levels, upper = a
+            des = torch.empty((prev.shape[0], levels, 2), dtype=torch.int32, device=prev.device)
+            kn, ks = lk.pyramidal_lk_compact(*a, des=des)
+            wn, ws, wdes = lk.pyramidal_lk_compact_levels(*a)
+            n_same += torch.equal(kn, wn) and torch.equal(ks, ws) and torch.equal(des, wdes)
+    for shape, a in calls[:: max(1, len(calls) // 60)]:
+        kn, ks = lk.pyramidal_lk_compact(*a)
+        pn, ps = lk.pyramidal_lk_plain(*a[:9], n_levels=a[9], max_iter_upper=a[10],
+                                       compact_windows=True)
+        agree = min(agree, float((ks == ps).float().mean()))
+        both = ks & ps
+        if bool(both.any()):
+            d = (kn - pn)[both].abs().amax(1)
+            err = max(err, float(d.max()))
+            close = min(close, float((d <= 1e-3).float().mean()))
+    if n_same != len(calls):
+        fail(f"[P1] the compact entry differs from P1 + K1's level entry on "
+             f"{len(calls) - n_same} of {len(calls)} calls")
+    if agree < 0.99 or close < 0.99:
+        fail(f"[P1] the compact entry against its plain version: status agreement {agree:.4f}, "
+             f"{close:.4f} of the points within 1e-3 px (max err {err:.3e} px)")
+    shape = rec.most_frequent("P1 compact")
+    a = rec.of("P1 compact")[shape]
+    n_launch, dev_us = _profile_calls(lambda: lk.pyramidal_lk_compact(*a),
+                                      kernels=("lk_compact_kernel",))
+    if n_launch != 1.0:
+        fail(f"[P1] pyramidal_lk_compact made {n_launch} launches a call")
+    _, route_us = _profile_calls(lambda: lk.pyramidal_lk_compact_levels(*a),
+                                 kernels=("extract_kernel", "lk_level_kernel"))
+    ms = cuda_ms(lambda: lk.pyramidal_lk_compact(*a))
+    wms = cuda_ms(lambda: lk.pyramidal_lk_compact_levels(*a))
+    pms = cuda_ms(lambda: lk.pyramidal_lk_plain(*a[:9], n_levels=a[9], max_iter_upper=a[10],
+                                                compact_windows=True), reps=10)
+    F, levels, win = shape
+    need = win + 17
+    # each level: the window and the template's raw patch read once, the
+    # points in and out; the Gauss-Newton sums are a few hundred FLOP a point
+    b = bound(4 * F * levels * (need * need + (win + 3) ** 2) + F * (2 * 8 + 1 + 8 + 1), 0.0)
+    print(f"[P1] pyramidal_lk_compact (P1's window staging in K1's compact entry), "
+          f"{len(calls)} recorded calls (F, levels, side) in {sorted({sh for sh, _ in calls})}: "
+          f"bit for bit equal to P1 + K1's level entry on {n_same}; against the plain version "
+          f"status agreement >= {agree:.4f}, >= {close:.4f} of the points within 1e-3 px (max "
+          f"err {err:.3e} px); at {shape} "
+          f"({rec.counts[('P1 compact', shape)]} calls): {n_launch:.0f} launch a call, "
+          f"{dev_us:.2f} us on the device (the P1 + level route's kernels {route_us:.2f} us), "
+          f"{ms:.4f} ms through the wrapper vs the route {wms:.4f} ms and plain {pms:.4f} ms; "
+          f"bound {b[0] * 1e3:.3f} us ({b[1]})")
+    check_lk_level(witness)
+    check_extract(witness)
+    return {"P1": (err, ms, pms, *b, None)}
 
 
 def profile_launches(config, frames, pb):
@@ -1711,7 +1868,7 @@ def run_compact(base, frames, pb, world, wrappers, off_path):
     """[compact]: the bench world through run_sequence under
     frontend.lk_compact_windows with the triangulation motion check on.
     ``off_path``: the entry points this configuration does not run.
-    Returns (per-entry launches of the timed run, P1's result)."""
+    Returns (per-entry launches of the timed run, P1's and its K13 result)."""
     import numpy as np
     import torch
 
@@ -1733,8 +1890,8 @@ def run_compact(base, frames, pb, world, wrappers, off_path):
     per_entry = _per_entry(wrappers)
     n = frames.timestamp.shape[0]
     print(f"[compact] timed run: {n} frames in {wall:.3f} s = {n / wall:.2f} frames/s; "
-          f"{syncs:.2f} host syncs/frame; P1 {per_entry['P1 extract_windows'] / n:.2f} and K1 "
-          f"level {per_entry['K1 pyramidal_lk_level'] / n:.2f} launches/frame; launches "
+          f"{syncs:.2f} host syncs/frame; K1's compact entry "
+          f"{per_entry['P1 pyramidal_lk_compact'] / n:.2f} launches/frame; launches "
           f"{per_entry}")
     for name, k in per_entry.items():
         if k == 0 and name not in off_path:
@@ -1764,8 +1921,8 @@ def run_compact(base, frames, pb, world, wrappers, off_path):
         fail(f"[compact] the card's poses differ from the host reference by {dp:.3e} m")
     print(f"[compact] CUDA launches per frame over frames {PROFILE_WINDOW}: "
           f"{profile_launches(config, frames, pb):.1f}")
-    check_lk_level(rec)
-    return per_entry, check_extract(rec)
+    check_triangulate_rows(rec, "compact")
+    return per_entry, check_compact(rec)
 
 
 def run_exact(base, world, imu, fts, cam0, cam1, frames, pb, wrappers, off_path):
@@ -2020,6 +2177,16 @@ def check_limits_kernels(dev):
         errs[f"K13 N={N}"] = err
         if not torch.equal(ok, pok) or not err <= 1e-3:
             fail(f"[limits] K13 N={N}: validity differs or error {err:.3e}")
+        # the row entry: the B features as map rows, none initialized yet
+        B = mask.shape[0]
+        rargs = (st.cams.q, st.cams.p, obs, mask, torch.zeros_like(pw),
+                 torch.zeros(B, dtype=torch.bool, device=dev), torch.arange(B, device=dev),
+                 torch.ones(B, dtype=torch.bool, device=dev), params.R_cam0_cam1,
+                 params.t_cam0_cam1, cfg.triangulation)
+        rpos, rinit, rfail = tri.triangulate_rows(*rargs)
+        if (not torch.equal(rinit, ok) or not torch.equal(rfail, ~ok)
+                or not torch.equal(rpos[ok], pos[ok])):
+            fail(f"[limits] K13 row entry N={N}: differs from the entry with separate passes")
     for N, dtype in ((35, torch.float64), (49, torch.float32), (70, torch.float32)):
         cfg, st, params, pw, obs, mask = window(N, dtype)
         c = st.cams
@@ -2130,6 +2297,11 @@ def check_limits_kernels(dev):
             both = ks & ps
             err = float((kn[both] - pn[both]).abs().max()) if bool(both.any()) else 0.0
             errs[f"K1 win={win}{' compact' if compact else ''}"] = err
+            if compact:  # the one launch against the P1 + level route, bit for bit
+                wn, ws, _ = lk.pyramidal_lk_compact_levels(p0, p1, pts, pts, valid, win, 10,
+                                                           n_levels=4, max_iter_upper=5)
+                if not (torch.equal(kn, wn) and torch.equal(ks, ws)):
+                    fail(f"[limits] K1 compact entry win={win} differs from P1 + level entry")
             if agree < 0.99 or not err <= 1e-3 or int(both.sum()) < 100:
                 fail(f"[limits] K1 win={win} compact={compact}: status agreement {agree:.3f}, "
                      f"error {err:.3e} px on {int(both.sum())} points")
@@ -2212,7 +2384,7 @@ def main() -> int:
     from uav_airvision_tpu_torch.models import vio
     from uav_airvision_tpu_torch.models.msckf import propagation, triangulation, update
     from uav_airvision_tpu_torch.models.msckf.state import make_params
-    from uav_airvision_tpu_torch.ops import camera, extract, fast, gridops, lk, pyramid
+    from uav_airvision_tpu_torch.ops import camera, fast, gridops, lk, pyramid
 
     dev = device.get_device("cuda")
     t0 = time.time()
@@ -2261,7 +2433,7 @@ def main() -> int:
     # frame); P1 and K1's level entry run on the compact path only
     wrappers = {"K1": [lk.pyramidal_lk], "K2": [pyramid.build_pyramid_pair],
                 "K4+K6": [fast.detect_fast], "K14": [propagation.propagate],
-                "K13": [triangulation.triangulate], "K9": [update.feature_block_rows],
+                "K13": [triangulation.triangulate_rows], "K9": [update.feature_block_rows],
                 "K10": [update.gating_test_batch],
                 "K12": [update.apply_update_rank12_rows], "K11": [update.apply_update],
                 "K5": [gridops.dense_grid_topk],
@@ -2312,7 +2484,7 @@ def main() -> int:
                "K14": ("propagate.cu", "uav_airvision_tpu/models/msckf/propagation.py:88",
                        "propagate"),
                "K13": ("triangulate.cu",
-                       "uav_airvision_tpu/models/msckf/triangulation.py:159", "triangulate"),
+                       "uav_airvision_tpu/models/msckf/triangulation.py:159", "triangulate_rows"),
                "K9": ("feature_block.cu", "uav_airvision_tpu/models/msckf/update.py:103",
                       "feature_block_rows"),
                "K10": ("gate.cu", "uav_airvision_tpu/models/msckf/update.py:170",
@@ -2346,25 +2518,24 @@ def main() -> int:
         run_stream(config, world, imu, fts, cam0, cam1, batch_t, p[act].astype(np.float64),
                    wrappers, lagged=lagged)
 
-    # the two further configurations, each with every counter at 0 before it
-    every = {**wrappers, "K1": [lk.pyramidal_lk, lk.pyramidal_lk_level],
-             "P1": [extract.extract_windows]}
+    # the two further configurations, each with every counter at 0 before it;
+    # the compact LK's one launch (K1's compact entry) stands in P1's row
+    every = {**wrappers, "P1": [lk.pyramidal_lk_compact]}
     t0 = time.time()
     compact_launches, p1 = run_compact(config, frames, pb, world, every,
                                        off_path={"K1 pyramidal_lk"})
     results.update(p1)
     t1 = time.time()
     run_exact(config, world, imu, fts, cam0, cam1, frames, pb, every,
-              off_path={"K1 pyramidal_lk_level", "P1 extract_windows",
-                        "K12 apply_update_rank12_rows"})
+              off_path={"P1 pyramidal_lk_compact", "K12 apply_update_rank12_rows"})
     t2 = time.time()
     check_limits_kernels(dev)
     run_limits(config, world, imu, fts, cam0, cam1, wrappers,
                off_path={"K12 apply_update_rank12_rows"})
     print(f"[time] {time.time() - t_start:.1f} s in all; [compact] {t1 - t0:.1f} s, [exact] "
           f"{t2 - t1:.1f} s, [limits] {time.time() - t2:.1f} s")
-    launches["P1"] = compact_launches["P1 extract_windows"]
-    sources["P1"] = ("extract.cu", "scripts/exp_gather.py:82", "extract_windows")
+    launches["P1"] = compact_launches["P1 pyramidal_lk_compact"]
+    sources["P1"] = ("lk.cu", "scripts/exp_gather.py:82", "pyramidal_lk_compact")
 
     if FAILURES:
         fatal(f"{len(FAILURES)} check(s) failed: " + "; ".join(FAILURES))

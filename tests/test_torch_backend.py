@@ -817,6 +817,65 @@ def test_prune_cam_states_rows_entry_matches_jax(pre_prune, gate, monkeypatch):
     assert bool(twarn) == bool(jwarn)
 
 
+@pytest.mark.parametrize("threshold", [-1.0, 0.05], ids=["motion_off", "motion_0.05"])
+def test_triangulate_rows_matches_jax(blocks, threshold):
+    """The back-end's triangulation entry (``triangulate_rows``, its plain
+    version on the CPU) against JAX ``_triangulate_one`` vmapped over the
+    selected map rows with its call site's writes (JAX step.py:305-320), on
+    the 41-frame float64 state: 16 rows with >= 3 observations (every third
+    already initialized) and 4 unselected ones.  Validity, the motion
+    check, init_fail and the new initialized column identical; positions
+    within 1e-9."""
+    state, params, sel = blocks
+    cfg = euroc_config(dtype="float64")
+    cfg = dataclasses.replace(cfg, triangulation=dataclasses.replace(
+        cfg.triangulation, translation_threshold=threshold))
+    tri_cfg = port_config(cfg).triangulation
+    t = state.features
+    initialized = t.initialized.clone()
+    initialized[sel] = False
+    initialized[sel[1::3]] = True
+    free = torch.nonzero(~t.valid)[:4, 0]
+    rows = torch.cat([sel, free])
+    sel_ok = torch.cat([torch.ones_like(sel, dtype=torch.bool),
+                        torch.zeros_like(free, dtype=torch.bool)])
+    t = t._replace(initialized=initialized)
+    jst, jparams = to_jax(state._replace(features=t)), to_jax(params)
+
+    @jax.jit
+    def jax_rows(jst, sel, sel_ok):
+        table = jst.features
+        need = sel_ok & ~table.initialized[sel]
+        motion, pos, valid = jax.vmap(lambda slot, act: jstep._triangulate_one(
+            jst, jparams, cfg, slot, table.obs_mask[slot], act))(sel, need)
+        done = need & motion & valid
+        return (table.position.at[sel].set(jnp.where(done[:, None], pos, table.position[sel])),
+                table.initialized.at[sel].set(table.initialized[sel] | done),
+                need & (~motion | ~valid), motion, valid)
+
+    jpos, jinit, jfail, jmotion, jvalid = jax_rows(jst, jnp.asarray(rows.numpy()),
+                                                   jnp.asarray(sel_ok.numpy()))
+    c = state.cams
+    args = (c.q, c.p, t.obs, t.obs_mask, t.position, t.initialized, rows, sel_ok,
+            params.R_cam0_cam1, params.t_cam0_cam1, tri_cfg)
+    pos, init, fail = ttri.triangulate_rows(*args)
+    need = sel_ok & ~t.initialized[rows]
+    _, valid = ttri.triangulate_plain(c.q, c.p, t.obs[rows], t.obs_mask[rows],
+                                      params.R_cam0_cam1, params.t_cam0_cam1, tri_cfg,
+                                      active=need)
+    np.testing.assert_array_equal(valid.numpy()[need.numpy()], np.asarray(jvalid)[need.numpy()])
+    if threshold >= 0:
+        motion = ttri.check_motion(c.q, c.p, t.obs[rows], t.obs_mask[rows], tri_cfg)
+        np.testing.assert_array_equal(motion.numpy()[need.numpy()],
+                                      np.asarray(jmotion)[need.numpy()])
+    np.testing.assert_array_equal(fail.numpy(), np.asarray(jfail))
+    np.testing.assert_array_equal(init.numpy(), np.asarray(jinit))
+    assert_close(pos.numpy(), jpos, 1e-9, "position")
+    # motion off: some rows get a position; at 0.05 m the check rejects rows
+    assert bool(fail.any()) if threshold >= 0 else bool((init != t.initialized).any())
+    assert torch.equal(t.initialized, initialized)  # the inputs stay as they were
+
+
 @pytest.mark.parametrize("threshold", [0.2, 0.4, 0.6])
 def test_check_motion_matches_jax(threshold):
     """The triangulation motion check (translation_threshold >= 0) against

@@ -169,21 +169,55 @@ def test_lk_level_kernel_matches_plain(dev, L):
         assert (kd == pd).all(1).float().mean() >= 0.99
 
 
+def _compact_counts():
+    return (extract.extract_windows.launches, lk.pyramidal_lk_level.launches,
+            lk.pyramidal_lk.launches, lk.pyramidal_lk_compact.launches)
+
+
 @pytest.mark.parametrize("n_levels,upper", [(2, 5), (4, 5), (1, None)])
 def test_lk_compact_kernel_matches_plain(dev, n_levels, upper):
-    """The compact-window tracker (P1 + K1's level entry per level) against
-    its plain version: K1's bars."""
+    """The compact-window tracker (one launch of K1's compact entry, which
+    stages each level's window itself) against its plain version: K1's
+    bars."""
     p0, p1, pts, valid = _compact_inputs(dev)
     args = dict(max_iter=10, n_levels=n_levels, max_iter_upper=upper, compact_windows=True)
-    n0 = (extract.extract_windows.launches, lk.pyramidal_lk_level.launches, lk.pyramidal_lk.launches)
+    n0 = _compact_counts()
     kn, ks = lk.pyramidal_lk(p0, p1, pts, pts, valid, **args)
-    assert (extract.extract_windows.launches - n0[0], lk.pyramidal_lk_level.launches - n0[1],
-            lk.pyramidal_lk.launches - n0[2]) == (n_levels, n_levels, 0)
+    assert tuple(b - a for a, b in zip(n0, _compact_counts())) == (0, 0, 0, 1)
     pn, ps = lk.pyramidal_lk_plain(p0, p1, pts, pts, valid, **args)
     assert (ks == ps).float().mean() >= 0.99
     both = ks & ps
     assert int(both.sum()) >= 20
     assert float((kn[both] - pn[both]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("n_levels", [1, 2, 4])
+@pytest.mark.parametrize("win", [3, 15, 33])
+def test_lk_compact_entry_bit_identical(dev, n_levels, win):
+    """K1's compact entry (ONE launch: each level's des, its window staged
+    in shared memory, the template and the steps) equals the route it
+    replaced, P1's window extract and K1's level entry level by level, bit
+    for bit: points, status and each level's window origin; side 33 takes
+    the looped instantiation."""
+    img0 = _image(240, 320, 4)
+    img1 = np.roll(img0, (2, -3), axis=(0, 1))
+    p0 = pyramid.build_pyramid_padded(torch.as_tensor(img0, device=dev), 3)
+    p1 = pyramid.build_pyramid_padded(torch.as_tensor(img1, device=dev), 3)
+    rng = np.random.default_rng(win + n_levels)
+    pts = torch.as_tensor(rng.uniform([1, 1], [318, 238], (60, 2)), dtype=torch.float32,
+                          device=dev)
+    valid = torch.as_tensor(rng.uniform(size=60) < 0.9, device=dev)
+    kw = dict(win=win, max_iter=10, n_levels=n_levels, max_iter_upper=5)
+    des = torch.full((60, n_levels, 2), -1, dtype=torch.int32, device=dev)
+    n0 = _compact_counts()
+    (kn, ks), n_launch = _launches(lambda: lk.pyramidal_lk_compact(p0, p1, pts, pts, valid,
+                                                                   des=des, **kw))
+    assert n_launch == 1
+    assert tuple(b - a for a, b in zip(n0, _compact_counts())) == (0, 0, 0, 1)
+    wn, ws, wdes = lk.pyramidal_lk_compact_levels(p0, p1, pts, pts, valid, **kw)
+    assert torch.equal(kn, wn) and torch.equal(ks, ws) and torch.equal(des, wdes)
+    pn, ps = lk.pyramidal_lk_plain(p0, p1, pts, pts, valid, compact_windows=True, **kw)
+    assert (ks == ps).float().mean() >= 0.99
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -446,6 +480,79 @@ def test_triangulate_kernel_matches_plain(dev, host_states, dtype, B):
         assert float(err.max()) <= 1e-7
 
 
+def _tri_rows_inputs(dev, host_states, dtype, N, motion):
+    """triangulate_rows' arguments on the card state's feature table, its
+    window widened to N slots (the real 20 poses repeated, nudged, and each
+    feature's observations with them): every valid row with >= 3
+    observations selected (noise on the rows' observations past the first
+    20 slots) and 8 free rows, in a shuffled order; ~85% of the valid ones
+    with sel_ok (the free rows never, as on the main path), a third
+    already initialized; ``motion``: the motion check at 0.05 m."""
+    cfg, state, params, sel = _card_state(dev, host_states, dtype)
+    t = state.features
+    slots = torch.arange(N, device=dev) % 20
+    cams = _wide_state(state, N, N, N).cams if N != 20 else state.cams
+    rng = np.random.default_rng(N + 2 * motion)
+    obs = t.obs[:, slots].clone()
+    if N > 20:
+        obs[:, 20:] += torch.as_tensor(rng.normal(0, 2e-3, obs[:, 20:].shape),
+                                       device=dev).to(obs.dtype)
+    rows = torch.cat([sel, torch.nonzero(~t.valid)[:8, 0]])
+    rows = rows[torch.as_tensor(rng.permutation(len(rows)), device=dev)]
+    sel_ok = torch.as_tensor(rng.uniform(size=len(rows)) < 0.85, device=dev) & t.valid[rows]
+    initialized = t.initialized.clone()
+    initialized[rows] = torch.as_tensor(rng.uniform(size=len(rows)) < 0.33, device=dev)
+    tri = cfg.triangulation
+    if motion:
+        tri = dataclasses.replace(tri, translation_threshold=0.05)
+    return (cams.q, cams.p, obs, t.obs_mask[:, slots].contiguous(), t.position, initialized,
+            rows, sel_ok, params.R_cam0_cam1, params.t_cam0_cam1, tri)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("N", [20, 65, 300])
+@pytest.mark.parametrize("motion", [False, True], ids=["motion_off", "motion_on"])
+def test_triangulate_rows_kernel_matches_plain(dev, host_states, dtype, N, motion):
+    """K13's row entry (ONE launch: the rows' gathers, need_init, the motion
+    check, the LM, the new position and initialized columns) against its
+    plain version (the call site's glue around triangulate_plain):
+    initialized and init_fail identical, the rows that got a position
+    within K13's bars (float32: 1e-3 of max(|p|, 1) for each and 1e-4 for
+    95%; float64: 1e-7), every other row unchanged; and equal, bit for bit,
+    to the same glue around ``triangulate`` (the kernel's separate passes)
+    on the card; the inputs unchanged.  N = 65 and 300 take 4 slots a lane
+    and the rebuilt views."""
+    args = _tri_rows_inputs(dev, host_states, dtype, N, motion)
+    cam_q, cam_p, obs, mask, position, initialized, rows, sel_ok, R, t, tri = args
+    before = (position.clone(), initialized.clone())
+    n0 = triangulation.triangulate_rows.launches
+    (pos, init, fail), n_launch = _launches(lambda: triangulation.triangulate_rows(*args))
+    assert n_launch == 1 and triangulation.triangulate_rows.launches == n0 + 1
+    assert torch.equal(position, before[0]) and torch.equal(initialized, before[1])
+    ppos, pinit, pfail = triangulation.triangulate_rows_plain(*args)
+    assert torch.equal(init, pinit) and torch.equal(fail, pfail)
+    new = init & ~initialized
+    assert torch.equal(pos[~new], position[~new])
+    if bool(new.any()):
+        err = ((pos - ppos).abs().max(1).values / ppos.abs().max(1).values.clamp(min=1.0))[new]
+        if dtype == "float32":
+            assert float(err.max()) <= 1e-3 and float((err <= 1e-4).float().mean()) >= 0.95
+        else:
+            assert float(err.max()) <= 1e-7
+    # the witness: the call site's glue around the kernel's separate passes
+    need = sel_ok & ~initialized[rows]
+    wpos, wok = triangulation.triangulate(cam_q, cam_p, obs[rows], mask[rows], R, t, tri,
+                                          active=need)
+    if motion:
+        wok = wok & triangulation.check_motion(cam_q, cam_p, obs[rows], mask[rows], tri)
+    done = need & wok
+    assert torch.equal(fail, need & ~wok)
+    assert torch.equal(init, initialized.index_put((rows,), initialized[rows] | done))
+    assert torch.equal(pos, position.index_put((rows,), torch.where(done[:, None], wpos,
+                                                                    position[rows])))
+    assert int(need.sum()) > 0 and (not motion or bool(fail.any()))
+
+
 def _blocks(dev, host_states, dtype, N, B):
     """feature_block arguments at N = 20 (lost features) or N = 2 (the
     prune's two cameras), B features."""
@@ -597,6 +704,33 @@ def test_rank12_kernel_matches_plain(dev, host_states, dtype, singular):
     assert torch.equal(got.cov, got.cov.T)
     for a, b in ((got.cov, want.cov), (got.imu.p, want.imu.p), (got.cams.p, want.cams.p)):
         assert float((a - b).abs().max()) <= tol * max(scale, 1.0)
+
+
+def test_rank12_rows_kernel_near_float64(dev, host_states):
+    """K12's row entry at the main path's most frequent prune shape, 128
+    features of 5 rows (~60% included), float32: each field of the new
+    state no farther from the float64 plain version than max(1.25 x the
+    float32 plain version's distance, 1e-4), relative to the field's
+    largest entry (chip_smoke.py holds every recorded prune call to the
+    same bar)."""
+    cfg, state, params, _ = _card_state(dev, host_states, "float32")
+    cols = torch.cat([21 + 6 * 4 + torch.arange(6, device=dev),
+                      21 + 6 * 9 + torch.arange(6, device=dev)])
+    H12, r_blk, include = _prune_blocks(state, 128, 7)
+    got, _ = update.apply_update_rank12_rows(state, params, H12, r_blk, include, cols)
+    want, _ = update.apply_update_rank12_rows_plain(state, params, H12, r_blk, include, cols)
+
+    def f64(tree):
+        return torch.utils._pytree.tree_map(
+            lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x, tree)
+
+    ref, _ = update.apply_update_rank12_rows_plain(f64(state), f64(params), H12.double(),
+                                                   r_blk.double(), include, cols)
+    for name, r in _fields(ref).items():
+        scale = max(float(r.abs().max()), 1e-30)
+        k = float((_fields(got)[name].double() - r).abs().max()) / scale
+        p = float((_fields(want)[name].double() - r).abs().max()) / scale
+        assert k <= max(1.25 * p, 1e-4), (name, k, p)
 
 
 def _prune_blocks(state, Kp, seed, n_in=None):

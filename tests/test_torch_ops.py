@@ -246,6 +246,42 @@ def test_lk_matches_jax(n_levels, max_iter_upper, compact):
     np.testing.assert_allclose(tn[both], jn[both], atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("n_levels,max_iter_upper", [(2, 5), (1, None)],
+                         ids=["two-level", "level0-only"])
+def test_lk_compact_entry_matches_jax(n_levels, max_iter_upper):
+    """The one-launch compact tracker's entry ``pyramidal_lk_compact`` (its
+    plain route on the CPU) against JAX ``compact_windows=True`` with
+    test_lk_matches_jax's bars, and the window origins it reports equal to
+    those of its witness route, P1 + K1's level entry level by level."""
+    H, W = 120, 160
+    img0 = textured(H, W, seed=17, cell=5)
+    img1 = shifted(img0, -1.4, 2.2)
+    rng = np.random.default_rng(18)
+    pts, init, valid = _lk_points(rng, H, W)
+    jp0 = jext.band_pyramid(jpyr.build_pyramid_padded(jnp.asarray(img0), 3), dtype=jnp.bfloat16)
+    jp1 = jext.band_pyramid(jpyr.build_pyramid_padded(jnp.asarray(img1), 3), dtype=jnp.bfloat16)
+    jn, js = jax.jit(functools.partial(
+        jlk.pyramidal_lk_banded, win=15, max_iter=10, eps=0.01, min_eig_threshold=1e-4,
+        n_levels=n_levels, static_iters=True, max_iter_upper=max_iter_upper,
+        compact_windows=True))(jp0, jp1, jnp.asarray(pts), jnp.asarray(init),
+                               jnp.asarray(valid))
+    tp0 = tpyr.build_pyramid_padded(torch.as_tensor(img0), 3)
+    tp1 = tpyr.build_pyramid_padded(torch.as_tensor(img1), 3)
+    args = (tp0, tp1, torch.as_tensor(pts), torch.as_tensor(init), torch.as_tensor(valid))
+    kw = dict(win=15, max_iter=10, eps=0.01, min_eig_threshold=1e-4, n_levels=n_levels,
+              max_iter_upper=max_iter_upper)
+    des = torch.zeros((len(pts), n_levels, 2), dtype=torch.int32)
+    tn, ts = tlk.pyramidal_lk_compact(*args, des=des, **kw)
+    wn, ws, wdes = tlk.pyramidal_lk_compact_levels(*args, **kw)
+    assert torch.equal(tn, wn) and torch.equal(ts, ws) and torch.equal(des, wdes)
+    jn, js = np.asarray(jn), np.asarray(js)
+    tn, ts = tn.numpy(), ts.numpy()
+    assert (ts == js).mean() >= 0.99
+    both = ts & js
+    assert both.sum() >= 20
+    np.testing.assert_allclose(tn[both], jn[both], atol=1e-3, rtol=0)
+
+
 def test_fast_many_mask_points_exact():
     """FAST + the detection mask of 1500 points (more than the 1024 the card
     kernel once staged at a time) against the JAX mask and detector."""

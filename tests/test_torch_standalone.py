@@ -300,10 +300,11 @@ def filter_state():
 
 
 def _launch_counts():
-    fns = (ttri.triangulate, tupd.feature_block, tupd.feature_block_rows, tupd.gating_test_batch, tupd.rank12_update,
+    fns = (ttri.triangulate, ttri.triangulate_rows, tupd.feature_block, tupd.feature_block_rows, tupd.gating_test_batch, tupd.rank12_update,
            tupd.apply_update_rank12, tupd.apply_update_rank12_rows, tupd.ekf_update, tupd.apply_update, tgrid.dense_grid_topk,
            *tgrid.K8_WRAPPERS, tgrid.select_track,
            *tcam.WRAPPERS, tcam.predict_warp_points, tcam.stereo_gate, textract.extract_windows, tlk.pyramidal_lk_level, tlk.pyramidal_lk,
+           tlk.pyramidal_lk_compact,
            tpyr.build_pyramid_pair, tpyr.build_pyramid_padded, tprop.propagate)
     return tuple(fn.launches for fn in fns)
 
@@ -319,8 +320,9 @@ def _assert_identical(got, want):
                                               and torch.equal(got.nan_to_num(), want.nan_to_num()))
 
 
-@pytest.mark.parametrize("kernel", ["K13", "K9", "K9_prune", "K9_rows", "K9_rows_prune", "K10", "K12", "K11", "K5", "K8",
-                                    "K7", "P1", "K1_level", "K2", "K14", "K1"])
+@pytest.mark.parametrize("kernel", ["K13", "K13_rows", "K13_rows_motion", "K9", "K9_prune", "K9_rows",
+                                    "K9_rows_prune", "K10", "K12", "K11", "K5", "K8", "K7", "P1",
+                                    "K1_level", "K1_compact", "K2", "K14", "K1"])
 def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
     """On CPU tensors each kernel's public wrapper returns exactly what its
     plain version returns, counts no launch and reports no call to the
@@ -335,6 +337,16 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
         args = (c.q, c.p, t.obs[sel], t.obs_mask[sel], params.R_cam0_cam1, params.t_cam0_cam1,
                 cfg.triangulation, active)
         _assert_identical(ttri.triangulate(*args), ttri.triangulate_plain(*args))
+    elif kernel.startswith("K13_rows"):
+        tri = cfg.triangulation
+        if kernel == "K13_rows_motion":
+            tri = dataclasses.replace(tri, translation_threshold=0.05)
+        ok = torch.arange(len(sel)) % 5 != 1
+        initialized = t.initialized.clone()
+        initialized[sel[::3]] = True
+        args = (c.q, c.p, t.obs, t.obs_mask, t.position, initialized, sel, ok,
+                params.R_cam0_cam1, params.t_cam0_cam1, tri)
+        _assert_identical(ttri.triangulate_rows(*args), ttri.triangulate_rows_plain(*args))
     elif kernel.startswith("K9_rows"):
         rm = torch.tensor([3, 7]) if kernel == "K9_rows_prune" else None
         proc = torch.arange(len(sel)) % 4 != 1
@@ -427,6 +439,23 @@ def test_wrappers_run_plain_on_cpu(filter_state, kernel, monkeypatch):
             _assert_identical(tlk.pyramidal_lk(p0, p1, pts, pts + 1.5, valid, max_iter=10, **kw),
                               tlk.pyramidal_lk_plain(p0, p1, pts, pts + 1.5, valid, max_iter=10,
                                                      **kw))
+    elif kernel == "K1_compact":
+        rng = np.random.default_rng(1)
+        img0, img1 = (torch.as_tensor(rng.integers(0, 256, (120, 160)), dtype=torch.uint8)
+                      for _ in range(2))
+        p0, p1 = tpyr.build_pyramid_padded(img0, 3), tpyr.build_pyramid_padded(img1, 3)
+        pts = torch.as_tensor(rng.uniform([5, 5], [155, 115], (30, 2)), dtype=torch.float32)
+        valid = torch.as_tensor(rng.uniform(size=30) < 0.9)
+        for kw in (dict(n_levels=2, max_iter_upper=5), dict(n_levels=1)):
+            des = torch.zeros((30, kw["n_levels"], 2), dtype=torch.int32)
+            got = tlk.pyramidal_lk_compact(p0, p1, pts, pts + 1.5, valid, max_iter=10, des=des,
+                                           **kw)
+            want = tlk.pyramidal_lk_compact_levels(p0, p1, pts, pts + 1.5, valid, max_iter=10,
+                                                   **kw)
+            _assert_identical(got + (des,), want)
+            _assert_identical(got, tlk.pyramidal_lk_plain(p0, p1, pts, pts + 1.5, valid,
+                                                          max_iter=10, compact_windows=True,
+                                                          **kw))
     elif kernel in ("P1", "K1_level"):
         img = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (120, 160)),
                               dtype=torch.uint8)
@@ -535,6 +564,17 @@ def test_wrappers_raise_on_other_devices(filter_state):
     origins = torch.zeros(4, dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="P1"):
         textract.extract_windows(torch.zeros((40, 50), device=meta), origins, origins, 32)
+    with pytest.raises(ValueError, match="K13"):
+        t = state.features
+        ttri.triangulate_rows(*(x.to(meta) for x in (state.cams.q, state.cams.p, t.obs,
+                                                     t.obs_mask, t.position, t.initialized, sel,
+                                                     torch.ones_like(sel, dtype=torch.bool),
+                                                     params.R_cam0_cam1, params.t_cam0_cam1)),
+                              cfg.triangulation)
+    pyr = tpyr.build_pyramid_padded(torch.zeros((40, 50), dtype=torch.uint8), 1)
+    with pytest.raises(ValueError, match="K1"):
+        tlk.pyramidal_lk_compact(pyr, pyr, torch.zeros((4, 2), device=meta),
+                                 torch.zeros((4, 2), device=meta), origins.bool())
     with pytest.raises(ValueError, match="K1"):
         tlk.pyramidal_lk_level(None, torch.zeros((4, 2), device=meta), torch.zeros((4, 2), device=meta),
                                origins.bool(), torch.zeros((4, 32, 32), device=meta),

@@ -12,13 +12,17 @@ path) and one camera.  K4+K6: the latest frame's call of the run below.
 K9: the latest ``feature_block_rows`` call of each shape (the lost
 features' and the prune's).  K5: the run's latest call.  K12: the run's latest prune call, through the row-indexed
 entry and through the dense entry on the same masked stack, and the same
-call on a 70-slot window (D = 441).  K13: the run's latest triangulation call at
-B = 16 and at its largest B (N = 20), as recorded and with every feature
-active.  Each of these with the SM clock cycles of its phases.  The
-compact-window LK (frontend.lk_compact_windows, the configuration of
-``profile_main.py --config compact``): the latest LK call of each shape
-that ``run_sequence`` makes under it on the same frames, each kernel's
-device us per launch (P1's window extract and K1's level entry per level).
+call on a 70-slot window (D = 441).  K13: the run's latest call of its row entry
+``triangulate_rows`` (the fused passes) at B = 16 and at its largest B
+(N = 20), as recorded and with every selected row to triangulate, and the
+same rows through ``triangulate`` (the separate passes).  Each of these
+with the SM clock cycles of its phases.  The compact-window LK
+(frontend.lk_compact_windows, the configuration of ``profile_main.py
+--config compact``): the latest LK call of each shape that
+``run_sequence`` makes under it on the same frames, through
+``pyramidal_lk`` (K1's compact entry, one launch, with the SM cycles of
+its levels' phases) and through its witness route (P1's window extract
+and K1's level entry per level).
 K10: the gate calls that ``run_sequence`` makes on
 the first ``--frames`` frames of the bench world (recorded through
 ``kernels.observer``, the latest call of each shape), each launched again
@@ -110,8 +114,8 @@ def main(argv=None) -> None:
     calls, ekf, lk_calls, fast_calls, k9_calls, k5_k12, k13 = {}, [], {}, {}, {}, {}, {}
 
     def record(name, a):
-        if name == "triangulate":
-            k13[a[2].shape[0]] = a
+        if name == "triangulate_rows":
+            k13[a[6].shape[0]] = a
         elif name in ("dense_grid_topk", "apply_update_rank12", "apply_update_rank12_rows"):
             k5_k12[name] = a
         elif name == "detect_fast":
@@ -265,31 +269,49 @@ def probe_topk_rank12(recorded, config, dev) -> None:
 
 
 def probe_triangulate(recorded) -> None:
-    """K13 on the run's latest call at B = 16 and at its largest B, as
-    recorded and with every feature active, with the SM clock cycles of
-    block 0's first warp (feature 0) in each phase."""
+    """K13 on the run's latest row-entry call at B = 16 and at its largest
+    B: the row entry (fused passes) as recorded and with every row to
+    triangulate (sel_ok all set, none initialized, no motion check), and
+    the old entry (separate passes) on the same gathered rows, each with
+    the SM clock cycles of block 0's first warp (row sel[0]) in each
+    phase."""
+    import dataclasses
+
     from uav_airvision_tpu_torch.models.msckf import triangulation as tri
+
+    def phases(c):
+        print(f"  K13 phases of its first row ({c[8]} steps), SM clock cycles: anchor and "
+              f"views {c[1] - c[0]}, initial guess and its pass {c[2] - c[1]}, normal-equation "
+              f"passes {c[3]}, solves {c[4]}, trial passes {c[5]}, loop {c[6] - c[2]}, finish "
+              f"{c[7] - c[6]}; total {c[7] - c[0]}", flush=True)
 
     for B in sorted({16, max(recorded)} & set(recorded)):
         a = recorded[B]
-        active = a[7] if a[7] is not None else torch.ones(B, dtype=torch.bool, device=a[2].device)
-        for label, act in (("as recorded", active), ("all active", torch.ones_like(active))):
-            args = (*a[:7], act)
-            probe(f"K13 triangulate B={B} x N={a[3].shape[1]}, {label} ({int(act.sum())} "
-                  f"active)", lambda: tri.triangulate(*args))
-            clocks = torch.zeros(9, dtype=torch.int64, device=a[2].device)
-            tri._triangulate_kernel(*args, clocks=clocks)
-            c = clocks.tolist()
-            print(f"  K13 phases of feature 0 ({int(a[3][0].sum())} views, {c[8]} steps), SM "
-                  f"clock cycles: anchor and views {c[1] - c[0]}, initial guess and cost "
-                  f"{c[2] - c[1]}, normal equations {c[3]}, solves {c[4]}, trial costs {c[5]}, "
-                  f"loop {c[6] - c[2]}, finish {c[7] - c[6]}; total {c[7] - c[0]}", flush=True)
+        cq, cp, obs, mask, position, initialized, sel, sel_ok, R, t, cfg = a
+        every = (cq, cp, obs, mask, position, torch.zeros_like(initialized), sel,
+                 torch.ones_like(sel_ok), R, t,
+                 dataclasses.replace(cfg, translation_threshold=-1.0))
+        for label, args in (("as recorded", a), ("every row", every)):
+            need = args[7] & ~args[5][sel]
+            probe(f"K13 triangulate_rows B={B} x N={mask.shape[1]}, {label} ({int(need.sum())} "
+                  f"to triangulate)", lambda: tri.triangulate_rows(*args))
+        clocks = torch.zeros(9, dtype=torch.int64, device=obs.device)
+        tri._triangulate_rows_kernel(*every, clocks=clocks)
+        phases(clocks.tolist())
+        old = (cq, cp, obs[sel], mask[sel], R, t, cfg, torch.ones_like(sel_ok))
+        probe(f"K13 triangulate (separate passes) B={B}, the same rows, every row active",
+              lambda: tri.triangulate(*old))
+        clocks = torch.zeros(9, dtype=torch.int64, device=obs.device)
+        tri._triangulate_kernel(*old, clocks=clocks)
+        phases(clocks.tolist())
 
 
 def probe_compact(config, frames, pb) -> None:
     """The compact-window LK on the latest call of each shape that
     run_sequence makes under frontend.lk_compact_windows (with the
-    triangulation motion check, as profile_main.py --config compact runs)."""
+    triangulation motion check, as profile_main.py --config compact runs):
+    K1's compact entry (one launch; the SM cycles of block 0's phases) and
+    its witness route, P1's extract and K1's level entry per level."""
     from uav_airvision_tpu_torch.models import vio
     from uav_airvision_tpu_torch.ops import lk
     from uav_airvision_tpu_torch.profile_main import variant
@@ -310,6 +332,17 @@ def probe_compact(config, frames, pb) -> None:
     for (F, levels), (a, kw) in sorted(recorded.items()):
         probe(f"compact LK pyramidal_lk, {F} points x {levels} level(s), side {kw['win']}",
               lambda: lk.pyramidal_lk(*a, **kw))
+        kw = {k: v for k, v in kw.items() if k != "compact_windows"}
+        kw["n_levels"] = levels
+        probe(f"  its witness route (P1 + K1's level entry a level, the host's des)",
+              lambda: lk.pyramidal_lk_compact_levels(*a, **kw))
+        clocks = torch.zeros(1 + 3 * levels, dtype=torch.int64, device=a[2].device)
+        lk.pyramidal_lk_compact(*a, **kw, clocks=clocks)
+        c = clocks.tolist()
+        print("  K1 compact entry, block 0's SM clock cycles, coarse to fine: " + "; ".join(
+            f"level {levels - 1 - k}: template {c[1 + 3 * k] - c[3 * k]}, window wait "
+            f"{c[2 + 3 * k] - c[1 + 3 * k]}, Gauss-Newton {c[3 + 3 * k] - c[2 + 3 * k]}"
+            for k in range(levels)) + f"; total {c[-1] - c[0]}", flush=True)
 
 
 def _wide(state, config, N):

@@ -102,8 +102,9 @@ def card(args):
         vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
         torch.cuda.synchronize()
         kernels.observer = None
-        if args.save:
-            torch.save(calls, args.save)
+        if args.save:  # each tensor on its own storage (the states' fields share one)
+            torch.save(torch.utils._pytree.tree_map(
+                lambda x: x.clone() if torch.is_tensor(x) else x, calls), args.save)
 
     rows = hasattr(upd, "apply_update_rank12_rows")
 

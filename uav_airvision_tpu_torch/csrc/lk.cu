@@ -43,7 +43,25 @@
 // ub = min(16, HP - (side + 1) - des).  The caller fetches the windows with
 // kernel P1 (csrc/extract.cu) and this entry reads its samples from them;
 // it also writes the next finer level's des, so the host computes des once
-// per LK call, for the coarsest level.
+// per LK call, for the coarsest level.  That route (2 launches a level and
+// the host's des) stays as the witness of the third entry.
+//
+// Third entry point, ``pyramidal_lk_compact``: the whole compact-window
+// tracker in ONE launch, a block per point looping over the levels coarse
+// to fine as ``pyramidal_lk`` does.  At each level the block computes des
+// itself (compact_origin), copies the (side + 17)^2 search window at des
+// out of the current level into its shared memory (P1's function, done by
+// its consumer: cp.async, 4 bytes a thread, issued before the template and
+// waited for before the first Gauss-Newton step, so the copy runs under
+// the template's loads and sums), builds the template from the previous
+// pyramid and iterates on the staged window with the uniform freeze
+// bounds.  Every sample it reads is the float P1 would have copied, and the
+// template, the steps and the sums are the level entry's: points, status
+// and des equal the witness route's bit for bit.  Not TMA: a padded
+// level's row pitch is W / 2^L + 34 floats (786 at level 0, 3,144 bytes,
+// not a multiple of 16) and the levels start at arbitrary offsets of
+// Pyramid.flat, while a TMA tensor map needs 16-byte strides and base; the
+// pyramid's layout is K2's, K1's and the tests' and stays.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -396,12 +414,82 @@ lk_level_kernel(const float* __restrict__ prev_pyr, int H0, int W0,
   }
 }
 
+// The whole compact-window tracker of one point (see the note at the top).
+// des_out (F, n_levels, 2) [y, x] or null: each level's window origin.
+// clocks (1 + 3 n_levels int64) or null: block 0's SM clock at its start
+// and, coarse to fine, after each level's template (its window's copy in
+// flight), after the copy's wait and after its Gauss-Newton steps.
+template <int kWin>
+__global__ void __launch_bounds__(block_threads<kWin>())
+lk_compact_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr,
+                  int H0, int W0, const float* __restrict__ prev_pts,
+                  const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
+                  int n_levels, int max_iter, int max_iter_upper, float eps2,
+                  float min_eig_thr, float* __restrict__ out_pts,
+                  uint8_t* __restrict__ out_status, int32_t* __restrict__ des_out,
+                  long long* __restrict__ clocks, int win_rt) {
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int win = side<kWin>(win_rt), need = win + 1 + 2 * kMargin;
+  const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
+  float* window = sm.red + 32 * 5;  // need x need, the current level's search window
+
+  const int f = blockIdx.x, tid = threadIdx.x;
+  const bool timed = clocks != nullptr && f == 0 && tid == 0;
+  if (timed) clocks[0] = clock64();
+  const bool is_valid = valid[f] != 0;
+  const float prev_x = prev_pts[2 * f], prev_y = prev_pts[2 * f + 1];
+  float next_x = init_pts[2 * f], next_y = init_pts[2 * f + 1];
+  bool status = false;
+
+  for (int L = n_levels - 1; L >= 0; --L) {
+    const Level pl = level_of(prev_pyr, H0, W0, L);
+    const Level cl = level_of(curr_pyr, H0, W0, L);
+    const float scale = 1.0f / (float)(1 << L);
+    const int2 des = compact_origin(next_x, next_y, scale, cl, win);  // [y, x]
+    if (des_out != nullptr && tid == 0) {
+      des_out[((size_t)f * n_levels + L) * 2] = des.x;
+      des_out[((size_t)f * n_levels + L) * 2 + 1] = des.y;
+    }
+    const float* src = cl.img + (size_t)des.x * cl.WP + des.y;
+    for (int k = tid; k < need * need; k += blockDim.x) {
+      const int i = k / need;
+      msckf::cp_async<4>(window + k, src + (size_t)i * cl.WP + (k - i * need));
+    }
+    msckf::cp_async_commit();
+    const Template t = level_template<kWin>(pl, prev_x, prev_y, scale, is_valid, min_eig_thr,
+                                            win_rt, sm);
+    const int c = 1 + 3 * (n_levels - 1 - L);
+    if (timed) clocks[c] = clock64();
+    msckf::cp_async_wait_all();
+    __syncthreads();  // the block's window
+    if (timed) clocks[c + 1] = clock64();
+    if (L == 0) status = t.status;
+    float px = next_x * scale, py = next_y * scale;
+    const float uby = (float)min(need - (win + 1), pl.HP - (win + 1) - des.x);
+    const float ubx = (float)min(need - (win + 1), pl.WP - (win + 1) - des.y);
+    const int it_max = (L == 0 || max_iter_upper <= 0) ? max_iter : max_iter_upper;
+    gauss_newton<kWin>(t, window, need, 0, 0, des.x, des.y, uby, ubx, pl.H, pl.W, it_max, eps2,
+                       win_rt, sm, px, py);
+    next_x = px * (float)(1 << L);
+    next_y = py * (float)(1 << L);
+    if (timed) clocks[c + 2] = clock64();
+    __syncthreads();  // the window and the templates are rewritten by the next level
+  }
+
+  if (tid == 0) {
+    out_pts[2 * f] = next_x;
+    out_pts[2 * f + 1] = next_y;
+    out_status[f] = status && in_image(next_x, next_y, H0, W0, win);
+  }
+}
+
 // The instantiation for a side: one per odd side 3..31, else the looped one.
 #define LK_SIDES(X) \
   X(3) X(5) X(7) X(9) X(11) X(13) X(15) X(17) X(19) X(21) X(23) X(25) X(27) X(29) X(31)
 
 using LkFn = decltype(&lk_kernel<0>);
 using LevelFn = decltype(&lk_level_kernel<0>);
+using CompactFn = decltype(&lk_compact_kernel<0>);
 
 LkFn pick_lk(int win) {
   switch (win) {
@@ -427,12 +515,29 @@ LevelFn pick_level(int win) {
   }
 }
 
+CompactFn pick_compact(int win) {
+  switch (win) {
+#define LK_CASE(w) \
+  case w:          \
+    return lk_compact_kernel<w>;
+    LK_SIDES(LK_CASE)
+#undef LK_CASE
+    default:
+      return lk_compact_kernel<0>;
+  }
+}
+
 inline bool looped(int win) { return win > 31 || win % 2 == 0; }
 
 // Allow the looped instantiation's shared memory past 48 KB (large sides).
 template <typename K>
-int prepare(K kernel, int win, size_t* allowed) {
-  return looped(win) ? msckf::allow_smem(kernel, smem_floats(win) * sizeof(float), allowed) : 0;
+int prepare(K kernel, int win, size_t* allowed, size_t floats) {
+  return looped(win) ? msckf::allow_smem(kernel, floats * sizeof(float), allowed) : 0;
+}
+
+// The compact tracker's floats: smem_floats and the staged window.
+inline size_t compact_floats(int win) {
+  return smem_floats(win) + (size_t)(win + 1 + 2 * kMargin) * (win + 1 + 2 * kMargin);
 }
 
 }  // namespace
@@ -446,7 +551,7 @@ extern "C" int pyramidal_lk(const void* prev_pyr, const void* curr_pyr, int H0,
   if (win < 1) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
   const LkFn kernel = pick_lk(win);
-  const int err = prepare(kernel, win, &allowed);
+  const int err = prepare(kernel, win, &allowed, smem_floats(win));
   if (err != 0) return err;
   const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
   kernel<<<F, threads, smem_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
@@ -466,12 +571,33 @@ extern "C" int pyramidal_lk_level(const void* prev_pyr, int H0, int W0, const vo
   if (win < 1) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
   const LevelFn kernel = pick_level(win);
-  const int err = prepare(kernel, win, &allowed);
+  const int err = prepare(kernel, win, &allowed, smem_floats(win));
   if (err != 0) return err;
   const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
   kernel<<<F, threads, smem_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
       (const float*)prev_pyr, H0, W0, (const float*)prev_pts, (const float*)pts_in,
       (const uint8_t*)valid, (const float*)windows, (const int32_t*)des, L, it_max, eps2,
       min_eig, (float*)pts_out, (int32_t*)des_next, (uint8_t*)out_status, win);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pyramidal_lk_compact(const void* prev_pyr, const void* curr_pyr, int H0, int W0,
+                                    const void* prev_pts, const void* init_pts,
+                                    const void* valid, int F, int n_levels, int max_iter,
+                                    int max_iter_upper, float eps2, float min_eig,
+                                    void* out_pts, void* out_status, void* des_out,
+                                    void* clocks, int win, void* stream) {
+  static size_t allowed = 0;
+  if (win < 1 || n_levels < 1) return (int)cudaErrorInvalidValue;
+  if (F == 0) return 0;
+  const CompactFn kernel = pick_compact(win);
+  const int err = prepare(kernel, win, &allowed, compact_floats(win));
+  if (err != 0) return err;
+  const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
+  kernel<<<F, threads, compact_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
+      (const float*)prev_pyr, (const float*)curr_pyr, H0, W0, (const float*)prev_pts,
+      (const float*)init_pts, (const uint8_t*)valid, n_levels, max_iter, max_iter_upper, eps2,
+      min_eig, (float*)out_pts, (uint8_t*)out_status, (int32_t*)des_out, (long long*)clocks,
+      win);
   return (int)cudaGetLastError();
 }

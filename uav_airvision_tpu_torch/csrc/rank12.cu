@@ -66,23 +66,25 @@ constexpr unsigned kFull = 0xffffffffu;
 __host__ __device__ constexpr int tri(int a, int c) { return a * 12 - a * (a - 1) / 2 + c - a; }
 
 // Add a staged row [b | r] (13 values) to the 15 sums of row pair A:
-// B^T B (A, A..11), B^T r (A), B^T B (11-A, 11-A..11), B^T r (11-A)
-template <int A, typename T>
-__device__ __forceinline__ void add_row(const T* row, T (&acc)[15]) {
+// B^T B (A, A..11), B^T r (A), B^T B (11-A, 11-A..11), B^T r (11-A), in
+// the sums' type Acc (float64: each product of two floats is exact)
+template <int A, typename T, typename Acc>
+__device__ __forceinline__ void add_row(const T* row, Acc (&acc)[15]) {
   constexpr int A2 = 11 - A;
+  const Acc a = row[A], a2 = row[A2];
 #pragma unroll
-  for (int c = A; c < 12; ++c) acc[c - A] += row[A] * row[c];
-  acc[12 - A] += row[A] * row[12];
+  for (int c = A; c < 12; ++c) acc[c - A] += a * Acc(row[c]);
+  acc[12 - A] += a * Acc(row[12]);
 #pragma unroll
-  for (int c = A2; c < 12; ++c) acc[13 - A + c - A2] += row[A2] * row[c];
-  acc[14] += row[A2] * row[12];
+  for (int c = A2; c < 12; ++c) acc[13 - A + c - A2] += a2 * Acc(row[c]);
+  acc[14] += a2 * Acc(row[12]);
 }
 
 // The row pair's 15 sums over the warp (a butterfly: every lane, every
 // block, the same order), written by lane 0 to ``part`` (the upper triangle
 // of B^T B row by row, then B^T r).
-template <int A, typename T>
-__device__ __forceinline__ void store_sums(T (&acc)[15], int lane, T* part) {
+template <int A, typename Acc>
+__device__ __forceinline__ void store_sums(Acc (&acc)[15], int lane, Acc* part) {
   constexpr int A2 = 11 - A;
 #pragma unroll
   for (int e = 0; e < 15; ++e)
@@ -105,9 +107,9 @@ __device__ __forceinline__ int div_rows(int q, int d, unsigned magic) {
 // This block's staged features [i0, i1) (its own, every kCluster-th) that
 // fall to this lane (local feature i to lane i mod 32), included ones only
 // (``flag``: nullptr, every one), a feature's rows in order.
-template <int A, typename T>
+template <int A, typename T, typename Acc>
 __device__ __forceinline__ void add_rows(const T* stage, const int* flag, int i0, int i1,
-                                         int rows_per, int lane, T (&acc)[15]) {
+                                         int rows_per, int lane, Acc (&acc)[15]) {
   for (int i = i0 + ((lane - i0) & 31); i < i1; i += 32) {
     if (flag != nullptr && flag[i] == 0) continue;
     const T* row = stage + (i - i0) * rows_per * 13;
@@ -158,7 +160,7 @@ __device__ __forceinline__ void back_step(const T (&col)[12], T (&x)[12], const 
   x[I] = s * rdiag[I];
 }
 
-template <typename T>
+template <typename T, typename Acc, typename S>
 __global__ void __launch_bounds__(kThreads)
 rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_feat, int rows_per,
               long long hs_f, long long hs_r, const T* __restrict__ r, long long rs_f,
@@ -173,7 +175,9 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   T* PcG = tB + kTile * kPad;               // (Pc G)[I], then (Pc G)[J]
   T* stage = PcG + 2 * kTile * 12;          // a chunk of this block's features' rows [b | r]
   int* flag = reinterpret_cast<int*>(stage + chunk * rows_per * 13);  // its include flags
-  __shared__ T part[kSums], BtB[144], aug[12 * kA], G[144], bsr[12], rdiag[12];
+  __shared__ Acc part[kSums];
+  __shared__ S BtB[144], aug[12 * kA], rdiag[12];
+  __shared__ T G[144], bsr[12];
   __shared__ int cidx[12];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -239,9 +243,9 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
 
   // this block's share of B^T B and B^T r: a row pair a warp, a feature a
   // lane, chunk by chunk
-  T acc[15];
+  Acc acc[15];
 #pragma unroll
-  for (int e = 0; e < 15; ++e) acc[e] = T(0);
+  for (int e = 0; e < 15; ++e) acc[e] = Acc(0);
   for (int i0 = 0; i0 < n_loc; i0 += chunk) {
     const int i1 = min(n_loc, i0 + chunk);
     if (i0 > 0) {
@@ -274,17 +278,17 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   // same bits in every block
   cluster.sync();
   if (solver && tid < kSums) {
-    T s = T(0);
+    Acc s = Acc(0);
 #pragma unroll
     for (int k = 0; k < kCluster; ++k) s += cluster.map_shared_rank(part, k)[tid];
     if (tid < 78) {
       int a = 0;
       while (tid >= tri(a, 11) + 1) ++a;
       const int c = a + tid - tri(a, a);
-      BtB[a * 12 + c] = s;
-      BtB[c * 12 + a] = s;
+      BtB[a * 12 + c] = S(s);
+      BtB[c * 12 + a] = S(s);
     } else {
-      aug[(tid - 78) * kA + 12] = s;
+      aug[(tid - 78) * kA + 12] = S(s);
     }
   }
   // no block leaves while another may still read its partial sums (the
@@ -299,18 +303,18 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   if (timed) clocks[2] = clock64();
   if (tid < 144) {
     const int a = tid / 12, c = tid % 12;
-    T w = T(0);
-    for (int k = 0; k < 12; ++k) w += BtB[a * 12 + k] * Pc[cidx[k] * 12 + c];
-    aug[a * kA + c] = (a == c ? *obs_noise : T(0)) + w;
+    S w = S(0);
+    for (int k = 0; k < 12; ++k) w += BtB[a * 12 + k] * S(Pc[cidx[k] * 12 + c]);
+    aug[a * kA + c] = (a == c ? S(*obs_noise) : S(0)) + w;
     aug[a * kA + 13 + c] = BtB[tid];
   }
   __syncthreads();
   if (timed) clocks[3] = clock64();
 
   if (warp == 0) {  // the LU and the substitution, a column of [W | B'r | B'B] a lane
-    T col[12];
+    S col[12];
 #pragma unroll
-    for (int i = 0; i < 12; ++i) col[i] = lane < kA ? aug[i * kA + lane] : T(0);
+    for (int i = 0; i < 12; ++i) col[i] = lane < kA ? aug[i * kA + lane] : S(0);
     lu_step<0>(col, lane);
     lu_step<1>(col, lane);
     lu_step<2>(col, lane);
@@ -323,7 +327,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     lu_step<9>(col, lane);
     lu_step<10>(col, lane);
     lu_step<11>(col, lane);
-    T d = T(1);  // lane l < 12: U's diagonal entry l
+    S d = S(1);  // lane l < 12: U's diagonal entry l
 #pragma unroll
     for (int i = 0; i < 12; ++i)
       if (lane == i) d = col[i];
@@ -334,7 +338,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     }
     __syncwarp();
     if (lane >= 12 && lane < kA) {
-      T x[12];
+      S x[12];
       back_step<11>(col, x, aug, rdiag);
       back_step<10>(col, x, aug, rdiag);
       back_step<9>(col, x, aug, rdiag);
@@ -355,9 +359,9 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   if (timed) clocks[4] = clock64();
   if (tid < 144) {
     const int a = tid / 12, c = tid % 12;
-    G[tid] = (aug[a * kA + 13 + c] + aug[c * kA + 13 + a]) / T(2);
+    G[tid] = T((aug[a * kA + 13 + c] + aug[c * kA + 13 + a]) / S(2));
   } else if (tid < 156) {
-    bsr[tid - 144] = aug[(tid - 144) * kA + 12];
+    bsr[tid - 144] = T(aug[(tid - 144) * kA + 12]);
   }
   __syncthreads();
 
@@ -426,13 +430,15 @@ int launch(const void* P, int D, const void* Bm, int n_feat, int rows_per, long 
            void* clocks, void* stream) {
   static size_t smem_allowed = 0;
   if (D < 12 || n_feat < 1 || rows_per < 1) return (int)cudaErrorInvalidValue;
+  // the sums of B'B and B'r and the 12 x 12 system in float64 for both types
+  const auto kernel = rank12_kernel<T, double, double>;
   const int n_loc = (n_feat + kCluster - 1) / kCluster;  // rank 0's features, the most
   const int per_chunk = kStageBytes / (13 * (int)sizeof(T) * rows_per);
   const int chunk = per_chunk < 1 ? 1 : (per_chunk < n_loc ? per_chunk : n_loc);
   const size_t smem = ((size_t)D * 12 + 2 * kTile * kPad + 2 * kTile * 12 +
                        (size_t)chunk * rows_per * 13) * sizeof(T) +
                       (include != nullptr ? (size_t)n_loc * sizeof(int) : 0);
-  const int err = msckf::allow_smem(rank12_kernel<T>, smem, &smem_allowed);
+  const int err = msckf::allow_smem(kernel, smem, &smem_allowed);
   if (err != 0) return err;
   const int nt = (D + kTile - 1) / kTile, n_pairs = nt * (nt + 1) / 2;
   cudaLaunchConfig_t cfg = {};
@@ -450,7 +456,7 @@ int launch(const void* P, int D, const void* Bm, int n_feat, int rows_per, long 
   const msckf::InjectIn<T> state{(const T*)q, (const T*)bg, (const T*)v, (const T*)ba,
                                  (const T*)p, (const T*)R, (const T*)t, (const T*)cam_q,
                                  (const T*)cam_p, (const int*)count, N};
-  cudaLaunchKernelEx(&cfg, rank12_kernel<T>, (const T*)P, D, (const T*)Bm, n_feat, rows_per,
+  cudaLaunchKernelEx(&cfg, kernel, (const T*)P, D, (const T*)Bm, n_feat, rows_per,
                      hs_f, hs_r, (const T*)r, rs_f, rs_r, (const bool*)include,
                      (const int64_t*)cols, (const T*)obs_noise, chunk, (T*)out + (size_t)D * D,
                      (T*)out, state, (uint8_t*)too_large, (long long*)clocks);

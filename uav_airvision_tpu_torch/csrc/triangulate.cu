@@ -3,13 +3,15 @@
 //
 // Replaces uav_airvision_tpu/models/msckf/triangulation.py::triangulate
 // (:159, in its static form _triangulate_static :235) together with
-// build_views (:41).  The JAX package materialises (B, 2N, 3, 3) view
-// rotations and vmaps the solve over features.  Here a warp takes one
-// feature and each lane the camera slots lane, lane + 32, ... (both stereo
-// views of each, in registers: kSlots = 2, 4 or 8 slots a lane, chosen
-// from N at the launch; past 256 slots a lane rebuilds a slot's views from
-// the window each time it needs them, the same arithmetic); warp-shuffle
-// sums give the 3x3 normal equations and the cost.  The recurrence is the static form's:
+// build_views (:41); the row entry also replaces its call site, JAX
+// step.py::_triangulate_one (:175) with check_motion (triangulation.py:294)
+// and the back-end's gathers and scatters around it.  The JAX package
+// materialises (B, 2N, 3, 3) view rotations and vmaps the solve over
+// features.  Here a warp takes one feature and each lane the camera slots
+// lane, lane + 32, ... (both stereo views of each, in registers: kSlots =
+// 2, 4 or 8 slots a lane, chosen from N at the launch; past 256 slots a
+// lane rebuilds a slot's views from the window each time it needs them,
+// the same arithmetic).  The recurrence is the static form's:
 //   - at most inner_loop_max_iteration damped solves in total, the inner
 //     counter shared across outer iterations;
 //   - a new linearisation only at a group start (the first step and after
@@ -17,33 +19,92 @@
 //   - Huber weights eps / (2 e), lambda clamped to [1e-10, 1e12], the
 //     Cramer 3x3 solve with the |det| > 1e-30 guard;
 //   - a feature with active = 0 keeps the closed-form initial guess.
-// A warp whose feature has stopped leaves the loop: nothing it holds
-// changes after that, so the early exit is exact.
+// The fused passes (the row entry): one pass over the lane's slots at a
+// point gives the cost AND the Huber-weighted normal equations there (the
+// projection and its divisions shared), and one round of warp shuffles sums
+// all ten: at x0, then at every trial point.  A step the cost accepts starts
+// the next group at that point, whose sums are then already there; a
+// refused step's are dropped.  So a feature takes at most
+// 1 + inner_loop_max_iteration rounds of sums, not up to two a step, and
+// every slot's arithmetic and the warp's sum order are those of a pass of
+// each kind: the results are the same bits as the separate passes'.  A
+// warp whose feature has stopped leaves the loop: nothing it holds changes
+// after that, so the early exit is exact.
+//
+// Two entry points.  ``triangulate_*``: B features, row b of obs /
+// obs_mask, positions and validity out, with the separate passes (a cost
+// pass a step, a normal-equations pass a group) of the kernel before the
+// fused form: the row entry's witness, bit for bit, in the tests and in
+// chip_smoke.py.  ``triangulate_rows_*``: the back-end's call site in the
+// launch, with the fused passes.  Warp b takes map row sel[b] of the
+// feature table (obs (M, N, 4), obs_mask (M, N)); it is triangulated when
+// need_init = sel_ok[b] & ~initialized[sel[b]] and, when the motion check
+// is on (threshold >= 0), the camera's translation from the feature's
+// first to its last observing slot, orthogonal to the first observation's
+// ray in the world, exceeds the threshold (the warp's two ballots find
+// the slots).  It writes row sel[b] of the new position and initialized
+// columns (the triangulated position where that succeeded, else the old
+// row) and init_fail[b] = need_init & ~(motion & valid).  The launch's
+// last blocks copy every other row of the two columns (each builds a
+// bitmap of sel in shared memory), so that no row is written twice and
+// the inputs stay as they were; sel holds distinct rows (the back-end's
+// smallest-k selection).
 //
 // Bound on the card: bytes (a feature reads ~0.5 KB and does ~20 kFLOP),
-// both far below a launch; the chain of ~15 dependent warp reductions
-// sets its time.
+// both far below a launch; the chain of passes (a pass: a slot's two views
+// through some twenty divisions, then five shuffle levels), at most six in
+// the fused form (inner_loop_max_iteration = 5), sets its time.
 //
 // ``clocks`` (9 int64 or null): the SM clock of block 0's first warp at its
-// start, after the anchor and the views, after the initial guess and cost;
-// the cycles it spent in the normal equations, the solves and the trial
-// costs (summed over its steps); the clock after the loop and after the
-// finish; the number of steps it took.
+// start, after the anchor and the views, after the initial guess and its
+// pass; the cycles it spent in the normal equations' own passes (none in
+// the fused form), the solves and the trial passes (summed over its
+// steps); the clock after the loop and after the finish; the number of
+// steps it took.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "msckf_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;  // features per block
+constexpr int kCopyRows = 1024;  // rows a copy block of the row entry takes
 
 template <typename T>
 struct View {
   T R[9];  // x_view = R x_anchor + t
   T t[3];
+};
+
+template <typename T>
+struct Args {
+  const T *cam_q, *cam_p;
+  int N;
+  const T* obs;               // (B or M, N, 4)
+  const uint8_t* obs_mask;    // (B or M, N)
+  const T *R_c0c1, *t_c0c1;
+  int B;
+  T huber_eps, precision, damping, motion_thr;  // motion_thr < 0: no motion check
+  int outer_max, inner_max;
+  // triangulate_*: active (B,) or null; pos (B, 3), ok (B,)
+  const uint8_t* active;
+  T* pos;
+  uint8_t* ok;
+  // triangulate_rows_*: sel (B,) map rows, sel_ok (B,); the table's
+  // position (M, 3) and initialized (M,); their new columns and init_fail (B,)
+  const int64_t* sel;
+  const uint8_t* sel_ok;
+  const T* position;
+  const uint8_t* initialized;
+  int M;
+  T* pos_out;
+  uint8_t *init_out, *fail_out;
+  long long* clocks;
 };
 
 // A camera's pose relative to the anchor (build_views' rel).
@@ -91,40 +152,106 @@ __device__ inline void cross(const T a[3], const T b[3], T c[3]) {
   c[2] = a[0] * b[1] - a[1] * b[0];
 }
 
-template <typename T, int kSlots>
-__global__ void __launch_bounds__(kWarps * 32)
-triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int N,
-                   const T* __restrict__ obs, const uint8_t* __restrict__ obs_mask,
-                   const T* __restrict__ R_c0c1, const T* __restrict__ t_c0c1,
-                   const uint8_t* __restrict__ active, int B, T huber_eps, T precision,
-                   T damping, int outer_max, int inner_max, T* __restrict__ pos,
-                   uint8_t* __restrict__ ok, long long* __restrict__ clocks) {
+// The motion check (triangulation.py::check_motion) of a feature whose
+// first and last observing slots are ``first`` and ``last``, z its first
+// observation.
+template <typename T>
+__device__ bool motion_ok(const T* cam_q, const T* cam_p, int first, int last, const T* z,
+                          T thr) {
+  T Rw[9];
+  msckf::to_rotation(cam_q + 4 * first, Rw);
+  const T d0 = z[0], d1 = z[1], d2 = T(1);
+  const T n = sqrt(d0 * d0 + d1 * d1 + d2 * d2);
+  const T u[3] = {d0 / n, d1 / n, d2 / n};
+  T dir[3], tr[3];
+  for (int i = 0; i < 3; ++i) {  // the ray in the world: Rw^T u
+    dir[i] = Rw[i] * u[0] + Rw[3 + i] * u[1] + Rw[6 + i] * u[2];
+    tr[i] = cam_p[3 * last + i] - cam_p[3 * first + i];
+  }
+  const T par = tr[0] * dir[0] + tr[1] * dir[1] + tr[2] * dir[2];
+  const T o[3] = {tr[0] - par * dir[0], tr[1] - par * dir[1], tr[2] - par * dir[2]};
+  return sqrt(o[0] * o[0] + o[1] * o[1] + o[2] * o[2]) > thr;
+}
+
+// The row entry's copy blocks: every row of position and initialized that
+// sel does not name, as it is.
+template <typename T>
+__device__ void copy_rows(const Args<T>& a, int cb) {
+  extern __shared__ uint32_t named[];  // a bit per map row
+  const int words = (a.M + 31) / 32;
+  for (int w = threadIdx.x; w < words; w += blockDim.x) named[w] = 0u;
+  __syncthreads();
+  for (int b = threadIdx.x; b < a.B; b += blockDim.x) {
+    const int64_t m = a.sel[b];
+    if (m >= 0 && m < a.M) atomicOr(&named[m >> 5], 1u << (m & 31));
+  }
+  __syncthreads();
+  const int m0 = cb * kCopyRows, m1 = min(a.M, m0 + kCopyRows);
+  for (int e = 3 * m0 + threadIdx.x; e < 3 * m1; e += blockDim.x) {
+    const int m = e / 3;
+    if (((named[m >> 5] >> (m & 31)) & 1u) == 0u) a.pos_out[e] = a.position[e];
+  }
+  for (int m = m0 + threadIdx.x; m < m1; m += blockDim.x)
+    if (((named[m >> 5] >> (m & 31)) & 1u) == 0u) a.init_out[m] = a.initialized[m];
+}
+
+template <typename T, int kSlots, bool kFused>
+__global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> a) {
+  const int n_blocks = (a.B + kWarps - 1) / kWarps;
+  if ((int)blockIdx.x >= n_blocks) {  // uniform over the block
+    copy_rows(a, (int)blockIdx.x - n_blocks);
+    return;
+  }
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;  // the whole warp
+  if (b >= a.B) return;  // the whole warp
+  const int N = a.N;
+  const T *cam_q = a.cam_q, *cam_p = a.cam_p;
   // the phase clocks of block 0's first warp (uniform over the warp)
-  const bool timed = clocks != nullptr && b == 0;
+  const bool timed = a.clocks != nullptr && b == 0;
   const bool store = timed && lane == 0;
   long long tick = timed ? clock64() : 0, ne_cyc = 0, solve_cyc = 0, trial_cyc = 0;
-  if (store) clocks[0] = tick;
-  const T* z_b = obs + (size_t)b * N * 4;
-  const uint8_t* m_b = obs_mask + (size_t)b * N;
+  if (store) a.clocks[0] = tick;
+  const bool rows = a.sel != nullptr;
+  const int64_t row = rows ? a.sel[b] : b;
+  const T* z_b = a.obs + (size_t)row * N * 4;
+  const uint8_t* m_b = a.obs_mask + (size_t)row * N;
 
-  // cam1 -> cam0: R_c1_c0 = R_c0c1^T, t_c1_c0 = -R_c0c1^T t_c0c1
-  T Rc1c0[9], tc1c0[3];
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) Rc1c0[3 * i + j] = R_c0c1[3 * j + i];
-    tc1c0[i] = (-R_c0c1[i]) * t_c0c1[0] + (-R_c0c1[3 + i]) * t_c0c1[1] +
-               (-R_c0c1[6 + i]) * t_c0c1[2];
-  }
-  // the anchor: the first observing slot's cam0 (slot 0 if none)
-  int first = -1;
+  // the first and last observing slots (0 and N - 1 if none)
+  int first = -1, last = -1;
   for (int s0 = 0; s0 < N; s0 += 32) {
     const int s = s0 + lane;
     const unsigned bal = __ballot_sync(0xffffffffu, s < N && m_b[s] != 0);
     if (bal != 0u && first < 0) first = s0 + __ffs((int)bal) - 1;
+    if (bal != 0u) last = s0 + 31 - __clz((int)bal);
   }
   if (first < 0) first = 0;
+  if (last < 0) last = N - 1;
+  bool alive = true, moved = true;
+  if (rows) {  // the call site: need_init, then the motion check
+    alive = a.sel_ok[b] != 0 && a.initialized[row] == 0;
+    if (alive && a.motion_thr >= T(0))
+      moved = motion_ok(cam_q, cam_p, first, last, z_b + 4 * first, a.motion_thr);
+    if (!(alive && moved)) {  // the row stays as it is
+      if (lane == 0) {
+        for (int i = 0; i < 3; ++i) a.pos_out[3 * row + i] = a.position[3 * row + i];
+        a.init_out[row] = a.initialized[row];
+        a.fail_out[b] = alive ? 1 : 0;
+      }
+      return;
+    }
+  } else {
+    alive = a.active == nullptr || a.active[b] != 0;
+  }
+
+  // cam1 -> cam0: R_c1_c0 = R_c0c1^T, t_c1_c0 = -R_c0c1^T t_c0c1
+  T Rc1c0[9], tc1c0[3];
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) Rc1c0[3 * i + j] = a.R_c0c1[3 * j + i];
+    tc1c0[i] = (-a.R_c0c1[i]) * a.t_c0c1[0] + (-a.R_c0c1[3 + i]) * a.t_c0c1[1] +
+               (-a.R_c0c1[6 + i]) * a.t_c0c1[2];
+  }
+  // the anchor: the first observing slot's cam0
   T Rw[9], Ra[9], ta[3];
   msckf::to_rotation(cam_q + 4 * first, Rw);
   for (int i = 0; i < 3; ++i) {
@@ -147,7 +274,7 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
       for (int c = 0; c < 4; ++c) z[k][c] = z_b[4 * s + c];
     }
   }
-  if (store) clocks[1] = clock64();
+  if (store) a.clocks[1] = clock64();
   // f(views, z) for each observing slot of this lane, in slot order
   auto for_slots = [&](auto&& f) {
     if constexpr (kSlots > 0) {
@@ -184,44 +311,24 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
     x[2] = T(1) / p[2];
   }
 
-  auto total_cost = [&](const T xx[3]) -> T {
-    T acc = T(0);
+  // The cost (kCost) and the Huber-weighted normal equations A (A00 A01 A02
+  // A11 A12 A22), b (kNe) at xx: one pass over the lane's slots, one round
+  // of sums.  A pass of either kind alone does the same arithmetic and the
+  // same sums as a pass of both.
+  auto pass = [&](auto cost_tag, auto ne_tag, const T xx[3], T& cost_out, T (&A_out)[6],
+                  T (&b_out)[3]) {
+    constexpr bool kCost = decltype(cost_tag)::value, kNe = decltype(ne_tag)::value;
+    T acc[10] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
     for_slots([&](const View<T>* vs, const T* zs) {
       for (int c = 0; c < 2; ++c) {
+        const View<T>& v = vs[c];
         T h[3];
-        project(vs[c], xx, h);
-        const T d0 = h[0] / h[2] - zs[2 * c], d1 = h[1] / h[2] - zs[2 * c + 1];
-        acc += d0 * d0 + d1 * d1;
-      }
-    });
-    return msckf::warp_sum(acc);
-  };
-
-  T lam = damping;
-  T cost = total_cost(x);
-  if (store) clocks[2] = clock64();
-  int steps = 0;
-  bool alive = active == nullptr || active[b] != 0;
-  T dnorm = alive ? T(INFINITY) : T(0);
-  bool group_start = true;
-  int outer = 0;
-  T A[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};  // A00 A01 A02 A11 A12 A22
-  T bv[3] = {T(0), T(0), T(0)};
-  for (int it = 0; it < inner_max; ++it) {
-    if (group_start) {
-      alive = alive && outer < outer_max && dnorm > precision;
-    }
-    if (!alive) break;
-    ++steps;
-    if (timed) tick = clock64();
-    if (group_start) {  // Huber-weighted normal equations at x
-      T acc[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-      for_slots([&](const View<T>* vs, const T* zs) {
-        for (int c = 0; c < 2; ++c) {
-          const View<T>& v = vs[c];
-          T h[3];
-          project(v, x, h);
-          const T h3 = h[2], hh = h3 * h3;
+        project(v, xx, h);
+        const T h3 = h[2];
+        const T r0 = h[0] / h3 - zs[2 * c], r1 = h[1] / h3 - zs[2 * c + 1];
+        if constexpr (kCost) acc[9] += r0 * r0 + r1 * r1;
+        if constexpr (kNe) {
+          const T hh = h3 * h3;
           const T W0[3] = {v.R[0], v.R[1], v.t[0]}, W1[3] = {v.R[3], v.R[4], v.t[1]};
           const T W2[3] = {v.R[6], v.R[7], v.t[2]};
           T J0[3], J1[3];
@@ -229,9 +336,8 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
             J0[i] = W0[i] / h3 - W2[i] * (h[0] / hh);
             J1[i] = W1[i] / h3 - W2[i] * (h[1] / hh);
           }
-          const T r0 = h[0] / h3 - zs[2 * c], r1 = h[1] / h3 - zs[2 * c + 1];
           const T e = sqrt(r0 * r0 + r1 * r1);
-          const T w = e <= huber_eps ? T(1) : huber_eps / (T(2) * e);
+          const T w = e <= a.huber_eps ? T(1) : a.huber_eps / (T(2) * e);
           const T w2 = w * w;
           acc[0] += w2 * J0[0] * J0[0] + w2 * J1[0] * J1[0];
           acc[1] += w2 * J0[0] * J0[1] + w2 * J1[0] * J1[1];
@@ -241,14 +347,45 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
           acc[5] += w2 * J0[2] * J0[2] + w2 * J1[2] * J1[2];
           for (int i = 0; i < 3; ++i) acc[6 + i] += w2 * J0[i] * r0 + w2 * J1[i] * r1;
         }
-      });
-      for (int i = 0; i < 6; ++i) A[i] = msckf::warp_sum(acc[i]);
-      for (int i = 0; i < 3; ++i) bv[i] = msckf::warp_sum(acc[6 + i]);
+      }
+    });
+    if constexpr (kNe) {
+      for (int i = 0; i < 6; ++i) A_out[i] = msckf::warp_sum(acc[i]);
+      for (int i = 0; i < 3; ++i) b_out[i] = msckf::warp_sum(acc[6 + i]);
+    }
+    if constexpr (kCost) cost_out = msckf::warp_sum(acc[9]);
+  };
+  constexpr std::true_type kYes{};
+  constexpr std::false_type kNo{};
+  // the fused form's passes: both kinds at once; the parent's: the cost only
+  constexpr std::bool_constant<kFused> kTrialNe{};
+
+  T lam = a.damping, cost;
+  T A[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};  // the normal equations of the current group
+  T bv[3] = {T(0), T(0), T(0)};
+  pass(kYes, kTrialNe, x, cost, A, bv);
+  if (store) a.clocks[2] = clock64();
+  int steps = 0;
+  T dnorm = alive ? T(INFINITY) : T(0);
+  bool group_start = true;
+  int outer = 0;
+  for (int it = 0; it < a.inner_max; ++it) {
+    if (group_start) {
+      alive = alive && outer < a.outer_max && dnorm > a.precision;
+    }
+    if (!alive) break;
+    ++steps;
+    if (timed) tick = clock64();
+    if (group_start) {
       ++outer;
-      if (timed) {
-        const long long t = clock64();
-        ne_cyc += t - tick;
-        tick = t;
+      if constexpr (!kFused) {  // the normal equations at x, a pass of their own
+        T unused;
+        pass(kNo, kYes, x, unused, A, bv);
+        if (timed) {
+          const long long t = clock64();
+          ne_cyc += t - tick;
+          tick = t;
+        }
       }
     }
     // one damped solve (A + lam I) delta = b by Cramer's rule
@@ -273,12 +410,17 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
       solve_cyc += t - tick;
       tick = t;
     }
-    const T cost_new = total_cost(x_new);
+    T cost_new, A_new[6], b_new[3];
+    pass(kYes, kTrialNe, x_new, cost_new, A_new, b_new);
     if (timed) trial_cyc += clock64() - tick;
     const bool better = cost_new < cost;
-    if (better) {
+    if (better) {  // the fused form: the next group starts at x_new, with its sums
       for (int i = 0; i < 3; ++i) x[i] = x_new[i];
       cost = cost_new;
+      if constexpr (kFused) {
+        for (int i = 0; i < 6; ++i) A[i] = A_new[i];
+        for (int i = 0; i < 3; ++i) bv[i] = b_new[i];
+      }
       const T l = lam / T(10);
       lam = l < T(1e-10) ? T(1e-10) : l;
     } else {
@@ -288,14 +430,14 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
     dnorm = dnorm_new;
     group_start = better;
   }
-
   if (store) {
-    clocks[3] = ne_cyc;
-    clocks[4] = solve_cyc;
-    clocks[5] = trial_cyc;
-    clocks[6] = clock64();
-    clocks[8] = steps;
+    a.clocks[3] = ne_cyc;
+    a.clocks[4] = solve_cyc;
+    a.clocks[5] = trial_cyc;
+    a.clocks[6] = clock64();
+    a.clocks[8] = steps;
   }
+
   // back to the world frame; every observing view must see it in front
   const T fin[3] = {x[0] / x[2], x[1] / x[2], T(1) / x[2]};
   bool good = true;
@@ -308,48 +450,140 @@ triangulate_kernel(const T* __restrict__ cam_q, const T* __restrict__ cam_p, int
   });
   good = __all_sync(0xffffffffu, good);
   if (lane == 0) {
+    T pw[3];
     for (int i = 0; i < 3; ++i)
-      pos[3 * b + i] = (Ra[3 * i] * fin[0] + Ra[3 * i + 1] * fin[1] + Ra[3 * i + 2] * fin[2]) + ta[i];
-    ok[b] = good ? 1 : 0;
-    if (store) clocks[7] = clock64();
+      pw[i] = (Ra[3 * i] * fin[0] + Ra[3 * i + 1] * fin[1] + Ra[3 * i + 2] * fin[2]) + ta[i];
+    if (rows) {  // alive and moved: the row takes the position where it is valid
+      for (int i = 0; i < 3; ++i) a.pos_out[3 * row + i] = good ? pw[i] : a.position[3 * row + i];
+      a.init_out[row] = good ? 1 : 0;
+      a.fail_out[b] = good ? 0 : 1;
+    } else {
+      for (int i = 0; i < 3; ++i) a.pos[3 * b + i] = pw[i];
+      a.ok[b] = good ? 1 : 0;
+    }
+    if (store) a.clocks[7] = clock64();
   }
 }
 
+// The instantiation for kSlots index k (2, 4, 8 slots a lane, or rebuilt).
+template <typename T, bool kFused>
+auto pick(int k) {
+  return k == 0 ? triangulate_kernel<T, 2, kFused>
+         : k == 1 ? triangulate_kernel<T, 4, kFused>
+         : k == 2 ? triangulate_kernel<T, 8, kFused> : triangulate_kernel<T, 0, kFused>;
+}
+
 template <typename T>
-int launch(const void* cam_q, const void* cam_p, int N, const void* obs, const void* obs_mask,
-           const void* R_c0c1, const void* t_c0c1, const void* active, int B, double huber_eps,
-           double precision, double damping, int outer_max, int inner_max, void* pos, void* ok,
-           void* clocks, void* stream) {
-  if (N < 1) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
+int launch(const Args<T>& a, void* stream) {
+  static size_t allowed[4] = {0, 0, 0, 0};  // the row entry's kernels
+  if (a.N < 1) return (int)cudaErrorInvalidValue;
+  const int n_blocks = (a.B + kWarps - 1) / kWarps;
+  const int n_copy = a.sel != nullptr ? (a.M + kCopyRows - 1) / kCopyRows : 0;
+  if (n_blocks + n_copy == 0) return 0;
   // slots a lane holds in registers: 2, 4 or 8; past 256 slots, rebuilt at each use
-  auto kernel = N <= 64 ? triangulate_kernel<T, 2>
-                : N <= 128 ? triangulate_kernel<T, 4>
-                : N <= 256 ? triangulate_kernel<T, 8> : triangulate_kernel<T, 0>;
-  kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const T*)cam_q, (const T*)cam_p, N, (const T*)obs, (const uint8_t*)obs_mask,
-      (const T*)R_c0c1, (const T*)t_c0c1, (const uint8_t*)active, B, (T)huber_eps,
-      (T)precision, (T)damping, outer_max, inner_max, (T*)pos, (uint8_t*)ok,
-      (long long*)clocks);
+  const int k = a.N <= 64 ? 0 : a.N <= 128 ? 1 : a.N <= 256 ? 2 : 3;
+  auto kernel = pick<T, false>(k);
+  if (a.sel != nullptr) kernel = pick<T, true>(k);  // the row entry: the fused passes
+  // the copy blocks' bitmap of sel
+  const size_t smem = n_copy > 0 ? (size_t)(a.M + 31) / 32 * sizeof(uint32_t) : 0;
+  const int err = msckf::allow_smem(kernel, smem, &allowed[k]);
+  if (err != 0) return err;
+  kernel<<<n_blocks + n_copy, kWarps * 32, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+Args<T> common(const void* cam_q, const void* cam_p, int N, const void* obs,
+               const void* obs_mask, const void* R_c0c1, const void* t_c0c1, int B,
+               double huber_eps, double precision, double damping, int outer_max,
+               int inner_max, void* clocks) {
+  Args<T> a = {};
+  a.cam_q = (const T*)cam_q;
+  a.cam_p = (const T*)cam_p;
+  a.N = N;
+  a.obs = (const T*)obs;
+  a.obs_mask = (const uint8_t*)obs_mask;
+  a.R_c0c1 = (const T*)R_c0c1;
+  a.t_c0c1 = (const T*)t_c0c1;
+  a.B = B;
+  a.huber_eps = (T)huber_eps;
+  a.precision = (T)precision;
+  a.damping = (T)damping;
+  a.motion_thr = T(-1);
+  a.outer_max = outer_max;
+  a.inner_max = inner_max;
+  a.clocks = (long long*)clocks;
+  return a;
+}
+
+template <typename T>
+int triangulate(const void* cam_q, const void* cam_p, int N, const void* obs,
+                const void* obs_mask, const void* R_c0c1, const void* t_c0c1,
+                const void* active, int B, double huber_eps, double precision, double damping,
+                int outer_max, int inner_max, void* pos, void* ok, void* clocks, void* stream) {
+  Args<T> a = common<T>(cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, B, huber_eps,
+                        precision, damping, outer_max, inner_max, clocks);
+  a.active = (const uint8_t*)active;
+  a.pos = (T*)pos;
+  a.ok = (uint8_t*)ok;
+  return launch(a, stream);
+}
+
+template <typename T>
+int triangulate_rows(const void* cam_q, const void* cam_p, int N, const void* obs,
+                     const void* obs_mask, int M, const void* position,
+                     const void* initialized, const void* sel, const void* sel_ok, int B,
+                     const void* R_c0c1, const void* t_c0c1, double huber_eps,
+                     double precision, double damping, int outer_max, int inner_max,
+                     double motion_thr, void* pos_out, void* init_out, void* fail_out,
+                     void* clocks, void* stream) {
+  Args<T> a = common<T>(cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, B, huber_eps,
+                        precision, damping, outer_max, inner_max, clocks);
+  a.motion_thr = (T)motion_thr;
+  a.sel = (const int64_t*)sel;
+  a.sel_ok = (const uint8_t*)sel_ok;
+  a.position = (const T*)position;
+  a.initialized = (const uint8_t*)initialized;
+  a.M = M;
+  a.pos_out = (T*)pos_out;
+  a.init_out = (uint8_t*)init_out;
+  a.fail_out = (uint8_t*)fail_out;
+  return launch(a, stream);
 }
 
 }  // namespace
 
-extern "C" int triangulate_f32(const void* cam_q, const void* cam_p, int N, const void* obs,
-                               const void* obs_mask, const void* R_c0c1, const void* t_c0c1,
-                               const void* active, int B, double huber_eps, double precision,
-                               double damping, int outer_max, int inner_max, void* pos,
-                               void* ok, void* clocks, void* stream) {
-  return launch<float>(cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B, huber_eps,
-                       precision, damping, outer_max, inner_max, pos, ok, clocks, stream);
-}
+// cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B, huber_eps,
+// precision, damping, outer_max, inner_max, pos, ok, clocks, stream
+#define TRIANGULATE_ENTRY(NAME, T)                                                          \
+  extern "C" int NAME(const void* cam_q, const void* cam_p, int N, const void* obs,         \
+                      const void* obs_mask, const void* R_c0c1, const void* t_c0c1,         \
+                      const void* active, int B, double huber_eps, double precision,        \
+                      double damping, int outer_max, int inner_max, void* pos, void* ok,    \
+                      void* clocks, void* stream) {                                         \
+    return triangulate<T>(cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B,        \
+                          huber_eps, precision, damping, outer_max, inner_max, pos, ok,     \
+                          clocks, stream);                                                  \
+  }
+TRIANGULATE_ENTRY(triangulate_f32, float)
+TRIANGULATE_ENTRY(triangulate_f64, double)
 
-extern "C" int triangulate_f64(const void* cam_q, const void* cam_p, int N, const void* obs,
-                               const void* obs_mask, const void* R_c0c1, const void* t_c0c1,
-                               const void* active, int B, double huber_eps, double precision,
-                               double damping, int outer_max, int inner_max, void* pos,
-                               void* ok, void* clocks, void* stream) {
-  return launch<double>(cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B, huber_eps,
-                        precision, damping, outer_max, inner_max, pos, ok, clocks, stream);
-}
+// cam_q, cam_p, N, obs, obs_mask, M, position, initialized, sel, sel_ok, B,
+// R_c0c1, t_c0c1, huber_eps, precision, damping, outer_max, inner_max,
+// motion_thr (< 0: off), position_out, initialized_out, init_fail_out,
+// clocks, stream
+#define TRIANGULATE_ROWS_ENTRY(NAME, T)                                                      \
+  extern "C" int NAME(const void* cam_q, const void* cam_p, int N, const void* obs,          \
+                      const void* obs_mask, int M, const void* position,                     \
+                      const void* initialized, const void* sel, const void* sel_ok, int B,   \
+                      const void* R_c0c1, const void* t_c0c1, double huber_eps,              \
+                      double precision, double damping, int outer_max, int inner_max,        \
+                      double motion_thr, void* pos_out, void* init_out, void* fail_out,      \
+                      void* clocks, void* stream) {                                          \
+    return triangulate_rows<T>(cam_q, cam_p, N, obs, obs_mask, M, position, initialized,     \
+                               sel, sel_ok, B, R_c0c1, t_c0c1, huber_eps, precision,         \
+                               damping, outer_max, inner_max, motion_thr, pos_out, init_out, \
+                               fail_out, clocks, stream);                                    \
+  }
+TRIANGULATE_ROWS_ENTRY(triangulate_rows_f32, float)
+TRIANGULATE_ROWS_ENTRY(triangulate_rows_f64, double)

@@ -65,6 +65,10 @@ SIGNATURES = {
     # prev_pyr, H0, W0, prev_pts, pts_in, valid, windows, des, F, L, it_max,
     # eps2, min_eig, pts_out, des_next, out_status, win, stream
     "pyramidal_lk_level": [P, I, I, P, P, P, P, P, I, I, I, F, F, P, P, P, I, P],
+    # prev_pyr, curr_pyr, H0, W0, prev_pts, init_pts, valid, F, n_levels,
+    # max_iter, max_iter_upper, eps2, min_eig, out_pts, out_status, des_out,
+    # clocks, win, stream
+    "pyramidal_lk_compact": [P, P, I, I, P, P, P, I, I, I, I, F, F, P, P, P, P, I, P],
     # img, HP, WP, oy, ox, origin stride, F, n, out, stream
     "extract_windows": [P, I, I, P, P, I, I, I, P, P],
     # imu_t, imu_w, imu_a, imu_mask, I, q, p, v, bg, ba, q_null, p_null,
@@ -76,6 +80,13 @@ SIGNATURES = {
     # precision, damping, outer_max, inner_max, pos_out, ok_out, clocks, stream
     "triangulate_f32": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P, P],
     "triangulate_f64": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P, P],
+    # cam_q, cam_p, N, obs, obs_mask, M, position, initialized, sel, sel_ok,
+    # B, R_c0c1, t_c0c1, huber_eps, precision, damping, outer_max, inner_max,
+    # motion_thr, position_out, initialized_out, init_fail_out, clocks, stream
+    "triangulate_rows_f32": [P, P, I, P, P, I, P, P, P, P, I, P, P, D, D, D, I, I, D, P, P, P,
+                             P, P],
+    "triangulate_rows_f64": [P, P, I, P, P, I, P, P, P, P, I, P, P, D, D, D, I, I, D, P, P, P,
+                             P, P],
     # cams_q, cams_p, cams_qn, cams_pn, rm, N, Nw, obs, obs_mask, p_w, sel,
     # proc, gravity, R_c0c1, t_c0c1, B, H_out, r_out, rows_out, clocks, stream
     "feature_block_f32": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, P, P],

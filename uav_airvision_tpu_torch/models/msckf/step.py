@@ -16,7 +16,6 @@ from typing import NamedTuple
 
 import torch
 
-from ... import kernels
 from ...config import Config
 from ...device import to_host
 from ...ops.gridops import set_drop, smallest_k_indices, stable_compact_indices
@@ -161,25 +160,13 @@ def _triangulate_selected(state: FilterState, params: MsckfParams, config: Confi
                           sel_ok):
     """Triangulate the not-yet-initialized features among ``sel`` over all
     their observations, behind the motion check where it is on; returns
-    (state with positions, init_fail)."""
+    (state with positions, init_fail).  One K13 launch on the card."""
     table, cams = state.features, state.cams
-    need_init = sel_ok & ~table.initialized[sel]
-    obs_mask = table.obs_mask[sel]
-    new_pos, tri_ok = tri.triangulate(cams.q, cams.p, table.obs[sel], obs_mask,
-                                      params.R_cam0_cam1, params.t_cam0_cam1,
-                                      config.triangulation, active=need_init)
-    if config.triangulation.translation_threshold >= 0:  # the motion check (JAX :191-196)
-        motion_ok = tri.check_motion(cams.q, cams.p, table.obs[sel], obs_mask,
-                                     config.triangulation)
-        if motion_ok.device.type == "cuda":
-            kernels.observe("check_motion", (need_init, motion_ok))
-        tri_ok = tri_ok & motion_ok
-    init_done = need_init & tri_ok
-    table = table._replace(
-        position=table.position.index_put((sel,), torch.where(init_done[:, None], new_pos,
-                                                                table.position[sel])),
-        initialized=table.initialized.index_put((sel,), table.initialized[sel] | init_done))
-    return state._replace(features=table), need_init & ~tri_ok
+    position, initialized, init_fail = tri.triangulate_rows(
+        cams.q, cams.p, table.obs, table.obs_mask, table.position, table.initialized, sel,
+        sel_ok, params.R_cam0_cam1, params.t_cam0_cam1, config.triangulation)
+    return state._replace(features=table._replace(position=position,
+                                                  initialized=initialized)), init_fail
 
 
 def _stack_blocks(include, prefix, H_blk, r_blk, R_BUF: int):

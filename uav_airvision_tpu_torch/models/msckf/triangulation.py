@@ -12,6 +12,9 @@ result, so the port runs this one form for both settings.
 ``triangulate`` launches kernel K13 (``csrc/triangulate.cu``, the views
 built in the kernel, one warp per feature) on CUDA tensors and runs the
 plain PyTorch version ``triangulate_plain`` on CPU tensors.
+``triangulate_rows`` is the back-end's entry: the feature table's rows
+``sel``, the motion check and the new position and initialized columns,
+one launch of K13 on CUDA tensors (plain version ``triangulate_rows_plain``).
 """
 
 from __future__ import annotations
@@ -260,3 +263,88 @@ def _triangulate_kernel(cam_q, cam_p, obs, obs_mask, R_c0c1, t_c0c1, tri, active
                    int(tri.inner_loop_max_iteration), kernels.ptr(pos), kernels.ptr(ok),
                    kernels.ptr(clocks) if clocks is not None else None)
     return pos, ok
+
+
+def triangulate_rows_plain(cam_q, cam_p, obs, obs_mask, position, initialized, sel, sel_ok,
+                           R_c0c1, t_c0c1, tri: TriangulationConfig):
+    """The back-end's triangulation of the map rows ``sel`` as its call site
+    did it: ``need_init = sel_ok & ~initialized[sel]`` triangulated over all
+    their observations, behind the motion check where it is on, the
+    positions and the initialized flags written back where that succeeded.
+    Returns (position (M, 3), initialized (M,), init_fail (B,)), new tensors."""
+    need_init = sel_ok & ~initialized[sel]
+    mask = obs_mask[sel]
+    new_pos, tri_ok = triangulate_plain(cam_q, cam_p, obs[sel], mask, R_c0c1, t_c0c1, tri,
+                                        active=need_init)
+    if tri.translation_threshold >= 0:  # the motion check (JAX step.py:191-196)
+        tri_ok = tri_ok & check_motion(cam_q, cam_p, obs[sel], mask, tri)
+    init_done = need_init & tri_ok
+    position = position.index_put((sel,), torch.where(init_done[:, None], new_pos,
+                                                      position[sel]))
+    initialized = initialized.index_put((sel,), initialized[sel] | init_done)
+    return position, initialized, need_init & ~tri_ok
+
+
+def triangulate_rows(cam_q, cam_p, obs, obs_mask, position, initialized, sel, sel_ok, R_c0c1,
+                     t_c0c1, tri: TriangulationConfig):
+    """Triangulate the map rows ``sel`` (B,) int64 of the feature table
+    (obs (M, N, 4), obs_mask (M, N), position (M, 3), initialized (M,))
+    whose ``sel_ok`` (B,) holds and that are not initialized yet, over the
+    window cam_q (N, 4), cam_p (N, 3), behind the motion check where
+    ``tri.translation_threshold >= 0``.  ``sel`` holds distinct rows.
+    Returns (position, initialized, init_fail (B,)): the new columns (the
+    inputs are left as they are) and the rows that needed a position and
+    got none.  On CUDA tensors ONE launch of K13 gathers, checks,
+    triangulates and writes the new columns."""
+    dev = obs.device
+    if dev.type == "cpu":
+        return triangulate_rows_plain(cam_q, cam_p, obs, obs_mask, position, initialized, sel,
+                                      sel_ok, R_c0c1, t_c0c1, tri)
+    if dev.type != "cuda":
+        raise ValueError(f"K13 runs on CUDA tensors, got {dev}")
+    args = (cam_q, cam_p, obs, obs_mask, position, initialized, sel, sel_ok, R_c0c1, t_c0c1,
+            tri)
+    kernels.observe("triangulate_rows", args)
+    out = _triangulate_rows_kernel(*args)
+    triangulate_rows.launches += 1
+    return out
+
+
+triangulate_rows.launches = 0
+
+
+def _triangulate_rows_kernel(cam_q, cam_p, obs, obs_mask, position, initialized, sel, sel_ok,
+                             R_c0c1, t_c0c1, tri, clocks=None):
+    """K13's row entry's launch (``clocks`` as in ``_triangulate_kernel``)."""
+    dtype, dev = obs.dtype, obs.device
+    entry = {torch.float32: "triangulate_rows_f32",
+             torch.float64: "triangulate_rows_f64"}.get(dtype)
+    if entry is None:
+        raise ValueError(f"K13 takes float32 or float64, got {dtype}")
+    M, N = obs_mask.shape
+    B = sel.shape[0]
+    cam_q, cam_p, obs, position, R_c0c1, t_c0c1 = (
+        x.to(dtype).contiguous() for x in (cam_q, cam_p, obs, position, R_c0c1, t_c0c1))
+    obs_mask, initialized, sel_ok = (x.to(torch.bool).contiguous()
+                                     for x in (obs_mask, initialized, sel_ok))
+    sel = sel.contiguous()
+    kernels.check_cuda(cam_q, cam_p, obs, obs_mask, position, initialized, sel, sel_ok, R_c0c1,
+                       t_c0c1)
+    if (cam_q.shape != (N, 4) or cam_p.shape != (N, 3) or obs.shape != (M, N, 4)
+            or position.shape != (M, 3) or initialized.shape != (M,)
+            or sel.dtype != torch.int64 or sel.shape != (B,) or sel_ok.shape != (B,)
+            or R_c0c1.shape != (3, 3) or t_c0c1.shape != (3,)):
+        raise ValueError("triangulate_rows: inconsistent window / table / row shapes")
+    pos_out = torch.empty_like(position)
+    init_out = torch.empty_like(initialized)
+    fail = torch.empty((B,), dtype=torch.bool, device=dev)
+    kernels.launch(entry, kernels.ptr(cam_q), kernels.ptr(cam_p), N, kernels.ptr(obs),
+                   kernels.ptr(obs_mask), M, kernels.ptr(position), kernels.ptr(initialized),
+                   kernels.ptr(sel), kernels.ptr(sel_ok), B, kernels.ptr(R_c0c1),
+                   kernels.ptr(t_c0c1), float(tri.huber_epsilon),
+                   float(tri.estimation_precision), float(tri.initial_damping),
+                   int(tri.outer_loop_max_iteration), int(tri.inner_loop_max_iteration),
+                   float(tri.translation_threshold), kernels.ptr(pos_out),
+                   kernels.ptr(init_out), kernels.ptr(fail),
+                   kernels.ptr(clocks) if clocks is not None else None)
+    return pos_out, init_out, fail

@@ -16,9 +16,13 @@ On a CUDA tensor ``pyramidal_lk`` launches kernel K1 (``csrc/lk.cu``, one
 block per point, any window side); on a CPU tensor it runs ``pyramidal_lk_plain``, batched
 over points.  Under ``frontend.lk_compact_windows`` the JAX package cuts
 each level's exact 32-px search span and iterates on it, which makes the
-freeze bounds uniform (origin des, span 16): there the port runs, per
-level, kernel P1 (``ops/extract.py``) for the windows and K1's level entry
-``pyramidal_lk_level`` on them.
+freeze bounds uniform (origin des, span 16): there the port runs
+``pyramidal_lk_compact``, ONE launch of K1's compact entry, whose blocks
+stage each level's window in shared memory themselves (P1's function).
+The route it replaced, per level kernel P1 (``ops/extract.py``) for the
+windows and K1's level entry ``pyramidal_lk_level`` on them, stays as
+``pyramidal_lk_compact_levels``, its witness; its plain version is the
+compact tracker's plain version.
 """
 
 from __future__ import annotations
@@ -200,10 +204,9 @@ def pyramidal_lk_plain(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts,
     if n_levels is None:
         n_levels = min(prev_pyr.n_levels, curr_pyr.n_levels)
     if compact_windows:
-        return _pyramidal_lk_compact(extract_windows_plain, pyramidal_lk_level_plain,
-                                     prev_pyr, curr_pyr, prev_pts, init_pts, valid, win,
-                                     max_iter, eps, min_eig_threshold, n_levels,
-                                     max_iter_upper)
+        return _compact_levels(extract_windows_plain, pyramidal_lk_level_plain, prev_pyr,
+                               curr_pyr, prev_pts, init_pts, valid, win, max_iter, eps,
+                               min_eig_threshold, n_levels, max_iter_upper)[:2]
     next_pts = init_pts.clone()
     status = None
     for L in reversed(range(n_levels)):
@@ -281,22 +284,101 @@ def pyramidal_lk_level(prev_pyr: Pyramid, prev_pts, pts, valid, windows, des, L:
 pyramidal_lk_level.launches = 0
 
 
-def _pyramidal_lk_compact(extract, level, prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts,
-                          init_pts, valid, win, max_iter, eps, min_eig_threshold, n_levels,
-                          max_iter_upper):
-    """The compact-window tracker (lk.py:199-218): per level, coarse to fine,
-    the points' 32-px search windows cut out of the current level at des
-    (kernel P1), then the level's Gauss-Newton steps on them (K1's level
-    entry), which also give the next level's des."""
+def _compact_levels(extract, level, prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts,
+                    valid, win, max_iter, eps, min_eig_threshold, n_levels, max_iter_upper):
+    """The compact-window tracker level by level (lk.py:199-218): per level,
+    coarse to fine, the points' 32-px search windows cut out of the current
+    level at des (``extract``: P1), then the level's Gauss-Newton steps on
+    them (``level``: K1's level entry), which also give the next level's
+    des.  Returns (pts, status, des (F, n_levels, 2) int32: [:, L] the
+    origin at level L)."""
     need = win + 1 + 2 * LK_MARGIN
     pts, status = init_pts, None
     des = compact_origin(init_pts, curr_pyr.levels[n_levels - 1], n_levels - 1, win)
+    origins = [None] * n_levels
     for L in reversed(range(n_levels)):
+        origins[L] = des
         windows = extract(curr_pyr.levels[L], des[:, 0], des[:, 1], need)
         pts, des, status = level(prev_pyr, prev_pts, pts, valid, windows, des, L, win,
                                  _iters(L, max_iter, max_iter_upper), eps,
                                  min_eig_threshold)
-    return pts, status
+    return pts, status, torch.stack(origins, 1)
+
+
+def pyramidal_lk_compact_levels(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts,
+                                valid, win: int = 15, max_iter: int = 30, eps: float = 0.01,
+                                min_eig_threshold: float = 1e-4, n_levels: int | None = None,
+                                max_iter_upper: int | None = None):
+    """The compact-window tracker as the port ran it before
+    ``pyramidal_lk_compact``: per level kernel P1 and K1's level entry (two
+    launches a level on CUDA tensors, their plain versions on CPU tensors),
+    the coarsest level's des computed by the host.  The one-launch entry's
+    witness: (pts, status, des) as ``_compact_levels`` returns them."""
+    if n_levels is None:
+        n_levels = min(prev_pyr.n_levels, curr_pyr.n_levels)
+    return _compact_levels(extract_windows, pyramidal_lk_level, prev_pyr, curr_pyr, prev_pts,
+                           init_pts, valid, win, max_iter, eps, min_eig_threshold, n_levels,
+                           max_iter_upper)
+
+
+def pyramidal_lk_compact(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid,
+                         win: int = 15, max_iter: int = 30, eps: float = 0.01,
+                         min_eig_threshold: float = 1e-4, n_levels: int | None = None,
+                         max_iter_upper: int | None = None, des=None, clocks=None):
+    """The compact-window tracker (``pyramidal_lk(compact_windows=True)``):
+    on CUDA tensors ONE launch of K1's compact entry, which computes each
+    level's des, stages the level's window in shared memory (P1's function)
+    and iterates on it; on CPU tensors the plain route.  Returns (next_pts,
+    status).  ``des``: an int32 (F, n_levels, 2) tensor the launch fills
+    with each level's window origin ([:, L] at level L); ``clocks``: an
+    int64 (1 + 3 n_levels,) tensor for block 0's SM clock at its start and,
+    coarse to fine, after each level's template, its window's wait and its
+    Gauss-Newton steps."""
+    if n_levels is None:
+        n_levels = min(prev_pyr.n_levels, curr_pyr.n_levels)
+    if prev_pts.device.type == "cpu":
+        pts, status, origins = _compact_levels(
+            extract_windows_plain, pyramidal_lk_level_plain, prev_pyr, curr_pyr, prev_pts,
+            init_pts, valid, win, max_iter, eps, min_eig_threshold, n_levels, max_iter_upper)
+        if des is not None:
+            des.copy_(origins)
+        return pts, status
+    if prev_pts.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors, got {prev_pts.device}")
+    if win < 1:
+        raise ValueError(f"K1 takes a window side of at least 1, got {win}")
+    if (prev_pyr.H0, prev_pyr.W0) != (curr_pyr.H0, curr_pyr.W0):
+        raise ValueError("prev and curr pyramids differ in size")
+    if not 1 <= n_levels <= min(prev_pyr.n_levels, curr_pyr.n_levels):
+        raise ValueError("n_levels exceeds the pyramids' depth")
+    prev_pts = prev_pts.to(torch.float32).contiguous()
+    init_pts = init_pts.to(torch.float32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    kernels.check_cuda(prev_pyr.flat, curr_pyr.flat, prev_pts, init_pts, valid,
+                       *(x for x in (des, clocks) if x is not None))
+    F = prev_pts.shape[0]
+    if (prev_pts.shape != (F, 2) or init_pts.shape != (F, 2) or valid.shape != (F,)
+            or (des is not None and (des.shape != (F, n_levels, 2)
+                                     or des.dtype != torch.int32))):
+        raise ValueError(f"points {tuple(prev_pts.shape)}, {tuple(init_pts.shape)}, "
+                         f"valid {tuple(valid.shape)}")
+    kernels.observe("pyramidal_lk_compact", (prev_pyr, curr_pyr, prev_pts, init_pts, valid,
+                                             win, max_iter, eps, min_eig_threshold, n_levels,
+                                             max_iter_upper))
+    out_pts = torch.empty_like(prev_pts)
+    out_status = torch.empty((F,), dtype=torch.bool, device=prev_pts.device)
+    kernels.launch("pyramidal_lk_compact", kernels.ptr(prev_pyr.flat),
+                   kernels.ptr(curr_pyr.flat), prev_pyr.H0, prev_pyr.W0, kernels.ptr(prev_pts),
+                   kernels.ptr(init_pts), kernels.ptr(valid), F, n_levels, int(max_iter),
+                   int(max_iter_upper or 0), float(eps * eps), float(min_eig_threshold),
+                   kernels.ptr(out_pts), kernels.ptr(out_status),
+                   kernels.ptr(des) if des is not None else None,
+                   kernels.ptr(clocks) if clocks is not None else None, int(win))
+    pyramidal_lk_compact.launches += 1
+    return out_pts, out_status
+
+
+pyramidal_lk_compact.launches = 0
 
 
 def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid,
@@ -307,8 +389,7 @@ def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid
     at ``init_pts``.  Returns (next_pts (F, 2) float32, status (F,) bool).
     ``max_iter_upper`` caps the iterations of levels > 0.
     ``compact_windows`` (frontend.lk_compact_windows) tracks level by level
-    on each point's exact 32-px search window: kernel P1 and K1's level
-    entry per level on CUDA tensors, instead of the one K1 launch."""
+    on each point's exact 32-px search window: ``pyramidal_lk_compact``."""
     if prev_pts.device.type == "cpu":
         return pyramidal_lk_plain(prev_pyr, curr_pyr, prev_pts, init_pts, valid,
                                   win, max_iter, eps, min_eig_threshold, n_levels,
@@ -324,9 +405,8 @@ def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid
     if n_levels > min(prev_pyr.n_levels, curr_pyr.n_levels):
         raise ValueError("n_levels exceeds the pyramids' depth")
     if compact_windows:
-        return _pyramidal_lk_compact(extract_windows, pyramidal_lk_level, prev_pyr, curr_pyr,
-                                     prev_pts, init_pts, valid, win, max_iter, eps,
-                                     min_eig_threshold, n_levels, max_iter_upper)
+        return pyramidal_lk_compact(prev_pyr, curr_pyr, prev_pts, init_pts, valid, win,
+                                    max_iter, eps, min_eig_threshold, n_levels, max_iter_upper)
     prev_pts = prev_pts.to(torch.float32).contiguous()
     init_pts = init_pts.to(torch.float32).contiguous()
     valid = valid.to(torch.bool).contiguous()

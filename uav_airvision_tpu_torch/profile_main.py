@@ -21,8 +21,9 @@ K12, as the back-end step calls them; ``apply_update_rank12`` where an
 older tree calls it) and the front-end's fused calls (the
 per-cell selection ``select_track`` and the prediction
 ``predict_warp_points`` as ``pipeline`` calls them, the stereo gate
-``stereo_gate`` as ``stereo`` calls it, and FAST ``detect_fast`` as
-``pipeline`` calls it) and
+``stereo_gate`` as ``stereo`` calls it, FAST ``detect_fast`` as
+``pipeline`` calls it, and the LK calls ``lk.pyramidal_lk``, the compact
+tracker's included) and
 K9's row-indexed entry ``feature_block_rows`` and the triangulation of the
 selected features ``_triangulate_selected`` (K13 with its call site's glue)
 as the back-end step calls them run under profiler spans, and the launches made under each are counted (per
@@ -128,6 +129,7 @@ def main(argv=None):
     from .models import vio
     from .models.msckf import step
     from .models.frontend import pipeline, stereo
+    from .ops import lk
 
     dev = device.get_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -156,6 +158,7 @@ def main(argv=None):
     originals.update(span_functions(pipeline, ("select_track", "predict_warp_points",
                                                "detect_fast"), "FE"))
     originals.update(span_functions(stereo, ("stereo_gate",), "FE"))
+    originals.update(span_functions(lk, ("pyramidal_lk",), "FE"))
     # K9's row-indexed entry and the triangulation of the selected features,
     # where the back-end calls them (their gathers and masks inside)
     originals.update(span_functions(step, ("feature_block_rows", "_triangulate_selected"), "BE"))
