@@ -117,22 +117,38 @@ __device__ __forceinline__ void add_rows(const T* stage, const int* flag, int i0
   }
 }
 
+// 1 / x for the LU: the float reciprocal, and for a double one Newton step
+// from it (relative error ~2^-46, far below what the update needs), a
+// shorter chain than the correctly rounded double reciprocal.
+__device__ __forceinline__ float lu_rcp(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double lu_rcp(double x) {
+  const double r = (double)__frcp_rn((float)x);
+  return r + r * (1.0 - x * r);
+}
+
 // One step of the LU on [W | B'r | B'B], a column a lane: getrf's pivot in
-// lane K's column (the first largest |W_iK|), the row swap in every lane,
-// then the rows below scaled by the pivot's reciprocal (getf2's scaling).
+// lane K's column (the first largest |W_iK|, found by a tournament of
+// depth log2(12 - K) in which the left, lower row wins ties), the row swap
+// in every lane, then the rows below scaled by the pivot's reciprocal
+// (getf2's scaling).
 template <int K, typename T>
 __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
-  int p = K;
-  T best = fabs(col[K]);
+  T v[12];
+  int at[12];
 #pragma unroll
-  for (int i = K + 1; i < 12; ++i) {
-    const T v = fabs(col[i]);
-    if (v > best) {
-      best = v;
-      p = i;
-    }
+  for (int i = K; i < 12; ++i) {
+    v[i] = fabs(col[i]);
+    at[i] = i;
   }
-  p = __shfl_sync(kFull, p, K);
+#pragma unroll
+  for (int w = 1; K + w < 12; w *= 2)
+#pragma unroll
+    for (int i = K; i + w < 12; i += 2 * w)
+      if (v[i + w] > v[i]) {
+        v[i] = v[i + w];
+        at[i] = at[i + w];
+      }
+  const int p = __shfl_sync(kFull, at[K], K);
 #pragma unroll
   for (int i = K + 1; i < 12; ++i) {
     if (p == i) {
@@ -141,7 +157,7 @@ __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
       col[i] = t;
     }
   }
-  const T inv = msckf::rcp(__shfl_sync(kFull, col[K], K));
+  const T inv = lu_rcp(__shfl_sync(kFull, col[K], K));
 #pragma unroll
   for (int i = K + 1; i < 12; ++i) {
     const T m = __shfl_sync(kFull, col[i], K) * inv;
@@ -149,15 +165,17 @@ __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
   }
 }
 
-// Row I of the back substitution U x = y (U in the augmented rows, the
-// reciprocals of its diagonal in rdiag)
-template <int I, typename T>
-__device__ __forceinline__ void back_step(const T (&col)[12], T (&x)[12], const T* U,
-                                          const T* rdiag) {
-  T s = col[I];
+// The back substitution U x = y, column by column: x_I, then its multiple
+// taken from every row above (U in the augmented rows, the reciprocals of
+// its diagonal in rdiag); a chain of 12 steps, not 78.
+template <typename T>
+__device__ __forceinline__ void back_substitute(T (&y)[12], const T* U, const T* rdiag) {
 #pragma unroll
-  for (int k = I + 1; k < 12; ++k) s -= U[I * kA + k] * x[k];
-  x[I] = s * rdiag[I];
+  for (int I = 11; I >= 0; --I) {
+    y[I] = y[I] * rdiag[I];
+#pragma unroll
+    for (int i = 0; i < I; ++i) y[i] = y[i] - U[i * kA + I] * y[I];
+  }
 }
 
 template <typename T, typename Acc, typename S>
@@ -331,28 +349,16 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
 #pragma unroll
     for (int i = 0; i < 12; ++i)
       if (lane == i) d = col[i];
-    if (lane < 12) rdiag[lane] = msckf::rcp(d);
+    if (lane < 12) rdiag[lane] = lu_rcp(d);
     if (lane < kA) {
 #pragma unroll
       for (int i = 0; i < 12; ++i) aug[i * kA + lane] = col[i];
     }
     __syncwarp();
     if (lane >= 12 && lane < kA) {
-      S x[12];
-      back_step<11>(col, x, aug, rdiag);
-      back_step<10>(col, x, aug, rdiag);
-      back_step<9>(col, x, aug, rdiag);
-      back_step<8>(col, x, aug, rdiag);
-      back_step<7>(col, x, aug, rdiag);
-      back_step<6>(col, x, aug, rdiag);
-      back_step<5>(col, x, aug, rdiag);
-      back_step<4>(col, x, aug, rdiag);
-      back_step<3>(col, x, aug, rdiag);
-      back_step<2>(col, x, aug, rdiag);
-      back_step<1>(col, x, aug, rdiag);
-      back_step<0>(col, x, aug, rdiag);
+      back_substitute(col, aug, rdiag);
 #pragma unroll
-      for (int i = 0; i < 12; ++i) aug[i * kA + lane] = x[i];
+      for (int i = 0; i < 12; ++i) aug[i * kA + lane] = col[i];
     }
   }
   __syncthreads();
@@ -430,8 +436,8 @@ int launch(const void* P, int D, const void* Bm, int n_feat, int rows_per, long 
            void* clocks, void* stream) {
   static size_t smem_allowed = 0;
   if (D < 12 || n_feat < 1 || rows_per < 1) return (int)cudaErrorInvalidValue;
-  // the sums of B'B and B'r and the 12 x 12 system in float64 for both types
-  const auto kernel = rank12_kernel<T, double, double>;
+  // the sums of B'B and B'r in T, the 12 x 12 system in float64 for both types
+  const auto kernel = rank12_kernel<T, T, double>;
   const int n_loc = (n_feat + kCluster - 1) / kCluster;  // rank 0's features, the most
   const int per_chunk = kStageBytes / (13 * (int)sizeof(T) * rows_per);
   const int chunk = per_chunk < 1 ? 1 : (per_chunk < n_loc ? per_chunk : n_loc);

@@ -117,16 +117,15 @@ __device__ void rel(const T Rp[9], const T tp[3], const T Ra[9], const T ta[3], 
   }
 }
 
-// The cam0 and cam1 views of window slot s in the anchor frame.
+// The cam0 and cam1 views in the anchor frame of the window slot whose
+// pose is q, tc0w.
 template <typename T>
-__device__ void slot_views(const T* cam_q, const T* cam_p, int s, const T Ra[9],
-                           const T ta[3], const T Rc1c0[9], const T tc1c0[3], View<T>& v0,
-                           View<T>& v1) {
+__device__ void slot_views(const T* q, const T* tc0w, const T Ra[9], const T ta[3],
+                           const T Rc1c0[9], const T tc1c0[3], View<T>& v0, View<T>& v1) {
   T Rw[9], Rc0w[9], Rc1w[9], tc1w[3];
-  msckf::to_rotation(cam_q + 4 * s, Rw);
+  msckf::to_rotation(q, Rw);
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) Rc0w[3 * i + j] = Rw[3 * j + i];
-  const T* tc0w = cam_p + 3 * s;
   for (int i = 0; i < 3; ++i) {
     for (int j = 0; j < 3; ++j)
       Rc1w[3 * i + j] = Rc0w[3 * i] * Rc1c0[j] + Rc0w[3 * i + 1] * Rc1c0[3 + j] +
@@ -153,20 +152,20 @@ __device__ inline void cross(const T a[3], const T b[3], T c[3]) {
 }
 
 // The motion check (triangulation.py::check_motion) of a feature whose
-// first and last observing slots are ``first`` and ``last``, z its first
-// observation.
+// first observing slot has the pose q, p_first and its last p_last, z its
+// first observation.
 template <typename T>
-__device__ bool motion_ok(const T* cam_q, const T* cam_p, int first, int last, const T* z,
+__device__ bool motion_ok(const T q[4], const T p_first[3], const T p_last[3], const T* z,
                           T thr) {
   T Rw[9];
-  msckf::to_rotation(cam_q + 4 * first, Rw);
+  msckf::to_rotation(q, Rw);
   const T d0 = z[0], d1 = z[1], d2 = T(1);
   const T n = sqrt(d0 * d0 + d1 * d1 + d2 * d2);
   const T u[3] = {d0 / n, d1 / n, d2 / n};
   T dir[3], tr[3];
   for (int i = 0; i < 3; ++i) {  // the ray in the world: Rw^T u
     dir[i] = Rw[i] * u[0] + Rw[3 + i] * u[1] + Rw[6 + i] * u[2];
-    tr[i] = cam_p[3 * last + i] - cam_p[3 * first + i];
+    tr[i] = p_last[i] - p_first[i];
   }
   const T par = tr[0] * dir[0] + tr[1] * dir[1] + tr[2] * dir[2];
   const T o[3] = {tr[0] - par * dir[0], tr[1] - par * dir[1], tr[2] - par * dir[2]};
@@ -207,6 +206,34 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
   if (b >= a.B) return;  // the whole warp
   const int N = a.N;
   const T *cam_q = a.cam_q, *cam_p = a.cam_p;
+  // this lane's slots' poses (kSlots > 0), loaded first: they do not depend
+  // on the row; the anchor's come from their lane by shuffle (the same
+  // floats), so no load waits on the slot search
+  constexpr int kHeld = kSlots > 0 ? kSlots : 1;
+  T qs[kHeld][4], ps[kHeld][3];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int s = min(lane + 32 * k, N - 1);
+    for (int c = 0; c < 4; ++c) qs[k][c] = cam_q[4 * s + c];
+    for (int c = 0; c < 3; ++c) ps[k][c] = cam_p[3 * s + c];
+  }
+  // slot s's pose (s uniform over the warp)
+  auto pose_of = [&](int s, T q[4], T p[3]) {
+    if constexpr (kSlots > 0) {
+      T qv[4] = {qs[0][0], qs[0][1], qs[0][2], qs[0][3]}, pv[3] = {ps[0][0], ps[0][1], ps[0][2]};
+#pragma unroll
+      for (int k = 1; k < kSlots; ++k)
+        if (k == s >> 5) {
+          for (int c = 0; c < 4; ++c) qv[c] = qs[k][c];
+          for (int c = 0; c < 3; ++c) pv[c] = ps[k][c];
+        }
+      for (int c = 0; c < 4; ++c) q[c] = __shfl_sync(0xffffffffu, qv[c], s & 31);
+      for (int c = 0; c < 3; ++c) p[c] = __shfl_sync(0xffffffffu, pv[c], s & 31);
+    } else {
+      for (int c = 0; c < 4; ++c) q[c] = cam_q[4 * s + c];
+      for (int c = 0; c < 3; ++c) p[c] = cam_p[3 * s + c];
+    }
+  };
   // the phase clocks of block 0's first warp (uniform over the warp)
   const bool timed = a.clocks != nullptr && b == 0;
   const bool store = timed && lane == 0;
@@ -225,13 +252,19 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
     if (bal != 0u && first < 0) first = s0 + __ffs((int)bal) - 1;
     if (bal != 0u) last = s0 + 31 - __clz((int)bal);
   }
+  const bool seen = first >= 0;
   if (first < 0) first = 0;
   if (last < 0) last = N - 1;
+  T q_a[4], p_a[3];  // the first observing slot's pose: the anchor
+  pose_of(first, q_a, p_a);
   bool alive = true, moved = true;
   if (rows) {  // the call site: need_init, then the motion check
     alive = a.sel_ok[b] != 0 && a.initialized[row] == 0;
-    if (alive && a.motion_thr >= T(0))
-      moved = motion_ok(cam_q, cam_p, first, last, z_b + 4 * first, a.motion_thr);
+    if (alive && a.motion_thr >= T(0)) {
+      T q_l[4], p_l[3];
+      pose_of(last, q_l, p_l);
+      moved = motion_ok(q_a, p_a, p_l, z_b + 4 * first, a.motion_thr);
+    }
     if (!(alive && moved)) {  // the row stays as it is
       if (lane == 0) {
         for (int i = 0; i < 3; ++i) a.pos_out[3 * row + i] = a.position[3 * row + i];
@@ -253,15 +286,14 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
   }
   // the anchor: the first observing slot's cam0
   T Rw[9], Ra[9], ta[3];
-  msckf::to_rotation(cam_q + 4 * first, Rw);
+  msckf::to_rotation(q_a, Rw);
   for (int i = 0; i < 3; ++i) {
     for (int j = 0; j < 3; ++j) Ra[3 * i + j] = Rw[3 * j + i];
-    ta[i] = cam_p[3 * first + i];
+    ta[i] = p_a[i];
   }
 
   // this lane's slots lane + 32 k: both views, observations, mask (kSlots
   // = 0: rebuilt from the window at each use)
-  constexpr int kHeld = kSlots > 0 ? kSlots : 1;
   View<T> view[kHeld][2];
   T z[kHeld][4];
   bool m[kHeld];
@@ -270,7 +302,7 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
     const int s = lane + 32 * k;
     m[k] = s < N && m_b[s] != 0;
     if (m[k]) {
-      slot_views(cam_q, cam_p, s, Ra, ta, Rc1c0, tc1c0, view[k][0], view[k][1]);
+      slot_views(qs[k], ps[k], Ra, ta, Rc1c0, tc1c0, view[k][0], view[k][1]);
       for (int c = 0; c < 4; ++c) z[k][c] = z_b[4 * s + c];
     }
   }
@@ -285,7 +317,7 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
       for (int s = lane; s < N; s += 32) {
         if (m_b[s] == 0) continue;
         View<T> v[2];
-        slot_views(cam_q, cam_p, s, Ra, ta, Rc1c0, tc1c0, v[0], v[1]);
+        slot_views(cam_q + 4 * s, cam_p + 3 * s, Ra, ta, Rc1c0, tc1c0, v[0], v[1]);
         const T zs[4] = {z_b[4 * s], z_b[4 * s + 1], z_b[4 * s + 2], z_b[4 * s + 3]};
         f(v, zs);
       }
@@ -295,8 +327,18 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
   // closed-form initial guess from the anchor slot's stereo pair
   T x[3];
   {
+    // the anchor slot's cam1 view: from the lane that built it, else built
     View<T> v0, v1;
-    slot_views(cam_q, cam_p, first, Ra, ta, Rc1c0, tc1c0, v0, v1);
+    if (kSlots > 0 && seen) {
+#pragma unroll
+#pragma unroll
+      for (int k = 0; k < kHeld; ++k)
+        if (k == first >> 5) v1 = view[k][1];
+      for (int i = 0; i < 9; ++i) v1.R[i] = __shfl_sync(0xffffffffu, v1.R[i], first & 31);
+      for (int i = 0; i < 3; ++i) v1.t[i] = __shfl_sync(0xffffffffu, v1.t[i], first & 31);
+    } else {
+      slot_views(q_a, p_a, Ra, ta, Rc1c0, tc1c0, v0, v1);
+    }
     const T z1h[3] = {z_b[4 * first], z_b[4 * first + 1], T(1)};
     const T z2[2] = {z_b[4 * first + 2], z_b[4 * first + 3]};
     T mm[3];
@@ -320,7 +362,8 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
     constexpr bool kCost = decltype(cost_tag)::value, kNe = decltype(ne_tag)::value;
     T acc[10] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
     for_slots([&](const View<T>* vs, const T* zs) {
-      for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // unrolled: the views stay in registers
         const View<T>& v = vs[c];
         T h[3];
         project(v, xx, h);
@@ -410,11 +453,17 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
       solve_cyc += t - tick;
       tick = t;
     }
+    // the fused form sums the normal equations at x_new only where an
+    // accepted step would start a group that goes on: not on the last step,
+    // past the outer count, or below the precision
     T cost_new, A_new[6], b_new[3];
-    pass(kYes, kTrialNe, x_new, cost_new, A_new, b_new);
+    if (kFused && it + 1 < a.inner_max && outer < a.outer_max && dnorm_new > a.precision)
+      pass(kYes, kTrialNe, x_new, cost_new, A_new, b_new);
+    else
+      pass(kYes, kNo, x_new, cost_new, A_new, b_new);
     if (timed) trial_cyc += clock64() - tick;
     const bool better = cost_new < cost;
-    if (better) {  // the fused form: the next group starts at x_new, with its sums
+    if (better) {  // the fused form: a next group starts at x_new, with its sums
       for (int i = 0; i < 3; ++i) x[i] = x_new[i];
       cost = cost_new;
       if constexpr (kFused) {
@@ -442,6 +491,7 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
   const T fin[3] = {x[0] / x[2], x[1] / x[2], T(1) / x[2]};
   bool good = true;
   for_slots([&](const View<T>* vs, const T*) {
+#pragma unroll
     for (int c = 0; c < 2; ++c) {
       const View<T>& v = vs[c];
       const T depth = (v.R[6] * fin[0] + v.R[7] * fin[1] + v.R[8] * fin[2]) + v.t[2];

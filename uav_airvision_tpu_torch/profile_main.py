@@ -35,6 +35,7 @@ the card's name and power limit.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -90,6 +91,9 @@ def span_functions(module, names, prefix):
     originals = {(module, name): getattr(module, name) for name in names
                  if hasattr(module, name)}
     for (_, name), fn in originals.items():
+        # wraps: the span carries the function's attributes (a wrapper's
+        # launch counter, which the function itself updates by its name)
+        @functools.wraps(fn)
         def spanned(*args, _fn=fn, _label=f"{prefix} {name}", **kwargs):
             with torch.profiler.record_function(_label):
                 return _fn(*args, **kwargs)
