@@ -36,8 +36,8 @@
      branch, and an unconverged solve ends a step apart), every other row
      unchanged, and every output bit for bit equal to the call site's glue
      around ``triangulate``, the kernel's separate cost and
-     normal-equation passes (the parent kernel's arithmetic and sum
-     order); one launch a call (device us printed);
+     normal-equation passes (the parent kernel's recurrence in this
+     kernel's layout); one launch a call (device us printed);
    - K9 (feature block through its row-indexed entry ``feature_block_rows``,
      the call sites' gathers and ``proc`` masks in its launch; every call of
      the warm run, N = 20 and the prune's N = 2): H_proj, r_proj within
@@ -893,9 +893,9 @@ def check_triangulate_rows(rec: Recorder, run: str):
     and 1e-4 for 95%: a cost comparison that ties within rounding can take
     the other LM branch, and an unconverged solve ends a step apart),
     every other row unchanged; and bit for bit equal to the call site's
-    glue around ``triangulate``, the kernel's separate passes (the
-    parent's kernel's cost and normal-equation passes, its arithmetic and
-    sum order).  Timed at the most frequent shape: one launch a call
+    glue around ``triangulate``, the kernel's separate cost and
+    normal-equation passes (the parent kernel's recurrence, in this
+    kernel's thread layout and sum order).  Timed at the most frequent shape: one launch a call
     (torch.profiler), device us.  Returns {"K13": (...)} for the main
     run."""
     import torch

@@ -1,5 +1,5 @@
 // K13: feature triangulation by inverse-depth Levenberg-Marquardt, with the
-// construction of the views fused in; one warp per feature.
+// construction of the views fused in; 64 threads (two warps) per feature.
 //
 // Replaces uav_airvision_tpu/models/msckf/triangulation.py::triangulate
 // (:159, in its static form _triangulate_static :235) together with
@@ -7,11 +7,11 @@
 // step.py::_triangulate_one (:175) with check_motion (triangulation.py:294)
 // and the back-end's gathers and scatters around it.  The JAX package
 // materialises (B, 2N, 3, 3) view rotations and vmaps the solve over
-// features.  Here a warp takes one feature and each lane the camera slots
-// lane, lane + 32, ... (both stereo views of each, in registers: kSlots =
-// 2, 4 or 8 slots a lane, chosen from N at the launch; past 256 slots a
-// lane rebuilds a slot's views from the window each time it needs them,
-// the same arithmetic).  The recurrence is the static form's:
+// features.  Here a group of 64 threads takes one feature and each thread
+// the views t, t + 64, ... (view v: camera v % 2 of window slot v / 2; in
+// registers: kViews = 1, 2, 4 or 8 a thread, chosen from N at the launch;
+// past 256 slots a thread rebuilds a view from the window each time it
+// needs it, the same arithmetic).  The recurrence is the static form's:
 //   - at most inner_loop_max_iteration damped solves in total, the inner
 //     counter shared across outer iterations;
 //   - a new linearisation only at a group start (the first step and after
@@ -19,46 +19,56 @@
 //   - Huber weights eps / (2 e), lambda clamped to [1e-10, 1e12], the
 //     Cramer 3x3 solve with the |det| > 1e-30 guard;
 //   - a feature with active = 0 keeps the closed-form initial guess.
-// The fused passes (the row entry): one pass over the lane's slots at a
-// point gives the cost AND the Huber-weighted normal equations there (the
-// projection and its divisions shared), and one round of warp shuffles sums
-// all ten: at x0, then at every trial point.  A step the cost accepts starts
-// the next group at that point, whose sums are then already there; a
-// refused step's are dropped.  So a feature takes at most
-// 1 + inner_loop_max_iteration rounds of sums, not up to two a step, and
-// every slot's arithmetic and the warp's sum order are those of a pass of
-// each kind: the results are the same bits as the separate passes'.  A
-// warp whose feature has stopped leaves the loop: nothing it holds changes
-// after that, so the early exit is exact.
+//
+// What bounds it: a pass over the views (a cost, or the normal equations)
+// is a chain of IEEE divisions and square roots, each behind its own
+// slow-path branch, so they run one after another: the normal equations
+// take ~11 of them a view, the cost 2 (the parent's phase clocks: ~2,500
+// and ~590 SM cycles a pass with a slot's two views on one lane).  One
+// view a thread halves the chain; the price is one exchange between the
+// two warps a pass (each warp's butterfly, its sums through shared memory
+// behind a named barrier of the 64 threads, added in warp order so every
+// thread holds the same bits; a buffer a pass parity, so one barrier a
+// pass).  The sum order is not the warp-per-feature kernel's: positions
+// agree with it and with the plain version to rounding.
+//
+// The fused passes (the row entry): one pass at a point gives the cost AND
+// the normal equations there, one round of sums: at x0, then at every
+// trial point where an accepted step would start a group that goes on (not
+// on the last step, past the outer count, or below the precision; there
+// the pass is the cost's alone).  An accepted step's sums start the next
+// group; a refused step's are dropped.  So a feature takes at most
+// 1 + inner_loop_max_iteration rounds of sums.  Each view's arithmetic and
+// the sums' order are those of a pass of each kind, so the results are the
+// same bits as the separate passes'.  A group whose feature has stopped
+// leaves the loop: nothing it holds changes after that, so the early exit
+// is exact.
 //
 // Two entry points.  ``triangulate_*``: B features, row b of obs /
 // obs_mask, positions and validity out, with the separate passes (a cost
-// pass a step, a normal-equations pass a group) of the kernel before the
-// fused form: the row entry's witness, bit for bit, in the tests and in
-// chip_smoke.py.  ``triangulate_rows_*``: the back-end's call site in the
-// launch, with the fused passes.  Warp b takes map row sel[b] of the
-// feature table (obs (M, N, 4), obs_mask (M, N)); it is triangulated when
-// need_init = sel_ok[b] & ~initialized[sel[b]] and, when the motion check
-// is on (threshold >= 0), the camera's translation from the feature's
-// first to its last observing slot, orthogonal to the first observation's
-// ray in the world, exceeds the threshold (the warp's two ballots find
-// the slots).  It writes row sel[b] of the new position and initialized
-// columns (the triangulated position where that succeeded, else the old
-// row) and init_fail[b] = need_init & ~(motion & valid).  The launch's
-// last blocks copy every other row of the two columns (each builds a
-// bitmap of sel in shared memory), so that no row is written twice and
-// the inputs stay as they were; sel holds distinct rows (the back-end's
-// smallest-k selection).
+// pass a step, a normal-equations pass a group): the row entry's witness,
+// bit for bit, in the tests and in chip_smoke.py.  ``triangulate_rows_*``:
+// the back-end's call site in the launch, with the fused passes.  Group b
+// takes map row sel[b] of the feature table (obs (M, N, 4), obs_mask
+// (M, N)); it is triangulated when need_init = sel_ok[b] &
+// ~initialized[sel[b]] and, when the motion check is on (threshold >= 0),
+// the camera's translation from the feature's first to its last observing
+// slot, orthogonal to the first observation's ray in the world, exceeds the
+// threshold (a warp's ballots find the slots).  It writes row sel[b] of the
+// new position and initialized columns (the triangulated position where
+// that succeeded, else the old row) and init_fail[b] = need_init &
+// ~(motion & valid).  The launch's last blocks copy every other row of the
+// two columns (each builds a bitmap of sel in shared memory), so that no
+// row is written twice and the inputs stay as they were; sel holds
+// distinct rows (the back-end's smallest-k selection).
 //
 // Bound on the card: bytes (a feature reads ~0.5 KB and does ~20 kFLOP),
-// both far below a launch; the chain of passes (a pass: a slot's two views
-// through some twenty divisions, then five shuffle levels), at most six in
-// the fused form (inner_loop_max_iteration = 5), sets its time.
+// both far below a launch; the passes' chains set its time.
 //
-// ``clocks`` (9 int64 or null): the SM clock of block 0's first warp at its
-// start, after the anchor and the views, after the initial guess and its
-// pass; the cycles it spent in the normal equations' own passes (none in
-// the fused form), the solves and the trial passes (summed over its
+// ``clocks`` (9 int64 or null): the SM clock of block 0's first group at
+// its start, after the anchor and the views, after the initial guess and
+// its pass; the cycles it spent in the normal equations' own passes (none
+// in the fused form), the solves and the trial passes (summed over its
 // steps); the clock after the loop and after the finish; the number of
 // steps it took.
 
@@ -72,7 +82,9 @@
 
 namespace {
 
-constexpr int kWarps = 4;  // features per block
+constexpr int kGroup = 64;  // threads per feature: two warps
+constexpr int kGroups = 2;  // features per block
+constexpr int kBlock = kGroup * kGroups;
 constexpr int kCopyRows = 1024;  // rows a copy block of the row entry takes
 
 template <typename T>
@@ -117,15 +129,20 @@ __device__ void rel(const T Rp[9], const T tp[3], const T Ra[9], const T ta[3], 
   }
 }
 
-// The cam0 and cam1 views in the anchor frame of the window slot whose
-// pose is q, tc0w.
+// One view (camera cam) of the window slot whose pose is q, tc0w, in the
+// anchor frame (build_views: x_view = R x_anchor + t).
 template <typename T>
-__device__ void slot_views(const T* q, const T* tc0w, const T Ra[9], const T ta[3],
-                           const T Rc1c0[9], const T tc1c0[3], View<T>& v0, View<T>& v1) {
-  T Rw[9], Rc0w[9], Rc1w[9], tc1w[3];
+__device__ void slot_view(const T* q, const T* tc0w, int cam, const T Ra[9], const T ta[3],
+                          const T Rc1c0[9], const T tc1c0[3], View<T>& v) {
+  T Rw[9], Rc0w[9];
   msckf::to_rotation(q, Rw);
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) Rc0w[3 * i + j] = Rw[3 * j + i];
+  if (cam == 0) {
+    rel(Rc0w, tc0w, Ra, ta, v);
+    return;
+  }
+  T Rc1w[9], tc1w[3];
   for (int i = 0; i < 3; ++i) {
     for (int j = 0; j < 3; ++j)
       Rc1w[3 * i + j] = Rc0w[3 * i] * Rc1c0[j] + Rc0w[3 * i + 1] * Rc1c0[3 + j] +
@@ -133,8 +150,7 @@ __device__ void slot_views(const T* q, const T* tc0w, const T Ra[9], const T ta[
     tc1w[i] = (Rc0w[3 * i] * tc1c0[0] + Rc0w[3 * i + 1] * tc1c0[1] +
                Rc0w[3 * i + 2] * tc1c0[2]) + tc0w[i];
   }
-  rel(Rc0w, tc0w, Ra, ta, v0);
-  rel(Rc1w, tc1w, Ra, ta, v1);
+  rel(Rc1w, tc1w, Ra, ta, v);
 }
 
 // h = R [x0, x1, 1] + x2 t
@@ -194,49 +210,30 @@ __device__ void copy_rows(const Args<T>& a, int cb) {
     if (((named[m >> 5] >> (m & 31)) & 1u) == 0u) a.init_out[m] = a.initialized[m];
 }
 
-template <typename T, int kSlots, bool kFused>
-__global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> a) {
-  const int n_blocks = (a.B + kWarps - 1) / kWarps;
+// The named barrier of group g's 64 threads (barrier 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + g), "r"(kGroup) : "memory");
+}
+
+template <typename T, int kViews, bool kFused>
+__global__ void __launch_bounds__(kBlock) triangulate_kernel(const Args<T> a) {
+  // a group's two warps' partial sums, by pass parity, and their votes
+  __shared__ T red[kGroups][2][2][10];
+  __shared__ int votes[kGroups][2];
+  const int n_blocks = (a.B + kGroups - 1) / kGroups;
   if ((int)blockIdx.x >= n_blocks) {  // uniform over the block
     copy_rows(a, (int)blockIdx.x - n_blocks);
     return;
   }
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= a.B) return;  // the whole warp
+  const int g = (int)threadIdx.x / kGroup, t = (int)threadIdx.x % kGroup;
+  const int lane = t & 31, half = t >> 5;
+  const int b = blockIdx.x * kGroups + g;
+  if (b >= a.B) return;  // the whole group
   const int N = a.N;
   const T *cam_q = a.cam_q, *cam_p = a.cam_p;
-  // this lane's slots' poses (kSlots > 0), loaded first: they do not depend
-  // on the row; the anchor's come from their lane by shuffle (the same
-  // floats), so no load waits on the slot search
-  constexpr int kHeld = kSlots > 0 ? kSlots : 1;
-  T qs[kHeld][4], ps[kHeld][3];
-#pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int s = min(lane + 32 * k, N - 1);
-    for (int c = 0; c < 4; ++c) qs[k][c] = cam_q[4 * s + c];
-    for (int c = 0; c < 3; ++c) ps[k][c] = cam_p[3 * s + c];
-  }
-  // slot s's pose (s uniform over the warp)
-  auto pose_of = [&](int s, T q[4], T p[3]) {
-    if constexpr (kSlots > 0) {
-      T qv[4] = {qs[0][0], qs[0][1], qs[0][2], qs[0][3]}, pv[3] = {ps[0][0], ps[0][1], ps[0][2]};
-#pragma unroll
-      for (int k = 1; k < kSlots; ++k)
-        if (k == s >> 5) {
-          for (int c = 0; c < 4; ++c) qv[c] = qs[k][c];
-          for (int c = 0; c < 3; ++c) pv[c] = ps[k][c];
-        }
-      for (int c = 0; c < 4; ++c) q[c] = __shfl_sync(0xffffffffu, qv[c], s & 31);
-      for (int c = 0; c < 3; ++c) p[c] = __shfl_sync(0xffffffffu, pv[c], s & 31);
-    } else {
-      for (int c = 0; c < 4; ++c) q[c] = cam_q[4 * s + c];
-      for (int c = 0; c < 3; ++c) p[c] = cam_p[3 * s + c];
-    }
-  };
-  // the phase clocks of block 0's first warp (uniform over the warp)
+  // the phase clocks of block 0's first group (uniform over the group)
   const bool timed = a.clocks != nullptr && b == 0;
-  const bool store = timed && lane == 0;
+  const bool store = timed && t == 0;
   long long tick = timed ? clock64() : 0, ne_cyc = 0, solve_cyc = 0, trial_cyc = 0;
   if (store) a.clocks[0] = tick;
   const bool rows = a.sel != nullptr;
@@ -244,7 +241,8 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
   const T* z_b = a.obs + (size_t)row * N * 4;
   const uint8_t* m_b = a.obs_mask + (size_t)row * N;
 
-  // the first and last observing slots (0 and N - 1 if none)
+  // the first and last observing slots (0 and N - 1 if none); each warp
+  // finds them itself
   int first = -1, last = -1;
   for (int s0 = 0; s0 < N; s0 += 32) {
     const int s = s0 + lane;
@@ -252,21 +250,17 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
     if (bal != 0u && first < 0) first = s0 + __ffs((int)bal) - 1;
     if (bal != 0u) last = s0 + 31 - __clz((int)bal);
   }
-  const bool seen = first >= 0;
   if (first < 0) first = 0;
   if (last < 0) last = N - 1;
-  T q_a[4], p_a[3];  // the first observing slot's pose: the anchor
-  pose_of(first, q_a, p_a);
+  const T* q_a = cam_q + 4 * first;  // the first observing slot's pose: the anchor
+  const T* p_a = cam_p + 3 * first;
   bool alive = true, moved = true;
   if (rows) {  // the call site: need_init, then the motion check
     alive = a.sel_ok[b] != 0 && a.initialized[row] == 0;
-    if (alive && a.motion_thr >= T(0)) {
-      T q_l[4], p_l[3];
-      pose_of(last, q_l, p_l);
-      moved = motion_ok(q_a, p_a, p_l, z_b + 4 * first, a.motion_thr);
-    }
+    if (alive && a.motion_thr >= T(0))
+      moved = motion_ok(q_a, p_a, cam_p + 3 * last, z_b + 4 * first, a.motion_thr);
     if (!(alive && moved)) {  // the row stays as it is
-      if (lane == 0) {
+      if (t == 0) {
         for (int i = 0; i < 3; ++i) a.pos_out[3 * row + i] = a.position[3 * row + i];
         a.init_out[row] = a.initialized[row];
         a.fail_out[b] = alive ? 1 : 0;
@@ -284,7 +278,6 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
     tc1c0[i] = (-a.R_c0c1[i]) * a.t_c0c1[0] + (-a.R_c0c1[3 + i]) * a.t_c0c1[1] +
                (-a.R_c0c1[6 + i]) * a.t_c0c1[2];
   }
-  // the anchor: the first observing slot's cam0
   T Rw[9], Ra[9], ta[3];
   msckf::to_rotation(q_a, Rw);
   for (int i = 0; i < 3; ++i) {
@@ -292,34 +285,36 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
     ta[i] = p_a[i];
   }
 
-  // this lane's slots lane + 32 k: both views, observations, mask (kSlots
-  // = 0: rebuilt from the window at each use)
-  View<T> view[kHeld][2];
-  T z[kHeld][4];
+  // this thread's views v = t + 64 j (view v: slot v / 2, camera v % 2),
+  // their observations and masks (kViews = 0: rebuilt at each use)
+  constexpr int kHeld = kViews > 0 ? kViews : 1;
+  View<T> view[kHeld];
+  T z[kHeld][2];
   bool m[kHeld];
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) {
-    const int s = lane + 32 * k;
-    m[k] = s < N && m_b[s] != 0;
-    if (m[k]) {
-      slot_views(qs[k], ps[k], Ra, ta, Rc1c0, tc1c0, view[k][0], view[k][1]);
-      for (int c = 0; c < 4; ++c) z[k][c] = z_b[4 * s + c];
+  for (int j = 0; j < kViews; ++j) {
+    const int v = t + kGroup * j, s = v >> 1;
+    m[j] = s < N && m_b[s] != 0;
+    if (m[j]) {
+      slot_view(cam_q + 4 * s, cam_p + 3 * s, v & 1, Ra, ta, Rc1c0, tc1c0, view[j]);
+      for (int c = 0; c < 2; ++c) z[j][c] = z_b[4 * s + 2 * (v & 1) + c];
     }
   }
   if (store) a.clocks[1] = clock64();
-  // f(views, z) for each observing slot of this lane, in slot order
-  auto for_slots = [&](auto&& f) {
-    if constexpr (kSlots > 0) {
+  // f(view, z) for each observing view of this thread, in view order
+  auto for_views = [&](auto&& f) {
+    if constexpr (kViews > 0) {
 #pragma unroll
-      for (int k = 0; k < kSlots; ++k)
-        if (m[k]) f(view[k], z[k]);
+      for (int j = 0; j < kViews; ++j)
+        if (m[j]) f(view[j], z[j]);
     } else {
-      for (int s = lane; s < N; s += 32) {
+      for (int v = t; v < 2 * N; v += kGroup) {
+        const int s = v >> 1;
         if (m_b[s] == 0) continue;
-        View<T> v[2];
-        slot_views(cam_q + 4 * s, cam_p + 3 * s, Ra, ta, Rc1c0, tc1c0, v[0], v[1]);
-        const T zs[4] = {z_b[4 * s], z_b[4 * s + 1], z_b[4 * s + 2], z_b[4 * s + 3]};
-        f(v, zs);
+        View<T> w;
+        slot_view(cam_q + 4 * s, cam_p + 3 * s, v & 1, Ra, ta, Rc1c0, tc1c0, w);
+        const T zs[2] = {z_b[4 * s + 2 * (v & 1)], z_b[4 * s + 2 * (v & 1) + 1]};
+        f(w, zs);
       }
     }
   };
@@ -327,18 +322,8 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
   // closed-form initial guess from the anchor slot's stereo pair
   T x[3];
   {
-    // the anchor slot's cam1 view: from the lane that built it, else built
-    View<T> v0, v1;
-    if (kSlots > 0 && seen) {
-#pragma unroll
-#pragma unroll
-      for (int k = 0; k < kHeld; ++k)
-        if (k == first >> 5) v1 = view[k][1];
-      for (int i = 0; i < 9; ++i) v1.R[i] = __shfl_sync(0xffffffffu, v1.R[i], first & 31);
-      for (int i = 0; i < 3; ++i) v1.t[i] = __shfl_sync(0xffffffffu, v1.t[i], first & 31);
-    } else {
-      slot_views(q_a, p_a, Ra, ta, Rc1c0, tc1c0, v0, v1);
-    }
+    View<T> v1;
+    slot_view(q_a, p_a, 1, Ra, ta, Rc1c0, tc1c0, v1);
     const T z1h[3] = {z_b[4 * first], z_b[4 * first + 1], T(1)};
     const T z2[2] = {z_b[4 * first + 2], z_b[4 * first + 3]};
     T mm[3];
@@ -354,49 +339,59 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
   }
 
   // The cost (kCost) and the Huber-weighted normal equations A (A00 A01 A02
-  // A11 A12 A22), b (kNe) at xx: one pass over the lane's slots, one round
-  // of sums.  A pass of either kind alone does the same arithmetic and the
-  // same sums as a pass of both.
+  // A11 A12 A22), b (kNe) at xx: one pass over the thread's views, one
+  // round of sums (each warp's butterfly, then the two warps' sums added
+  // in warp order, the same bits in every thread of the group).  A pass of
+  // either kind alone does the same arithmetic and sums as a pass of both.
+  int parity = 0;
   auto pass = [&](auto cost_tag, auto ne_tag, const T xx[3], T& cost_out, T (&A_out)[6],
                   T (&b_out)[3]) {
     constexpr bool kCost = decltype(cost_tag)::value, kNe = decltype(ne_tag)::value;
+    constexpr int lo = kNe ? 0 : 9, hi = kCost ? 10 : 9;
     T acc[10] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-    for_slots([&](const View<T>* vs, const T* zs) {
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {  // unrolled: the views stay in registers
-        const View<T>& v = vs[c];
-        T h[3];
-        project(v, xx, h);
-        const T h3 = h[2];
-        const T r0 = h[0] / h3 - zs[2 * c], r1 = h[1] / h3 - zs[2 * c + 1];
-        if constexpr (kCost) acc[9] += r0 * r0 + r1 * r1;
-        if constexpr (kNe) {
-          const T hh = h3 * h3;
-          const T W0[3] = {v.R[0], v.R[1], v.t[0]}, W1[3] = {v.R[3], v.R[4], v.t[1]};
-          const T W2[3] = {v.R[6], v.R[7], v.t[2]};
-          T J0[3], J1[3];
-          for (int i = 0; i < 3; ++i) {
-            J0[i] = W0[i] / h3 - W2[i] * (h[0] / hh);
-            J1[i] = W1[i] / h3 - W2[i] * (h[1] / hh);
-          }
-          const T e = sqrt(r0 * r0 + r1 * r1);
-          const T w = e <= a.huber_eps ? T(1) : a.huber_eps / (T(2) * e);
-          const T w2 = w * w;
-          acc[0] += w2 * J0[0] * J0[0] + w2 * J1[0] * J1[0];
-          acc[1] += w2 * J0[0] * J0[1] + w2 * J1[0] * J1[1];
-          acc[2] += w2 * J0[0] * J0[2] + w2 * J1[0] * J1[2];
-          acc[3] += w2 * J0[1] * J0[1] + w2 * J1[1] * J1[1];
-          acc[4] += w2 * J0[1] * J0[2] + w2 * J1[1] * J1[2];
-          acc[5] += w2 * J0[2] * J0[2] + w2 * J1[2] * J1[2];
-          for (int i = 0; i < 3; ++i) acc[6 + i] += w2 * J0[i] * r0 + w2 * J1[i] * r1;
+    for_views([&](const View<T>& v, const T* zs) {
+      T h[3];
+      project(v, xx, h);
+      const T h3 = h[2];
+      const T r0 = h[0] / h3 - zs[0], r1 = h[1] / h3 - zs[1];
+      if constexpr (kCost) acc[9] += r0 * r0 + r1 * r1;
+      if constexpr (kNe) {
+        const T hh = h3 * h3;
+        const T W0[3] = {v.R[0], v.R[1], v.t[0]}, W1[3] = {v.R[3], v.R[4], v.t[1]};
+        const T W2[3] = {v.R[6], v.R[7], v.t[2]};
+        T J0[3], J1[3];
+        for (int i = 0; i < 3; ++i) {
+          J0[i] = W0[i] / h3 - W2[i] * (h[0] / hh);
+          J1[i] = W1[i] / h3 - W2[i] * (h[1] / hh);
         }
+        const T e = sqrt(r0 * r0 + r1 * r1);
+        const T w = e <= a.huber_eps ? T(1) : a.huber_eps / (T(2) * e);
+        const T w2 = w * w;
+        acc[0] += w2 * J0[0] * J0[0] + w2 * J1[0] * J1[0];
+        acc[1] += w2 * J0[0] * J0[1] + w2 * J1[0] * J1[1];
+        acc[2] += w2 * J0[0] * J0[2] + w2 * J1[0] * J1[2];
+        acc[3] += w2 * J0[1] * J0[1] + w2 * J1[1] * J1[1];
+        acc[4] += w2 * J0[1] * J0[2] + w2 * J1[1] * J1[2];
+        acc[5] += w2 * J0[2] * J0[2] + w2 * J1[2] * J1[2];
+        for (int i = 0; i < 3; ++i) acc[6 + i] += w2 * J0[i] * r0 + w2 * J1[i] * r1;
       }
     });
+#pragma unroll
+    for (int i = lo; i < hi; ++i)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+    if (lane == 0)
+#pragma unroll
+      for (int i = lo; i < hi; ++i) red[g][parity][half][i] = acc[i];
+    group_sync(g);
+#pragma unroll
+    for (int i = lo; i < hi; ++i) acc[i] = red[g][parity][0][i] + red[g][parity][1][i];
+    parity ^= 1;  // the next pass writes the other half: no second barrier
     if constexpr (kNe) {
-      for (int i = 0; i < 6; ++i) A_out[i] = msckf::warp_sum(acc[i]);
-      for (int i = 0; i < 3; ++i) b_out[i] = msckf::warp_sum(acc[6 + i]);
+      for (int i = 0; i < 6; ++i) A_out[i] = acc[i];
+      for (int i = 0; i < 3; ++i) b_out[i] = acc[6 + i];
     }
-    if constexpr (kCost) cost_out = msckf::warp_sum(acc[9]);
+    if constexpr (kCost) cost_out = acc[9];
   };
   constexpr std::true_type kYes{};
   constexpr std::false_type kNo{};
@@ -490,16 +485,15 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
   // back to the world frame; every observing view must see it in front
   const T fin[3] = {x[0] / x[2], x[1] / x[2], T(1) / x[2]};
   bool good = true;
-  for_slots([&](const View<T>* vs, const T*) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const View<T>& v = vs[c];
-      const T depth = (v.R[6] * fin[0] + v.R[7] * fin[1] + v.R[8] * fin[2]) + v.t[2];
-      good = good && depth > T(0);
-    }
+  for_views([&](const View<T>& v, const T*) {
+    const T depth = (v.R[6] * fin[0] + v.R[7] * fin[1] + v.R[8] * fin[2]) + v.t[2];
+    good = good && depth > T(0);
   });
   good = __all_sync(0xffffffffu, good);
-  if (lane == 0) {
+  if (lane == 0) votes[g][half] = good ? 1 : 0;
+  group_sync(g);
+  good = votes[g][0] != 0 && votes[g][1] != 0;
+  if (t == 0) {
     T pw[3];
     for (int i = 0; i < 3; ++i)
       pw[i] = (Ra[3 * i] * fin[0] + Ra[3 * i + 1] * fin[1] + Ra[3 * i + 2] * fin[2]) + ta[i];
@@ -515,30 +509,32 @@ __global__ void __launch_bounds__(kWarps * 32) triangulate_kernel(const Args<T> 
   }
 }
 
-// The instantiation for kSlots index k (2, 4, 8 slots a lane, or rebuilt).
+// The instantiation for kViews index k (1, 2, 4, 8 views a thread, or rebuilt).
 template <typename T, bool kFused>
 auto pick(int k) {
-  return k == 0 ? triangulate_kernel<T, 2, kFused>
-         : k == 1 ? triangulate_kernel<T, 4, kFused>
-         : k == 2 ? triangulate_kernel<T, 8, kFused> : triangulate_kernel<T, 0, kFused>;
+  return k == 0 ? triangulate_kernel<T, 1, kFused>
+         : k == 1 ? triangulate_kernel<T, 2, kFused>
+         : k == 2 ? triangulate_kernel<T, 4, kFused>
+         : k == 3 ? triangulate_kernel<T, 8, kFused> : triangulate_kernel<T, 0, kFused>;
 }
 
 template <typename T>
 int launch(const Args<T>& a, void* stream) {
-  static size_t allowed[4] = {0, 0, 0, 0};  // the row entry's kernels
+  static size_t allowed[5] = {0, 0, 0, 0, 0};  // the row entry's kernels
   if (a.N < 1) return (int)cudaErrorInvalidValue;
-  const int n_blocks = (a.B + kWarps - 1) / kWarps;
+  const int n_blocks = (a.B + kGroups - 1) / kGroups;
   const int n_copy = a.sel != nullptr ? (a.M + kCopyRows - 1) / kCopyRows : 0;
   if (n_blocks + n_copy == 0) return 0;
-  // slots a lane holds in registers: 2, 4 or 8; past 256 slots, rebuilt at each use
-  const int k = a.N <= 64 ? 0 : a.N <= 128 ? 1 : a.N <= 256 ? 2 : 3;
+  // views a thread holds in registers: 1, 2, 4 or 8; past 256 slots,
+  // rebuilt at each use
+  const int k = a.N <= 32 ? 0 : a.N <= 64 ? 1 : a.N <= 128 ? 2 : a.N <= 256 ? 3 : 4;
   auto kernel = pick<T, false>(k);
   if (a.sel != nullptr) kernel = pick<T, true>(k);  // the row entry: the fused passes
   // the copy blocks' bitmap of sel
   const size_t smem = n_copy > 0 ? (size_t)(a.M + 31) / 32 * sizeof(uint32_t) : 0;
   const int err = msckf::allow_smem(kernel, smem, &allowed[k]);
   if (err != 0) return err;
-  kernel<<<n_blocks + n_copy, kWarps * 32, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<n_blocks + n_copy, kBlock, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
