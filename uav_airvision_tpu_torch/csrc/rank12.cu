@@ -117,20 +117,20 @@ __device__ __forceinline__ void add_rows(const T* stage, const int* flag, int i0
   }
 }
 
-// 1 / x for the LU: the float reciprocal, and for a double one Newton step
-// from it (relative error ~2^-46, far below what the update needs), a
-// shorter chain than the correctly rounded double reciprocal.
+// 1 / x for the back substitution's diagonal: the float reciprocal, and for
+// a double one Newton step from it (relative error ~2^-46, far below what
+// the solve needs), a shorter chain than the correctly rounded double
+// reciprocal.
 __device__ __forceinline__ float lu_rcp(float x) { return __frcp_rn(x); }
 __device__ __forceinline__ double lu_rcp(double x) {
   const double r = (double)__frcp_rn((float)x);
   return r + r * (1.0 - x * r);
 }
 
-// One step of the LU on [W | B'r | B'B], a column a lane: getrf's pivot in
-// lane K's column (the first largest |W_iK|, found by a tournament of
-// depth log2(12 - K) in which the left, lower row wins ties), the row swap
-// in every lane, then the rows below scaled by the pivot's reciprocal
-// (getf2's scaling).
+// One step of the elimination on [W | B'r | B'B], a column a lane:
+// getrf's pivot in lane K's column (the first largest |W_iK|, found by a
+// tournament of depth log2(12 - K) in which the left, lower row wins
+// ties), the row swap in every lane, then the rows below.
 template <int K, typename T>
 __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
   T v[12];
@@ -157,11 +157,16 @@ __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
       col[i] = t;
     }
   }
-  const T inv = lu_rcp(__shfl_sync(kFull, col[K], K));
+  // fraction-free: every row below is scaled by the pivot, then the
+  // pivot row's multiple taken (row i <- piv row i - a_iK row K), so no
+  // reciprocal stands in the chain of steps; every remaining row takes the
+  // same scale, so the pivots are getrf's, and the scaled system has the
+  // same solution (in float64 the product of 12 pivots stays in range)
+  const T piv = __shfl_sync(kFull, col[K], K);
 #pragma unroll
   for (int i = K + 1; i < 12; ++i) {
-    const T m = __shfl_sync(kFull, col[i], K) * inv;
-    if (lane > K) col[i] = col[i] - m * col[K];
+    const T m = __shfl_sync(kFull, col[i], K);
+    if (lane > K) col[i] = col[i] * piv - m * col[K];
   }
 }
 
