@@ -1679,7 +1679,7 @@ def check_extract(rec: Recorder):
     """P1's standalone entry against its plain version on the window
     extracts of the compact calls' witness route: bit-exact.  Times at the
     most frequent shape, beside one indexing call that gathers the same
-    windows.  Returns (ms, plain ms, library ms) at that shape."""
+    windows."""
     import torch
 
     from uav_airvision_tpu_torch.ops import extract
@@ -1687,7 +1687,7 @@ def check_extract(rec: Recorder):
     calls = rec.samples("P1")
     if not calls:
         fail("the witness route made no window extract call")
-        return None
+        return
     err = 0.0
     for shape, a in calls:
         got, want = extract.extract_windows(*a), extract.extract_windows_plain(*a)
@@ -1709,7 +1709,6 @@ def check_extract(rec: Recorder):
           f"{sorted({sh for sh, _ in calls})}: bit-exact (max diff {err:.1e}); at {shape} "
           f"{ms:.4f} ms vs plain {pms:.4f} ms; the indexing call level[rows, cols] {lib:.4f} "
           f"ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
-    return ms, pms, lib
 
 
 def check_lk_level(rec: Recorder):

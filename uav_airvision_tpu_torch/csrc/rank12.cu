@@ -26,12 +26,17 @@
 // pair (a, 11 - a) of [B'B | B'r] (15 sums), a feature a lane, then a
 // butterfly of shuffles adds the lanes' sums; after one cluster barrier
 // every block adds the 8 blocks' sums in rank order through distributed
-// shared memory.  One warp runs the 12 x 25 LU on [W | B'r | B'B] with a
-// column in each lane's registers (the pivot column is lane k's, so the
-// pivot search, getrf's first largest |W_ik|, is one lane's; the row swap
-// is each lane's own; the rows below scale by the pivot's reciprocal, as
-// getf2 does), no block barrier inside; lanes 12-24 back-substitute their
-// columns.  The tile pair is then written from the staged tiles: P_new[i,
+// shared memory.  W and the solve are float64 for both precisions (in a
+// float32 W's rounding, amplified by W's conditioning, put the kernel up to
+// twice as far from the float64 update as the float32 plain version's
+// library solve on the bench world's first prune calls; float64 sums
+// alone did not close it).  One warp eliminates the 12 x 25 system
+// [W | B'r | B'B] with a column in each lane's registers (the pivot column
+// is lane k's, so the pivot search, getrf's first largest |W_ik|, is one
+// lane's tournament; the row swap is each lane's own), fraction-free:
+// the rows below are scaled by the pivot instead of divided by it, so no
+// reciprocal stands in the chain of twelve steps; no block barrier
+// inside; lanes 12-24 back-substitute their columns, column by column.  The tile pair is then written from the staged tiles: P_new[i,
 // j] and P_new[j, i] are one value, written coalesced to both places.  One
 // more block solves too and writes delta and the injected state, beside
 // the tiles.
@@ -66,25 +71,23 @@ constexpr unsigned kFull = 0xffffffffu;
 __host__ __device__ constexpr int tri(int a, int c) { return a * 12 - a * (a - 1) / 2 + c - a; }
 
 // Add a staged row [b | r] (13 values) to the 15 sums of row pair A:
-// B^T B (A, A..11), B^T r (A), B^T B (11-A, 11-A..11), B^T r (11-A), in
-// the sums' type Acc (float64: each product of two floats is exact)
-template <int A, typename T, typename Acc>
-__device__ __forceinline__ void add_row(const T* row, Acc (&acc)[15]) {
+// B^T B (A, A..11), B^T r (A), B^T B (11-A, 11-A..11), B^T r (11-A)
+template <int A, typename T>
+__device__ __forceinline__ void add_row(const T* row, T (&acc)[15]) {
   constexpr int A2 = 11 - A;
-  const Acc a = row[A], a2 = row[A2];
 #pragma unroll
-  for (int c = A; c < 12; ++c) acc[c - A] += a * Acc(row[c]);
-  acc[12 - A] += a * Acc(row[12]);
+  for (int c = A; c < 12; ++c) acc[c - A] += row[A] * row[c];
+  acc[12 - A] += row[A] * row[12];
 #pragma unroll
-  for (int c = A2; c < 12; ++c) acc[13 - A + c - A2] += a2 * Acc(row[c]);
-  acc[14] += a2 * Acc(row[12]);
+  for (int c = A2; c < 12; ++c) acc[13 - A + c - A2] += row[A2] * row[c];
+  acc[14] += row[A2] * row[12];
 }
 
 // The row pair's 15 sums over the warp (a butterfly: every lane, every
 // block, the same order), written by lane 0 to ``part`` (the upper triangle
 // of B^T B row by row, then B^T r).
-template <int A, typename Acc>
-__device__ __forceinline__ void store_sums(Acc (&acc)[15], int lane, Acc* part) {
+template <int A, typename T>
+__device__ __forceinline__ void store_sums(T (&acc)[15], int lane, T* part) {
   constexpr int A2 = 11 - A;
 #pragma unroll
   for (int e = 0; e < 15; ++e)
@@ -107,24 +110,14 @@ __device__ __forceinline__ int div_rows(int q, int d, unsigned magic) {
 // This block's staged features [i0, i1) (its own, every kCluster-th) that
 // fall to this lane (local feature i to lane i mod 32), included ones only
 // (``flag``: nullptr, every one), a feature's rows in order.
-template <int A, typename T, typename Acc>
+template <int A, typename T>
 __device__ __forceinline__ void add_rows(const T* stage, const int* flag, int i0, int i1,
-                                         int rows_per, int lane, Acc (&acc)[15]) {
+                                         int rows_per, int lane, T (&acc)[15]) {
   for (int i = i0 + ((lane - i0) & 31); i < i1; i += 32) {
     if (flag != nullptr && flag[i] == 0) continue;
     const T* row = stage + (i - i0) * rows_per * 13;
     for (int j = 0; j < rows_per; ++j) add_row<A>(row + j * 13, acc);
   }
-}
-
-// 1 / x for the back substitution's diagonal: the float reciprocal, and for
-// a double one Newton step from it (relative error ~2^-46, far below what
-// the solve needs), a shorter chain than the correctly rounded double
-// reciprocal.
-__device__ __forceinline__ float lu_rcp(float x) { return __frcp_rn(x); }
-__device__ __forceinline__ double lu_rcp(double x) {
-  const double r = (double)__frcp_rn((float)x);
-  return r + r * (1.0 - x * r);
 }
 
 // One step of the elimination on [W | B'r | B'B], a column a lane:
@@ -161,7 +154,8 @@ __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
   // pivot row's multiple taken (row i <- piv row i - a_iK row K), so no
   // reciprocal stands in the chain of steps; every remaining row takes the
   // same scale, so the pivots are getrf's, and the scaled system has the
-  // same solution (in float64 the product of 12 pivots stays in range)
+  // same solution (in float64 the product of 12 pivots stays in range; the
+  // scaled diagonal may leave float32's, so its reciprocals are float64's)
   const T piv = __shfl_sync(kFull, col[K], K);
 #pragma unroll
   for (int i = K + 1; i < 12; ++i) {
@@ -183,7 +177,7 @@ __device__ __forceinline__ void back_substitute(T (&y)[12], const T* U, const T*
   }
 }
 
-template <typename T, typename Acc, typename S>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_feat, int rows_per,
               long long hs_f, long long hs_r, const T* __restrict__ r, long long rs_f,
@@ -198,9 +192,9 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   T* PcG = tB + kTile * kPad;               // (Pc G)[I], then (Pc G)[J]
   T* stage = PcG + 2 * kTile * 12;          // a chunk of this block's features' rows [b | r]
   int* flag = reinterpret_cast<int*>(stage + chunk * rows_per * 13);  // its include flags
-  __shared__ Acc part[kSums];
+  using S = double;  // the 12 x 12 system's type, for both T
+  __shared__ T part[kSums], G[144], bsr[12];
   __shared__ S BtB[144], aug[12 * kA], rdiag[12];
-  __shared__ T G[144], bsr[12];
   __shared__ int cidx[12];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -266,9 +260,9 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
 
   // this block's share of B^T B and B^T r: a row pair a warp, a feature a
   // lane, chunk by chunk
-  Acc acc[15];
+  T acc[15];
 #pragma unroll
-  for (int e = 0; e < 15; ++e) acc[e] = Acc(0);
+  for (int e = 0; e < 15; ++e) acc[e] = T(0);
   for (int i0 = 0; i0 < n_loc; i0 += chunk) {
     const int i1 = min(n_loc, i0 + chunk);
     if (i0 > 0) {
@@ -301,7 +295,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   // same bits in every block
   cluster.sync();
   if (solver && tid < kSums) {
-    Acc s = Acc(0);
+    T s = T(0);
 #pragma unroll
     for (int k = 0; k < kCluster; ++k) s += cluster.map_shared_rank(part, k)[tid];
     if (tid < 78) {
@@ -354,7 +348,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
 #pragma unroll
     for (int i = 0; i < 12; ++i)
       if (lane == i) d = col[i];
-    if (lane < 12) rdiag[lane] = lu_rcp(d);
+    if (lane < 12) rdiag[lane] = msckf::rcp(d);
     if (lane < kA) {
 #pragma unroll
       for (int i = 0; i < 12; ++i) aug[i * kA + lane] = col[i];
@@ -441,8 +435,7 @@ int launch(const void* P, int D, const void* Bm, int n_feat, int rows_per, long 
            void* clocks, void* stream) {
   static size_t smem_allowed = 0;
   if (D < 12 || n_feat < 1 || rows_per < 1) return (int)cudaErrorInvalidValue;
-  // the sums of B'B and B'r in T, the 12 x 12 system in float64 for both types
-  const auto kernel = rank12_kernel<T, T, double>;
+  const auto kernel = rank12_kernel<T>;
   const int n_loc = (n_feat + kCluster - 1) / kCluster;  // rank 0's features, the most
   const int per_chunk = kStageBytes / (13 * (int)sizeof(T) * rows_per);
   const int chunk = per_chunk < 1 ? 1 : (per_chunk < n_loc ? per_chunk : n_loc);
