@@ -350,10 +350,10 @@ def _lk_points(F, W, H, win, seed):
 @pytest.mark.parametrize("F,win", [(1, 15), (104, 15), (204, 15), (1300, 15), (204, 3),
                                    (204, 21), (204, 31), (204, 33)])
 def test_lk_kernel_points(dev, F, win):
-    """K1 and its level entry (the compact tracker: P1 + the level entry per
-    level) at the main path's point counts, the [limits] configuration's
-    1,300 and one point, with points on band boundaries and image edges,
-    at sides 3 to 33: one launch a call (n_levels level launches), status
+    """K1 and its compact entry (the compact tracker in one launch) at the
+    main path's point counts, the [limits] configuration's 1,300 and one
+    point, with points on band boundaries and image edges, at sides 3 to
+    33: one launch a call, status
     agreeing on >= 99% of points, and every point both track within 1e-3 px
     of the plain version (K1's bars).  At side 3 G (9 pixels) is often
     near-singular and most points oscillate without converging within
@@ -371,10 +371,10 @@ def test_lk_kernel_points(dev, F, win):
     valid = torch.as_tensor(np.random.default_rng(F).uniform(size=F) < 0.95, device=dev)
     for compact in (False, True):
         args = dict(win=win, max_iter=10, n_levels=2, max_iter_upper=5, compact_windows=compact)
-        n0 = (lk.pyramidal_lk.launches, lk.pyramidal_lk_level.launches)
+        n0 = _compact_counts()[1:]
         kn, ks = lk.pyramidal_lk(p0, p1, pts, pts, valid, **args)
-        assert (lk.pyramidal_lk.launches - n0[0], lk.pyramidal_lk_level.launches - n0[1]) == (
-            (0, 2) if compact else (1, 0))
+        assert tuple(b - a for a, b in zip(n0, _compact_counts()[1:])) == (
+            (0, 0, 1) if compact else (0, 1, 0))
         pn, ps = lk.pyramidal_lk_plain(p0, p1, pts, pts, valid, **args)
         assert (ks == ps).float().mean() >= 0.99
         both = ks & ps

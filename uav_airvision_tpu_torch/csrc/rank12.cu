@@ -30,13 +30,12 @@
 // float32 W's rounding, amplified by W's conditioning, put the kernel up to
 // twice as far from the float64 update as the float32 plain version's
 // library solve on the bench world's first prune calls; float64 sums
-// alone did not close it).  One warp eliminates the 12 x 25 system
+// alone did not close it).  One warp runs the 12 x 25 LU on
 // [W | B'r | B'B] with a column in each lane's registers (the pivot column
 // is lane k's, so the pivot search, getrf's first largest |W_ik|, is one
-// lane's tournament; the row swap is each lane's own), fraction-free:
-// the rows below are scaled by the pivot instead of divided by it, so no
-// reciprocal stands in the chain of twelve steps; no block barrier
-// inside; lanes 12-24 back-substitute their columns, column by column.  The tile pair is then written from the staged tiles: P_new[i,
+// lane's tournament; the row swap is each lane's own; the rows below scale
+// by the pivot's reciprocal, as getf2 does), no block barrier inside;
+// lanes 12-24 back-substitute their columns, column by column.  The tile pair is then written from the staged tiles: P_new[i,
 // j] and P_new[j, i] are one value, written coalesced to both places.  One
 // more block solves too and writes delta and the injected state, beside
 // the tiles.
@@ -120,10 +119,11 @@ __device__ __forceinline__ void add_rows(const T* stage, const int* flag, int i0
   }
 }
 
-// One step of the elimination on [W | B'r | B'B], a column a lane:
-// getrf's pivot in lane K's column (the first largest |W_iK|, found by a
-// tournament of depth log2(12 - K) in which the left, lower row wins
-// ties), the row swap in every lane, then the rows below.
+// One step of the LU on [W | B'r | B'B], a column a lane: getrf's pivot in
+// lane K's column (the first largest |W_iK|, found by a tournament of
+// depth log2(12 - K) in which the left, lower row wins ties), the row swap
+// in every lane, then the rows below scaled by the pivot's reciprocal
+// (getf2's scaling).
 template <int K, typename T>
 __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
   T v[12];
@@ -150,17 +150,11 @@ __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
       col[i] = t;
     }
   }
-  // fraction-free: every row below is scaled by the pivot, then the
-  // pivot row's multiple taken (row i <- piv row i - a_iK row K), so no
-  // reciprocal stands in the chain of steps; every remaining row takes the
-  // same scale, so the pivots are getrf's, and the scaled system has the
-  // same solution (in float64 the product of 12 pivots stays in range; the
-  // scaled diagonal may leave float32's, so its reciprocals are float64's)
-  const T piv = __shfl_sync(kFull, col[K], K);
+  const T inv = msckf::rcp(__shfl_sync(kFull, col[K], K));
 #pragma unroll
   for (int i = K + 1; i < 12; ++i) {
-    const T m = __shfl_sync(kFull, col[i], K);
-    if (lane > K) col[i] = col[i] * piv - m * col[K];
+    const T m = __shfl_sync(kFull, col[i], K) * inv;
+    if (lane > K) col[i] = col[i] - m * col[K];
   }
 }
 
