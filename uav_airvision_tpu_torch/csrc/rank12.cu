@@ -314,8 +314,17 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   if (timed) clocks[2] = clock64();
   if (tid < 144) {
     const int a = tid / 12, c = tid % 12;
+    // the twelve terms' loads issued together (the cluster's column
+    // indices first), not a dependent pair of loads a term
+    S b[12], p[12];
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      b[k] = BtB[a * 12 + k];
+      p[k] = S(Pc[cidx[k] * 12 + c]);
+    }
     S w = S(0);
-    for (int k = 0; k < 12; ++k) w += BtB[a * 12 + k] * S(Pc[cidx[k] * 12 + c]);
+#pragma unroll
+    for (int k = 0; k < 12; ++k) w += b[k] * p[k];
     aug[a * kA + c] = (a == c ? S(*obs_noise) : S(0)) + w;
     aug[a * kA + 13 + c] = BtB[tid];
   }
@@ -367,6 +376,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   if (injector) {  // delta = Pc bsr and the injection
     for (int i = tid; i < D; i += kThreads) {
       T acc2 = T(0);
+#pragma unroll
       for (int a = 0; a < 12; ++a) acc2 += Pc[i * 12 + a] * bsr[a];
       delta[i] = acc2;
     }
@@ -384,6 +394,8 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     const int q = e / 12, c = e - q * 12;
     const int i = q < ni ? I0 + q : J0 + q - ni;
     T acc2 = T(0);
+    // unrolled: the loads issued together, the sum's order unchanged
+#pragma unroll
     for (int a = 0; a < 12; ++a) acc2 += Pc[i * 12 + a] * G[a * 12 + c];
     PcG[e] = acc2;
   }
@@ -397,6 +409,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     if (a >= ni || c >= nj) continue;
     const int i = I0 + a, j = J0 + c;
     T mij = T(0), mji = T(0);
+#pragma unroll
     for (int k = 0; k < 12; ++k) {
       mij += PcG[a * 12 + k] * Pc[j * 12 + k];
       mji += PcGJ[c * 12 + k] * Pc[i * 12 + k];
