@@ -126,11 +126,12 @@ __device__ __forceinline__ void add_rows(const T* stage, const int* flag, int i0
 // (getf2's scaling).
 template <int K, typename T>
 __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
-  T v[12];
+  T v[12], sv[12];  // |col| and col, carried through the tournament
   int at[12];
 #pragma unroll
   for (int i = K; i < 12; ++i) {
     v[i] = fabs(col[i]);
+    sv[i] = col[i];
     at[i] = i;
   }
 #pragma unroll
@@ -139,8 +140,12 @@ __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
     for (int i = K; i + w < 12; i += 2 * w)
       if (v[i + w] > v[i]) {
         v[i] = v[i + w];
+        sv[i] = sv[i + w];
         at[i] = at[i + w];
       }
+  // lane K holds the pivot once its tournament ends: the reciprocal starts
+  // there, before the broadcast, and goes out with the pivot's row
+  const T inv = __shfl_sync(kFull, msckf::rcp(sv[K]), K);
   const int p = __shfl_sync(kFull, at[K], K);
 #pragma unroll
   for (int i = K + 1; i < 12; ++i) {
@@ -150,7 +155,6 @@ __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
       col[i] = t;
     }
   }
-  const T inv = msckf::rcp(__shfl_sync(kFull, col[K], K));
 #pragma unroll
   for (int i = K + 1; i < 12; ++i) {
     const T m = __shfl_sync(kFull, col[i], K) * inv;
