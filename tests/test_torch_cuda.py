@@ -706,33 +706,6 @@ def test_rank12_kernel_matches_plain(dev, host_states, dtype, singular):
         assert float((a - b).abs().max()) <= tol * max(scale, 1.0)
 
 
-def test_rank12_rows_kernel_near_float64(dev, host_states):
-    """K12's row entry at the main path's most frequent prune shape, 128
-    features of 5 rows (~60% included), float32: each field of the new
-    state no farther from the float64 plain version than max(1.25 x the
-    float32 plain version's distance, 1e-4), relative to the field's
-    largest entry (chip_smoke.py holds every recorded prune call to the
-    same bar)."""
-    cfg, state, params, _ = _card_state(dev, host_states, "float32")
-    cols = torch.cat([21 + 6 * 4 + torch.arange(6, device=dev),
-                      21 + 6 * 9 + torch.arange(6, device=dev)])
-    H12, r_blk, include = _prune_blocks(state, 128, 7)
-    got, _ = update.apply_update_rank12_rows(state, params, H12, r_blk, include, cols)
-    want, _ = update.apply_update_rank12_rows_plain(state, params, H12, r_blk, include, cols)
-
-    def f64(tree):
-        return torch.utils._pytree.tree_map(
-            lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x, tree)
-
-    ref, _ = update.apply_update_rank12_rows_plain(f64(state), f64(params), H12.double(),
-                                                   r_blk.double(), include, cols)
-    for name, r in _fields(ref).items():
-        scale = max(float(r.abs().max()), 1e-30)
-        k = float((_fields(got)[name].double() - r).abs().max()) / scale
-        p = float((_fields(want)[name].double() - r).abs().max()) / scale
-        assert k <= max(1.25 * p, 1e-4), (name, k, p)
-
-
 def _prune_blocks(state, Kp, seed, n_in=None):
     """A prune's K9 output as the main path slices it: H12 the (Kp, 5, 12)
     columns 21-33 of (Kp, 5, 33) blocks (read in place by K12), r_blk (Kp,

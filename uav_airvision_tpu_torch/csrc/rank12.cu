@@ -26,16 +26,12 @@
 // pair (a, 11 - a) of [B'B | B'r] (15 sums), a feature a lane, then a
 // butterfly of shuffles adds the lanes' sums; after one cluster barrier
 // every block adds the 8 blocks' sums in rank order through distributed
-// shared memory.  W and the solve are float64 for both precisions (in a
-// float32 W's rounding, amplified by W's conditioning, put the kernel up to
-// twice as far from the float64 update as the float32 plain version's
-// library solve on the bench world's first prune calls; float64 sums
-// alone did not close it).  One warp runs the 12 x 25 LU on
-// [W | B'r | B'B] with a column in each lane's registers (the pivot column
-// is lane k's, so the pivot search, getrf's first largest |W_ik|, is one
-// lane's tournament; the row swap is each lane's own; the rows below scale
-// by the pivot's reciprocal, as getf2 does), no block barrier inside;
-// lanes 12-24 back-substitute their columns, column by column.  The tile pair is then written from the staged tiles: P_new[i,
+// shared memory.  One warp runs the 12 x 25 LU on [W | B'r | B'B] with a
+// column in each lane's registers (the pivot column is lane k's, so the
+// pivot search, getrf's first largest |W_ik|, is one lane's; the row swap
+// is each lane's own; the rows below scale by the pivot's reciprocal, as
+// getf2 does), no block barrier inside; lanes 12-24 back-substitute their
+// columns.  The tile pair is then written from the staged tiles: P_new[i,
 // j] and P_new[j, i] are one value, written coalesced to both places.  One
 // more block solves too and writes delta and the injected state, beside
 // the tiles.
@@ -120,33 +116,21 @@ __device__ __forceinline__ void add_rows(const T* stage, const int* flag, int i0
 }
 
 // One step of the LU on [W | B'r | B'B], a column a lane: getrf's pivot in
-// lane K's column (the first largest |W_iK|, found by a tournament of
-// depth log2(12 - K) in which the left, lower row wins ties), the row swap
-// in every lane, then the rows below scaled by the pivot's reciprocal
-// (getf2's scaling).
+// lane K's column (the first largest |W_iK|), the row swap in every lane,
+// then the rows below scaled by the pivot's reciprocal (getf2's scaling).
 template <int K, typename T>
 __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
-  T v[12], sv[12];  // |col| and col, carried through the tournament
-  int at[12];
+  int p = K;
+  T best = fabs(col[K]);
 #pragma unroll
-  for (int i = K; i < 12; ++i) {
-    v[i] = fabs(col[i]);
-    sv[i] = col[i];
-    at[i] = i;
+  for (int i = K + 1; i < 12; ++i) {
+    const T v = fabs(col[i]);
+    if (v > best) {
+      best = v;
+      p = i;
+    }
   }
-#pragma unroll
-  for (int w = 1; K + w < 12; w *= 2)
-#pragma unroll
-    for (int i = K; i + w < 12; i += 2 * w)
-      if (v[i + w] > v[i]) {
-        v[i] = v[i + w];
-        sv[i] = sv[i + w];
-        at[i] = at[i + w];
-      }
-  // lane K holds the pivot once its tournament ends: the reciprocal starts
-  // there, before the broadcast, and goes out with the pivot's row
-  const T inv = __shfl_sync(kFull, msckf::rcp(sv[K]), K);
-  const int p = __shfl_sync(kFull, at[K], K);
+  p = __shfl_sync(kFull, p, K);
 #pragma unroll
   for (int i = K + 1; i < 12; ++i) {
     if (p == i) {
@@ -155,6 +139,7 @@ __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
       col[i] = t;
     }
   }
+  const T inv = msckf::rcp(__shfl_sync(kFull, col[K], K));
 #pragma unroll
   for (int i = K + 1; i < 12; ++i) {
     const T m = __shfl_sync(kFull, col[i], K) * inv;
@@ -162,17 +147,15 @@ __device__ __forceinline__ void lu_step(T (&col)[12], int lane) {
   }
 }
 
-// The back substitution U x = y, column by column: x_I, then its multiple
-// taken from every row above (U in the augmented rows, the reciprocals of
-// its diagonal in rdiag); a chain of 12 steps, not 78.
-template <typename T>
-__device__ __forceinline__ void back_substitute(T (&y)[12], const T* U, const T* rdiag) {
+// Row I of the back substitution U x = y (U in the augmented rows, the
+// reciprocals of its diagonal in rdiag)
+template <int I, typename T>
+__device__ __forceinline__ void back_step(const T (&col)[12], T (&x)[12], const T* U,
+                                          const T* rdiag) {
+  T s = col[I];
 #pragma unroll
-  for (int I = 11; I >= 0; --I) {
-    y[I] = y[I] * rdiag[I];
-#pragma unroll
-    for (int i = 0; i < I; ++i) y[i] = y[i] - U[i * kA + I] * y[I];
-  }
+  for (int k = I + 1; k < 12; ++k) s -= U[I * kA + k] * x[k];
+  x[I] = s * rdiag[I];
 }
 
 template <typename T>
@@ -190,9 +173,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   T* PcG = tB + kTile * kPad;               // (Pc G)[I], then (Pc G)[J]
   T* stage = PcG + 2 * kTile * 12;          // a chunk of this block's features' rows [b | r]
   int* flag = reinterpret_cast<int*>(stage + chunk * rows_per * 13);  // its include flags
-  using S = double;  // the 12 x 12 system's type, for both T
-  __shared__ T part[kSums], G[144], bsr[12];
-  __shared__ S BtB[144], aug[12 * kA], rdiag[12];
+  __shared__ T part[kSums], BtB[144], aug[12 * kA], G[144], bsr[12], rdiag[12];
   __shared__ int cidx[12];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -300,10 +281,10 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
       int a = 0;
       while (tid >= tri(a, 11) + 1) ++a;
       const int c = a + tid - tri(a, a);
-      BtB[a * 12 + c] = S(s);
-      BtB[c * 12 + a] = S(s);
+      BtB[a * 12 + c] = s;
+      BtB[c * 12 + a] = s;
     } else {
-      aug[(tid - 78) * kA + 12] = S(s);
+      aug[(tid - 78) * kA + 12] = s;
     }
   }
   // no block leaves while another may still read its partial sums (the
@@ -318,27 +299,18 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
   if (timed) clocks[2] = clock64();
   if (tid < 144) {
     const int a = tid / 12, c = tid % 12;
-    // the twelve terms' loads issued together (the cluster's column
-    // indices first), not a dependent pair of loads a term
-    S b[12], p[12];
-#pragma unroll
-    for (int k = 0; k < 12; ++k) {
-      b[k] = BtB[a * 12 + k];
-      p[k] = S(Pc[cidx[k] * 12 + c]);
-    }
-    S w = S(0);
-#pragma unroll
-    for (int k = 0; k < 12; ++k) w += b[k] * p[k];
-    aug[a * kA + c] = (a == c ? S(*obs_noise) : S(0)) + w;
+    T w = T(0);
+    for (int k = 0; k < 12; ++k) w += BtB[a * 12 + k] * Pc[cidx[k] * 12 + c];
+    aug[a * kA + c] = (a == c ? *obs_noise : T(0)) + w;
     aug[a * kA + 13 + c] = BtB[tid];
   }
   __syncthreads();
   if (timed) clocks[3] = clock64();
 
   if (warp == 0) {  // the LU and the substitution, a column of [W | B'r | B'B] a lane
-    S col[12];
+    T col[12];
 #pragma unroll
-    for (int i = 0; i < 12; ++i) col[i] = lane < kA ? aug[i * kA + lane] : S(0);
+    for (int i = 0; i < 12; ++i) col[i] = lane < kA ? aug[i * kA + lane] : T(0);
     lu_step<0>(col, lane);
     lu_step<1>(col, lane);
     lu_step<2>(col, lane);
@@ -351,7 +323,7 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     lu_step<9>(col, lane);
     lu_step<10>(col, lane);
     lu_step<11>(col, lane);
-    S d = S(1);  // lane l < 12: U's diagonal entry l
+    T d = T(1);  // lane l < 12: U's diagonal entry l
 #pragma unroll
     for (int i = 0; i < 12; ++i)
       if (lane == i) d = col[i];
@@ -362,25 +334,36 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     }
     __syncwarp();
     if (lane >= 12 && lane < kA) {
-      back_substitute(col, aug, rdiag);
+      T x[12];
+      back_step<11>(col, x, aug, rdiag);
+      back_step<10>(col, x, aug, rdiag);
+      back_step<9>(col, x, aug, rdiag);
+      back_step<8>(col, x, aug, rdiag);
+      back_step<7>(col, x, aug, rdiag);
+      back_step<6>(col, x, aug, rdiag);
+      back_step<5>(col, x, aug, rdiag);
+      back_step<4>(col, x, aug, rdiag);
+      back_step<3>(col, x, aug, rdiag);
+      back_step<2>(col, x, aug, rdiag);
+      back_step<1>(col, x, aug, rdiag);
+      back_step<0>(col, x, aug, rdiag);
 #pragma unroll
-      for (int i = 0; i < 12; ++i) aug[i * kA + lane] = col[i];
+      for (int i = 0; i < 12; ++i) aug[i * kA + lane] = x[i];
     }
   }
   __syncthreads();
   if (timed) clocks[4] = clock64();
   if (tid < 144) {
     const int a = tid / 12, c = tid % 12;
-    G[tid] = T((aug[a * kA + 13 + c] + aug[c * kA + 13 + a]) / S(2));
+    G[tid] = (aug[a * kA + 13 + c] + aug[c * kA + 13 + a]) / T(2);
   } else if (tid < 156) {
-    bsr[tid - 144] = T(aug[(tid - 144) * kA + 12]);
+    bsr[tid - 144] = aug[(tid - 144) * kA + 12];
   }
   __syncthreads();
 
   if (injector) {  // delta = Pc bsr and the injection
     for (int i = tid; i < D; i += kThreads) {
       T acc2 = T(0);
-#pragma unroll
       for (int a = 0; a < 12; ++a) acc2 += Pc[i * 12 + a] * bsr[a];
       delta[i] = acc2;
     }
@@ -398,8 +381,6 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     const int q = e / 12, c = e - q * 12;
     const int i = q < ni ? I0 + q : J0 + q - ni;
     T acc2 = T(0);
-    // unrolled: the loads issued together, the sum's order unchanged
-#pragma unroll
     for (int a = 0; a < 12; ++a) acc2 += Pc[i * 12 + a] * G[a * 12 + c];
     PcG[e] = acc2;
   }
@@ -413,7 +394,6 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
     if (a >= ni || c >= nj) continue;
     const int i = I0 + a, j = J0 + c;
     T mij = T(0), mji = T(0);
-#pragma unroll
     for (int k = 0; k < 12; ++k) {
       mij += PcG[a * 12 + k] * Pc[j * 12 + k];
       mji += PcGJ[c * 12 + k] * Pc[i * 12 + k];
@@ -446,14 +426,13 @@ int launch(const void* P, int D, const void* Bm, int n_feat, int rows_per, long 
            void* clocks, void* stream) {
   static size_t smem_allowed = 0;
   if (D < 12 || n_feat < 1 || rows_per < 1) return (int)cudaErrorInvalidValue;
-  const auto kernel = rank12_kernel<T>;
   const int n_loc = (n_feat + kCluster - 1) / kCluster;  // rank 0's features, the most
   const int per_chunk = kStageBytes / (13 * (int)sizeof(T) * rows_per);
   const int chunk = per_chunk < 1 ? 1 : (per_chunk < n_loc ? per_chunk : n_loc);
   const size_t smem = ((size_t)D * 12 + 2 * kTile * kPad + 2 * kTile * 12 +
                        (size_t)chunk * rows_per * 13) * sizeof(T) +
                       (include != nullptr ? (size_t)n_loc * sizeof(int) : 0);
-  const int err = msckf::allow_smem(kernel, smem, &smem_allowed);
+  const int err = msckf::allow_smem(rank12_kernel<T>, smem, &smem_allowed);
   if (err != 0) return err;
   const int nt = (D + kTile - 1) / kTile, n_pairs = nt * (nt + 1) / 2;
   cudaLaunchConfig_t cfg = {};
@@ -471,7 +450,7 @@ int launch(const void* P, int D, const void* Bm, int n_feat, int rows_per, long 
   const msckf::InjectIn<T> state{(const T*)q, (const T*)bg, (const T*)v, (const T*)ba,
                                  (const T*)p, (const T*)R, (const T*)t, (const T*)cam_q,
                                  (const T*)cam_p, (const int*)count, N};
-  cudaLaunchKernelEx(&cfg, kernel, (const T*)P, D, (const T*)Bm, n_feat, rows_per,
+  cudaLaunchKernelEx(&cfg, rank12_kernel<T>, (const T*)P, D, (const T*)Bm, n_feat, rows_per,
                      hs_f, hs_r, (const T*)r, rs_f, rs_r, (const bool*)include,
                      (const int64_t*)cols, (const T*)obs_noise, chunk, (T*)out + (size_t)D * D,
                      (T*)out, state, (uint8_t*)too_large, (long long*)clocks);
