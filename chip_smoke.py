@@ -183,7 +183,21 @@
    LIMIT_FRAMES frames of run_sequence under LIMITS, counters at 0: every
    kernel of that path launched, the active frames' poses within 1e-4 m
    of the port's plain path on the host.
-10. Prints the per-kernel JSON line (launches of the batch run, for P1 of
+10. [euroc]: the EuRoC dataset path, in a temporary directory (``run_euroc``):
+   the PNG loader built (g++, zlib; build seconds printed); the bench
+   world's first EUROC_FRAMES frames written as a EuRoC sequence by the
+   port's writer; the loader's decode rate and the decoded frames' SHA-256
+   against the rendered arrays'; ``main.py --path <dir> --offset 0 --eval``
+   on the card (counters at 0 before it: every kernel of the path
+   launched), its load and run seconds and ATE/RTE printed, ATE rmse under
+   EUROC_ATE_RMSE_M, its outputs bit for bit those of ``run_sequence`` on
+   the rendered frames; ``run_sequence_checkpointed`` killed after
+   EUROC_CKPT_KILL frames and resumed, p and q bit for bit the
+   uninterrupted run's (save and restore ms printed); ``--long-horizon
+   --profile`` over the second half, its 3-level K1 calls against the plain
+   version with K1's bars, profile_stages.json and a trace holding kernel
+   events; ``--mode realtime`` over 2 s of the directory (poses printed).
+11. Prints the per-kernel JSON line (launches of the batch run, for P1 of
    the compact run: K1's compact entry, which does P1's copy; max error, ms, plain ms, the bound and what binds it,
    the library call's ms where one PyTorch call does most of the
    function), then the result line ``{"ok": true, "device": {...}}`` last.
@@ -497,15 +511,16 @@ def check_propagate(rec, filter_state, params, frames, k):
     return abs_err, ms, pms, *b
 
 
-def check_lk_recorded(rec):
+def check_lk_recorded(rec, levels=None, tag="[K1]"):
     """K1 against its plain version on the warm run's recorded calls (the
-    temporal, stereo forward and backward calls; a few calls of each shape),
-    with K1's bars; each shape timed through the wrapper and on the device."""
+    temporal, stereo forward and backward calls; a few calls of each shape;
+    only the calls of ``levels`` pyramid levels where given), with K1's bars;
+    each shape timed through the wrapper and on the device."""
     from uav_airvision_tpu_torch.ops import lk
 
-    calls = rec.samples("K1")
+    calls = [(sh, a) for sh, a in rec.samples("K1") if levels is None or sh[1] == levels]
     if not calls:
-        fail("the warm run made no K1 call")
+        fail(f"{tag} the run made no K1 call" + (f" of {levels} levels" if levels else ""))
         return
     worst = 0.0
     for shape, a in calls:
@@ -516,13 +531,16 @@ def check_lk_recorded(rec):
         err = float((kn[both] - pn[both]).abs().max()) if bool(both.any()) else 0.0
         worst = max(worst, err)
         if agree < 0.99 or err > 1e-3:
-            fail(f"K1 recorded call {shape}: status agreement {agree:.4f}, max err {err:.2e} px")
+            fail(f"{tag} K1 recorded call {shape}: status agreement {agree:.4f}, max err "
+                 f"{err:.2e} px")
     for shape, a in sorted(rec.of("K1").items()):
+        if levels is not None and shape[1] != levels:
+            continue
         ms = cuda_ms(lambda: lk.pyramidal_lk(*a))
         _, us = _profile_calls(lambda: lk.pyramidal_lk(*a), kernels=("lk_kernel",))
-        print(f"[K1] recorded (F, levels) {shape} ({rec.counts[('K1', shape)]} calls): "
+        print(f"{tag} recorded (F, levels) {shape} ({rec.counts[('K1', shape)]} calls): "
               f"{ms:.4f} ms through the wrapper, {us:.1f} us on the device")
-    print(f"[K1] pyramidal_lk, {len(calls)} recorded calls (F, levels) in "
+    print(f"{tag} pyramidal_lk, {len(calls)} recorded calls (F, levels) in "
           f"{sorted({sh for sh, _ in calls})}: within the bars (max err {worst:.3e} px)")
 
 
@@ -2365,6 +2383,181 @@ def run_limits(base, world, imu, fts, cam0, cam1, wrappers, off_path):
             fail(f"[limits] the card's poses differ from the host reference by {dp:.3e} m")
 
 
+EUROC_FRAMES = 80  # 4 s of 20 Hz stereo, written as a EuRoC sequence
+EUROC_ATE_RMSE_M = 0.1  # the JAX package's end-to-end bar (tests/test_e2e.py:80)
+EUROC_CKPT_KILL = 40  # frames the "killed" checkpointed run sees
+
+
+class _Replay:
+    """The bench world, its frames replayed from the arrays already rendered
+    (the writer asks for them in order), so the sequence on disk holds the
+    frames the earlier phases ran."""
+
+    def __init__(self, world, cam0, cam1):
+        self.world, self.pairs = world, iter(zip(cam0, cam1))
+
+    def __getattr__(self, name):
+        return getattr(self.world, name)
+
+    def render_frame(self, t, rng=None, starve_window=None):
+        return next(self.pairs)
+
+
+def _same_bits(got, want, fields=("p", "q", "v", "active", "timestamp")):
+    import torch
+
+    return [f for f in fields if not torch.equal(getattr(got, f), getattr(want, f))]
+
+
+def run_euroc(config, world, cam0, cam1, wrappers, card):
+    """[euroc]: the EuRoC dataset path.  In a temporary directory: the
+    loader's build; 4 s of the bench world written by the port's writer; the
+    command line ``--path <dir> --offset 0 --eval`` on the card (decode ->
+    prebatch -> run_sequence -> trajectory, ATE/RTE), counters at 0 before
+    it; the decoded frames' SHA-256 against the rendered arrays', the poses
+    bit for bit against ``run_sequence`` of the rendered frames, ATE rmse
+    under EUROC_ATE_RMSE_M; a checkpointed run killed after EUROC_CKPT_KILL
+    frames and resumed, bit for bit the uninterrupted run; ``--long-horizon
+    --profile`` over the second half, its 3-level K1 calls against the plain
+    version and both profile artifacts; the realtime mode over 2 s of the
+    sequence, decoding on the card's host.  Returns the measurements."""
+    import hashlib
+    import json as json_
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from uav_airvision_tpu_torch import main as cli
+    from uav_airvision_tpu_torch.models import vio
+    from uav_airvision_tpu_torch.runtime import native
+    from uav_airvision_tpu_torch.simulation.euroc_writer import write_euroc_dataset
+    from uav_airvision_tpu_torch.streaming.dataset import EuRoCDataset
+    from uav_airvision_tpu_torch.utils import checkpoint as ckpt
+    from uav_airvision_tpu_torch.utils.profiling import TRACE_FILE
+
+    t_phase = time.time()
+    native.get_lib()
+    print(f"[euroc] loader {native.build_info['path']} built in "
+          f"{native.build_info['seconds']:.2f} s (cached: {native.build_info['cached']})")
+    cam0, cam1 = cam0[:EUROC_FRAMES], cam1[:EUROC_FRAMES]
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_euroc_") as tmp:
+        os.chdir(tmp)
+        try:
+            seq = os.path.join(tmp, "SYN_EUROC")
+            t0 = time.time()
+            write_euroc_dataset(_Replay(world, cam0, cam1), seq, EUROC_FRAMES / 20.0, seed=5)
+            print(f"[euroc] wrote {EUROC_FRAMES} stereo frames to {seq} in "
+                  f"{time.time() - t0:.2f} s")
+
+            # decode alone: the loader's rate, and its bits against the rendered arrays
+            ds = EuRoCDataset(seq)
+            t0 = time.time()
+            dec = [native.decode_pngs(list(r.paths), *native.png_size(r.paths[0]))
+                   for r in (ds.cam0, ds.cam1)]
+            decode_s = time.time() - t0
+            sha = [hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+                   for a in (*dec, cam0, cam1)]
+            print(f"[euroc] decode: {2 * EUROC_FRAMES} PNGs in {decode_s:.4f} s = "
+                  f"{EUROC_FRAMES / decode_s:.1f} stereo frames/s on {card}; SHA-256 cam0 "
+                  f"{sha[0][:16]} (rendered {sha[2][:16]}), cam1 {sha[1][:16]} (rendered "
+                  f"{sha[3][:16]})")
+            if sha[:2] != sha[2:]:
+                fail("[euroc] the decoded frames differ from the rendered arrays")
+
+            # the command line, on the card by default, counters at 0 before it
+            _zero(wrappers)
+            run = cli.main(["--path", seq, "--offset", "0", "--eval"])
+            torch.cuda.synchronize()
+            launches = _per_entry(wrappers)
+            for name, n in launches.items():
+                if n == 0:
+                    fail(f"[euroc] the command line never launched kernel {name}")
+            n_act = int(run.outputs.active.sum())
+            print(f"[euroc] command line: load {run.load_s:.3f} s, run {EUROC_FRAMES} frames "
+                  f"in {run.run_s:.3f} s = {EUROC_FRAMES / run.run_s:.2f} frames/s on {card}; "
+                  f"{n_act} poses; ATE rmse {run.ate['rmse']:.5f} m (bar {EUROC_ATE_RMSE_M} "
+                  f"m), RTE rmse {run.rte['rmse']:.5f} m; launches {launches}")
+            if run.outputs.p.device.type != "cuda":
+                fail(f"[euroc] the command line ran on {run.outputs.p.device}")
+            if not run.ate["rmse"] < EUROC_ATE_RMSE_M:
+                fail(f"[euroc] ATE rmse {run.ate['rmse']} m is not under {EUROC_ATE_RMSE_M} m")
+            frames = vio.frames_from_prebatch(run.pb, cam0, cam1, torch.device("cuda"))
+            _, ref = vio.run_sequence(config, frames, run.pb.gyro_bias, run.pb.acc_mean)
+            diff = _same_bits(run.outputs, ref)
+            print(f"[euroc] command line against run_sequence of the rendered frames on the "
+                  f"card: {'bit for bit equal' if not diff else 'DIFFERENT in ' + str(diff)}")
+            if diff:
+                fail(f"[euroc] the command line's outputs differ from run_sequence's in {diff}")
+
+            # checkpoint: a run killed after EUROC_CKPT_KILL frames, then resumed
+            ckdir = os.path.join(tmp, "ck")
+            part = vio.VioFrame(*(x[:EUROC_CKPT_KILL] for x in frames))
+            vio.run_sequence_checkpointed(config, part, run.pb.gyro_bias, run.pb.acc_mean,
+                                          ckdir, every=20)
+            state, outs, start = vio.run_sequence_checkpointed(
+                config, frames, run.pb.gyro_bias, run.pb.acc_mean, ckdir, every=20)
+            tail = type(ref)(*(x[EUROC_CKPT_KILL:] for x in ref))
+            diff = _same_bits(outs, tail, ("p", "q")) if start == EUROC_CKPT_KILL else ["start"]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ckpt.save_state(ckdir, state, 10_000)
+            save_ms = (time.time() - t0) * 1e3
+            template = vio.init_vio_state(config, device="cuda")
+            t0 = time.time()
+            restored, _ = ckpt.restore_state(ckdir, template, 10_000)
+            torch.cuda.synchronize()
+            restore_ms = (time.time() - t0) * 1e3
+            same = all(torch.equal(a, b) for a, b in zip(
+                torch.utils._pytree.tree_leaves(restored.filter),
+                torch.utils._pytree.tree_leaves(state.filter)))
+            print(f"[euroc] checkpoint: resumed at frame {start} (killed at "
+                  f"{EUROC_CKPT_KILL}); p, q of frames {start}-{EUROC_FRAMES - 1} "
+                  f"{'bit for bit the uninterrupted run' if not diff else 'DIFFERENT'}; "
+                  f"save {save_ms:.2f} ms, restore {restore_ms:.2f} ms on {card}")
+            if diff or not same:
+                fail(f"[euroc] kill and resume differ from the uninterrupted run ({diff}, "
+                     f"restored state equal: {same})")
+
+            # --long-horizon --profile over the second half: K1 at three levels
+            with Recorder() as rec:
+                half = str(EUROC_FRAMES / 40.0)
+                prof = cli.main(["--path", seq, "--offset", half, "--long-horizon",
+                                 "--profile"])
+            torch.cuda.synchronize()
+            print(f"[euroc] --long-horizon --profile: {len(prof.pb.timestamps)} frames from "
+                  f"{half} s in {prof.run_s:.3f} s (traced)")
+            check_lk_recorded(rec, levels=3, tag="[euroc, long horizon]")
+            stages = os.path.join("reports", "profile_stages.json")
+            trace = os.path.join("reports", "torch_trace", TRACE_FILE)
+            if not (os.path.isfile(stages) and os.path.isfile(trace)):
+                fail(f"[euroc] --profile wrote no {stages} or {trace}")
+            else:
+                with open(trace, "rb") as f:
+                    kernels_traced = f.read().count(b'"cat": "kernel"')
+                with open(stages) as f:
+                    stage_names = sorted(json_.load(f))
+                print(f"[euroc] profile: stages {stage_names}, trace "
+                      f"{os.path.getsize(trace) / 1e6:.1f} MB with {kernels_traced} kernel "
+                      f"events")
+                if not kernels_traced:
+                    fail("[euroc] the trace holds no kernel event of the card")
+
+            # the realtime mode reads the directory frame by frame
+            results = cli.main(["--mode", "realtime", "--path", seq, "--offset", "0",
+                                "--ratio", "1.0", "--duration", "2"])
+            print(f"[euroc] realtime --path, 2 s at 1.0 x real time: {len(results)} poses")
+            if not results:
+                fail("[euroc] the realtime mode published no pose")
+        finally:
+            os.chdir(old_cwd)
+    print(f"[euroc] phase {time.time() - t_phase:.1f} s")
+    return dict(decode_fps=EUROC_FRAMES / decode_s, load_s=run.load_s, run_s=run.run_s,
+                save_ms=save_ms, restore_ms=restore_ms)
+
+
 def main() -> int:
     try:
         import torch
@@ -2534,8 +2727,10 @@ def main() -> int:
     check_limits_kernels(dev)
     run_limits(config, world, imu, fts, cam0, cam1, wrappers,
                off_path={"K12 apply_update_rank12_rows"})
+    t3 = time.time()
+    run_euroc(config, world, cam0, cam1, wrappers, card)
     print(f"[time] {time.time() - t_start:.1f} s in all; [compact] {t1 - t0:.1f} s, [exact] "
-          f"{t2 - t1:.1f} s, [limits] {time.time() - t2:.1f} s")
+          f"{t2 - t1:.1f} s, [limits] {t3 - t2:.1f} s, [euroc] {time.time() - t3:.1f} s")
     launches["P1"] = compact_launches["P1 pyramidal_lk_compact"]
     sources["P1"] = ("lk.cu", "scripts/exp_gather.py:82", "pyramidal_lk_compact")
 

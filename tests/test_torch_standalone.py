@@ -1,13 +1,16 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
-package, its own copies of the JAX-free modules (config, simulated world,
-IMU prebatching, trajectory writer, metrics, transforms, dataset readers,
-data publisher) behave as the JAX package's do, its entry points default to
+package, nor OpenCV, PIL, matplotlib or PyQt5 when a module is imported,
+its own copies of the JAX-free modules (config, simulated world, IMU
+prebatching, trajectory writer, metrics, transforms, dataset readers, data
+publisher) behave as the JAX package's do, its entry points default to
 the card, and each kernel wrapper runs its plain version, bit for bit, on
 CPU tensors.
 """
 
 import ast
 import dataclasses
+import re
+import sys
 import time
 from pathlib import Path
 from queue import Queue
@@ -36,6 +39,7 @@ from uav_airvision_tpu_torch.ops import extract as textract
 from uav_airvision_tpu_torch.ops import gridops as tgrid
 from uav_airvision_tpu_torch.ops import lk as tlk
 from uav_airvision_tpu_torch.ops import pyramid as tpyr
+from uav_airvision_tpu_torch.simulation import euroc_writer as twriter
 from uav_airvision_tpu_torch.simulation.world import StereoWorld as TStereoWorld
 from uav_airvision_tpu_torch.streaming import dataset as tdataset
 from uav_airvision_tpu_torch.streaming import publisher as tpublisher
@@ -64,6 +68,34 @@ def test_port_imports_no_jax(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "uav_airvision_tpu"), f"{path.name} imports {name}"
+
+
+OPTIONAL = ("cv2", "PIL", "matplotlib", "PyQt5", "pyqtgraph")
+
+
+def _import_time_imports(path: Path):
+    """Modules a file imports when it is imported: its module-level
+    statements and the bodies of its classes, not its functions'."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                yield node.module
+            elif not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                yield from walk(ast.iter_child_nodes(node))
+
+    yield from walk(ast.parse(path.read_text(), filename=str(path)).body)
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "uav_airvision_tpu_torch").rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_optional_package_at_import(path):
+    """The card's machine has no OpenCV, PIL, matplotlib or PyQt5: no module
+    of the port, and not chip_smoke.py, imports one when it is imported (the
+    viewer and the plots import theirs inside the functions that use them)."""
+    for name in _import_time_imports(path):
+        assert name.split(".")[0] not in OPTIONAL, f"{path.name} imports {name} at import"
 
 
 def _relative_imports(path: Path):
@@ -199,8 +231,9 @@ def _fake_euroc(root: Path):
 
 def test_dataset_copy_equals_jax(tmp_path, monkeypatch):
     """The port's EuRoC readers give the same messages, start times and
-    offsets as the JAX package's on the same directory; without OpenCV the
-    image reader raises and says why."""
+    offsets as the JAX package's on the same directory; the image reader
+    decodes with the port's loader, without OpenCV, and raises on a file it
+    cannot decode, naming it."""
     _fake_euroc(tmp_path)
     for name in ("imu_msg", "img_msg", "stereo_msg", "gt_msg"):
         assert getattr(tdataset, name)._fields == getattr(jdataset, name)._fields
@@ -218,9 +251,14 @@ def test_dataset_copy_equals_jax(tmp_path, monkeypatch):
         for key, val in got.groundtruth.load().items():
             np.testing.assert_array_equal(val, want.groundtruth.load()[key])
     monkeypatch.undo()
-    monkeypatch.setattr(tdataset, "cv2", None)
-    with pytest.raises(RuntimeError, match="OpenCV"):
-        tdataset.ImageReader(["x.png"], [0.0]).read("x.png")
+    monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 raises
+    empty = str(got.cam0.paths[0])
+    with pytest.raises(IOError, match=re.escape(empty)):
+        tdataset.ImageReader([empty], [0.0]).read(empty)
+    img = np.random.default_rng(3).integers(0, 256, (6, 5), dtype=np.uint8)
+    twriter.imwrite(str(tmp_path / "img.png"), img)
+    reader = tdataset.ImageReader([str(tmp_path / "img.png")], [0.0])
+    np.testing.assert_array_equal(next(iter(reader)).image, img)
 
 
 @pytest.mark.parametrize("duration", [float("inf"), 0.1])
@@ -274,6 +312,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert vio.init_vio_state(tconfig.euroc_config(), device="cpu").filter.cov.device == CPU
     with pytest.raises(RuntimeError, match="CUDA"):
         main.main(["--synthetic", "0.1"])
+    with pytest.raises(RuntimeError, match="CUDA"):  # the EuRoC path, before any file is read
+        main.main(["--path", "no_such_sequence", "--offset", "0"])
+    from uav_airvision_tpu_torch import sweep
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.main(["--root", "no_such_root"])
     assert inspect.signature(device.get_device).parameters["name"].default == "cuda"
     # the streaming orchestrator and the CLI's realtime mode too
     from uav_airvision_tpu_torch.vio import VIO

@@ -49,8 +49,10 @@ def detection_mask(shape, pts: torch.Tensor, valid: torch.Tensor) -> torch.Tenso
 
 
 def fast_score_map(img: torch.Tensor, threshold: int):
-    """(corner, score) maps of FAST-9/16 with the OpenCV score; 3-px border."""
-    f = img.to(torch.int32)
+    """(corner, score) maps of FAST-9/16 with the OpenCV score; 3-px border.
+    The differences are int16 (|d| <= 255): exact, and half the bytes of
+    int32 for the sixteen full-image planes."""
+    f = img.to(torch.int16)
     H, W = f.shape
     d = torch.stack([_shifted(f, dy, dx) - f for dy, dx in CIRCLE])  # (16,H,W)
 
@@ -63,7 +65,7 @@ def fast_score_map(img: torch.Tensor, threshold: int):
         return torch.minimum(m8[:16], x[8:24]).amax(dim=0)
 
     bright, dark = best_arc(d), best_arc(-d)
-    score = torch.maximum(bright, dark) - 1
+    score = (torch.maximum(bright, dark) - 1).to(torch.int32)
     corner = (bright > threshold) | (dark > threshold)
     ay = torch.arange(H, device=img.device)
     ax = torch.arange(W, device=img.device)

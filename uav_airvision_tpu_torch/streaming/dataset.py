@@ -1,14 +1,14 @@
 """The PyTorch port's own copy of uav_airvision_tpu/streaming/dataset.py: same
 names, same behaviour (tests/test_torch_standalone.py holds the two equal),
-except that ``ImageReader.read`` raises without OpenCV where the original
-returns nothing usable.
+except that ``ImageReader.read`` decodes with the port's PNG loader
+(``runtime/native.py``), not OpenCV, and raises on a file it cannot decode.
 
 EuRoC MAV dataset readers (host side, NumPy).
 
 Same directory layout and message semantics as the reference readers
 (reference src/streaming/dataset.py:12-220): ns->s timestamp scaling, sorted
 png scan, start-time offsetting against max(imu start, stereo start).
-Images are decoded lazily with cv2 (grayscale, as recorded).
+Images are decoded lazily (grayscale, as recorded).
 """
 
 from __future__ import annotations
@@ -19,10 +19,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-try:
-    import cv2
-except ImportError:  # optional: only ImageReader.read decodes images
-    cv2 = None
+from ..runtime import native
 
 imu_msg = namedtuple("imu_msg", ["timestamp", "angular_velocity", "linear_acceleration"])
 img_msg = namedtuple("img_msg", ["timestamp", "image"])
@@ -106,10 +103,7 @@ class ImageReader:
         return self.timestamps[0]
 
     def read(self, path):
-        if cv2 is None:
-            raise RuntimeError(f"cannot decode {path}: OpenCV (cv2) is not installed; "
-                               "the EuRoC image readers need it")
-        return cv2.imread(path, -1)
+        return native.decode_png(path)
 
     def __len__(self):
         return len(self.paths)

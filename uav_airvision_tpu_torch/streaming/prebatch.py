@@ -124,19 +124,30 @@ def prebatch_imu(frame_ts, imu_t, imu_w, imu_a, max_imu_per_frame,
     )
 
 
-def load_euroc_arrays(dataset, use_native=False):
+def load_euroc_arrays(dataset, use_native=True):
     """Pull time-aligned numpy arrays out of an EuRoCDataset (images decoded
     eagerly — batch mode).  Returns (frame_ts, cam0 (T,H,W) u8, cam1, imu arrays).
 
-    The port decodes with cv2, image by image: it has no copy of the JAX
-    package's native multithreaded PNG decoder (runtime/loader.cpp) yet, so
-    ``use_native`` (kept for the JAX package's signature) must stay False."""
-    if use_native:
-        raise ValueError("the port has no native PNG decoder: use_native must be False")
+    Both routes decode with the port's PNG loader (runtime/loader.cpp):
+    ``use_native`` decodes the whole sequence in one multithreaded call, the
+    sequence's size read from the first image's IHDR chunk; otherwise image by
+    image through the dataset's readers.  A file that does not decode raises
+    with its path."""
     imu_t, imu_w, imu_a = dataset.imu.arrays()
 
     keep = dataset.cam0.timestamps >= dataset.cam0.starttime
     ts = np.asarray(dataset.cam0.timestamps)[keep]
-    cam0 = np.stack([msg.image for msg in dataset.cam0]).astype(np.uint8)
-    cam1 = np.stack([msg.image for msg in dataset.cam1]).astype(np.uint8)
+    paths0 = [p for p, k in zip(dataset.cam0.paths, keep) if k]
+    paths1 = [p for p, k in zip(dataset.cam1.paths, keep) if k]
+    if not paths0:
+        raise ValueError(f"no stereo frame at or after the start time {dataset.cam0.starttime}")
+    if use_native:
+        from ..runtime import native
+
+        h, w = native.png_size(paths0[0])
+        cam0 = native.decode_pngs(paths0, h, w)
+        cam1 = native.decode_pngs(paths1, h, w)
+    else:
+        cam0 = np.stack([msg.image for msg in dataset.cam0]).astype(np.uint8)
+        cam1 = np.stack([msg.image for msg in dataset.cam1]).astype(np.uint8)
     return ts, cam0, cam1, imu_t, imu_w, imu_a
