@@ -197,7 +197,27 @@
    --profile`` over the second half, its 3-level K1 calls against the plain
    version with K1's bars, profile_stages.json and a trace holding kernel
    events; ``--mode realtime`` over 2 s of the directory (poses printed).
-11. Prints the per-kernel JSON line (launches of the batch run, for P1 of
+11. [fleet]: FLEET_B = 4 decorrelated instances of the bench world
+   (instance b from frame 7 b, 60 frames each, as ``fleet_bench.py
+   --decorrelated``) through ``parallel.fleet.run_fleet``, counters at 0
+   (every default-path kernel launched) and the four batched kernels'
+   calls recorded.  Each instance against ``run_sequence`` on its frames
+   in p, q, v, active, n_features, n_update_rows and did_reset: bit for bit
+   is the target; a field that is not gets its largest difference and
+   first frame printed, positions held to FLEET_TOL_M.  Every 10th
+   frame's K2, K4+K6 and K5 batched launch again, bit for bit its batched
+   plain version and its B single launches; K1's (temporal, stereo
+   forward and backward, and, in a two-frame fleet run under the compact
+   configuration, the compact entry) bit for bit the single launches and
+   within K1's bars of the plain version, device us per batched launch
+   printed.  A forced stereo-seed fallback: instance 1's tracks cut after
+   25 frames; it alone falls back (seed counts printed, 5 K1 launches in
+   that frame) and every instance equals its single run from the same
+   state.  Then ``fleet_bench.measure`` at B = 1, 4, 8: instance-frames/s
+   (warm, host clock), host syncs, CUDA launches (torch.profiler) and the
+   four kernels' launches per step (which must not grow with B), their
+   device us per launch, and peak device memory.
+12. Prints the per-kernel JSON line (launches of the batch run, for P1 of
    the compact run: K1's compact entry, which does P1's copy; max error, ms, plain ms, the bound and what binds it,
    the library call's ms where one PyTorch call does most of the
    function), then the result line ``{"ok": true, "device": {...}}`` last.
@@ -544,6 +564,21 @@ def check_lk_recorded(rec, levels=None, tag="[K1]"):
           f"{sorted({sh for sh, _ in calls})}: within the bars (max err {worst:.3e} px)")
 
 
+# the batched wrappers' image and point arguments, by position
+BATCHED_ARGS = {"build_pyramid_pair": (0, 1), "detect_fast": (0, 2, 3), "dense_grid_topk": (0,),
+                "pyramidal_lk": (2, 3, 4), "pyramidal_lk_compact": (2, 3, 4)}
+
+
+def _single_call(name, args):
+    """A call of a batched kernel's wrapper on one instance (a leading axis
+    of 1: the single path is the fleet's B = 1 step) as its single-instance
+    call, the same launch: the leading axis dropped."""
+    pos = BATCHED_ARGS.get(name, ())
+    if not pos or args[pos[0]].dim() != 3 or args[pos[0]].shape[0] != 1:
+        return args
+    return tuple(a[0] if i in pos and a is not None else a for i, a in enumerate(args))
+
+
 class Recorder:
     """Installed as the kernels' observer (``kernels.observer``), keeps the
     arguments of the latest call of each observed kernel wrapper for each
@@ -580,6 +615,8 @@ class Recorder:
         "pyramidal_lk_compact": ("P1 compact", lambda a: (a[2].shape[0], a[9], a[5])),
         "propagate": ("K14", lambda a: (tuple(a[0].cov.shape), a[2].shape[0])),
         "pyramidal_lk": ("K1", lambda a: (a[2].shape[0], a[9])),
+        "build_pyramid_pair": ("K2", lambda a: tuple(a[0].shape)),
+        "build_pyramid_padded": ("K2 one camera", lambda a: tuple(a[0].shape)),
     }
     # kinds whose every call is kept (the fused front-end entry points: a
     # few hundred small calls a run)
@@ -592,6 +629,7 @@ class Recorder:
         self.motion = None  # [features the motion check decided, rejected], on the card
 
     def __call__(self, name, args):
+        args = _single_call(name, args)
         if name == "triangulate_rows" and args[10].translation_threshold >= 0:
             # the motion check's decisions, by its plain version on the call's
             # rows (on the card: no host read in the run)
@@ -2558,6 +2596,251 @@ def run_euroc(config, world, cam0, cam1, wrappers, card):
                 save_ms=save_ms, restore_ms=restore_ms)
 
 
+FLEET_B = 4  # instances of the [fleet] run
+FLEET_FRAMES = 60  # frames each instance runs
+FLEET_STRIDE = 7  # instance b starts FLEET_STRIDE * b frames in (fleet_bench --decorrelated)
+FLEET_SIZES = (1, 4, 8)  # the batch sizes measured
+FLEET_TOL_M = 1e-5  # a pose that is not bit for bit its single run's (fault 2's bar)
+FLEET_STARVE = (25, 3)  # instance 1 starved after this many frames, then this many more
+FLEET_FIELDS = ("p", "q", "v", "active", "n_features", "n_update_rows", "did_reset")
+
+
+class FleetRecorder:
+    """Observer of the four batched kernels' wrappers: keeps the arguments
+    of every call, by wrapper name."""
+
+    NAMES = ("build_pyramid_pair", "detect_fast", "dense_grid_topk", "pyramidal_lk",
+             "pyramidal_lk_compact")
+
+    def __init__(self):
+        self.calls = {name: [] for name in self.NAMES}
+
+    def __call__(self, name, args):
+        if name in self.calls:
+            self.calls[name].append(args)
+
+    def __enter__(self):
+        from uav_airvision_tpu_torch import kernels
+
+        kernels.observer = self
+        return self
+
+    def __exit__(self, *exc):
+        from uav_airvision_tpu_torch import kernels
+
+        kernels.observer = None
+
+
+def _fleet_vs_single(tag, out, singles, b, k0=0):
+    """Instance b's fleet outputs against its single run's, field by field:
+    bit for bit, or the largest difference and the first frame where it
+    appears printed, and the positions within FLEET_TOL_M."""
+    import torch
+
+    notes = []
+    for name in FLEET_FIELDS:
+        got, want = getattr(out, name)[:, b], getattr(singles, name)
+        if torch.equal(got, want):
+            continue
+        diff = (got.double() - want.double()).abs().reshape(got.shape[0], -1).amax(1)
+        first = int(torch.nonzero(diff)[0, 0]) + k0
+        notes.append(f"{name} max {float(diff.max()):.3e} from frame {first}")
+        if name == "p" and float(diff.max()) > FLEET_TOL_M:
+            fail(f"{tag} instance {b}: positions {float(diff.max()):.3e} m from its single run")
+        if name == "active":
+            fail(f"{tag} instance {b}: active differs from its single run from frame {first}")
+    print(f"{tag} instance {b} vs run_sequence on its frames: "
+          + ("bit for bit in " + ", ".join(FLEET_FIELDS) if not notes else "; ".join(notes)))
+
+
+def _check_batched(tag, got, want_batched, singles):
+    """A batched launch's outputs against the batched plain version's and
+    against the B single launches', bit for bit."""
+    import torch
+
+    if not all(torch.equal(g, w) for g, w in zip(got, want_batched)):
+        fail(f"{tag}: the batched launch differs from the batched plain version")
+    for b, one in enumerate(singles):
+        if not all(torch.equal(g[b], o) for g, o in zip(got, one)):
+            fail(f"{tag}: instance {b} of the batched launch differs from its single launch")
+
+
+def run_fleet_phase(config, frames, pb, wrappers, card):
+    """[fleet]: B = FLEET_B decorrelated instances of the bench world
+    (instance b from frame FLEET_STRIDE * b, FLEET_FRAMES frames each)
+    through ``parallel.fleet.run_fleet``, counters at 0 and the four batched
+    kernels' calls recorded; each instance against ``run_sequence`` on its
+    frames; the recorded batched launches of K2, K4+K6 and K5 bit for bit
+    their batched plain version and their single launches, K1's (temporal,
+    stereo forward and backward, and the compact entry in a
+    compact-configuration fleet run of two frames) bit for bit the single
+    launches and within K1's bars of the plain version; a forced
+    stereo-seed fallback on one instance; then fleet_bench's measurements at
+    B = FLEET_SIZES."""
+    import torch
+
+    from uav_airvision_tpu_torch import fleet_bench
+    from uav_airvision_tpu_torch.models import vio
+    from uav_airvision_tpu_torch.ops import fast, gridops, lk, pyramid
+    from uav_airvision_tpu_torch.parallel import fleet
+    from uav_airvision_tpu_torch.utils import tree
+
+    t_phase = time.time()
+    fe = config.frontend
+    T, B = FLEET_FRAMES, FLEET_B
+    bframes = fleet_bench.fleet_frames(frames, T, B, FLEET_STRIDE)
+    _zero(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with FleetRecorder() as rec:
+        _, out = fleet.run_fleet(config, bframes, pb.gyro_bias, pb.acc_mean)
+    torch.cuda.synchronize()
+    per_entry = _per_entry(wrappers)
+    print(f"[fleet] B = {B} decorrelated (stride {FLEET_STRIDE}), {T} frames each: "
+          f"{time.time() - t0:.2f} s (cold); launches {per_entry}")
+    for name, n in per_entry.items():
+        if n == 0:
+            fail(f"[fleet] the fleet path never launched kernel {name}")
+    batched = {"K2": pyramid.build_pyramid_pair.launches, "K4+K6": fast.detect_fast.launches,
+               "K5": gridops.dense_grid_topk.launches, "K1": lk.pyramidal_lk.launches}
+    print(f"[fleet] batched kernels' launches per step at B = {B}: "
+          f"{ {k: n / T for k, n in batched.items()} }")
+    if not torch.isfinite(out.p).all() or int(out.active.sum()) < B * 20:
+        fail(f"[fleet] {int(out.active.sum())} active instance-frames, finite "
+             f"{bool(torch.isfinite(out.p).all())}")
+    for b in range(B):
+        _, want = vio.run_sequence(config, vio.VioFrame(*(x[:, b] for x in bframes)),
+                                   pb.gyro_bias, pb.acc_mean)
+        _fleet_vs_single("[fleet]", out, want, b)
+    t_part = {"run and single runs": time.time() - t_phase}
+
+    # the recorded batched launches (every 10th frame's), again
+    def rows(pyrs):  # each camera's pyramids, one row an instance
+        return [p.flat.view(p.batch, -1) for p in pyrs]
+
+    for a in rec.calls["build_pyramid_pair"][::10]:
+        _check_batched("[fleet] K2", rows(pyramid.build_pyramid_pair(*a)),
+                       rows(pyramid.build_pyramid_pair_plain(*a)),
+                       [[p.flat for p in pyramid.build_pyramid_pair(a[0][b], a[1][b], *a[2:])]
+                        for b in range(B)])
+    for a in rec.calls["detect_fast"][::10]:
+        img, thr, pts, valid = a
+        _check_batched("[fleet] K4+K6", fast.detect_fast(*a), fast.detect_fast_plain(*a),
+                       [fast.detect_fast(img[b], thr, *((pts[b], valid[b]) if pts is not None
+                                                         else ())) for b in range(B)])
+    for a in rec.calls["dense_grid_topk"][::10]:
+        _check_batched("[fleet] K5", gridops.dense_grid_topk(*a),
+                       gridops.dense_grid_topk_plain(*a),
+                       [gridops.dense_grid_topk(a[0][b], *a[1:]) for b in range(B)])
+    t_part["K2, K4+K6, K5"] = time.time() - t_phase - sum(t_part.values())
+    print(f"[fleet] K2, K4+K6, K5: {len(rec.calls['build_pyramid_pair'][::10])}, "
+          f"{len(rec.calls['detect_fast'][::10])}, {len(rec.calls['dense_grid_topk'][::10])} "
+          f"recorded batched launches checked")
+
+    def check_lk(tag, calls, entry, kernel_name):
+        shapes = {}
+        for a in calls:
+            shapes.setdefault((tuple(a[2].shape), a[9]), []).append(a)
+        worst = 0.0
+        for shape, group in sorted(shapes.items()):
+            for a in group[::max(1, len(group) // 3)][:3]:
+                pp, cp, p0, p1, v = a[:5]
+                rest = dict(win=a[5], max_iter=a[6], eps=a[7], min_eig_threshold=a[8],
+                            n_levels=a[9], max_iter_upper=a[10])
+                kn, ks = entry(pp, cp, p0, p1, v, **rest)
+                for b in range(p0.shape[0]):
+                    on, os_ = entry(pp.instance(b), cp.instance(b), p0[b], p1[b], v[b], **rest)
+                    if not (torch.equal(kn[b], on) and torch.equal(ks[b], os_)):
+                        fail(f"{tag} {shape}: instance {b} differs from its single launch")
+                pn, ps = lk.pyramidal_lk_plain(pp, cp, p0, p1, v, compact_windows=(
+                    entry is lk.pyramidal_lk_compact), **rest)
+                agree = float((ks == ps).float().mean())
+                both = ks & ps
+                err = float((kn[both] - pn[both]).abs().max()) if bool(both.any()) else 0.0
+                worst = max(worst, err)
+                if agree < 0.99 or err > 1e-3:
+                    fail(f"{tag} {shape}: status agreement {agree:.4f}, max err {err:.2e} px")
+            a = group[-1]
+            _, us = _profile_calls(lambda: entry(*a[:5], win=a[5], max_iter=a[6], eps=a[7],
+                                                 min_eig_threshold=a[8], n_levels=a[9],
+                                                 max_iter_upper=a[10]), kernels=(kernel_name,))
+            print(f"{tag} batched (B, F, 2) x levels {shape} ({len(group)} calls): "
+                  f"{us:.1f} us on the device per launch")
+        print(f"{tag} every instance bit for bit its single launch; within K1's bars of the "
+              f"plain version (max err {worst:.3e} px)")
+
+    check_lk("[fleet] K1", rec.calls["pyramidal_lk"], lk.pyramidal_lk, "lk_kernel")
+    ccfg = variant_config(config, "compact")
+    with FleetRecorder() as crec:
+        fleet.run_fleet(ccfg, vio.VioFrame(*(x[:2] for x in bframes)), pb.gyro_bias,
+                        pb.acc_mean)
+    if not crec.calls["pyramidal_lk_compact"]:
+        fail("[fleet] the compact configuration's fleet step made no compact LK call")
+    check_lk("[fleet] K1 compact", crec.calls["pyramidal_lk_compact"], lk.pyramidal_lk_compact,
+             "lk_compact_kernel")
+
+    t_part["K1"] = time.time() - t_phase - sum(t_part.values())
+    # a forced stereo-seed fallback on instance 1 (tests/test_fleet.py's
+    # starvation: all but 3 feature slots invalidated)
+    k0, n_after = FLEET_STARVE
+    state, _ = fleet.run_fleet(config, vio.VioFrame(*(x[:k0] for x in bframes)), pb.gyro_bias,
+                               pb.acc_mean)
+    front = state.frontend
+    keep = torch.where((torch.arange(B, device=front.valid.device) == 1)[:, None],
+                       torch.arange(front.valid.shape[1], device=front.valid.device) < 3, True)
+    starved = state._replace(frontend=front._replace(
+        valid=front.valid & keep, ids=torch.where(keep, front.ids, -1),
+        lifetime=torch.where(keep, front.lifetime, 0)))
+    seeds, k1 = [], []
+
+    def on_frame(k, fe_out, o):
+        seeds.append(fe_out.n_seed.tolist())
+        k1.append(lk.pyramidal_lk.launches)
+
+    n0 = lk.pyramidal_lk.launches
+    tail = vio.VioFrame(*(x[k0:k0 + n_after] for x in bframes))
+    _, sout = fleet.run_fleet(config, tail, pb.gyro_bias, pb.acc_mean, state=starved,
+                              on_frame=on_frame)
+    per_frame = [b - a for a, b in zip([n0] + k1[:-1], k1)]
+    print(f"[fleet] forced fallback after frame {k0}: seeds per instance {seeds[0]} "
+          f"(min {fe.stereo_seed_min_tracked}); K1 launches per frame {per_frame}")
+    fired = [b for b, n in enumerate(seeds[0]) if n < fe.stereo_seed_min_tracked]
+    if fired != [1] or per_frame[0] != 5:
+        fail(f"[fleet] the fallback fired on instances {fired}, K1 launches {per_frame} "
+             f"(expected instance 1 alone: 1 temporal + 2 x 2 stereo)")
+    for b in range(B):
+        _, want = vio.run_sequence(config, vio.VioFrame(*(x[:, b] for x in tail)), pb.gyro_bias,
+                                   pb.acc_mean, state=tree.index(starved, b))
+        _fleet_vs_single("[fleet] fallback", sout, want, b, k0)
+
+    t_part["fallback"] = time.time() - t_phase - sum(t_part.values())
+    # scaling: fleet_bench's measurements at each B (the recorded calls
+    # freed first: peak memory is the fleet's)
+    del rec, crec, out, sout, state, starved, front, bframes, tail
+    torch.cuda.empty_cache()
+    res = {}
+    for n in FLEET_SIZES:
+        res[n] = r = fleet_bench.measure(config, fleet_bench.fleet_frames(
+            frames, T, n, FLEET_STRIDE), pb, profile=True)
+        print(f"[fleet] B = {n}: {r['instance_frames_per_s']:.2f} instance-frames/s aggregate "
+              f"(warm, {r['seconds']:.3f} s for {T} steps), {r['host_syncs_per_step']:.2f} host "
+              f"syncs/step, {r['cuda_launches_per_step']:.1f} CUDA launches/step, batched "
+              f"kernels' launches/step {r['kernel_launches_per_step']}, device us per launch "
+              f"{ {k: round(v, 2) if v else v for k, v in r['kernel_device_us_per_launch'].items()} }, "
+              f"peak device memory {r['peak_device_bytes'] / 2 ** 20:.1f} MiB ({card})")
+        if not r["finite"]:
+            fail(f"[fleet] B = {n}: non-finite poses")
+    lo, hi = res[FLEET_SIZES[0]], res[FLEET_SIZES[-1]]
+    if lo["kernel_launches_per_step"] != hi["kernel_launches_per_step"]:
+        fail(f"[fleet] the batched kernels' launches per step grow with B: "
+             f"{lo['kernel_launches_per_step']} at B = {FLEET_SIZES[0]}, "
+             f"{hi['kernel_launches_per_step']} at B = {FLEET_SIZES[-1]}")
+    t_part["measure"] = time.time() - t_phase - sum(t_part.values())
+    print(f"[fleet] phase {time.time() - t_phase:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in t_part.items()))
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2729,8 +3012,11 @@ def main() -> int:
                off_path={"K12 apply_update_rank12_rows"})
     t3 = time.time()
     run_euroc(config, world, cam0, cam1, wrappers, card)
+    t4 = time.time()
+    run_fleet_phase(config, frames, pb, wrappers, card)
     print(f"[time] {time.time() - t_start:.1f} s in all; [compact] {t1 - t0:.1f} s, [exact] "
-          f"{t2 - t1:.1f} s, [limits] {t3 - t2:.1f} s, [euroc] {time.time() - t3:.1f} s")
+          f"{t2 - t1:.1f} s, [limits] {t3 - t2:.1f} s, [euroc] {t4 - t3:.1f} s, [fleet] "
+          f"{time.time() - t4:.1f} s")
     launches["P1"] = compact_launches["P1 pyramidal_lk_compact"]
     sources["P1"] = ("lk.cu", "scripts/exp_gather.py:82", "pyramidal_lk_compact")
 

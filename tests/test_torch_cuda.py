@@ -1529,3 +1529,105 @@ def test_feature_block_rows_kernel_matches_plain(dev, host_states, dtype, N, pro
                                     *full[9:12])
         e_in = err(H, pH, r, pr) * scale / T0.abs().flatten(1).amax(1).clamp(min=1e-30)
         assert float(e_in[one].max()) <= tol
+
+
+# --- the fleet's instance axis (K2, K4+K6, K5, K1) ----------------------------
+
+@pytest.mark.parametrize("B,H,W", [(4, 480, 752), (3, 95, 131), (2, 1080, 1440)])
+def test_pyramid_kernel_batched(dev, B, H, W):
+    """K2 over B instances' pairs in one launch: each camera's B pyramids
+    one batch, each instance bit for bit its single launch and the batched
+    plain version (the band plan at 752x480 and odd sizes, the level passes
+    at 1440x1080)."""
+    cam0 = torch.as_tensor(np.stack([_image(H, W, 10 + b) for b in range(B)]), device=dev)
+    cam1 = torch.as_tensor(np.stack([_image(H, W, 20 + b) for b in range(B)]), device=dev)
+    n = pyramid.build_pyramid_pair.launches
+    got = pyramid.build_pyramid_pair(cam0, cam1, 3)
+    assert pyramid.build_pyramid_pair.launches == n + 1
+    want = pyramid.build_pyramid_pair_plain(cam0, cam1, 3)
+    for g, w in zip(got, want):
+        assert g.batch == B and torch.equal(g.flat, w.flat)
+    for b in range(B):
+        one = pyramid.build_pyramid_pair(cam0[b], cam1[b], 3)
+        for g, o in zip(got, one):
+            assert torch.equal(g.instance(b).flat, o.flat)
+
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_fast_kernel_batched(dev, B):
+    """K4+K6 over B images, each with its own mask points, in one launch:
+    equal to the batched plain version and to B single launches."""
+    rng = np.random.default_rng(B)
+    img = torch.as_tensor(np.stack([_image(480, 752, 30 + b) for b in range(B)]), device=dev)
+    pts = torch.as_tensor(rng.uniform([0, 0], [751, 479], (B, 104, 2)), dtype=torch.float32,
+                          device=dev)
+    valid = torch.as_tensor(rng.uniform(size=(B, 104)) < 0.8, device=dev)
+    n = fast.detect_fast.launches
+    k, s = fast.detect_fast(img, 20, pts, valid)
+    assert fast.detect_fast.launches == n + 1 and k.shape == (B, 480, 752)
+    pk, ps = fast.detect_fast_plain(img, 20, pts, valid)
+    assert torch.equal(k, pk) and torch.equal(s, ps)
+    for b in range(B):
+        k1, s1 = fast.detect_fast(img[b], 20, pts[b], valid[b])
+        assert torch.equal(k[b], k1) and torch.equal(s[b], s1)
+
+
+@pytest.mark.parametrize("k", [5, 8, 40])
+def test_grid_topk_kernel_batched(dev, k):
+    """K5 over B = 4 maps in one launch (the band clusters at k <= 32, the
+    1024-thread path past it): equal to the batched plain version and to
+    the single launches."""
+    rng = np.random.default_rng(k)
+    score = torch.as_tensor(rng.integers(-1, 60, (4, 480, 752)) * (rng.uniform(size=(4, 480, 752))
+                                                                  < 0.02), dtype=torch.int32,
+                            device=dev)
+    n = gridops.dense_grid_topk.launches
+    got = gridops.dense_grid_topk(score, 4, 5, k)
+    assert gridops.dense_grid_topk.launches == n + 1 and got[0].shape == (4, 20, k)
+    want = gridops.dense_grid_topk_plain(score, 4, 5, k)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for b in range(4):
+        one = gridops.dense_grid_topk(score[b], 4, 5, k)
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one))
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_lk_kernel_batched(dev, compact):
+    """K1 (either tracker) over B = 4 instances' points and batched
+    pyramids in one launch: each instance bit for bit its single launch
+    (the compact entry's window origins too), and against the batched
+    plain version K1's bars (status agreeing on >= 99% of points, agreeing
+    points within 1e-3 px)."""
+    B, F = 4, 104
+    rng = np.random.default_rng(7)
+    cam0 = torch.as_tensor(np.stack([_image(480, 752, 40 + b) for b in range(B)]), device=dev)
+    shifted = torch.roll(cam0, shifts=(1, 2), dims=(1, 2))
+    p0, p1 = pyramid.build_pyramid_pair(cam0, shifted, 3)
+    pts = torch.as_tensor(rng.uniform([20, 20], [730, 460], (B, F, 2)), dtype=torch.float32,
+                          device=dev)
+    valid = torch.as_tensor(rng.uniform(size=(B, F)) < 0.9, device=dev)
+    kw = dict(n_levels=2, max_iter=10, max_iter_upper=5)
+    if compact:
+        des = torch.zeros((B, F, 2, 2), dtype=torch.int32, device=dev)
+        n = lk.pyramidal_lk_compact.launches
+        got = lk.pyramidal_lk_compact(p0, p1, pts, pts + 1.0, valid, des=des, **kw)
+        assert lk.pyramidal_lk_compact.launches == n + 1
+    else:
+        n = lk.pyramidal_lk.launches
+        got = lk.pyramidal_lk(p0, p1, pts, pts + 1.0, valid, **kw)
+        assert lk.pyramidal_lk.launches == n + 1
+    for b in range(B):
+        if compact:
+            one_des = torch.zeros((F, 2, 2), dtype=torch.int32, device=dev)
+            one = lk.pyramidal_lk_compact(p0.instance(b), p1.instance(b), pts[b], pts[b] + 1.0,
+                                          valid[b], des=one_des, **kw)
+            assert torch.equal(des[b], one_des)
+        else:
+            one = lk.pyramidal_lk(p0.instance(b), p1.instance(b), pts[b], pts[b] + 1.0,
+                                  valid[b], **kw)
+        assert torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1])
+    pn, ps = lk.pyramidal_lk_plain(p0, p1, pts, pts + 1.0, valid, compact_windows=compact, **kw)
+    agree = float((got[1] == ps).float().mean())
+    both = got[1] & ps
+    assert agree >= 0.99 and int(both.sum()) > B * F // 2
+    assert float((got[0][both] - pn[both]).abs().max()) <= 1e-3

@@ -298,7 +298,8 @@ def test_publisher_copy_equals_jax(duration):
 
 def test_entry_points_default_to_cuda(monkeypatch):
     """get_device() means the card; without CUDA it raises instead of falling
-    back to the CPU, and so do init_vio_state and the CLI by default."""
+    back to the CPU, and so do init_vio_state, the CLI, the fleet's entry
+    points and fleet_bench by default."""
     import inspect
 
     from uav_airvision_tpu_torch import main
@@ -328,6 +329,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert VIO(tconfig.euroc_config(), Queue(), Queue(), device="cpu").device == CPU
     with pytest.raises(RuntimeError, match="CUDA"):
         main.main(["--mode", "realtime", "--synthetic", "0.1"])
+    # the fleet's entry points and its benchmark
+    from uav_airvision_tpu_torch import fleet_bench
+    from uav_airvision_tpu_torch.parallel import fleet
+
+    for call in (lambda: fleet.init_fleet_state(tconfig.euroc_config(), np.zeros(3),
+                                                [0.0, 0.0, 9.8], 2),
+                 lambda: fleet.make_fleet_step(tconfig.euroc_config()),
+                 lambda: fleet_bench.main(["1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for fn in (fleet.init_fleet_state, fleet.make_fleet_step):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert fleet.init_fleet_state(tconfig.euroc_config(), np.zeros(3), [0.0, 0.0, 9.8], 2,
+                                  device="cpu").filter.cov.device == CPU
 
 
 @pytest.fixture(scope="module")

@@ -114,6 +114,11 @@ def main(argv=None) -> None:
     calls, ekf, lk_calls, fast_calls, k9_calls, k5_k12, k13 = {}, [], {}, {}, {}, {}, {}
 
     def record(name, a):
+        # the single path is the fleet's B = 1 step: its batched kernels'
+        # calls carry a leading axis of 1, dropped here (the same launch)
+        pos = {"detect_fast": (0, 2, 3), "dense_grid_topk": (0,), "pyramidal_lk": (2, 3, 4)}
+        if name in pos and a[pos[name][0]].dim() == 3 and a[pos[name][0]].shape[0] == 1:
+            a = tuple(x[0] if i in pos[name] and x is not None else x for i, x in enumerate(a))
         if name == "triangulate_rows":
             k13[a[6].shape[0]] = a
         elif name in ("dense_grid_topk", "apply_update_rank12", "apply_update_rank12_rows"):
@@ -320,7 +325,8 @@ def probe_compact(config, frames, pb) -> None:
 
     def spy(prev_pyr, curr_pyr, prev_pts, *a, **kw):
         n_levels = kw.get("n_levels") or min(prev_pyr.n_levels, curr_pyr.n_levels)
-        recorded[(prev_pts.shape[0], n_levels)] = ((prev_pyr, curr_pyr, prev_pts, *a), kw)
+        one = (prev_pts[0], a[0][0], a[1][0], *a[2:]) if prev_pts.dim() == 3 else (prev_pts, *a)
+        recorded[(one[0].shape[0], n_levels)] = ((prev_pyr, curr_pyr, *one), kw)
         return orig(prev_pyr, curr_pyr, prev_pts, *a, **kw)
 
     lk.pyramidal_lk = spy

@@ -29,6 +29,10 @@
 //      8 neighbours (zero outside the image); keep and score go out once.
 // Integer arithmetic throughout, so the result is exact.
 //
+// Instances: gridDim.z = B images of one shape, back to back; block z reads
+// image z, its mask points (pts and pts_valid of B x n_pts) and writes
+// keep and score of image z.  B = 1 is the single-image launch.
+//
 // The quick rejection: a 9-long arc of the 16-ring covers 9 consecutive
 // positions, and any 8 consecutive positions
 // of the ring hold exactly two of the compass positions 0, 4, 8, 12 (they
@@ -88,7 +92,15 @@ fast_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int thr, bool ve
   const int tid = threadIdx.x, lane = tid & 31;
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   const bool timed = clocks != nullptr && blockIdx.x == gridDim.x / 2 &&
-                     blockIdx.y == gridDim.y / 2 && tid == 0;
+                     blockIdx.y == gridDim.y / 2 && blockIdx.z == 0 && tid == 0;
+  {  // instance blockIdx.z: its image, mask points and outputs
+    const size_t z = blockIdx.z;
+    img += z * H * W;
+    pts += z * 2 * n_pts;
+    pvalid += z * n_pts;
+    keep_out += z * H * W;
+    score_out += z * H * W;
+  }
   if (timed) clocks[0] = clock64();
   // the first mask point of each thread, fetched with the image
   float px = 0.f, py = 0.f;
@@ -207,15 +219,17 @@ fast_tile_kernel(const uint8_t* __restrict__ img, int H, int W, int thr, bool ve
 
 }  // namespace
 
-// clocks (6 int64, or null): the SM clock of the middle block at its start
-// and at the end of each phase (staging, mask, candidates, scores, NMS).
-extern "C" int fast_detect_masked(const void* img, int H, int W, int thr, const void* pts,
+// img (B, H, W), pts (B, n_pts, 2), pts_valid (B, n_pts), keep_out and
+// score_out (B, H, W).  clocks (6 int64, or null): the SM clock of the
+// middle block of image 0 at its start and at the end of each phase
+// (staging, mask, candidates, scores, NMS).
+extern "C" int fast_detect_masked(const void* img, int B, int H, int W, int thr, const void* pts,
                                   const void* pts_valid, int n_pts, void* keep_out,
                                   void* score_out, void* clocks, void* stream) {
-  if (n_pts < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
+  if (n_pts < 0 || H < 0 || W < 0 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   if (H == 0 || W == 0) return 0;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  const bool vec = W % 16 == 0 && (uintptr_t)img % 16 == 0;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  const bool vec = W % 16 == 0 && (uintptr_t)img % 16 == 0;  // then every image is aligned
   fast_tile_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)img, H, W, thr, vec, (const float*)pts, (const uint8_t*)pts_valid, n_pts,
       (uint8_t*)keep_out, (int*)score_out, (long long*)clocks);

@@ -38,6 +38,11 @@
 // winner.  Pixels of a cell past the image edge hold -1, as the padded map
 // does.
 //
+// K5's instances: B score maps of one shape back to back (a fleet's batch),
+// one launch for all of them: global cell g (a block, or a cluster of band
+// blocks) is cell g mod n_cells of map g / n_cells, and its outputs go to
+// row g of (B * n_cells, k).  B = 1 is the single-map launch.
+//
 // K8: n is a few hundred to a few thousand, so one block of up to 1024
 // threads counts, for each element it owns (a strided share), its
 // predecessors under the strict total order; no sort.  The keys sit in
@@ -103,15 +108,16 @@ __device__ void best_of_share(const int* __restrict__ score, int H, int W, int y
 }
 
 __global__ void __launch_bounds__(kTopkThreads)
-grid_topk_kernel(const int* __restrict__ score, int H, int W, int grid_col, int cell_h,
-                 int cell_w, int k, int* __restrict__ ys, int* __restrict__ xs,
+grid_topk_kernel(const int* __restrict__ score, int H, int W, int n_cells, int grid_col,
+                 int cell_h, int cell_w, int k, int* __restrict__ ys, int* __restrict__ xs,
                  int* __restrict__ vals, long long* __restrict__ clocks) {
   __shared__ unsigned long long warp_best[kTopkThreads / 32];
   const bool timed = clocks != nullptr && blockIdx.x == 0 && threadIdx.x == 0;
   if (timed) clocks[0] = clock64();
   __shared__ unsigned long long s_winner;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cell = blockIdx.x;
+  const int gcell = blockIdx.x, cell = gcell % n_cells;  // cell of map gcell / n_cells
+  score += (size_t)(gcell / n_cells) * H * W;
   const int y0 = (cell / grid_col) * cell_h, x0 = (cell % grid_col) * cell_w;
   const int cell_sz = cell_h * cell_w;
   const int share = tid < cell_sz ? (cell_sz - 1 - tid) / kTopkThreads + 1 : 0;
@@ -148,7 +154,7 @@ grid_topk_kernel(const int* __restrict__ score, int H, int W, int grid_col, int 
         best_of_share(score, H, W, y0, x0, cell_w, cell_sz, true, win, best);
       const int idx = (int)(~(unsigned)(win & 0xffffffffull));
       const int v = (int)((unsigned)(win >> 32) ^ 0x80000000u);
-      const int o = cell * k + round;
+      const int o = gcell * k + round;
       ys[o] = y0 + idx / cell_w;
       xs[o] = x0 + idx % cell_w;
       vals[o] = v;
@@ -234,8 +240,8 @@ __device__ inline void keep_best(const unsigned long long* keys, int n, int k, E
 // One cluster of ``bands`` blocks per cell (cluster rank = band); rows_pass
 // rows of the band are staged at a time, ``stride`` ints a staged row.
 __global__ void __launch_bounds__(kBandThreads)
-grid_topk_band_kernel(const int* __restrict__ score, int H, int W, int grid_col, int cell_h,
-                      int cell_w, int k, int bands, int rows_pass, int stride,
+grid_topk_band_kernel(const int* __restrict__ score, int H, int W, int n_cells, int grid_col,
+                      int cell_h, int cell_w, int k, int bands, int rows_pass, int stride,
                       int* __restrict__ ys, int* __restrict__ xs, int* __restrict__ vals,
                       long long* __restrict__ clocks) {
   extern __shared__ __align__(16) int stage[];
@@ -247,7 +253,9 @@ grid_topk_band_kernel(const int* __restrict__ score, int H, int W, int grid_col,
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int band = (int)cluster.block_rank(), cell = blockIdx.x / bands;
+  const int band = (int)cluster.block_rank(), gcell = blockIdx.x / bands;
+  const int cell = gcell % n_cells;  // of map gcell / n_cells
+  score += (size_t)(gcell / n_cells) * H * W;
   const bool timed = clocks != nullptr && blockIdx.x == 0;
   if (timed && tid == 0) clocks[0] = clock64();
   const int y0 = (cell / grid_col) * cell_h, x0 = (cell % grid_col) * cell_w;
@@ -338,7 +346,7 @@ grid_topk_band_kernel(const int* __restrict__ score, int H, int W, int grid_col,
   if (band != 0) return;
   keep_best(s_cluster, bands * k, k, [&](int rank, unsigned long long x) {
     const int idx = (int)(~(unsigned)(x & 0xffffffffull));
-    const int o = cell * k + rank;
+    const int o = gcell * k + rank;
     ys[o] = y0 + idx / cell_w;
     xs[o] = x0 + idx % cell_w;
     vals[o] = (int)((unsigned)(x >> 32) ^ 0x80000000u);
@@ -762,24 +770,25 @@ int launch_k8(K kernel, size_t* budget, size_t* allowed, int n, size_t bytes, vo
 
 }  // namespace
 
-// clocks (7 int64 or null): the SM clock of the first cell's block (band 0)
-// at its start and at the end of each phase (the 1024-thread path: three
-// stamps)
-extern "C" int grid_topk_i32(const void* score, int H, int W, int grid_row, int grid_col,
+// score (B, H, W); ys, xs, vals (B, grid_row * grid_col, k).  clocks (7
+// int64 or null): the SM clock of the first cell's block (band 0) at its
+// start and at the end of each phase (the 1024-thread path: three stamps)
+extern "C" int grid_topk_i32(const void* score, int B, int H, int W, int grid_row, int grid_col,
                              int cell_h, int cell_w, int k, void* ys, void* xs, void* vals,
                              void* clocks, void* stream) {
-  if (k < 1 || k > cell_h * cell_w) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > cell_h * cell_w || B < 1) return (int)cudaErrorInvalidValue;
+  const int n_cells = grid_row * grid_col;
   const int stride = (cell_w + 3 + 3) & ~3;  // a row and its shift, whole 16-byte groups
   if (k > kBandMaxK || stride > kStageInts) {
-    grid_topk_kernel<<<grid_row * grid_col, kTopkThreads, 0, (cudaStream_t)stream>>>(
-        (const int*)score, H, W, grid_col, cell_h, cell_w, k, (int*)ys, (int*)xs, (int*)vals,
-        (long long*)clocks);
+    grid_topk_kernel<<<n_cells * B, kTopkThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)score, H, W, n_cells, grid_col, cell_h, cell_w, k, (int*)ys, (int*)xs,
+        (int*)vals, (long long*)clocks);
     return (int)cudaGetLastError();
   }
   const int b = max(1, min(kBands, cell_h));
   const int rows_pass = min((cell_h + b - 1) / b, kStageInts / stride);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid_row * grid_col * b);
+  cfg.gridDim = dim3(n_cells * B * b);
   cfg.blockDim = dim3(kBandThreads);
   cfg.dynamicSmemBytes = (size_t)rows_pass * stride * sizeof(int);
   cfg.stream = (cudaStream_t)stream;
@@ -790,8 +799,8 @@ extern "C" int grid_topk_i32(const void* score, int H, int W, int grid_row, int 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, grid_topk_band_kernel, (const int*)score, H, W, grid_col, cell_h,
-                     cell_w, k, b, rows_pass, stride, (int*)ys, (int*)xs, (int*)vals,
+  cudaLaunchKernelEx(&cfg, grid_topk_band_kernel, (const int*)score, H, W, n_cells, grid_col,
+                     cell_h, cell_w, k, b, rows_pass, stride, (int*)ys, (int*)xs, (int*)vals,
                      (long long*)clocks);
   return (int)cudaGetLastError();  // the launch's error, cleared for the next launch
 }

@@ -63,6 +63,12 @@
 // Pyramid.flat, while a TMA tensor map needs 16-byte strides and base; the
 // pyramid's layout is K2's, K1's and the tests' and stays.
 
+// Instances (``pyramidal_lk`` and ``pyramidal_lk_compact``): B pyramids
+// back to back in each of prev_pyr and curr_pyr (a fleet's batch, instance
+// b's at b times the given stride in floats) and B x F points; block
+// (f, b) tracks point f of instance b in instance b's pyramids, exactly as
+// the single launch tracks it.  B = 1 is the single launch.
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -323,7 +329,8 @@ constexpr int block_threads() {
 template <int kWin>
 __global__ void __launch_bounds__(block_threads<kWin>())
 lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr,
-          int H0, int W0, const float* __restrict__ prev_pts,
+          long long prev_stride, long long curr_stride, int H0, int W0,
+          const float* __restrict__ prev_pts,
           const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
           int n_levels, int max_iter, int max_iter_upper, float eps2,
           float min_eig_thr, float* __restrict__ out_pts,
@@ -332,7 +339,9 @@ lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr
   const int win = side<kWin>(win_rt);
   const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
 
-  const int f = blockIdx.x;
+  const int f = blockIdx.y * gridDim.x + blockIdx.x;  // point blockIdx.x of instance blockIdx.y
+  prev_pyr += blockIdx.y * prev_stride;
+  curr_pyr += blockIdx.y * curr_stride;
   const bool is_valid = valid[f] != 0;
   const float prev_x = prev_pts[2 * f], prev_y = prev_pts[2 * f + 1];
   float next_x = init_pts[2 * f], next_y = init_pts[2 * f + 1];
@@ -415,14 +424,15 @@ lk_level_kernel(const float* __restrict__ prev_pyr, int H0, int W0,
 }
 
 // The whole compact-window tracker of one point (see the note at the top).
-// des_out (F, n_levels, 2) [y, x] or null: each level's window origin.
+// des_out (B, F, n_levels, 2) [y, x] or null: each level's window origin.
 // clocks (1 + 3 n_levels int64) or null: block 0's SM clock at its start
 // and, coarse to fine, after each level's template (its window's copy in
 // flight), after the copy's wait and after its Gauss-Newton steps.
 template <int kWin>
 __global__ void __launch_bounds__(block_threads<kWin>())
 lk_compact_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr,
-                  int H0, int W0, const float* __restrict__ prev_pts,
+                  long long prev_stride, long long curr_stride, int H0, int W0,
+                  const float* __restrict__ prev_pts,
                   const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
                   int n_levels, int max_iter, int max_iter_upper, float eps2,
                   float min_eig_thr, float* __restrict__ out_pts,
@@ -433,7 +443,9 @@ lk_compact_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ 
   const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
   float* window = sm.red + 32 * 5;  // need x need, the current level's search window
 
-  const int f = blockIdx.x, tid = threadIdx.x;
+  const int f = blockIdx.y * gridDim.x + blockIdx.x, tid = threadIdx.x;
+  prev_pyr += blockIdx.y * prev_stride;
+  curr_pyr += blockIdx.y * curr_stride;
   const bool timed = clocks != nullptr && f == 0 && tid == 0;
   if (timed) clocks[0] = clock64();
   const bool is_valid = valid[f] != 0;
@@ -542,20 +554,23 @@ inline size_t compact_floats(int win) {
 
 }  // namespace
 
-extern "C" int pyramidal_lk(const void* prev_pyr, const void* curr_pyr, int H0,
-                            int W0, const void* prev_pts, const void* init_pts,
-                            const void* valid, int F, int n_levels, int max_iter,
-                            int max_iter_upper, float eps2, float min_eig,
+// prev_pyr, curr_pyr: B pyramids each, instance b's at b * prev_stride /
+// b * curr_stride floats; points (B, F, 2), valid (B, F); outputs (B, F, 2)
+// and (B, F)
+extern "C" int pyramidal_lk(const void* prev_pyr, const void* curr_pyr, long long prev_stride,
+                            long long curr_stride, int B, int H0, int W0, const void* prev_pts,
+                            const void* init_pts, const void* valid, int F, int n_levels,
+                            int max_iter, int max_iter_upper, float eps2, float min_eig,
                             void* out_pts, void* out_status, int win, void* stream) {
   static size_t allowed = 0;
-  if (win < 1) return (int)cudaErrorInvalidValue;
+  if (win < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
   const LkFn kernel = pick_lk(win);
   const int err = prepare(kernel, win, &allowed, smem_floats(win));
   if (err != 0) return err;
   const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
-  kernel<<<F, threads, smem_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
-      (const float*)prev_pyr, (const float*)curr_pyr, H0, W0,
+  kernel<<<dim3(F, B), threads, smem_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
+      (const float*)prev_pyr, (const float*)curr_pyr, prev_stride, curr_stride, H0, W0,
       (const float*)prev_pts, (const float*)init_pts, (const uint8_t*)valid,
       n_levels, max_iter, max_iter_upper, eps2, min_eig, (float*)out_pts,
       (uint8_t*)out_status, win);
@@ -581,21 +596,23 @@ extern "C" int pyramidal_lk_level(const void* prev_pyr, int H0, int W0, const vo
   return (int)cudaGetLastError();
 }
 
-extern "C" int pyramidal_lk_compact(const void* prev_pyr, const void* curr_pyr, int H0, int W0,
-                                    const void* prev_pts, const void* init_pts,
+extern "C" int pyramidal_lk_compact(const void* prev_pyr, const void* curr_pyr,
+                                    long long prev_stride, long long curr_stride, int B, int H0,
+                                    int W0, const void* prev_pts, const void* init_pts,
                                     const void* valid, int F, int n_levels, int max_iter,
                                     int max_iter_upper, float eps2, float min_eig,
                                     void* out_pts, void* out_status, void* des_out,
                                     void* clocks, int win, void* stream) {
   static size_t allowed = 0;
-  if (win < 1 || n_levels < 1) return (int)cudaErrorInvalidValue;
+  if (win < 1 || n_levels < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
   const CompactFn kernel = pick_compact(win);
   const int err = prepare(kernel, win, &allowed, compact_floats(win));
   if (err != 0) return err;
   const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
-  kernel<<<F, threads, compact_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
-      (const float*)prev_pyr, (const float*)curr_pyr, H0, W0, (const float*)prev_pts,
+  kernel<<<dim3(F, B), threads, compact_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
+      (const float*)prev_pyr, (const float*)curr_pyr, prev_stride, curr_stride, H0, W0,
+      (const float*)prev_pts,
       (const float*)init_pts, (const uint8_t*)valid, n_levels, max_iter, max_iter_upper, eps2,
       min_eig, (float*)out_pts, (uint8_t*)out_status, (int32_t*)des_out, (long long*)clocks,
       win);

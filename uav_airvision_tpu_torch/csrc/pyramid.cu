@@ -1,5 +1,5 @@
-// K2: the padded image pyramids of one or two cameras in one launch (cv2
-// pyrDown semantics + REFLECT_101 pad).
+// K2: the padded image pyramids of one or two cameras of one or more
+// instances in one launch (cv2 pyrDown semantics + REFLECT_101 pad).
 //
 // Replaces uav_airvision_tpu/ops/pyramid.py::build_pyramid_padded
 // (pyr_down :66, build_pyramid :85-98, :115): the JAX package decimates
@@ -14,7 +14,13 @@
 //     holds the integers exactly;
 //   * level shapes ceil(n/2).
 //
-// Layout, in one launch: per camera one thread-block cluster of 8 band
+// Images: camera c of instance b is (c ? img1 : img0) + b * inst_stride
+// (bytes), n = n_cam * n_inst images in all; image j = c * n_inst + b
+// writes pyramid j of the output, so one camera's pyramids of every
+// instance lie back to back (a fleet's batched Pyramid).  One instance is
+// the single-frame call, the same launch as before the instance axis.
+//
+// Layout, in one launch: per image one thread-block cluster of 8 band
 // blocks (the portable cluster size) for levels 1 and up, and 24 blocks
 // that write the padded level 0 (70% of the bytes written) straight from
 // the image, a run of rows each, so that the largest write is spread over
@@ -47,7 +53,7 @@
 //
 // Bound on the card: bytes.  At 480x752 one camera reads 0.36 MB and
 // writes four padded float32 levels of 562,564 px in all, 2.25 MB (0.78 us
-// at 3.35 TB/s; 1.56 us for the pair).  At this size the launch and the
+// at 3.35 TB/s; 1.56 us for the pair, 2B times that for B instances).  At this size the launch and the
 // wrapper's host time dominate; on the device the band blocks' chain of
 // levels (three cluster barriers) is the critical path.
 
@@ -250,6 +256,12 @@ __device__ void write_padded(const Plan& p, int L, int rank, int pad, const unsi
   }
 }
 
+// Image j of the launch: camera j / n_inst of instance j % n_inst.
+__device__ __forceinline__ const uint8_t* image(const uint8_t* img0, const uint8_t* img1,
+                                                int n_inst, long long inst_stride, int j) {
+  return (j < n_inst ? img0 : img1) + (j % n_inst) * inst_stride;
+}
+
 // Padded level-0 rows [r0, r1) straight from the image in global memory,
 // one warp per row, eight loads of a lane in flight before its stores.
 __device__ void copy_level0(const uint8_t* img, int H, int W, int pad, int r0, int r1,
@@ -274,33 +286,35 @@ __device__ void copy_level0(const uint8_t* img, int H, int W, int pad, int r0, i
 }
 
 __global__ void __launch_bounds__(kThreads)
-pyramid_kernel(const uint8_t* __restrict__ img0, const uint8_t* __restrict__ img1, int n_cam,
-               int H, int W, int n, int pad, float* __restrict__ out) {
+pyramid_kernel(const uint8_t* __restrict__ img0, const uint8_t* __restrict__ img1, int n_inst,
+               long long inst_stride, int n_img, int H, int W, int n, int pad,
+               float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t mbar;
   __shared__ Plan plan;
   if (threadIdx.x == 0) plan = make_plan(H, W, n, pad);
   __syncthreads();
   const Plan& p = plan;
-  const int bands = n_cam * kBands;
+  const int bands = n_img * kBands;
   if ((int)blockIdx.x >= bands) {  // a level-0 block: a run of padded rows, no cluster work
-    const int k = (int)blockIdx.x - bands, cam = k / kCopy, part = k % kCopy;
+    const int k = (int)blockIdx.x - bands, j = k / kCopy, part = k % kCopy;
     const int HP = H + 2 * pad;
-    copy_level0(cam ? img1 : img0, H, W, pad, part * HP / kCopy, (part + 1) * HP / kCopy,
-                out + cam * p.size);
+    copy_level0(image(img0, img1, n_inst, inst_stride, j), H, W, pad, part * HP / kCopy,
+                (part + 1) * HP / kCopy, out + j * p.size);
     return;
   }
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int cam = (int)blockIdx.x / kBands;
-  float* pyr = out + cam * p.size;
+  const int j = (int)blockIdx.x / kBands;
+  const uint8_t* img = image(img0, img1, n_inst, inst_stride, j);
+  float* pyr = out + j * p.size;
   const bool active = rank < p.nb && n > 1;  // uniform over the block
 
   if (active) {  // level 0: the band and its halo rows [a-2, e] from the image
     int a, e;
     band(p, rank, 0, &a, &e);
     const int lo = max(0, a - 2), hi = min(H, e + 1);
-    stage(smem + p.buf[0] + (lo - (a - 2)) * W, (cam ? img1 : img0) + (size_t)lo * W,
+    stage(smem + p.buf[0] + (lo - (a - 2)) * W, img + (size_t)lo * W,
           (unsigned)((hi - lo) * W), &mbar);
   }
   for (int L = 1; L < n; ++L) {
@@ -316,17 +330,19 @@ pyramid_kernel(const uint8_t* __restrict__ img0, const uint8_t* __restrict__ img
   cluster.sync();  // no block leaves while a neighbour may still read its shared memory
 }
 
-// The level-by-level plan's passes.  Level 0 of camera blockIdx.y, a run of
+// The level-by-level plan's passes.  Level 0 of image blockIdx.y, a run of
 // padded rows a block, from the image.
 __global__ void __launch_bounds__(kThreads)
-level0_kernel(const uint8_t* __restrict__ img0, const uint8_t* __restrict__ img1, int H, int W,
-              int pad, long long size, float* __restrict__ out) {
-  const int cam = blockIdx.y, HP = H + 2 * pad;
-  copy_level0(cam ? img1 : img0, H, W, pad, (int)blockIdx.x * HP / (int)gridDim.x,
-              ((int)blockIdx.x + 1) * HP / (int)gridDim.x, out + cam * size);
+level0_kernel(const uint8_t* __restrict__ img0, const uint8_t* __restrict__ img1, int n_inst,
+              long long inst_stride, int H, int W, int pad, long long size,
+              float* __restrict__ out) {
+  const int j = blockIdx.y, HP = H + 2 * pad;
+  copy_level0(image(img0, img1, n_inst, inst_stride, j), H, W, pad,
+              (int)blockIdx.x * HP / (int)gridDim.x, ((int)blockIdx.x + 1) * HP / (int)gridDim.x,
+              out + j * size);
 }
 
-// Padded level L of camera blockIdx.y from padded level L-1 (hs x ws
+// Padded level L of image blockIdx.y from padded level L-1 (hs x ws
 // unpadded) in device memory: a thread per padded pixel, grid-strided.
 __global__ void __launch_bounds__(kThreads)
 level_kernel(float* __restrict__ out, long long size, long long src_off, int hs, int ws,
@@ -353,13 +369,13 @@ level_kernel(float* __restrict__ out, long long size, long long src_off, int hs,
 }
 
 // The passes: level 0, then one launch a level.
-int pyramid_passes(const Plan& p, const uint8_t* img0, const uint8_t* img1, int n_cam, int pad,
-                   float* out, cudaStream_t stream) {
-  level0_kernel<<<dim3(kCopy, n_cam), kThreads, 0, stream>>>(img0, img1, p.h[0], p.w[0], pad,
-                                                              p.size, out);
+int pyramid_passes(const Plan& p, const uint8_t* img0, const uint8_t* img1, int n_inst,
+                   long long inst_stride, int n_img, int pad, float* out, cudaStream_t stream) {
+  level0_kernel<<<dim3(kCopy, n_img), kThreads, 0, stream>>>(img0, img1, n_inst, inst_stride,
+                                                              p.h[0], p.w[0], pad, p.size, out);
   int err = (int)cudaGetLastError();
   for (int L = 1; L < p.n && err == 0; ++L) {
-    level_kernel<<<dim3(64, n_cam), kThreads, 0, stream>>>(out, p.size, p.out[L - 1],
+    level_kernel<<<dim3(64, n_img), kThreads, 0, stream>>>(out, p.size, p.out[L - 1],
                                                           p.h[L - 1], p.w[L - 1], p.out[L],
                                                           p.h[L], p.w[L], pad);
     err = (int)cudaGetLastError();
@@ -369,20 +385,24 @@ int pyramid_passes(const Plan& p, const uint8_t* img0, const uint8_t* img1, int 
 
 }  // namespace
 
-// img0, img1 (uint8 (H, W), contiguous; img1 unused for one camera),
-// n_cam (1 or 2), H, W, n_levels, pad, out (n_cam pyramids back to back),
-// stream
-extern "C" int pyramid_u8(const void* img0, const void* img1, int n_cam, int H, int W,
-                          int n_levels, int pad, void* out, void* stream) {
+// img0, img1 (uint8, instance b's (H, W) image contiguous at b * inst_stride
+// bytes; img1 unused for one camera), n_cam (1 or 2), n_inst, inst_stride,
+// H, W, n_levels, pad, out (n_cam * n_inst pyramids back to back, camera
+// major), stream
+extern "C" int pyramid_u8(const void* img0, const void* img1, int n_cam, int n_inst,
+                          long long inst_stride, int H, int W, int n_levels, int pad, void* out,
+                          void* stream) {
   static unsigned smem_allowed = 0;
   static size_t budget = 0;
-  if (n_levels < 1 || n_levels > kMaxLevels || n_cam < 1 || n_cam > 2)
+  const int n_img = n_cam * n_inst;
+  if (n_levels < 1 || n_levels > kMaxLevels || n_cam < 1 || n_cam > 2 || n_inst < 1 ||
+      n_img > 65535)
     return (int)cudaErrorInvalidValue;
   const Plan p = make_plan(H, W, n_levels, pad);
   if (budget == 0) budget = msckf::smem_budget(pyramid_kernel);
   if (p.smem > budget)
-    return pyramid_passes(p, (const uint8_t*)img0, (const uint8_t*)img1, n_cam, pad,
-                          (float*)out, (cudaStream_t)stream);
+    return pyramid_passes(p, (const uint8_t*)img0, (const uint8_t*)img1, n_inst, inst_stride,
+                          n_img, pad, (float*)out, (cudaStream_t)stream);
   if (p.smem > 48 * 1024 && p.smem > smem_allowed) {
     const int err = (int)cudaFuncSetAttribute(
         pyramid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
@@ -390,7 +410,7 @@ extern "C" int pyramid_u8(const void* img0, const void* img1, int n_cam, int H, 
     smem_allowed = p.smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((kBands + kCopy) * n_cam);
+  cfg.gridDim = dim3((kBands + kCopy) * n_img);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = p.smem;
   cfg.stream = (cudaStream_t)stream;
@@ -402,8 +422,8 @@ extern "C" int pyramid_u8(const void* img0, const void* img1, int n_cam, int H, 
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const int err = (int)cudaLaunchKernelEx(&cfg, pyramid_kernel, (const uint8_t*)img0,
-                                          (const uint8_t*)img1, n_cam, H, W, n_levels, pad,
-                                          (float*)out);
+                                          (const uint8_t*)img1, n_inst, inst_stride, n_img, H,
+                                          W, n_levels, pad, (float*)out);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }

@@ -55,20 +55,21 @@ L = ctypes.c_longlong
 INJECT = [P, P, P, P, P, P, P, P, P, I, P, P]
 # C signatures: every entry point returns int (a cudaError_t).
 SIGNATURES = {
-    # img0, img1, n_cam, H, W, n_levels, pad, out, stream
-    "pyramid_u8": [P, P, I, I, I, I, I, P, P],
-    # img, H, W, thr, pts, pts_valid, n_pts, keep_out, score_out, clocks, stream
-    "fast_detect_masked": [P, I, I, I, P, P, I, P, P, P, P],
-    # prev_pyr, curr_pyr, H0, W0, prev_pts, init_pts, valid, F, n_levels,
-    # max_iter, max_iter_upper, eps2, min_eig, out_pts, out_status, win, stream
-    "pyramidal_lk": [P, P, I, I, P, P, P, I, I, I, I, F, F, P, P, I, P],
+    # img0, img1, n_cam, n_inst, inst_stride, H, W, n_levels, pad, out, stream
+    "pyramid_u8": [P, P, I, I, L, I, I, I, I, P, P],
+    # img, B, H, W, thr, pts, pts_valid, n_pts, keep_out, score_out, clocks, stream
+    "fast_detect_masked": [P, I, I, I, I, P, P, I, P, P, P, P],
+    # prev_pyr, curr_pyr, prev_stride, curr_stride, B, H0, W0, prev_pts,
+    # init_pts, valid, F, n_levels, max_iter, max_iter_upper, eps2, min_eig,
+    # out_pts, out_status, win, stream
+    "pyramidal_lk": [P, P, L, L, I, I, I, P, P, P, I, I, I, I, F, F, P, P, I, P],
     # prev_pyr, H0, W0, prev_pts, pts_in, valid, windows, des, F, L, it_max,
     # eps2, min_eig, pts_out, des_next, out_status, win, stream
     "pyramidal_lk_level": [P, I, I, P, P, P, P, P, I, I, I, F, F, P, P, P, I, P],
-    # prev_pyr, curr_pyr, H0, W0, prev_pts, init_pts, valid, F, n_levels,
-    # max_iter, max_iter_upper, eps2, min_eig, out_pts, out_status, des_out,
-    # clocks, win, stream
-    "pyramidal_lk_compact": [P, P, I, I, P, P, P, I, I, I, I, F, F, P, P, P, P, I, P],
+    # prev_pyr, curr_pyr, prev_stride, curr_stride, B, H0, W0, prev_pts,
+    # init_pts, valid, F, n_levels, max_iter, max_iter_upper, eps2, min_eig,
+    # out_pts, out_status, des_out, clocks, win, stream
+    "pyramidal_lk_compact": [P, P, L, L, I, I, I, P, P, P, I, I, I, I, F, F, P, P, P, P, I, P],
     # img, HP, WP, oy, ox, origin stride, F, n, out, stream
     "extract_windows": [P, I, I, P, P, I, I, I, P, P],
     # imu_t, imu_w, imu_a, imu_mask, I, q, p, v, bg, ba, q_null, p_null,
@@ -111,8 +112,8 @@ SIGNATURES = {
     # cam0, p1, p0r, proj1, valid, st_fwd, n, intr, coef, model, E, fwd_bwd,
     # max_vdisp, thresh, h, w, inlier, stream
     "camera_stereo_gate": [P, P, P, P, P, P, I, P, P, I, P, F, F, F, I, I, P, P],
-    # score, H, W, grid_row, grid_col, cell_h, cell_w, k, ys, xs, vals, clocks, stream
-    "grid_topk_i32": [P, I, I, I, I, I, I, I, P, P, P, P, P],
+    # score, B, H, W, grid_row, grid_col, cell_h, cell_w, k, ys, xs, vals, clocks, stream
+    "grid_topk_i32": [P, I, I, I, I, I, I, I, I, P, P, P, P, P],
     # cell, primary, arrival, valid, n, n_cells, rank, perm, stream
     "grid_rank_in_cell": [P, P, P, P, I, I, P, P, P],
     # perm, keep, cell, valid, n, n_cells, global_rank, cell_rank, n_kept, stream

@@ -2,8 +2,9 @@
 upsert, lost-feature marginalization, camera-pair pruning and online reset.
 
 Port of uav_airvision_tpu/models/msckf/step.py (``backend_step`` and the
-functions it calls, under every filter and triangulation option; the fleet
-variants are not ported).  Each ``lax.cond``
+functions it calls, under every filter and triangulation option, and
+``backend_step_fleet``, for now one ``backend_step`` per instance).  Each
+``lax.cond``
 becomes a Python branch on values read back from the device with
 ``device.to_host`` (one read per decision group), and each
 ``.at[].set(mode="drop")`` scatter becomes a scatter into a dump row
@@ -20,6 +21,7 @@ from ...config import Config
 from ...device import to_host
 from ...ops.gridops import set_drop, smallest_k_indices, stable_compact_indices
 from ...utils import quaternion as quat
+from ...utils import tree
 from . import triangulation as tri
 from .propagation import propagate
 from .state import (IMU_DIM, INT32_MAX, CamWindow, FeatureTable, FilterState, MsckfParams,
@@ -439,3 +441,30 @@ def backend_step(state: FilterState, frame: FrameInput, params: MsckfParams, con
     # publish happens before the online reset
     state, did_reset = online_reset(state, params, config)
     return state, out._replace(did_reset=flag(did_reset))
+
+
+def backend_step_fleet(bstate: FilterState, bframe: FrameInput, params: MsckfParams,
+                       config: Config):
+    """``backend_step`` over a leading instance axis: every leaf of ``bstate``
+    and ``bframe`` has one, and ``bframe.active`` is the B host flags.  The
+    JAX package defines its ``backend_step_fleet`` as equal to
+    ``vmap(backend_step)`` (step.py:875-887); here each instance's slice
+    runs ``backend_step`` (``backend_steps``) and the states are stacked.
+    Returns (state, StepOutput), each with the leading axis."""
+    states, out = backend_steps([tree.index(bstate, b) for b in range(len(bframe.active))],
+                                bframe, params, config)
+    return tree.stack(states), out
+
+
+def backend_steps(states, bframe: FrameInput, params: MsckfParams, config: Config):
+    """``backend_step`` of each instance's state (a list) on its slice of the
+    batched ``bframe``: an inactive instance keeps its state and publishes
+    the skip row.  Returns (the new states, a list; StepOutput with a
+    leading instance axis).  A fleet runner keeps its instances' states as
+    such a list between frames, so that each is laid out in memory as a
+    single run's state is (a transposed view stays one), and the float
+    arithmetic, whose library routines pick their path by the operands'
+    layout, gives the single run's bits."""
+    steps = [backend_step(st, tree.index(bframe, b), params, config)
+             for b, st in enumerate(states)]
+    return [st for st, _ in steps], tree.stack([out for _, out in steps])

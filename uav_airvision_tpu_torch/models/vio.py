@@ -1,8 +1,8 @@
 """The VIO model: front-end + MSCKF back-end per frame, and the sequence
 runner.  Port of uav_airvision_tpu/models/vio.py (``init_vio_state``,
-``vio_step``, ``run_sequence``); PyTorch runs eagerly, so the sequence runner
-is a Python loop over frames with the same signature and ``StepOutput``
-fields, stacked over time."""
+``vio_step``, ``vio_step_fleet``, ``run_sequence``); PyTorch runs eagerly, so
+the sequence runner is a Python loop over frames with the same signature and
+``StepOutput`` fields, stacked over time."""
 
 from __future__ import annotations
 
@@ -14,9 +14,10 @@ import torch
 from ..config import Config
 from ..device import get_device, to_host
 from .frontend.params import FrontendParams, make_frontend_params
-from .frontend.pipeline import FrontendState, frontend_step, init_frontend_state
+from .frontend.pipeline import (FrontendState, frontend_step, frontend_step_fleet,
+                                init_frontend_state)
 from .msckf.state import FilterState, MsckfParams, init_state, make_params
-from .msckf.step import FrameInput, StepOutput, backend_step
+from .msckf.step import FrameInput, StepOutput, backend_step, backend_step_fleet, backend_steps
 
 
 class VioState(NamedTuple):
@@ -73,18 +74,48 @@ def vio_step(state: VioState, frame: VioFrame, fparams: FrontendParams,
     return state, out
 
 
-def _vio_step(state: VioState, frame: VioFrame, fparams: FrontendParams,
-              mparams: MsckfParams, config: Config, active: bool):
-    fe_state, fe_out = frontend_step(state.frontend, frame.cam0, frame.cam1,
-                                     frame.fe_mean_w, frame.fe_dt, fparams, config)
-    dtype = state.filter.cov.dtype
-    backend_frame = FrameInput(
+def _backend_frame(frame: VioFrame, fe_out, dtype, active) -> FrameInput:
+    return FrameInput(
         timestamp=frame.timestamp.to(dtype), imu_t=frame.imu_t.to(dtype),
         imu_w=frame.imu_w.to(dtype), imu_a=frame.imu_a.to(dtype),
         imu_mask=frame.imu_mask, feat_ids=fe_out.ids, feat_uv=fe_out.uv.to(dtype),
         feat_mask=fe_out.mask, active=active)
-    filt, out = backend_step(state.filter, backend_frame, mparams, config)
+
+
+def _vio_step(state: VioState, frame: VioFrame, fparams: FrontendParams,
+              mparams: MsckfParams, config: Config, active: bool):
+    fe_state, fe_out = frontend_step(state.frontend, frame.cam0, frame.cam1,
+                                     frame.fe_mean_w, frame.fe_dt, fparams, config)
+    filt, out = backend_step(state.filter, _backend_frame(frame, fe_out, state.filter.cov.dtype,
+                                                          active), mparams, config)
     return VioState(frontend=fe_state, filter=filt), out, fe_out
+
+
+def vio_step_fleet(bstate: VioState, bframe: VioFrame, fparams: FrontendParams,
+                   mparams: MsckfParams, config: Config, active):
+    """B instances' frames (every leaf with a leading instance axis; JAX's
+    ``vio_step_fleet``, defined equal to ``vmap(vio_step)``): the batched
+    front-end (``frontend_step_fleet``: K2, K4+K6, K5 and K1 launched once for
+    the batch), then ``backend_step_fleet``.  ``active`` holds the B
+    ``bframe.active`` flags as host values.  Returns (state, StepOutput with
+    a leading instance axis); each instance's slice is its ``vio_step``."""
+    fe_state, fe_out = frontend_step_fleet(bstate.frontend, bframe.cam0, bframe.cam1,
+                                           bframe.fe_mean_w, bframe.fe_dt, fparams, config)
+    filt, out = backend_step_fleet(bstate.filter, _backend_frame(
+        bframe, fe_out, bstate.filter.cov.dtype, active), mparams, config)
+    return VioState(frontend=fe_state, filter=filt), out
+
+
+def fleet_steps(fe_state: FrontendState, filters, bframe: VioFrame, fparams: FrontendParams,
+                mparams: MsckfParams, config: Config, active):
+    """``vio_step_fleet`` on a fleet whose filter states are kept as a list of
+    the instances' states (``backend_steps``).  Returns (front-end state,
+    filter states, StepOutput, FrontendOutput)."""
+    fe_state, fe_out = frontend_step_fleet(fe_state, bframe.cam0, bframe.cam1,
+                                           bframe.fe_mean_w, bframe.fe_dt, fparams, config)
+    filters, out = backend_steps(filters, _backend_frame(bframe, fe_out, filters[0].cov.dtype,
+                                                         active), mparams, config)
+    return fe_state, filters, out, fe_out
 
 
 def run_sequence(config: Config, frames: VioFrame, gyro_bias, acc_mean, fparams=None,

@@ -96,10 +96,10 @@ def undistort_points_plain(pts_px, intrinsics, model, coeffs, rectification=None
                            new_intrinsics=(1.0, 1.0, 0.0, 0.0)):
     _, undo = _dispatch(model)
     u = undo(pixel_to_normalized(pts_px, intrinsics), coeffs)
-    if rectification is not None:
-        h = torch.cat([u, torch.ones_like(u[..., :1])], dim=-1)
-        h = torch.einsum("ij,...j->...i", rectification, h)
-        u = h[..., :2] / h[..., 2:3]
+    if rectification is not None:  # each point's own sums (a matmul's depend on the count)
+        x, y, R = u[..., 0], u[..., 1], rectification
+        h = [R[i, 0] * x + R[i, 1] * y + R[i, 2] for i in range(3)]
+        u = torch.stack([h[0] / h[2], h[1] / h[2]], dim=-1)
     return normalized_to_pixel(u, new_intrinsics)
 
 
@@ -154,11 +154,9 @@ def epipolar_residual_plain(cam0_pts, p1, intrinsics, model, coeffs, E):
     B = cam0_pts.shape[0]
     und_both = undistort_points_plain(torch.cat([cam0_pts, p1]), intrinsics, model, coeffs)
     und0, und1 = und_both[:B], und_both[B:]
-    ones = torch.ones_like(und0[:, :1])
-    pt0_h = torch.cat([und0, ones], dim=-1)
-    pt1_h = torch.cat([und1, ones], dim=-1)
-    line = pt0_h @ E.T
-    return torch.abs(pt1_h[:, 0] * line[:, 0]) / torch.linalg.norm(line[:, :2], dim=-1)
+    x, y = und0[:, 0], und0[:, 1]
+    l0, l1 = (E[i, 0] * x + E[i, 1] * y + E[i, 2] * 1.0 for i in range(2))
+    return torch.abs(und1[:, 0] * l0) / torch.linalg.norm(torch.stack([l0, l1], dim=-1), dim=-1)
 
 
 def stereo_gate_plain(cam0_pts, p1, p0r, proj1, valid, st_fwd, intrinsics, model, coeffs, E,

@@ -24,13 +24,17 @@ from .. import kernels
 
 
 def extract_windows_plain(level: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
-                          n: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel P1 (index ops, exact)."""
-    HP, WP = level.shape
+                          n: int, inst=None) -> torch.Tensor:
+    """Plain PyTorch version of kernel P1 (index ops, exact).  ``level``
+    (HP, WP), or (B, HP, WP) with ``inst`` (F,) each window's instance."""
+    HP, WP = level.shape[-2:]
     oy = oy.long().clamp(0, HP - n)
     ox = ox.long().clamp(0, WP - n)
     ar = torch.arange(n, device=level.device)
-    return level[(oy[:, None] + ar)[:, :, None], (ox[:, None] + ar)[:, None, :]]
+    rows, cols = (oy[:, None] + ar)[:, :, None], (ox[:, None] + ar)[:, None, :]
+    if inst is not None:
+        return level[inst[:, None, None], rows, cols]
+    return level[rows, cols]
 
 
 def extract_windows(level: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,

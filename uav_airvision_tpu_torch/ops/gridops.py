@@ -311,15 +311,16 @@ def _cell_shape(H, W, grid_row, grid_col):
 
 
 def dense_grid_topk_plain(score: torch.Tensor, grid_row: int, grid_col: int, k: int):
-    H, W = score.shape
+    """Plain version of K5: ``score`` (H, W), or (B, H, W) of B maps."""
+    lead, (H, W) = score.shape[:-2], score.shape[-2:]
     cell_h, cell_w = _cell_shape(H, W, grid_row, grid_col)
     ph, pw = cell_h * grid_row, cell_w * grid_col
-    padded = torch.full((ph, pw), -1, dtype=score.dtype, device=score.device)
-    padded[:H, :W] = score
-    cells = (padded.reshape(grid_row, cell_h, grid_col, cell_w)
-             .permute(0, 2, 1, 3).reshape(grid_row * grid_col, cell_h * cell_w))
-    vals, idx = torch.sort(cells, dim=1, descending=True, stable=True)
-    vals, idx = vals[:, :k], idx[:, :k].to(torch.int32)
+    padded = torch.full((*lead, ph, pw), -1, dtype=score.dtype, device=score.device)
+    padded[..., :H, :W] = score
+    cells = (padded.reshape(*lead, grid_row, cell_h, grid_col, cell_w)
+             .transpose(-3, -2).reshape(*lead, grid_row * grid_col, cell_h * cell_w))
+    vals, idx = torch.sort(cells, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k].to(torch.int32)
     cy, cx = idx // cell_w, idx % cell_w
     g = torch.arange(grid_row * grid_col, dtype=torch.int32, device=score.device)
     ys = (g // grid_col)[:, None] * cell_h + cy
@@ -331,6 +332,7 @@ def dense_grid_topk(score: torch.Tensor, grid_row: int, grid_col: int, k: int):
     """Top-k pixels per grid cell of a dense (H, W) score map, ordered by
     (value desc, in-cell flat index asc).  Returns (ys, xs, vals), each
     (grid_row*grid_col, k); vals <= 0 are empty slots (cells pad with -1).
+    B maps (B, H, W) give (B, grid_row*grid_col, k) each, in one launch.
     The kernel takes an int32 map and any k up to the cell's pixel count."""
     if not _on_cuda(score, "K5"):
         return dense_grid_topk_plain(score, grid_row, grid_col, k)
@@ -344,13 +346,16 @@ def _grid_topk_kernel(score, grid_row, grid_col, k, clocks=None):
     """K5's launch.  ``clocks``: an int64 (7,) tensor for the SM clock of the
     first cell's first block at its start and at the end of each of its
     phases."""
-    if score.dtype != torch.int32 or score.ndim != 2:
-        raise ValueError(f"K5 takes a (H, W) int32 map, got {tuple(score.shape)} {score.dtype}")
-    H, W = score.shape
+    if score.dtype != torch.int32 or score.ndim not in (2, 3):
+        raise ValueError(f"K5 takes a (H, W) or (B, H, W) int32 map, got {tuple(score.shape)} "
+                         f"{score.dtype}")
+    B = score.shape[0] if score.ndim == 3 else 1
+    H, W = score.shape[-2:]
     cell_h, cell_w = _cell_shape(H, W, grid_row, grid_col)
     score = score.contiguous()
-    out = torch.empty((3, grid_row * grid_col, k), dtype=torch.int32, device=score.device)
-    kernels.launch("grid_topk_i32", kernels.ptr(score), H, W, int(grid_row), int(grid_col),
+    out = torch.empty((3, *score.shape[:-2], grid_row * grid_col, k), dtype=torch.int32,
+                      device=score.device)
+    kernels.launch("grid_topk_i32", kernels.ptr(score), B, H, W, int(grid_row), int(grid_col),
                    cell_h, cell_w, int(k), kernels.ptr(out[0]), kernels.ptr(out[1]),
                    kernels.ptr(out[2]), kernels.ptr(clocks) if clocks is not None else None)
     return out
