@@ -2606,11 +2606,13 @@ FLEET_FIELDS = ("p", "q", "v", "active", "n_features", "n_update_rows", "did_res
 
 
 class FleetRecorder:
-    """Observer of the four batched kernels' wrappers: keeps the arguments
-    of every call, by wrapper name."""
+    """Observer of the batched kernels' wrappers (the front-end's K2, K4+K6,
+    K5, K1 and the back-end's K14, K13, K9, K10): keeps the arguments of
+    every call, by wrapper name."""
 
     NAMES = ("build_pyramid_pair", "detect_fast", "dense_grid_topk", "pyramidal_lk",
-             "pyramidal_lk_compact")
+             "pyramidal_lk_compact", "propagate", "triangulate_rows", "feature_block_rows",
+             "gating_test_batch")
 
     def __init__(self):
         self.calls = {name: [] for name in self.NAMES}
@@ -2665,13 +2667,134 @@ def _check_batched(tag, got, want_batched, singles):
             fail(f"{tag}: instance {b} of the batched launch differs from its single launch")
 
 
+def _fleet_backend_steps(steps, outs):
+    """The back-end's launches per fleet step, from the wrappers' counts
+    after each step (``steps``: [(batched counts, per-instance counts)]) and
+    the step's outputs: K14 once a step with an active instance, K13, K9
+    and K10 once a stage each (the lost pass, its overflow pass, the
+    prune: at most three), and at least once where an instance updated or
+    pruned.  Returns the per-instance K11 and K12 launches per step."""
+    prev = ({k: 0 for k in steps[0][0]}, {k: 0 for k in steps[0][1]})
+    per_inst = {k: 0 for k in steps[0][1]}
+    bad = []
+    for k, (be, pi) in enumerate(steps):
+        d = {n: be[n] - prev[0][n] for n in be}
+        for n in pi:
+            per_inst[n] += pi[n] - prev[1][n]
+        prev = (be, pi)
+        active = bool(outs.active[k].any())
+        stage = bool((outs.n_update_rows[k] > 0).any() or (outs.n_prune_feats[k] > 0).any())
+        if (d["K14"] != int(active) or not d["K13"] == d["K9"] == d["K10"] <= 3
+                or (stage and d["K13"] == 0)):
+            bad.append((k, d))
+    if bad:
+        fail(f"[fleet] the back-end's batched kernels not once a stage on steps {bad[:5]}")
+    return {n: v / len(steps) for n, v in per_inst.items()}
+
+
+def _check_backend_batched(rec):
+    """Every 8th recorded batched launch of K14, K13, K9 and K10 again:
+    within the bars of its single-launch checks (check_limits_kernels) of
+    its batched plain version, and each instance bit for bit its single
+    launch.  Returns {kernel: (launches checked, largest error)}."""
+    import torch
+
+    from uav_airvision_tpu_torch.models.msckf import propagation
+    from uav_airvision_tpu_torch.models.msckf import triangulation as tri
+    from uav_airvision_tpu_torch.models.msckf import update as upd
+    from uav_airvision_tpu_torch.utils import tree
+
+    res = {}
+
+    def single(tag, b, got, one):
+        if not all(torch.equal(g, o) for g, o in zip(got, one)):
+            fail(f"[fleet] {tag}: instance {b} of the batched launch differs from its single "
+                 f"launch")
+
+    calls = rec.calls["propagate"][::8]
+    worst = 0.0
+    for a in calls:
+        st, params, t, w, acc, m = a
+        got = propagation.propagate(*a)
+        err = _prop_err(got, propagation.propagate_plain(*a))
+        worst = max(worst, err)
+        if not err <= 1e-5:
+            fail(f"[fleet] K14 batched: relative error {err:.3e} > 1e-5")
+        for b in range(st.cov.shape[0]):
+            one = propagation.propagate(tree.index(st, b), params, t[b], w[b], acc[b], m[b])
+            g = tree.index(got, b)
+            single("K14", b, (g.cov, *g.imu), (one.cov, *one.imu))
+    res["K14"] = (len(calls), worst)
+
+    calls = rec.calls["triangulate_rows"][::8]
+    worst = 0.0
+    for a in calls:
+        pos, init, failed = got = tri.triangulate_rows(*a)
+        ppos, pinit, pfail = tri.triangulate_rows_plain(*a)
+        position, initialized = a[4], a[5]
+        new = init & ~initialized
+        if not (torch.equal(init, pinit) and torch.equal(failed, pfail)
+                and torch.equal(pos[~new], position[~new])):
+            fail("[fleet] K13 batched: initialized / init_fail / unchanged rows differ from "
+                 "the plain version")
+        if bool(new.any()):
+            rel = ((pos - ppos).abs().amax(-1) / ppos.abs().amax(-1).clamp(min=1.0))[new]
+            worst = max(worst, float(rel.max()))
+        for b in range(a[0].shape[0]):
+            single("K13", b, [x[b] for x in got],
+                   tri.triangulate_rows(*(x[b] for x in a[:8]), *a[8:]))
+    if not worst <= 1e-3:
+        fail(f"[fleet] K13 batched: position error {worst:.3e} of max(|p|, 1) > 1e-3")
+    res["K13"] = (len(calls), worst)
+
+    calls = rec.calls["feature_block_rows"][::8]
+    worst = 0.0
+    for a in calls:
+        rm = a[13]
+        got = H, r, rows = upd.feature_block_rows(*a[:13], rm=rm)
+        pH, pr, prows = upd.feature_block_rows_plain(*a[:13], rm=rm)
+        scale = torch.maximum(pH.abs().amax((-2, -1)), pr.abs().amax(-1)).clamp(min=1e-30)
+        err = max(float(((g - w).abs().amax((-2, -1) if g.dim() == 4 else -1) / scale).max())
+                  for g, w in ((H, pH), (r, pr)))
+        worst = max(worst, err)
+        if not torch.equal(rows, prows) or not err <= (1e-4 if rm is not None else 3e-5):
+            fail(f"[fleet] K9 batched ({'prune' if rm is not None else 'lost'}): error "
+                 f"{err:.3e} of the block maximum, rows equal {torch.equal(rows, prows)}")
+        for b in range(a[0].shape[0]):
+            single("K9", b, [x[b] for x in got], upd.feature_block_rows(
+                *(x[b] for x in a[:10]), *a[10:13], rm=rm[b] if rm is not None else None))
+    res["K9"] = (len(calls), worst)
+
+    calls = rec.calls["gating_test_batch"][::8]
+    flips = 0
+    for a in calls:
+        H, r, rows, cov, noise, table, dof = a
+        got = upd.gating_test_batch(*a)
+        want = upd.gating_test_batch_plain(*a)
+        thresh = table[dof.clamp(0, table.shape[0] - 1).long()]
+        gamma = upd.gate_gamma_plain(H, r, cov, noise)
+        near = (gamma - thresh).abs() <= 1e-4 * thresh
+        flips += int((got != want).sum())
+        if not bool(((got == want) | near).all()):
+            fail("[fleet] K10 batched: a decision differs from the plain version away from "
+                 "its threshold")
+        for b in range(cov.shape[0]):
+            single("K10", b, (got[b],), (upd.gating_test_batch(H[b], r[b], rows[b], cov[b],
+                                                               noise, table, dof[b]),))
+    res["K10"] = (len(calls), flips)
+    return res
+
+
 def run_fleet_phase(config, frames, pb, wrappers, card):
     """[fleet]: B = FLEET_B decorrelated instances of the bench world
     (instance b from frame FLEET_STRIDE * b, FLEET_FRAMES frames each)
-    through ``parallel.fleet.run_fleet``, counters at 0 and the four batched
+    through ``parallel.fleet.run_fleet``, counters at 0 and the batched
     kernels' calls recorded; each instance against ``run_sequence`` on its
-    frames; the recorded batched launches of K2, K4+K6 and K5 bit for bit
-    their batched plain version and their single launches, K1's (temporal,
+    frames; the back-end's K14, K13, K9 and K10 at most once a stage on
+    every step; the recorded batched launches of K2, K4+K6 and K5 bit for bit
+    their batched plain version and their single launches, K14's, K13's,
+    K9's and K10's within their bars of the batched plain version and bit
+    for bit their single launches, K1's (temporal,
     stereo forward and backward, and the compact entry in a
     compact-configuration fleet run of two frames) bit for bit the single
     launches and within K1's bars of the plain version; a forced
@@ -2690,10 +2813,18 @@ def run_fleet_phase(config, frames, pb, wrappers, card):
     T, B = FLEET_FRAMES, FLEET_B
     bframes = fleet_bench.fleet_frames(frames, T, B, FLEET_STRIDE)
     _zero(wrappers)
+    steps = []
+
+    def counts(k, fe_out, o):  # the back-end's launch counts after each step
+        steps.append(({n: sum(f.launches for f in fns)
+                       for n, fns in fleet_bench.BACKEND.items()},
+                      {n: sum(f.launches for f in fns)
+                       for n, fns in fleet_bench.PER_INSTANCE.items()}))
+
     torch.cuda.synchronize()
     t0 = time.time()
     with FleetRecorder() as rec:
-        _, out = fleet.run_fleet(config, bframes, pb.gyro_bias, pb.acc_mean)
+        _, out = fleet.run_fleet(config, bframes, pb.gyro_bias, pb.acc_mean, on_frame=counts)
     torch.cuda.synchronize()
     per_entry = _per_entry(wrappers)
     print(f"[fleet] B = {B} decorrelated (stride {FLEET_STRIDE}), {T} frames each: "
@@ -2705,6 +2836,11 @@ def run_fleet_phase(config, frames, pb, wrappers, card):
                "K5": gridops.dense_grid_topk.launches, "K1": lk.pyramidal_lk.launches}
     print(f"[fleet] batched kernels' launches per step at B = {B}: "
           f"{ {k: n / T for k, n in batched.items()} }")
+    per_inst = _fleet_backend_steps(steps, out)
+    print(f"[fleet] the back-end's batched kernels at B = {B}: launches per step "
+          f"{ {k: round(v / T, 3) for k, v in steps[-1][0].items()} } (each at most once a "
+          f"stage on every step); K11 and K12, once per updating instance: {per_inst} "
+          f"launches per step")
     if not torch.isfinite(out.p).all() or int(out.active.sum()) < B * 20:
         fail(f"[fleet] {int(out.active.sum())} active instance-frames, finite "
              f"{bool(torch.isfinite(out.p).all())}")
@@ -2733,6 +2869,11 @@ def run_fleet_phase(config, frames, pb, wrappers, card):
                        gridops.dense_grid_topk_plain(*a),
                        [gridops.dense_grid_topk(a[0][b], *a[1:]) for b in range(B)])
     t_part["K2, K4+K6, K5"] = time.time() - t_phase - sum(t_part.values())
+    be = _check_backend_batched(rec)
+    print(f"[fleet] K14, K13, K9, K10 batched: (recorded launches checked, largest error "
+          f"against the batched plain version; K10: decision flips, each at its threshold) "
+          f"{be}; every instance bit for bit its single launch")
+    t_part["K14, K13, K9, K10"] = time.time() - t_phase - sum(t_part.values())
     print(f"[fleet] K2, K4+K6, K5: {len(rec.calls['build_pyramid_pair'][::10])}, "
           f"{len(rec.calls['detect_fast'][::10])}, {len(rec.calls['dense_grid_topk'][::10])} "
           f"recorded batched launches checked")
@@ -2825,11 +2966,15 @@ def run_fleet_phase(config, frames, pb, wrappers, card):
         print(f"[fleet] B = {n}: {r['instance_frames_per_s']:.2f} instance-frames/s aggregate "
               f"(warm, {r['seconds']:.3f} s for {T} steps), {r['host_syncs_per_step']:.2f} host "
               f"syncs/step, {r['cuda_launches_per_step']:.1f} CUDA launches/step, batched "
-              f"kernels' launches/step {r['kernel_launches_per_step']}, device us per launch "
+              f"kernels' launches/step {r['kernel_launches_per_step']} "
+              f"{r['backend_launches_per_step']}, per instance "
+              f"{r['per_instance_launches_per_step']}, device us per launch "
               f"{ {k: round(v, 2) if v else v for k, v in r['kernel_device_us_per_launch'].items()} }, "
               f"peak device memory {r['peak_device_bytes'] / 2 ** 20:.1f} MiB ({card})")
         if not r["finite"]:
             fail(f"[fleet] B = {n}: non-finite poses")
+        if not r["host_syncs_per_step"] <= 6:
+            fail(f"[fleet] B = {n}: {r['host_syncs_per_step']:.2f} host syncs per step (> 6)")
     lo, hi = res[FLEET_SIZES[0]], res[FLEET_SIZES[-1]]
     if lo["kernel_launches_per_step"] != hi["kernel_launches_per_step"]:
         fail(f"[fleet] the batched kernels' launches per step grow with B: "

@@ -1631,3 +1631,124 @@ def test_lk_kernel_batched(dev, compact):
     both = got[1] & ps
     assert agree >= 0.99 and int(both.sum()) > B * F // 2
     assert float((got[0][both] - pn[both]).abs().max()) <= 1e-3
+
+
+@pytest.fixture(scope="module")
+def fleet_states():
+    """Three host filter states of the oracle scenario (35, 38 and 41
+    frames: their windows and maps differ) stacked on the card."""
+    from uav_airvision_tpu_torch.utils import tree
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    runs = [_host_state("float32", n) for n in (35, 38, 41)]
+    cfg, _, params = runs[0]
+    state = tree.stack([convert.to_torch(convert.to_numpy(st), dev) for _, st, _ in runs])
+    return cfg, state, convert.to_torch(convert.to_numpy(params), dev)
+
+
+BACKEND_BATCHED = ["K14", "K13", "K9 lost", "K9 prune", "K10 small", "K10 tiered"]
+
+
+@pytest.mark.parametrize("kernel", BACKEND_BATCHED)
+def test_backend_kernel_batched(dev, fleet_states, kernel):
+    """K14, K13 (row entry), K9 (row entry, the lost pass's and the
+    prune's blocks) and K10 (5-row and 77-row blocks) over three instances
+    in one launch: each instance bit for bit its single launch, and within
+    the kernel's bars of the batched plain version (K14 1e-5 relative, K13
+    1e-3 of max(|p|, 1) and the same flags, K9 3e-5 / 1e-4 of a block's
+    largest entry and the same rows, K10 the same decisions away from the
+    threshold)."""
+    from uav_airvision_tpu_torch.utils import tree
+
+    cfg, st, params = fleet_states
+    S = st.cov.shape[0]
+    t, c = st.features, st.cams
+    sel = gridops.smallest_k_indices(torch.where(t.valid, t.seq, 2 ** 31 - 1), 32).long()
+    ok = (t.valid & (t.obs_mask.sum(2) >= 3)).gather(1, sel)
+    if kernel == "K14":
+        I = cfg.capacity.max_imu_per_frame
+        rng = np.random.default_rng(3)
+        live = torch.arange(I, device=dev)[None] < torch.tensor([[11], [7], [12]], device=dev)
+        imu_t = torch.where(live, st.imu.timestamp[:, None] + 0.005 * torch.arange(
+            1, I + 1, device=dev), 0.0)
+        w = torch.as_tensor(rng.normal(0, 0.3, (S, I, 3)), dtype=torch.float32, device=dev)
+        a = torch.as_tensor(rng.normal([0, 0, 9.81], 0.5, (S, I, 3)), dtype=torch.float32,
+                            device=dev)
+        args = (st, params, imu_t, w, a, live)
+        n = propagation.propagate.launches
+        got = propagation.propagate(*args)
+        assert propagation.propagate.launches == n + 1
+        want = propagation.propagate_plain(*args)
+        assert _rel_err(got.cov, want.cov) <= 1e-5 and _rel_err(got.imu.p, want.imu.p) <= 1e-5
+        for b in range(S):
+            one = propagation.propagate(tree.index(st, b), params, imu_t[b], w[b], a[b], live[b])
+            g = tree.index(got, b)
+            assert all(torch.equal(x, y) for x, y in zip((g.cov, *g.imu), (one.cov, *one.imu)))
+        return
+    if kernel == "K13":
+        args = (c.q, c.p, t.obs, t.obs_mask, t.position, torch.zeros_like(t.initialized), sel,
+                ok, params.R_cam0_cam1, params.t_cam0_cam1, cfg.triangulation)
+        got = triangulation.triangulate_rows(*args)
+        want = triangulation.triangulate_rows_plain(*args)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        new = got[1]
+        assert bool(new.any())
+        rel = (got[0] - want[0]).abs().amax(-1) / want[0].abs().amax(-1).clamp(min=1.0)
+        assert float(rel[new].max()) <= 1e-3
+        for b in range(S):
+            one = triangulation.triangulate_rows(*(x[b] for x in args[:8]), *args[8:])
+            assert all(torch.equal(g[b], o) for g, o in zip(got, one))
+        return
+    rm = torch.stack([c.count - 2, c.count - 1], 1).long() if kernel == "K9 prune" else None
+    fargs = (c.q, c.p, c.q_null, c.p_null, t.obs, t.obs_mask, t.position, sel, ok, st.gravity,
+             params.R_cam0_cam1, params.t_cam0_cam1, cfg.capacity.state_dim)
+    H, r, rows = update.feature_block_rows(*fargs, rm=rm)
+    if kernel.startswith("K9"):
+        pH, pr, prows = update.feature_block_rows_plain(*fargs, rm=rm)
+        scale = torch.maximum(pH.abs().amax((-2, -1)), pr.abs().amax(-1)).clamp(min=1e-30)
+        err = max(float(((H - pH).abs().amax((-2, -1)) / scale).max()),
+                  float(((r - pr).abs().amax(-1) / scale).max()))
+        assert torch.equal(rows, prows) and err <= (1e-4 if rm is not None else 3e-5)
+        for b in range(S):
+            one = update.feature_block_rows(*(x[b] for x in fargs[:10]), *fargs[10:],
+                                            rm=rm[b] if rm is not None else None)
+            assert all(torch.equal(g[b], o) for g, o in zip((H, r, rows), one))
+        return
+    if kernel == "K10 small":
+        H, r, rows = H[:, :, :5], r[:, :, :5], rows.clamp(max=5)
+        dof = torch.full(rows.shape, 2, device=dev)
+    else:
+        dof = (rows + 3) // 4 - 1
+    r = r * torch.tensor([1e-3, 1.0, 30.0], device=dev)[:, None, None]
+    args = (H, r, rows, st.cov, params.obs_noise, params.chi2_table, dof)
+    n = update.gating_test_batch.launches
+    got = update.gating_test_batch(*args)
+    assert update.gating_test_batch.launches == n + 1
+    want = update.gating_test_batch_plain(*args)
+    thresh = params.chi2_table[dof.clamp(0, 99)]
+    gamma = update.gate_gamma_plain(H, r, st.cov, params.obs_noise)
+    assert bool(((got == want) | ((gamma - thresh).abs() <= 1e-4 * thresh)).all())
+    for b in range(S):
+        one = update.gating_test_batch(H[b], r[b], rows[b], st.cov[b], params.obs_noise,
+                                       params.chi2_table, dof[b])
+        assert torch.equal(got[b], one)
+
+
+@pytest.mark.parametrize("n", [64, 256, 1500])
+def test_k8_kernels_batched(dev, n):
+    """K8's smallest-k and stable compaction over four instances in one
+    launch: each instance its single launch and the plain version, exactly."""
+    rng = np.random.default_rng(n)
+    key = torch.as_tensor(rng.integers(0, 40, (4, n)), dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(rng.uniform(size=(4, n)) < 0.4, device=dev)
+    for k in (16, 64):
+        got = gridops.smallest_k_indices(key, k)
+        assert torch.equal(got, gridops.smallest_k_indices_plain(key, k))
+        for b in range(4):
+            assert torch.equal(got[b], gridops.smallest_k_indices(key[b], k))
+    got = gridops.stable_compact_indices(mask, n)
+    assert torch.equal(got, gridops.stable_compact_indices_plain(mask, n))
+    for b in range(4):
+        assert torch.equal(got[b], gridops.stable_compact_indices(mask[b], n))

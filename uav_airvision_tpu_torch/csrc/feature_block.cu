@@ -38,6 +38,10 @@
 //      row: T_0 - s_0 v_0 w_0' - s_1 v_1 w_1' - s_2 v_2 w_2' (each step
 //      rounded as the plain version rounds it), the 21 IMU columns zero,
 //      rows past 4 n - 3 exact zeros.
+// A fleet's instances are the launch's blockIdx.y: each runs the single
+// launch's blocks on its own window, table and rows (every pointer moved by
+// the instance's stride), so each instance's blocks are its single
+// launch's, bit for bit (JAX backend_step_fleet :875 vmaps feature_block).
 // A feature's output rows are split over several blocks that each repeat
 // the small prologue, so that a batch of 16 features fills the card; a
 // block whose ``proc`` is false writes zeros and rows 0.  Shared memory is
@@ -58,6 +62,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kImu = 21;  // IMU error-state columns of H_x
 constexpr int kRowsPerBlock = 8;  // the least share of output rows a split block takes
+constexpr int kStrides = 14;      // the per-instance pointers of Args
 
 // Row i (0-1: cam0's u, v; 2-3: cam1's) of H_x (6), H_f (3) and r of one
 // stereo observation z of the point p_w from window slot s
@@ -134,11 +139,38 @@ struct Args {
   T *H_out, *r_out;       // (B, 4N - 3, 21 + 6N), (B, 4N - 3)
   int* rows_out;          // (B,)
   long long* clocks;      // (6,) SM clocks of block 0's phases, or null
+  // instance b (blockIdx.y) of a fleet: cams_q, cams_p, cams_qn, cams_pn,
+  // rm, obs, obs_mask, p_w, sel, proc, gravity, H_out, r_out and rows_out
+  // moved by b times their strides (elements of their types)
+  long long stride[kStrides];
 };
 
+// Instance b's arguments; only instance 0 stamps the clocks.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) feature_block_kernel(const Args<T> a) {
+__device__ Args<T> instance_args(Args<T> a, int b) {
+  const long long* s = a.stride;
+  a.cams_q += b * s[0];
+  a.cams_p += b * s[1];
+  a.cams_qn += b * s[2];
+  a.cams_pn += b * s[3];
+  if (a.rm != nullptr) a.rm += b * s[4];
+  a.obs += b * s[5];
+  a.obs_mask += b * s[6];
+  a.p_w += b * s[7];
+  if (a.sel != nullptr) a.sel += b * s[8];
+  if (a.proc != nullptr) a.proc += b * s[9];
+  a.gravity += b * s[10];
+  a.H_out += b * s[11];
+  a.r_out += b * s[12];
+  a.rows_out += b * s[13];
+  if (b != 0) a.clocks = nullptr;
+  return a;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) feature_block_kernel(const Args<T> batch) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const Args<T> a = instance_args(batch, (int)blockIdx.y);
   const int N = a.N, R = 4 * N, out_rows = R - 3, D = kImu + 6 * N;
   const int b = blockIdx.x / a.split, part = blockIdx.x % a.split;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -338,20 +370,22 @@ size_t smem_bytes(int N) {
 }
 
 template <typename T>
-int launch(const Args<T>& a, void* stream) {
+int launch(const Args<T>& a, int n_inst, void* stream) {
   static size_t smem_allowed = 0;
-  if (a.N < 1 || a.Nw < 1 || a.B < 0) return (int)cudaErrorInvalidValue;
+  if (a.N < 1 || a.Nw < 1 || a.B < 0 || n_inst < 1 || n_inst > 65535)
+    return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
   Args<T> k = a;
   // a feature's rows over enough blocks for two an SM, each block at least
   // kRowsPerBlock rows (at B = 16, N = 20: 10 blocks a feature, measured
-  // faster than 1, 2, 4 or 8)
-  const int out_rows = 4 * a.N - 3;
-  k.split = max(1, min((264 + a.B - 1) / a.B, (out_rows + kRowsPerBlock - 1) / kRowsPerBlock));
+  // faster than 1, 2, 4 or 8); the rows' values do not depend on the split
+  const int out_rows = 4 * a.N - 3, feats = a.B * n_inst;
+  k.split = max(1, min((264 + feats - 1) / feats, (out_rows + kRowsPerBlock - 1) / kRowsPerBlock));
   const size_t smem = smem_bytes<T>(a.N);
   const int err = msckf::allow_smem(feature_block_kernel<T>, smem, &smem_allowed);
   if (err != 0) return err;
-  feature_block_kernel<T><<<(unsigned)a.B * k.split, kThreads, smem, (cudaStream_t)stream>>>(k);
+  const dim3 grid((unsigned)a.B * k.split, (unsigned)n_inst);
+  feature_block_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(k);
   return (int)cudaGetLastError();
 }
 
@@ -359,37 +393,35 @@ template <typename T>
 int entry(const void* cams_q, const void* cams_p, const void* cams_qn, const void* cams_pn,
           const void* rm, int N, int Nw, const void* obs, const void* obs_mask, const void* p_w,
           const void* sel, const void* proc, const void* gravity, const void* R_c0c1,
-          const void* t_c0c1, int B, void* H_out, void* r_out, void* rows_out, void* clocks,
-          void* stream) {
-  const Args<T> a{(const T*)cams_q,   (const T*)cams_p,        (const T*)cams_qn,
-                  (const T*)cams_pn,  (const int64_t*)rm,      N,
-                  Nw,                 (const T*)obs,           (const uint8_t*)obs_mask,
-                  (const T*)p_w,      (const int64_t*)sel,     (const uint8_t*)proc,
-                  (const T*)gravity,  (const T*)R_c0c1,        (const T*)t_c0c1,
-                  B,                  0,                       (T*)H_out,
-                  (T*)r_out,          (int*)rows_out,          (long long*)clocks};
-  return launch(a, stream);
+          const void* t_c0c1, int B, void* H_out, void* r_out, void* rows_out, int n_inst,
+          const void* strides, void* clocks, void* stream) {
+  Args<T> a{(const T*)cams_q,   (const T*)cams_p,        (const T*)cams_qn,
+            (const T*)cams_pn,  (const int64_t*)rm,      N,
+            Nw,                 (const T*)obs,           (const uint8_t*)obs_mask,
+            (const T*)p_w,      (const int64_t*)sel,     (const uint8_t*)proc,
+            (const T*)gravity,  (const T*)R_c0c1,        (const T*)t_c0c1,
+            B,                  0,                       (T*)H_out,
+            (T*)r_out,          (int*)rows_out,          (long long*)clocks,
+            {}};
+  const long long* st = (const long long*)strides;
+  for (int k = 0; k < kStrides; ++k) a.stride[k] = st != nullptr ? st[k] : 0;
+  return launch(a, n_inst, stream);
 }
 
 }  // namespace
 
-// rm, sel, proc and clocks may be null.
-extern "C" int feature_block_f32(const void* cams_q, const void* cams_p, const void* cams_qn,
-                                 const void* cams_pn, const void* rm, int N, int Nw,
-                                 const void* obs, const void* obs_mask, const void* p_w,
-                                 const void* sel, const void* proc, const void* gravity,
-                                 const void* R_c0c1, const void* t_c0c1, int B, void* H_out,
-                                 void* r_out, void* rows_out, void* clocks, void* stream) {
-  return entry<float>(cams_q, cams_p, cams_qn, cams_pn, rm, N, Nw, obs, obs_mask, p_w, sel,
-                      proc, gravity, R_c0c1, t_c0c1, B, H_out, r_out, rows_out, clocks, stream);
-}
-
-extern "C" int feature_block_f64(const void* cams_q, const void* cams_p, const void* cams_qn,
-                                 const void* cams_pn, const void* rm, int N, int Nw,
-                                 const void* obs, const void* obs_mask, const void* p_w,
-                                 const void* sel, const void* proc, const void* gravity,
-                                 const void* R_c0c1, const void* t_c0c1, int B, void* H_out,
-                                 void* r_out, void* rows_out, void* clocks, void* stream) {
-  return entry<double>(cams_q, cams_p, cams_qn, cams_pn, rm, N, Nw, obs, obs_mask, p_w, sel,
-                       proc, gravity, R_c0c1, t_c0c1, B, H_out, r_out, rows_out, clocks, stream);
-}
+// rm, sel, proc, strides (null for one instance) and clocks may be null;
+// strides: kStrides int64 on the host, in the order of Args::stride.
+#define FEATURE_BLOCK_ENTRY(NAME, T)                                                          \
+  extern "C" int NAME(const void* cams_q, const void* cams_p, const void* cams_qn,            \
+                      const void* cams_pn, const void* rm, int N, int Nw, const void* obs,    \
+                      const void* obs_mask, const void* p_w, const void* sel,                 \
+                      const void* proc, const void* gravity, const void* R_c0c1,              \
+                      const void* t_c0c1, int B, void* H_out, void* r_out, void* rows_out,    \
+                      int n_inst, const void* strides, void* clocks, void* stream) {          \
+    return entry<T>(cams_q, cams_p, cams_qn, cams_pn, rm, N, Nw, obs, obs_mask, p_w, sel,     \
+                    proc, gravity, R_c0c1, t_c0c1, B, H_out, r_out, rows_out, n_inst,         \
+                    strides, clocks, stream);                                                 \
+  }
+FEATURE_BLOCK_ENTRY(feature_block_f32, float)
+FEATURE_BLOCK_ENTRY(feature_block_f64, double)

@@ -22,6 +22,13 @@
 //   which is |chol(S)^-1 r|^2.  A pivot that is not > 0 makes gamma NaN,
 //   which fails the gate as a failed factorisation does in the plain version.
 //
+// A fleet's call gates n_inst instances' blocks in the one launch: blocks
+// walk the (instance, feature) pairs, each instance's blocks read its own
+// P (restaged when a block's walk moves to another instance) and its tier
+// (bounds, 32 rows or all) is decided over its own blocks, so each
+// instance's decisions are its single launch's, bit for bit (JAX
+// backend_step_fleet :875 vmaps gating_test_batch).
+//
 // The grid is sized to the co-resident limit (cudaOccupancy... x SMs) and
 // blocks walk over the features, so every B runs; on the main path B <= 64
 // (capacity.max_lost_per_frame) and one block per feature fits on the 132
@@ -99,7 +106,26 @@ struct GateArgs {
   uint8_t* out;     // (B,) decisions
   uint8_t* flags;   // (B,) phase 1's bound flags (bit 0 pass, bit 1 fail)
   T* gamma;         // (B,) gamma where it was computed
+  // a fleet: n_inst instances of B blocks each, instance i's H, r,
+  // rows_true, dof and P moved by i times these strides (elements of their
+  // types); out, flags and gamma are (n_inst, B)
+  int n_inst;
+  long long s_h, s_r, s_rows, s_dof, s_p;
 };
+
+// Instance i's arguments: the single launch's, on its own blocks and P.
+template <typename T>
+__device__ GateArgs<T> instance_args(GateArgs<T> a, int i) {
+  a.H += i * a.s_h;
+  a.r += i * a.s_r;
+  a.rows_true += i * a.s_rows;
+  a.dof = static_cast<const char*>(a.dof) + i * a.s_dof * (a.dof_i64 ? 8 : 4);
+  a.P += i * a.s_p;
+  a.out += (size_t)i * a.B;
+  a.flags += (size_t)i * a.B;
+  a.gamma += (size_t)i * a.B;
+  return a;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -328,12 +354,15 @@ __host__ __device__ Smem layout(int R, int D, bool p_shared, bool hp_full) {
   return s;
 }
 
-// Shared state of a block: P (or the global P), H, H P and A.
+// Shared state of a block: P (or the global P), H, H P and A; the shared
+// room for P and the instance whose P it holds (-1: none yet).
 template <typename T>
 struct Block {
   const T* P;
   T *Hs, *HP, *A;
   bool hp_full;
+  T* Ps;
+  int staged;
 };
 
 // The bound flags of feature b, whose R rows are in Hs: bit 0 pass, bit 1
@@ -421,75 +450,109 @@ __device__ void gamma_decide(const GateArgs<T>& a, int b, int m, const Block<T>&
 }
 
 template <typename T>
-__device__ Block<T> setup(const GateArgs<T>& a, unsigned char* dyn, uint64_t* mbar) {
+__device__ Block<T> setup(const GateArgs<T>& a, unsigned char* dyn) {
   const Smem s = layout<T>(a.R, a.D, a.p_shared != 0, a.hp_full != 0);
   T* base = a.work != nullptr ? a.work + (size_t)blockIdx.x * (s.total / sizeof(T))
                               : reinterpret_cast<T*>(dyn);
-  Block<T> blk{a.P, base + s.h, base + s.hp, base + s.a, a.hp_full != 0};
-  if (a.p_shared) {
-    stage_p(base + s.p, a.P, a.D * a.D, mbar);
-    blk.P = base + s.p;
+  return Block<T>{a.P, base + s.h, base + s.hp, base + s.a, a.hp_full != 0, base + s.p, -1};
+}
+
+// The block's P becomes instance i's (ai = instance_args(a, i)): staged in
+// shared memory (by one bulk copy the first time, by plain loads when a
+// block's walk moves on to another instance) or read from device memory.
+// Uniform over the block.
+template <typename T>
+__device__ void use_instance(const GateArgs<T>& ai, int i, Block<T>& blk, uint64_t* mbar) {
+  if (!ai.p_shared) {
+    blk.P = ai.P;
+    return;
   }
-  return blk;
+  if (blk.staged == i) return;
+  if (blk.staged < 0) {
+    stage_p(blk.Ps, ai.P, ai.D * ai.D, mbar);
+  } else {
+    __syncthreads();  // every reader of the previous instance's P is done
+    for (int e = threadIdx.x; e < ai.D * ai.D; e += kThreads) blk.Ps[e] = ai.P[e];
+    __syncthreads();
+  }
+  blk.P = blk.Ps;
+  blk.staged = i;
 }
 
 // R <= 32: gamma on all R rows for every feature; no decision couples them.
+// Blocks walk the (instance, feature) pairs.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gate_small_kernel(GateArgs<T> a) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   __shared__ uint64_t mbar;
   __shared__ T red[32], s_gamma;
   __shared__ int s_nz, s_bad;
-  const Block<T> blk = setup(a, dyn_smem, &mbar);
-  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-    load_rows(a, b, a.R, blk.Hs);
-    gamma_decide(a, b, a.R, blk, 0, red, &s_nz, &s_bad, &s_gamma);
+  Block<T> blk = setup(a, dyn_smem);
+  for (int w = blockIdx.x; w < a.n_inst * a.B; w += gridDim.x) {
+    const int i = w / a.B, b = w % a.B;
+    const GateArgs<T> ai = instance_args(a, i);
+    use_instance(ai, i, blk, &mbar);
+    load_rows(ai, b, ai.R, blk.Hs);
+    gamma_decide(ai, b, ai.R, blk, 0, red, &s_nz, &s_bad, &s_gamma);
   }
 }
 
-// R > 32: the bounds, one grid-wide barrier, then the bounds' result or
-// gamma on the tier that max(rows_true) selects.  Cooperative launch only.
+// R > 32: the bounds, one grid-wide barrier, then per instance the bounds'
+// result or gamma on the tier that the instance's max(rows_true) selects.
+// Blocks walk the (instance, feature) pairs.  Cooperative launch only.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gate_tiered_kernel(GateArgs<T> a) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   __shared__ uint64_t mbar;
   __shared__ T red[32], s_gamma;
   __shared__ int s_nz, s_bad, s_any, s_max;
-  const Block<T> blk = setup(a, dyn_smem, &mbar);
+  Block<T> blk = setup(a, dyn_smem);
+  const int n_items = a.n_inst * a.B;
   int loaded = -1, hp_done = 0;
-  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
-    load_rows(a, b, a.R, blk.Hs);
-    const int f = bound_flags(a, b, blk, red, &s_nz, &hp_done);
-    loaded = b;
-    if (threadIdx.x == 0) a.flags[b] = (uint8_t)f;
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+    const int i = w / a.B, b = w % a.B;
+    const GateArgs<T> ai = instance_args(a, i);
+    use_instance(ai, i, blk, &mbar);
+    load_rows(ai, b, ai.R, blk.Hs);
+    const int f = bound_flags(ai, b, blk, red, &s_nz, &hp_done);
+    loaded = w;
+    if (threadIdx.x == 0) ai.flags[b] = (uint8_t)f;
   }
   cg::this_grid().sync();
 
-  if (threadIdx.x == 0) s_any = 0, s_max = 0;
-  __syncthreads();
-  int any = 0, mx = 0;
-  for (int i = threadIdx.x; i < a.B; i += kThreads) {
-    any |= a.flags[i] == 0;
-    mx = max(mx, a.rows_true[i]);
-  }
-  if (any) atomicOr(&s_any, 1);
-  atomicMax(&s_max, mx);
-  __syncthreads();
-  if (!s_any) {
-    if (threadIdx.x == 0)
-      for (int b = blockIdx.x; b < a.B; b += gridDim.x) a.out[b] = a.flags[b] & 1;
-    return;
-  }
-  const int m = s_max <= kTier ? kTier : a.R;
-  // this block's features in reverse: the first is the one still in Hs,
-  // whose H P the bounds left in HP
+  // this block's pairs in reverse: the first is the one still in Hs, whose
+  // H P the bounds left in HP (and whose instance's P is staged)
   const int x = (int)blockIdx.x, g = (int)gridDim.x;
-  for (int b = x < a.B ? x + (a.B - 1 - x) / g * g : -1; b >= 0; b -= g) {
-    if (b != loaded) {
-      load_rows(a, b, m, blk.Hs);
+  int decided = -1, any = 0, m = a.R;
+  for (int w = x < n_items ? x + (n_items - 1 - x) / g * g : -1; w >= 0; w -= g) {
+    const int i = w / a.B, b = w % a.B;
+    const GateArgs<T> ai = instance_args(a, i);
+    if (i != decided) {  // the instance's tier: any block undecided, max(rows_true)
+      __syncthreads();
+      if (threadIdx.x == 0) s_any = 0, s_max = 0;
+      __syncthreads();
+      int un = 0, mx = 0;
+      for (int k = threadIdx.x; k < a.B; k += kThreads) {
+        un |= ai.flags[k] == 0;
+        mx = max(mx, ai.rows_true[k]);
+      }
+      if (un) atomicOr(&s_any, 1);
+      atomicMax(&s_max, mx);
+      __syncthreads();
+      any = s_any;
+      m = s_max <= kTier ? kTier : a.R;
+      decided = i;
+    }
+    if (!any) {  // every block of the instance decided by its bounds
+      if (threadIdx.x == 0) ai.out[b] = ai.flags[b] & 1;
+      continue;
+    }
+    use_instance(ai, i, blk, &mbar);
+    if (w != loaded) {
+      load_rows(ai, b, m, blk.Hs);
       hp_done = 0;
     }
-    gamma_decide(a, b, m, blk, hp_done, red, &s_nz, &s_bad, &s_gamma);
+    gamma_decide(ai, b, m, blk, hp_done, red, &s_nz, &s_bad, &s_gamma);
     loaded = -1;
   }
 }
@@ -498,13 +561,15 @@ template <typename T>
 int launch_gate(const void* H, const void* r, int B, int R, int D, long long h_stride,
                 long long r_stride, const void* rows_true, const void* dof, int dof_i64,
                 const void* P, const void* obs_noise, const void* table, int n_table, void* out,
-                void* flags, void* gamma, void* work, void* stream) {
+                void* flags, void* gamma, void* work, int n_inst, const long long* strides,
+                void* stream) {
   // the card's properties, and per kernel the shared memory allowed and the
   // co-resident blocks at that size, looked up once
   static int sms = 0, optin = 0;
   static size_t small_allowed = 0, tiered_allowed = 0, occ_smem = 0;
   static int occ_per_sm = 0;  // 0: not looked up yet for occ_smem
   if (B == 0) return 0;
+  if (n_inst < 1) return (int)cudaErrorInvalidValue;
   if (sms == 0) {
     int dev = 0;
     int err = (int)cudaGetDevice(&dev);
@@ -535,11 +600,19 @@ int launch_gate(const void* H, const void* r, int B, int R, int D, long long h_s
   GateArgs<T> a{(const T*)H, (const T*)r, B, R, D, h_stride, r_stride,
                 (const int*)rows_true, dof, dof_i64, (const T*)P, (const T*)obs_noise,
                 (const T*)table, n_table, p_shared ? 1 : 0, hp_full ? 1 : 0, ws, (uint8_t*)out,
-                (uint8_t*)flags, (T*)gamma};
+                (uint8_t*)flags, (T*)gamma, n_inst};
+  if (strides != nullptr) {
+    a.s_h = strides[0];
+    a.s_r = strides[1];
+    a.s_rows = strides[2];
+    a.s_dof = strides[3];
+    a.s_p = strides[4];
+  }
+  const int items = n_inst * B;
   if (!tiered) {
     const int err = msckf::allow_smem(gate_small_kernel<T>, smem, &small_allowed);
     if (err != 0) return err;
-    gate_small_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(a);
+    gate_small_kernel<T><<<items, kThreads, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   }
   int err = msckf::allow_smem(gate_tiered_kernel<T>, smem, &tiered_allowed);
@@ -551,8 +624,9 @@ int launch_gate(const void* H, const void* r, int B, int R, int D, long long h_s
     occ_smem = smem;
   }
   if (occ_per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-  // one block per feature up to the co-resident limit; blocks walk the rest
-  const int grid = B < occ_per_sm * sms ? B : occ_per_sm * sms;
+  // one block per (instance, feature) up to the co-resident limit; blocks
+  // walk the rest
+  const int grid = items < occ_per_sm * sms ? items : occ_per_sm * sms;
   void* params[] = {&a};
   err = (int)cudaLaunchCooperativeKernel((const void*)gate_tiered_kernel<T>, dim3(grid),
                                          dim3(kThreads), params, smem, (cudaStream_t)stream);
@@ -563,21 +637,20 @@ int launch_gate(const void* H, const void* r, int B, int R, int D, long long h_s
 }  // namespace
 
 // H, r, B, R, D, h_stride, r_stride, rows_true (int32), dof, dof is int64,
-// P, obs_noise, table, n_table, out (B,) uint8, flags (B,) uint8 scratch,
-// gamma (B,) T, work (B x the smallest layout's elements, or nullptr where
-// that layout fits a block's shared memory), stream
-extern "C" int gate_f32(const void* H, const void* r, int B, int R, int D, long long h_stride,
-                        long long r_stride, const void* rows_true, const void* dof, int dof_i64,
-                        const void* P, const void* obs_noise, const void* table, int n_table,
-                        void* out, void* flags, void* gamma, void* work, void* stream) {
-  return launch_gate<float>(H, r, B, R, D, h_stride, r_stride, rows_true, dof, dof_i64, P,
-                            obs_noise, table, n_table, out, flags, gamma, work, stream);
-}
-
-extern "C" int gate_f64(const void* H, const void* r, int B, int R, int D, long long h_stride,
-                        long long r_stride, const void* rows_true, const void* dof, int dof_i64,
-                        const void* P, const void* obs_noise, const void* table, int n_table,
-                        void* out, void* flags, void* gamma, void* work, void* stream) {
-  return launch_gate<double>(H, r, B, R, D, h_stride, r_stride, rows_true, dof, dof_i64, P,
-                             obs_noise, table, n_table, out, flags, gamma, work, stream);
-}
+// P, obs_noise, table, n_table, out (n_inst, B) uint8, flags (n_inst, B)
+// uint8 scratch, gamma (n_inst, B) T, work (the grid's blocks x the
+// smallest layout's elements, or nullptr where that layout fits a block's
+// shared memory), n_inst, the instance strides of H, r, rows_true, dof and
+// P (5 int64 on the host, or null for one instance), stream
+#define GATE_ENTRY(NAME, T)                                                                   \
+  extern "C" int NAME(const void* H, const void* r, int B, int R, int D, long long h_stride,  \
+                      long long r_stride, const void* rows_true, const void* dof,             \
+                      int dof_i64, const void* P, const void* obs_noise, const void* table,   \
+                      int n_table, void* out, void* flags, void* gamma, void* work,           \
+                      int n_inst, const void* strides, void* stream) {                        \
+    return launch_gate<T>(H, r, B, R, D, h_stride, r_stride, rows_true, dof, dof_i64, P,      \
+                          obs_noise, table, n_table, out, flags, gamma, work, n_inst,         \
+                          (const long long*)strides, stream);                                 \
+  }
+GATE_ENTRY(gate_f32, float)
+GATE_ENTRY(gate_f64, double)

@@ -488,12 +488,15 @@ compact_kept_kernel(const int* __restrict__ perm, const bool* __restrict__ keep,
   }
 }
 
-// the indices of the k smallest (key, index) pairs, ascending
+// the indices of the k smallest (key, index) pairs, ascending; a block an
+// instance (its n keys and k outputs back to back)
 __global__ void __launch_bounds__(kMaxThreads)
 smallest_k_kernel(const int* __restrict__ key, int n, int k, int* __restrict__ out,
                   int staged) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   int* s_key = reinterpret_cast<int*>(dyn_smem);
+  key += (size_t)blockIdx.x * n;
+  out += (size_t)blockIdx.x * k;
   if (staged) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) s_key[i] = key[i];
     __syncthreads();
@@ -508,13 +511,16 @@ smallest_k_kernel(const int* __restrict__ key, int n, int k, int* __restrict__ o
   }
 }
 
-// the indices where mask is set, ascending, padded with fill
+// the indices where mask is set, ascending, padded with fill; a block an
+// instance
 __global__ void __launch_bounds__(kMaxThreads)
 stable_compact_kernel(const bool* __restrict__ mask, int n, int fill, int* __restrict__ out,
                       int staged) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   __shared__ int s_total;
   bool* s_mask = reinterpret_cast<bool*>(dyn_smem);
+  mask += (size_t)blockIdx.x * n;
+  out += (size_t)blockIdx.x * n;
   int local = 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     if (staged) s_mask[i] = mask[i];
@@ -754,18 +760,25 @@ inline int block_for(int n) {
   return n <= 32 ? 32 : (n >= kMaxThreads ? kMaxThreads : (n + 31) / 32 * 32);
 }
 
-// Launch a K8 kernel with its keys staged in ``bytes`` of shared memory when
-// they fit, else read from device memory.
+// Launch a K8 kernel, a block for each of n_inst instances, with its keys
+// staged in ``bytes`` of shared memory when they fit, else read from device
+// memory.
 template <typename K, typename... A>
-int launch_k8(K kernel, size_t* budget, size_t* allowed, int n, size_t bytes, void* stream,
-              A... args) {
+int launch_k8_instances(K kernel, size_t* budget, size_t* allowed, int n_inst, int n,
+                        size_t bytes, void* stream, A... args) {
   if (*budget == 0) *budget = msckf::smem_budget(kernel);
   const int staged = bytes <= *budget;
   const size_t smem = staged ? bytes : 0;
   const int err = msckf::allow_smem(kernel, smem, allowed);
   if (err != 0) return err;
-  kernel<<<1, block_for(n), smem, (cudaStream_t)stream>>>(args..., staged);
+  kernel<<<n_inst, block_for(n), smem, (cudaStream_t)stream>>>(args..., staged);
   return (int)cudaGetLastError();
+}
+
+template <typename K, typename... A>
+int launch_k8(K kernel, size_t* budget, size_t* allowed, int n, size_t bytes, void* stream,
+              A... args) {
+  return launch_k8_instances(kernel, budget, allowed, 1, n, bytes, stream, args...);
 }
 
 }  // namespace
@@ -833,18 +846,22 @@ extern "C" int grid_compact_kept(const void* perm, const void* keep, int n, int 
                    (const int*)perm, (const bool*)keep, n, n_slots, (int*)sel, (bool*)selm);
 }
 
-extern "C" int grid_smallest_k(const void* key, int n, int k, void* out, void* stream) {
+// key (n_inst, n), out (n_inst, k)
+extern "C" int grid_smallest_k(const void* key, int n_inst, int n, int k, void* out,
+                               void* stream) {
   static size_t budget = 0, allowed = 0;
-  if (n < 1 || k < 1) return (int)cudaErrorInvalidValue;
-  return launch_k8(smallest_k_kernel, &budget, &allowed, n, (size_t)n * 4, stream,
-                   (const int*)key, n, k, (int*)out);
+  if (n_inst < 1 || n < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  return launch_k8_instances(smallest_k_kernel, &budget, &allowed, n_inst, n, (size_t)n * 4,
+                             stream, (const int*)key, n, k, (int*)out);
 }
 
-extern "C" int grid_stable_compact(const void* mask, int n, int fill, void* out, void* stream) {
+// mask (n_inst, n), out (n_inst, n)
+extern "C" int grid_stable_compact(const void* mask, int n_inst, int n, int fill, void* out,
+                                   void* stream) {
   static size_t budget = 0, allowed = 0;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  return launch_k8(stable_compact_kernel, &budget, &allowed, n, (size_t)n, stream,
-                   (const bool*)mask, n, fill, (int*)out);
+  if (n_inst < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  return launch_k8_instances(stable_compact_kernel, &budget, &allowed, n_inst, n, (size_t)n,
+                             stream, (const bool*)mask, n, fill, (int*)out);
 }
 
 extern "C" int grid_select_track_f32(const void* curr, const void* cam1_curr, const void* tracked,

@@ -1,6 +1,10 @@
 // K14: IMU propagation of the MSCKF state and covariance in one launch:
 // block 0 (512 threads) propagates, in the JAX package's four phases; the
-// launch's other blocks symmetrise the covariance's trailing block.
+// launch's other blocks symmetrise the covariance's trailing block.  A
+// fleet's instances are the launch's blockIdx.y, each a group of blocks
+// that runs the single launch's code on its own state (every pointer moved
+// by the instance's stride), so each instance's result is its single
+// launch's, bit for bit (JAX backend_step_fleet :875 vmaps propagate).
 //
 // Replaces uav_airvision_tpu/models/msckf/propagation.py::propagate (with
 // _omega_mat :67; the PROP_TIER slicing of propagate_tiered :36 is a TPU
@@ -78,6 +82,7 @@ constexpr int kTemps = kChunk / 2;  // a fold level's products, per pair
 constexpr int kFixed = (kChunk + kTemps) * kNode;  // values of phases B-D
 constexpr int kTile = 16;         // the trailing symmetrisation's tiles
 constexpr int kLeafScratch = kN * 12;  // a warp's Phi G (and 3x3 blocks) scratch
+constexpr int kStrides = 20;       // the per-instance pointers of Args
 constexpr int kState = 48;        // the state's 30 values and qc's 12, padded
 
 static_assert(kWarps * 2 * kTile * (kTile + 1) <= kFixed, "tiles fit");
@@ -123,7 +128,39 @@ struct Args {
   T* cov_out;
   T* work;  // the inputs, slots and roots, when shared memory cannot hold them
   long long* clocks;  // null, or 10 SM clock readings (tools/kernel_probe.py)
+  // instance b (blockIdx.y) of a batch: every pointer above, in this order
+  // (t, w, a, mask, q .. g, sid, cov, out, sid_out, cov_out, work), moved by
+  // b times its stride, in elements of its type
+  long long stride[kStrides];
 };
+
+// Instance b's arguments; only instance 0 stamps the clocks.
+template <typename T>
+__device__ Args<T> instance_args(Args<T> a, int b) {
+  const long long* s = a.stride;
+  a.t += b * s[0];
+  a.w += b * s[1];
+  a.a += b * s[2];
+  a.mask += b * s[3];
+  a.q += b * s[4];
+  a.p += b * s[5];
+  a.v += b * s[6];
+  a.bg += b * s[7];
+  a.ba += b * s[8];
+  a.qn += b * s[9];
+  a.pn += b * s[10];
+  a.vn += b * s[11];
+  a.ts += b * s[12];
+  a.g += b * s[13];
+  a.sid += b * s[14];
+  a.cov += b * s[15];
+  a.out += b * s[16];
+  a.sid_out += b * s[17];
+  a.cov_out += b * s[18];
+  if (a.work != nullptr) a.work += b * s[19];
+  if (b != 0) a.clocks = nullptr;
+  return a;
+}
 
 // The inputs staged once: the IMU slice (t, w, a, the mask as 0/1), the
 // state at these offsets of ``st``, qc.
@@ -773,8 +810,9 @@ __host__ __device__ inline size_t rest_values(int I) {
 // kShared: the inputs, slots and roots in shared memory after the fixed
 // nodes (else in a.work).
 template <typename T, bool kShared>
-__global__ void __launch_bounds__(kThreads, 1) propagate_kernel(const Args<T> a) {
+__global__ void __launch_bounds__(kThreads, 1) propagate_kernel(const Args<T> batch) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const Args<T> a = instance_args(batch, (int)blockIdx.y);
   T* leaves = reinterpret_cast<T*>(dyn_smem);
   if (blockIdx.x > 0) {
     symmetrise_trailing(a.cov, a.cov_out, a.D, leaves);
@@ -887,11 +925,12 @@ int launch(const void* t, const void* w, const void* acc, const void* mask, int 
            const void* q, const void* p, const void* v, const void* bg, const void* ba,
            const void* qn, const void* pn, const void* vn, const void* ts, const void* g,
            const void* sid, const void* qc, const void* cov, int D, void* out,
-           void* sid_out, void* cov_out, void* work, void* clocks, void* stream) {
+           void* sid_out, void* cov_out, void* work, int n_inst, const long long* strides,
+           void* clocks, void* stream) {
   static_assert(sizeof(Slot<T>) == 163 * sizeof(T), "models/msckf/propagation.py mirrors it");
   static size_t budget = 0, allowed[2] = {0, 0};
   if (budget == 0) budget = msckf::smem_budget(propagate_kernel<T, true>);
-  if (I < 0 || D < kD) return (int)cudaErrorInvalidValue;
+  if (I < 0 || D < kD || n_inst < 1 || n_inst > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = (kFixed + (work ? 0 : rest_values<T>(I))) * sizeof(T);
   if (smem > budget) return (int)cudaErrorInvalidValue;
   auto kernel = work ? propagate_kernel<T, false> : propagate_kernel<T, true>;
@@ -901,11 +940,12 @@ int launch(const void* t, const void* w, const void* acc, const void* mask, int 
             (const T*)q, (const T*)p, (const T*)v, (const T*)bg, (const T*)ba,
             (const T*)qn, (const T*)pn, (const T*)vn, (const T*)ts, (const T*)g,
             (const int32_t*)sid, (const T*)qc, (const T*)cov, D, (T*)out,
-            (int32_t*)sid_out, (T*)cov_out, (T*)work, (long long*)clocks};
-  // block 0 propagates; the others symmetrise the trailing block, a warp
-  // per pair of tiles
+            (int32_t*)sid_out, (T*)cov_out, (T*)work, (long long*)clocks, {}};
+  for (int k = 0; k < kStrides; ++k) a.stride[k] = strides != nullptr ? strides[k] : 0;
+  // per instance (blockIdx.y) block 0 propagates; the others symmetrise
+  // the trailing block, a warp per pair of tiles
   const int blocks = 1 + (trailing_pairs(D) + kWarps - 1) / kWarps;
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<dim3(blocks, n_inst), kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -917,9 +957,11 @@ int launch(const void* t, const void* w, const void* acc, const void* mask, int 
                       const void* ba, const void* qn, const void* pn, const void* vn,         \
                       const void* ts, const void* g, const void* sid, const void* qc,         \
                       const void* cov, int D, void* out, void* sid_out, void* cov_out,        \
-                      void* work, void* clocks, void* stream) {                               \
+                      void* work, int n_inst, const void* strides, void* clocks,              \
+                      void* stream) {                                                         \
     return launch<T>(t, w, a, mask, I, q, p, v, bg, ba, qn, pn, vn, ts, g, sid, qc, cov, D,   \
-                     out, sid_out, cov_out, work, clocks, stream);                            \
+                     out, sid_out, cov_out, work, n_inst, (const long long*)strides, clocks,  \
+                     stream);                                                                 \
   }
 
 PROPAGATE_ENTRY(propagate_f32, float)

@@ -44,6 +44,12 @@
 // leaves the loop: nothing it holds changes after that, so the early exit
 // is exact.
 //
+// A fleet's instances are the row entry's blockIdx.y: each runs the single
+// launch's blocks on its own window, table and rows (every pointer moved by
+// the instance's stride), two warps a (instance, feature), so each
+// instance's result is its single launch's, bit for bit (JAX
+// backend_step_fleet :875 vmaps the call site).
+//
 // Two entry points.  ``triangulate_*``: B features, row b of obs /
 // obs_mask, positions and validity out, with the separate passes (a cost
 // pass a step, a normal-equations pass a group): the row entry's witness,
@@ -86,6 +92,7 @@ constexpr int kGroup = 64;  // threads per feature: two warps
 constexpr int kGroups = 2;  // features per block
 constexpr int kBlock = kGroup * kGroups;
 constexpr int kCopyRows = 1024;  // rows a copy block of the row entry takes
+constexpr int kStrides = 11;     // the row entry's per-instance pointers
 
 template <typename T>
 struct View {
@@ -117,7 +124,30 @@ struct Args {
   T* pos_out;
   uint8_t *init_out, *fail_out;
   long long* clocks;
+  // the row entry's instance b (blockIdx.y) of a fleet: cam_q, cam_p, obs,
+  // obs_mask, position, initialized, sel, sel_ok, pos_out, init_out and
+  // fail_out moved by b times their strides (elements of their types)
+  long long stride[kStrides];
 };
+
+// Instance b's arguments; only instance 0 stamps the clocks.
+template <typename T>
+__device__ Args<T> instance_args(Args<T> a, int b) {
+  const long long* s = a.stride;
+  a.cam_q += b * s[0];
+  a.cam_p += b * s[1];
+  a.obs += b * s[2];
+  a.obs_mask += b * s[3];
+  a.position += b * s[4];
+  a.initialized += b * s[5];
+  a.sel += b * s[6];
+  a.sel_ok += b * s[7];
+  a.pos_out += b * s[8];
+  a.init_out += b * s[9];
+  a.fail_out += b * s[10];
+  if (b != 0) a.clocks = nullptr;
+  return a;
+}
 
 // A camera's pose relative to the anchor (build_views' rel).
 template <typename T>
@@ -216,7 +246,8 @@ __device__ __forceinline__ void group_sync(int g) {
 }
 
 template <typename T, int kViews, bool kFused>
-__global__ void __launch_bounds__(kBlock) triangulate_kernel(const Args<T> a) {
+__global__ void __launch_bounds__(kBlock) triangulate_kernel(const Args<T> batch) {
+  const Args<T> a = instance_args(batch, (int)blockIdx.y);
   // a group's two warps' partial sums, by pass parity, and their votes
   __shared__ T red[kGroups][2][2][10];
   __shared__ int votes[kGroups][2];
@@ -519,9 +550,9 @@ auto pick(int k) {
 }
 
 template <typename T>
-int launch(const Args<T>& a, void* stream) {
+int launch(const Args<T>& a, int n_inst, void* stream) {
   static size_t allowed[5] = {0, 0, 0, 0, 0};  // the row entry's kernels
-  if (a.N < 1) return (int)cudaErrorInvalidValue;
+  if (a.N < 1 || n_inst < 1 || n_inst > 65535) return (int)cudaErrorInvalidValue;
   const int n_blocks = (a.B + kGroups - 1) / kGroups;
   const int n_copy = a.sel != nullptr ? (a.M + kCopyRows - 1) / kCopyRows : 0;
   if (n_blocks + n_copy == 0) return 0;
@@ -534,7 +565,7 @@ int launch(const Args<T>& a, void* stream) {
   const size_t smem = n_copy > 0 ? (size_t)(a.M + 31) / 32 * sizeof(uint32_t) : 0;
   const int err = msckf::allow_smem(kernel, smem, &allowed[k]);
   if (err != 0) return err;
-  kernel<<<n_blocks + n_copy, kBlock, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<dim3(n_blocks + n_copy, n_inst), kBlock, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -572,7 +603,7 @@ int triangulate(const void* cam_q, const void* cam_p, int N, const void* obs,
   a.active = (const uint8_t*)active;
   a.pos = (T*)pos;
   a.ok = (uint8_t*)ok;
-  return launch(a, stream);
+  return launch(a, 1, stream);
 }
 
 template <typename T>
@@ -582,7 +613,7 @@ int triangulate_rows(const void* cam_q, const void* cam_p, int N, const void* ob
                      const void* R_c0c1, const void* t_c0c1, double huber_eps,
                      double precision, double damping, int outer_max, int inner_max,
                      double motion_thr, void* pos_out, void* init_out, void* fail_out,
-                     void* clocks, void* stream) {
+                     int n_inst, const long long* strides, void* clocks, void* stream) {
   Args<T> a = common<T>(cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, B, huber_eps,
                         precision, damping, outer_max, inner_max, clocks);
   a.motion_thr = (T)motion_thr;
@@ -594,7 +625,8 @@ int triangulate_rows(const void* cam_q, const void* cam_p, int N, const void* ob
   a.pos_out = (T*)pos_out;
   a.init_out = (uint8_t*)init_out;
   a.fail_out = (uint8_t*)fail_out;
-  return launch(a, stream);
+  for (int k = 0; k < kStrides; ++k) a.stride[k] = strides != nullptr ? strides[k] : 0;
+  return launch(a, n_inst, stream);
 }
 
 }  // namespace
@@ -617,7 +649,8 @@ TRIANGULATE_ENTRY(triangulate_f64, double)
 // cam_q, cam_p, N, obs, obs_mask, M, position, initialized, sel, sel_ok, B,
 // R_c0c1, t_c0c1, huber_eps, precision, damping, outer_max, inner_max,
 // motion_thr (< 0: off), position_out, initialized_out, init_fail_out,
-// clocks, stream
+// n_inst, the instance strides (11 int64 on the host, or null for one
+// instance), clocks, stream
 #define TRIANGULATE_ROWS_ENTRY(NAME, T)                                                      \
   extern "C" int NAME(const void* cam_q, const void* cam_p, int N, const void* obs,          \
                       const void* obs_mask, int M, const void* position,                     \
@@ -625,11 +658,11 @@ TRIANGULATE_ENTRY(triangulate_f64, double)
                       const void* R_c0c1, const void* t_c0c1, double huber_eps,              \
                       double precision, double damping, int outer_max, int inner_max,        \
                       double motion_thr, void* pos_out, void* init_out, void* fail_out,      \
-                      void* clocks, void* stream) {                                          \
+                      int n_inst, const void* strides, void* clocks, void* stream) {         \
     return triangulate_rows<T>(cam_q, cam_p, N, obs, obs_mask, M, position, initialized,     \
                                sel, sel_ok, B, R_c0c1, t_c0c1, huber_eps, precision,         \
                                damping, outer_max, inner_max, motion_thr, pos_out, init_out, \
-                               fail_out, clocks, stream);                                    \
+                               fail_out, n_inst, (const long long*)strides, clocks, stream); \
   }
 TRIANGULATE_ROWS_ENTRY(triangulate_rows_f32, float)
 TRIANGULATE_ROWS_ENTRY(triangulate_rows_f64, double)

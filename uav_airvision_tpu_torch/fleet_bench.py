@@ -10,12 +10,13 @@ for each B (1, 4 and 8 by default) runs ``parallel.fleet.run_fleet`` over
 default), so that the instances' tracks and filter decisions diverge.  Each
 B runs once to warm up, then once timed (host clock around a synchronised
 run).  Prints, for each B: aggregate instance-frames/s, host syncs per step
-(``device.host_syncs``), each batched kernel's launches per step (K2, K4+K6,
-K5, K1: their wrappers' counts) and, on the card, CUDA launches per step
-and the four kernels' device us per launch (torch.profiler over steps
-40-44, run again from the state before them) and peak device memory;
-then one JSON line with the card's name and power limit.  On the card
-unless ``--device cpu``.
+(``device.host_syncs``), each batched kernel's launches per step (the
+front-end's K2, K4+K6, K5 and K1, the back-end's K14, K13, K9 and K10: their
+wrappers' counts), K11's and K12's (launched once per updating instance)
+and, on the card, CUDA launches per step and those kernels' device us per
+launch (torch.profiler over steps 40-44, run again from the state before
+them) and peak device memory; then one JSON line with the card's name and
+power limit.  On the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from . import device
 from .models import vio
+from .models.msckf import propagation, triangulation, update
 from .ops import fast, gridops, lk, pyramid
 from .parallel import fleet
 from .profile_main import LAUNCH_CALLS, render
@@ -37,10 +39,18 @@ from .profile_main import LAUNCH_CALLS, render
 # the kernels with an instance axis, by their wrappers (K1: either tracker)
 BATCHED = {"K2": (pyramid.build_pyramid_pair,), "K4+K6": (fast.detect_fast,),
            "K5": (gridops.dense_grid_topk,), "K1": (lk.pyramidal_lk, lk.pyramidal_lk_compact)}
+# the back-end's kernels with an instance axis (launched once a stage), and
+# those launched once per updating instance
+BACKEND = {"K14": (propagation.propagate,), "K13": (triangulation.triangulate_rows,),
+           "K9": (update.feature_block_rows,), "K10": (update.gating_test_batch,)}
+PER_INSTANCE = {"K11": (update.apply_update,), "K12": (update.apply_update_rank12_rows,)}
 # their CUDA kernels, by a part of the name the profiler lists
 KERNEL_NAMES = {"K2": ("pyramid_kernel", "level0_kernel", "level_kernel"),
                 "K4+K6": ("fast_tile_kernel",), "K5": ("grid_topk",),
-                "K1": ("lk_kernel", "lk_compact_kernel")}
+                "K1": ("lk_kernel", "lk_compact_kernel"), "K14": ("propagate_kernel",),
+                "K13": ("triangulate_kernel",), "K9": ("feature_block_kernel",),
+                "K10": ("gate_small_kernel", "gate_tiered_kernel"), "K11": ("update_kernel",),
+                "K12": ("rank12_kernel",)}
 
 
 def fleet_frames(frames: vio.VioFrame, T: int, B: int, stride: int) -> vio.VioFrame:
@@ -67,9 +77,10 @@ def measure(config, frames: vio.VioFrame, pb, profile: bool):
 
     fleet.run_fleet(config, frames, pb.gyro_bias, pb.acc_mean)
     sync()
-    for fns in BATCHED.values():
-        for fn in fns:
-            fn.launches = 0
+    for group in (BATCHED, BACKEND, PER_INSTANCE):
+        for fns in group.values():
+            for fn in fns:
+                fn.launches = 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     syncs0 = device.host_syncs["sync"]
@@ -81,6 +92,10 @@ def measure(config, frames: vio.VioFrame, pb, profile: bool):
            "host_syncs_per_step": (device.host_syncs["sync"] - syncs0) / T,
            "kernel_launches_per_step": {k: sum(fn.launches for fn in fns) / T
                                         for k, fns in BATCHED.items()},
+           "backend_launches_per_step": {k: sum(fn.launches for fn in fns) / T
+                                         for k, fns in BACKEND.items()},
+           "per_instance_launches_per_step": {k: sum(fn.launches for fn in fns) / T
+                                              for k, fns in PER_INSTANCE.items()},
            "active_instance_frames": int(outs.active.sum()),
            "finite": bool(torch.isfinite(outs.p).all())}
     if cuda:
@@ -138,8 +153,9 @@ def main(argv=None):
         print(f"B={B:3d}: {res['instance_frames_per_s']:9.2f} instance-frames/s aggregate, "
               f"{res['seconds'] / n_frames * 1e3:8.2f} ms/step, "
               f"{res['host_syncs_per_step']:.2f} host syncs/step, CUDA launches/step "
-              f"{launches}, batched kernels' launches/step {res['kernel_launches_per_step']}",
-              flush=True)
+              f"{launches}, batched kernels' launches/step {res['kernel_launches_per_step']} "
+              f"{res['backend_launches_per_step']}, per instance "
+              f"{res['per_instance_launches_per_step']}", flush=True)
     print(json.dumps({"card": card, "mode": mode, "frames": n_frames, "results": results}))
 
 

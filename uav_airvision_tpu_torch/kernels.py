@@ -74,28 +74,31 @@ SIGNATURES = {
     "extract_windows": [P, I, I, P, P, I, I, I, P, P],
     # imu_t, imu_w, imu_a, imu_mask, I, q, p, v, bg, ba, q_null, p_null,
     # v_null, timestamp, gravity, sid, qc, cov_in, D, state_out, sid_out,
-    # cov_out, work, clocks, stream
-    "propagate_f32": [P, P, P, P, I, *[P] * 10, P, P, P, I, P, P, P, P, P, P],
-    "propagate_f64": [P, P, P, P, I, *[P] * 10, P, P, P, I, P, P, P, P, P, P],
+    # cov_out, work, n_inst, instance strides (20 int64, host), clocks, stream
+    "propagate_f32": [P, P, P, P, I, *[P] * 10, P, P, P, I, P, P, P, P, I, P, P, P],
+    "propagate_f64": [P, P, P, P, I, *[P] * 10, P, P, P, I, P, P, P, P, I, P, P, P],
     # cam_q, cam_p, N, obs, obs_mask, R_c0c1, t_c0c1, active, B, huber_eps,
     # precision, damping, outer_max, inner_max, pos_out, ok_out, clocks, stream
     "triangulate_f32": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P, P],
     "triangulate_f64": [P, P, I, P, P, P, P, P, I, D, D, D, I, I, P, P, P, P],
     # cam_q, cam_p, N, obs, obs_mask, M, position, initialized, sel, sel_ok,
     # B, R_c0c1, t_c0c1, huber_eps, precision, damping, outer_max, inner_max,
-    # motion_thr, position_out, initialized_out, init_fail_out, clocks, stream
+    # motion_thr, position_out, initialized_out, init_fail_out, n_inst,
+    # instance strides (11 int64, host), clocks, stream
     "triangulate_rows_f32": [P, P, I, P, P, I, P, P, P, P, I, P, P, D, D, D, I, I, D, P, P, P,
-                             P, P],
+                             I, P, P, P],
     "triangulate_rows_f64": [P, P, I, P, P, I, P, P, P, P, I, P, P, D, D, D, I, I, D, P, P, P,
-                             P, P],
+                             I, P, P, P],
     # cams_q, cams_p, cams_qn, cams_pn, rm, N, Nw, obs, obs_mask, p_w, sel,
-    # proc, gravity, R_c0c1, t_c0c1, B, H_out, r_out, rows_out, clocks, stream
-    "feature_block_f32": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, P, P],
-    "feature_block_f64": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, P, P],
+    # proc, gravity, R_c0c1, t_c0c1, B, H_out, r_out, rows_out, n_inst,
+    # instance strides (14 int64, host), clocks, stream
+    "feature_block_f32": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, I, P, P, P],
+    "feature_block_f64": [P, P, P, P, P, I, I, P, P, P, P, P, P, P, P, I, P, P, P, I, P, P, P],
     # H, r, B, R, D, h_stride, r_stride, rows_true, dof, dof is int64, P,
-    # obs_noise, table, n_table, out, flags, gamma, work, stream
-    "gate_f32": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, P],
-    "gate_f64": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, P],
+    # obs_noise, table, n_table, out, flags, gamma, work, n_inst, instance
+    # strides (5 int64, host), stream
+    "gate_f32": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, I, P, P],
+    "gate_f64": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, I, P, P],
     # P, D, B, n_feat, rows_per, B's feature and row strides, r, r's strides,
     # include, cols, obs_noise, out, *INJECT, clocks, stream
     "rank12_f32": [P, I, P, I, I, L, L, P, L, L, P, P, P, P, *INJECT, P, P],
@@ -120,10 +123,10 @@ SIGNATURES = {
     "grid_kept_order_stats": [P, P, P, P, I, I, P, P, P, P],
     # perm, keep, n, n_slots, sel, selm, stream
     "grid_compact_kept": [P, P, I, I, P, P, P],
-    # key, n, k, out, stream
-    "grid_smallest_k": [P, I, I, P, P],
-    # mask, n, fill, out, stream
-    "grid_stable_compact": [P, I, I, P, P],
+    # key, n_inst, n, k, out, stream
+    "grid_smallest_k": [P, I, I, I, P, P],
+    # mask, n_inst, n, fill, out, stream
+    "grid_stable_compact": [P, I, I, I, P, P],
     # curr, cam1_curr, tracked, ids, lifetime, F, apts, ascore, aarrival,
     # ainlier, acam1, C, next_id, grid_row, grid_col, H, W, grid_min,
     # grid_max, out, work, stream
@@ -248,3 +251,21 @@ def launch(name: str, *args) -> None:
 def ptr(t: torch.Tensor) -> int:
     """A tensor's device address, for a ``void*`` argument."""
     return t.data_ptr()
+
+
+def per_instance(x: torch.Tensor, dtype, fleet: bool):
+    """A kernel operand in ``dtype``, contiguous as a whole (one instance)
+    or, with ``fleet``, instance by instance along its leading axis (a
+    strided view of a larger allocation is taken as it is).  Returns (the
+    operand, its instance stride in elements; 0 without ``fleet``)."""
+    if x.dtype != dtype:
+        x = x.to(dtype)
+    if not (x[0] if fleet else x).is_contiguous():
+        x = x.contiguous()
+    return x, (x.stride(0) if fleet else 0)
+
+
+def int64s(values) -> ctypes.Array:
+    """A host array of int64, for a ``const long long*`` argument (the
+    kernels copy it into their launch arguments)."""
+    return (ctypes.c_longlong * len(values))(*values)

@@ -17,7 +17,11 @@ K11 ``apply_update`` (``csrc/ekf_update.cu``: the update and the error-state
 injection in one launch; ``ekf_update`` is its entry without the injection)
 and K12 ``apply_update_rank12`` (``csrc/rank12.cu``, likewise, and
 ``rank12_update``; ``apply_update_rank12_rows`` with its call site's masks
-in its launch).
+in its launch).  ``feature_block_rows`` and ``gating_test_batch`` (and their
+plain versions) take a fleet's instance axis too, one launch for the fleet;
+K11 and K12 launch once per updating instance of a fleet
+(``apply_update_fleet``, ``apply_update_rank12_rows_fleet``), into one
+allocation.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from ... import kernels
 from ...utils import quaternion as quat
+from ...utils import tree
 from .state import IMU_DIM, FilterState, MsckfParams
 
 GATE_TIER = 32
@@ -35,14 +40,16 @@ GATE_TIER = 32
 
 def stereo_jacobian(cam_q, cam_p, cam_q_null, cam_p_null, p_w, z, gravity, R_c0c1, t_c0c1):
     """Jacobian/residual of stereo observations wrt their camera states
-    (OC-EKF projected, with the reference's H_f = -H_x[:, 3:6] quirk).
-    cam_* (N, .) broadcast against p_w (B, 1, 3) and z (B, N, 4).
-    Returns H_x (B,N,4,6), H_f (B,N,4,3), r (B,N,4)."""
-    R_w_c0 = quat.to_rotation(cam_q)  # (N,3,3)
+    (OC-EKF projected, with the reference's H_f = -H_x[:, 3:6] quirk), for S
+    instances: cam_* (S, N, .) broadcast against p_w (S, B, 1, 3) and z
+    (S, B, N, 4), gravity (S, 3).  Returns H_x (S,B,N,4,6), H_f (S,B,N,4,3),
+    r (S,B,N,4)."""
+    R_w_c0 = quat.to_rotation(cam_q)  # (S,N,3,3)
     R_w_c1 = R_c0c1 @ R_w_c0
-    t_c1_w = cam_p - torch.einsum("nji,j->ni", R_w_c1, t_c0c1)
-    p_c0 = torch.einsum("nij,bnj->bni", R_w_c0, p_w - cam_p)  # (B,N,3)
-    p_c1 = torch.einsum("nij,bnj->bni", R_w_c1, p_w - t_c1_w)
+    t_c1_w = cam_p - quat.matvec(R_w_c1.transpose(-1, -2), t_c0c1)
+    # a feature's bits whatever B: matvec's sums, not a library product
+    p_c0 = quat.matvec(R_w_c0[:, None], p_w - cam_p[:, None])  # (S,B,N,3)
+    p_c1 = quat.matvec(R_w_c1[:, None], p_w - t_c1_w[:, None])
     inv_z0 = 1.0 / p_c0[..., 2]
     inv_z1 = 1.0 / p_c1[..., 2]
     zero = torch.zeros_like(inv_z0)
@@ -50,20 +57,22 @@ def stereo_jacobian(cam_q, cam_p, cam_q_null, cam_p_null, p_w, z, gravity, R_c0c
     dz_dpc0 = torch.stack([
         torch.stack([inv_z0, zero, -p_c0[..., 0] * inv_z0 * inv_z0], dim=-1),
         torch.stack([zero, inv_z0, -p_c0[..., 1] * inv_z0 * inv_z0], dim=-1),
-        zrow, zrow], dim=-2)  # (B,N,4,3)
+        zrow, zrow], dim=-2)  # (S,B,N,4,3)
     dz_dpc1 = torch.stack([
         zrow, zrow,
         torch.stack([inv_z1, zero, -p_c1[..., 0] * inv_z1 * inv_z1], dim=-1),
         torch.stack([zero, inv_z1, -p_c1[..., 1] * inv_z1 * inv_z1], dim=-1)], dim=-2)
-    B = p_c0.shape[0]
-    sk0 = quat.skew(p_c0)  # (B,N,3,3)
-    dpc0_dxc = torch.cat([sk0, -R_w_c0.expand(B, -1, -1, -1)], dim=-1)  # (B,N,3,6)
-    dpc1_dxc = torch.cat([R_c0c1 @ sk0, -R_w_c1.expand(B, -1, -1, -1)], dim=-1)
-    A = dz_dpc0 @ dpc0_dxc + dz_dpc1 @ dpc1_dxc  # (B,N,4,6)
+    S, B = p_c0.shape[:2]
+    sk0 = quat.skew(p_c0)  # (S,B,N,3,3)
+    dpc0_dxc = torch.cat([sk0, -R_w_c0[:, None].expand(S, B, -1, -1, -1)], dim=-1)
+    dpc1_dxc = torch.cat([R_c0c1 @ sk0, -R_w_c1[:, None].expand(S, B, -1, -1, -1)], dim=-1)
+    A = dz_dpc0 @ dpc0_dxc + dz_dpc1 @ dpc1_dxc  # (S,B,N,4,6)
     u = torch.cat([
-        torch.einsum("nij,j->ni", quat.to_rotation(cam_q_null), gravity).expand(B, -1, -1),
-        torch.einsum("bnij,j->bni", quat.skew(p_w - cam_p_null), gravity)], dim=-1)  # (B,N,6)
-    Au = torch.einsum("bnij,bnj->bni", A, u)
+        quat.matvec(quat.to_rotation(cam_q_null), gravity[:, None])[:, None].expand(
+            S, B, -1, -1),
+        quat.matvec(quat.skew(p_w - cam_p_null[:, None]), gravity[:, None, None])],
+        dim=-1)  # (S,B,N,6)
+    Au = torch.einsum("sbnij,sbnj->sbni", A, u)
     H_x = A - Au[..., :, None] * u[..., None, :] / (u * u).sum(-1)[..., None, None]
     H_f = -H_x[..., 3:6]
     pred = torch.cat([p_c0[..., :2] * inv_z0[..., None], p_c1[..., :2] * inv_z1[..., None]], -1)
@@ -72,12 +81,18 @@ def stereo_jacobian(cam_q, cam_p, cam_q_null, cam_p_null, p_w, z, gravity, R_c0c
 
 def stacked_tile(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity, R_c0c1,
                  t_c0c1):
-    """[H_f | r | H_x] (B, 4N, 4 + 21 + 6N) of B features, the observing
-    slots' rows first, and n_obs (B,): the tile that ``feature_block``
-    projects onto the left nullspace of H_f."""
-    B, N = obs_mask.shape
+    """[H_f | r | H_x] (B, 4N, 4 + 21 + 6N) of B features (cams_* (N, .),
+    obs (B, N, 4), obs_mask (B, N), p_w (B, 3), gravity (3,)), or (S, B, ...)
+    of S instances' (each argument but the extrinsic with a leading axis),
+    the observing slots' rows first, and n_obs (B,) or (S, B): the tile
+    that ``feature_block`` projects onto the left nullspace of H_f."""
+    if cams_q.dim() == 2:
+        out = stacked_tile(*tree.one(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity),
+                           R_c0c1, t_c0c1)
+        return tuple(x[0] for x in out)
+    S, B, N = obs_mask.shape
     dtype = p_w.dtype
-    Hx, Hf, r = stereo_jacobian(cams_q, cams_p, cams_qn, cams_pn, p_w[:, None, :], obs,
+    Hx, Hf, r = stereo_jacobian(cams_q, cams_p, cams_qn, cams_pn, p_w[..., None, :], obs,
                                 gravity, R_c0c1, t_c0c1)
     m = obs_mask.to(dtype)
     Hx = Hx * m[..., None, None]
@@ -87,37 +102,44 @@ def stacked_tile(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity, 
     Hf = torch.where(torch.isfinite(Hf), Hf, 0.0)
     r = torch.where(torch.isfinite(r), r, 0.0)
 
-    rank = torch.cumsum(obs_mask.to(torch.int32), dim=1) - 1  # (B,N)
-    n_obs = obs_mask.to(torch.int32).sum(1)
+    rank = torch.cumsum(obs_mask.to(torch.int32), dim=-1) - 1  # (S,B,N)
+    n_obs = obs_mask.to(torch.int32).sum(-1)
     slots = torch.arange(N, device=obs.device)
-    # P[b, r, s] = 1 iff valid slot s has rank r (row compaction)
-    P = ((rank[:, None, :] == slots[None, :, None]) & obs_mask[:, None, :]).to(dtype)
-    H_fj = torch.einsum("brs,bsij->brij", P, Hf).reshape(B, 4 * N, 3)
-    r_j = torch.einsum("brs,bsi->bri", P, r).reshape(B, 4 * N)
-    H_cam = torch.einsum("brs,bsij->brisj", P, Hx).reshape(B, 4 * N, 6 * N)
-    H_xj = torch.cat([torch.zeros((B, 4 * N, IMU_DIM), dtype=dtype, device=obs.device),
+    # P[., r, s] = 1 iff valid slot s has rank r (row compaction)
+    P = ((rank[..., None, :] == slots[:, None]) & obs_mask[..., None, :]).to(dtype)
+    H_fj = torch.einsum("xbrs,xbsij->xbrij", P, Hf).reshape(S, B, 4 * N, 3)
+    r_j = torch.einsum("xbrs,xbsi->xbri", P, r).reshape(S, B, 4 * N)
+    H_cam = torch.einsum("xbrs,xbsij->xbrisj", P, Hx).reshape(S, B, 4 * N, 6 * N)
+    H_xj = torch.cat([torch.zeros((S, B, 4 * N, IMU_DIM), dtype=dtype, device=obs.device),
                       H_cam], dim=-1)
     return torch.cat([H_fj, r_j[..., None], H_xj], dim=-1), n_obs
 
 
-def feature_block_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
-                        R_c0c1, t_c0c1, state_dim):
+def _feature_block_fleet_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
+                               R_c0c1, t_c0c1):
     # three Householder reflections applied to [H_f | r | H_x]
     T, n_obs = stacked_tile(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
-                            R_c0c1, t_c0c1)  # (B, 4N, 4+D)
+                            R_c0c1, t_c0c1)  # (S, B, 4N, 4+D)
     dtype = T.dtype
-    rows = torch.arange(T.shape[1], device=obs.device)
+    rows = torch.arange(T.shape[-2], device=obs.device)
     for j in range(3):
         x = torch.where(rows >= j, T[..., j], 0.0)
         normx = torch.sqrt((x * x).sum(-1))
-        sign = torch.where(x[:, j] >= 0, 1.0, -1.0).to(dtype)
+        sign = torch.where(x[..., j] >= 0, 1.0, -1.0).to(dtype)
         v = x.clone()
-        v[:, j] = v[:, j] + sign * normx
+        v[..., j] = v[..., j] + sign * normx
         vnorm2 = (v * v).sum(-1)
         scale = torch.where(vnorm2 > 1e-30, 2.0 / vnorm2, torch.zeros_like(vnorm2))
-        vT = torch.einsum("br,brc->bc", v, T)
-        T = T - scale[:, None, None] * (v[:, :, None] * vT[:, None, :])
-    return T[:, 3:, 4:], T[:, 3:, 3], (4 * n_obs - 3).to(torch.int32)
+        vT = torch.einsum("sbr,sbrc->sbc", v, T)
+        T = T - scale[..., None, None] * (v[..., :, None] * vT[..., None, :])
+    return T[..., 3:, 4:], T[..., 3:, 3], (4 * n_obs - 3).to(torch.int32)
+
+
+def feature_block_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
+                        R_c0c1, t_c0c1, state_dim):
+    out = _feature_block_fleet_plain(*tree.one(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask,
+                                           p_w, gravity), R_c0c1, t_c0c1)
+    return tuple(x[0] for x in out)
 
 
 def feature_block(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
@@ -147,19 +169,27 @@ def feature_block_rows_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, po
                              proc, gravity, R_c0c1, t_c0c1, state_dim, rm=None):
     """The back-end's call sites of ``feature_block`` as they stood: the
     gathers of the map rows ``sel`` (and of the window slots ``rm``), the
-    blocks, and the blocks whose ``proc`` is false set to zeros, rows 0."""
-    if rm is None:
-        H, r, rows = feature_block_plain(cams_q, cams_p, cams_qn, cams_pn, obs[sel],
-                                         obs_mask[sel], position[sel], gravity, R_c0c1,
-                                         t_c0c1, state_dim)
-    else:
-        H, r, rows = feature_block_plain(cams_q[rm], cams_p[rm], cams_qn[rm], cams_pn[rm],
-                                         obs[sel][:, rm], obs_mask[sel][:, rm], position[sel],
-                                         gravity, R_c0c1, t_c0c1, state_dim)
-    H = torch.where(proc[:, None, None], H, 0.0)
-    r = torch.where(proc[:, None], r, 0.0)
-    rows = torch.where(proc, rows, 0)
-    return H, r, rows
+    blocks, and the blocks whose ``proc`` is false set to zeros, rows 0.
+    Of one table, or of a fleet's (every argument but the extrinsic with a
+    leading instance axis); one table runs as a fleet of one."""
+    if cams_q.dim() == 2:
+        out = feature_block_rows_plain(*tree.one(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask,
+                                             position, sel, proc, gravity), R_c0c1, t_c0c1,
+                                       state_dim, *tree.one(rm))
+        return tuple(x[0] for x in out)
+    rows = torch.arange(sel.shape[0], device=sel.device)[:, None]
+    o, m, pw = obs[rows, sel], obs_mask[rows, sel], position[rows, sel]
+    cams = (cams_q, cams_p, cams_qn, cams_pn)
+    if rm is not None:
+        cams = tuple(c[rows, rm] for c in cams)
+        k = rm[:, None, :].expand(-1, sel.shape[1], -1)
+        o = o.gather(2, k[..., None].expand(-1, -1, -1, 4))
+        m = m.gather(2, k)
+    H, r, n_rows = _feature_block_fleet_plain(*cams, o, m, pw, gravity, R_c0c1, t_c0c1)
+    H = torch.where(proc[..., None, None], H, 0.0)
+    r = torch.where(proc[..., None], r, 0.0)
+    n_rows = torch.where(proc, n_rows, 0)
+    return H, r, n_rows
 
 
 def feature_block_rows(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, position, sel, proc,
@@ -167,8 +197,10 @@ def feature_block_rows(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, position
     """``feature_block`` of the map rows ``sel`` (B,) of the feature table
     (obs (M, Nw, 4), obs_mask (M, Nw), position (M, 3)) over the window's
     Nw slots, or over its slots ``rm`` (2,) only (the camera prune: N = 2).
-    A block whose ``proc`` (B,) is false is zeros with rows_true 0.  On CUDA
-    tensors one launch of K9 gathers, computes and masks."""
+    A block whose ``proc`` (B,) is false is zeros with rows_true 0.  A
+    fleet's call gives every argument but the extrinsic R_c0c1, t_c0c1 (and
+    ``state_dim``) a leading instance axis.  On CUDA tensors one launch of
+    K9 gathers, computes and masks, for every instance of a fleet."""
     dev = obs.device
     if dev.type == "cpu":
         return feature_block_rows_plain(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask,
@@ -190,36 +222,45 @@ feature_block_rows.launches = 0
 
 def _feature_block_kernel(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity,
                           R_c0c1, t_c0c1, sel=None, proc=None, rm=None, clocks=None):
-    """K9's launch.  Without ``sel`` block b is row b of obs / p_w; without
-    ``rm`` the blocks run over every window slot; without ``proc`` every
-    block is computed.  ``clocks``: an int64 (6,) tensor for the SM clock
-    at the start of block 0 and at the end of each of its five phases."""
+    """K9's launch, of one instance or (``cams_q`` (S, Nw, 4)) of a fleet's
+    S.  Without ``sel`` block b is row b of obs / p_w; without ``rm`` the
+    blocks run over every window slot; without ``proc`` every block is
+    computed.  ``clocks``: an int64 (6,) tensor for the SM clock at the
+    start of (the first instance's) block 0 and at the end of each of its
+    five phases."""
     dtype, dev = p_w.dtype, p_w.device
     entry = {torch.float32: "feature_block_f32", torch.float64: "feature_block_f64"}.get(dtype)
     if entry is None:
         raise ValueError(f"K9 takes float32 or float64, got {dtype}")
-    cams_q, cams_p, cams_qn, cams_pn, obs, p_w, gravity, R_c0c1, t_c0c1 = (
-        x.to(dtype).contiguous()
-        for x in (cams_q, cams_p, cams_qn, cams_pn, obs, p_w, gravity, R_c0c1, t_c0c1))
-    obs_mask = obs_mask.to(torch.bool).contiguous()
-    M, Nw = obs_mask.shape
-    proc = proc.to(torch.bool) if proc is not None else None
-    sel, proc, rm = (x.contiguous() if x is not None else None for x in (sel, proc, rm))
-    idx = [x for x in (sel, proc, rm) if x is not None]
-    kernels.check_cuda(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, gravity, R_c0c1,
-                       t_c0c1, *idx)
-    N = Nw if rm is None else rm.shape[0]
-    B = M if sel is None else sel.shape[0]
-    if (cams_q.shape != (Nw, 4) or cams_qn.shape != (Nw, 4) or cams_p.shape != (Nw, 3)
-            or cams_pn.shape != (Nw, 3) or obs.shape != (M, Nw, 4) or p_w.shape != (M, 3)
-            or gravity.shape != (3,) or R_c0c1.shape != (3, 3) or t_c0c1.shape != (3,)
-            or (sel is not None and (sel.dtype != torch.int64 or sel.shape != (B,)))
-            or (rm is not None and (rm.dtype != torch.int64 or rm.shape != (N,)))
-            or (proc is not None and proc.shape != (B,))):
+    fleet = cams_q.dim() == 3
+    S = cams_q.shape[0] if fleet else 1
+    lead = cams_q.shape[:1] if fleet else ()
+    ins, strides = [], []
+    for x, t in ((cams_q, dtype), (cams_p, dtype), (cams_qn, dtype), (cams_pn, dtype),
+                 (rm, torch.int64), (obs, dtype), (obs_mask, torch.bool), (p_w, dtype),
+                 (sel, torch.int64), (proc, torch.bool), (gravity, dtype)):
+        x, st = kernels.per_instance(x, t, fleet) if x is not None else (None, 0)
+        ins.append(x)
+        strides.append(st)
+    cams_q, cams_p, cams_qn, cams_pn, rm, obs, obs_mask, p_w, sel, proc, gravity = ins
+    R_c0c1, t_c0c1 = (x.to(dtype).contiguous() for x in (R_c0c1, t_c0c1))
+    kernels.check_cuda(R_c0c1, t_c0c1, *(x[0] if fleet else x for x in ins if x is not None))
+    M, Nw = obs_mask.shape[-2:]
+    N = Nw if rm is None else rm.shape[-1]
+    B = M if sel is None else sel.shape[-1]
+    if (cams_q.shape != lead + (Nw, 4) or cams_qn.shape != lead + (Nw, 4)
+            or cams_p.shape != lead + (Nw, 3) or cams_pn.shape != lead + (Nw, 3)
+            or obs.shape != lead + (M, Nw, 4) or p_w.shape != lead + (M, 3)
+            or gravity.shape != lead + (3,) or R_c0c1.shape != (3, 3) or t_c0c1.shape != (3,)
+            or (sel is not None and sel.shape != lead + (B,))
+            or (rm is not None and rm.shape != lead + (N,))
+            or (proc is not None and proc.shape != lead + (B,))):
         raise ValueError("feature_block: inconsistent window / observation shapes")
-    H = torch.empty((B, 4 * N - 3, IMU_DIM + 6 * N), dtype=dtype, device=dev)
-    r = torch.empty((B, 4 * N - 3), dtype=dtype, device=dev)
-    rows = torch.empty((B,), dtype=torch.int32, device=dev)
+    R, D = 4 * N - 3, IMU_DIM + 6 * N
+    H = torch.empty(lead + (B, R, D), dtype=dtype, device=dev)
+    r = torch.empty(lead + (B, R), dtype=dtype, device=dev)
+    rows = torch.empty(lead + (B,), dtype=torch.int32, device=dev)
+    strides += [B * R * D, B * R, B]
 
     def opt(x):
         return kernels.ptr(x) if x is not None else None
@@ -227,8 +268,8 @@ def _feature_block_kernel(cams_q, cams_p, cams_qn, cams_pn, obs, obs_mask, p_w, 
     kernels.launch(entry, *(kernels.ptr(x) for x in (cams_q, cams_p, cams_qn, cams_pn)),
                    opt(rm), N, Nw, kernels.ptr(obs), kernels.ptr(obs_mask), kernels.ptr(p_w),
                    opt(sel), opt(proc), kernels.ptr(gravity), kernels.ptr(R_c0c1),
-                   kernels.ptr(t_c0c1), B, kernels.ptr(H), kernels.ptr(r), kernels.ptr(rows),
-                   opt(clocks))
+                   kernels.ptr(t_c0c1), B, kernels.ptr(H), kernels.ptr(r), kernels.ptr(rows), S,
+                   kernels.int64s(strides), opt(clocks))
     return H, r, rows
 
 
@@ -240,10 +281,11 @@ def _cholesky(S):
 
 
 def gate_gamma_plain(H, r, cov, obs_noise):
-    """gamma = r' S^-1 r per block, S = H P H' + s2 I: H (B,m,D), r (B,m).
-    A factorisation that fails gives NaN."""
-    m = H.shape[1]
-    S = H @ cov @ H.transpose(1, 2) + obs_noise * torch.eye(m, dtype=H.dtype, device=H.device)
+    """gamma = r' S^-1 r per block, S = H P H' + s2 I: H (..., B, m, D), r
+    (..., B, m), cov (..., D, D).  A factorisation that fails gives NaN."""
+    m = H.shape[-2]
+    S = H @ cov[..., None, :, :] @ H.transpose(-1, -2) + obs_noise * torch.eye(
+        m, dtype=H.dtype, device=H.device)
     y = torch.linalg.solve_triangular(_cholesky(S), r[..., None], upper=False)[..., 0]
     return (y * y).sum(-1)
 
@@ -252,22 +294,28 @@ def gate_bounds_plain(H, r, cov, obs_noise, thresh):
     """The gate's eigenvalue bounds per block: (pass_sure, fail_sure) with
     pass_sure = r'r < thresh s2 and fail_sure = r'r > thresh (s2 + tr HPH')."""
     rtr = (r * r).sum(-1)
-    tr = ((H @ cov) * H).sum((1, 2))
+    tr = ((H @ cov[..., None, :, :]) * H).sum((-2, -1))
     return rtr < thresh * obs_noise, rtr > thresh * (obs_noise + tr)
 
 
 def gating_test_batch_plain(H, r, rows_true, cov, obs_noise, chi2_table, dof):
     """Plain version of kernel K10: the JAX function's lax.cond tree as a
     branch-free selection, so it reads nothing back to the host either (both
-    gamma tiers are computed and one is selected)."""
+    gamma tiers are computed and one is selected).  Of one instance's
+    blocks, or of a fleet's (H (S, B, R, D), r, rows_true and dof with the
+    same leading axis, cov (S, D, D)), each instance deciding its own tier;
+    one instance runs as a fleet of one."""
+    if cov.dim() == 2:
+        return gating_test_batch_plain(*tree.one(H, r, rows_true, cov), obs_noise, chi2_table,
+                                       dof[None])[0]
     thresh = chi2_table[torch.clamp(dof, 0, chi2_table.shape[0] - 1).long()]
-    if H.shape[1] <= GATE_TIER:
+    if H.shape[-2] <= GATE_TIER:
         return gate_gamma_plain(H, r, cov, obs_noise) < thresh
     pass_sure, fail_sure = gate_bounds_plain(H, r, cov, obs_noise, thresh)
-    any_undecided = (~(pass_sure | fail_sure)).any()
-    small = gate_gamma_plain(H[:, :GATE_TIER], r[:, :GATE_TIER], cov, obs_noise) < thresh
+    any_undecided = (~(pass_sure | fail_sure)).any(-1, keepdim=True)
+    small = gate_gamma_plain(H[..., :GATE_TIER, :], r[..., :GATE_TIER], cov, obs_noise) < thresh
     full = gate_gamma_plain(H, r, cov, obs_noise) < thresh
-    solve = torch.where(rows_true.max() <= GATE_TIER, small, full)
+    solve = torch.where(rows_true.max(-1, keepdim=True).values <= GATE_TIER, small, full)
     return torch.where(any_undecided, solve, pass_sure)
 
 
@@ -277,8 +325,10 @@ def gating_test_batch(H, r, rows_true, cov, obs_noise, chi2_table, dof):
     (B,).  Blocks taller than GATE_TIER first try the eigenvalue bounds
     r'r / (s2 + tr HPH') <= gamma <= r'r / s2; the exact Cholesky runs only
     when a block is undecided, on the 32-row prefix when every block fits
-    in it.  On CUDA tensors one launch of kernel K10 decides the whole gate
-    on the card, with no host read."""
+    in it.  A fleet's call gives H, r, rows_true, dof and cov a leading
+    instance axis; each instance decides on its own blocks and covariance.
+    On CUDA tensors one launch of kernel K10 decides the whole gate on the
+    card, for every instance of a fleet, with no host read."""
     if H.device.type == "cpu":
         return gating_test_batch_plain(H, r, rows_true, cov, obs_noise, chi2_table, dof)
     if H.device.type != "cuda":
@@ -293,56 +343,65 @@ gating_test_batch.launches = 0
 
 
 def _gate_kernel(H, r, rows_true, cov, obs_noise, chi2_table, dof, with_gamma=False):
-    """K10's launch.  Its operands: H and r with contiguous rows (a row
-    prefix of a larger block is kept as the view it is), cov, s2 and the
-    table in H's type, rows_true int32, dof int32 or int64; at the main
-    path's types nothing is cast or copied, and the one allocation holds the
-    decisions, the bound flags, gamma and, for blocks too large for a
-    block's shared memory, the kernel's workspace.  Returns the decisions,
-    and with ``with_gamma`` also gamma (B,), defined where the kernel computed it
-    (R <= 32, or some block undecided by the bounds)."""
+    """K10's launch, of one instance's blocks or (cov (S, D, D)) of a
+    fleet's.  Its operands: H and r with contiguous rows (a row prefix of a
+    larger block is kept as the view it is), cov (each instance's
+    contiguous), s2 and the table in H's type, rows_true int32, dof int32 or
+    int64; at the main path's types nothing is cast or copied, and the one
+    allocation holds the decisions, the bound flags, gamma and, for blocks
+    too large for a block's shared memory, the kernel's workspace.  Returns
+    the decisions, and with ``with_gamma`` also gamma, defined where the
+    kernel computed it (R <= 32, or some block of the instance undecided by
+    the bounds)."""
     dtype = H.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"K10 takes float32 or float64, got {dtype}")
-    B, R, D = H.shape
-    if H.stride(2) != 1 or H.stride(1) != D:
+    fleet = cov.dim() == 3
+    S = cov.shape[0] if fleet else 1
+    lead = cov.shape[:1] if fleet else ()
+    B, R, D = H.shape[-3:]
+    if H.stride(-1) != 1 or H.stride(-2) != D:
         H = H.contiguous()
-    if r.stride(1) != 1:
+    if r.stride(-1) != 1:
         r = r.contiguous()
-    if cov.dtype != dtype or not cov.is_contiguous():
-        cov = cov.to(dtype).contiguous()
+    cov, s_p = kernels.per_instance(cov, dtype, fleet)
     if obs_noise.dtype != dtype:
         obs_noise = obs_noise.to(dtype)
     if chi2_table.dtype != dtype or not chi2_table.is_contiguous():
         chi2_table = chi2_table.to(dtype).contiguous()
-    if rows_true.dtype != torch.int32 or not rows_true.is_contiguous():
-        rows_true = rows_true.to(torch.int32).contiguous()
-    if dof.dtype not in (torch.int32, torch.int64) or not dof.is_contiguous():
-        dof = dof.to(torch.int64).contiguous()
-    if (r.shape != (B, R) or cov.shape != (D, D) or obs_noise.numel() != 1
-            or rows_true.shape != (B,) or dof.shape != (B,) or chi2_table.dim() != 1):
+    rows_true, s_rows = kernels.per_instance(rows_true, torch.int32, fleet)
+    if dof.dtype not in (torch.int32, torch.int64):
+        dof = dof.to(torch.int64)
+    dof, s_dof = kernels.per_instance(dof, dof.dtype, fleet)
+    if (H.shape != lead + (B, R, D) or r.shape != lead + (B, R) or cov.shape != lead + (D, D)
+            or obs_noise.numel() != 1 or rows_true.shape != lead + (B,)
+            or dof.shape != lead + (B,) or chi2_table.dim() != 1):
         raise ValueError(f"K10: H {tuple(H.shape)}, r {tuple(r.shape)}, cov {tuple(cov.shape)}, "
                          f"rows_true {tuple(rows_true.shape)}, dof {tuple(dof.shape)}")
     for x in (r, cov, obs_noise, chi2_table, rows_true, dof):
         if x.device != H.device:
             raise ValueError(f"K10: tensors on {H.device} and {x.device}")
     size = H.element_size()
-    off = (2 * B + size - 1) // size * size  # gamma's offset, after decisions and flags
+    n = S * B
+    off = (2 * n + size - 1) // size * size  # gamma's offset, after decisions and flags
     # where even the kernel's smallest layout (H, 16 rows of H P, S) does not
     # fit a block's shared memory, each block's goes to a workspace after gamma
     block = R * D + 16 * D + (R + 1) * (R | 1)
-    work = B * block if (block * size + 512 > kernels.SMEM_PER_BLOCK) else 0
-    buf = torch.empty(off + (B + work) * size, dtype=torch.uint8, device=H.device)
+    work = n * block if (block * size + 512 > kernels.SMEM_PER_BLOCK) else 0
+    buf = torch.empty(off + (n + work) * size, dtype=torch.uint8, device=H.device)
     base = buf.data_ptr()
+    strides = [H.stride(0), r.stride(0), s_rows, s_dof, s_p] if fleet else [0] * 5
     kernels.launch("gate_f32" if dtype == torch.float32 else "gate_f64",
-                   kernels.ptr(H), kernels.ptr(r), B, R, D, H.stride(0), r.stride(0),
+                   kernels.ptr(H), kernels.ptr(r), B, R, D, H.stride(-3), r.stride(-2),
                    kernels.ptr(rows_true), kernels.ptr(dof), int(dof.dtype == torch.int64),
                    kernels.ptr(cov), kernels.ptr(obs_noise), kernels.ptr(chi2_table),
-                   chi2_table.shape[0], ctypes.c_void_p(base), ctypes.c_void_p(base + B),
+                   chi2_table.shape[0], ctypes.c_void_p(base), ctypes.c_void_p(base + n),
                    ctypes.c_void_p(base + off),
-                   ctypes.c_void_p(base + off + B * size) if work else None)
-    out = buf[:B].view(torch.bool)
-    return (out, buf[off:].view(dtype)) if with_gamma else out
+                   ctypes.c_void_p(base + off + n * size) if work else None, S,
+                   kernels.int64s(strides))
+    out = buf[:n].view(torch.bool).view(lead + (B,))
+    gamma = buf[off:off + n * size].view(dtype).view(lead + (B,))
+    return (out, gamma) if with_gamma else out
 
 
 def update_tiers(D: int):
@@ -389,24 +448,38 @@ def _operand(x, dtype):
     return x if x.dtype == dtype and x.is_contiguous() else x.to(dtype).contiguous()
 
 
-def _update_launch(P, state, work: int):
+def _update_values(D: int, N: int, size: int) -> int:
+    """Values an EKF update kernel (K11, K12) writes: P_new (D, D), delta
+    (D,) and, with a window of N slots (N > 0), the injected fields
+    (msckf_common.cuh::inject_size), rounded up so that what follows starts
+    16-byte aligned."""
+    n_out = D * D + D + (28 + 7 * N if N else 0)
+    return (n_out * size + 15) // 16 * 16 // size
+
+
+def _update_launch(P, state, work: int, out=None):
     """What the EKF update kernels (K11, K12) take beside their operands:
     ONE allocation holding P_new (D, D), delta (D,), with a ``state`` the
-    injected fields (msckf_common.cuh::inject_size) and the too_large flag,
-    and ``work`` values of workspace; and the injection's arguments (the
-    state's fields, nullptr without a state).  The main path's state fields
-    are contiguous and of P's type, so nothing is cast or copied and only
-    the pointers are taken (as ints: ctypes passes them as void*).  Returns
-    (vals, flag, work pointer, injection arguments, the operands to keep
-    alive)."""
+    injected fields and the too_large flag, and ``work`` values of
+    workspace (or ``out``: (vals, flag), a fleet's row of such an
+    allocation, with at least that many values); and the injection's
+    arguments (the state's fields, nullptr without a state).  The main
+    path's state fields are contiguous and of P's type, so nothing is cast
+    or copied and only the pointers are taken (as ints: ctypes passes them
+    as void*).  Returns (vals, flag, work pointer, injection arguments, the
+    operands to keep alive)."""
     dtype, D = P.dtype, P.shape[0]
     N = state.cams.q.shape[0] if state is not None else 0
-    n_out = D * D + D + (28 + 7 * N if state is not None else 0)
     size = P.element_size()
-    n_out = (n_out * size + 15) // 16 * 16 // size  # the workspace starts 16-byte aligned
-    buf = torch.empty((n_out + work) * size + 1, dtype=torch.uint8, device=P.device)
-    vals = buf[:(n_out + work) * size].view(dtype)
-    flag = buf[(n_out + work) * size:].view(torch.bool).reshape(())
+    n_out = _update_values(D, N, size)
+    if out is None:
+        buf = torch.empty((n_out + work) * size + 1, dtype=torch.uint8, device=P.device)
+        vals = buf[:(n_out + work) * size].view(dtype)
+        flag = buf[(n_out + work) * size:].view(torch.bool).reshape(())
+    else:
+        vals, flag = out
+        if vals.numel() < n_out + work or vals.data_ptr() % 16:
+            raise ValueError("EKF update: an output row too short or not 16-byte aligned")
     base = vals.data_ptr()
     if state is None:
         return vals, flag, base + n_out * size, [None] * 9 + [0, None, None], ()
@@ -439,14 +512,15 @@ def _injected(state: FilterState, vals, flag, D: int):
     return state._replace(imu=imu, cams=cams, cov=vals[:D * D].view(D, D)), flag
 
 
-def _rank12_kernel(P, B, r, cols, obs_noise, state=None, clocks=None, include=None):
+def _rank12_kernel(P, B, r, cols, obs_noise, state=None, clocks=None, include=None, out=None):
     """K12's launch; with a ``state`` it ends in the injection.  B is (n, 12)
     with r (n,), or (K, R, 12) with r (K, R): K features of R rows each, read
     in place through their strides (B's columns contiguous), those whose
     ``include`` (K,) is false skipped.  Returns (P_new, delta, the injected
     state or None, too_large or None).  ``clocks``: an int64 (7,) tensor for
     the SM clock of block 1 (the first off-diagonal tile pair) at its start
-    and at the end of each of its six phases."""
+    and at the end of each of its six phases.  ``out``: as in
+    ``_update_launch``."""
     dtype = P.dtype
     entry = {torch.float32: "rank12_f32", torch.float64: "rank12_f64"}.get(dtype)
     if entry is None:
@@ -475,7 +549,7 @@ def _rank12_kernel(P, B, r, cols, obs_noise, state=None, clocks=None, include=No
     for x in (B, r):
         if x.device != P.device:
             raise ValueError(f"tensor on {x.device}, expected {P.device}")
-    vals, flag, _, inject, _keep = _update_launch(P, state, 0)
+    vals, flag, _, inject, _keep = _update_launch(P, state, 0, out)
     kernels.launch(entry, P.data_ptr(), D, B.data_ptr(), K, R, *strides[:2], r.data_ptr(),
                    *strides[2:], include.data_ptr() if include is not None else None,
                    cols.data_ptr(), noise.data_ptr(), vals.data_ptr(), *inject,
@@ -538,6 +612,110 @@ def apply_update_rank12_rows(state: FilterState, params: MsckfParams, H12, r_blk
 
 
 apply_update_rank12_rows.launches = 0
+
+
+def _fleet_rows(state: FilterState, work: int):
+    """One allocation for a fleet's EKF updates, K11 or K12 launched once
+    per updating instance: a row per instance of ``_update_values`` and
+    ``work`` values (each row 16-byte aligned), then the S too_large flags.
+    Returns (vals (S, row), flags (S,))."""
+    cov = state.cov
+    S, D, N = cov.shape[0], cov.shape[-1], state.cams.q.shape[1]
+    size = cov.element_size()
+    row = _update_values(D, N, size) + (work * size + 15) // 16 * 16 // size
+    buf = torch.empty(S * row * size + S, dtype=torch.uint8, device=cov.device)
+    return buf[:S * row * size].view(cov.dtype).view(S, row), buf[S * row * size:].view(
+        torch.bool)
+
+
+def _write_row(vals, flag, state: FilterState, too_large):
+    """A plain update's state into its row of ``_fleet_rows`` (the CPU's
+    stand-in for a kernel's writes; delta is not kept)."""
+    D = state.cov.shape[-1]
+    imu, cams = state.imu, state.cams
+    vals[:D * D] = state.cov.reshape(-1)
+    fields = torch.cat([imu.q, imu.bg, imu.v, imu.ba, imu.p, imu.R_imu_cam0.reshape(-1),
+                        imu.t_cam0_imu, cams.q.reshape(-1), cams.p.reshape(-1)])
+    vals[D * D + D:D * D + D + fields.shape[0]] = fields
+    flag.copy_(too_large)
+
+
+def _fleet_injected(state: FilterState, vals, flags, upd: list, upd_mask):
+    """The fleet's state after its instances ``upd`` (host flags; the same
+    as ``upd_mask`` (S,) on the device) wrote their updates into ``vals``:
+    views of the one allocation when every instance updated, else each
+    field taken from the allocation where ``upd_mask`` holds.  Returns
+    (state, too_large (S,))."""
+    S, D, N = state.cov.shape[0], state.cov.shape[-1], state.cams.q.shape[1]
+    o = D * D + D
+    q, bg, v, ba, p, R, t, cq, cp = vals[:, o:o + 28 + 7 * N].split(
+        (4, 3, 3, 3, 3, 9, 3, 4 * N, 3 * N), 1)
+    imu, cams = state.imu, state.cams
+    new = (vals[:, :D * D].view(S, D, D), q, bg, v, ba, p, R.view(S, 3, 3), t, cq.view(S, N, 4),
+           cp.view(S, N, 3), flags)
+    old = (state.cov, imu.q, imu.bg, imu.v, imu.ba, imu.p, imu.R_imu_cam0, imu.t_cam0_imu,
+           cams.q, cams.p, torch.zeros_like(flags))
+    if not all(upd):
+        new = tuple(torch.where(upd_mask.view((S,) + (1,) * (x.dim() - 1)), x, y)
+                    for x, y in zip(new, old))
+    cov, q, bg, v, ba, p, R, t, cq, cp, too_large = new
+    imu = imu._replace(q=q, bg=bg, v=v, ba=ba, p=p, R_imu_cam0=R, t_cam0_imu=t)
+    return state._replace(imu=imu, cams=cams._replace(q=cq, p=cp), cov=cov), too_large
+
+
+def apply_update_fleet(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true,
+                       upd: list, upd_mask):
+    """``apply_update`` of a fleet's instances whose host flag in ``upd``
+    is set (``upd_mask`` the same flags on the device), each on its buffer
+    H_buf[b] (R, D), r_buf[b] and its row tier ``rows_true[b]`` (host
+    ints).  K11 has no instance axis: on the card ONE launch per updating
+    instance, each writing into its row of one allocation for the fleet
+    (no copy of an instance's state); on the CPU the plain version.
+    Returns (state, too_large (S,))."""
+    cov = state.cov
+    cuda = cov.device.type == "cuda"
+    idx = [b for b, u in enumerate(upd) if u]
+    work = max(_update_work(H_buf.shape[1], cov.shape[-1], rows_true[b])[2]
+               for b in idx) if cuda else 0
+    vals, flags = _fleet_rows(state, work)
+    for b in idx:
+        one = tree.index(state, b)
+        if not cuda:
+            _write_row(vals[b], flags[b], *apply_update_plain(one, params, H_buf[b], r_buf[b],
+                                                              rows_true[b]))
+            continue
+        kernels.observe("apply_update", (one, params, H_buf[b], r_buf[b], rows_true[b]))
+        _ekf_update_kernel(one.cov, H_buf[b], r_buf[b], params.obs_noise, rows_true[b], one,
+                           out=(vals[b], flags[b]))
+        apply_update.launches += 1
+        apply_update.tiers[update_tier(H_buf.shape[1], H_buf.shape[2], rows_true[b])] += 1
+    return _fleet_injected(state, vals, flags, upd, upd_mask)
+
+
+def apply_update_rank12_rows_fleet(state: FilterState, params: MsckfParams, H12, r_blk,
+                                   include, cols, upd: list, upd_mask, n_feats: list):
+    """``apply_update_rank12_rows`` of a fleet's instances whose host flag
+    in ``upd`` is set, each on its first ``n_feats[b]`` blocks H12[b]
+    (K, R, 12), r_blk[b], include[b] (its own feature tier: the blocks
+    past it are excluded, and the plain version's sums run over the blocks
+    it is given) and columns cols[b] (12,).  K12 has no instance axis: on
+    the card ONE launch per pruning instance into its row of one allocation
+    for the fleet; on the CPU the plain version.  Returns (state, too_large
+    (S,))."""
+    cuda = state.cov.device.type == "cuda"
+    vals, flags = _fleet_rows(state, 0)
+    for b in (b for b, u in enumerate(upd) if u):
+        one = tree.index(state, b)
+        k = n_feats[b]
+        args = (one, params, H12[b, :k], r_blk[b, :k], include[b, :k], cols[b])
+        if not cuda:
+            _write_row(vals[b], flags[b], *apply_update_rank12_rows_plain(*args))
+            continue
+        kernels.observe("apply_update_rank12_rows", args)
+        _rank12_kernel(one.cov, *args[2:4], cols[b], params.obs_noise, one, include=args[4],
+                       out=(vals[b], flags[b]))
+        apply_update_rank12_rows.launches += 1
+    return _fleet_injected(state, vals, flags, upd, upd_mask)
 
 
 def ekf_update_plain(P, H_buf, r_buf, obs_noise, rows_true=None):
@@ -606,7 +784,21 @@ def _update_layout(m: int, D: int) -> int:
     return _round4(D * D) + D * mp + m * Cs + m * mp + _round4(D) + mp
 
 
-def _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true, state=None, clocks=None):
+def _update_work(n_rows: int, D: int, rows_true):
+    """(the rows K11 factors, its QR tier, the values of its workspace) for
+    a buffer of n_rows rows whose first ``rows_true`` hold data."""
+    tier = update_tier(n_rows, D, rows_true)
+    if tier == "QR":
+        # only the first rows_true rows hold data; the rest reflect to zeros
+        m = min(max(int(rows_true), D), n_rows)
+        C = D + 1
+        return m, True, _round4(m * C) + max(m + 33 * C + 32, _update_layout(D, D))
+    m = n_rows if tier == "all" else max(int(rows_true), 1)
+    return m, False, _update_layout(m, D)
+
+
+def _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true, state=None, clocks=None,
+                       out=None):
     """K11's launch: the whole update of the row tier ``rows_true`` selects,
     and with a ``state`` the injection, in one launch of one block.  On the
     T1 and T2 tiers the kernel factors the true rows only (the rows past
@@ -614,8 +806,9 @@ def _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true, state=None, clocks
     first compresses the stack's first max(rows_true, D) rows.  The one
     allocation holds the outputs and the workspace.  ``clocks``, an int64
     CUDA tensor of 7, receives the SM clock at the kernel's phase
-    boundaries (tools/kernel_probe.py).  Returns (P_new, delta, the injected
-    state or None, too_large or None)."""
+    boundaries (tools/kernel_probe.py).  ``out``: as in ``_update_launch``.
+    Returns (P_new, delta, the injected state or None, too_large or
+    None)."""
     dtype = P.dtype
     suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
     if suffix is None:
@@ -626,18 +819,10 @@ def _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true, state=None, clocks
     if P.shape != (D, D) or r_buf.shape != (n_rows,):
         raise ValueError(f"ekf_update: P {tuple(P.shape)}, H {tuple(H_buf.shape)}, "
                          f"r {tuple(r_buf.shape)}")
-    tier = update_tier(n_rows, D, rows_true)
-    C = D + 1
-    if tier == "QR":
-        # only the first rows_true rows hold data; the rest reflect to zeros
-        m = min(max(int(rows_true), D), n_rows)
-        work = _round4(m * C) + max(m + 33 * C + 32, _update_layout(D, D))
-    else:
-        m = n_rows if tier == "all" else max(int(rows_true), 1)
-        work = _update_layout(m, D)
-    vals, flag, work_ptr, inject, _keep = _update_launch(P, state, work)
+    m, qr, work = _update_work(n_rows, D, rows_true)
+    vals, flag, work_ptr, inject, _keep = _update_launch(P, state, work, out)
     kernels.launch(f"ekf_update_{suffix}", P.data_ptr(), D, H_buf.data_ptr(), r_buf.data_ptr(),
-                   m, int(tier == "QR"), noise.data_ptr(), work_ptr, vals.data_ptr(), *inject,
+                   m, int(qr), noise.data_ptr(), work_ptr, vals.data_ptr(), *inject,
                    clocks.data_ptr() if clocks is not None else None)
     P_new, delta = vals[:D * D].view(D, D), vals[D * D:D * D + D]
     if state is None:

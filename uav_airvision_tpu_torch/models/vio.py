@@ -17,7 +17,7 @@ from .frontend.params import FrontendParams, make_frontend_params
 from .frontend.pipeline import (FrontendState, frontend_step, frontend_step_fleet,
                                 init_frontend_state)
 from .msckf.state import FilterState, MsckfParams, init_state, make_params
-from .msckf.step import FrameInput, StepOutput, backend_step, backend_step_fleet, backend_steps
+from .msckf.step import FrameInput, StepOutput, backend_step, backend_step_fleet
 
 
 class VioState(NamedTuple):
@@ -96,26 +96,16 @@ def vio_step_fleet(bstate: VioState, bframe: VioFrame, fparams: FrontendParams,
     """B instances' frames (every leaf with a leading instance axis; JAX's
     ``vio_step_fleet``, defined equal to ``vmap(vio_step)``): the batched
     front-end (``frontend_step_fleet``: K2, K4+K6, K5 and K1 launched once for
-    the batch), then ``backend_step_fleet``.  ``active`` holds the B
+    the batch), then the batched back-end (``backend_step_fleet``: K14, K13,
+    K9 and K10 launched once a stage for the batch).  ``active`` holds the B
     ``bframe.active`` flags as host values.  Returns (state, StepOutput with
-    a leading instance axis); each instance's slice is its ``vio_step``."""
+    a leading instance axis, FrontendOutput); each instance's slice is its
+    ``vio_step``."""
     fe_state, fe_out = frontend_step_fleet(bstate.frontend, bframe.cam0, bframe.cam1,
                                            bframe.fe_mean_w, bframe.fe_dt, fparams, config)
     filt, out = backend_step_fleet(bstate.filter, _backend_frame(
         bframe, fe_out, bstate.filter.cov.dtype, active), mparams, config)
-    return VioState(frontend=fe_state, filter=filt), out
-
-
-def fleet_steps(fe_state: FrontendState, filters, bframe: VioFrame, fparams: FrontendParams,
-                mparams: MsckfParams, config: Config, active):
-    """``vio_step_fleet`` on a fleet whose filter states are kept as a list of
-    the instances' states (``backend_steps``).  Returns (front-end state,
-    filter states, StepOutput, FrontendOutput)."""
-    fe_state, fe_out = frontend_step_fleet(fe_state, bframe.cam0, bframe.cam1,
-                                           bframe.fe_mean_w, bframe.fe_dt, fparams, config)
-    filters, out = backend_steps(filters, _backend_frame(bframe, fe_out, filters[0].cov.dtype,
-                                                         active), mparams, config)
-    return fe_state, filters, out, fe_out
+    return VioState(frontend=fe_state, filter=filt), out, fe_out
 
 
 def run_sequence(config: Config, frames: VioFrame, gyro_bias, acc_mean, fparams=None,

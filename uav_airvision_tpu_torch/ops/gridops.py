@@ -49,48 +49,63 @@ def _flat(t: torch.Tensor, dtype, n: int, what: str) -> torch.Tensor:
     return t.contiguous()
 
 
+def _drop_scatter(idx: torch.Tensor, val: torch.Tensor, n_out: int, fill: int):
+    """(..., n_out) int32 holding ``fill`` and ``val`` scattered along the
+    last axis at ``idx``, where an index of n_out drops (a dump column)."""
+    out = torch.full(idx.shape[:-1] + (n_out + 1,), fill, dtype=torch.int32,
+                     device=idx.device)
+    return out.scatter(-1, idx, val.expand(idx.shape))[..., :n_out]
+
+
+def _instances(x: torch.Tensor, dtype, what: str):
+    """A K8 operand of one (n,) or S (S, n) instances: (flat contiguous, S, n)."""
+    if x.dtype != dtype or x.dim() not in (1, 2):
+        raise ValueError(f"{what}: expected (n,) or (S, n) {dtype}, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    S, n = (1, x.shape[0]) if x.dim() == 1 else x.shape
+    return x.contiguous(), S, n
+
+
 def smallest_k_indices_plain(key: torch.Tensor, k: int) -> torch.Tensor:
-    n = key.shape[0]
+    n = key.shape[-1]
     idx = torch.arange(n, dtype=torch.int32, device=key.device)
-    before = (key[:, None] < key[None, :]) | (
-        (key[:, None] == key[None, :]) & (idx[:, None] < idx[None, :]))
-    rank = before.sum(0, dtype=torch.int32)
-    out = torch.zeros((k,), dtype=torch.int32, device=key.device)
-    return set_drop(out, torch.clamp(rank, max=k).long(), idx)
+    a, b = key[..., :, None], key[..., None, :]
+    before = (a < b) | ((a == b) & (idx[:, None] < idx[None, :]))
+    rank = before.sum(-2, dtype=torch.int32)
+    return _drop_scatter(torch.clamp(rank, max=k).long(), idx, k, 0)
 
 
 def smallest_k_indices(key: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k smallest (key, index) pairs, ascending (a stable
-    argsort's first k); slots past the key's length hold 0."""
+    argsort's first k); slots past the key's length hold 0.  ``key`` (n,),
+    or (S, n) for S instances at once (one launch, (S, k) out)."""
     if not _on_cuda(key, "K8"):
         return smallest_k_indices_plain(key, k)
     kernels.observe("smallest_k_indices", (key, k))
-    n = key.shape[0]
-    key = _flat(key, torch.int32, n, "smallest_k_indices key")
-    out = torch.empty((k,), dtype=torch.int32, device=key.device)
-    kernels.launch("grid_smallest_k", kernels.ptr(key), n, int(k), kernels.ptr(out))
+    key, S, n = _instances(key, torch.int32, "smallest_k_indices key")
+    out = torch.empty(key.shape[:-1] + (k,), dtype=torch.int32, device=key.device)
+    kernels.launch("grid_smallest_k", kernels.ptr(key), S, n, int(k), kernels.ptr(out))
     smallest_k_indices.launches += 1
     return out
 
 
 def stable_compact_indices_plain(mask: torch.Tensor, fill: int) -> torch.Tensor:
-    n = mask.shape[0]
+    n = mask.shape[-1]
     m32 = mask.to(torch.int32)
-    rank = torch.cumsum(m32, 0, dtype=torch.int32) - m32
-    out = torch.full((n,), fill, dtype=torch.int32, device=mask.device)
-    return set_drop(out, torch.where(mask, rank, n).long(),
-                    torch.arange(n, dtype=torch.int32, device=mask.device))
+    rank = torch.cumsum(m32, -1, dtype=torch.int32) - m32
+    return _drop_scatter(torch.where(mask, rank, n).long(),
+                         torch.arange(n, dtype=torch.int32, device=mask.device), n, fill)
 
 
 def stable_compact_indices(mask: torch.Tensor, fill: int) -> torch.Tensor:
-    """Indices where ``mask`` is True, ascending, padded with ``fill``."""
+    """Indices where ``mask`` is True, ascending, padded with ``fill``;
+    ``mask`` (n,), or (S, n) for S instances at once (one launch)."""
     if not _on_cuda(mask, "K8"):
         return stable_compact_indices_plain(mask, fill)
     kernels.observe("stable_compact_indices", (mask, fill))
-    n = mask.shape[0]
-    mask = _flat(mask, torch.bool, n, "stable_compact_indices mask")
-    out = torch.empty((n,), dtype=torch.int32, device=mask.device)
-    kernels.launch("grid_stable_compact", kernels.ptr(mask), n, int(fill), kernels.ptr(out))
+    mask, S, n = _instances(mask, torch.bool, "stable_compact_indices mask")
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    kernels.launch("grid_stable_compact", kernels.ptr(mask), S, n, int(fill), kernels.ptr(out))
     stable_compact_indices.launches += 1
     return out
 

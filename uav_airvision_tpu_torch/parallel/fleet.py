@@ -6,10 +6,12 @@ JAX package scales over instances (concurrent UAVs, offset sweeps,
 sequences) with ``vmap`` and shards the batch over a TPU mesh; here the B
 instances share one card and one frame's host work: the front-end's image
 kernels (K2, K4+K6, K5 and K1) launch once per frame for the whole batch
-(``models/frontend/pipeline.py::frontend_step_fleet``) and the back-end runs
-each instance's step (``models/msckf/step.py::backend_step_fleet``).  Each
+(``models/frontend/pipeline.py::frontend_step_fleet``), and the back-end
+(``models/msckf/step.py::backend_step_fleet``) reads each decision to the
+host once for the batch and launches K14, K13, K9 and K10 once a stage for
+the instances that need it (K11 and K12 once per updating instance).  Each
 instance's outputs are its single-instance outputs (``run_sequence`` on its
-frames).
+frames), bit for bit.
 
 Not ported: ``place_fleet``, ``default_mesh`` and ``run_fleet``'s ``mesh``
 and ``axis`` (they shard over a TPU mesh; this is one card), ``tiered`` and
@@ -27,7 +29,7 @@ from ..device import get_device, to_host
 from ..models.frontend.params import make_frontend_params
 from ..models.msckf.state import make_params
 from ..models.msckf.step import StepOutput
-from ..models.vio import VioFrame, VioState, fleet_steps, init_vio_state, vio_step_fleet
+from ..models.vio import VioFrame, VioState, init_vio_state, vio_step_fleet
 from ..utils import tree
 
 
@@ -43,15 +45,10 @@ def init_fleet_state(config: Config, gyro_bias, acc_mean, n: int,
     and instance b's slice is ``init_vio_state`` of ``gyro_bias[b]`` and
     ``acc_mean[b]`` ((n, 3) each; one (3,) is every instance's).  On the card
     unless the caller passes the CPU."""
-    return tree.stack(_init_states(config, gyro_bias, acc_mean, n, get_device(device)))
-
-
-def _init_states(config: Config, gyro_bias, acc_mean, n: int, device):
-    """The n instances' ``init_vio_state``s, a list."""
-    mparams = make_params(config, device)
+    mparams = make_params(config, get_device(str(device)))
     gb = np.array(np.broadcast_to(np.asarray(gyro_bias, np.float64), (n, 3)))
     am = np.array(np.broadcast_to(np.asarray(acc_mean, np.float64), (n, 3)))
-    return [init_vio_state(config, gb[b], am[b], mparams) for b in range(n)]
+    return tree.stack([init_vio_state(config, gb[b], am[b], mparams) for b in range(n)])
 
 
 def make_fleet_step(config: Config, device="cuda"):
@@ -62,7 +59,9 @@ def make_fleet_step(config: Config, device="cuda"):
     fparams, mparams = make_frontend_params(config, dev), make_params(config, dev)
 
     def step(bstate: VioState, bframe: VioFrame):
-        return vio_step_fleet(bstate, bframe, fparams, mparams, config, to_host(bframe.active))
+        state, out, _ = vio_step_fleet(bstate, bframe, fparams, mparams, config,
+                                       to_host(bframe.active))
+        return state, out
 
     return step
 
@@ -70,29 +69,22 @@ def make_fleet_step(config: Config, device="cuda"):
 def run_fleet(config: Config, frames: VioFrame, gyro_bias, acc_mean, state: VioState = None,
               on_frame=None):
     """Every frame of ``frames`` (each leaf (T, B, ...)) through the fleet
-    step.  Returns (state, StepOutput with (T, B, ...) leaves).  The device
-    is the frames' device; the ``active`` flags are read back once for the
-    run.  ``on_frame(k, fe_out, out)``, if given, sees each frame's batched
-    FrontendOutput and StepOutput.  Between frames the instances' filter
-    states are kept apart (``models/vio.py::fleet_steps``) and stacked into
-    the returned state at the end."""
+    step, the stacked state carried from frame to frame.  Returns (state,
+    StepOutput with (T, B, ...) leaves).  The device is the frames' device;
+    the ``active`` flags are read back once for the run.
+    ``on_frame(k, fe_out, out)``, if given, sees each frame's batched
+    FrontendOutput and StepOutput."""
     device = get_device(str(frames.cam0.device))
     fparams, mparams = make_frontend_params(config, device), make_params(config, device)
     n = frames.timestamp.shape[1]
-    if state is None:  # each instance's state as init_vio_state lays it out
-        states = _init_states(config, gyro_bias, acc_mean, n, device)
-        fe_state = tree.stack([s.frontend for s in states])
-        filters = [s.filter for s in states]
-    else:
-        fe_state, filters = state.frontend, [tree.index(state.filter, b) for b in range(n)]
+    if state is None:
+        state = init_fleet_state(config, gyro_bias, acc_mean, n, device)
     active = to_host(frames.active)
     outs = []
     for k in range(frames.timestamp.shape[0]):
         frame = VioFrame(*(x[k] for x in frames))
-        fe_state, filters, out, fe_out = fleet_steps(fe_state, filters, frame, fparams, mparams,
-                                                     config, active[k])
+        state, out, fe_out = vio_step_fleet(state, frame, fparams, mparams, config, active[k])
         if on_frame is not None:
             on_frame(k, fe_out, out)
         outs.append(out)
-    return (VioState(frontend=fe_state, filter=tree.stack(filters)),
-            StepOutput(*(torch.stack(xs) for xs in zip(*outs))))
+    return state, StepOutput(*(torch.stack(xs) for xs in zip(*outs)))

@@ -17,6 +17,13 @@ def skew(v):
     ], dim=-2)
 
 
+def matvec(M, x):
+    """M (..., i, j) times x (..., j), x broadcast against M's leading axes,
+    as elementwise products summed in j order: a row's bits do not depend
+    on how many rows or instances the call holds (a library product's can)."""
+    return sum(M[..., j] * x[..., None, j] for j in range(M.shape[-1]))
+
+
 def normalize(q):
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 

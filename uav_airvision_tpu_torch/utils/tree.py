@@ -6,7 +6,8 @@ instance, a ``Pyramid`` batch is one leaf (``Pyramid.instance``,
 ``active`` flags) holds one value per instance.  ``split_run`` runs two branches on two subsets of the
 instances, each once, and merges their outputs back into instance order:
 the port's form of a per-instance ``lax.cond`` under ``vmap``, whose
-decision is a host flag per instance.
+decision is a host flag per instance.  ``map_leaves`` maps trees leaf by
+leaf, ``one`` gives a single instance's tensors a fleet's axis.
 """
 
 from __future__ import annotations
@@ -30,6 +31,21 @@ def index(tree, b: int):
     if isinstance(tree, (torch.Tensor, list)):
         return tree[b]
     return tree
+
+
+def map_leaves(fn, *trees):
+    """``fn`` leaf by leaf over trees of one structure (NamedTuples of
+    tensors); a ``None`` leaf stays ``None``."""
+    first = trees[0]
+    if _is_node(first):
+        return type(first)(*(map_leaves(fn, *xs) for xs in zip(*trees)))
+    return None if first is None else fn(*trees)
+
+
+def one(*xs):
+    """Each tensor (or None) with a leading instance axis of one: a single
+    instance's call as a fleet's of one."""
+    return tuple(x[None] if x is not None else None for x in xs)
 
 
 def stack(trees):
