@@ -200,8 +200,11 @@
 11. [fleet]: FLEET_B = 4 decorrelated instances of the bench world
    (instance b from frame 7 b, 60 frames each, as ``fleet_bench.py
    --decorrelated``) through ``parallel.fleet.run_fleet``, counters at 0
-   (every default-path kernel launched) and the four batched kernels'
-   calls recorded.  Each instance against ``run_sequence`` on its frames
+   (every default-path kernel launched) and the batched kernels' calls
+   recorded.  Every step: K7's prediction and K8's selection once (K8's
+   first-frame entries once on the first), K14 once, K13, K9 and K10 once
+   a stage, K11 and K12 together at most once an update stage (K12 at
+   most once a step).  Each instance against ``run_sequence`` on its frames
    in p, q, v, active, n_features, n_update_rows and did_reset: bit for bit
    is the target; a field that is not gets its largest difference and
    first frame printed, positions held to FLEET_TOL_M.  Every 10th
@@ -210,13 +213,19 @@
    forward and backward, and, in a two-frame fleet run under the compact
    configuration, the compact entry) bit for bit the single launches and
    within K1's bars of the plain version, device us per batched launch
-   printed.  A forced stereo-seed fallback: instance 1's tracks cut after
-   25 frames; it alone falls back (seed counts printed, 5 K1 launches in
-   that frame) and every instance equals its single run from the same
-   state.  Then ``fleet_bench.measure`` at B = 1, 4, 8: instance-frames/s
-   (warm, host clock), host syncs, CUDA launches (torch.profiler) and the
-   four kernels' launches per step (which must not grow with B), their
-   device us per launch, and peak device memory.
+   printed.  Every 8th recorded batched launch of K14, K13, K9, K10, K11,
+   K12, K7's prediction and K8's selection (and the first frame's K8
+   entries) again, within the kernel's bars of its batched plain version
+   and bit for bit its single launches; K11's, K12's, K7's and K8's device
+   us per batched launch and their bounds at B = 4 and 8 (a recorded
+   B = 8 run) printed.  A forced stereo-seed fallback: instance 1's
+   tracks cut after 25 frames; it alone falls back (seed counts printed, 5
+   K1 launches in that frame) and every instance equals its single run
+   from the same state.  Then ``fleet_bench.measure`` at B = 1, 4, 8: instance-frames/s
+   (warm, host clock), host syncs, CUDA launches (torch.profiler), the
+   batched front-end kernels' launches per step (which must not grow with
+   B), the back-end's, every batched kernel's device us per launch and
+   per step, and peak device memory.
 12. Prints the per-kernel JSON line (launches of the batch run, for P1 of
    the compact run: K1's compact entry, which does P1's copy; max error, ms, plain ms, the bound and what binds it,
    the library call's ms where one PyTorch call does most of the
@@ -564,17 +573,21 @@ def check_lk_recorded(rec, levels=None, tag="[K1]"):
           f"{sorted({sh for sh, _ in calls})}: within the bars (max err {worst:.3e} px)")
 
 
-# the batched wrappers' image and point arguments, by position
-BATCHED_ARGS = {"build_pyramid_pair": (0, 1), "detect_fast": (0, 2, 3), "dense_grid_topk": (0,),
-                "pyramidal_lk": (2, 3, 4), "pyramidal_lk_compact": (2, 3, 4)}
+# the batched front-end wrappers' per-instance arguments, by position, and
+# the dimensions of the first of them with the instance axis
+BATCHED_ARGS = {"build_pyramid_pair": ((0, 1), 3), "detect_fast": ((0, 2, 3), 3),
+                "dense_grid_topk": ((0,), 3), "pyramidal_lk": ((2, 3, 4), 3),
+                "pyramidal_lk_compact": ((2, 3, 4), 3), "predict_warp_points": ((0, 1, 2), 3),
+                "select_track": (tuple(range(11)), 3), "rank_in_cell": ((0, 1, 2, 3), 2),
+                "kept_order_stats": ((0, 1, 2, 3), 2), "compact_kept": ((0, 1), 2)}
 
 
 def _single_call(name, args):
     """A call of a batched kernel's wrapper on one instance (a leading axis
     of 1: the single path is the fleet's B = 1 step) as its single-instance
     call, the same launch: the leading axis dropped."""
-    pos = BATCHED_ARGS.get(name, ())
-    if not pos or args[pos[0]].dim() != 3 or args[pos[0]].shape[0] != 1:
+    pos, ndim = BATCHED_ARGS.get(name, ((), 0))
+    if not pos or args[pos[0]].dim() != ndim or args[pos[0]].shape[0] != 1:
         return args
     return tuple(a[0] if i in pos and a is not None else a for i, a in enumerate(args))
 
@@ -2607,12 +2620,14 @@ FLEET_FIELDS = ("p", "q", "v", "active", "n_features", "n_update_rows", "did_res
 
 class FleetRecorder:
     """Observer of the batched kernels' wrappers (the front-end's K2, K4+K6,
-    K5, K1 and the back-end's K14, K13, K9, K10): keeps the arguments of
-    every call, by wrapper name."""
+    K5, K1, K7's prediction and K8's entries, the back-end's K14, K13, K9,
+    K10, K11 and K12): keeps the arguments of every call, by wrapper name."""
 
     NAMES = ("build_pyramid_pair", "detect_fast", "dense_grid_topk", "pyramidal_lk",
              "pyramidal_lk_compact", "propagate", "triangulate_rows", "feature_block_rows",
-             "gating_test_batch")
+             "gating_test_batch", "apply_update_fleet", "apply_update_rank12_rows_fleet",
+             "predict_warp_points", "select_track", "rank_in_cell", "kept_order_stats",
+             "compact_kept")
 
     def __init__(self):
         self.calls = {name: [] for name in self.NAMES}
@@ -2669,27 +2684,47 @@ def _check_batched(tag, got, want_batched, singles):
 
 def _fleet_backend_steps(steps, outs):
     """The back-end's launches per fleet step, from the wrappers' counts
-    after each step (``steps``: [(batched counts, per-instance counts)]) and
+    after each step (``steps``: [(back-end counts, front-end counts)]) and
     the step's outputs: K14 once a step with an active instance, K13, K9
     and K10 once a stage each (the lost pass, its overflow pass, the
-    prune: at most three), and at least once where an instance updated or
-    pruned.  Returns the per-instance K11 and K12 launches per step."""
-    prev = ({k: 0 for k in steps[0][0]}, {k: 0 for k in steps[0][1]})
-    per_inst = {k: 0 for k in steps[0][1]}
+    prune: at most three) and at least once where an instance updated or
+    pruned; K11 and K12 at most once an update stage together (so at most
+    K13's count), K12 at most once a step, and K11 at least once where an
+    instance's lost pass updated.  Returns each kernel's launches per step."""
+    prev = {k: 0 for k in steps[0][0]}
     bad = []
-    for k, (be, pi) in enumerate(steps):
-        d = {n: be[n] - prev[0][n] for n in be}
-        for n in pi:
-            per_inst[n] += pi[n] - prev[1][n]
-        prev = (be, pi)
+    for k, (be, _) in enumerate(steps):
+        d = {n: be[n] - prev[n] for n in be}
+        prev = be
         active = bool(outs.active[k].any())
-        stage = bool((outs.n_update_rows[k] > 0).any() or (outs.n_prune_feats[k] > 0).any())
+        updated = bool((outs.n_update_rows[k] > 0).any())
+        stage = updated or bool((outs.n_prune_feats[k] > 0).any())
         if (d["K14"] != int(active) or not d["K13"] == d["K9"] == d["K10"] <= 3
-                or (stage and d["K13"] == 0)):
+                or (stage and d["K13"] == 0) or d["K12"] > 1 or d["K11"] + d["K12"] > d["K13"]
+                or (updated and d["K11"] == 0)):
             bad.append((k, d))
     if bad:
         fail(f"[fleet] the back-end's batched kernels not once a stage on steps {bad[:5]}")
-    return {n: v / len(steps) for n, v in per_inst.items()}
+    return {n: v / len(steps) for n, v in steps[-1][0].items()}
+
+
+def _fleet_frontend_steps(steps):
+    """The front-end's K7 prediction and K8 entries per fleet step, from
+    the wrappers' counts after each step: K8's first-frame entries (ranking,
+    kept-order statistics, compaction) once each on the first step, where
+    every instance starts, and K7's prediction and K8's selection once a
+    step after it, for all instances at once."""
+    prev = {k: 0 for k in steps[0][1]}
+    bad = []
+    for k, (_, fe) in enumerate(steps):
+        d = {n: fe[n] - prev[n] for n in fe}
+        prev = fe
+        want = ({"K7 predict": 0, "K8 select": 0, "K8 first frame": 3} if k == 0
+                else {"K7 predict": 1, "K8 select": 1, "K8 first frame": 0})
+        if d != want:
+            bad.append((k, d))
+    if bad:
+        fail(f"[fleet] K7's prediction and K8's entries not once a step on steps {bad[:5]}")
 
 
 def _check_backend_batched(rec):
@@ -2785,6 +2820,186 @@ def _check_backend_batched(rec):
     return res
 
 
+def _check_update_batched(rec, B):
+    """Every 8th recorded batched launch of K11 (``apply_update_fleet``), K12
+    (``apply_update_rank12_rows_fleet``), K7's prediction and K8's selection
+    of the fleet run, and its first frame's K8 entries, again: K11 within
+    check_ekf_update's float32 bar (P within max(1e-5 of max(|P|, 1), 4 x the
+    float32 plain version's distance) of the float64 batched plain version),
+    K12 within 1e-4 of max(|P|, 1) of the batched plain version (each
+    changed field), K7 within its bars (the rotation 4 ulps of 1.0, the
+    points 4 ulps at 752 px), K8 exact; each instance bit for bit its single
+    launch.  Device us per batched launch (torch.profiler, the latest
+    call).  Returns {kernel: (launches checked, largest error)}."""
+    import torch
+
+    from uav_airvision_tpu_torch.models.msckf import update as upd
+    from uav_airvision_tpu_torch.ops import camera, gridops
+    from uav_airvision_tpu_torch.utils import tree
+
+    res, us = {}, {}
+
+    def single(tag, b, got, one):
+        if not all(torch.equal(g, o) for g, o in zip(got, one)):
+            fail(f"[fleet] {tag}: instance {b} of the batched launch differs from its single "
+                 f"launch")
+
+    def timed(tag, fn, calls, kernels):
+        if calls:
+            n, dev_us = _profile_calls(lambda: fn(*calls[-1]), kernels=kernels)
+            us[tag] = round(dev_us, 2)
+            if n != 1.0:
+                fail(f"[fleet] {tag}: {n} launches a batched call, not one")
+
+    calls = rec.calls["apply_update_fleet"]
+    worst = 0.0
+    for a in calls[::8]:
+        st, params, H, r, rows, flags, mask = a
+        got, warn = upd.apply_update_fleet(*a)
+        want, _ = upd.apply_update_fleet_plain(*_cast((st, params), torch.float64), H.double(),
+                                               r.double(), rows, flags, mask)
+        p32, _ = upd.apply_update_fleet_plain(*a)
+        for b in (b for b, f in enumerate(flags) if f):
+            g, w, p = (tree.index(x, b) for x in (got, want, p32))
+            e = float((g.cov.double() - w.cov).abs().max())
+            e32 = float((p.cov.double() - w.cov).abs().max())
+            worst = max(worst, e)
+            if not e <= max(1e-5 * max(float(w.cov.abs().max()), 1.0), 4 * e32) or not \
+                    torch.equal(g.cov, g.cov.T):
+                fail(f"[fleet] K11 batched, instance {b} ({rows[b]} rows): P error {e:.3e}, "
+                     f"the float32 plain version's {e32:.3e}")
+            one, owarn = upd.apply_update(tree.index(st, b), params, H[b], r[b], rows[b])
+            single("K11", b, (*_state_fields(g).values(), warn[b]),
+                   (*_state_fields(one).values(), owarn))
+    res["K11"] = (len(calls[::8]), worst)
+    timed("K11", upd.apply_update_fleet, calls, ("update_kernel",))
+
+    calls = rec.calls["apply_update_rank12_rows_fleet"]
+    worst = 0.0
+    for a in calls[::8]:
+        st, params, H12, r_blk, include, cols, flags, mask, n_feats = a
+        got, warn = upd.apply_update_rank12_rows_fleet(*a)
+        want, pwarn = upd.apply_update_rank12_rows_fleet_plain(*a)
+        for b in (b for b, f in enumerate(flags) if f):
+            g, w = _state_fields(tree.index(got, b)), _state_fields(tree.index(want, b))
+            e = max(float((g[k] - w[k]).abs().max()) for k in g) / max(
+                float(w["cov"].abs().max()), 1.0)
+            worst = max(worst, e)
+            if not e <= 1e-4 or bool(warn[b]) != bool(pwarn[b]):
+                fail(f"[fleet] K12 batched, instance {b} ({n_feats[b]} features): error "
+                     f"{e:.3e} of max(|P|, 1)")
+            k = n_feats[b]
+            one, owarn = upd.apply_update_rank12_rows(tree.index(st, b), params, H12[b, :k],
+                                                      r_blk[b, :k], include[b, :k], cols[b])
+            single("K12", b, (*g.values(), warn[b]), (*_state_fields(one).values(), owarn))
+    res["K12"] = (len(calls[::8]), worst)
+    timed("K12", upd.apply_update_rank12_rows_fleet, calls, ("rank12_kernel",))
+
+    calls = [a for a in rec.calls["predict_warp_points"] if a[0].dim() == 3]
+    worst = 0.0
+    for a in calls[::8]:
+        (got, R), (want, pR) = camera.predict_warp_points(*a), camera.predict_warp_points_plain(*a)
+        e_rot, e_pts = float((R - pR).abs().max()), float((got - want).abs().max())
+        worst = max(worst, e_pts)
+        if not (e_rot <= 4 * 2.0 ** -23 and e_pts <= 4 * PX_ULP):
+            fail(f"[fleet] K7 prediction batched: rotation {e_rot:.3e}, points {e_pts:.3e} px")
+        for b in range(a[0].shape[0]):
+            single("K7 prediction", b, (got[b], R[b]),
+                   camera.predict_warp_points(a[0][b], a[1][b], a[2][b], *a[3:]))
+    res["K7 predict"] = (len(calls[::8]), worst)
+    timed("K7 predict", camera.predict_warp_points, calls, ("predict_warp_kernel",))
+
+    calls = [a for a in rec.calls["select_track"] if a[0].dim() == 3]
+    for a in calls[::8]:
+        got = gridops.select_track(*a)
+        if not all(torch.equal(g, w) for g, w in zip(got, gridops.select_track_plain(*a))):
+            fail("[fleet] K8 select_track batched differs from its batched plain version")
+        for b in range(a[0].shape[0]):
+            single("K8 select_track", b, [g[b] for g in got],
+                   gridops.select_track(*(x[b] for x in a[:11]), *a[11:]))
+    res["K8 select"] = (len(calls[::8]), 0.0)
+    timed("K8 select", gridops.select_track, calls, ("select_track_kernel",))
+
+    n_first = 0
+    for name in ("rank_in_cell", "kept_order_stats", "compact_kept"):
+        fn, plain = getattr(gridops, name), getattr(gridops, name + "_plain")
+        for a in (a for a in rec.calls[name] if a[0].dim() == 2):
+            n_first += 1
+            got = fn(*a)
+            if not all(torch.equal(g, w) for g, w in zip(got, plain(*a))):
+                fail(f"[fleet] K8 {name} batched differs from its batched plain version")
+            n_in = 2 if name == "compact_kept" else 4
+            for b in range(a[0].shape[0]):
+                single(f"K8 {name}", b, [g[b] for g in got],
+                       fn(*(x[b] for x in a[:n_in]), *a[n_in:]))
+    res["K8 first frame"] = (n_first, 0.0)
+    print(f"[fleet] K11, K12, K7's prediction and K8 batched at B = {B}: (recorded launches "
+          f"checked, largest error against the batched plain version) {res}; every instance "
+          f"bit for bit its single launch; device us per batched launch {us}")
+    return res, us
+
+
+def _batched_bounds(rec):
+    """The bound (us, what binds) of K11's, K12's, K7's prediction's and
+    K8's selection's batched launches, the mean over a fleet run's recorded
+    calls: each updating (pruning) instance's inputs read once, its outputs
+    written once and its operations, counted as check_ekf_update,
+    check_backend_kernels, check_camera and check_gridops count them for
+    one instance, summed over the launch's instances."""
+    from uav_airvision_tpu_torch.models.msckf import update as upd
+    from uav_airvision_tpu_torch.utils import tree
+
+    out = {}
+
+    def mean(tag, items):  # [(bytes, operations)] a launch
+        if items:
+            bs = [bound(b, o) for b, o in items]
+            out[tag] = (round(sum(b[0] for b in bs) / len(bs) * 1e3, 4), bs[-1][1])
+
+    items = []
+    for st, params, H, r, rows, flags, _ in rec.calls["apply_update_fleet"]:
+        D, size = st.cov.shape[-1], st.cov.element_size()
+        n_bytes = ops = 0.0
+        for b in (b for b, f in enumerate(flags) if f):
+            nz = float(rows[b] if rows[b] is not None else H.shape[1])
+            qr_ops, m = 0.0, nz
+            if upd.update_tier(H.shape[1], D, rows[b]) == "QR":
+                qr_ops, m = 2 * nz * D * D, float(D)
+            ops += (qr_ops + 2 * m * D * D + m * m * D + m ** 3 / 3 + 2 * m * m * D + 2 * m * D
+                    + 2 * m * D * D + 3 * D * D + 40 * D)
+            fields = nbytes(*_state_fields(tree.index(st, b)).values())
+            n_bytes += (2 * D * D * size + (nz * (D + 1) + D + 1) * size
+                        + 2 * (fields - D * D * size))
+        items.append((n_bytes, ops))
+    mean("K11", items)
+    items = []
+    for st, params, H12, r_blk, include, cols, flags, _, n_feats in \
+            rec.calls["apply_update_rank12_rows_fleet"]:
+        D, size = st.cov.shape[-1], st.cov.element_size()
+        n_bytes = ops = 0.0
+        for b in (b for b, f in enumerate(flags) if f):
+            k = n_feats[b]
+            n = 5 * int(include[b, :k].sum())
+            ops += 2 * n * 90 + 3 * 12 ** 3 + 13 * 144 + 2 * D * 156 + 26 * D * D + 40 * D
+            n_bytes += (2 * nbytes(*_state_fields(tree.index(st, b)).values())
+                        + n * 13 * size + nbytes(include[b, :k], cols[b], params.obs_noise))
+        items.append((n_bytes, ops))
+    mean("K12", items)
+    # K7's prediction: points, rate, dt, rotation and intrinsics in, the
+    # points and R out; ~20 operations a point (the warp), ~150 an instance
+    mean("K7 predict", [(nbytes(*a[:5]) + a[0].numel() * 4 + 36 * a[0].shape[0],
+                         20 * a[0].shape[0] * a[0].shape[1] + 150 * a[0].shape[0])
+                        for a in rec.calls["predict_warp_points"] if a[0].dim() == 3])
+    items = []
+    for a in (a for a in rec.calls["select_track"] if a[0].dim() == 3):
+        B, F, C = a[0].shape[0], a[0].shape[1], a[5].shape[1]
+        n = F + C
+        items.append((sum(nbytes(x) for x in a[:11]) + B * (25 * F + 4),
+                      B * 3 * (C * math.log2(C) + 2 * n * math.log2(n))))
+    mean("K8 select", items)
+    return out
+
+
 def run_fleet_phase(config, frames, pb, wrappers, card):
     """[fleet]: B = FLEET_B decorrelated instances of the bench world
     (instance b from frame FLEET_STRIDE * b, FLEET_FRAMES frames each)
@@ -2815,11 +3030,11 @@ def run_fleet_phase(config, frames, pb, wrappers, card):
     _zero(wrappers)
     steps = []
 
-    def counts(k, fe_out, o):  # the back-end's launch counts after each step
+    def counts(k, fe_out, o):  # the back-end's and K7's and K8's launch counts after each step
         steps.append(({n: sum(f.launches for f in fns)
                        for n, fns in fleet_bench.BACKEND.items()},
-                      {n: sum(f.launches for f in fns)
-                       for n, fns in fleet_bench.PER_INSTANCE.items()}))
+                      {n: sum(f.launches for f in fns) for n, fns in fleet_bench.BATCHED.items()
+                       if n.startswith(("K7", "K8"))}))
 
     torch.cuda.synchronize()
     t0 = time.time()
@@ -2832,15 +3047,15 @@ def run_fleet_phase(config, frames, pb, wrappers, card):
     for name, n in per_entry.items():
         if n == 0:
             fail(f"[fleet] the fleet path never launched kernel {name}")
-    batched = {"K2": pyramid.build_pyramid_pair.launches, "K4+K6": fast.detect_fast.launches,
-               "K5": gridops.dense_grid_topk.launches, "K1": lk.pyramidal_lk.launches}
-    print(f"[fleet] batched kernels' launches per step at B = {B}: "
-          f"{ {k: n / T for k, n in batched.items()} }")
-    per_inst = _fleet_backend_steps(steps, out)
+    batched = {k: sum(f.launches for f in fns) for k, fns in fleet_bench.BATCHED.items()}
+    print(f"[fleet] the front-end's batched kernels' launches per step at B = {B}: "
+          f"{ {k: round(n / T, 3) for k, n in batched.items()} }")
+    _fleet_frontend_steps(steps)
+    per_step = _fleet_backend_steps(steps, out)
     print(f"[fleet] the back-end's batched kernels at B = {B}: launches per step "
-          f"{ {k: round(v / T, 3) for k, v in steps[-1][0].items()} } (each at most once a "
-          f"stage on every step); K11 and K12, once per updating instance: {per_inst} "
-          f"launches per step")
+          f"{ {k: round(v, 3) for k, v in per_step.items()} } (K14 to K10 at most once a "
+          f"stage, K11 and K12 at most once an update stage, on every step); K7's prediction "
+          f"and K8's selection once a step, K8's first-frame entries once on the first")
     if not torch.isfinite(out.p).all() or int(out.active.sum()) < B * 20:
         fail(f"[fleet] {int(out.active.sum())} active instance-frames, finite "
              f"{bool(torch.isfinite(out.p).all())}")
@@ -2874,6 +3089,9 @@ def run_fleet_phase(config, frames, pb, wrappers, card):
           f"against the batched plain version; K10: decision flips, each at its threshold) "
           f"{be}; every instance bit for bit its single launch")
     t_part["K14, K13, K9, K10"] = time.time() - t_phase - sum(t_part.values())
+    _check_update_batched(rec, B)
+    bounds = {B: _batched_bounds(rec)}
+    t_part["K11, K12, K7, K8"] = time.time() - t_phase - sum(t_part.values())
     print(f"[fleet] K2, K4+K6, K5: {len(rec.calls['build_pyramid_pair'][::10])}, "
           f"{len(rec.calls['detect_fast'][::10])}, {len(rec.calls['dense_grid_topk'][::10])} "
           f"recorded batched launches checked")
@@ -2967,14 +3185,24 @@ def run_fleet_phase(config, frames, pb, wrappers, card):
               f"(warm, {r['seconds']:.3f} s for {T} steps), {r['host_syncs_per_step']:.2f} host "
               f"syncs/step, {r['cuda_launches_per_step']:.1f} CUDA launches/step, batched "
               f"kernels' launches/step {r['kernel_launches_per_step']} "
-              f"{r['backend_launches_per_step']}, per instance "
-              f"{r['per_instance_launches_per_step']}, device us per launch "
+              f"{r['backend_launches_per_step']}, device us per launch "
               f"{ {k: round(v, 2) if v else v for k, v in r['kernel_device_us_per_launch'].items()} }, "
+              f"per step "
+              f"{ {k: round(v, 2) for k, v in r['kernel_device_us_per_step'].items()} }, "
               f"peak device memory {r['peak_device_bytes'] / 2 ** 20:.1f} MiB ({card})")
         if not r["finite"]:
             fail(f"[fleet] B = {n}: non-finite poses")
         if not r["host_syncs_per_step"] <= 6:
             fail(f"[fleet] B = {n}: {r['host_syncs_per_step']:.2f} host syncs per step (> 6)")
+    # the four kernels' bounds at the widest B, from a recorded run of its own
+    n = FLEET_SIZES[-1]
+    with FleetRecorder() as rec_n:
+        fleet.run_fleet(config, fleet_bench.fleet_frames(frames, T, n, FLEET_STRIDE),
+                        pb.gyro_bias, pb.acc_mean)
+    bounds[n] = _batched_bounds(rec_n)
+    del rec_n
+    print(f"[fleet] bound per batched launch of K11, K12, K7's prediction and K8's selection "
+          f"(us, what binds; the mean over the run's launches) at B = {B} / {n}: {bounds}")
     lo, hi = res[FLEET_SIZES[0]], res[FLEET_SIZES[-1]]
     if lo["kernel_launches_per_step"] != hi["kernel_launches_per_step"]:
         fail(f"[fleet] the batched kernels' launches per step grow with B: "

@@ -25,6 +25,7 @@ from uav_airvision_tpu.models.msckf import triangulation as jtri
 from uav_airvision_tpu.models.msckf import update as jupd
 from uav_airvision_tpu_torch import config as tconfig
 from uav_airvision_tpu_torch import convert
+from uav_airvision_tpu_torch.utils import tree
 from uav_airvision_tpu_torch.models.msckf import propagation as tprop
 from uav_airvision_tpu_torch.models.msckf import state as tstate
 from uav_airvision_tpu_torch.models.msckf import step as tstep
@@ -961,3 +962,60 @@ def test_stereo_match_options_match_jax(option):
     both = tin & jin
     assert both.sum() >= 30
     np.testing.assert_allclose(tp[both], jp[both], atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["K11 mixed tiers", "K12"])
+def test_fleet_update_plain_matches_jax(blocks, kernel):
+    """The batched plain versions of K11 (``apply_update_fleet_plain``) and
+    K12 (``apply_update_rank12_rows_fleet_plain``) on three instances (the
+    41-frame state, inputs from a numpy seed: K11 on a T1, a T2 and a QR
+    stack, K12 on 16, 8 and 12 features with their own two cameras) against
+    the JAX package: K11 ``apply_update`` instance by instance at each row
+    tier, K12 ``jax.vmap`` of ``apply_update_rank12`` over the masked
+    stacks; float64 within 1e-9 of max(|x|, 1) per field."""
+    state, params, _ = blocks
+    S, D = 3, state.cov.shape[0]
+    rng = np.random.default_rng(31)
+    bstate = tree.map_leaves(lambda x: torch.stack([x] * S), state)
+    jst, jparams = to_jax(state), to_jax(params)
+    upd, mask = [True] * S, torch.ones(S, dtype=torch.bool)
+    if kernel.startswith("K11"):
+        rows = [60, 200, 700]
+        H = np.zeros((S, 1680, D))
+        r = np.zeros((S, 1680))
+        for b, m in enumerate(rows):
+            H[b, :m, 21:] = rng.normal(0, 0.5, (m, D - 21))
+            H[b, :m, :21] = rng.normal(0, 0.05, (m, 21))
+            r[b, :m] = rng.normal(0, 0.01, m)
+        got, twarn = tupd.apply_update_fleet_plain(bstate, params, torch.as_tensor(H),
+                                                   torch.as_tensor(r), rows, upd, mask)
+        fn = jax.jit(jupd.apply_update)
+        wants = [fn(jst, jparams, jnp.asarray(H[b]), jnp.asarray(r[b]),
+                    jnp.asarray(m, jnp.int32)) for b, m in enumerate(rows)]
+        want = jax.tree.map(lambda *xs: jnp.stack(xs), *[w for w, _ in wants])
+        jwarn = np.array([bool(w) for _, w in wants])
+    else:
+        n_feats, K = [16, 8, 12], 16
+        H = rng.normal(0, 0.8, (S, K, 5, 33))
+        r_blk = rng.normal(0, 0.02, (S, K, 5))
+        include = rng.uniform(size=(S, K)) < 0.7
+        for b, k in enumerate(n_feats):
+            include[b, k:] = False
+        H[~include], r_blk[~include] = np.nan, np.nan
+        cols = np.stack([np.concatenate([21 + 6 * a + np.arange(6), 21 + 6 * c + np.arange(6)])
+                         for a, c in ((4, 9), (2, 3), (10, 15))])
+        got, twarn = tupd.apply_update_rank12_rows_fleet_plain(
+            bstate, params, torch.as_tensor(H)[..., 21:], torch.as_tensor(r_blk),
+            torch.as_tensor(include), torch.as_tensor(cols), upd, mask, n_feats)
+        jinc = jnp.asarray(include)
+        B = jnp.where(jinc[..., None, None], jnp.asarray(H[..., 21:]), 0.0).reshape(S, K * 5, 12)
+        r_s = jnp.where(jinc[..., None], jnp.asarray(r_blk), 0.0).reshape(S, K * 5)
+        jbst = jax.tree.map(lambda x: jnp.stack([x] * S), jst)
+        want, jwarn = jax.vmap(jupd.apply_update_rank12, in_axes=(0, None, 0, 0, 0))(
+            jbst, jparams, B, r_s, jnp.asarray(cols))
+    for a, b, name in ((got.imu.p, want.imu.p, "p"), (got.imu.q, want.imu.q, "q"),
+                       (got.imu.v, want.imu.v, "v"), (got.cams.p, want.cams.p, "cams.p"),
+                       (got.cams.q, want.cams.q, "cams.q"), (got.cov, want.cov, "cov")):
+        for i in range(S):
+            assert_close(a[i].numpy(), b[i], 1e-9, f"instance {i}: {name}")
+    np.testing.assert_array_equal(twarn.numpy(), np.asarray(jwarn))

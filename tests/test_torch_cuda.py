@@ -1752,3 +1752,230 @@ def test_k8_kernels_batched(dev, n):
     assert torch.equal(got, gridops.stable_compact_indices_plain(mask, n))
     for b in range(4):
         assert torch.equal(got[b], gridops.stable_compact_indices(mask[b], n))
+
+
+def _kernel_launches(fn, name):
+    """(result, launches of the csrc kernels whose name holds ``name`` the
+    call made), by torch.profiler's device events."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key)
+
+
+def _to_dtype(tree_, dtype):
+    from uav_airvision_tpu_torch.utils import tree
+
+    return tree.map_leaves(lambda x: x.to(dtype) if x.is_floating_point() else x, tree_)
+
+
+# K11 in one launch: the instances' true rows (None: every row of a buffer
+# no taller than T2) and whether each updates
+EKF_BATCHED = {"T1": ([26, 60, 144], [True] * 3), "mixed tiers": ([26, 250, 700], [True] * 3),
+               "mixed, one idle": ([700, 60, 250], [True, False, True]), "B1": ([250], [True])}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", sorted(EKF_BATCHED))
+def test_ekf_update_kernel_batched(dev, fleet_states, dtype, case):
+    """K11 over a fleet's updating instances in ONE launch of its kernel
+    (torch.profiler; an idle instance's state is merged back by selects),
+    T1, T2 and QR instances side by side: each instance bit for bit its
+    single launch (``apply_update``); the instance that does not update
+    keeps its state; against the batched plain version in float64 within
+    test_apply_update_fused_matches_plain's 1e-12 of each field's largest
+    entry, in float32 the covariance within test_ekf_update_kernel_matches_
+    plain's bar of the float64 plain version."""
+    from uav_airvision_tpu_torch.utils import tree
+
+    cfg, st, params = fleet_states
+    rows, upd = EKF_BATCHED[case]
+    S = len(rows)
+    st = _to_dtype(tree.map_leaves(lambda x: x[:S], st), getattr(torch, dtype))
+    params = _to_dtype(params, getattr(torch, dtype))
+    D = st.cov.shape[-1]
+    rng = np.random.default_rng(S + sum(rows))
+    H = torch.zeros((S, 1680, D), dtype=st.cov.dtype, device=dev)
+    r = torch.zeros((S, 1680), dtype=st.cov.dtype, device=dev)
+    for b, m in enumerate(rows):
+        H[b, :m, 21:] = torch.as_tensor(rng.normal(0, 0.05, (m, D - 21)), device=dev)
+        r[b, :m] = torch.as_tensor(rng.normal(0, 0.01, m), device=dev)
+    mask = torch.tensor(upd, device=dev)
+    n0 = update.apply_update.launches
+    (got, warn), n_launch = _kernel_launches(
+        lambda: update.apply_update_fleet(st, params, H, r, rows, upd, mask), "update_kernel")
+    assert n_launch == 1 and update.apply_update.launches == n0 + 1
+    if all(upd):  # nothing to merge: the kernel is the call's only launch
+        assert _launches(lambda: update.apply_update_fleet(st, params, H, r, rows, upd,
+                                                           mask))[1] == 1
+    for b in range(S):
+        g = tree.index(got, b)
+        if not upd[b]:
+            assert all(torch.equal(x, y) for x, y in zip(_fields(g).values(),
+                                                          _fields(tree.index(st, b)).values()))
+            assert not bool(warn[b])
+            continue
+        one, owarn = update.apply_update(tree.index(st, b), params, H[b], r[b], rows[b])
+        for name, x in _fields(g).items():
+            assert torch.equal(x, _fields(one)[name]), f"instance {b}: {name}"
+        assert bool(warn[b]) == bool(owarn)
+    f64 = torch.float64
+    want, _ = update.apply_update_fleet_plain(_to_dtype(st, f64), _to_dtype(params, f64),
+                                              H.double(), r.double(), rows, upd, mask)
+    for b in (b for b in range(S) if upd[b]):
+        g, w = _fields(tree.index(got, b)), _fields(tree.index(want, b))
+        if dtype == "float64":
+            for name in g:
+                assert float((g[name] - w[name]).abs().max()) <= 1e-12 * float(
+                    w[name].abs().max()), f"instance {b}: {name}"
+        else:
+            p32 = update.apply_update_plain(tree.index(st, b), params, H[b], r[b], rows[b])[0]
+            e32 = float((p32.cov.double() - w["cov"]).abs().max())
+            sc = max(float(w["cov"].abs().max()), 1.0)
+            assert float((g["cov"].double() - w["cov"]).abs().max()) <= max(1e-5 * sc, 4 * e32)
+        assert torch.equal(g["cov"], g["cov"].T)
+
+
+# K12 in one launch: each instance's feature count (its tier) and whether it
+# prunes
+RANK12_BATCHED = {"mixed n_feat": ([32, 128, 64], [True] * 3),
+                  "mixed, one idle": ([128, 32, 32], [True, False, True]), "B1": ([64], [True])}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", sorted(RANK12_BATCHED))
+def test_rank12_kernel_batched(dev, fleet_states, dtype, case):
+    """K12 over a fleet's pruning instances in ONE launch of its kernel
+    (torch.profiler), instances with 32 and 128 features (their own cluster
+    splits of the sums) side by side, each with its own two cameras: each
+    instance bit for bit its single
+    launch (``apply_update_rank12_rows`` on its own features); the idle
+    instance keeps its state; against the batched plain version within
+    test_rank12_rows_kernel_matches_plain's 1e-4 (float32) / 1e-10 (float64)
+    of max(|P|, 1)."""
+    from uav_airvision_tpu_torch.utils import tree
+
+    cfg, st, params = fleet_states
+    n_feats, upd = RANK12_BATCHED[case]
+    S, K = len(n_feats), max(n_feats)
+    st = _to_dtype(tree.map_leaves(lambda x: x[:S], st), getattr(torch, dtype))
+    params = _to_dtype(params, getattr(torch, dtype))
+    blocks = [_prune_blocks(tree.index(st, b), K, 7 * b + K) for b in range(S)]
+    H12, r_blk, include = (torch.stack(x) for x in zip(*blocks))
+    cols = torch.stack([torch.cat([21 + 6 * a + torch.arange(6, device=dev),
+                                   21 + 6 * c + torch.arange(6, device=dev)])
+                        for a, c in ((4, 9), (2, 3), (10, 15))[:S]])
+    mask = torch.tensor(upd, device=dev)
+    args = (st, params, H12, r_blk, include, cols, upd, mask, n_feats)
+    n0 = update.apply_update_rank12_rows.launches
+    (got, warn), n_launch = _kernel_launches(
+        lambda: update.apply_update_rank12_rows_fleet(*args), "rank12_kernel")
+    assert n_launch == 1 and update.apply_update_rank12_rows.launches == n0 + 1
+    if all(upd):  # nothing to merge: the kernel is the call's only launch
+        assert _launches(lambda: update.apply_update_rank12_rows_fleet(*args))[1] == 1
+    want, pwarn = update.apply_update_rank12_rows_fleet_plain(*args)
+    tol = 1e-4 if dtype == "float32" else 1e-10
+    for b in range(S):
+        g = tree.index(got, b)
+        if not upd[b]:
+            assert all(torch.equal(x, y) for x, y in zip(_fields(g).values(),
+                                                          _fields(tree.index(st, b)).values()))
+            continue
+        k = n_feats[b]
+        one, owarn = update.apply_update_rank12_rows(tree.index(st, b), params, H12[b, :k],
+                                                     r_blk[b, :k], include[b, :k], cols[b])
+        w = _fields(tree.index(want, b))
+        scale = max(float(w["cov"].abs().max()), 1.0)
+        for name, x in _fields(g).items():
+            assert torch.equal(x, _fields(one)[name]), f"instance {b}: {name}"
+            assert float((x - w[name]).abs().max()) <= tol * scale, f"instance {b}: {name}"
+        assert bool(warn[b]) == bool(owarn) == bool(pwarn[b])
+        assert torch.equal(g.cov, g.cov.T)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_predict_warp_kernel_batched(dev, B):
+    """K7's prediction over B instances in one launch, their points strided
+    views of one buffer (as K8's selection leaves them): the rotations
+    within 4 float32 ulps of 1.0 and the points within 4 ulps at 752 px of
+    the batched plain version (test_predict_warp_kernel_matches_plain's
+    bars), each instance bit for bit its single launch; a zero rate gives
+    the identity."""
+    from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
+
+    p = make_frontend_params(euroc_config(), dev)
+    rng = np.random.default_rng(B)
+    buf = torch.zeros((B, 300), dtype=torch.float32, device=dev)
+    buf[:, :208] = torch.as_tensor(rng.uniform([5, 5], [747, 475], (B, 104, 2)).reshape(B, 208),
+                                   dtype=torch.float32, device=dev)
+    pts = buf[:, :208].unflatten(-1, (104, 2))
+    wv = torch.as_tensor(rng.normal(0, 1.0, (B, 3)), dtype=torch.float32, device=dev)
+    wv[0] = 0.0
+    dt = torch.as_tensor(rng.uniform(0.04, 0.06, B), dtype=torch.float32, device=dev)
+    n0 = camera.predict_warp_points.launches
+    got, R = camera.predict_warp_points(pts, wv, dt, p.R_cam0_imu, p.cam0_intrinsics)
+    assert camera.predict_warp_points.launches == n0 + 1
+    assert got.shape == (B, 104, 2) and R.shape == (B, 3, 3)
+    want, pR = camera.predict_warp_points_plain(pts, wv, dt, p.R_cam0_imu, p.cam0_intrinsics)
+    assert float((R - pR).abs().max()) <= 4 * 2.0 ** -23
+    assert float((got - want).abs().max()) <= 4 * 2.0 ** -14
+    assert torch.equal(R[0], torch.eye(3, device=dev))
+    for b in range(B):
+        one, oR = camera.predict_warp_points(pts[b], wv[b], dt[b], p.R_cam0_imu,
+                                             p.cam0_intrinsics)
+        assert torch.equal(got[b], one) and torch.equal(R[b], oR)
+
+
+@pytest.mark.parametrize("workspace", [False, True])
+@pytest.mark.parametrize("B", [1, 4])
+def test_select_track_kernel_batched(dev, B, workspace, monkeypatch):
+    """K8's selection over B instances (one of each input case, inputs read
+    at instance strides from views of larger buffers) in one launch, and
+    the first frame's ranking, kept-order statistics and compaction of 160
+    candidates each over B instances: every output equal to the batched
+    plain version and, instance by instance, to its single launch, bit for
+    bit; also with the selection's working arrays in the device
+    workspace."""
+    if workspace:
+        monkeypatch.setattr(kernels, "SMEM_PER_BLOCK", 0)
+    ins = [select_inputs(40 + b, 104, 100, CASES[b % len(CASES)]) for b in range(B)]
+    statics = ins[0][1]
+    arrays = []
+    for k in range(11):  # each operand a view of a wider buffer: instance strides
+        x = torch.stack([torch.as_tensor(a[k]) for a, _ in ins]).to(dev)
+        wide = torch.zeros((B, x[0].numel() + 16), dtype=x.dtype, device=dev)
+        wide[:, :x[0].numel()] = x.reshape(B, -1)
+        arrays.append(wide[:, :x[0].numel()].view(x.shape))
+    n0 = gridops.select_track.launches
+    got = gridops.select_track(*arrays, *statics)
+    assert gridops.select_track.launches == n0 + 1
+    want = gridops.select_track_plain(*arrays, *statics)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    for b in range(B):
+        one = gridops.select_track(*(x[b] for x in arrays), *statics)
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one)), f"instance {b}"
+    rng = np.random.default_rng(B)
+    n = 160
+    cell = torch.as_tensor(rng.integers(0, 20, (B, n)), dtype=torch.int32, device=dev)
+    pri = torch.as_tensor(rng.integers(0, 3, (B, n)), dtype=torch.float32, device=dev)
+    arr = torch.as_tensor(rng.integers(0, 6, (B, n)), dtype=torch.int32, device=dev)
+    valid = torch.as_tensor(rng.uniform(size=(B, n)) < 0.7, device=dev)
+    counts = [fn.launches for fn in gridops.K8_WRAPPERS[:3]]
+    rank, perm = gridops.rank_in_cell(cell, pri, arr, valid, 20)
+    keep = valid & (rank < 3)
+    stats = gridops.kept_order_stats(perm, keep, cell, valid, 20)
+    comp = gridops.compact_kept(perm, keep, 104)
+    assert [fn.launches for fn in gridops.K8_WRAPPERS[:3]] == [c + 1 for c in counts]
+    for g, w in ((rank, perm), gridops.rank_in_cell_plain(cell, pri, arr, valid, 20)), \
+            (stats, gridops.kept_order_stats_plain(perm, keep, cell, valid, 20)), \
+            (comp, gridops.compact_kept_plain(perm, keep, 104)):
+        assert all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(g, w))
+    for b in range(B):
+        r1 = gridops.rank_in_cell(cell[b], pri[b], arr[b], valid[b], 20)
+        s1 = gridops.kept_order_stats(perm[b], keep[b], cell[b], valid[b], 20)
+        c1 = gridops.compact_kept(perm[b], keep[b], 104)
+        for g, o in (((rank, perm), r1), (stats, s1), (comp, c1)):
+            assert all(torch.equal(x[b], y) for x, y in zip(g, o)), f"instance {b}"

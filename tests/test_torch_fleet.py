@@ -32,7 +32,7 @@ from uav_airvision_tpu_torch.config import Config as TConfig
 from uav_airvision_tpu_torch.config import euroc_config
 from uav_airvision_tpu_torch.models import vio
 from uav_airvision_tpu_torch.models.frontend import pipeline
-from uav_airvision_tpu_torch.ops import fast, gridops, lk, pyramid
+from uav_airvision_tpu_torch.ops import camera, fast, gridops, lk, pyramid
 from uav_airvision_tpu_torch.parallel import fleet
 from uav_airvision_tpu_torch.simulation.world import StereoWorld
 from uav_airvision_tpu_torch.streaming.prebatch import prebatch_imu
@@ -117,13 +117,17 @@ def _images(rng, n, H=60, W=94):
     return torch.as_tensor(img.astype(np.uint8))
 
 
-@pytest.mark.parametrize("kernel", ["K2", "K4+K6", "K5", "K1", "K1 compact"])
+@pytest.mark.parametrize("kernel", ["K2", "K4+K6", "K5", "K1", "K1 compact", "K7 prediction",
+                                    "K8 select_track", "K8 first frame"])
 def test_batched_plain_matches_single(kernel):
     """Each batched plain version (a leading instance axis) equals the
     single-instance plain version on each instance: K2, K4+K6 and K5
     exactly, K1 (both trackers) exactly too (a point's sums do not depend
-    on the other points)."""
+    on the other points), K7's prediction exactly (its 3x3 products are
+    elementwise sums), K8's selection and first-frame entries exactly."""
     rng = np.random.default_rng(13)
+    if kernel.startswith(("K7", "K8")):
+        return _batched_frontend_plain(rng, kernel)
     cam0, cam1 = _images(rng, B), _images(rng, B)
     if kernel == "K2":
         got = pyramid.build_pyramid_pair_plain(cam0, cam1, 3)
@@ -176,6 +180,55 @@ def test_batched_plain_matches_single(kernel):
                     lk.pyramidal_lk_compact(p0.instance(b), p1.instance(b), pts[b],
                                             pts[b] + 1.5, valid[b], max_iter=10, des=one, **kw)
                     assert torch.equal(des[b], one)
+
+
+def _batched_frontend_plain(rng, kernel):
+    """K7's prediction, K8's selection and K8's first-frame entries at the
+    tiny configuration's sizes (32 slots, 20 cells x 8 candidates)."""
+    from uav_airvision_tpu_torch.models.frontend.params import make_frontend_params
+    from tests.torch_select_inputs import CASES, select_inputs
+
+    cfg = tiny_config()
+    W, H = cfg.calib.cam0_resolution
+    if kernel == "K7 prediction":
+        p = make_frontend_params(cfg, CPU)
+        pts = torch.as_tensor(rng.uniform([1, 1], [W - 1, H - 1], (B, 32, 2)), dtype=torch.float32)
+        w = torch.as_tensor(rng.normal(0, 1.0, (B, 3)), dtype=torch.float32)
+        w[0] = 0.0
+        dt = torch.as_tensor(rng.uniform(0.04, 0.06, B), dtype=torch.float32)
+        got = camera.predict_warp_points_plain(pts, w, dt, p.R_cam0_imu, p.cam0_intrinsics)
+        assert torch.equal(got[1][0], torch.eye(3))
+        for b in range(B):
+            want = camera.predict_warp_points_plain(pts[b], w[b], dt[b], p.R_cam0_imu,
+                                                    p.cam0_intrinsics)
+            assert all(torch.equal(g[b], x) for g, x in zip(got, want)), f"instance {b}"
+    elif kernel == "K8 select_track":
+        fe = cfg.frontend
+        ins = [select_inputs(b, 32, fe.grid_num * fe.grid_max_feature_num, CASES[b],
+                             grid=(fe.grid_row, fe.grid_col), size=(H, W)) for b in range(B)]
+        statics = ins[0][1]
+        arrays = [torch.stack([torch.as_tensor(a[k]) for a, _ in ins]) for k in range(11)]
+        got = gridops.select_track_plain(*arrays, *statics)
+        assert bool(got[4].any())
+        for b in range(B):
+            want = gridops.select_track_plain(*(x[b] for x in arrays), *statics)
+            assert all(torch.equal(g[b], x) for g, x in zip(got, want)), f"instance {b}"
+    else:
+        n = cfg.frontend.grid_num * 8
+        cell = torch.as_tensor(rng.integers(0, 20, (B, n)), dtype=torch.int32)
+        pri = torch.as_tensor(rng.integers(0, 3, (B, n)), dtype=torch.float32)
+        arr = torch.as_tensor(rng.integers(0, 6, (B, n)), dtype=torch.int32)
+        valid = torch.as_tensor(rng.uniform(size=(B, n)) < 0.7)
+        rank, perm = gridops.rank_in_cell_plain(cell, pri, arr, valid, 20)
+        keep = valid & (rank < 3)
+        got = ((rank, perm), gridops.kept_order_stats_plain(perm, keep, cell, valid, 20),
+               gridops.compact_kept_plain(perm, keep, 32))
+        for b in range(B):
+            r1, p1 = gridops.rank_in_cell_plain(cell[b], pri[b], arr[b], valid[b], 20)
+            want = ((r1, p1), gridops.kept_order_stats_plain(p1, keep[b], cell[b], valid[b], 20),
+                    gridops.compact_kept_plain(p1, keep[b], 32))
+            for g, w in zip(got, want):
+                assert all(torch.equal(x[b], y) for x, y in zip(g, w)), f"instance {b}"
 
 
 # (b) ------------------------------------------------------------------------
@@ -392,3 +445,28 @@ def test_fleet_step_matches_jax_vmap(jax_fleet_run):
         np.testing.assert_allclose(out.q.numpy(), jout.q, atol=1e-4, rtol=0)
         assert np.abs(out.n_features.numpy() - jout.n_features).max() <= 1, k
         assert (jout.n_features > 0).all()
+
+
+def test_fleet_frontend_calls_per_step(stream, monkeypatch):
+    """The fleet's front-end calls K7's prediction and K8's selection once a
+    tracked step, and K8's first-frame entries once on the first step, each
+    on all B instances at once (a leading axis of B)."""
+    cfg = tiny_config()
+    pb, frames = stream
+    calls = []
+    targets = ((pipeline, "predict_warp_points"), (pipeline, "select_track"),
+               (gridops, "rank_in_cell"), (gridops, "kept_order_stats"),
+               (gridops, "compact_kept"))
+    for mod, name in targets:
+        def spy(x, *args, _real=getattr(mod, name), _name=name):
+            calls[-1].append((_name, x.shape[0]))
+            return _real(x, *args)
+
+        monkeypatch.setattr(mod, name, spy)
+    calls.append([])
+    fleet.run_fleet(cfg, fleet_frames(frames, n=4), pb.gyro_bias, pb.acc_mean,
+                    on_frame=lambda k, fe_out, o: calls.append([]))
+    first = sorted(calls[0])
+    assert first == [("compact_kept", B), ("kept_order_stats", B), ("rank_in_cell", B)]
+    for step_calls in calls[1:4]:
+        assert sorted(step_calls) == [("predict_warp_points", B), ("select_track", B)]

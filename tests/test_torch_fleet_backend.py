@@ -189,7 +189,12 @@ class Spy:
 
 # (a) ------------------------------------------------------------------------
 
-KERNELS = ["K14", "K13", "K9 lost", "K9 prune", "K10 small", "K10 tiered"]
+KERNELS = ["K14", "K13", "K9 lost", "K9 prune", "K10 small", "K10 tiered", "K11 T1",
+           "K11 mixed tiers", "K12 mixed n_feat"]
+# K11's instances' true rows (T1 = 88, T2 = 162 rows at this window; None:
+# every row of the buffer) and which of them update
+K11_ROWS = {"K11 T1": ([20, 88, 50, 40], [True] * 4),
+            "K11 mixed tiers": ([40, 120, 300, 60], [True, True, True, False])}
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -210,6 +215,45 @@ def test_batched_plain_matches_single(streams, params, kernel):
                                                fr.imu_mask)
             for (name, g), (_, w) in zip(leaves(tree.index(got, b)), leaves(want)):
                 assert torch.equal(g, w), f"instance {b}: {name}"
+        return
+    if kernel.startswith("K11"):
+        rows, upd = K11_ROWS[kernel]
+        D = bst.cov.shape[-1]
+        rng = np.random.default_rng(len(kernel))
+        H = torch.zeros((4, 400, D))
+        r = torch.zeros((4, 400))
+        for b, m in enumerate(rows):
+            H[b, :m, 21:] = torch.as_tensor(rng.normal(0, 0.05, (m, D - 21)), dtype=H.dtype)
+            r[b, :m] = torch.as_tensor(rng.normal(0, 0.01, m), dtype=r.dtype)
+        assert {update.update_tier(400, D, m) for m in rows} == (
+            {"T1"} if kernel == "K11 T1" else {"T1", "T2", "QR"})
+        got, warn = update.apply_update_fleet_plain(bst, params, H, r, rows, upd,
+                                                    torch.tensor(upd))
+        for b, st in enumerate(sts):
+            want, wwarn = (update.apply_update_plain(st, params, H[b], r[b], rows[b]) if upd[b]
+                           else (st, torch.zeros((), dtype=torch.bool)))
+            for (name, g), (_, w) in zip(leaves(tree.index(got, b)), leaves(want)):
+                assert torch.equal(g, w), f"instance {b}: {name}"
+            assert torch.equal(warn[b], wwarn)
+        return
+    if kernel == "K12 mixed n_feat":
+        n_feats, upd = [32, 64, 32, 64], [True] * 4
+        rng = np.random.default_rng(12)
+        H = torch.as_tensor(rng.normal(0, 0.8, (4, 64, 5, 33)), dtype=torch.float32)
+        r_blk = torch.as_tensor(rng.normal(0, 0.02, (4, 64, 5)), dtype=torch.float32)
+        include = torch.as_tensor(rng.uniform(size=(4, 64)) < 0.6)
+        c = bst.cams
+        cols = torch.stack([torch.cat([21 + 6 * (n - 3) + torch.arange(6),
+                                       21 + 6 * (n - 1) + torch.arange(6)]) for n in c.count])
+        got, warn = update.apply_update_rank12_rows_fleet_plain(
+            bst, params, H[..., 21:], r_blk, include, cols, upd, torch.tensor(upd), n_feats)
+        for b, st in enumerate(sts):
+            k = n_feats[b]
+            want, wwarn = update.apply_update_rank12_rows_plain(
+                st, params, H[b, :k, :, 21:], r_blk[b, :k], include[b, :k], cols[b])
+            for (name, g), (_, w) in zip(leaves(tree.index(got, b)), leaves(want)):
+                assert torch.equal(g, w), f"instance {b}: {name}"
+            assert torch.equal(warn[b], wwarn)
         return
     t, c = bst.features, bst.cams
     sel = smallest_k_indices(torch.where(t.valid, t.seq, INT32_MAX), 32).long()
@@ -344,3 +388,42 @@ def test_host_reads_per_step(streams, params, B):
         step.backend_step_fleet(bstate, bframe, params, CFG)
         reads.append(device.host_syncs["sync"] - n0)
     assert max(reads) <= 6 and max(reads) >= 4, reads
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_update_calls_per_stage(streams, params, monkeypatch, B):
+    """Over steps that take the lost pass, its overflow pass and the prune
+    together, the fleet's back-end calls K11's wrapper at most once per
+    lost pass and K12's at most once a step, each call taking every
+    updating instance of its stage at once (B = 4: at least once with more
+    than one), and never the single-instance wrappers."""
+    states, frames = streams["dense"]
+    full = frames_with_count(streams, "dense", WINDOW - 1, 4)
+    log = []
+    for name in ("apply_update_fleet", "apply_update_rank12_rows_fleet", "apply_update",
+                 "apply_update_rank12_rows", "_remove_lost_once_fleet"):
+        def spy(st, *args, _real=getattr(step, name), _name=name):
+            log[-1].append((_name, st.cov.shape[0],
+                            sum(args[5]) if _name.endswith("_fleet") and "update" in _name
+                            else None))
+            return _real(st, *args)
+
+        monkeypatch.setattr(step, name, spy)
+    for k in range(full[-1] - 3, full[-1] + 1):
+        cases = [(states[k - b], frames[k - b]) for b in range(B)]
+        cases[0] = (cases[0][0], empty_frame(cases[0][1]))
+        bstate, bframe = tree.stack([st for st, _ in cases]), stack_frames([f for _, f in cases])
+        log.append([])
+        step.backend_step_fleet(bstate, bframe, params, CFG)
+    widest = 0
+    for calls in log:
+        names = [c[0] for c in calls]
+        assert "apply_update" not in names and "apply_update_rank12_rows" not in names
+        assert names.count("apply_update_fleet") <= names.count("_remove_lost_once_fleet")
+        assert names.count("apply_update_rank12_rows_fleet") <= 1
+        widest = max([widest] + [c[2] for c in calls if c[2] is not None])
+    assert any("apply_update_fleet" in [c[0] for c in calls] for calls in log)
+    if B > 1:  # the prune updates on these steps' other instances
+        assert any("apply_update_rank12_rows_fleet" in [c[0] for c in calls] for calls in log)
+    assert widest == 1 if B == 1 else widest > 1
+

@@ -186,3 +186,57 @@ def test_stereo_gate_matches_jax(model):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_allclose(epi.numpy(), np.asarray(want_epi), atol=1e-6, rtol=0)
     assert 0 < int(got.sum()) < len(got)  # some points pass, some are cut
+
+
+@pytest.mark.parametrize("kernel", ["K7 prediction", "K8 first frame"])
+def test_fleet_frontend_plain_matches_jax(kernel):
+    """The batched plain versions of K7's prediction and of K8's first-frame
+    entries over four instances (inputs from a numpy seed) against
+    ``jax.vmap`` of the JAX package's functions: K7 ``predicted_rotations``
+    (cam0's) then ``homography_warp_points`` (the rotation within 4 float32
+    ulps of 1.0, the points within 4 ulps at 752 px, as
+    test_predict_warp_matches_jax), K8 ``rank_in_cell``, ``kept_order_stats``
+    and ``compact_kept`` over 160 candidates each (exact)."""
+    import jax
+
+    rng = np.random.default_rng(41)
+    B = 4
+    if kernel.startswith("K7"):
+        pts = rng.uniform([5, 5], [747, 475], (B, 104, 2)).astype(np.float32)
+        wv = rng.normal(0, 1.0, (B, 3)).astype(np.float32)
+        wv[0] = 0.0
+        dtv = rng.uniform(0.04, 0.06, B).astype(np.float32)
+        jp = jax_params(jax_euroc_config())
+        tp = make_frontend_params(euroc_config(), "cpu")
+
+        def jfn(p, w, d):
+            R0, _ = jpipe.predicted_rotations(w, d, jp)
+            return jcam.homography_warp_points(p, R0, jp.cam0_intrinsics), R0
+
+        jwarp, jR = jax.vmap(jfn)(jnp.asarray(pts), jnp.asarray(wv), jnp.asarray(dtv))
+        got, R = tcam.predict_warp_points_plain(torch.as_tensor(pts), torch.as_tensor(wv),
+                                                torch.as_tensor(dtv), tp.R_cam0_imu,
+                                                tp.cam0_intrinsics)
+        np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=4 * ONE_ULP, rtol=0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jwarp), atol=4 * PX_ULP, rtol=0)
+        return
+    n, n_cells = 160, 20
+    cell = rng.integers(0, n_cells, (B, n)).astype(np.int32)
+    pri = rng.integers(0, 3, (B, n)).astype(np.float32)
+    arr = rng.integers(0, 6, (B, n)).astype(np.int32)
+    valid = rng.uniform(size=(B, n)) < 0.7
+
+    def jfn(c, p, a, v):
+        rank, perm = jgrid.rank_in_cell(c, p, a, v, n_cells)
+        keep = v & (rank < 3)
+        return (rank, perm, *jgrid.kept_order_stats(perm, keep, c, v, n_cells),
+                *jgrid.compact_kept(perm, keep, 104))
+
+    want = jax.vmap(jfn)(*map(jnp.asarray, (cell, pri, arr, valid)))
+    t = tuple(map(torch.as_tensor, (cell, pri, arr, valid)))
+    rank, perm = tgrid.rank_in_cell_plain(*t, n_cells)
+    keep = t[3] & (rank < 3)
+    got = (rank, perm, *tgrid.kept_order_stats_plain(perm, keep, t[0], t[3], n_cells),
+           *tgrid.compact_kept_plain(perm, keep, 104))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -96,12 +96,20 @@ warp_kernel(const float* __restrict__ pts, int n, Params intr, const float* __re
 // K R_p_c K^-1; then one thread per point warps it.  The rotation's
 // expressions follow the plain version's (ops/camera.py::rodrigues):
 // R = (I + sin(t) K) + (1 - cos(t)) K K with K the skew matrix of the unit
-// axis.  out: the n warped points, then R_p_c (row-major).
+// axis.  out: the n warped points, then R_p_c (row-major).  Instances:
+// blockIdx.y is the instance (its points, rate, dt and output row each at
+// its own instance stride), and block (0, b) writes instance b's R_p_c.
 __global__ void __launch_bounds__(kThreads)
 predict_warp_kernel(const float* __restrict__ pts, int n, const float* __restrict__ w,
                     const float* __restrict__ dt, const float* __restrict__ R_cam_imu,
-                    const float* __restrict__ intr, float* __restrict__ out) {
+                    const float* __restrict__ intr, float* __restrict__ out, long long pts_s,
+                    long long w_s, long long dt_s, long long out_s) {
   __shared__ float s_H[9];
+  const long long b = blockIdx.y;
+  pts += b * pts_s;
+  w += b * w_s;
+  dt += b * dt_s;
+  out += b * out_s;
   if (threadIdx.x == 0) {
     const float t = *dt;
     float r[3];
@@ -210,12 +218,17 @@ extern "C" int camera_warp(const void* pts, int n, const void* intr, int intr_fs
   return (int)cudaGetLastError();
 }
 
+// pts (n_inst, n, 2), w (n_inst, 3), dt (n_inst), out (n_inst, 2 n + 9), each
+// instance at its stride (strides: 4 host int64, in floats: pts, w, dt, out)
 extern "C" int camera_predict_warp(const void* pts, int n, const void* w, const void* dt,
                                    const void* R_cam_imu, const void* intr, void* out,
-                                   void* stream) {
-  predict_warp_kernel<<<blocks(n > 0 ? n : 1), kThreads, 0, (cudaStream_t)stream>>>(
+                                   int n_inst, const void* strides, void* stream) {
+  if (n_inst < 1 || n_inst > 65535) return (int)cudaErrorInvalidValue;
+  const long long* st = (const long long*)strides;
+  predict_warp_kernel<<<dim3(blocks(n > 0 ? n : 1), n_inst), kThreads, 0,
+                        (cudaStream_t)stream>>>(
       (const float*)pts, n, (const float*)w, (const float*)dt, (const float*)R_cam_imu,
-      (const float*)intr, (float*)out);
+      (const float*)intr, (float*)out, st[0], st[1], st[2], st[3]);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // K11: the EKF measurement update from the stacked Jacobian, with the
-// error-state injection, in ONE launch of one block.
+// error-state injection, in ONE launch: one block an instance (a fleet's
+// updating instances side by side, a single state as a fleet of one).
 //
 // Replaces uav_airvision_tpu/models/msckf/update.py::apply_update (:296)
 // together with _inject_delta (:359).  For H (m x D), r (m), P (D x D), s2:
@@ -21,8 +22,17 @@
 // triangle of the first D rows) and r = their last column; X' H and X' r
 // do not depend on the signs of R's rows, so no sign convention is matched.
 //
-// Layout, one block of 1024 threads (32 warps), phases separated by
-// barriers:
+// Instances: block s of a launch updates instance inst[s] of the caller's
+// fleet (every pointer advanced by its instance stride), with its own rows
+// m, its own tier and its own layout and shared-memory choice, exactly as
+// its launch alone would: an instance's sums run in its own order whatever
+// the others' tiers.  The per-instance values travel in the launch's
+// arguments (__grid_constant__), up to kMaxInst instances a launch; a call
+// with more takes ceil(n_inst / kMaxInst) launches.  The launch's dynamic
+// shared memory is the most any of its instances takes.
+//
+// Layout, one block of 1024 threads (32 warps) an instance, phases
+// separated by barriers:
 //   staging: P, H transposed (rows padded to fours) and r into the working
 //     arrays;
 //   HP and S = HP H' + s2 I (its upper triangle): a warp a task of 4 rows
@@ -49,7 +59,8 @@
 //
 // Bound on the card: at m = 26, D = 141 the work is ~0.9 M multiply-adds
 // and the bytes P in, P_new out (0.16 MB in float32): ~0.05 us.  One SM
-// does it all, so the time is that SM's chain of dependent steps: the
+// does an instance's update, so the time is that SM's chain of dependent
+// steps (a fleet's instances run side by side on their own SMs): the
 // shared-memory loads of the products and the factorisation's short
 // dependent inner products (tools/kernel_probe.py prints the cycles of
 // each phase).  The design removes the parent's six launches over global
@@ -65,7 +76,12 @@
 namespace {
 
 constexpr int kThreads = 1024;
+constexpr int kMaxInst = 64;  // instances of one launch
+// instance strides, in elements: P, H, r, work, out, the injected state's
+// q, bg, v, ba, p, R, t, cam_q, cam_p, count, then too_large (bytes)
+constexpr int kStrides = 16;
 
+// One instance's update, its pointers at that instance
 template <typename T>
 struct Args {
   const T* P;
@@ -83,6 +99,55 @@ struct Args {
   uint8_t* too_large;
   long long* clocks;  // optional: the SM clock at the phase boundaries (mark)
 };
+
+// A launch's instances: block s takes instance inst[s] (the pointers of
+// ``base`` advanced by inst[s] strides), its rows m[s] and flags[s] (bit 0
+// the QR tier, bit 1 the working arrays in shared memory, bit 2 the
+// reflection scratch in shared memory)
+template <typename T>
+struct Fleet {
+  Args<T> base;
+  int n;
+  int inst[kMaxInst];
+  int m[kMaxInst];
+  int flags[kMaxInst];
+  long long stride[kStrides];
+};
+
+template <typename T, typename P>
+__device__ __forceinline__ P* at(P* p, const Fleet<T>& f, int k, int b) {
+  return p == nullptr ? p : p + f.stride[k] * b;
+}
+
+// Block s's instance, as its launch alone would take it (the clocks on
+// block 0's only)
+template <typename T>
+__device__ __forceinline__ Args<T> instance(const Fleet<T>& f, int s) {
+  const int b = f.inst[s], fl = f.flags[s];
+  Args<T> a = f.base;
+  a.P = at(a.P, f, 0, b);
+  a.H = at(a.H, f, 1, b);
+  a.r = at(a.r, f, 2, b);
+  a.work = at(a.work, f, 3, b);
+  a.out = at(a.out, f, 4, b);
+  a.state.q = at(a.state.q, f, 5, b);
+  a.state.bg = at(a.state.bg, f, 6, b);
+  a.state.v = at(a.state.v, f, 7, b);
+  a.state.ba = at(a.state.ba, f, 8, b);
+  a.state.p = at(a.state.p, f, 9, b);
+  a.state.R = at(a.state.R, f, 10, b);
+  a.state.t = at(a.state.t, f, 11, b);
+  a.state.cam_q = at(a.state.cam_q, f, 12, b);
+  a.state.cam_p = at(a.state.cam_p, f, 13, b);
+  a.state.count = at(a.state.count, f, 14, b);
+  a.too_large = at(a.too_large, f, 15, b);
+  a.m = f.m[s];
+  a.qr = fl & 1;
+  a.smem_update = (fl >> 1) & 1;
+  a.smem_qr = (fl >> 2) & 1;
+  if (s != 0) a.clocks = nullptr;
+  return a;
+}
 
 // Thread 0 records the SM clock at phase boundary k when the caller asked:
 // 0 start, 1 staged (after the QR tier's compression), 2 H P, 3 S, 4 the
@@ -390,8 +455,9 @@ __device__ __forceinline__ void update_body(const Args<T>& a, T* base, const T* 
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) update_kernel(const Args<T> a) {
+__global__ void __launch_bounds__(kThreads) update_kernel(const __grid_constant__ Fleet<T> f) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const Args<T> a = instance(f, (int)blockIdx.x);
   T* smem = reinterpret_cast<T*>(dyn_smem);
   const int D = a.D, C = D + 1, tid = threadIdx.x;
   const T* H = a.H;
@@ -426,23 +492,30 @@ __global__ void __launch_bounds__(kThreads) update_kernel(const Args<T> a) {
 }
 
 template <typename T>
-int update(const void* P, int D, const void* H, const void* r, int m, int qr,
-           const void* noise, void* work, void* out, const void* q, const void* bg,
-           const void* v, const void* ba, const void* p, const void* R, const void* t,
-           const void* cam_q, const void* cam_p, int N, const void* count, void* too_large,
-           void* clocks, void* stream) {
+int update(const void* P, int D, const void* H, const void* r, const void* noise, void* work,
+           void* out, const void* q, const void* bg, const void* v, const void* ba,
+           const void* p, const void* R, const void* t, const void* cam_q, const void* cam_p,
+           int N, const void* count, void* too_large, void* clocks, int n_inst, const int* inst,
+           const long long* strides, void* stream) {
   static size_t budget = 0, smem_allowed = 0;
-  if (D < 1 || m < 1 || (qr && m < D)) return (int)cudaErrorInvalidValue;
+  if (D < 1 || n_inst < 1) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < n_inst; ++s) {
+    const int m = inst[3 * s + 1], qr = inst[3 * s + 2];
+    if (m < 1 || (qr && m < D)) return (int)cudaErrorInvalidValue;
+  }
   if (budget == 0) budget = msckf::smem_budget(update_kernel<T>);
-  Args<T> a;
+  Fleet<T> f;
+  Args<T>& a = f.base;
   a.P = (const T*)P;
   a.D = D;
   a.H = (const T*)H;
   a.r = (const T*)r;
-  a.m = m;
-  a.qr = qr;
+  a.m = 0;
+  a.qr = 0;
   a.noise = (const T*)noise;
   a.work = (T*)work;
+  a.smem_update = 0;
+  a.smem_qr = 0;
   a.out = (T*)out;
   a.state = msckf::InjectIn<T>{(const T*)q,     (const T*)bg,   (const T*)v,
                                (const T*)ba,    (const T*)p,    (const T*)R,
@@ -450,38 +523,54 @@ int update(const void* P, int D, const void* H, const void* r, int m, int qr,
                                (const int*)count, N};
   a.too_large = (uint8_t*)too_large;
   a.clocks = (long long*)clocks;
-  const size_t up = layout(qr ? D : m, D).total * sizeof(T);
-  const size_t qs = qr ? ((size_t)m + 33 * (size_t)(D + 1) + 32) * sizeof(T) : 0;
-  a.smem_update = up <= budget;
-  a.smem_qr = qs > 0 && qs <= budget;
-  size_t smem = 0;
-  if (a.smem_update) smem = up;
-  if (a.smem_qr && qs > smem) smem = qs;
-  int err = msckf::allow_smem(update_kernel<T>, smem, &smem_allowed);
-  if (err != 0) return err;
-  update_kernel<T><<<1, kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  for (int k = 0; k < kStrides; ++k) f.stride[k] = strides[k];
+  for (int s0 = 0; s0 < n_inst; s0 += kMaxInst) {
+    f.n = n_inst - s0 < kMaxInst ? n_inst - s0 : kMaxInst;
+    size_t smem = 0;
+    for (int s = 0; s < f.n; ++s) {
+      const int* e = inst + 3 * (s0 + s);
+      const int m = e[1], qr = e[2];
+      const size_t up = layout(qr ? D : m, D).total * sizeof(T);
+      const size_t qs = qr ? ((size_t)m + 33 * (size_t)(D + 1) + 32) * sizeof(T) : 0;
+      const int su = up <= budget, sq = qs > 0 && qs <= budget;
+      if (su && up > smem) smem = up;
+      if (sq && qs > smem) smem = qs;
+      f.inst[s] = e[0];
+      f.m[s] = m;
+      f.flags[s] = qr | (su << 1) | (sq << 2);
+    }
+    int err = msckf::allow_smem(update_kernel<T>, smem, &smem_allowed);
+    if (err != 0) return err;
+    update_kernel<T><<<f.n, kThreads, smem, (cudaStream_t)stream>>>(f);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    a.clocks = nullptr;  // the first launch's block 0 only
+  }
+  return 0;
 }
 
 }  // namespace
 
-// P (D x D), H (rows x D, row stride D), r, m (rows to update with; QR: the
-// stack's rows), qr, obs_noise, work (16-byte aligned; on the QR tier
-// round4(m (D + 1)) + max(m + 33 (D + 1) + 32, layout(D, D).total) values,
-// else layout(m, D).total), out (P_new, delta, then the injected state),
-// the state's q, bg, v, ba, p,
+// P (D x D), H (rows x D, row stride D), r, obs_noise, work (16-byte
+// aligned; an instance on the QR tier takes round4(m (D + 1)) + max(m +
+// 33 (D + 1) + 32, layout(D, D).total) values, any other layout(m, D).total),
+// out (P_new, delta, then the injected state), the state's q, bg, v, ba, p,
 // R_imu_cam0, t_cam0_imu, cam_q, cam_p (all nullptr: no injection), N,
-// count, too_large, clocks (7 int64 SM clock readings at the phase boundaries,
-// or nullptr), stream
+// count, too_large, clocks (7 int64 SM clock readings of the first
+// instance's block at the phase boundaries, or nullptr), n_inst, inst
+// (n_inst host triples: the instance's index, its rows m (QR: the stack's
+// rows), its QR flag), strides (kStrides host int64: each pointer's
+// instance stride, in elements), stream
 #define EKF_ENTRY(NAME, T)                                                                   \
-  extern "C" int NAME(const void* P, int D, const void* H, const void* r, int m, int qr,     \
-                      const void* noise, void* work, void* out, const void* q,               \
-                      const void* bg, const void* v, const void* ba, const void* p,          \
-                      const void* R, const void* t, const void* cam_q, const void* cam_p,    \
-                      int N, const void* count, void* too_large, void* clocks,              \
-                      void* stream) {                                                        \
-    return update<T>(P, D, H, r, m, qr, noise, work, out, q, bg, v, ba, p, R, t, cam_q,     \
-                     cam_p, N, count, too_large, clocks, stream);                            \
+  extern "C" int NAME(const void* P, int D, const void* H, const void* r, const void* noise, \
+                      void* work, void* out, const void* q, const void* bg, const void* v,   \
+                      const void* ba, const void* p, const void* R, const void* t,           \
+                      const void* cam_q, const void* cam_p, int N, const void* count,        \
+                      void* too_large, void* clocks, int n_inst, const void* inst,           \
+                      const void* strides, void* stream) {                                   \
+    return update<T>(P, D, H, r, noise, work, out, q, bg, v, ba, p, R, t, cam_q, cam_p, N,   \
+                     count, too_large, clocks, n_inst, (const int*)inst,                     \
+                     (const long long*)strides, stream);                                     \
   }
 EKF_ENTRY(ekf_update_f32, float)
 EKF_ENTRY(ekf_update_f64, double)

@@ -49,10 +49,13 @@
 // dynamic shared memory sized to n, or, past what a block's shared memory
 // holds, are read from device memory (L2).  kept_order_stats and
 // compact_kept walk the sorted order (positions q, element perm[q]) so they
-// need no inverse permutation.
+// need no inverse permutation.  Every K8 entry point takes a fleet's
+// instances in one launch, a block an instance (the block computes exactly
+// what a launch of that instance alone computes); one instance is the
+// launch of one block.
 //
 // grid_select_track_f32 is the front-end's whole per-cell selection of a
-// tracked frame in one launch of one block (the JAX package's
+// tracked frame in one launch of one block an instance (the JAX package's
 // models/frontend/pipeline.py:388-440, where eager PyTorch took ~60
 // launches): the cells of the tracked points and the new candidates, the
 // candidates' rank, ids and insertion order, the per-cell counts and their
@@ -368,12 +371,20 @@ __device__ inline int block_count(int local, int* s_total) {
 }
 
 // (cell asc, primary desc, arrival asc, index asc), invalid entries in cell
-// n_cells: rank inside the cell, and the global sorted permutation
+// n_cells: rank inside the cell, and the global sorted permutation; a block
+// an instance (its n entries of each array back to back)
 __global__ void __launch_bounds__(kMaxThreads)
 rank_in_cell_kernel(const int* __restrict__ cell, const float* __restrict__ primary,
                     const int* __restrict__ arrival, const bool* __restrict__ valid, int n,
                     int n_cells, int* __restrict__ rank, int* __restrict__ perm, int staged) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const size_t o = (size_t)blockIdx.x * n;
+  cell += o;
+  primary += o;
+  arrival += o;
+  valid += o;
+  rank += o;
+  perm += o;
   int* s_cell = reinterpret_cast<int*>(dyn_smem);
   int* s_arr = s_cell + n;
   float* s_pri = reinterpret_cast<float*>(s_arr + n);
@@ -412,7 +423,8 @@ rank_in_cell_kernel(const int* __restrict__ cell, const float* __restrict__ prim
 
 // ranks of the kept subset in perm order: among all kept, among the kept of
 // the same cell (0 where not kept), and the kept count.  The thread of
-// position q counts the kept entries at positions before q.
+// position q counts the kept entries at positions before q.  A block an
+// instance (its n entries back to back, its one n_kept).
 __global__ void __launch_bounds__(kMaxThreads)
 kept_order_stats_kernel(const int* __restrict__ perm, const bool* __restrict__ keep,
                         const int* __restrict__ cell, const bool* __restrict__ valid, int n,
@@ -420,6 +432,14 @@ kept_order_stats_kernel(const int* __restrict__ perm, const bool* __restrict__ k
                         int* __restrict__ n_kept, int staged) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   __shared__ int s_total;
+  const size_t o = (size_t)blockIdx.x * n;
+  perm += o;
+  keep += o;
+  cell += o;
+  valid += o;
+  global_rank += o;
+  cell_rank += o;
+  n_kept += blockIdx.x;
   int* s_cell = reinterpret_cast<int*>(dyn_smem);  // of the element at position q
   bool* s_keep = reinterpret_cast<bool*>(s_cell + n);
   int local = 0;
@@ -461,12 +481,17 @@ kept_order_stats_kernel(const int* __restrict__ perm, const bool* __restrict__ k
   }
 }
 
-// the kept entries, in perm order, into the first slots of an n_slots table
+// the kept entries, in perm order, into the first slots of an n_slots table;
+// a block an instance (its n entries and n_slots slots back to back)
 __global__ void __launch_bounds__(kMaxThreads)
 compact_kept_kernel(const int* __restrict__ perm, const bool* __restrict__ keep, int n,
                     int n_slots, int* __restrict__ sel, bool* __restrict__ selm, int staged) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   __shared__ int s_total;
+  perm += (size_t)blockIdx.x * n;
+  keep += (size_t)blockIdx.x * n;
+  sel += (size_t)blockIdx.x * n_slots;
+  selm += (size_t)blockIdx.x * n_slots;
   bool* s_keep = reinterpret_cast<bool*>(dyn_smem);  // of the element at position q
   int local = 0;
   for (int q = threadIdx.x; q < n; q += blockDim.x) {
@@ -599,9 +624,23 @@ struct SelectIn {
   const int* next_id;      // ()
 };
 
+// Instance strides of the selection's inputs (in elements, in SelectIn's
+// order) and of its output and workspace rows (bytes)
+struct SelectStrides {
+  long long in[11];
+  long long out, work;
+};
+
+template <typename P>
+__device__ __forceinline__ P* inst_ptr(P* p, long long stride, int b) {
+  return p + stride * b;
+}
+
 // Output: ids (F,) int32, lifetime (F,) int32, cam0 (F, 2), cam1 (F, 2),
 // next_id () int32, valid (F,) bool, packed in this order in ``out``.  The
-// working arrays sit in dynamic shared memory (kStaged) or in ``work``.
+// working arrays sit in dynamic shared memory (kStaged) or in ``work``.  A
+// block an instance: block b selects instance b's entries (each input, its
+// output row and its workspace row at their instance strides).
 // The counting phases give each entry a group of ``sub`` lanes, which
 // count the entries before it (a 16-byte key a step, every group of a warp
 // on the same key) and sum by shuffles; an entry a phase has ruled out gets
@@ -610,9 +649,25 @@ template <bool kStaged>
 __global__ void __launch_bounds__(kMaxThreads)
 select_track_kernel(SelectIn in, int F, int C, int grid_row, int grid_col, int H, int W,
                     int grid_min, int grid_max, int sub, unsigned char* __restrict__ out,
-                    unsigned char* work) {
+                    unsigned char* work, const SelectStrides st) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   __shared__ int s_kept[2];  // candidates kept (new ids), entries kept by the prune
+  {
+    const int b = blockIdx.x;
+    in.curr = inst_ptr(in.curr, st.in[0], b);
+    in.cam1_curr = inst_ptr(in.cam1_curr, st.in[1], b);
+    in.tracked = inst_ptr(in.tracked, st.in[2], b);
+    in.ids = inst_ptr(in.ids, st.in[3], b);
+    in.lifetime = inst_ptr(in.lifetime, st.in[4], b);
+    in.apts = inst_ptr(in.apts, st.in[5], b);
+    in.ascore = inst_ptr(in.ascore, st.in[6], b);
+    in.aarrival = inst_ptr(in.aarrival, st.in[7], b);
+    in.ainlier = inst_ptr(in.ainlier, st.in[8], b);
+    in.acam1 = inst_ptr(in.acam1, st.in[9], b);
+    in.next_id = inst_ptr(in.next_id, st.in[10], b);
+    out += st.out * b;
+    if (!kStaged) work += st.work * b;
+  }
   const int n = F + C, n_cells = grid_row * grid_col, tid = threadIdx.x;
   const int lane = tid & (sub - 1), group = tid / sub, groups = blockDim.x / sub;
   unsigned char* base = kStaged ? dyn_smem : work;
@@ -775,12 +830,6 @@ int launch_k8_instances(K kernel, size_t* budget, size_t* allowed, int n_inst, i
   return (int)cudaGetLastError();
 }
 
-template <typename K, typename... A>
-int launch_k8(K kernel, size_t* budget, size_t* allowed, int n, size_t bytes, void* stream,
-              A... args) {
-  return launch_k8_instances(kernel, budget, allowed, 1, n, bytes, stream, args...);
-}
-
 }  // namespace
 
 // score (B, H, W); ys, xs, vals (B, grid_row * grid_col, k).  clocks (7
@@ -818,31 +867,38 @@ extern "C" int grid_topk_i32(const void* score, int B, int H, int W, int grid_ro
   return (int)cudaGetLastError();  // the launch's error, cleared for the next launch
 }
 
+// cell, primary, arrival, valid, rank, perm (n_inst, n)
 extern "C" int grid_rank_in_cell(const void* cell, const void* primary, const void* arrival,
-                                 const void* valid, int n, int n_cells, void* rank, void* perm,
-                                 void* stream) {
+                                 const void* valid, int n_inst, int n, int n_cells, void* rank,
+                                 void* perm, void* stream) {
   static size_t budget = 0, allowed = 0;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  return launch_k8(rank_in_cell_kernel, &budget, &allowed, n, (size_t)n * 12, stream,
+  if (n_inst < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  return launch_k8_instances(rank_in_cell_kernel, &budget, &allowed, n_inst, n, (size_t)n * 12,
+                             stream,
                    (const int*)cell, (const float*)primary, (const int*)arrival,
                    (const bool*)valid, n, n_cells, (int*)rank, (int*)perm);
 }
 
+// perm, keep, cell, valid, global_rank, cell_rank (n_inst, n), n_kept (n_inst)
 extern "C" int grid_kept_order_stats(const void* perm, const void* keep, const void* cell,
-                                     const void* valid, int n, int n_cells, void* global_rank,
-                                     void* cell_rank, void* n_kept, void* stream) {
+                                     const void* valid, int n_inst, int n, int n_cells,
+                                     void* global_rank, void* cell_rank, void* n_kept,
+                                     void* stream) {
   static size_t budget = 0, allowed = 0;
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  return launch_k8(kept_order_stats_kernel, &budget, &allowed, n, (size_t)n * 5, stream,
+  if (n_inst < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  return launch_k8_instances(kept_order_stats_kernel, &budget, &allowed, n_inst, n,
+                             (size_t)n * 5, stream,
                    (const int*)perm, (const bool*)keep, (const int*)cell, (const bool*)valid, n,
                    n_cells, (int*)global_rank, (int*)cell_rank, (int*)n_kept);
 }
 
-extern "C" int grid_compact_kept(const void* perm, const void* keep, int n, int n_slots,
-                                 void* sel, void* selm, void* stream) {
+// perm, keep (n_inst, n), sel, selm (n_inst, n_slots)
+extern "C" int grid_compact_kept(const void* perm, const void* keep, int n_inst, int n,
+                                 int n_slots, void* sel, void* selm, void* stream) {
   static size_t budget = 0, allowed = 0;
-  if (n < 1 || n_slots < 1) return (int)cudaErrorInvalidValue;
-  return launch_k8(compact_kept_kernel, &budget, &allowed, n, (size_t)n, stream,
+  if (n_inst < 1 || n < 1 || n_slots < 1) return (int)cudaErrorInvalidValue;
+  return launch_k8_instances(compact_kept_kernel, &budget, &allowed, n_inst, n, (size_t)n,
+                             stream,
                    (const int*)perm, (const bool*)keep, n, n_slots, (int*)sel, (bool*)selm);
 }
 
@@ -864,34 +920,43 @@ extern "C" int grid_stable_compact(const void* mask, int n_inst, int n, int fill
                              stream, (const bool*)mask, n, fill, (int*)out);
 }
 
+// n_inst instances' selections, a block each: the inputs at their instance
+// strides (strides: 13 host int64, the 11 inputs' in elements, then the
+// output's and the workspace's rows in bytes)
 extern "C" int grid_select_track_f32(const void* curr, const void* cam1_curr, const void* tracked,
                                      const void* ids, const void* lifetime, int F,
                                      const void* apts, const void* ascore, const void* aarrival,
                                      const void* ainlier, const void* acam1, int C,
                                      const void* next_id, int grid_row, int grid_col, int H,
                                      int W, int grid_min, int grid_max, void* out, void* work,
-                                     void* stream) {
+                                     int n_inst, const void* strides, void* stream) {
   static size_t allowed = 0;
-  if (F < 1 || C < 1 || grid_row < 1 || grid_col < 1) return (int)cudaErrorInvalidValue;
+  if (F < 1 || C < 1 || grid_row < 1 || grid_col < 1 || n_inst < 1)
+    return (int)cudaErrorInvalidValue;
   const SelectIn in{(const float*)curr, (const float*)cam1_curr, (const bool*)tracked,
                     (const int*)ids, (const int*)lifetime, (const float*)apts,
                     (const int*)ascore, (const int*)aarrival, (const bool*)ainlier,
                     (const float*)acam1, (const int*)next_id};
+  SelectStrides st;
+  const long long* sv = (const long long*)strides;
+  for (int k = 0; k < 11; ++k) st.in[k] = sv[k];
+  st.out = sv[11];
+  st.work = sv[12];
   // lanes per entry: as many as a 1024-thread block gives every entry
   int sub = 1;
   while (sub < 32 && block_for(F + C) * sub * 2 <= kMaxThreads) sub *= 2;
   const int threads = block_for(F + C) * sub;
   if (work != nullptr) {
-    select_track_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(
+    select_track_kernel<false><<<n_inst, threads, 0, (cudaStream_t)stream>>>(
         in, F, C, grid_row, grid_col, H, W, grid_min, grid_max, sub, (unsigned char*)out,
-        (unsigned char*)work);
+        (unsigned char*)work, st);
   } else {
     const size_t smem = select_bytes(F, C, grid_row * grid_col);
     const int err = msckf::allow_smem(select_track_kernel<true>, smem, &allowed);
     if (err != 0) return err;
-    select_track_kernel<true><<<1, threads, smem, (cudaStream_t)stream>>>(
+    select_track_kernel<true><<<n_inst, threads, smem, (cudaStream_t)stream>>>(
         in, F, C, grid_row, grid_col, H, W, grid_min, grid_max, sub, (unsigned char*)out,
-        nullptr);
+        nullptr, st);
   }
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,16 @@
 // more block solves too and writes delta and the injected state, beside
 // the tiles.
 //
+// Instances: a launch takes a fleet's pruning instances side by side, the
+// grid (tile pairs and the injecting block, in whole clusters) x
+// instances, blockIdx.y the instance; every pointer of instance inst[y]
+// advanced by its instance stride.  Each instance keeps its own n_feat, and
+// so its own feature split over the cluster (n_loc) and the order of its
+// sums: its blocks compute exactly what its launch alone computes (the
+// staging chunk, the same for all, changes no sum's order), and every block
+// reaches every cluster barrier.  Up to kMaxInst instances a launch (in the
+// launch's arguments); a call with more takes ceil(n_inst / kMaxInst).
+//
 // Bound on the card: bytes.  P is read and P_new written once (159 KB in
 // float32 at D = 141); the work is ~1.2 MFLOP.  The time goes to the
 // dependent chain of one block: the copies' round trip, the sums, the
@@ -61,6 +71,24 @@ constexpr int kSums = 90;          // 78 entries of B^T B (upper triangle), 12 o
 constexpr int kCluster = 8;        // blocks sharing the sums: block rank r takes every 8th feature
 constexpr int kStageBytes = 40 * 1024;  // B's rows and r, staged a chunk of features at a time
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxInst = 64;  // instances of one launch
+// instance strides, in elements: P, B, r, include, cols, out, the injected
+// state's q, bg, v, ba, p, R, t, cam_q, cam_p, count, then too_large
+constexpr int kStrides = 17;
+
+// A launch's instances: blockIdx.y = s takes instance inst[s] with n_feat[s]
+// features
+struct Inst12 {
+  int n;
+  int inst[kMaxInst];
+  int n_feat[kMaxInst];
+  long long stride[kStrides];
+};
+
+template <typename P>
+__device__ __forceinline__ P* at(P* p, const Inst12& f, int k, int b) {
+  return p == nullptr ? p : p + f.stride[k] * b;
+}
 
 // Index of B^T B's entry (a, c), a <= c, in the upper triangle row by row
 __host__ __device__ constexpr int tri(int a, int c) { return a * 12 - a * (a - 1) / 2 + c - a; }
@@ -160,12 +188,33 @@ __device__ __forceinline__ void back_step(const T (&col)[12], T (&x)[12], const 
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_feat, int rows_per,
-              long long hs_f, long long hs_r, const T* __restrict__ r, long long rs_f,
-              long long rs_r, const bool* __restrict__ include, const int64_t* __restrict__ cols,
-              const T* __restrict__ obs_noise, int chunk, T* __restrict__ delta,
-              T* __restrict__ P_out, const msckf::InjectIn<T> state,
-              uint8_t* __restrict__ too_large, long long* __restrict__ clocks) {
+rank12_kernel(const T* P0, int D, const T* Bm0, int rows_per, long long hs_f, long long hs_r,
+              const T* r0, long long rs_f, long long rs_r, const bool* include0,
+              const int64_t* cols0, const T* __restrict__ obs_noise, int chunk, T* out0,
+              const msckf::InjectIn<T> state0, uint8_t* too_large0, long long* clocks0,
+              const __grid_constant__ Inst12 f) {
+  // this block's instance
+  const int inst = f.inst[blockIdx.y], n_feat = f.n_feat[blockIdx.y];
+  const T* __restrict__ P = at(P0, f, 0, inst);
+  const T* __restrict__ Bm = at(Bm0, f, 1, inst);
+  const T* __restrict__ r = at(r0, f, 2, inst);
+  const bool* __restrict__ include = at(include0, f, 3, inst);
+  const int64_t* __restrict__ cols = at(cols0, f, 4, inst);
+  T* __restrict__ P_out = at(out0, f, 5, inst);
+  T* __restrict__ delta = P_out + (size_t)D * D;
+  msckf::InjectIn<T> state = state0;
+  state.q = at(state.q, f, 6, inst);
+  state.bg = at(state.bg, f, 7, inst);
+  state.v = at(state.v, f, 8, inst);
+  state.ba = at(state.ba, f, 9, inst);
+  state.p = at(state.p, f, 10, inst);
+  state.R = at(state.R, f, 11, inst);
+  state.t = at(state.t, f, 12, inst);
+  state.cam_q = at(state.cam_q, f, 13, inst);
+  state.cam_p = at(state.cam_p, f, 14, inst);
+  state.count = at(state.count, f, 15, inst);
+  uint8_t* __restrict__ too_large = at(too_large0, f, 16, inst);
+  long long* __restrict__ clocks = blockIdx.y == 0 ? clocks0 : nullptr;
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   T* Pc = reinterpret_cast<T*>(dyn_smem);  // D x 12
   T* tA = Pc + D * 12;                      // P[I, J], then P_new there
@@ -418,65 +467,86 @@ rank12_kernel(const T* __restrict__ P, int D, const T* __restrict__ Bm, int n_fe
 }
 
 template <typename T>
-int launch(const void* P, int D, const void* Bm, int n_feat, int rows_per, long long hs_f,
-           long long hs_r, const void* r, long long rs_f, long long rs_r, const void* include,
-           const void* cols, const void* obs_noise, void* out, const void* q, const void* bg,
-           const void* v, const void* ba, const void* p, const void* R, const void* t,
-           const void* cam_q, const void* cam_p, int N, const void* count, void* too_large,
-           void* clocks, void* stream) {
+int launch(const void* P, int D, const void* Bm, int rows_per, long long hs_f, long long hs_r,
+           const void* r, long long rs_f, long long rs_r, const void* include, const void* cols,
+           const void* obs_noise, void* out, const void* q, const void* bg, const void* v,
+           const void* ba, const void* p, const void* R, const void* t, const void* cam_q,
+           const void* cam_p, int N, const void* count, void* too_large, void* clocks,
+           int n_inst, const int* inst, const long long* strides, void* stream) {
   static size_t smem_allowed = 0;
-  if (D < 12 || n_feat < 1 || rows_per < 1) return (int)cudaErrorInvalidValue;
-  const int n_loc = (n_feat + kCluster - 1) / kCluster;  // rank 0's features, the most
-  const int per_chunk = kStageBytes / (13 * (int)sizeof(T) * rows_per);
-  const int chunk = per_chunk < 1 ? 1 : (per_chunk < n_loc ? per_chunk : n_loc);
-  const size_t smem = ((size_t)D * 12 + 2 * kTile * kPad + 2 * kTile * 12 +
-                       (size_t)chunk * rows_per * 13) * sizeof(T) +
-                      (include != nullptr ? (size_t)n_loc * sizeof(int) : 0);
-  const int err = msckf::allow_smem(rank12_kernel<T>, smem, &smem_allowed);
-  if (err != 0) return err;
+  if (D < 12 || rows_per < 1 || n_inst < 1) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < n_inst; ++s)
+    if (inst[2 * s + 1] < 1) return (int)cudaErrorInvalidValue;
   const int nt = (D + kTile - 1) / kTile, n_pairs = nt * (nt + 1) / 2;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n_pairs + kCluster) / kCluster * kCluster);  // and the injecting block
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   const msckf::InjectIn<T> state{(const T*)q, (const T*)bg, (const T*)v, (const T*)ba,
                                  (const T*)p, (const T*)R, (const T*)t, (const T*)cam_q,
                                  (const T*)cam_p, (const int*)count, N};
-  cudaLaunchKernelEx(&cfg, rank12_kernel<T>, (const T*)P, D, (const T*)Bm, n_feat, rows_per,
-                     hs_f, hs_r, (const T*)r, rs_f, rs_r, (const bool*)include,
-                     (const int64_t*)cols, (const T*)obs_noise, chunk, (T*)out + (size_t)D * D,
-                     (T*)out, state, (uint8_t*)too_large, (long long*)clocks);
-  return (int)cudaGetLastError();  // the launch's error, cleared for the next launch
+  Inst12 f;
+  for (int k = 0; k < kStrides; ++k) f.stride[k] = strides[k];
+  for (int s0 = 0; s0 < n_inst; s0 += kMaxInst) {
+    f.n = n_inst - s0 < kMaxInst ? n_inst - s0 : kMaxInst;
+    int n_loc = 1;  // rank 0's features, the most of any rank, of the widest instance
+    for (int s = 0; s < f.n; ++s) {
+      f.inst[s] = inst[2 * (s0 + s)];
+      f.n_feat[s] = inst[2 * (s0 + s) + 1];
+      const int loc = (f.n_feat[s] + kCluster - 1) / kCluster;
+      if (loc > n_loc) n_loc = loc;
+    }
+    const int per_chunk = kStageBytes / (13 * (int)sizeof(T) * rows_per);
+    const int chunk = per_chunk < 1 ? 1 : (per_chunk < n_loc ? per_chunk : n_loc);
+    const size_t smem = ((size_t)D * 12 + 2 * kTile * kPad + 2 * kTile * 12 +
+                         (size_t)chunk * rows_per * 13) * sizeof(T) +
+                        (include != nullptr ? (size_t)n_loc * sizeof(int) : 0);
+    int err = msckf::allow_smem(rank12_kernel<T>, smem, &smem_allowed);
+    if (err != 0) return err;
+    cudaLaunchConfig_t cfg = {};
+    // the tile pairs and the injecting block, in whole clusters, by the instances
+    cfg.gridDim = dim3((n_pairs + kCluster) / kCluster * kCluster, f.n);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaLaunchKernelEx(&cfg, rank12_kernel<T>, (const T*)P, D, (const T*)Bm, rows_per, hs_f,
+                       hs_r, (const T*)r, rs_f, rs_r, (const bool*)include,
+                       (const int64_t*)cols, (const T*)obs_noise, chunk, (T*)out, state,
+                       (uint8_t*)too_large, (long long*)clocks, f);
+    err = (int)cudaGetLastError();  // the launch's error, cleared for the next launch
+    if (err != 0) return err;
+    clocks = nullptr;  // the first launch's only
+  }
+  return 0;
 }
 
 }  // namespace
 
-// P, D, B, n_feat, rows_per, B's feature and row strides (its columns
-// contiguous), r, r's feature and row strides, include (n_feat bools or
+// P, D, B, rows_per, B's feature and row strides (its columns contiguous),
+// r, r's feature and row strides, include (n_feat bools an instance or
 // nullptr: every feature), cols, obs_noise, out (P_new, delta, then the
 // injected state), the state's q, bg, v, ba, p, R_imu_cam0, t_cam0_imu,
 // cam_q, cam_p (all nullptr: no injection), N, count, too_large, clocks (7
-// int64 or null: block 1's (the first off-diagonal tile pair's) SM clock at
-// its start and at the end of each of its six phases), stream
+// int64 or null: the first instance's block 1 (the first off-diagonal tile
+// pair's) SM clock at its start and at the end of each of its six phases),
+// n_inst, inst (n_inst host pairs: the instance's index, its n_feat),
+// strides (kStrides host int64: each pointer's instance stride, in
+// elements), stream
 #define RANK12_ENTRY(NAME, T)                                                                 \
-  extern "C" int NAME(const void* P, int D, const void* Bm, int n_feat, int rows_per,         \
-                      long long hs_f, long long hs_r, const void* r, long long rs_f,          \
-                      long long rs_r, const void* include, const void* cols,                  \
-                      const void* obs_noise, void* out, const void* q, const void* bg,        \
-                      const void* v, const void* ba, const void* p, const void* R,            \
-                      const void* t, const void* cam_q, const void* cam_p, int N,             \
-                      const void* count, void* too_large, void* clocks, void* stream) {       \
-    return launch<T>(P, D, Bm, n_feat, rows_per, hs_f, hs_r, r, rs_f, rs_r, include, cols,    \
-                     obs_noise, out, q, bg, v, ba, p, R, t, cam_q, cam_p, N, count, too_large, \
-                     clocks, stream);                                                         \
+  extern "C" int NAME(const void* P, int D, const void* Bm, int rows_per, long long hs_f,    \
+                      long long hs_r, const void* r, long long rs_f, long long rs_r,          \
+                      const void* include, const void* cols, const void* obs_noise,           \
+                      void* out, const void* q, const void* bg, const void* v,                \
+                      const void* ba, const void* p, const void* R, const void* t,            \
+                      const void* cam_q, const void* cam_p, int N, const void* count,         \
+                      void* too_large, void* clocks, int n_inst, const void* inst,            \
+                      const void* strides, void* stream) {                                    \
+    return launch<T>(P, D, Bm, rows_per, hs_f, hs_r, r, rs_f, rs_r, include, cols, obs_noise, \
+                     out, q, bg, v, ba, p, R, t, cam_q, cam_p, N, count, too_large, clocks,   \
+                     n_inst, (const int*)inst, (const long long*)strides, stream);            \
   }
 RANK12_ENTRY(rank12_f32, float)
 RANK12_ENTRY(rank12_f64, double)

@@ -11,12 +11,13 @@ default), so that the instances' tracks and filter decisions diverge.  Each
 B runs once to warm up, then once timed (host clock around a synchronised
 run).  Prints, for each B: aggregate instance-frames/s, host syncs per step
 (``device.host_syncs``), each batched kernel's launches per step (the
-front-end's K2, K4+K6, K5 and K1, the back-end's K14, K13, K9 and K10: their
-wrappers' counts), K11's and K12's (launched once per updating instance)
-and, on the card, CUDA launches per step and those kernels' device us per
-launch (torch.profiler over steps 40-44, run again from the state before
-them) and peak device memory; then one JSON line with the card's name and
-power limit.  On the card unless ``--device cpu``.
+front-end's K2, K4+K6, K5, K1, K7's prediction and K8's selection and
+first-frame entries, the back-end's K14, K13, K9, K10, K11 and K12: their
+wrappers' counts) and, on the card, CUDA launches per step and those
+kernels' device us per launch and per step (torch.profiler over steps
+40-44, run again from the state before them) and peak device memory; then
+one JSON line with the card's name and power limit.  On the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -32,25 +33,32 @@ import torch
 from . import device
 from .models import vio
 from .models.msckf import propagation, triangulation, update
-from .ops import fast, gridops, lk, pyramid
+from .ops import camera, fast, gridops, lk, pyramid
 from .parallel import fleet
 from .profile_main import LAUNCH_CALLS, render
 
-# the kernels with an instance axis, by their wrappers (K1: either tracker)
+# the front-end's kernels with an instance axis, by their wrappers (K1:
+# either tracker; K8's first-frame entries run on an instance's first frame)
 BATCHED = {"K2": (pyramid.build_pyramid_pair,), "K4+K6": (fast.detect_fast,),
-           "K5": (gridops.dense_grid_topk,), "K1": (lk.pyramidal_lk, lk.pyramidal_lk_compact)}
-# the back-end's kernels with an instance axis (launched once a stage), and
-# those launched once per updating instance
+           "K5": (gridops.dense_grid_topk,), "K1": (lk.pyramidal_lk, lk.pyramidal_lk_compact),
+           "K7 predict": (camera.predict_warp_points,), "K8 select": (gridops.select_track,),
+           "K8 first frame": (gridops.rank_in_cell, gridops.kept_order_stats,
+                              gridops.compact_kept)}
+# the back-end's kernels with an instance axis (launched once a stage; K11
+# and K12 once an update stage)
 BACKEND = {"K14": (propagation.propagate,), "K13": (triangulation.triangulate_rows,),
-           "K9": (update.feature_block_rows,), "K10": (update.gating_test_batch,)}
-PER_INSTANCE = {"K11": (update.apply_update,), "K12": (update.apply_update_rank12_rows,)}
+           "K9": (update.feature_block_rows,), "K10": (update.gating_test_batch,),
+           "K11": (update.apply_update,), "K12": (update.apply_update_rank12_rows,)}
 # their CUDA kernels, by a part of the name the profiler lists
 KERNEL_NAMES = {"K2": ("pyramid_kernel", "level0_kernel", "level_kernel"),
                 "K4+K6": ("fast_tile_kernel",), "K5": ("grid_topk",),
-                "K1": ("lk_kernel", "lk_compact_kernel"), "K14": ("propagate_kernel",),
-                "K13": ("triangulate_kernel",), "K9": ("feature_block_kernel",),
-                "K10": ("gate_small_kernel", "gate_tiered_kernel"), "K11": ("update_kernel",),
-                "K12": ("rank12_kernel",)}
+                "K1": ("lk_kernel", "lk_compact_kernel"), "K7 predict": ("predict_warp_kernel",),
+                "K8 select": ("select_track_kernel",),
+                "K8 first frame": ("rank_in_cell_kernel", "kept_order_stats_kernel",
+                                   "compact_kept_kernel"),
+                "K14": ("propagate_kernel",), "K13": ("triangulate_kernel",),
+                "K9": ("feature_block_kernel",), "K10": ("gate_small_kernel", "gate_tiered_kernel"),
+                "K11": ("update_kernel",), "K12": ("rank12_kernel",)}
 
 
 def fleet_frames(frames: vio.VioFrame, T: int, B: int, stride: int) -> vio.VioFrame:
@@ -77,7 +85,7 @@ def measure(config, frames: vio.VioFrame, pb, profile: bool):
 
     fleet.run_fleet(config, frames, pb.gyro_bias, pb.acc_mean)
     sync()
-    for group in (BATCHED, BACKEND, PER_INSTANCE):
+    for group in (BATCHED, BACKEND):
         for fns in group.values():
             for fn in fns:
                 fn.launches = 0
@@ -94,8 +102,6 @@ def measure(config, frames: vio.VioFrame, pb, profile: bool):
                                         for k, fns in BATCHED.items()},
            "backend_launches_per_step": {k: sum(fn.launches for fn in fns) / T
                                          for k, fns in BACKEND.items()},
-           "per_instance_launches_per_step": {k: sum(fn.launches for fn in fns) / T
-                                              for k, fns in PER_INSTANCE.items()},
            "active_instance_frames": int(outs.active.sum()),
            "finite": bool(torch.isfinite(outs.p).all())}
     if cuda:
@@ -113,13 +119,13 @@ def measure(config, frames: vio.VioFrame, pb, profile: bool):
         events = prof.key_averages()
         res["cuda_launches_per_step"] = sum(e.count for e in events
                                             if e.key in LAUNCH_CALLS) / (b - a)
-        res["kernel_device_us_per_launch"] = {}
+        res["kernel_device_us_per_launch"], res["kernel_device_us_per_step"] = {}, {}
         for label, parts in KERNEL_NAMES.items():
             ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                   and any(p in e.key for p in parts)]
-            n = sum(e.count for e in ev)
-            res["kernel_device_us_per_launch"][label] = (
-                sum(e.self_device_time_total for e in ev) / n if n else None)
+            n, us = sum(e.count for e in ev), sum(e.self_device_time_total for e in ev)
+            res["kernel_device_us_per_launch"][label] = us / n if n else None
+            res["kernel_device_us_per_step"][label] = us / (b - a)
     return res
 
 
@@ -154,8 +160,8 @@ def main(argv=None):
               f"{res['seconds'] / n_frames * 1e3:8.2f} ms/step, "
               f"{res['host_syncs_per_step']:.2f} host syncs/step, CUDA launches/step "
               f"{launches}, batched kernels' launches/step {res['kernel_launches_per_step']} "
-              f"{res['backend_launches_per_step']}, per instance "
-              f"{res['per_instance_launches_per_step']}", flush=True)
+              f"{res['backend_launches_per_step']}, device us/step "
+              f"{res.get('kernel_device_us_per_step', 'not measured')}", flush=True)
     print(json.dumps({"card": card, "mode": mode, "frames": n_frames, "results": results}))
 
 

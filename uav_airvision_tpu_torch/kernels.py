@@ -99,10 +99,12 @@ SIGNATURES = {
     # strides (5 int64, host), stream
     "gate_f32": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, I, P, P],
     "gate_f64": [P, P, I, I, I, L, L, P, P, I, P, P, P, I, P, P, P, P, I, P, P],
-    # P, D, B, n_feat, rows_per, B's feature and row strides, r, r's strides,
-    # include, cols, obs_noise, out, *INJECT, clocks, stream
-    "rank12_f32": [P, I, P, I, I, L, L, P, L, L, P, P, P, P, *INJECT, P, P],
-    "rank12_f64": [P, I, P, I, I, L, L, P, L, L, P, P, P, P, *INJECT, P, P],
+    # P, D, B, rows_per, B's feature and row strides, r, r's strides,
+    # include, cols, obs_noise, out, *INJECT, clocks, n_inst, instances
+    # ((index, n_feat) int32 pairs, host), instance strides (17 int64, host),
+    # stream
+    "rank12_f32": [P, I, P, I, L, L, P, L, L, P, P, P, P, *INJECT, P, I, P, P, P],
+    "rank12_f64": [P, I, P, I, L, L, P, L, L, P, P, P, P, *INJECT, P, I, P, P, P],
     # pts, n, intr, field stride, point stride, coef, field stride, point
     # stride, model, (R, new_intr,) out..., stream
     "camera_undistort": [P, I, P, I, I, P, I, I, I, P, P, P, P],
@@ -110,30 +112,35 @@ SIGNATURES = {
     "camera_undistort_distort": [P, I, P, I, I, P, I, I, I, P, P, P, P],
     # pts, n, intr, field stride, point stride, R, out, stream
     "camera_warp": [P, I, P, I, I, P, P, P],
-    # pts, n, mean_ang_vel, dt, R_cam_imu, intr, out, stream
-    "camera_predict_warp": [P, I, P, P, P, P, P, P],
+    # pts, n, mean_ang_vel, dt, R_cam_imu, intr, out, n_inst, instance
+    # strides (4 int64, host), stream
+    "camera_predict_warp": [P, I, P, P, P, P, P, I, P, P],
     # cam0, p1, p0r, proj1, valid, st_fwd, n, intr, coef, model, E, fwd_bwd,
     # max_vdisp, thresh, h, w, inlier, stream
     "camera_stereo_gate": [P, P, P, P, P, P, I, P, P, I, P, F, F, F, I, I, P, P],
     # score, B, H, W, grid_row, grid_col, cell_h, cell_w, k, ys, xs, vals, clocks, stream
     "grid_topk_i32": [P, I, I, I, I, I, I, I, I, P, P, P, P, P],
-    # cell, primary, arrival, valid, n, n_cells, rank, perm, stream
-    "grid_rank_in_cell": [P, P, P, P, I, I, P, P, P],
-    # perm, keep, cell, valid, n, n_cells, global_rank, cell_rank, n_kept, stream
-    "grid_kept_order_stats": [P, P, P, P, I, I, P, P, P, P],
-    # perm, keep, n, n_slots, sel, selm, stream
-    "grid_compact_kept": [P, P, I, I, P, P, P],
+    # cell, primary, arrival, valid, n_inst, n, n_cells, rank, perm, stream
+    "grid_rank_in_cell": [P, P, P, P, I, I, I, P, P, P],
+    # perm, keep, cell, valid, n_inst, n, n_cells, global_rank, cell_rank,
+    # n_kept, stream
+    "grid_kept_order_stats": [P, P, P, P, I, I, I, P, P, P, P],
+    # perm, keep, n_inst, n, n_slots, sel, selm, stream
+    "grid_compact_kept": [P, P, I, I, I, P, P, P],
     # key, n_inst, n, k, out, stream
     "grid_smallest_k": [P, I, I, I, P, P],
     # mask, n_inst, n, fill, out, stream
     "grid_stable_compact": [P, I, I, I, P, P],
     # curr, cam1_curr, tracked, ids, lifetime, F, apts, ascore, aarrival,
     # ainlier, acam1, C, next_id, grid_row, grid_col, H, W, grid_min,
-    # grid_max, out, work, stream
-    "grid_select_track_f32": [P, P, P, P, P, I, P, P, P, P, P, I, P, I, I, I, I, I, I, P, P, P],
-    # P, D, H, r, m, qr, obs_noise, work, out, *INJECT, clocks, stream
-    "ekf_update_f32": [P, I, P, P, I, I, P, P, P, *INJECT, P, P],
-    "ekf_update_f64": [P, I, P, P, I, I, P, P, P, *INJECT, P, P],
+    # grid_max, out, work, n_inst, instance strides (13 int64, host), stream
+    "grid_select_track_f32": [P, P, P, P, P, I, P, P, P, P, P, I, P, I, I, I, I, I, I, P, P, I, P,
+                              P],
+    # P, D, H, r, obs_noise, work, out, *INJECT, clocks, n_inst, instances
+    # ((index, m, qr) int32 triples, host), instance strides (16 int64,
+    # host), stream
+    "ekf_update_f32": [P, I, P, P, P, P, P, *INJECT, P, I, P, P, P],
+    "ekf_update_f64": [P, I, P, P, P, P, P, *INJECT, P, I, P, P, P],
 }
 
 _lib = None
@@ -269,3 +276,9 @@ def int64s(values) -> ctypes.Array:
     """A host array of int64, for a ``const long long*`` argument (the
     kernels copy it into their launch arguments)."""
     return (ctypes.c_longlong * len(values))(*values)
+
+
+def int32s(values) -> ctypes.Array:
+    """A host array of int32, for a ``const int*`` argument (the kernels
+    copy it into their launch arguments)."""
+    return (ctypes.c_int * len(values))(*values)

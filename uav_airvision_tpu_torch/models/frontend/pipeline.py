@@ -21,9 +21,10 @@ and ``lk_compact_windows`` (ops/lk.py).
 ``frontend_step_fleet`` runs B instances (the JAX package's
 ``vmap(frontend_step)`` in ``models/vio.py::vio_step_fleet``): every state
 leaf and input has a leading instance axis, ``prev_pyr`` is one batched
-pyramid, and K2, K4+K6, K5 and K1 launch once for the whole batch.  K7's
-publish and stereo gate run once on the flattened points; K7's prediction
-and K8 run once per instance.  The decisions read once for the batch: an
+pyramid, and K2, K4+K6, K5, K1, K7's prediction and K8 (the first frame's
+ranking, kept-order statistics and compaction, and a tracked frame's
+selection) launch once for the whole batch.  K7's publish and stereo gate
+run once on the flattened points.  The decisions read once for the batch: an
 instance without a pyramid takes the first-frame branch on its own
 (``Pyramid.held``, a host flag, no device read), and under the seed
 fallback the (B,) seed counts are read once and the starved instances take
@@ -99,15 +100,6 @@ def init_frontend_state(config: Config, device) -> FrontendState:
 def predicted_rotations(mean_ang_vel, dt, params: FrontendParams):
     return (predicted_rotation(mean_ang_vel, dt, params.R_cam0_imu),
             predicted_rotation(mean_ang_vel, dt, params.R_cam1_imu))
-
-
-def _per_instance(fn, B: int):
-    """``fn(b)`` for each instance, its outputs (a tuple of tensors) stacked
-    on a new leading axis; one instance takes views, no copy."""
-    outs = [fn(b) for b in range(B)]
-    if B == 1:
-        return tuple(x[None] for x in outs[0])
-    return tuple(torch.stack(xs) for xs in zip(*outs))
 
 
 def _detection_candidates(img, mask_pts, mask_valid, config: Config, per_cell: int):
@@ -200,22 +192,19 @@ def _first_frame(state: FrontendState, cam0_img, pyr0, pyr1, params: FrontendPar
     cam1_pts, inlier = stereo_match(pyr0, pyr1, pts, vald, params, config)
     cell = gridops.cell_of_points(pts, fe.grid_row, fe.grid_col, H, W)
 
-    def keep_best(b):  # K8, once per instance
-        rank, perm = gridops.rank_in_cell(cell[b], score[b].to(torch.float32), arrival[b],
-                                          inlier[b], fe.grid_num)
-        keep = inlier[b] & (rank < fe.grid_min_feature_num)
-        grank, _, n_kept = gridops.kept_order_stats(perm, keep, cell[b], inlier[b], fe.grid_num)
-        ids = torch.where(keep, state.next_id[b] + grank, -1)
-        sel, selm = gridops.compact_kept(perm, keep, F)
-        sel = sel.long()
-        return (torch.where(selm, ids[sel], -1).to(torch.int32), selm.to(torch.int32),
-                torch.where(selm[:, None], pts[b][sel], 0.0),
-                torch.where(selm[:, None], cam1_pts[b][sel], 0.0), selm,
-                (state.next_id[b] + n_kept).to(torch.int32))
-
-    ids, lifetime, cam0, cam1, valid, next_id = _per_instance(keep_best, B)
-    state2 = state._replace(ids=ids, lifetime=lifetime, cam0=cam0, cam1=cam1, valid=valid,
-                            next_id=next_id,
+    # K8 once for the batch each: the best of each cell, their ids, compacted
+    rank, perm = gridops.rank_in_cell(cell, score.to(torch.float32), arrival, inlier,
+                                      fe.grid_num)
+    keep = inlier & (rank < fe.grid_min_feature_num)
+    grank, _, n_kept = gridops.kept_order_stats(perm, keep, cell, inlier, fe.grid_num)
+    ids = torch.where(keep, state.next_id[:, None] + grank, -1)
+    sel, selm = gridops.compact_kept(perm, keep, F)
+    sel = sel.long()
+    cam0 = torch.where(selm[..., None], gridops.gather_rows(pts, sel), 0.0)
+    cam1 = torch.where(selm[..., None], gridops.gather_rows(cam1_pts, sel), 0.0)
+    state2 = state._replace(ids=torch.where(selm, ids.gather(1, sel), -1).to(torch.int32),
+                            lifetime=selm.to(torch.int32), cam0=cam0, cam1=cam1, valid=selm,
+                            next_id=(state.next_id + n_kept).to(torch.int32),
                             initialized=torch.ones((B,), dtype=torch.bool, device=dev))
     zero = torch.zeros((B,), dtype=torch.int32, device=dev)
     return state2, (zero, zero, zero, zero, zero)
@@ -231,9 +220,9 @@ def _track_frame(state: FrontendState, cam0_img, pyr0, pyr1, mean_ang_vel, dt,
     prev_pts, prev_valid = state.cam0, state.valid
     before_tracking = prev_valid.to(i32).sum(-1).to(i32)
     # the IMU-rotation prediction (cam0's: the JAX package computes cam1's
-    # too and drops it) and the K R K^-1 warp, one K7 launch per instance
-    (pred,) = _per_instance(lambda b: predict_warp_points(
-        prev_pts[b], mean_ang_vel[b], dt[b], params.R_cam0_imu, params.cam0_intrinsics)[:1], B)
+    # too and drops it) and the K R K^-1 warp, one K7 launch for the batch
+    pred, _ = predict_warp_points(prev_pts, mean_ang_vel, dt, params.R_cam0_imu,
+                                  params.cam0_intrinsics)
     curr, st = lk.pyramidal_lk(
         state.prev_pyr, pyr0, prev_pts, pred, prev_valid,
         n_levels=temporal_lk_levels(config), win=fe.patch_size,
@@ -299,12 +288,12 @@ def _track_frame(state: FrontendState, cam0_img, pyr0, pyr1, mean_ang_vel, dt,
     tracked = st & match
     after_matching = tracked.to(i32).sum(-1).to(i32)
 
-    # the per-cell selection (new ids, prune, compaction), one K8 launch per
-    # instance
-    ids, lifetime, cam0, cam1, valid, next_id = _per_instance(lambda b: select_track(
-        curr[b], cam1_curr[b], tracked[b], state.ids[b], state.lifetime[b], apts[b], ascore[b],
-        aarrival[b], ainlier[b], acam1[b], state.next_id[b], fe.grid_row, fe.grid_col, H, W,
-        fe.grid_min_feature_num, fe.grid_max_feature_num), B)
+    # the per-cell selection (new ids, prune, compaction), one K8 launch for
+    # the batch
+    ids, lifetime, cam0, cam1, valid, next_id = select_track(
+        curr, cam1_curr, tracked, state.ids, state.lifetime, apts, ascore, aarrival, ainlier,
+        acam1, state.next_id, fe.grid_row, fe.grid_col, H, W, fe.grid_min_feature_num,
+        fe.grid_max_feature_num)
     new_state = state._replace(ids=ids, lifetime=lifetime, cam0=cam0, cam1=cam1, valid=valid,
                                next_id=next_id)
     if n_seed is None:

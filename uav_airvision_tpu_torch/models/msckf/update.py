@@ -19,9 +19,10 @@ and K12 ``apply_update_rank12`` (``csrc/rank12.cu``, likewise, and
 ``rank12_update``; ``apply_update_rank12_rows`` with its call site's masks
 in its launch).  ``feature_block_rows`` and ``gating_test_batch`` (and their
 plain versions) take a fleet's instance axis too, one launch for the fleet;
-K11 and K12 launch once per updating instance of a fleet
-(``apply_update_fleet``, ``apply_update_rank12_rows_fleet``), into one
-allocation.
+so do K11 and K12 (``apply_update_fleet``, ``apply_update_rank12_rows_fleet``:
+one launch for a fleet's updating instances, a block (K12: a row of
+clusters) an instance, each on its own tier, into one allocation), and
+``apply_update`` and ``apply_update_rank12_rows`` are their fleets of one.
 """
 
 from __future__ import annotations
@@ -430,11 +431,9 @@ def rank12_update(P, B, r, cols, obs_noise):
     P (D,D), B (n,12), r (n,), cols (12,).  Returns (delta (D,), the
     symmetrised P_new (D,D)).  On CUDA tensors one launch of kernel K12
     (``csrc/rank12.cu``) without the injection; the main path calls
-    ``apply_update_rank12``."""
-    if P.device.type == "cpu":
+    ``apply_update_rank12_rows``."""
+    if not _on_card(P, "K12"):
         return rank12_update_plain(P, B, r, cols, obs_noise)
-    if P.device.type != "cuda":
-        raise ValueError(f"K12 runs on CUDA tensors, got {P.device}")
     kernels.observe("rank12_update", (P, B, r, cols, obs_noise))
     P_new, delta, _, _ = _rank12_kernel(P, B, r, cols, obs_noise)
     rank12_update.launches += 1
@@ -443,121 +442,167 @@ def rank12_update(P, B, r, cols, obs_noise):
 
 rank12_update.launches = 0
 
+# Instances of one K11 or K12 launch (kMaxInst in ekf_update.cu and
+# rank12.cu): a call over more takes one launch per MAX_INST.
+MAX_INST = 64
+
+
+def _launches(n_inst: int) -> int:
+    """Launches of one K11 or K12 call over ``n_inst`` instances."""
+    return -(-n_inst // MAX_INST)
+
+
+def _on_card(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor (plain version)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA tensors, got {t.device}")
+    return True
+
+
+def _one(state: FilterState) -> FilterState:
+    """A single state as a fleet of one (views)."""
+    return tree.map_leaves(lambda x: x[None], state)
+
 
 def _operand(x, dtype):
     return x if x.dtype == dtype and x.is_contiguous() else x.to(dtype).contiguous()
 
 
 def _update_values(D: int, N: int, size: int) -> int:
-    """Values an EKF update kernel (K11, K12) writes: P_new (D, D), delta
-    (D,) and, with a window of N slots (N > 0), the injected fields
-    (msckf_common.cuh::inject_size), rounded up so that what follows starts
-    16-byte aligned."""
+    """Values an EKF update kernel (K11, K12) writes for an instance: P_new
+    (D, D), delta (D,) and, with a window of N slots (N > 0), the injected
+    fields (msckf_common.cuh::inject_size), rounded up so that what follows
+    starts 16-byte aligned."""
     n_out = D * D + D + (28 + 7 * N if N else 0)
     return (n_out * size + 15) // 16 * 16 // size
 
 
-def _update_launch(P, state, work: int, out=None):
-    """What the EKF update kernels (K11, K12) take beside their operands:
-    ONE allocation holding P_new (D, D), delta (D,), with a ``state`` the
-    injected fields and the too_large flag, and ``work`` values of
-    workspace (or ``out``: (vals, flag), a fleet's row of such an
-    allocation, with at least that many values); and the injection's
-    arguments (the state's fields, nullptr without a state).  The main
-    path's state fields are contiguous and of P's type, so nothing is cast
-    or copied and only the pointers are taken (as ints: ctypes passes them
-    as void*).  Returns (vals, flag, work pointer, injection arguments, the
-    operands to keep alive)."""
-    dtype, D = P.dtype, P.shape[0]
-    N = state.cams.q.shape[0] if state is not None else 0
+def _update_rows(P, N: int, work: int):
+    """ONE allocation for the EKF updates (K11, K12) of S instances (P (S,
+    D, D), windows of N slots, 0 without the injection): a row per instance
+    of ``_update_values`` and ``work`` values of workspace (each row
+    16-byte aligned), then the S too_large flags.  Returns (vals (S, row),
+    flags (S,))."""
+    S, D = P.shape[0], P.shape[-1]
     size = P.element_size()
-    n_out = _update_values(D, N, size)
-    if out is None:
-        buf = torch.empty((n_out + work) * size + 1, dtype=torch.uint8, device=P.device)
-        vals = buf[:(n_out + work) * size].view(dtype)
-        flag = buf[(n_out + work) * size:].view(torch.bool).reshape(())
-    else:
-        vals, flag = out
-        if vals.numel() < n_out + work or vals.data_ptr() % 16:
-            raise ValueError("EKF update: an output row too short or not 16-byte aligned")
-    base = vals.data_ptr()
+    row = _update_values(D, N, size) + (work * size + 15) // 16 * 16 // size
+    buf = torch.empty(S * row * size + S, dtype=torch.uint8, device=P.device)
+    return buf[:S * row * size].view(P.dtype).view(S, row), buf[S * row * size:].view(
+        torch.bool)
+
+
+def _fleet_rows(state: FilterState, work: int):
+    """``_update_rows`` of a fleet's state."""
+    return _update_rows(state.cov, state.cams.q.shape[1], work)
+
+
+def _inject_operands(P, state):
+    """The injection's arguments of the EKF update kernels (K11, K12) for a
+    fleet's ``state`` (None: no injection): the fields' pointers, N and
+    count's pointer (ints: ctypes passes them as void*), the fields'
+    instance strides, and the operands to keep alive.  The main path's
+    fields are of P's type and contiguous per instance, so nothing is cast
+    or copied."""
     if state is None:
-        return vals, flag, base + n_out * size, [None] * 9 + [0, None, None], ()
+        return [None] * 9 + [0, None], [0] * 10, ()
+    S, D = P.shape[0], P.shape[-1]
     imu, cams = state.imu, state.cams
-    ops = [imu.q, imu.bg, imu.v, imu.ba, imu.p, imu.R_imu_cam0, imu.t_cam0_imu, cams.q, cams.p,
-           cams.count]
-    dev = P.get_device()
-    for k, x in enumerate(ops):
-        want = torch.int32 if k == 9 else dtype
-        if x.dtype != want or not x.is_contiguous():
-            ops[k] = x = x.to(want).contiguous()
-        if x.get_device() != dev:
+    N = cams.q.shape[1]
+    ops, strides = [], []
+    for k, x in enumerate((imu.q, imu.bg, imu.v, imu.ba, imu.p, imu.R_imu_cam0, imu.t_cam0_imu,
+                           cams.q, cams.p, cams.count)):
+        x, st = kernels.per_instance(x, torch.int32 if k == 9 else P.dtype, True)
+        if x.device != P.device:
             raise ValueError(f"EKF update: state tensors on {x.device} and P on {P.device}")
-    if (ops[0].numel() != 4 or ops[5].numel() != 9 or ops[7].numel() != 4 * N
-            or ops[8].numel() != 3 * N or D != IMU_DIM + 6 * N):
+        ops.append(x)
+        strides.append(st)
+    sizes = (4, 3, 3, 3, 3, 9, 3, 4 * N, 3 * N, 1)
+    if (any(x.shape[0] != S or x[0].numel() != n for x, n in zip(ops, sizes))
+            or D != IMU_DIM + 6 * N):
         raise ValueError(f"EKF update: a window of {N} slots and a covariance of {D} rows")
-    inject = [x.data_ptr() for x in ops[:9]] + [N, ops[9].data_ptr(), flag.data_ptr()]
-    return vals, flag, base + n_out * size, inject, ops
+    return [x.data_ptr() for x in ops[:9]] + [N, ops[9].data_ptr()], strides, ops
 
 
-def _injected(state: FilterState, vals, flag, D: int):
-    """The state with the fields an update kernel wrote into ``vals``:
-    views of the one allocation, no copy."""
-    N = state.cams.q.shape[0]
-    o = D * D + D
-    q, bg, v, ba, p, R, t, cq, cp = vals[o:o + 28 + 7 * N].split_with_sizes(
-        (4, 3, 3, 3, 3, 9, 3, 4 * N, 3 * N))
-    imu = state.imu._replace(q=q, bg=bg, v=v, ba=ba, p=p, R_imu_cam0=R.view(3, 3), t_cam0_imu=t)
-    cams = state.cams._replace(q=cq.view(N, 4), p=cp.view(N, 3))
-    return state._replace(imu=imu, cams=cams, cov=vals[:D * D].view(D, D)), flag
+def _single(P, vals, flags, state):
+    """(P_new, delta, the injected state or None, too_large or None) of a
+    fleet-of-one launch's row."""
+    D = P.shape[-1]
+    P_new, delta = vals[0, :D * D].view(D, D), vals[0, D * D:D * D + D]
+    if state is None:
+        return P_new, delta, None, None
+    new, too_large = _fleet_injected(_one(state), vals, flags, [True], None)
+    return P_new, delta, tree.index(new, 0), too_large[0]
 
 
-def _rank12_kernel(P, B, r, cols, obs_noise, state=None, clocks=None, include=None, out=None):
-    """K12's launch; with a ``state`` it ends in the injection.  B is (n, 12)
-    with r (n,), or (K, R, 12) with r (K, R): K features of R rows each, read
-    in place through their strides (B's columns contiguous), those whose
-    ``include`` (K,) is false skipped.  Returns (P_new, delta, the injected
-    state or None, too_large or None).  ``clocks``: an int64 (7,) tensor for
-    the SM clock of block 1 (the first off-diagonal tile pair) at its start
-    and at the end of each of its six phases.  ``out``: as in
-    ``_update_launch``."""
+def _rank12_fleet_kernel(P, B, r, cols, obs_noise, idx: list, n_feats: list, state=None,
+                         include=None, clocks=None):
+    """K12's launch for the instances ``idx`` (host ints) of S: P (S, D, D);
+    B (S, n, 12) with r (S, n), or (S, K, R, 12) with r (S, K, R): features
+    of R rows each, read in place through their strides (B's columns
+    contiguous), instance b taking its first ``n_feats[b]`` and skipping
+    those whose ``include`` (S, K) is false; cols (S, 12); with a fleet's
+    ``state`` each update ends in its injection.  ONE launch (one per
+    MAX_INST instances past that), each instance on its own features as its
+    launch alone.  ``clocks``: an int64 (7,) tensor for the SM clock of the
+    first instance's block 1 (the first off-diagonal tile pair) at its start
+    and at the end of each of its six phases.  Returns (vals (S, row),
+    flags (S,)) of ``_update_rows`` (rows of the instances not in ``idx``
+    are not written)."""
     dtype = P.dtype
     entry = {torch.float32: "rank12_f32", torch.float64: "rank12_f64"}.get(dtype)
     if entry is None:
         raise ValueError(f"K12 takes float32 or float64, got {dtype}")
-    P = P.contiguous()
+    S, D = P.shape[0], P.shape[-1]
+    P, s_P = kernels.per_instance(P, dtype, True)
     if B.dtype != dtype or B.stride(-1) != 1:
         B = B.to(dtype).contiguous()
     if r.dtype != dtype:
         r = r.to(dtype)
-    cols = cols if cols.dtype == torch.int64 and cols.is_contiguous() else (
-        cols.to(torch.int64).contiguous())
+    cols, s_c = kernels.per_instance(cols, torch.int64, True)
     noise = _operand(obs_noise, dtype).reshape(1)
-    D, K = P.shape[0], B.shape[0]
-    if (P.shape != (D, D) or B.ndim not in (2, 3) or B.shape[-1] != 12
-            or r.shape != B.shape[:-1] or cols.shape != (12,)
-            or (include is not None and include.shape != (K,))):
+    K = B.shape[1]
+    if (not idx or P.shape != (S, D, D) or B.ndim not in (3, 4) or B.shape[0] != S
+            or B.shape[-1] != 12 or r.shape != B.shape[:-1] or cols.shape != (S, 12)
+            or (include is not None and include.shape != (S, K))
+            or any(not 1 <= n_feats[b] <= K for b in idx)):
         raise ValueError(f"rank12_update: P {tuple(P.shape)}, B {tuple(B.shape)}, "
-                         f"r {tuple(r.shape)}, cols {tuple(cols.shape)}")
-    R = B.shape[1] if B.ndim == 3 else 1
-    strides = ((B.stride(0), B.stride(1), r.stride(0), r.stride(1)) if B.ndim == 3
-               else (B.stride(0), 0, r.stride(0), 0))
-    if include is not None and include.dtype != torch.bool:
-        include = include.to(torch.bool)
-    include = include.contiguous() if include is not None else None
-    kernels.check_cuda(P, cols, noise, *(x for x in (include,) if x is not None))
+                         f"r {tuple(r.shape)}, cols {tuple(cols.shape)}, instances {idx}")
+    R = B.shape[2] if B.ndim == 4 else 1
+    strides = ((B.stride(1), B.stride(2), r.stride(1), r.stride(2)) if B.ndim == 4
+               else (B.stride(1), 0, r.stride(1), 0))
+    s_i = 0
+    if include is not None:
+        include, s_i = kernels.per_instance(include, torch.bool, True)
+    kernels.check_cuda(P[0], cols[0], noise, *(x[0] for x in (include,) if x is not None))
     for x in (B, r):
         if x.device != P.device:
             raise ValueError(f"tensor on {x.device}, expected {P.device}")
-    vals, flag, _, inject, _keep = _update_launch(P, state, 0, out)
-    kernels.launch(entry, P.data_ptr(), D, B.data_ptr(), K, R, *strides[:2], r.data_ptr(),
+    N = state.cams.q.shape[1] if state is not None else 0
+    vals, flags = _update_rows(P, N, 0)
+    inject, s_inj, _keep = _inject_operands(P, state)
+    kernels.launch(entry, P.data_ptr(), D, B.data_ptr(), R, *strides[:2], r.data_ptr(),
                    *strides[2:], include.data_ptr() if include is not None else None,
-                   cols.data_ptr(), noise.data_ptr(), vals.data_ptr(), *inject,
-                   clocks.data_ptr() if clocks is not None else None)
-    P_new, delta = vals[:D * D].view(D, D), vals[D * D:D * D + D]
-    if state is None:
-        return P_new, delta, None, None
-    return (P_new, delta, *_injected(state, vals, flag, D))
+                   cols.data_ptr(), noise.data_ptr(), vals.data_ptr(), *inject, flags.data_ptr(),
+                   clocks.data_ptr() if clocks is not None else None, len(idx),
+                   kernels.int32s([v for b in idx for v in (b, n_feats[b])]),
+                   kernels.int64s([s_P, B.stride(0), r.stride(0), s_i, s_c, vals.shape[1],
+                                   *s_inj, 1]))
+    return vals, flags
+
+
+def _rank12_kernel(P, B, r, cols, obs_noise, state=None, clocks=None, include=None):
+    """K12's launch of one instance (the fleet launch of one): P (D, D), B
+    (n, 12) with r (n,) or (K, R, 12) with r (K, R), cols (12,), include
+    (K,) or None, a single ``state`` or None; ``clocks`` as in
+    ``_rank12_fleet_kernel``.  Returns (P_new, delta, the injected state or
+    None, too_large or None)."""
+    vals, flags = _rank12_fleet_kernel(
+        P[None], B[None], r[None], cols[None], obs_noise, [0], [B.shape[0]],
+        None if state is None else _one(state), None if include is None else include[None],
+        clocks)
+    return _single(P, vals, flags, state)
 
 
 def apply_update_rank12(state: FilterState, params: MsckfParams, B, r, cols):
@@ -565,10 +610,8 @@ def apply_update_rank12(state: FilterState, params: MsckfParams, B, r, cols):
     state.  Returns (state, too_large).  On CUDA tensors ONE launch of
     kernel K12 computes the update and the injection; the new state's
     changed fields are views of its one allocation."""
-    if state.cov.device.type == "cpu":
+    if not _on_card(state.cov, "K12"):
         return apply_update_rank12_plain(state, params, B, r, cols)
-    if state.cov.device.type != "cuda":
-        raise ValueError(f"K12 runs on CUDA tensors, got {state.cov.device}")
     kernels.observe("apply_update_rank12", (state, params, B, r, cols))
     _, _, new_state, too_large = _rank12_kernel(state.cov, B, r, cols, params.obs_noise, state)
     apply_update_rank12.launches += 1
@@ -598,34 +641,18 @@ def apply_update_rank12_rows(state: FilterState, params: MsckfParams, H12, r_blk
     (K, R, 12) (the 12 columns of the two pruned cameras, a strided slice of
     the (K, R, 21 + 12) blocks is read in place), r_blk (K, R) and include
     (K,): a feature whose ``include`` is false adds nothing.  Returns
-    (state, too_large).  On CUDA tensors ONE launch of K12 masks, updates
-    and injects."""
-    if state.cov.device.type == "cpu":
-        return apply_update_rank12_rows_plain(state, params, H12, r_blk, include, cols)
-    if state.cov.device.type != "cuda":
-        raise ValueError(f"K12 runs on CUDA tensors, got {state.cov.device}")
-    kernels.observe("apply_update_rank12_rows", (state, params, H12, r_blk, include, cols))
-    _, _, new_state, too_large = _rank12_kernel(state.cov, H12, r_blk, cols, params.obs_noise,
-                                                state, include=include)
-    apply_update_rank12_rows.launches += 1
-    return new_state, too_large
+    (state, too_large).  The fleet's prune of one instance
+    (``apply_update_rank12_rows_fleet``): on CUDA tensors ONE launch of K12
+    masks, updates and injects."""
+    if _on_card(state.cov, "K12"):
+        kernels.observe("apply_update_rank12_rows", (state, params, H12, r_blk, include, cols))
+    new, too_large = _prune_update_fleet(_one(state), params, H12[None], r_blk[None],
+                                         include[None], cols[None], [True], None,
+                                         [H12.shape[0]])
+    return tree.index(new, 0), too_large[0]
 
 
 apply_update_rank12_rows.launches = 0
-
-
-def _fleet_rows(state: FilterState, work: int):
-    """One allocation for a fleet's EKF updates, K11 or K12 launched once
-    per updating instance: a row per instance of ``_update_values`` and
-    ``work`` values (each row 16-byte aligned), then the S too_large flags.
-    Returns (vals (S, row), flags (S,))."""
-    cov = state.cov
-    S, D, N = cov.shape[0], cov.shape[-1], state.cams.q.shape[1]
-    size = cov.element_size()
-    row = _update_values(D, N, size) + (work * size + 15) // 16 * 16 // size
-    buf = torch.empty(S * row * size + S, dtype=torch.uint8, device=cov.device)
-    return buf[:S * row * size].view(cov.dtype).view(S, row), buf[S * row * size:].view(
-        torch.bool)
 
 
 def _write_row(vals, flag, state: FilterState, too_large):
@@ -653,9 +680,9 @@ def _fleet_injected(state: FilterState, vals, flags, upd: list, upd_mask):
     imu, cams = state.imu, state.cams
     new = (vals[:, :D * D].view(S, D, D), q, bg, v, ba, p, R.view(S, 3, 3), t, cq.view(S, N, 4),
            cp.view(S, N, 3), flags)
-    old = (state.cov, imu.q, imu.bg, imu.v, imu.ba, imu.p, imu.R_imu_cam0, imu.t_cam0_imu,
-           cams.q, cams.p, torch.zeros_like(flags))
     if not all(upd):
+        old = (state.cov, imu.q, imu.bg, imu.v, imu.ba, imu.p, imu.R_imu_cam0, imu.t_cam0_imu,
+               cams.q, cams.p, torch.zeros_like(flags))
         new = tuple(torch.where(upd_mask.view((S,) + (1,) * (x.dim() - 1)), x, y)
                     for x, y in zip(new, old))
     cov, q, bg, v, ba, p, R, t, cq, cp, too_large = new
@@ -663,32 +690,78 @@ def _fleet_injected(state: FilterState, vals, flags, upd: list, upd_mask):
     return state._replace(imu=imu, cams=cams._replace(q=cq, p=cp), cov=cov), too_large
 
 
+def apply_update_fleet_plain(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true,
+                             upd: list, upd_mask):
+    """Plain version of ``apply_update_fleet``: ``apply_update_plain``
+    instance by instance (each on its own row tier, which decides the
+    shapes of its products), written into one allocation as the kernel
+    writes it."""
+    vals, flags = _fleet_rows(state, 0)
+    for b, u in enumerate(upd):
+        if u:
+            _write_row(vals[b], flags[b], *apply_update_plain(
+                tree.index(state, b), params, H_buf[b], r_buf[b], rows_true[b]))
+    return _fleet_injected(state, vals, flags, upd, upd_mask)
+
+
+def _update_fleet(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true, upd: list,
+                  upd_mask):
+    """``apply_update_fleet`` (the single ``apply_update`` is its fleet of
+    one): the plain version on the CPU, ONE launch of K11 on the card."""
+    if not _on_card(state.cov, "K11"):
+        return apply_update_fleet_plain(state, params, H_buf, r_buf, rows_true, upd, upd_mask)
+    idx = [b for b, u in enumerate(upd) if u]
+    vals, flags = _ekf_update_fleet_kernel(state.cov, H_buf, r_buf, params.obs_noise, rows_true,
+                                           idx, state)
+    apply_update.launches += _launches(len(idx))
+    for b in idx:
+        apply_update.tiers[update_tier(H_buf.shape[1], H_buf.shape[2], rows_true[b])] += 1
+    return _fleet_injected(state, vals, flags, upd, upd_mask)
+
+
 def apply_update_fleet(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true,
                        upd: list, upd_mask):
     """``apply_update`` of a fleet's instances whose host flag in ``upd``
     is set (``upd_mask`` the same flags on the device), each on its buffer
     H_buf[b] (R, D), r_buf[b] and its row tier ``rows_true[b]`` (host
-    ints).  K11 has no instance axis: on the card ONE launch per updating
-    instance, each writing into its row of one allocation for the fleet
-    (no copy of an instance's state); on the CPU the plain version.
-    Returns (state, too_large (S,))."""
-    cov = state.cov
-    cuda = cov.device.type == "cuda"
+    ints).  On the card ONE launch of K11 for all of them, a block an
+    instance on its own row tier, each writing into its row of one
+    allocation for the fleet (no copy of an instance's state); on the CPU
+    the plain version, instance by instance.  Returns (state, too_large
+    (S,))."""
+    if _on_card(state.cov, "K11"):
+        kernels.observe("apply_update_fleet", (state, params, H_buf, r_buf, rows_true, upd,
+                                               upd_mask))
+    return _update_fleet(state, params, H_buf, r_buf, rows_true, upd, upd_mask)
+
+
+def apply_update_rank12_rows_fleet_plain(state: FilterState, params: MsckfParams, H12, r_blk,
+                                         include, cols, upd: list, upd_mask, n_feats: list):
+    """Plain version of ``apply_update_rank12_rows_fleet``:
+    ``apply_update_rank12_rows_plain`` instance by instance, each over its
+    own first ``n_feats[b]`` features (the sums' length), written into one
+    allocation as the kernel writes it."""
+    vals, flags = _fleet_rows(state, 0)
+    for b, u in enumerate(upd):
+        if u:
+            k = n_feats[b]
+            _write_row(vals[b], flags[b], *apply_update_rank12_rows_plain(
+                tree.index(state, b), params, H12[b, :k], r_blk[b, :k], include[b, :k], cols[b]))
+    return _fleet_injected(state, vals, flags, upd, upd_mask)
+
+
+def _prune_update_fleet(state: FilterState, params: MsckfParams, H12, r_blk, include, cols,
+                        upd: list, upd_mask, n_feats: list):
+    """``apply_update_rank12_rows_fleet`` (the single
+    ``apply_update_rank12_rows`` is its fleet of one): the plain version on
+    the CPU, ONE launch of K12 on the card."""
+    if not _on_card(state.cov, "K12"):
+        return apply_update_rank12_rows_fleet_plain(state, params, H12, r_blk, include, cols, upd,
+                                                    upd_mask, n_feats)
     idx = [b for b, u in enumerate(upd) if u]
-    work = max(_update_work(H_buf.shape[1], cov.shape[-1], rows_true[b])[2]
-               for b in idx) if cuda else 0
-    vals, flags = _fleet_rows(state, work)
-    for b in idx:
-        one = tree.index(state, b)
-        if not cuda:
-            _write_row(vals[b], flags[b], *apply_update_plain(one, params, H_buf[b], r_buf[b],
-                                                              rows_true[b]))
-            continue
-        kernels.observe("apply_update", (one, params, H_buf[b], r_buf[b], rows_true[b]))
-        _ekf_update_kernel(one.cov, H_buf[b], r_buf[b], params.obs_noise, rows_true[b], one,
-                           out=(vals[b], flags[b]))
-        apply_update.launches += 1
-        apply_update.tiers[update_tier(H_buf.shape[1], H_buf.shape[2], rows_true[b])] += 1
+    vals, flags = _rank12_fleet_kernel(state.cov, H12, r_blk, cols, params.obs_noise, idx,
+                                       n_feats, state, include)
+    apply_update_rank12_rows.launches += _launches(len(idx))
     return _fleet_injected(state, vals, flags, upd, upd_mask)
 
 
@@ -698,24 +771,14 @@ def apply_update_rank12_rows_fleet(state: FilterState, params: MsckfParams, H12,
     in ``upd`` is set, each on its first ``n_feats[b]`` blocks H12[b]
     (K, R, 12), r_blk[b], include[b] (its own feature tier: the blocks
     past it are excluded, and the plain version's sums run over the blocks
-    it is given) and columns cols[b] (12,).  K12 has no instance axis: on
-    the card ONE launch per pruning instance into its row of one allocation
-    for the fleet; on the CPU the plain version.  Returns (state, too_large
-    (S,))."""
-    cuda = state.cov.device.type == "cuda"
-    vals, flags = _fleet_rows(state, 0)
-    for b in (b for b, u in enumerate(upd) if u):
-        one = tree.index(state, b)
-        k = n_feats[b]
-        args = (one, params, H12[b, :k], r_blk[b, :k], include[b, :k], cols[b])
-        if not cuda:
-            _write_row(vals[b], flags[b], *apply_update_rank12_rows_plain(*args))
-            continue
-        kernels.observe("apply_update_rank12_rows", args)
-        _rank12_kernel(one.cov, *args[2:4], cols[b], params.obs_noise, one, include=args[4],
-                       out=(vals[b], flags[b]))
-        apply_update_rank12_rows.launches += 1
-    return _fleet_injected(state, vals, flags, upd, upd_mask)
+    it is given) and columns cols[b] (12,).  On the card ONE launch of K12
+    for all of them (instance by instance in its launch: each keeps its own
+    feature count, so its own sums), into one allocation for the fleet; on
+    the CPU the plain version.  Returns (state, too_large (S,))."""
+    if _on_card(state.cov, "K12"):
+        kernels.observe("apply_update_rank12_rows_fleet", (state, params, H12, r_blk, include,
+                                                           cols, upd, upd_mask, n_feats))
+    return _prune_update_fleet(state, params, H12, r_blk, include, cols, upd, upd_mask, n_feats)
 
 
 def ekf_update_plain(P, H_buf, r_buf, obs_noise, rows_true=None):
@@ -797,59 +860,78 @@ def _update_work(n_rows: int, D: int, rows_true):
     return m, False, _update_layout(m, D)
 
 
-def _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true, state=None, clocks=None,
-                       out=None):
-    """K11's launch: the whole update of the row tier ``rows_true`` selects,
-    and with a ``state`` the injection, in one launch of one block.  On the
-    T1 and T2 tiers the kernel factors the true rows only (the rows past
-    ``rows_true`` are zero padding and change nothing), on the QR tier it
-    first compresses the stack's first max(rows_true, D) rows.  The one
-    allocation holds the outputs and the workspace.  ``clocks``, an int64
-    CUDA tensor of 7, receives the SM clock at the kernel's phase
-    boundaries (tools/kernel_probe.py).  ``out``: as in ``_update_launch``.
-    Returns (P_new, delta, the injected state or None, too_large or
-    None)."""
+def _ekf_update_fleet_kernel(P, H_buf, r_buf, obs_noise, rows_true, idx: list, state=None,
+                             clocks=None):
+    """K11's launch for the instances ``idx`` (host ints) of S: P (S, D, D),
+    H_buf (S, R, D), r_buf (S, R) (each instance contiguous, read at its
+    instance stride), ``rows_true`` each instance's true rows (host ints or
+    None), with a fleet's ``state`` each update ending in its injection.
+    ONE launch (one per MAX_INST instances past that), a block an instance,
+    each on the row tier its ``rows_true`` selects, with its own layout and
+    shared memory, as its launch alone: on the T1 and T2 tiers the kernel
+    factors the true rows only (the rows past ``rows_true`` are zero
+    padding and change nothing), on the QR tier it first compresses the
+    stack's first max(rows_true, D) rows.  One allocation holds every
+    instance's outputs and its workspace (sized for the largest tier among
+    them).  ``clocks``, an int64 CUDA tensor of 7, receives the SM clock of
+    the first instance's block at the kernel's phase boundaries
+    (tools/kernel_probe.py).  Returns (vals (S, row), flags (S,)) of
+    ``_update_rows`` (rows of the instances not in ``idx`` are not
+    written)."""
     dtype = P.dtype
     suffix = {torch.float32: "f32", torch.float64: "f64"}.get(dtype)
     if suffix is None:
         raise ValueError(f"K11 takes float32 or float64, got {dtype}")
-    P, H_buf, r_buf, noise = (_operand(x, dtype) for x in (P, H_buf, r_buf, obs_noise))
-    kernels.check_cuda(P, H_buf, r_buf, noise)
-    n_rows, D = H_buf.shape
-    if P.shape != (D, D) or r_buf.shape != (n_rows,):
+    S, n_rows, D = H_buf.shape
+    P, s_P = kernels.per_instance(P, dtype, True)
+    H_buf, s_H = kernels.per_instance(H_buf, dtype, True)
+    r_buf, s_r = kernels.per_instance(r_buf, dtype, True)
+    noise = _operand(obs_noise, dtype)
+    kernels.check_cuda(P[0], H_buf[0], r_buf[0], noise)
+    if not idx or P.shape != (S, D, D) or r_buf.shape != (S, n_rows):
         raise ValueError(f"ekf_update: P {tuple(P.shape)}, H {tuple(H_buf.shape)}, "
-                         f"r {tuple(r_buf.shape)}")
-    m, qr, work = _update_work(n_rows, D, rows_true)
-    vals, flag, work_ptr, inject, _keep = _update_launch(P, state, work, out)
+                         f"r {tuple(r_buf.shape)}, instances {idx}")
+    tiers = [_update_work(n_rows, D, rows_true[b]) for b in idx]
+    N = state.cams.q.shape[1] if state is not None else 0
+    vals, flags = _update_rows(P, N, max(w for _, _, w in tiers))
+    inject, s_inj, _keep = _inject_operands(P, state)
+    row, n_out = vals.shape[1], _update_values(D, N, P.element_size())
     kernels.launch(f"ekf_update_{suffix}", P.data_ptr(), D, H_buf.data_ptr(), r_buf.data_ptr(),
-                   m, int(qr), noise.data_ptr(), work_ptr, vals.data_ptr(), *inject,
-                   clocks.data_ptr() if clocks is not None else None)
-    P_new, delta = vals[:D * D].view(D, D), vals[D * D:D * D + D]
-    if state is None:
-        return P_new, delta, None, None
-    return (P_new, delta, *_injected(state, vals, flag, D))
+                   noise.data_ptr(), vals.data_ptr() + n_out * P.element_size(),
+                   vals.data_ptr(), *inject, flags.data_ptr(),
+                   clocks.data_ptr() if clocks is not None else None, len(idx),
+                   kernels.int32s([v for b, (m, qr, _) in zip(idx, tiers)
+                                   for v in (b, m, int(qr))]),
+                   kernels.int64s([s_P, s_H, s_r, row, row, *s_inj, 1]))
+    return vals, flags
+
+
+def _ekf_update_kernel(P, H_buf, r_buf, obs_noise, rows_true, state=None, clocks=None):
+    """K11's launch of one instance (the fleet launch of one): P (D, D),
+    H_buf (R, D), r_buf (R,), a single ``state`` or None; ``clocks`` as in
+    ``_ekf_update_fleet_kernel``.  Returns (P_new, delta, the injected state
+    or None, too_large or None)."""
+    vals, flags = _ekf_update_fleet_kernel(P[None], H_buf[None], r_buf[None], obs_noise,
+                                           [rows_true], [0],
+                                           None if state is None else _one(state), clocks)
+    return _single(P, vals, flags, state)
 
 
 def apply_update(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):
     """EKF update from the stacked zero-padded buffer (``ekf_update``),
-    injected into the state.  Returns (state, too_large).  On CUDA tensors
-    ONE launch of kernel K11 computes the update on its row tier and the
-    injection; the new state's changed fields are views of its one
-    allocation."""
-    if state.cov.device.type == "cpu":
-        return apply_update_plain(state, params, H_buf, r_buf, rows_true)
-    if state.cov.device.type != "cuda":
-        raise ValueError(f"K11 runs on CUDA tensors, got {state.cov.device}")
-    kernels.observe("apply_update", (state, params, H_buf, r_buf, rows_true))
-    _, _, new_state, too_large = _ekf_update_kernel(state.cov, H_buf, r_buf, params.obs_noise,
-                                                    rows_true, state)
-    apply_update.launches += 1
-    apply_update.tiers[update_tier(H_buf.shape[0], H_buf.shape[1], rows_true)] += 1
-    return new_state, too_large
+    injected into the state.  Returns (state, too_large).  The fleet update
+    (``apply_update_fleet``) of one instance: on CUDA tensors ONE launch of
+    kernel K11 computes the update on its row tier and the injection; the
+    new state's changed fields are views of its one allocation."""
+    if _on_card(state.cov, "K11"):
+        kernels.observe("apply_update", (state, params, H_buf, r_buf, rows_true))
+    new, too_large = _update_fleet(_one(state), params, H_buf[None], r_buf[None], [rows_true],
+                                   [True], None)
+    return tree.index(new, 0), too_large[0]
 
 
 apply_update.launches = 0
-apply_update.tiers = {"T1": 0, "T2": 0, "QR": 0, "all": 0}  # calls per row tier
+apply_update.tiers = {"T1": 0, "T2": 0, "QR": 0, "all": 0}  # instance updates per row tier
 
 
 def apply_update_plain(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):

@@ -18,7 +18,6 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from ..utils.quaternion import skew
 
 UNDISTORT_ITERS = 5
 
@@ -127,24 +126,59 @@ def homography_warp_points_plain(pts_px, R_p_c, intrinsics):
     return w[..., :2] / w[..., 2:3]
 
 
-def rodrigues(rvec):
-    """Axis-angle -> rotation matrix (cv2.Rodrigues closed form)."""
-    theta = torch.linalg.norm(rvec)
-    safe = torch.where(theta > 1e-12, theta, torch.ones_like(theta))
-    K = skew(rvec / safe)
-    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
-    R = eye + torch.sin(theta) * K + (1.0 - torch.cos(theta)) * (K @ K)
-    return torch.where(theta > 1e-12, R, eye)
+def _mat3_mul(A, B):
+    """A @ B of (..., 3, 3) blocks, each entry's three products summed left
+    to right (the kernel's mat3_mul): an instance's bits whatever the
+    batch, where a library product's depend on it."""
+    return torch.stack([torch.stack([(A[..., r, 0] * B[..., 0, c] + A[..., r, 1] * B[..., 1, c])
+                                     + A[..., r, 2] * B[..., 2, c] for c in range(3)], -1)
+                        for r in range(3)], -2)
 
 
-def predicted_rotation(mean_ang_vel, dt, R_cam_imu):
-    """A camera's inter-frame rotation R_p_c from the mean gyro rate."""
-    return rodrigues((R_cam_imu.T @ mean_ang_vel) * dt).T
+def predicted_rotation(w, dt, R_cam_imu):
+    """A camera's inter-frame rotation R_p_c = rodrigues(R_cam_imu' w dt)'
+    from the mean gyro rate (cv2.Rodrigues' closed form), of one instance
+    (w (3,), dt ()) or of each of a fleet's (w (..., 3), dt (...)), in the
+    kernel's expressions: (R' w)_c = (R_0c w_0 + R_1c w_1) + R_2c w_2, the
+    angle sqrt((x^2 + y^2) + z^2), R = (I + sin(t) K) + (1 - cos(t)) K K
+    with K the skew matrix of the unit axis, the identity for an angle
+    <= 1e-12."""
+    R = R_cam_imu
+    r = torch.stack([((R[0, c] * w[..., 0] + R[1, c] * w[..., 1]) + R[2, c] * w[..., 2]) * dt
+                     for c in range(3)], -1)
+    x, y, z = r.unbind(-1)
+    theta = torch.sqrt((x * x + y * y) + z * z)
+    big = theta > 1e-12
+    safe = torch.where(big, theta, torch.ones_like(theta))
+    kx, ky, kz = x / safe, y / safe, z / safe
+    o = torch.zeros_like(kx)
+    K = torch.stack([torch.stack([o, -kz, ky], -1), torch.stack([kz, o, -kx], -1),
+                     torch.stack([-ky, kx, o], -1)], -2)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    Rot = (eye + torch.sin(theta)[..., None, None] * K) + (
+        1.0 - torch.cos(theta))[..., None, None] * _mat3_mul(K, K)
+    return torch.where(big[..., None, None], Rot, eye).transpose(-1, -2)
 
 
 def predict_warp_points_plain(pts_px, mean_ang_vel, dt, R_cam_imu, intrinsics):
-    R_p_c = predicted_rotation(mean_ang_vel, dt, R_cam_imu)
-    return homography_warp_points_plain(pts_px, R_p_c, intrinsics), R_p_c
+    """Plain version of K7's prediction, of one instance ((F, 2) points, a
+    (3,) rate, a one-element dt) or of a fleet's ((B, F, 2), (B, 3), (B,)):
+    the kernel's expressions elementwise (the homography K R K^-1 and the
+    warp too), so that each instance's values are its single call's."""
+    fleet = pts_px.dim() == 3
+    w = mean_ang_vel if fleet else mean_ang_vel[None]
+    R = predicted_rotation(w, dt.reshape(w.shape[0]), R_cam_imu)  # (B, 3, 3)
+    fx, fy, cx, cy = intrinsics
+    z, o = torch.zeros_like(fx), torch.ones_like(fx)
+    K = torch.stack([torch.stack([fx, z, cx]), torch.stack([z, fy, cy]), torch.stack([z, z, o])])
+    Kinv = torch.stack([torch.stack([1.0 / fx, z, -cx / fx]), torch.stack([z, 1.0 / fy, -cy / fy]),
+                        torch.stack([z, z, o])])
+    Hm = _mat3_mul(_mat3_mul(K.expand_as(R), R), Kinv.expand_as(R))[:, None]  # (B, 1, 3, 3)
+    pts = pts_px if fleet else pts_px[None]
+    x, y = pts[..., 0], pts[..., 1]
+    wx, wy, wz = ((Hm[..., i, 0] * x + Hm[..., i, 1] * y) + Hm[..., i, 2] for i in range(3))
+    out = torch.stack([wx / wz, wy / wz], -1)
+    return (out, R) if fleet else (out[0], R[0])
 
 
 def epipolar_residual_plain(cam0_pts, p1, intrinsics, model, coeffs, E):
@@ -306,25 +340,39 @@ def _check(t, dtype, shape, what):
 def predict_warp_points(pts_px, mean_ang_vel, dt, R_cam_imu, intrinsics):
     """The temporal tracker's prediction: (``pts_px`` warped by K R K^-1,
     R) with R the camera's inter-frame rotation from the mean gyro rate over
-    ``dt`` (``predicted_rotation``).  The kernel takes (F, 2) points, a (3,)
-    rate, a one-element dt, a (3, 3) extrinsic rotation and (4,)
-    intrinsics, all float32."""
+    ``dt`` (``predicted_rotation``).  One instance's (F, 2) points, (3,)
+    rate and one-element dt, or a fleet's (B, F, 2), (B, 3) and (B,) (each
+    instance contiguous along its rows; the kernel reads each at its
+    instance stride), with a (3, 3) extrinsic rotation and (4,) intrinsics,
+    all float32.  Returns (points, R) with the points' leading axis.  On
+    CUDA tensors ONE launch of K7 for every instance (a block row an
+    instance); a single call is the launch of one."""
     if not _on_cuda(pts_px):
         return predict_warp_points_plain(pts_px, mean_ang_vel, dt, R_cam_imu, intrinsics)
     kernels.observe("predict_warp_points", (pts_px, mean_ang_vel, dt, R_cam_imu, intrinsics))
-    n = pts_px.shape[0]
+    fleet = pts_px.dim() == 3
+    B = pts_px.shape[0] if fleet else 1
+    n = pts_px.shape[-2]
+    lead = (B,) if fleet else ()
     f32 = torch.float32
-    _check(pts_px, f32, (n, 2), "points")
-    _check(mean_ang_vel, f32, (3,), "angular velocity")
-    if dt.dtype != f32 or dt.numel() != 1:
-        raise ValueError(f"K7 dt: expected one float32 value, got {tuple(dt.shape)} {dt.dtype}")
+    pts, s_pts = kernels.per_instance(pts_px, f32, fleet)
+    w, s_w = kernels.per_instance(mean_ang_vel, f32, fleet)
+    if dt.dtype != f32 or dt.numel() != B or (fleet and dt.shape != (B,)):
+        raise ValueError(f"K7 dt: expected {B} float32 values, got {tuple(dt.shape)} {dt.dtype}")
+    dt, s_dt = kernels.per_instance(dt, f32, fleet)
+    if pts.shape != lead + (n, 2) or w.shape != lead + (3,):
+        raise ValueError(f"K7 points {tuple(pts.shape)} and angular velocity {tuple(w.shape)} "
+                         f"for {B} instances")
     _check(R_cam_imu, f32, (3, 3), "rotation")
     _check(intrinsics, f32, (4,), "intrinsics")
-    out = torch.empty((2 * n + 9,), dtype=f32, device=pts_px.device)
-    kernels.launch("camera_predict_warp", pts_px.data_ptr(), n, mean_ang_vel.data_ptr(),
-                   dt.data_ptr(), R_cam_imu.data_ptr(), intrinsics.data_ptr(), out.data_ptr())
+    kernels.check_cuda(*(x[0] if fleet else x for x in (pts, w, dt)), R_cam_imu, intrinsics)
+    row = 2 * n + 9
+    out = torch.empty(lead + (row,), dtype=f32, device=pts_px.device)
+    kernels.launch("camera_predict_warp", pts.data_ptr(), n, w.data_ptr(), dt.data_ptr(),
+                   R_cam_imu.data_ptr(), intrinsics.data_ptr(), out.data_ptr(), B,
+                   kernels.int64s([s_pts, s_w, s_dt, row if fleet else 0]))
     predict_warp_points.launches += 1
-    return out[:2 * n].view(n, 2), out[2 * n:].view(3, 3)
+    return out[..., :2 * n].unflatten(-1, (n, 2)), out[..., 2 * n:].unflatten(-1, (3, 3))
 
 
 def stereo_gate(cam0_pts, p1, p0r, proj1, valid, st_fwd, intrinsics, model, coeffs, E,
