@@ -13,7 +13,8 @@
    agreeing on >= 99% of points and agreeing points within 1e-3 px; after
    the warm run (3.) K1 again, with the same bars, on a few of the warm
    run's recorded calls of each shape (temporal, stereo forward and
-   backward), each shape timed through the wrapper and on the device; and
+   backward), each shape timed through the wrapper and on the device,
+   beside its bound and block 0's SM clock cycles a level; and
    K4+K6 on every call of the warm run, exactly, one launch a call (device
    us printed).
 3. Main path, warm run: the bench world as bench.py renders it
@@ -469,16 +470,42 @@ def check_kernels(config, frames, dev):
               f"({int(both_ok.sum())} tracked); {ms:.4f} ms through the wrapper, {us:.1f} us "
               f"on the device, vs plain {pms:.4f} ms")
         err_all, ms_all, plain_all = max(err_all, err), ms_all + ms, plain_all + pms
-        # per valid point and level, the (15+2)^2 patch of the previous image
-        # (template and its gradients) and at least one of the current image;
-        # the points and status in and out.  ~31 operations per window pixel:
-        # the template gradients and at least one iteration
-        point_levels = int(v.sum()) * nl
-        bytes_all += (point_levels * 2 * 17 ** 2 * pp.flat.element_size()
-                      + nbytes(p0, p1, v, kn, kst))
-        ops_all += point_levels * 225 * 31
+        n_bytes, ops = _lk_work(pp, p0, p1, v, kn, kst, nl)
+        bytes_all += n_bytes
+        ops_all += ops
     res["K1"] = (err_all, ms_all, plain_all, *bound(bytes_all, ops_all))
     return res
+
+
+def _lk_work(pp, p0, p1, v, kn, kst, nl):
+    """(bytes, operations) of one K1 call: per valid point and level, the
+    (15+2)^2 patch of the previous image (template and its gradients) and
+    at least one of the current image; the points and status in and out.
+    ~31 operations per window pixel: the template gradients and at least
+    one iteration."""
+    point_levels = int(v.sum()) * nl
+    return (point_levels * 2 * 17 ** 2 * pp.flat.element_size() + nbytes(p0, p1, v, kn, kst),
+            point_levels * 225 * 31)
+
+
+def _lk_phases(a):
+    """K1's phases on call ``a`` (pyramidal_lk's positional arguments): block
+    0's SM clock cycles a level, coarse to fine, as text."""
+    import torch
+
+    from uav_airvision_tpu_torch.ops import lk
+
+    levels = a[9]
+    clocks = torch.zeros(1 + 3 * levels, dtype=torch.int64, device=a[2].device)
+    lk.pyramidal_lk(*a, clocks=clocks)
+    c = clocks.tolist()
+    start, parts = c[0], []
+    for k in range(levels):
+        ready, done, steps = c[1 + 3 * k: 4 + 3 * k]
+        parts.append(f"level {levels - 1 - k}: template {ready - start}, Gauss-Newton "
+                     f"{done - ready} ({steps} steps)")
+        start = done
+    return "; ".join(parts) + f"; total {start - c[0]}"
 
 
 def _prop_err(got, want):
@@ -567,8 +594,11 @@ def check_lk_recorded(rec, levels=None, tag="[K1]"):
             continue
         ms = cuda_ms(lambda: lk.pyramidal_lk(*a))
         _, us = _profile_calls(lambda: lk.pyramidal_lk(*a), kernels=("lk_kernel",))
+        kn, ks = lk.pyramidal_lk(*a)
+        b_ms, b_by = bound(*_lk_work(a[0], a[2], a[3], a[4], kn, ks, a[9]))
         print(f"{tag} recorded (F, levels) {shape} ({rec.counts[('K1', shape)]} calls): "
-              f"{ms:.4f} ms through the wrapper, {us:.1f} us on the device")
+              f"{ms:.4f} ms through the wrapper, {us:.2f} us on the device, bound "
+              f"{b_ms * 1e3:.3f} us ({b_by}); block 0's SM clock cycles: {_lk_phases(a)}")
     print(f"{tag} pyramidal_lk, {len(calls)} recorded calls (F, levels) in "
           f"{sorted({sh for sh, _ in calls})}: within the bars (max err {worst:.3e} px)")
 
@@ -829,16 +859,27 @@ def check_gate(rec: Recorder):
             nz = _rows_needed(H[:, :m], r[:, :m])
             ops += float((2 * nz * D * D + nz * (nz + 1) * D + nz ** 3 / 3 + nz ** 2).sum())
         n_bytes += nbytes(H, r, rows, cov, noise, table, dof) + B
+        # the library's gate on the same blocks: S's Cholesky, the whitened
+        # residual by a triangular solve, gamma < thresh (S given), and the
+        # same with S = H P H' + noise I formed first
+        S = H @ cov @ H.transpose(1, 2) + noise * torch.eye(R, dtype=H.dtype, device=H.device)
+
+        def library(S):
+            chol = torch.linalg.cholesky_ex(S)[0]
+            y = torch.linalg.solve_triangular(chol, r[..., None], upper=False)
+            return (y * y).sum((1, 2)) < thresh
+
+        l_ms = cuda_ms(lambda: library(S))
+        ls_ms = cuda_ms(lambda: library(H @ cov @ H.transpose(1, 2) + noise * torch.eye(
+            R, dtype=H.dtype, device=H.device)))
+        lib = l_ms + (lib or 0.0)
         timed.append(f"{tuple(shape)} ({rec.counts[('K10', shape)]} calls, "
-                     f"{'gamma' if solve else 'bounds only'}) {t_ms:.4f} ms")
-        if R <= 32:  # the library's factorisation of the same S
-            S = (H @ cov @ H.transpose(1, 2)
-                 + noise * torch.eye(R, dtype=H.dtype, device=H.device))
-            lib = cuda_ms(lambda: torch.linalg.cholesky_ex(S))
+                     f"{'gamma' if solve else 'bounds only'}) {t_ms:.4f} ms (the library's "
+                     f"cholesky_ex + solve_triangular + compare {l_ms:.4f} ms, with S formed "
+                     f"{ls_ms:.4f} ms)")
     b = bound(n_bytes, ops)
     print(f"[K10] gating_test_batch, one launch a call: {' + '.join(timed)} = {ms:.4f} ms vs "
-          f"plain {pms:.4f} ms; torch.linalg.cholesky_ex of the 5-row gate's S "
-          f"{lib if lib is None else f'{lib:.4f}'} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
+          f"plain {pms:.4f} ms, library {lib:.4f} ms; bound {b[0] * 1e3:.3f} us ({b[1]})")
     return {"K10": (gate_err, ms, pms, *b, lib)}
 
 

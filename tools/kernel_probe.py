@@ -3,7 +3,7 @@
 (triangulation), K10 (gate), K11 (EKF update), K14 (IMU propagation), K1
 (LK) and P1 (window extract) kernels, alone on the card, by torch.profiler.
 
-    python tools/kernel_probe.py [--frames 60]
+    python tools/kernel_probe.py [--frames 60] [--only K1]
 
 K2: both cameras of a 480x752 pair at 1 to 4 levels (the step from one
 level count to the next is what the band blocks spend on that level), one
@@ -36,8 +36,11 @@ covariance (20 and 70 window slots) with 1, 11 and 64 valid IMU samples of
 the 64-slot slice, float32, with the SM clock cycles of its four phases
 (the state chain, Phi_i and Q_i, the fold, the covariance pass).  K1: the
 latest ``pyramidal_lk`` call of each shape in the run (the temporal,
-stereo forward and backward calls), and each 2-level call again with its
-level 0 alone (n_levels 1): the difference is level 1's.
+stereo forward and backward calls) with the SM clock cycles of block 0's
+phases (each level's template, its Gauss-Newton steps and their count),
+and each 2-level call again with its level 0 alone (n_levels 1): the
+difference is level 1's.  ``--only K1`` runs the recording run and K1's
+probes alone.
 Prints one line per case: the device time of each kernel the call launched
 (us per launch, and its launches per call where that is not one) and the
 wall time per call by CUDA events.  Needs a CUDA
@@ -82,6 +85,8 @@ def probe(label: str, fn, n: int = 40) -> None:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=60)
+    parser.add_argument("--only", choices=["K1"], default=None,
+                        help="the recording run and this kernel's probes alone")
     args = parser.parse_args(argv)
 
     from uav_airvision_tpu_torch import device, kernels
@@ -93,8 +98,8 @@ def main(argv=None) -> None:
     dev = device.get_device("cuda")
     kernels.lib()
     ptxas = kernels.build_info.get("ptxas", "").splitlines()
-    for k, line in enumerate(ptxas):  # K11's registers and spills
-        if "Compiling entry" in line and "update_kernel" in line:
+    for k, line in enumerate(ptxas):  # K11's and K1's (side 15) registers and spills
+        if "Compiling entry" in line and ("update_kernel" in line or "lk_kernelILi15E" in line):
             for x in ptxas[k:k + 4]:
                 print(f"[ptxas] {x.strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -105,11 +110,12 @@ def main(argv=None) -> None:
     img0, img1 = (torch.as_tensor(x[-1], device=dev) for x in (cam0, cam1))
     odd = torch.empty(img0.numel() + 1, dtype=torch.uint8, device=dev)[1:].view(img0.shape)
     odd.copy_(img0)
-    for levels in range(4):
+    for levels in range(4 if args.only is None else 0):
         probe(f"K2 pair, {levels + 1} level(s)",
               lambda: pyramid.build_pyramid_pair(img0, img1, levels))
-    probe("K2 pair, cam0 at an odd address", lambda: pyramid.build_pyramid_pair(odd, img1, 3))
-    probe("K2 one camera", lambda: pyramid.build_pyramid_padded(img0, 3))
+    if args.only is None:
+        probe("K2 pair, cam0 at an odd address", lambda: pyramid.build_pyramid_pair(odd, img1, 3))
+        probe("K2 one camera", lambda: pyramid.build_pyramid_padded(img0, 3))
 
     calls, ekf, lk_calls, fast_calls, k9_calls, k5_k12, k13 = {}, [], {}, {}, {}, {}, {}
 
@@ -139,6 +145,9 @@ def main(argv=None) -> None:
     vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
     torch.cuda.synchronize()
     kernels.observer = None
+    if args.only == "K1":
+        probe_lk(lk_calls)
+        return
     probe_fast_k9(fast_calls, k9_calls)
     probe_topk_rank12(k5_k12, config, dev)
     probe_triangulate(k13)
@@ -180,19 +189,41 @@ def main(argv=None) -> None:
             HP = H[:rows] @ state.cov
             probe(f"torch.linalg.solve(S, HP), {rows} rows", lambda: torch.linalg.solve(S, HP))
     probe_propagate(config, dev)
-    from uav_airvision_tpu_torch.ops import lk
-
-    for (F, levels), a in sorted(lk_calls.items()):
-        probe(f"K1 pyramidal_lk, {F} points x {levels} level(s)", lambda: lk.pyramidal_lk(*a))
-        if levels == 2:
-            one = (*a[:9], 1, a[10])
-            probe(f"K1 pyramidal_lk, {F} points, level 0 alone", lambda: lk.pyramidal_lk(*one))
+    probe_lk(lk_calls)
     for shape, a in calls.items():
         if shape[1] <= 32:
             H, cov, s2 = a[0], a[3], a[4]
             S = H @ cov @ H.transpose(1, 2) + s2 * torch.eye(shape[1], device=dev)
             probe(f"torch.linalg.cholesky_ex of the {shape} gate's S",
                   lambda: torch.linalg.cholesky_ex(S))
+
+
+def probe_lk(lk_calls) -> None:
+    """K1 (``lk_kernel``) on the run's latest call of each shape: device us
+    a launch, the SM clock cycles of block 0's phases (the mean of 40
+    launches), and each 2-level call's level 0 alone."""
+    from uav_airvision_tpu_torch.ops import lk
+
+    for (F, levels), a in sorted(lk_calls.items()):
+        probe(f"K1 pyramidal_lk, {F} points x {levels} level(s)", lambda: lk.pyramidal_lk(*a))
+        clocks = torch.zeros(1 + 3 * levels, dtype=torch.int64, device=a[2].device)
+        runs = []
+        for _ in range(40):
+            lk.pyramidal_lk(*a, clocks=clocks)
+            runs.append(clocks.tolist())
+        c = [sum(r[k] for r in runs) / len(runs) for k in range(len(clocks))]
+        start = c[0]
+        parts = []
+        for k in range(levels):
+            ready, done, steps = c[1 + 3 * k], c[2 + 3 * k], c[3 + 3 * k]
+            parts.append(f"level {levels - 1 - k}: template {ready - start:.0f}, Gauss-Newton "
+                         f"{done - ready:.0f} ({steps:g} steps)")
+            start = done
+        print("  K1 lk_kernel, block 0's SM clock cycles, coarse to fine: " + "; ".join(parts)
+              + f"; total {start - c[0]:.0f}", flush=True)
+        if levels == 2:
+            one = (*a[:9], 1, a[10])
+            probe(f"K1 pyramidal_lk, {F} points, level 0 alone", lambda: lk.pyramidal_lk(*one))
 
 
 def probe_fast_k9(fast_calls, k9_calls) -> None:

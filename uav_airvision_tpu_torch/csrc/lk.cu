@@ -13,15 +13,16 @@
 //   the sample corner is clamped to [o, o + ub] and a Gauss-Newton step is
 //   taken only while the new corner stays inside it.
 //
-// Per level (coarse to fine, all inside the block):
+// Per level:
 //   template: the (side+3)^2 raw window at clip(floor(c) - 1, 0, HP - side - 3)
 //     of the PREVIOUS level, bilinear-shifted to (side+2)^2, Scharr/32 on
 //     it, gradients zeroed outside [17, HP-18] x [17, WP-18]; G = [a11 a12; a12 a22],
 //     good = valid & corner in image & det > 1e-12; at level 0 also the
 //     min-eigenvalue status;
-//   iterations: J re-sampled bilinearly from the CURRENT level, b = <grad,J>
-//     - <grad,I>, the OpenCV delta, flip-flop halving, eps convergence.
-//     A converged point is frozen for good, so the block exits early.
+//   iterations (coarse to fine): J re-sampled bilinearly from the CURRENT
+//     level, b = <grad,J> - <grad,I>, the OpenCV delta, flip-flop halving,
+//     eps convergence.  A converged point is frozen for good, so the block
+//     exits early.
 // The window side is a template parameter, instantiated for every odd side
 // 3 to 31: thread t < side^2 owns window pixel (t / side, t % side) and the
 // block has side^2 threads rounded up to a warp (256 at 15).  Any other side
@@ -32,8 +33,30 @@
 // rounding, not bit for bit.
 //
 // Bound on the card: latency.  Each point is one block (256 threads at 15) and
-// each Gauss-Newton step is one dependent round of loads + a reduction; a
-// frame launches ~104-204 blocks, under two waves of the 132 SMs.
+// a frame launches ~104-204 blocks, under two waves of the 132 SMs, so a
+// call lasts as long as its slowest point's chain of dependent steps.  A
+// template depends on the previous point and pyramid only, not on the
+// tracking, so ``pyramidal_lk`` builds every level's template at the
+// block's start, in one pass (``build_templates``): every level's raw
+// window copied by cp.async before one barrier (the levels' load latencies
+// overlap), every level's shift, a barrier, every level's Scharr and warp
+// partial sums, a barrier, then one thread a level forms that level's G,
+// b's template part and gates (the levels' divisions side by side), a
+// barrier; each level's gradients and Template stay in shared memory for
+// its steps (~4.9 KB a level at side 15).  The chain then holds one
+// template build instead of one a level.  A Gauss-Newton step is one round
+// of tap loads and one barrier: its two sums' warp partials go to the
+// scratch buffer of the step's parity, so the next step writes the other
+// buffer while this one is read.  The warps' partials are read with the
+// warp count fixed at compile time, every load before the first addition
+// (phase clocks: a loop of dependent shared loads cost ~500 of a step's
+// ~1,450 SM cycles and ~1,400 of a template's).  Every thread adds its
+// pixels, and the warps' partials, in the order a level-by-level build
+// does, so points and status are those of the design that built one
+// template a level before its steps (bit for bit).  Where shared memory cannot hold every
+// level's template (the looped instantiation at large sides and many
+// levels), the wrapper gives the block one slot and it builds each level's
+// before its steps.
 //
 // Second entry point, ``pyramidal_lk_level``: ONE level of the same
 // tracker for frontend.lk_compact_windows (lk.py:199-218).  There the JAX
@@ -88,12 +111,39 @@ __device__ __forceinline__ int side(int win) {
   return kWin > 0 ? kWin : win;
 }
 
+// Threads of a block of the instantiation (its launch bound).
+template <int kWin>
+__host__ __device__ constexpr int block_threads() {
+  return kWin > 0 ? (kWin * kWin + 31) / 32 * 32 : kLoopThreads;
+}
 
-// Floats of dynamic shared memory: the raw and shifted templates, the two
-// gradient windows, the reduction scratch.
-inline size_t smem_floats(int win) {
-  return (size_t)(win + 3) * (win + 3) + (size_t)(win + 2) * (win + 2) + 2 * (size_t)win * win +
-         32 * 5;
+// Warps of a block of the instantiation; 0: known at run time only (the
+// looped instantiation, whose block may be narrower than its bound).
+template <int kWin>
+__host__ __device__ constexpr int block_warps() {
+  return kWin > 0 ? block_threads<kWin>() / 32 : 0;
+}
+
+
+// Floats of one level's template in shared memory: the raw and shifted
+// windows and the two gradient windows.
+__host__ __device__ inline size_t slot_floats(int win) {
+  return (size_t)(win + 3) * (win + 3) + (size_t)(win + 2) * (win + 2) + 2 * (size_t)win * win;
+}
+
+// The Gauss-Newton steps' reduction scratch: two buffers (by step parity)
+// of 32 warps x 2 sums.
+constexpr int kStepFloats = 2 * 32 * 2;
+
+// Floats of dynamic shared memory of the level and compact entries: one
+// template, its sums' scratch (32 warps x 5), the steps' scratch.
+inline size_t smem_floats(int win) { return slot_floats(win) + 32 * 5 + kStepFloats; }
+
+// Floats of dynamic shared memory of ``lk_kernel`` with ``slots`` templates:
+// the templates, their sums' warp partials (32 x 5 a template), the steps'
+// scratch.
+inline size_t lk_floats(int win, int slots) {
+  return (size_t)slots * (slot_floats(win) + 32 * 5) + kStepFloats;
 }
 
 struct Level {
@@ -121,10 +171,9 @@ __device__ __forceinline__ int ceil_div(int a, int b) {
   return a >= 0 ? (a + b - 1) / b : -((-a) / b);
 }
 
-// Sum K values over the block; every thread gets the totals.
+// Each warp's sum of K values, in every lane.
 template <int K>
-__device__ void block_sum(float (&v)[K], float* scratch /* 32*K */) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+__device__ __forceinline__ void warp_sum(float (&v)[K]) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     float x = v[k];
@@ -132,6 +181,33 @@ __device__ void block_sum(float (&v)[K], float* scratch /* 32*K */) {
     for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
     v[k] = x;
   }
+}
+
+// The block's total of value k from its kWarps warps' partials
+// part[w * stride + k], added in warp order.  With the count known at
+// compile time every partial is loaded before the first addition, so the
+// loads overlap and only the additions chain (a loop of dependent shared
+// loads costs ~35 SM cycles a warp).
+template <int kWarps>
+__device__ __forceinline__ float warps_total(const float* part, int stride, int k) {
+  float s = 0.f;
+  if constexpr (kWarps > 0) {
+    float x[kWarps];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) x[w] = part[w * stride + k];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += x[w];
+  } else {
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += part[w * stride + k];
+  }
+  return s;
+}
+
+// Sum K values over the block; every thread gets the totals.
+template <int kWarps, int K>
+__device__ void block_sum(float (&v)[K], float* scratch /* 32*K */) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_sum<K>(v);
   __syncthreads();
   if (lane == 0) {
 #pragma unroll
@@ -139,17 +215,13 @@ __device__ void block_sum(float (&v)[K], float* scratch /* 32*K */) {
   }
   __syncthreads();
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = 0.f;
-    for (int w = 0; w < warps; ++w) s += scratch[w * K + k];
-    v[k] = s;
-  }
+  for (int k = 0; k < K; ++k) v[k] = warps_total<kWarps>(scratch, K, k);
 }
 
-// The block's shared memory: raw (n x n) and shifted (t x t) templates, the
-// gradients of the win x win window, the reduction scratch.
+// One level's template in shared memory: raw (n x n) and shifted (t x t)
+// windows, the gradients of the win x win window.
 struct Smem {
-  float *raw, *T, *gx, *gy, *red;
+  float *raw, *T, *gx, *gy;
 };
 
 __device__ Smem carve(float* base, int win) {
@@ -158,7 +230,6 @@ __device__ Smem carve(float* base, int win) {
   m.T = m.raw + (win + 3) * (win + 3);
   m.gx = m.T + (win + 2) * (win + 2);
   m.gy = m.gx + win * win;
-  m.red = m.gy + win * win;
   return m;
 }
 
@@ -168,50 +239,76 @@ struct Template {
   bool status;   // the level-0 gate (min eigenvalue), meaningful at level 0
 };
 
-// The template of one level (lk.py:380-433): the (win+3)^2 raw window of
-// the PREVIOUS image around the point, bilinear-shifted, Scharr/32, G and
-// the template part of b; the gradients go to shared memory.  Every thread
-// returns the same sums.
-template <int kWin>
-__device__ Template level_template(const Level& pl, float prev_x, float prev_y, float scale,
-                                   bool is_valid, float min_eig_thr, int win_rt,
-                                   const Smem& sm) {
-  const int win = side<kWin>(win_rt), n = win + 3, nt = win + 2;
-  const int tid = threadIdx.x;
+// Where a level's template sits: the window corner c (padded coordinates)
+// of the previous point, its floor, and the raw window's clamped origin.
+struct Corner {
+  float cx, cy, fcx, fcy;
+  int ry0, rx0;
+};
+
+__device__ Corner template_corner(const Level& pl, float prev_x, float prev_y, float scale,
+                                  int win) {
+  const int n = win + 3;
   const float half = 0.5f * (win - 1);
-  const float cx = (prev_x * scale - half) + (float)kPad;
-  const float cy = (prev_y * scale - half) + (float)kPad;
-  const float fcx = floorf(cx), fcy = floorf(cy);
-  const int ry0 = clampi((int)fcy - 1, 0, pl.HP - n);
-  const int rx0 = clampi((int)fcx - 1, 0, pl.WP - n);
-  for (int k = tid; k < n * n; k += blockDim.x)
-    sm.raw[k] = pl.img[(size_t)(ry0 + k / n) * pl.WP + rx0 + k % n];
-  __syncthreads();
-  const float ax = cx - fcx, ay = cy - fcy;
+  Corner c;
+  c.cx = (prev_x * scale - half) + (float)kPad;
+  c.cy = (prev_y * scale - half) + (float)kPad;
+  c.fcx = floorf(c.cx);
+  c.fcy = floorf(c.cy);
+  c.ry0 = clampi((int)c.fcy - 1, 0, pl.HP - n);
+  c.rx0 = clampi((int)c.fcx - 1, 0, pl.WP - n);
+  return c;
+}
+
+// The (win+3)^2 raw window of the PREVIOUS image at the corner into
+// ``raw``: loads, or (kAsync) cp.async copies the caller waits for.
+template <bool kAsync>
+__device__ void load_raw(const Level& pl, const Corner& c, int win, float* raw) {
+  const int n = win + 3;
+  for (int k = threadIdx.x; k < n * n; k += blockDim.x) {
+    const float* src = pl.img + (size_t)(c.ry0 + k / n) * pl.WP + c.rx0 + k % n;
+    if constexpr (kAsync)
+      msckf::cp_async<4>(raw + k, src);
+    else
+      raw[k] = *src;
+  }
+}
+
+// The bilinear shift of the raw window to (win+2)^2.
+__device__ void shift_raw(const Corner& c, int win, const float* raw, float* T) {
+  const int n = win + 3, nt = win + 2;
+  const float ax = c.cx - c.fcx, ay = c.cy - c.fcy;
   const float w00 = (1.f - ax) * (1.f - ay), w01 = ax * (1.f - ay);
   const float w10 = (1.f - ax) * ay, w11 = ax * ay;
-  for (int k = tid; k < nt * nt; k += blockDim.x) {
-    const int r = k / nt, c = k % nt;
-    sm.T[k] = w00 * sm.raw[r * n + c] + w01 * sm.raw[r * n + c + 1] +
-              w10 * sm.raw[(r + 1) * n + c] + w11 * sm.raw[(r + 1) * n + c + 1];
+  for (int k = threadIdx.x; k < nt * nt; k += blockDim.x) {
+    const int r = k / nt, cc = k % nt;
+    T[k] = w00 * raw[r * n + cc] + w01 * raw[r * n + cc + 1] + w10 * raw[(r + 1) * n + cc] +
+           w11 * raw[(r + 1) * n + cc + 1];
   }
-  __syncthreads();
-  float sums[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int q = tid; q < win * win; q += blockDim.x) {
+}
+
+// Scharr/32 of the shifted window, gradients zeroed outside the image, to
+// gx / gy; this thread's share of G and of the template part of b.
+template <int kWin>
+__device__ void scharr(const Level& pl, const Corner& c, int win_rt, const Smem& sm,
+                       float (&sums)[5]) {
+  const int win = side<kWin>(win_rt), nt = win + 2;
+  for (int k = 0; k < 5; ++k) sums[k] = 0.f;
+  for (int q = threadIdx.x; q < win * win; q += blockDim.x) {
     const int pi = q / win, pj = q % win;
     const float sm0 = 3.f / 32.f, sm1 = 10.f / 32.f, sm2 = 3.f / 32.f;
     const float gI = sm.T[(pi + 1) * nt + pj + 1];
     float v[3], w[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float t0 = sm.T[pi * nt + pj + c], t1 = sm.T[(pi + 1) * nt + pj + c],
-                  t2 = sm.T[(pi + 2) * nt + pj + c];
-      v[c] = sm0 * t0 + sm1 * t1 + sm2 * t2;
-      w[c] = (-1.f * t0 + 0.f * t1) + 1.f * t2;
+    for (int cc = 0; cc < 3; ++cc) {
+      const float t0 = sm.T[pi * nt + pj + cc], t1 = sm.T[(pi + 1) * nt + pj + cc],
+                  t2 = sm.T[(pi + 2) * nt + pj + cc];
+      v[cc] = sm0 * t0 + sm1 * t1 + sm2 * t2;
+      w[cc] = (-1.f * t0 + 0.f * t1) + 1.f * t2;
     }
     float gx = (-1.f * v[0] + 0.f * v[1]) + 1.f * v[2];
     float gy = sm0 * w[0] + sm1 * w[1] + sm2 * w[2];
-    const float ys = cy + (float)pi, xs = cx + (float)pj;
+    const float ys = c.cy + (float)pi, xs = c.cx + (float)pj;
     const bool inside = ys >= (float)kPad && ys <= (float)(pl.HP - 1 - kPad) &&
                         xs >= (float)kPad && xs <= (float)(pl.WP - 1 - kPad);
     if (!inside) {
@@ -226,7 +323,11 @@ __device__ Template level_template(const Level& pl, float prev_x, float prev_y, 
     sums[3] += gI * gx;
     sums[4] += gI * gy;
   }
-  block_sum<5>(sums, sm.red);  // its barriers publish the gradients
+}
+
+// G, the template part of b and the gates from the block's sums.
+__device__ Template template_of(const float (&sums)[5], const Level& pl, const Corner& c,
+                                bool is_valid, float min_eig_thr, int win) {
   Template t;
   t.a11 = sums[0];
   t.a12 = sums[1];
@@ -235,7 +336,7 @@ __device__ Template level_template(const Level& pl, float prev_x, float prev_y, 
   t.bt2 = sums[4];
   const float det = t.a11 * t.a22 - t.a12 * t.a12;
   t.inv_det = det > 1e-12f ? 1.f / det : 0.f;
-  const float ipx = fcx - (float)kPad, ipy = fcy - (float)kPad;
+  const float ipx = c.fcx - (float)kPad, ipy = c.fcy - (float)kPad;
   const bool in_prev = ipx >= (float)(-win) && ipx < (float)pl.W &&
                        ipy >= (float)(-win) && ipy < (float)pl.H;
   t.good = is_valid && in_prev && det > 1e-12f;
@@ -246,22 +347,106 @@ __device__ Template level_template(const Level& pl, float prev_x, float prev_y, 
   return t;
 }
 
+// The template of one level (lk.py:380-433): the (win+3)^2 raw window of
+// the PREVIOUS image around the point, bilinear-shifted, Scharr/32, G and
+// the template part of b; the gradients go to shared memory.  Every thread
+// returns the same sums.  ``red``: 32 x 5 floats of scratch.
+template <int kWin>
+__device__ Template level_template(const Level& pl, float prev_x, float prev_y, float scale,
+                                   bool is_valid, float min_eig_thr, int win_rt,
+                                   const Smem& sm, float* red) {
+  const int win = side<kWin>(win_rt);
+  const Corner c = template_corner(pl, prev_x, prev_y, scale, win);
+  load_raw<false>(pl, c, win, sm.raw);
+  __syncthreads();
+  shift_raw(c, win, sm.raw, sm.T);
+  __syncthreads();
+  float sums[5];
+  scharr<kWin>(pl, c, win_rt, sm, sums);
+  block_sum<block_warps<kWin>(), 5>(sums, red);  // its barriers publish the gradients
+  return template_of(sums, pl, c, is_valid, min_eig_thr, win);
+}
+
+// The templates of ``count`` levels L_lo .. L_lo + count - 1 of the
+// previous pyramid into the slots 0 .. count - 1 (slot s: level L_lo + s;
+// a slot's windows at ``slots + s * slot_floats``, its sums' warp partials
+// and then its Template at ``part + s * 160``), all levels together:
+// thread t owns pixel t of every level's window.  Every level's raw window
+// is copied by cp.async before the first barrier, so the levels' loads
+// overlap; then every level's shift, a barrier, every level's Scharr and
+// partial sums, a barrier; then thread s forms slot s's Template from its
+// partials (the levels' divisions side by side), a barrier.  Each thread
+// adds its pixels, and thread s the warps' partials, in the order
+// ``level_template`` does, so a level's template is that of
+// ``level_template`` bit for bit.
+template <int kWin>
+__device__ void build_templates(const float* prev_pyr, int H0, int W0, int L_lo, int count,
+                                float prev_x, float prev_y, bool is_valid, float min_eig_thr,
+                                int win_rt, float* slots, float* part) {
+  const int win = side<kWin>(win_rt);
+  const size_t per = slot_floats(win);
+  for (int s = 0; s < count; ++s) {
+    const Level pl = level_of(prev_pyr, H0, W0, L_lo + s);
+    const Corner c = template_corner(pl, prev_x, prev_y, 1.0f / (float)(1 << (L_lo + s)), win);
+    load_raw<true>(pl, c, win, carve(slots + s * per, win).raw);
+  }
+  msckf::cp_async_commit();
+  msckf::cp_async_wait_all();
+  __syncthreads();
+  for (int s = 0; s < count; ++s) {
+    const Level pl = level_of(prev_pyr, H0, W0, L_lo + s);
+    const Corner c = template_corner(pl, prev_x, prev_y, 1.0f / (float)(1 << (L_lo + s)), win);
+    const Smem sm = carve(slots + s * per, win);
+    shift_raw(c, win, sm.raw, sm.T);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int s = 0; s < count; ++s) {
+    const Level pl = level_of(prev_pyr, H0, W0, L_lo + s);
+    const Corner c = template_corner(pl, prev_x, prev_y, 1.0f / (float)(1 << (L_lo + s)), win);
+    float sums[5];
+    scharr<kWin>(pl, c, win_rt, carve(slots + s * per, win), sums);
+    warp_sum<5>(sums);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < 5; ++k) part[s * 32 * 5 + warp * 5 + k] = sums[k];
+    }
+  }
+  __syncthreads();  // publishes the gradients and the partials
+  for (int s = threadIdx.x; s < count; s += blockDim.x) {
+    const Level pl = level_of(prev_pyr, H0, W0, L_lo + s);
+    const Corner c = template_corner(pl, prev_x, prev_y, 1.0f / (float)(1 << (L_lo + s)), win);
+    float* const p = part + s * 32 * 5;
+    float sums[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) sums[k] = warps_total<block_warps<kWin>()>(p, 5, k);
+    *reinterpret_cast<Template*>(p) = template_of(sums, pl, c, is_valid, min_eig_thr, win);
+  }
+  __syncthreads();  // publishes the Templates
+}
+
 // The gated Gauss-Newton steps of one level (lk.py:248-288) from (px, py),
 // level coordinates.  The sample corner is clamped to [o, o + ub] (padded
 // coordinates) and read from ``src``: the pixel of padded row o_y + s has
 // row index r_off + s there, row stride ``ld`` (the whole level: r_off =
-// o_y; a search window cut at o: r_off = 0).
+// o_y; a search window cut at o: r_off = 0).  A step's two sums go through
+// ``steps`` (kStepFloats), the buffer of the parity of ``n_step``, the
+// block's running count of steps: the next step writes the other buffer,
+// and the one after it waits at that step's barrier for every thread to
+// have read this one, so a step takes one barrier.  Returns the steps
+// taken.
 template <int kWin>
-__device__ void gauss_newton(const Template& t, const float* src, int ld, int r_off,
-                             int c_off, int oy, int ox, float uby, float ubx, int H,
-                             int W, int it_max, float eps2, int win_rt, const Smem& sm,
-                             float& px, float& py) {
+__device__ int gauss_newton(const Template& t, const float* src, int ld, int r_off,
+                            int c_off, int oy, int ox, float uby, float ubx, int H,
+                            int W, int it_max, float eps2, int win_rt, const Smem& sm,
+                            float* steps, int& n_step, float& px, float& py) {
   const int win = side<kWin>(win_rt);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float half = 0.5f * (win - 1);
   bool conv = !t.good;
   float pdx = 0.f, pdy = 0.f;
-  for (int it = 0; it < it_max && !conv; ++it) {
+  int it = 0;
+  for (; it < it_max && !conv; ++it) {
     const float sx = fminf(fmaxf(((px - half) + (float)kPad) - (float)ox, 0.f), ubx);
     const float sy = fminf(fmaxf(((py - half) + (float)kPad) - (float)oy, 0.f), uby);
     const float bx = floorf(sx), by = floorf(sy);
@@ -277,8 +462,16 @@ __device__ void gauss_newton(const Template& t, const float* src, int ld, int r_
       bj[0] += J * sm.gx[q];
       bj[1] += J * sm.gy[q];
     }
-    block_sum<2>(bj, sm.red);
-    const float b1 = bj[0] - t.bt1, b2 = bj[1] - t.bt2;
+    warp_sum<2>(bj);
+    float* buf = steps + 64 * (n_step & 1);
+    ++n_step;
+    if (lane == 0) {
+      buf[warp * 2] = bj[0];
+      buf[warp * 2 + 1] = bj[1];
+    }
+    __syncthreads();
+    const float b1 = warps_total<block_warps<kWin>()>(buf, 2, 0) - t.bt1;
+    const float b2 = warps_total<block_warps<kWin>()>(buf, 2, 1) - t.bt2;
     const float dx = (t.a12 * b2 - t.a22 * b1) * t.inv_det;
     const float dy = (t.a12 * b1 - t.a11 * b2) * t.inv_det;
     const float nx = px + dx, ny = py + dy;
@@ -302,6 +495,7 @@ __device__ void gauss_newton(const Template& t, const float* src, int ld, int r_
     pdx = dx;
     pdy = dy;
   }
+  return it;
 }
 
 // OpenCV's final status drop on the level-0 point (lk.py:447-456).
@@ -320,12 +514,13 @@ __device__ int2 compact_origin(float x, float y, float scale, const Level& l, in
                    clampi((int)floorf(cx) - kMargin, 0, l.WP - need));
 }
 
-// Threads of a block of the instantiation (its launch bound).
-template <int kWin>
-constexpr int block_threads() {
-  return kWin > 0 ? (kWin * kWin + 31) / 32 * 32 : kLoopThreads;
-}
-
+// The banded tracker of one point (see the note at the top).  slots:
+// n_levels (every level's template built at the block's start, in one
+// pass) or 1 (each level's built before its steps, where shared memory
+// cannot hold them all; the wrapper's choice).  clocks (1 + 3 n_levels
+// int64) or null: block 0's SM clock at its start and, coarse to fine, for
+// each level the clock when its template is ready, the clock after its
+// Gauss-Newton steps and the number of steps.
 template <int kWin>
 __global__ void __launch_bounds__(block_threads<kWin>())
 lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr,
@@ -334,25 +529,41 @@ lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr
           const float* __restrict__ init_pts, const uint8_t* __restrict__ valid,
           int n_levels, int max_iter, int max_iter_upper, float eps2,
           float min_eig_thr, float* __restrict__ out_pts,
-          uint8_t* __restrict__ out_status, int win_rt) {
+          uint8_t* __restrict__ out_status, long long* __restrict__ clocks, int slots,
+          int win_rt) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   const int win = side<kWin>(win_rt);
-  const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
+  float* const tmpl = reinterpret_cast<float*>(dyn_smem);
+  float* const part = tmpl + (size_t)slots * slot_floats(win);
+  float* const steps = part + slots * 32 * 5;
 
   const int f = blockIdx.y * gridDim.x + blockIdx.x;  // point blockIdx.x of instance blockIdx.y
   prev_pyr += blockIdx.y * prev_stride;
   curr_pyr += blockIdx.y * curr_stride;
+  const bool timed = clocks != nullptr && f == 0 && threadIdx.x == 0;
+  if (timed) clocks[0] = clock64();
   const bool is_valid = valid[f] != 0;
   const float prev_x = prev_pts[2 * f], prev_y = prev_pts[2 * f + 1];
   float next_x = init_pts[2 * f], next_y = init_pts[2 * f + 1];
   bool status = false;
+  const bool all = slots >= n_levels;
+  if (all)
+    build_templates<kWin>(prev_pyr, H0, W0, 0, n_levels, prev_x, prev_y, is_valid, min_eig_thr,
+                          win_rt, tmpl, part);
+  int n_step = 0;
 
   for (int L = n_levels - 1; L >= 0; --L) {
-    const Level pl = level_of(prev_pyr, H0, W0, L);
+    // one level's rebuild reaches its first barrier only once every thread
+    // is done with the previous level's steps
+    if (!all)
+      build_templates<kWin>(prev_pyr, H0, W0, L, 1, prev_x, prev_y, is_valid, min_eig_thr,
+                            win_rt, tmpl, part);
+    const int s = all ? L : 0;
     const Level cl = level_of(curr_pyr, H0, W0, L);
     const float scale = 1.0f / (float)(1 << L);
-    const Template t = level_template<kWin>(pl, prev_x, prev_y, scale, is_valid, min_eig_thr,
-                                            win_rt, sm);
+    const Template t = *reinterpret_cast<const Template*>(part + s * 32 * 5);
+    const int c = 1 + 3 * (n_levels - 1 - L);
+    if (timed) clocks[c] = clock64();
     if (L == 0) status = t.status;
 
     // ---- search window (lk.py:188-219, extract.py:164-173) ----
@@ -366,11 +577,16 @@ lk_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ curr_pyr
     const float ubx = (float)min(kBw - (win + 1), cl.WP - (win + 1) - ox);
 
     const int it_max = (L == 0 || max_iter_upper <= 0) ? max_iter : max_iter_upper;
-    gauss_newton<kWin>(t, cl.img, cl.WP, oy, ox, oy, ox, uby, ubx, cl.H, cl.W, it_max, eps2,
-                       win_rt, sm, px, py);
+    const int taken = gauss_newton<kWin>(t, cl.img, cl.WP, oy, ox, oy, ox, uby, ubx, cl.H, cl.W,
+                                         it_max, eps2, win_rt,
+                                         carve(tmpl + s * slot_floats(win), win), steps, n_step,
+                                         px, py);
     next_x = px * (float)(1 << L);
     next_y = py * (float)(1 << L);
-    __syncthreads();  // the templates are rewritten by the next level
+    if (timed) {
+      clocks[c + 1] = clock64();
+      clocks[c + 2] = taken;
+    }
   }
 
   if (threadIdx.x == 0) {
@@ -396,18 +612,21 @@ lk_level_kernel(const float* __restrict__ prev_pyr, int H0, int W0,
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   const int win = side<kWin>(win_rt), need = win + 1 + 2 * kMargin;
   const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
+  float* const red = sm.raw + slot_floats(win);
+  float* const steps = red + 32 * 5;
 
   const int f = blockIdx.x;
   const Level pl = level_of(prev_pyr, H0, W0, L);  // the current level has its size
   const float scale = 1.0f / (float)(1 << L);
   const Template t = level_template<kWin>(pl, prev_pts[2 * f], prev_pts[2 * f + 1], scale,
-                                          valid[f] != 0, min_eig_thr, win_rt, sm);
+                                          valid[f] != 0, min_eig_thr, win_rt, sm, red);
   float px = pts_in[2 * f] * scale, py = pts_in[2 * f + 1] * scale;
   const int oy = des[2 * f], ox = des[2 * f + 1];
   const float uby = (float)min(need - (win + 1), pl.HP - (win + 1) - oy);
   const float ubx = (float)min(need - (win + 1), pl.WP - (win + 1) - ox);
+  int n_step = 0;
   gauss_newton<kWin>(t, windows + (size_t)f * need * need, need, 0, 0, oy, ox, uby, ubx,
-                     pl.H, pl.W, it_max, eps2, win_rt, sm, px, py);
+                     pl.H, pl.W, it_max, eps2, win_rt, sm, steps, n_step, px, py);
   if (threadIdx.x == 0) {
     const float nx = px * (float)(1 << L), ny = py * (float)(1 << L);
     pts_out[2 * f] = nx;
@@ -441,7 +660,9 @@ lk_compact_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ 
   extern __shared__ __align__(16) unsigned char dyn_smem[];
   const int win = side<kWin>(win_rt), need = win + 1 + 2 * kMargin;
   const Smem sm = carve(reinterpret_cast<float*>(dyn_smem), win);
-  float* window = sm.red + 32 * 5;  // need x need, the current level's search window
+  float* const red = sm.raw + slot_floats(win);
+  float* const steps = red + 32 * 5;
+  float* const window = steps + kStepFloats;  // need x need, the current level's search window
 
   const int f = blockIdx.y * gridDim.x + blockIdx.x, tid = threadIdx.x;
   prev_pyr += blockIdx.y * prev_stride;
@@ -452,6 +673,7 @@ lk_compact_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ 
   const float prev_x = prev_pts[2 * f], prev_y = prev_pts[2 * f + 1];
   float next_x = init_pts[2 * f], next_y = init_pts[2 * f + 1];
   bool status = false;
+  int n_step = 0;
 
   for (int L = n_levels - 1; L >= 0; --L) {
     const Level pl = level_of(prev_pyr, H0, W0, L);
@@ -469,7 +691,7 @@ lk_compact_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ 
     }
     msckf::cp_async_commit();
     const Template t = level_template<kWin>(pl, prev_x, prev_y, scale, is_valid, min_eig_thr,
-                                            win_rt, sm);
+                                            win_rt, sm, red);
     const int c = 1 + 3 * (n_levels - 1 - L);
     if (timed) clocks[c] = clock64();
     msckf::cp_async_wait_all();
@@ -481,7 +703,7 @@ lk_compact_kernel(const float* __restrict__ prev_pyr, const float* __restrict__ 
     const float ubx = (float)min(need - (win + 1), pl.WP - (win + 1) - des.y);
     const int it_max = (L == 0 || max_iter_upper <= 0) ? max_iter : max_iter_upper;
     gauss_newton<kWin>(t, window, need, 0, 0, des.x, des.y, uby, ubx, pl.H, pl.W, it_max, eps2,
-                       win_rt, sm, px, py);
+                       win_rt, sm, steps, n_step, px, py);
     next_x = px * (float)(1 << L);
     next_y = py * (float)(1 << L);
     if (timed) clocks[c + 2] = clock64();
@@ -547,6 +769,9 @@ int prepare(K kernel, int win, size_t* allowed, size_t floats) {
   return looped(win) ? msckf::allow_smem(kernel, floats * sizeof(float), allowed) : 0;
 }
 
+// The instantiation a side takes: 0-14 the odd sides 3..31, 15 the looped one.
+inline int inst_of(int win) { return win >= 3 && win <= 31 && win % 2 == 1 ? (win - 3) / 2 : 15; }
+
 // The compact tracker's floats: smem_floats and the staged window.
 inline size_t compact_floats(int win) {
   return smem_floats(win) + (size_t)(win + 1 + 2 * kMargin) * (win + 1 + 2 * kMargin);
@@ -561,19 +786,26 @@ extern "C" int pyramidal_lk(const void* prev_pyr, const void* curr_pyr, long lon
                             long long curr_stride, int B, int H0, int W0, const void* prev_pts,
                             const void* init_pts, const void* valid, int F, int n_levels,
                             int max_iter, int max_iter_upper, float eps2, float min_eig,
-                            void* out_pts, void* out_status, int win, void* stream) {
-  static size_t allowed = 0;
-  if (win < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+                            void* out_pts, void* out_status, void* clocks, int win,
+                            void* stream) {
+  static size_t allowed[16] = {}, budget[16] = {};
+  if (win < 1 || n_levels < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   if (F == 0) return 0;
   const LkFn kernel = pick_lk(win);
-  const int err = prepare(kernel, win, &allowed, smem_floats(win));
+  const int i = inst_of(win);
+  if (budget[i] == 0) budget[i] = msckf::smem_budget(kernel);
+  // every level's template at the block's start where shared memory holds
+  // them all, else one level's at a time
+  const int slots = lk_floats(win, n_levels) * sizeof(float) <= budget[i] ? n_levels : 1;
+  const size_t bytes = lk_floats(win, slots) * sizeof(float);
+  const int err = msckf::allow_smem(kernel, bytes, &allowed[i]);
   if (err != 0) return err;
   const int threads = looped(win) ? kLoopThreads : (win * win + 31) / 32 * 32;
-  kernel<<<dim3(F, B), threads, smem_floats(win) * sizeof(float), (cudaStream_t)stream>>>(
+  kernel<<<dim3(F, B), threads, bytes, (cudaStream_t)stream>>>(
       (const float*)prev_pyr, (const float*)curr_pyr, prev_stride, curr_stride, H0, W0,
       (const float*)prev_pts, (const float*)init_pts, (const uint8_t*)valid,
       n_levels, max_iter, max_iter_upper, eps2, min_eig, (float*)out_pts,
-      (uint8_t*)out_status, win);
+      (uint8_t*)out_status, (long long*)clocks, slots, win);
   return (int)cudaGetLastError();
 }
 

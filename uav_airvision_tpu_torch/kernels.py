@@ -61,8 +61,8 @@ SIGNATURES = {
     "fast_detect_masked": [P, I, I, I, I, P, P, I, P, P, P, P],
     # prev_pyr, curr_pyr, prev_stride, curr_stride, B, H0, W0, prev_pts,
     # init_pts, valid, F, n_levels, max_iter, max_iter_upper, eps2, min_eig,
-    # out_pts, out_status, win, stream
-    "pyramidal_lk": [P, P, L, L, I, I, I, P, P, P, I, I, I, I, F, F, P, P, I, P],
+    # out_pts, out_status, clocks, win, stream
+    "pyramidal_lk": [P, P, L, L, I, I, I, P, P, P, I, I, I, I, F, F, P, P, P, I, P],
     # prev_pyr, H0, W0, prev_pts, pts_in, valid, windows, des, F, L, it_max,
     # eps2, min_eig, pts_out, des_next, out_status, win, stream
     "pyramidal_lk_level": [P, I, I, P, P, P, P, P, I, I, I, F, F, P, P, P, I, P],

@@ -179,14 +179,18 @@ def _stack_blocks(include, prefix, H_blk, r_blk, R_BUF: int):
     """The included (B, BLK, D) blocks and (B, BLK) residuals placed at their
     row prefixes in an R_BUF-row buffer, with one scatter-add: rows past a
     block's true height are exact zeros, so overlapping blocks only add
-    zeros.  Returns (H_buf (R_BUF, D), r_buf (R_BUF,))."""
+    zeros.  The scatter's buffer holds every row a block can reach (a
+    prefix is at most the rows of the blocks before it) and a sentinel row
+    for the excluded blocks; rows past R_BUF are cut off with it (JAX's
+    ``mode="drop"``).  Returns (H_buf (R_BUF, D), r_buf (R_BUF,))."""
     B, BLK, D = H_blk.shape
     dev = H_blk.device
+    n = max(R_BUF, B * BLK)
     row_idx = torch.where(include[:, None], prefix[:, None] + torch.arange(BLK, device=dev),
-                          R_BUF).reshape(-1)
-    H_buf = torch.zeros((R_BUF + 1, D), dtype=H_blk.dtype, device=dev).index_add(
+                          n).reshape(-1)
+    H_buf = torch.zeros((n + 1, D), dtype=H_blk.dtype, device=dev).index_add(
         0, row_idx, H_blk.reshape(B * BLK, D))[:R_BUF]
-    r_buf = torch.zeros((R_BUF + 1,), dtype=r_blk.dtype, device=dev).index_add(
+    r_buf = torch.zeros((n + 1,), dtype=r_blk.dtype, device=dev).index_add(
         0, row_idx, r_blk.reshape(B * BLK))[:R_BUF]
     return H_buf, r_buf
 

@@ -440,14 +440,19 @@ pyramidal_lk_compact.launches = 0
 def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid,
                  win: int = 15, max_iter: int = 30, eps: float = 0.01,
                  min_eig_threshold: float = 1e-4, n_levels: int | None = None,
-                 max_iter_upper: int | None = None, compact_windows: bool = False):
+                 max_iter_upper: int | None = None, compact_windows: bool = False,
+                 clocks=None):
     """Track ``prev_pts`` (F, 2) from ``prev_pyr`` into ``curr_pyr``, starting
     at ``init_pts``.  Returns (next_pts (F, 2) float32, status (F,) bool).
     A fleet's points (B, F, 2) with batched pyramids give (B, F, 2) and
     (B, F), in one launch.  ``max_iter_upper`` caps the iterations of
     levels > 0.  ``compact_windows`` (frontend.lk_compact_windows) tracks
     level by level on each point's exact 32-px search window:
-    ``pyramidal_lk_compact``."""
+    ``pyramidal_lk_compact``.  ``clocks``: an int64 (1 + 3 n_levels,) CUDA
+    tensor for block 0's SM clock at its start and, coarse to fine, each
+    level's [when its template is ready, after its Gauss-Newton steps, the
+    number of steps it took] (the compact entry's ``clocks`` where
+    ``compact_windows``)."""
     if prev_pts.device.type == "cpu":
         return pyramidal_lk_plain(prev_pyr, curr_pyr, prev_pts, init_pts, valid,
                                   win, max_iter, eps, min_eig_threshold, n_levels,
@@ -456,9 +461,14 @@ def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid
         n_levels = min(prev_pyr.n_levels, curr_pyr.n_levels)
     if compact_windows:
         return pyramidal_lk_compact(prev_pyr, curr_pyr, prev_pts, init_pts, valid, win,
-                                    max_iter, eps, min_eig_threshold, n_levels, max_iter_upper)
+                                    max_iter, eps, min_eig_threshold, n_levels, max_iter_upper,
+                                    clocks=clocks)
     prev_pts, init_pts, valid, B = _check_points(prev_pyr, curr_pyr, prev_pts, init_pts, valid,
                                                  win, n_levels)
+    if clocks is not None:
+        kernels.check_cuda(prev_pts, clocks)
+        if clocks.shape != (1 + 3 * n_levels,) or clocks.dtype != torch.int64:
+            raise ValueError(f"clocks {tuple(clocks.shape)} {clocks.dtype} for {n_levels} levels")
     kernels.observe("pyramidal_lk", (prev_pyr, curr_pyr, prev_pts, init_pts, valid, win,
                                      max_iter, eps, min_eig_threshold, n_levels, max_iter_upper))
     out_pts = torch.empty_like(prev_pts)
@@ -468,7 +478,8 @@ def pyramidal_lk(prev_pyr: Pyramid, curr_pyr: Pyramid, prev_pts, init_pts, valid
                    kernels.ptr(prev_pts), kernels.ptr(init_pts), kernels.ptr(valid),
                    prev_pts.shape[-2], n_levels, int(max_iter), int(max_iter_upper or 0),
                    float(eps * eps), float(min_eig_threshold), kernels.ptr(out_pts),
-                   kernels.ptr(out_status), int(win))
+                   kernels.ptr(out_status), kernels.ptr(clocks) if clocks is not None else None,
+                   int(win))
     pyramidal_lk.launches += 1
     return out_pts, out_status
 
