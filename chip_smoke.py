@@ -227,7 +227,31 @@
    batched front-end kernels' launches per step (which must not grow with
    B), the back-end's, every batched kernel's device us per launch and
    per step, and peak device memory.
-12. Prints the per-kernel JSON line (launches of the batch run, for P1 of
+12. [long]: LONG_S = 60 s of the easy preset (1,200 frames) through
+   ``long_run.run`` (``long_horizon_config()``: K1's temporal calls at 3
+   levels; seed 7; chunks of LONG_CHUNK_S = 10 s; the world rendered on the
+   card by ``simulation/render.py``, as on a machine without OpenCV:
+   ``render.without_opencv``), counters at 0 before it.  First
+   frames 0, 599, 1,199 and one inside a starve window rendered on the card
+   and by ``world.render_frame`` on the host, each pair from one generator
+   state: the renderer's bar (at most one pixel in 10,000 of an image off,
+   each by one grey level unless on a plane's rectangle border) and the
+   generator states equal after; ms a frame on the card and on the host
+   printed.  Checks: every default-path kernel launched, each frame's
+   temporal K1 call at 3 levels, >= LONG_MIN_ACTIVE active finite poses,
+   the covariance finite at every chunk boundary, no online reset, ATE rmse
+   under LONG_ATE_BAR_M (1.25 x the JAX package's over the same 60 s,
+   tools/jax_long_bar.py); each chunk's row, the filter's frames/s and the
+   wall time with rendering printed.  The first LONG_SPLIT frames (two
+   chunks) against one ``run_sequence`` call on the same frames: p, q, v,
+   active and did_reset bit for bit.  Then the same frames with
+   ``dtype="float64"``: every back-end kernel launched in its float64
+   instantiation and never in its float32 one (C entry names counted),
+   the same run checks, the largest |p_float32 - p_float64| per chunk and
+   both ATEs printed; each back-end kernel's latest float64 calls against
+   its float64 plain version (K14 1e-12 relative, K11 1e-10, K12's P_new
+   1e-10 of max(|P|, 1), K9 1e-10, K13 and K10 with [limits]' bars).
+13. Prints the per-kernel JSON line (launches of the batch run, for P1 of
    the compact run: K1's compact entry, which does P1's copy; max error, ms, plain ms, the bound and what binds it,
    the library call's ms where one PyTorch call does most of the
    function), then the result line ``{"ok": true, "device": {...}}`` last.
@@ -3255,6 +3279,303 @@ def run_fleet_phase(config, frames, pb, wrappers, card):
     return res
 
 
+LONG_S = 60.0  # [long]: seconds of the easy preset (1,200 frames)
+LONG_CHUNK_S = 10.0  # seconds a chunk (6 chunks)
+LONG_SEED = 7
+LONG_MIN_ACTIVE = 1100
+LONG_SPLIT = 400  # frames run as two chunks and as one run_sequence call
+LONG_RENDER_FRAMES = (0, 599, 1199)  # frames rendered on the card and on the host
+# 1.25 x the JAX package's ATE rmse over the same 60 s rendered without cv2:
+# 0.02148 m (tools/jax_long_bar.py 60 --preset easy --chunk 10 on the CPU,
+# scripts/long_run.py's figure, rounded there to 5 digits; PERF.md)
+LONG_ATE_BAR_M = 0.02685
+# the back-end kernels with a float32 and a float64 instantiation: C entry
+# stems, and the wrappers that reach them on the main path
+LONG_F64_ENTRIES = ("propagate", "triangulate_rows", "feature_block", "gate", "rank12",
+                    "ekf_update")
+LONG_F64_CALLS = ("propagate", "triangulate_rows", "feature_block_rows", "gating_test_batch",
+                  "apply_update_rank12_rows", "apply_update")
+
+
+class LongObserver:
+    """The kernels' observer in [long]: the levels of each frame's first K1
+    call after K7's prediction (the temporal tracker's), and the latest two
+    calls of each back-end wrapper in LONG_F64_CALLS."""
+
+    def __init__(self):
+        import collections
+
+        self.temporal_levels = collections.Counter()
+        self.calls = {name: collections.deque(maxlen=2) for name in LONG_F64_CALLS}
+        self._predicted = False
+
+    def __call__(self, name, args):
+        args = _single_call(name, args)
+        if name == "predict_warp_points":
+            self._predicted = True
+        elif name == "pyramidal_lk" and self._predicted:
+            self.temporal_levels[args[9]] += 1
+            self._predicted = False
+        elif name in self.calls:
+            self.calls[name].append(args)
+
+    def __enter__(self):
+        from uav_airvision_tpu_torch import kernels
+
+        kernels.observer = self
+        return self
+
+    def __exit__(self, *exc):
+        from uav_airvision_tpu_torch import kernels
+
+        kernels.observer = None
+
+
+class EntryCounter:
+    """Counts the C entry points launched (``kernels.launch`` by name)."""
+
+    def __enter__(self):
+        import collections
+
+        from uav_airvision_tpu_torch import kernels
+
+        self.counts = collections.Counter()
+        self._launch = kernels.launch
+
+        def launch(name, *args):
+            self.counts[name] += 1
+            self._launch(name, *args)
+
+        kernels.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        from uav_airvision_tpu_torch import kernels
+
+        kernels.launch = self._launch
+
+
+def check_long_renderer(world, fts, card):
+    """[long, render]: frames LONG_RENDER_FRAMES and one inside a starve
+    window rendered by simulation/render.py on the card and by
+    ``world.render_frame`` on the host, each pair from one generator state;
+    the renderer's bar (render.pixel_agreement) and the generator states
+    equal afterwards.  Prints each route's ms a frame."""
+    import numpy as np
+    import torch
+
+    from uav_airvision_tpu_torch.simulation import render
+
+    cases = [(k, None) for k in LONG_RENDER_FRAMES]
+    t_starve = fts[LONG_RENDER_FRAMES[1]]
+    cases.append((LONG_RENDER_FRAMES[1], (t_starve - 0.5, t_starve + 0.5)))
+    for k, starve in cases:
+        t = fts[k]
+        r_host, r_dev = np.random.default_rng(1000 + k), np.random.default_rng(1000 + k)
+        want = world.render_frame(t, r_host, starve_window=starve)
+        got = render.render_pair(world, t, r_dev, "cuda", starve_window=starve)
+        ok, n_diff, max_diff, n_big = render.pixel_agreement(
+            got, want, render.rect_border(world, t))
+        same_rng = r_host.bit_generator.state == r_dev.bit_generator.state
+        print(f"[long, render] frame {k} (t = {t:.2f} s{', starved' if starve else ''}): "
+              f"{n_diff} pixels differ from the host's, by at most {max_diff}; {n_big} by more "
+              f"than one off a border; generator states equal: {same_rng}")
+        if not ok or not same_rng or got[0].device.type != "cuda":
+            fail(f"[long, render] frame {k}{' starved' if starve else ''}: {n_diff} pixels "
+                 f"differ (max {max_diff}, {n_big} past the bar), generator equal {same_rng}")
+    rng = np.random.default_rng(3)
+    ts = fts[:20]
+    render.render_frames(world, ts[:2], rng, "cuda")  # warm
+    torch.cuda.synchronize()
+    t0 = time.time()
+    render.render_frames(world, ts, rng, "cuda")
+    torch.cuda.synchronize()
+    dev_ms = (time.time() - t0) * 1e3 / len(ts)
+    t0 = time.time()
+    for t in ts[:3]:
+        world.render_frame(t, rng)
+    host_ms = (time.time() - t0) * 1e3 / 3
+    print(f"[long, render] {dev_ms:.2f} ms a stereo frame on the card (host noise draw and "
+          f"upload included) against {host_ms:.1f} ms on the host ({card})")
+
+
+def _long_checks(tag, result, outs, bar):
+    """The run checks of a [long] run: active frames, finite poses, the
+    covariance finite at every chunk, no reset, ATE rmse under ``bar``."""
+    import numpy as np
+
+    act = outs.active.numpy()
+    p, q = outs.p.numpy(), outs.q.numpy()
+    for row in result["chunks"]:
+        print(f"{tag} frame {row['frame']:5d} t={row['t_s']:5.1f} s: pos_std "
+              f"{row['pos_std_m']:.5f} m (max {row['max_pos_std_m']:.5f}), resets "
+              f"{row['resets']}, sym_err {row['sym_err']:.3e}, cov finite {row['cov_finite']}")
+    print(f"{tag} {int(act.sum())} active frames of {len(act)}; ATE rmse "
+          f"{result['ate_rmse_m']:.5f} m (bar {bar:.5f}), RTE rmse {result['rte_rmse_m']:.5f} m; "
+          f"{result['online_resets']} resets; filter {len(act) / result['filter_s']:.1f} "
+          f"frames/s ({result['filter_s']:.1f} s), render {result['render_s']:.1f} s, wall "
+          f"with rendering {result['wall_s']:.1f} s")
+    if act.sum() < LONG_MIN_ACTIVE:
+        fail(f"{tag} only {int(act.sum())} active frames (< {LONG_MIN_ACTIVE})")
+    if not (np.isfinite(p[act]).all() and np.isfinite(q[act]).all()):
+        fail(f"{tag} non-finite poses")
+    if not all(row["cov_finite"] for row in result["chunks"]):
+        fail(f"{tag} the covariance went non-finite")
+    if result["online_resets"]:
+        fail(f"{tag} {result['online_resets']} online resets on the easy preset")
+    if not result["ate_rmse_m"] < bar:
+        fail(f"{tag} ATE rmse {result['ate_rmse_m']:.5f} m is not under {bar:.5f} m")
+
+
+def check_long_f64_calls(obs, card):
+    """Each back-end kernel's float64 calls recorded in the float64 run
+    against its float64 plain version: K14 within 1e-12 relative, K11's new
+    state within 1e-10 of each field's largest entry, K12's P_new within
+    1e-10 of max(|P|, 1) (its other fields 1e-4, [limits]' bar), K9 within
+    1e-10 of each block's largest entry ([limits]), K13's initialized and
+    init_fail identical and positions within 1e-3 of max(|p|, 1)
+    ([limits]), K10's decisions identical but within 1e-4 of the
+    threshold.  Returns {wrapper: the largest error}."""
+    import torch
+
+    from uav_airvision_tpu_torch.models.msckf import propagation
+    from uav_airvision_tpu_torch.models.msckf import triangulation as tri
+    from uav_airvision_tpu_torch.models.msckf import update as upd
+
+    errs = {}
+    for name, calls in obs.calls.items():
+        if not calls:
+            fail(f"[long, float64] no {name} call recorded")
+            continue
+        for a in calls:
+            if name == "propagate":
+                e = _prop_err(propagation.propagate(*a), propagation.propagate_plain(*a))
+                ok = e <= 1e-12
+            elif name == "apply_update":
+                e = _state_err(upd.apply_update(*a)[0], upd.apply_update_plain(*a)[0])
+                ok = e <= 1e-10
+            elif name == "apply_update_rank12_rows":
+                got = upd.apply_update_rank12_rows(*a)[0]
+                want = upd.apply_update_rank12_rows_plain(*a)[0]
+                e = float((got.cov - want.cov).abs().max()) / max(float(want.cov.abs().max()), 1.0)
+                ok = e <= 1e-10 and _state_err(got, want) <= 1e-4
+            elif name == "feature_block_rows":
+                H, r, rows = upd.feature_block_rows(*a[:13], rm=a[13])
+                pH, pr, prows = upd.feature_block_rows_plain(*a[:13], rm=a[13])
+                sc = torch.maximum(pH.abs().amax((1, 2)), pr.abs().amax(1)).clamp(min=1e-30)
+                e = max(float(((g - w).abs().flatten(1).amax(1) / sc).max())
+                        for g, w in ((H, pH), (r, pr)))
+                ok = e <= 1e-10 and torch.equal(rows, prows)
+            elif name == "triangulate_rows":
+                pos, init, failed = tri.triangulate_rows(*a)
+                ppos, pinit, pfail = tri.triangulate_rows_plain(*a)
+                new = init & ~a[5]
+                d = (pos - ppos).abs().amax(1) / ppos.abs().amax(1).clamp(min=1.0)
+                e = float(d[new].max()) if bool(new.any()) else 0.0
+                ok = torch.equal(init, pinit) and torch.equal(failed, pfail) and e <= 1e-3
+            else:  # gating_test_batch
+                H, r, rows_true, cov, obs_noise, chi2, dof = a
+                thresh = chi2[dof]
+                near = (upd.gate_gamma_plain(H, r, cov, obs_noise) - thresh).abs() <= 1e-4 * thresh
+                diff = (upd.gating_test_batch(*a) != upd.gating_test_batch_plain(*a)) & ~near
+                e, ok = float(diff.sum()), not bool(diff.any())
+            data = a[0] if isinstance(a[0], torch.Tensor) else a[0].cov  # a state's
+            if name in ("feature_block_rows", "triangulate_rows"):
+                data = a[2 if name == "triangulate_rows" else 4]  # the observations
+            if data.dtype != torch.float64:
+                fail(f"[long, float64] a {name} call on {data.dtype} data")
+            errs[name] = max(errs.get(name, 0.0), e)
+            if not ok:
+                fail(f"[long, float64] {name}: error {e:.3e} against its float64 plain version")
+    print(f"[long, float64] the back-end kernels' float64 calls against their float64 plain "
+          f"versions: { {k: f'{v:.3e}' for k, v in errs.items()} } ({card})")
+    return errs
+
+
+def run_long_phase(wrappers, card):
+    """[long]: LONG_S seconds of the easy preset through ``long_run.run``
+    (long_horizon_config, chunks of LONG_CHUNK_S, rendered on the card),
+    counters at 0 before it, in float32 and then in float64 on the same
+    rendered frames; the renderer against the host's; the first LONG_SPLIT
+    frames (two chunks) against one run_sequence call, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from uav_airvision_tpu_torch import long_run
+    from uav_airvision_tpu_torch.config import long_horizon_config
+    from uav_airvision_tpu_torch.models import vio
+    from uav_airvision_tpu_torch.simulation import render
+
+    t_phase = time.time()
+    config = long_horizon_config()
+    with render.without_opencv():  # the world long_run.run builds and renders
+        world, pb, fts = long_run.build(config, LONG_S, "easy", LONG_SEED)
+        check_long_renderer(world, fts, card)
+    bar = LONG_ATE_BAR_M
+
+    images = {}
+    _zero(wrappers)
+    rendered = dict(render.frames_rendered)
+    with LongObserver() as obs:
+        res32, out32 = long_run.run(config, LONG_S, "easy", LONG_CHUNK_S, LONG_SEED, "cuda",
+                                    images=images, log=None)
+    per_entry = _per_entry(wrappers)
+    on_card = {route: n - rendered.get(route, 0) for route, n in render.frames_rendered.items()}
+    print(f"[long] float32: {res32['frames']} frames in {len(res32['chunks'])} chunks, rendered "
+          f"{on_card}; launches {per_entry}; the temporal K1 call's levels "
+          f"{dict(obs.temporal_levels)}")
+    if on_card.get("tensor", 0) != len(fts) or on_card.get("host", 0):
+        fail(f"[long] frames rendered by route {on_card}: {len(fts)} on the card expected")
+    for name, n in per_entry.items():
+        if n == 0:
+            fail(f"[long] the path never launched kernel {name}")
+    if set(obs.temporal_levels) != {3} or sum(obs.temporal_levels.values()) < len(fts) - 1:
+        fail(f"[long] the temporal K1 calls' levels {dict(obs.temporal_levels)}: 3 expected "
+             f"on every frame after the first")
+    _long_checks("[long]", res32, out32, bar)
+
+    # two chunks against one call over the same frames
+    c0 = torch.cat([images[k][0] for k in sorted(images) if k < LONG_SPLIT])
+    c1 = torch.cat([images[k][1] for k in sorted(images) if k < LONG_SPLIT])
+    _, one = vio.run_sequence(config, long_run.chunk_frames(pb, 0, LONG_SPLIT, c0, c1,
+                                                            torch.device("cuda")),
+                              pb.gyro_bias, pb.acc_mean)
+    head = type(out32)(*(x[:LONG_SPLIT] for x in out32))
+    diff = _same_bits(type(one)(*(x.cpu() for x in one)), head,
+                      ("p", "q", "v", "active", "did_reset"))
+    print(f"[long] the first {LONG_SPLIT} frames as {sum(k < LONG_SPLIT for k in images)} "
+          f"chunks against one run_sequence call: "
+          f"{'bit for bit equal' if not diff else 'DIFFERENT in ' + str(diff)}")
+    if diff:
+        fail(f"[long] the chunked run differs from one call in {diff}")
+
+    # float64 on the same frames
+    config64 = dataclasses.replace(config, dtype="float64")
+    _zero(wrappers)
+    with LongObserver() as obs64, EntryCounter() as entries:
+        res64, out64 = long_run.run(config64, LONG_S, "easy", LONG_CHUNK_S, LONG_SEED, "cuda",
+                                    images=images, log=None)
+    per_entry = _per_entry(wrappers)
+    f64 = {stem: (entries.counts[f"{stem}_f64"], entries.counts[f"{stem}_f32"])
+           for stem in LONG_F64_ENTRIES}
+    print(f"[long] float64: launches {per_entry}; (float64, float32) instantiations "
+          f"launched {f64}")
+    for name, n in per_entry.items():
+        if n == 0:
+            fail(f"[long, float64] the path never launched kernel {name}")
+    for stem, (n64, n32) in f64.items():
+        if n64 == 0 or n32:
+            fail(f"[long, float64] {stem}: {n64} float64 and {n32} float32 launches")
+    _long_checks("[long, float64]", res64, out64, bar)
+    per_chunk = long_run.chunk_distance(res32["chunks"], out32, out64)
+    print(f"[long] largest |p_float32 - p_float64| per chunk (m): "
+          f"{[f'{d:.3e}' for d in per_chunk]}; ATE rmse float32 {res32['ate_rmse_m']:.5f} m, "
+          f"float64 {res64['ate_rmse_m']:.5f} m")
+    check_long_f64_calls(obs64, card)
+    print(f"[long] phase {time.time() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3428,9 +3749,11 @@ def main() -> int:
     run_euroc(config, world, cam0, cam1, wrappers, card)
     t4 = time.time()
     run_fleet_phase(config, frames, pb, wrappers, card)
+    t5 = time.time()
+    run_long_phase(wrappers, card)
     print(f"[time] {time.time() - t_start:.1f} s in all; [compact] {t1 - t0:.1f} s, [exact] "
           f"{t2 - t1:.1f} s, [limits] {t3 - t2:.1f} s, [euroc] {t4 - t3:.1f} s, [fleet] "
-          f"{time.time() - t4:.1f} s")
+          f"{t5 - t4:.1f} s, [long] {time.time() - t5:.1f} s")
     launches["P1"] = compact_launches["P1 pyramidal_lk_compact"]
     sources["P1"] = ("lk.cu", "scripts/exp_gather.py:82", "pyramidal_lk_compact")
 

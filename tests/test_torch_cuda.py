@@ -2043,3 +2043,79 @@ def test_select_track_kernel_batched(dev, B, workspace, monkeypatch):
         c1 = gridops.compact_kept(perm[b], keep[b], 104)
         for g, o in (((rank, perm), r1), (stats, s1), (comp, c1)):
             assert all(torch.equal(x[b], y) for x, y in zip(g, o)), f"instance {b}"
+
+
+def _long_worlds():
+    from uav_airvision_tpu_torch.config import long_horizon_config
+    from uav_airvision_tpu_torch.simulation.world import (EUROC_MOTION_PRESETS, StereoWorld,
+                                                          Trajectory6DoF)
+
+    return {"easy_layered": lambda: StereoWorld(
+                long_horizon_config(), seed=7,
+                trajectory=Trajectory6DoF(**EUROC_MOTION_PRESETS["easy"]), scene="layered",
+                photometric=True),
+            "plane": lambda: StereoWorld(euroc_config())}
+
+
+@pytest.mark.parametrize("world_name", ["easy_layered", "plane"])
+def test_render_on_card_matches_host(dev, world_name, monkeypatch):
+    """simulation/render.py on the card against ``world.render_frame`` on
+    the host (cv2 blocked), frame by frame from one generator each, a starve
+    window included: the renderer's bar and the generator states equal."""
+    import sys
+
+    from uav_airvision_tpu_torch.simulation import render
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    world = _long_worlds()[world_name]()
+    r_host, r_dev = np.random.default_rng(11), np.random.default_rng(11)
+    starve = (2.0, 2.2)
+    n0 = render.frames_rendered["tensor"]
+    for t in (0.0, 1.7, 2.1, 33.3, 599.95):
+        want = world.render_frame(t, r_host, starve_window=starve)
+        got = render.render_pair(world, t, r_dev, dev, starve_window=starve)
+        assert got[0].device.type == "cuda" and got[0].dtype == torch.uint8
+        ok, n_diff, max_diff, n_big = render.pixel_agreement(got, want,
+                                                             render.rect_border(world, t))
+        assert ok, (t, n_diff, max_diff, n_big)
+        assert r_host.bit_generator.state == r_dev.bit_generator.state
+    assert render.frames_rendered["tensor"] == n0 + 5
+
+
+def test_long_run_float64_on_card(dev, monkeypatch):
+    """The chunked long run in float64 on the card (an 8-camera window, IMU
+    init over 40 messages, 3.2 s in chunks of 1 s, so the updates and the
+    prune run): every back-end kernel launched in its float64 instantiation
+    and none in its float32 one; the poses within 1e-4 m of the same run's
+    plain float64 path on the host (the same rendered frames)."""
+    import collections
+    import sys
+
+    from uav_airvision_tpu_torch import long_run
+    from uav_airvision_tpu_torch.config import long_horizon_config
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    cfg = long_horizon_config(dtype="float64")
+    cfg = dataclasses.replace(
+        cfg, capacity=dataclasses.replace(cfg.capacity, max_cam_states=8, imu_init_msgs=40),
+        filter=dataclasses.replace(cfg.filter, max_cam_state_size=8))
+    counts = collections.Counter()
+    launch = kernels.launch
+
+    def counting(name, *args):
+        counts[name] += 1
+        launch(name, *args)
+
+    monkeypatch.setattr(kernels, "launch", counting)
+    images = {}
+    result, outs = long_run.run(cfg, 3.2, "easy", 1.0, 7, dev, images=images, log=None)
+    for stem in ("propagate", "triangulate_rows", "feature_block", "gate", "rank12",
+                 "ekf_update"):
+        assert counts[f"{stem}_f64"] > 0 and counts[f"{stem}_f32"] == 0, (stem, dict(counts))
+    host = {k: tuple(x.cpu() for x in v) for k, v in images.items()}
+    _, ref = long_run.run(cfg, 3.2, "easy", 1.0, 7, "cpu", images=host, log=None)
+    act = outs.active.numpy()
+    assert np.array_equal(act, ref.active.numpy()) and act.sum() >= 40
+    assert outs.p.dtype == torch.float64 and np.isfinite(outs.p.numpy()).all()
+    np.testing.assert_allclose(outs.p.numpy()[act], ref.p.numpy()[act], atol=1e-4, rtol=0)
+    assert result["online_resets"] == 0

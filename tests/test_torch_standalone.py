@@ -299,7 +299,8 @@ def test_publisher_copy_equals_jax(duration):
 def test_entry_points_default_to_cuda(monkeypatch):
     """get_device() means the card; without CUDA it raises instead of falling
     back to the CPU, and so do init_vio_state, the CLI, the fleet's entry
-    points and fleet_bench by default."""
+    points, fleet_bench, the long-horizon run and the world renderer by
+    default."""
     import inspect
 
     from uav_airvision_tpu_torch import main
@@ -343,6 +344,21 @@ def test_entry_points_default_to_cuda(monkeypatch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert fleet.init_fleet_state(tconfig.euroc_config(), np.zeros(3), [0.0, 0.0, 9.8], 2,
                                   device="cpu").filter.cov.device == CPU
+    # the long-horizon run and the world renderer
+    from uav_airvision_tpu_torch import long_run
+    from uav_airvision_tpu_torch.simulation import render
+
+    world = TStereoWorld(tconfig.euroc_config())
+    for call in (lambda: long_run.main(["0.1", "--chunk", "0.05"]),
+                 lambda: long_run.run(tconfig.long_horizon_config(), 0.1, chunk_s=0.05),
+                 lambda: render.render_pair(world, 0.0, np.random.default_rng(0)),
+                 lambda: render.render_frames(world, [0.0], np.random.default_rng(0))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for fn in (long_run.run, render.render_pair, render.render_frames):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    img0, _ = render.render_pair(world, 0.0, np.random.default_rng(0), "cpu")
+    assert img0.device == CPU
 
 
 @pytest.fixture(scope="module")

@@ -2,12 +2,13 @@
 launches per frame, and the device's busy share.
 
     python -m uav_airvision_tpu_torch.profile_main [--frames 200] [--window 100 160]
-        [--config default|compact]
+        [--config default|compact] [--dtype float32|float64]
 
 Renders the bench world as chip_smoke.py does (euroc_config, seed 5), runs
 ``run_sequence`` over it (under ``--config``: ``compact`` is chip_smoke.py's
 compact configuration, ``frontend.lk_compact_windows`` with the
-triangulation motion check at 0.05 m) once to warm up, then once more timed (host clock
+triangulation motion check at 0.05 m; ``--dtype float64`` the filter in
+float64, the config's ``dtype``) once to warm up, then once more timed (host clock
 around a synchronised run; ``device.host_syncs`` counted), then runs the
 first ``window[0]`` frames again and profiles frames ``window[0]:window[1]``
 with ``torch.profiler`` (CPU and CUDA activities).  From the profile:
@@ -35,6 +36,7 @@ the card's name and power limit.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import re
@@ -71,8 +73,6 @@ CONFIGS = {"default": {},
 
 def variant(config, name: str):
     """``config`` with the overrides of CONFIGS[name]."""
-    import dataclasses
-
     return dataclasses.replace(config, **{
         group: dataclasses.replace(getattr(config, group), **fields)
         for group, fields in CONFIGS[name].items()})
@@ -124,6 +124,7 @@ def main(argv=None):
     parser.add_argument("--frames", type=int, default=200)
     parser.add_argument("--window", type=int, nargs=2, default=(100, 160))
     parser.add_argument("--config", choices=sorted(CONFIGS), default="default")
+    parser.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     args = parser.parse_args(argv)
     a, b = args.window
     if not 0 <= a < b <= args.frames:
@@ -139,7 +140,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     config, pb, cam0, cam1 = render(args.frames)
-    config = variant(config, args.config)
+    config = dataclasses.replace(variant(config, args.config), dtype=args.dtype)
     frames = vio.frames_from_prebatch(pb, cam0, cam1, dev)
 
     vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)  # warm-up, kernel build
@@ -193,7 +194,7 @@ def main(argv=None):
                   key=lambda x: x[0])
     print(json.dumps({
         "card": smi.stdout.strip() if smi.returncode == 0 else "nvidia-smi failed",
-        "config": args.config, "frames": args.frames, "frames_per_s": args.frames / wall, "wall_s": wall,
+        "config": args.config, "dtype": args.dtype, "frames": args.frames, "frames_per_s": args.frames / wall, "wall_s": wall,
         "host_syncs_per_frame": syncs, "window": [a, b],
         "launches_per_frame": launches / n,
         "k15_launches_per_frame": {name: c[0] / n for name, c in sorted(k15.items())},
