@@ -1,0 +1,3 @@
+# Frozen copy of uav_airvision_tpu_torch/ops/__init__.py at commit efd1109, unchanged: part of the
+# benchmark's plain reference, which runs on CPU tensors only (every wrapper takes its
+# plain PyTorch version there; kernels.py is a stub).
