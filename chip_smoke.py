@@ -746,6 +746,11 @@ class Recorder:
         return max(keys, key=lambda k: self.counts[k])[1] if keys else None
 
 
+def k11_tiers(snapshot):
+    """K11's instance-updates by row tier in a recorder snapshot."""
+    return {t: snapshot["counters"].get(f"k11.updates.{t}", 0) for t in ("T1", "T2", "QR", "all")}
+
+
 def _update_tier(a):
     """The row tier of a recorded apply_update call (state, params, H, r, rows)."""
     from uav_airvision_tpu_torch.models.msckf.update import update_tier
@@ -2074,13 +2079,15 @@ def run_exact(base, world, imu, fts, cam0, cam1, frames, pb, wrappers, off_path)
     from uav_airvision_tpu_torch.models import vio
     from uav_airvision_tpu_torch.models.msckf import update as upd
     from uav_airvision_tpu_torch.streaming.dataset import imu_msg, stereo_msg
+    from uav_airvision_tpu_torch.utils import profiling
 
     config = variant_config(base, "exact")
     dev = frames.cam0.device
     ip, filt = compat.ImageProcessor(config, dev), compat.MSCKF(config, dev)
     imu_t, imu_w, imu_a = imu
     _zero(wrappers)
-    upd.apply_update.tiers = dict.fromkeys(upd.apply_update.tiers, 0)
+    profiling.reset()
+    profiling.enable()
     syncs0 = device.host_syncs["sync"]
     results, k = [], 0
     t0 = time.time()
@@ -2097,7 +2104,8 @@ def run_exact(base, world, imu, fts, cam0, cam1, frames, pb, wrappers, off_path)
     wall = time.time() - t0
     syncs = (device.host_syncs["sync"] - syncs0) / len(fts)
     per_entry = _per_entry(wrappers)
-    tiers = dict(upd.apply_update.tiers)
+    profiling.disable()
+    tiers = k11_tiers(profiling.snapshot())
     print(f"[exact] facade: {len(fts)} frames in {wall:.3f} s = {len(fts) / wall:.2f} frames/s, "
           f"{len(results)} poses; {syncs:.2f} host syncs/frame; EKF updates per row tier "
           f"{tiers}; launches {per_entry}")
@@ -3598,6 +3606,7 @@ def main() -> int:
     from uav_airvision_tpu_torch.models.msckf import propagation, triangulation, update
     from uav_airvision_tpu_torch.models.msckf.state import make_params
     from uav_airvision_tpu_torch.ops import camera, fast, gridops, lk, pyramid
+    from uav_airvision_tpu_torch.utils import profiling
 
     dev = device.get_device("cuda")
     t0 = time.time()
@@ -3656,20 +3665,22 @@ def main() -> int:
     for fns in wrappers.values():
         for fn in fns:
             fn.launches = 0
-    update.apply_update.tiers = dict.fromkeys(update.apply_update.tiers, 0)
+    profiling.reset()
+    profiling.enable()
     syncs0 = device.host_syncs["sync"]
     torch.cuda.synchronize()
     t0 = time.time()
     state, outs = vio.run_sequence(config, frames, pb.gyro_bias, pb.acc_mean)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    profiling.disable()
     per_entry = {f"{name} {fn.__name__}": fn.launches
                  for name, fns in wrappers.items() for fn in fns}
     launches = {name: sum(fn.launches for fn in fns) for name, fns in wrappers.items()}
     syncs = (device.host_syncs["sync"] - syncs0) / N_FRAMES
     print(f"[main] timed run: {N_FRAMES} frames in {wall:.3f} s = {N_FRAMES / wall:.2f} "
           f"frames/s; {syncs:.2f} host syncs/frame; launches {per_entry}")
-    print(f"[main] EKF updates per row tier: {update.apply_update.tiers}")
+    print(f"[main] EKF updates per row tier: {k11_tiers(profiling.snapshot())}")
     for name, n in per_entry.items():
         if n == 0:
             fail(f"the main path never launched kernel {name}")

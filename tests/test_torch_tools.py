@@ -196,7 +196,7 @@ def test_stage_timer_matches_jax():
 
 def test_cli_profile_view_and_checkpoint(tmp_path, monkeypatch, capsys):
     """``--profile`` writes the stage timings (the JAX keys) and a Chrome
-    trace under reports/, ``--view`` replays headless, and a second run with
+    trace holding the port's stage spans under reports/, ``--view`` replays headless, and a second run with
     the same ``--checkpoint-dir`` resumes after the last frame."""
     monkeypatch.chdir(tmp_path)
     args = ["--synthetic", "0.1", "--device", "cpu", "--checkpoint-dir", "ck",
@@ -208,6 +208,8 @@ def test_cli_profile_view_and_checkpoint(tmp_path, monkeypatch, capsys):
     assert stages["run"].keys() == {"total_s", "count", "mean_ms"}
     trace = (tmp_path / "reports" / "torch_trace" / profiling.TRACE_FILE).read_bytes()
     assert trace.lstrip().startswith(b"{") and b'"traceEvents"' in trace and b'"aten::' in trace
+    # the port's stage spans (the recorder is on for --profile's run)
+    assert b'"fe.pyramid"' in trace and b'"be.subset"' in trace
     assert "[viewer] headless" in out
     assert run.start_frame == 0 and len(run.outputs.p) == 2
     assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [

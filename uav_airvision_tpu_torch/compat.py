@@ -98,7 +98,7 @@ class ImageProcessor:
             torch.stack([out.before_tracking, out.after_tracking, out.after_matching,
                          out.after_ransac]).to(torch.float64),
             out.ids.to(torch.float64), out.mask.to(torch.float64),
-            out.uv.to(torch.float64).reshape(-1)]))
+            out.uv.to(torch.float64).reshape(-1)]), "compat.features")
         counts, ids, mask = host[:4], host[4:4 + F], host[4 + F:4 + 2 * F]
         uv = np.asarray(host[4 + 2 * F:]).reshape(F, 4)
         self.num_features = dict(zip(("before_tracking", "after_tracking", "after_matching",
@@ -221,7 +221,8 @@ class MSCKF:
             feat_uv=put(uv), feat_mask=put(fm, torch.bool), active=True)
         self.state, out = backend_step(self.state, frame, self.params, self.config)
         self._started = True
-        v = to_host(torch.cat([out.timestamp.reshape(1), out.p, out.q, out.v]).to(torch.float64))
+        v = to_host(torch.cat([out.timestamp.reshape(1), out.p, out.q, out.v]).to(torch.float64),
+                    "compat.pose")
         return vio_result(self.time_base + v[0], np.asarray(v[1:4]), np.asarray(v[4:8]),
                           np.asarray(v[8:11]))
 

@@ -7,7 +7,8 @@ float32 product on the card is a full float32 product.
 
 ``host_syncs`` counts the device-to-host reads the port makes on its main
 path (every ``.item()``-style branch decision goes through ``to_host``), so a
-run can report syncs per frame.
+run can report syncs per frame; the recorder (``utils/profiling.py``), when
+on, also counts and times each read by its site.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 import collections
 
 import torch
+
+from .utils import profiling
 
 host_syncs = collections.Counter()
 
@@ -36,7 +39,15 @@ def get_device(name: str = "cuda") -> torch.device:
     return dev
 
 
-def to_host(t: torch.Tensor):
-    """Read a tensor back to Python (``.tolist()``): one host sync, counted."""
+def to_host(t: torch.Tensor, site: str):
+    """Read a tensor back to Python (``.tolist()``): one host sync, counted.
+    ``site`` names the read (``profiling.SYNC_SITES``): with the recorder on
+    it runs under the span ``sync.<site>``, the host's wait for the device to
+    drain, and counts ``sync.<site>``."""
     host_syncs["sync"] += 1
-    return t.tolist()
+    if not profiling.RECORDER.on:
+        return t.tolist()
+    name = "sync." + site
+    profiling.count(name)
+    with profiling.span(name):
+        return t.tolist()

@@ -12,7 +12,9 @@ Two modes:
   it through ``run_sequence`` on ``--device``; ``--checkpoint-dir`` snapshots
   the state every ``--checkpoint-every`` frames and resumes from the latest
   snapshot, ``--profile`` writes the stage timings and a torch.profiler trace
-  under ``reports/``, ``--view`` replays the trajectory in the viewer.
+  under ``reports/``, the trace holding the port's stage spans
+  (``utils/profiling.py``'s recorder, on for the run; their host seconds in
+  ``reports/profile_spans.json``), ``--view`` replays the trajectory in the viewer.
 * ``--mode realtime``: threaded playback through queues into the streaming
   orchestrator (``vio.VIO``) at ``--ratio`` x real time.
 
@@ -28,6 +30,7 @@ without PyQt5.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 from typing import NamedTuple, Optional
@@ -159,9 +162,9 @@ def run_batch(args) -> BatchRun:
 
     timer = None
     if args.profile:
-        from .utils.profiling import StageTimer, device_trace
+        from .utils import profiling
 
-        timer = StageTimer()
+        timer = profiling.StageTimer()
 
     def staged(stage_name):
         return timer.stage(stage_name) if timer else contextlib.nullcontext()
@@ -178,7 +181,8 @@ def run_batch(args) -> BatchRun:
 
     trace_dir = os.path.join("reports", "torch_trace")
     t0 = time.time()
-    with staged("run"), (device_trace(trace_dir, device) if timer else contextlib.nullcontext()):
+    with staged("run"), (profiling.recording() if timer else contextlib.nullcontext()), \
+            (profiling.device_trace(trace_dir, device) if timer else contextlib.nullcontext()):
         if args.checkpoint_dir:
             _, outs, start = run_sequence_checkpointed(
                 config, frames, pb.gyro_bias, pb.acc_mean,
@@ -219,6 +223,10 @@ def run_batch(args) -> BatchRun:
         stages = os.path.join("reports", "profile_stages.json")
         timer.dump(stages)
         print(f"[profile] stage timings -> {stages}\n{timer.dump()}")
+        spans = os.path.join("reports", "profile_spans.json")
+        with open(spans, "w") as f:
+            json.dump(profiling.snapshot(), f, indent=1)
+        print(f"[profile] program spans and counters -> {spans}")
     return BatchRun(pb, outs, start, load_s, run_s, path, a, r)
 
 
@@ -312,7 +320,8 @@ def main(argv=None):
                              "starting the publishers")
     parser.add_argument("--profile", action="store_true",
                         help="batch mode: time the load and run stages and trace the run with "
-                             "torch.profiler; writes reports/profile_stages.json and "
+                             "torch.profiler, the port's stage spans recorded; writes "
+                             "reports/profile_stages.json, reports/profile_spans.json and "
                              "reports/torch_trace/trace.json")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)

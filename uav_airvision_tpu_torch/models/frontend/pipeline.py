@@ -42,11 +42,11 @@ import torch
 from ...config import Config
 from ...device import to_host
 from ...ops import camera, gridops, lk, pyramid
-# the fused calls by name, so that profile_main.py can span them here
 from ...ops.camera import predict_warp_points, predicted_rotation
 from ...ops.fast import detect_fast
 from ...ops.gridops import select_track
 from ...ops.pyramid import Pyramid
+from ...utils.profiling import count, span
 from ...utils.tree import split_run, take
 from .params import FrontendParams
 from .stereo import stereo_match
@@ -106,13 +106,14 @@ def _detection_candidates(img, mask_pts, mask_valid, config: Config, per_cell: i
     """FAST + mask + NMS + per-cell top-k: flat (pts, score, arrival, valid)
     per instance, from (B, H, W) images (one K4+K6 and one K5 launch)."""
     fe = config.frontend
-    keep, score = detect_fast(img, fe.fast_threshold, mask_pts, mask_valid)
-    ys, xs, vals = gridops.dense_grid_topk(score, fe.grid_row, fe.grid_col, per_cell)
-    B, C = img.shape[0], fe.grid_num * per_cell
-    ys, xs, vals = ys.reshape(B, C), xs.reshape(B, C), vals.reshape(B, C)
-    pts = torch.stack([xs, ys], dim=-1).to(torch.float32)
-    arrival = ys * img.shape[-1] + xs
-    return pts, vals, arrival, vals > 0
+    with span("fe.detect"):
+        keep, score = detect_fast(img, fe.fast_threshold, mask_pts, mask_valid)
+        ys, xs, vals = gridops.dense_grid_topk(score, fe.grid_row, fe.grid_col, per_cell)
+        B, C = img.shape[0], fe.grid_num * per_cell
+        ys, xs, vals = ys.reshape(B, C), xs.reshape(B, C), vals.reshape(B, C)
+        pts = torch.stack([xs, ys], dim=-1).to(torch.float32)
+        arrival = ys * img.shape[-1] + xs
+        return pts, vals, arrival, vals > 0
 
 
 def _normalize_publish(ids, cam0, cam1, valid, params: FrontendParams, config: Config):
@@ -156,29 +157,33 @@ def frontend_step_fleet(state: FrontendState, cam0_img, cam1_img, mean_ang_vel, 
     ``state`` and of the output has a leading instance axis; the images are
     (B, H, W) uint8, ``mean_ang_vel`` (B, 3), ``dt`` (B,).  Returns (state,
     FrontendOutput); each instance's slice is its ``frontend_step``."""
-    fe = config.frontend
-    B = cam0_img.shape[0]
-    pyr0, pyr1 = pyramid.build_pyramid_pair(cam0_img, cam1_img, fe.pyramid_levels)
-    prev = state.prev_pyr
-    first = [True] * B if prev is None else [not h for h in (prev.held or (True,) * B)]
+    with span("frontend"):
+        fe = config.frontend
+        B = cam0_img.shape[0]
+        with span("fe.pyramid"):
+            pyr0, pyr1 = pyramid.build_pyramid_pair(cam0_img, cam1_img, fe.pyramid_levels)
+        prev = state.prev_pyr
+        first = [True] * B if prev is None else [not h for h in (prev.held or (True,) * B)]
 
-    def first_frame(idx):
-        return _first_frame(take(state, idx), take(cam0_img, idx), pyr0.select(idx),
-                            pyr1.select(idx), params, config)
+        def first_frame(idx):
+            with span("fe.first_frame"):
+                return _first_frame(take(state, idx), take(cam0_img, idx), pyr0.select(idx),
+                                    pyr1.select(idx), params, config)
 
-    def track_frame(idx):
-        return _track_frame(take(state, idx), take(cam0_img, idx), pyr0.select(idx),
-                            pyr1.select(idx), take(mean_ang_vel, idx), take(dt, idx), params,
-                            config)
+        def track_frame(idx):
+            return _track_frame(take(state, idx), take(cam0_img, idx), pyr0.select(idx),
+                                pyr1.select(idx), take(mean_ang_vel, idx), take(dt, idx),
+                                params, config)
 
-    state2, counters = split_run(first, first_frame, track_frame)
-    state2 = state2._replace(prev_pyr=pyr0)
-    ids, uv, mask = _normalize_publish(state2.ids, state2.cam0, state2.cam1, state2.valid,
-                                       params, config)
-    out = FrontendOutput(ids=ids, uv=uv, mask=mask, before_tracking=counters[0],
-                         after_tracking=counters[1], after_matching=counters[2],
-                         after_ransac=counters[3], n_seed=counters[4])
-    return state2, out
+        state2, counters = split_run(first, first_frame, track_frame)
+        state2 = state2._replace(prev_pyr=pyr0)
+        with span("fe.publish"):
+            ids, uv, mask = _normalize_publish(state2.ids, state2.cam0, state2.cam1,
+                                               state2.valid, params, config)
+        out = FrontendOutput(ids=ids, uv=uv, mask=mask, before_tracking=counters[0],
+                             after_tracking=counters[1], after_matching=counters[2],
+                             after_ransac=counters[3], n_seed=counters[4])
+        return state2, out
 
 
 def _first_frame(state: FrontendState, cam0_img, pyr0, pyr1, params: FrontendParams,
@@ -189,23 +194,25 @@ def _first_frame(state: FrontendState, cam0_img, pyr0, pyr1, params: FrontendPar
     B, H, W = cam0_img.shape
     dev = cam0_img.device
     pts, score, arrival, vald = _detection_candidates(cam0_img, None, None, config, CAND_INIT)
-    cam1_pts, inlier = stereo_match(pyr0, pyr1, pts, vald, params, config)
-    cell = gridops.cell_of_points(pts, fe.grid_row, fe.grid_col, H, W)
+    with span("fe.stereo"):
+        cam1_pts, inlier = stereo_match(pyr0, pyr1, pts, vald, params, config)
 
     # K8 once for the batch each: the best of each cell, their ids, compacted
-    rank, perm = gridops.rank_in_cell(cell, score.to(torch.float32), arrival, inlier,
-                                      fe.grid_num)
-    keep = inlier & (rank < fe.grid_min_feature_num)
-    grank, _, n_kept = gridops.kept_order_stats(perm, keep, cell, inlier, fe.grid_num)
-    ids = torch.where(keep, state.next_id[:, None] + grank, -1)
-    sel, selm = gridops.compact_kept(perm, keep, F)
-    sel = sel.long()
-    cam0 = torch.where(selm[..., None], gridops.gather_rows(pts, sel), 0.0)
-    cam1 = torch.where(selm[..., None], gridops.gather_rows(cam1_pts, sel), 0.0)
-    state2 = state._replace(ids=torch.where(selm, ids.gather(1, sel), -1).to(torch.int32),
-                            lifetime=selm.to(torch.int32), cam0=cam0, cam1=cam1, valid=selm,
-                            next_id=(state.next_id + n_kept).to(torch.int32),
-                            initialized=torch.ones((B,), dtype=torch.bool, device=dev))
+    with span("fe.select"):
+        cell = gridops.cell_of_points(pts, fe.grid_row, fe.grid_col, H, W)
+        rank, perm = gridops.rank_in_cell(cell, score.to(torch.float32), arrival, inlier,
+                                          fe.grid_num)
+        keep = inlier & (rank < fe.grid_min_feature_num)
+        grank, _, n_kept = gridops.kept_order_stats(perm, keep, cell, inlier, fe.grid_num)
+        ids = torch.where(keep, state.next_id[:, None] + grank, -1)
+        sel, selm = gridops.compact_kept(perm, keep, F)
+        sel = sel.long()
+        cam0 = torch.where(selm[..., None], gridops.gather_rows(pts, sel), 0.0)
+        cam1 = torch.where(selm[..., None], gridops.gather_rows(cam1_pts, sel), 0.0)
+        state2 = state._replace(ids=torch.where(selm, ids.gather(1, sel), -1).to(torch.int32),
+                                lifetime=selm.to(torch.int32), cam0=cam0, cam1=cam1,
+                                valid=selm, next_id=(state.next_id + n_kept).to(torch.int32),
+                                initialized=torch.ones((B,), dtype=torch.bool, device=dev))
     zero = torch.zeros((B,), dtype=torch.int32, device=dev)
     return state2, (zero, zero, zero, zero, zero)
 
@@ -221,79 +228,87 @@ def _track_frame(state: FrontendState, cam0_img, pyr0, pyr1, mean_ang_vel, dt,
     before_tracking = prev_valid.to(i32).sum(-1).to(i32)
     # the IMU-rotation prediction (cam0's: the JAX package computes cam1's
     # too and drops it) and the K R K^-1 warp, one K7 launch for the batch
-    pred, _ = predict_warp_points(prev_pts, mean_ang_vel, dt, params.R_cam0_imu,
-                                  params.cam0_intrinsics)
-    curr, st = lk.pyramidal_lk(
-        state.prev_pyr, pyr0, prev_pts, pred, prev_valid,
-        n_levels=temporal_lk_levels(config), win=fe.patch_size,
-        max_iter=fe.lk_max_iteration, eps=fe.lk_track_precision,
-        min_eig_threshold=fe.lk_min_eig_threshold,
-        max_iter_upper=fe.lk_max_iteration_upper or None,
-        compact_windows=fe.lk_compact_windows)
-    st = st & (curr[..., 0] >= 0) & (curr[..., 0] <= W - 1) & (curr[..., 1] >= 0) \
-        & (curr[..., 1] <= H - 1)
-    after_tracking = st.to(i32).sum(-1).to(i32)
+    with span("fe.predict"):
+        pred, _ = predict_warp_points(prev_pts, mean_ang_vel, dt, params.R_cam0_imu,
+                                      params.cam0_intrinsics)
+    with span("fe.track"):
+        curr, st = lk.pyramidal_lk(
+            state.prev_pyr, pyr0, prev_pts, pred, prev_valid,
+            n_levels=temporal_lk_levels(config), win=fe.patch_size,
+            max_iter=fe.lk_max_iteration, eps=fe.lk_track_precision,
+            min_eig_threshold=fe.lk_min_eig_threshold,
+            max_iter_upper=fe.lk_max_iteration_upper or None,
+            compact_windows=fe.lk_compact_windows)
+        st = st & (curr[..., 0] >= 0) & (curr[..., 0] <= W - 1) & (curr[..., 1] >= 0) \
+            & (curr[..., 1] <= H - 1)
+        after_tracking = st.to(i32).sum(-1).to(i32)
     n_seed = None  # the seeds' count where the stereo is seeded (JAX: 0 elsewhere)
 
     if fe.exact_adder_mask:
         # the reference's order: stereo-match the temporal tracks, mask around
         # the survivors, then stereo-match the new candidates separately
-        cam1_curr, match = stereo_match(pyr0, pyr1, curr, st, params, config)
+        with span("fe.stereo"):
+            cam1_curr, match = stereo_match(pyr0, pyr1, curr, st, params, config)
         apts, ascore, aarrival, avalid = _detection_candidates(
             cam0_img, curr, st & match, config, fe.grid_max_feature_num)
-        acam1, ainlier = stereo_match(pyr0, pyr1, apts, avalid, params, config)
+        with span("fe.stereo"):
+            acam1, ainlier = stereo_match(pyr0, pyr1, apts, avalid, params, config)
     else:
         # The detection mask is built from the temporally tracked points, so
         # the tracked-feature and new-candidate stereo matches run as one LK
         # batch.
         apts, ascore, aarrival, avalid = _detection_candidates(
             cam0_img, curr, st, config, fe.grid_max_feature_num)
-        both_pts = torch.cat([curr, apts], dim=1)
-        both_valid = torch.cat([st, avalid], dim=1)
+        with span("fe.stereo"):
+            both_pts = torch.cat([curr, apts], dim=1)
+            both_valid = torch.cat([st, avalid], dim=1)
 
-        def unseeded(idx):  # the reference's rotation-projected seeds, full pyramid
-            return stereo_match(pyr0.select(idx), pyr1.select(idx), take(both_pts, idx),
-                                take(both_valid, idx), params, config)
-
-        if fe.stereo_seeded:
-            # disparity seeds: tracked features at their previous disparity,
-            # new candidates at their nearest tracked neighbour's
-            d_prev = state.cam1 - state.cam0
-            trk_ok = st & state.valid
-            n_seed = trk_ok.to(i32).sum(-1)
-            dist2 = ((apts[:, :, None, :] - curr[:, None, :, :]) ** 2).sum(-1)
-            dist2 = torch.where(trk_ok[:, None, :], dist2, torch.inf)
-            nn = torch.argmin(dist2, dim=-1)
-            seed = torch.cat([curr + d_prev,
-                              apts + d_prev.gather(1, nn[..., None].expand(-1, -1, 2))], dim=1)
-            seed_ok = torch.cat([trk_ok, (n_seed > 0)[:, None].expand(apts.shape[:2])], dim=1)
-
-            def seeded(idx):
+            def unseeded(idx):  # the reference's rotation-projected seeds, full pyramid
                 return stereo_match(pyr0.select(idx), pyr1.select(idx), take(both_pts, idx),
-                                    take(both_valid, idx), params, config,
-                                    init_cam1=take(seed, idx), init_ok=take(seed_ok, idx),
-                                    n_fwd_levels=fe.stereo_seeded_levels)
+                                    take(both_valid, idx), params, config)
 
-            # starvation recovery, where enabled: too few tracks to trust the
-            # seeds (the one host read of the front-end, for the batch)
-            trust = [True] * B
-            if fe.stereo_seed_fallback:
-                trust = [n >= fe.stereo_seed_min_tracked for n in to_host(n_seed)]
-            both_cam1, both_inlier = split_run(trust, seeded, unseeded)
-        else:
-            both_cam1, both_inlier = unseeded(list(range(B)))
-        cam1_curr, match = both_cam1[:, :F], both_inlier[:, :F]
-        acam1, ainlier = both_cam1[:, F:], both_inlier[:, F:]
+            if fe.stereo_seeded:
+                # disparity seeds: tracked features at their previous disparity,
+                # new candidates at their nearest tracked neighbour's
+                d_prev = state.cam1 - state.cam0
+                trk_ok = st & state.valid
+                n_seed = trk_ok.to(i32).sum(-1)
+                dist2 = ((apts[:, :, None, :] - curr[:, None, :, :]) ** 2).sum(-1)
+                dist2 = torch.where(trk_ok[:, None, :], dist2, torch.inf)
+                nn = torch.argmin(dist2, dim=-1)
+                seed = torch.cat([curr + d_prev,
+                                  apts + d_prev.gather(1, nn[..., None].expand(-1, -1, 2))], dim=1)
+                seed_ok = torch.cat([trk_ok, (n_seed > 0)[:, None].expand(apts.shape[:2])], dim=1)
+
+                def seeded(idx):
+                    return stereo_match(pyr0.select(idx), pyr1.select(idx), take(both_pts, idx),
+                                        take(both_valid, idx), params, config,
+                                        init_cam1=take(seed, idx), init_ok=take(seed_ok, idx),
+                                        n_fwd_levels=fe.stereo_seeded_levels)
+
+                # starvation recovery, where enabled: too few tracks to trust the
+                # seeds (the one host read of the front-end, for the batch)
+                trust = [True] * B
+                if fe.stereo_seed_fallback:
+                    trust = [n >= fe.stereo_seed_min_tracked
+                             for n in to_host(n_seed, "fe.seed_trust")]
+                    count("fe.stereo_unseeded", trust.count(False))
+                both_cam1, both_inlier = split_run(trust, seeded, unseeded)
+            else:
+                both_cam1, both_inlier = unseeded(list(range(B)))
+            cam1_curr, match = both_cam1[:, :F], both_inlier[:, :F]
+            acam1, ainlier = both_cam1[:, F:], both_inlier[:, F:]
 
     tracked = st & match
     after_matching = tracked.to(i32).sum(-1).to(i32)
 
     # the per-cell selection (new ids, prune, compaction), one K8 launch for
     # the batch
-    ids, lifetime, cam0, cam1, valid, next_id = select_track(
-        curr, cam1_curr, tracked, state.ids, state.lifetime, apts, ascore, aarrival, ainlier,
-        acam1, state.next_id, fe.grid_row, fe.grid_col, H, W, fe.grid_min_feature_num,
-        fe.grid_max_feature_num)
+    with span("fe.select"):
+        ids, lifetime, cam0, cam1, valid, next_id = select_track(
+            curr, cam1_curr, tracked, state.ids, state.lifetime, apts, ascore, aarrival,
+            ainlier, acam1, state.next_id, fe.grid_row, fe.grid_col, H, W,
+            fe.grid_min_feature_num, fe.grid_max_feature_num)
     new_state = state._replace(ids=ids, lifetime=lifetime, cam0=cam0, cam1=cam1, valid=valid,
                                next_id=next_id)
     if n_seed is None:

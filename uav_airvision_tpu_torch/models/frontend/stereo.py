@@ -16,7 +16,6 @@ import torch
 
 from ...config import Config
 from ...ops import camera, lk
-from ...ops.camera import stereo_gate  # by name, so that profile_main.py can span it here
 from ...ops.pyramid import Pyramid
 from .params import FrontendParams
 
@@ -60,8 +59,8 @@ def stereo_match(pyr0: Pyramid, pyr1: Pyramid, cam0_pts, valid,
     def flat(t):
         return t.reshape(-1, *t.shape[len(lead):])
 
-    inlier = stereo_gate(flat(cam0_pts), flat(p1), flat(p0r), flat(proj1), flat(valid),
-                         flat(st_fwd), params.cam0_intrinsics, model, params.cam0_coeffs,
-                         params.E, fe.fwd_bwd_error_px, fe.max_vertical_disparity_px,
-                         fe.stereo_threshold, pyr0.H0, pyr0.W0)
+    inlier = camera.stereo_gate(flat(cam0_pts), flat(p1), flat(p0r), flat(proj1), flat(valid),
+                                flat(st_fwd), params.cam0_intrinsics, model, params.cam0_coeffs,
+                                params.E, fe.fwd_bwd_error_px, fe.max_vertical_disparity_px,
+                                fe.stereo_threshold, pyr0.H0, pyr0.W0)
     return p1, inlier.reshape(lead)

@@ -22,6 +22,7 @@ from ...device import to_host
 from ...ops.gridops import set_drop, smallest_k_indices, stable_compact_indices
 from ...utils import quaternion as quat
 from ...utils import tree
+from ...utils.profiling import count, span
 from . import triangulation as tri
 from .propagation import propagate
 from .state import (IMU_DIM, INT32_MAX, CamWindow, FeatureTable, FilterState, MsckfParams,
@@ -230,7 +231,8 @@ def _remove_lost_once(state: FilterState, params: MsckfParams, config: Config,
     H_buf, r_buf = _stack_blocks(include, prefix, H_blk, r_blk, cap.max_update_rows)
 
     any_update, n_rows, n_over = to_host(torch.stack(
-        [include.any().to(torch.int64), rows_total.to(torch.int64), n_overflow.to(torch.int64)]))
+        [include.any().to(torch.int64), rows_total.to(torch.int64), n_overflow.to(torch.int64)]),
+        "be.lost_update")
     warn = torch.zeros((), dtype=torch.bool, device=dev)
     if any_update:
         state, warn = apply_update(state, params, H_buf, r_buf, n_rows)
@@ -292,7 +294,7 @@ def prune_cam_states(state: FilterState, params: MsckfParams, config: Config, co
     M = state.features.obs_mask.shape[0]
     rm = _find_redundant(state, count)
     two = _two_view_features(state, rm)
-    n_two = to_host(two.to(torch.int32).sum())
+    n_two = to_host(two.to(torch.int32).sum(), "be.prune_two_view")
     Kp = 32 if n_two <= 32 else (min(64, M) if n_two <= 64
                                  else min(config.capacity.max_prune_feats, M))
     state, warn = _prune_sized(state, params, config, rm, two, n_two, Kp, count)
@@ -327,7 +329,7 @@ def _prune_sized(state: FilterState, params: MsckfParams, config: Config, rm, tw
     include = proc & gate_ok
     warn = torch.zeros((), dtype=torch.bool, device=dev)
     if config.filter.prune_rank12:
-        if to_host(include.any()):  # JAX's lax.cond on any_update
+        if to_host(include.any(), "be.prune_update"):  # JAX's lax.cond on any_update
             state, warn = apply_update_rank12_rows(state, params, H12, r_blk, include, cols)
     else:
         # the stacked update (JAX :560-583): the gated blocks scattered in map
@@ -336,7 +338,8 @@ def _prune_sized(state: FilterState, params: MsckfParams, config: Config, rm, tw
         H_buf, r_buf = _stack_blocks(include, torch.cumsum(rows_inc, 0) - rows_inc, H_blk,
                                      r_blk, config.capacity.max_prune_rows)
         any_update, n_rows = to_host(torch.stack([include.any().to(torch.int64),
-                                                  rows_inc.sum().to(torch.int64)]))
+                                                  rows_inc.sum().to(torch.int64)]),
+                                     "be.prune_update")
         if any_update:
             state, warn = apply_update(state, params, H_buf, r_buf, n_rows)
     warn = warn | (n_two > Kp)
@@ -383,7 +386,7 @@ def online_reset(state: FilterState, params: MsckfParams, config: Config):
     if thr <= 0:
         return state, False
     pos_std_max = torch.sqrt(torch.diagonal(state.cov)[12:15].max())
-    if not to_host(pos_std_max >= thr):
+    if not to_host(pos_std_max >= thr, "be.reset"):
         return state, False
     dtype = state.cov.dtype
     dev = state.cov.device
@@ -409,46 +412,55 @@ def online_reset(state: FilterState, params: MsckfParams, config: Config):
 
 def backend_step(state: FilterState, frame: FrameInput, params: MsckfParams, config: Config):
     """One stereo frame through the estimator; returns (state, StepOutput)."""
-    dev = state.cov.device
-    dtype = state.cov.dtype
+    with span("backend"):
+        dev = state.cov.device
+        dtype = state.cov.dtype
 
-    def flag(v):
-        return torch.tensor(bool(v), device=dev)
+        def flag(v):
+            return torch.tensor(bool(v), device=dev)
 
-    def i32(v):
-        return torch.as_tensor(v, dtype=torch.int32, device=dev)
+        def i32(v):
+            return torch.as_tensor(v, dtype=torch.int32, device=dev)
 
-    if not frame.active:
-        q = torch.zeros(4, dtype=dtype, device=dev)
-        q[3] = 1.0
-        z3 = torch.zeros(3, dtype=dtype, device=dev)
-        return state, StepOutput(
-            timestamp=frame.timestamp, q=q, p=z3, v=z3.clone(), active=flag(False),
-            warn_large_update=flag(False), did_reset=flag(False), n_cams=state.cams.count,
-            n_features=i32(0), n_lost_overflow=i32(0), n_update_rows=i32(0),
-            n_prune_feats=i32(0), R_imu_cam0=state.imu.R_imu_cam0,
-            t_cam0_imu=state.imu.t_cam0_imu)
+        if not frame.active:
+            with span("be.subset"):  # the inactive step's skip row
+                q = torch.zeros(4, dtype=dtype, device=dev)
+                q[3] = 1.0
+                z3 = torch.zeros(3, dtype=dtype, device=dev)
+                return state, StepOutput(
+                    timestamp=frame.timestamp, q=q, p=z3, v=z3.clone(), active=flag(False),
+                    warn_large_update=flag(False), did_reset=flag(False),
+                    n_cams=state.cams.count, n_features=i32(0), n_lost_overflow=i32(0),
+                    n_update_rows=i32(0), n_prune_feats=i32(0),
+                    R_imu_cam0=state.imu.R_imu_cam0, t_cam0_imu=state.imu.t_cam0_imu)
 
-    # the first processed frame anchors the clock
-    imu = state.imu._replace(timestamp=torch.where(state.started, state.imu.timestamp,
-                                                   frame.timestamp))
-    state = state._replace(imu=imu, started=flag(True))
-    state = propagate(state, params, frame.imu_t, frame.imu_w, frame.imu_a, frame.imu_mask)
-    state = augment_state(state, frame.timestamp)
-    state = add_observations(state, frame.feat_ids, frame.feat_uv, frame.feat_mask)
-    n_cand, count = to_host(torch.stack([_count_lost_candidates(state).to(torch.int32),
-                                         state.cams.count]))
-    state, warn1, n_overflow, urows = remove_lost_features(state, params, config, n_cand)
-    state, warn2, n_two = prune_cam_states(state, params, config, count)
-    out = StepOutput(
-        timestamp=frame.timestamp, q=state.imu.q, p=state.imu.p, v=state.imu.v,
-        active=flag(True), warn_large_update=warn1 | warn2, did_reset=flag(False),
-        n_cams=state.cams.count, n_features=state.features.valid.to(torch.int32).sum(),
-        n_lost_overflow=i32(n_overflow), n_update_rows=i32(urows), n_prune_feats=i32(n_two),
-        R_imu_cam0=state.imu.R_imu_cam0, t_cam0_imu=state.imu.t_cam0_imu)
-    # publish happens before the online reset
-    state, did_reset = online_reset(state, params, config)
-    return state, out._replace(did_reset=flag(did_reset))
+        # the first processed frame anchors the clock
+        imu = state.imu._replace(timestamp=torch.where(state.started, state.imu.timestamp,
+                                                       frame.timestamp))
+        state = state._replace(imu=imu, started=flag(True))
+        with span("be.propagate"):
+            state = propagate(state, params, frame.imu_t, frame.imu_w, frame.imu_a,
+                              frame.imu_mask)
+        with span("be.augment"):
+            state = augment_state(state, frame.timestamp)
+        with span("be.observe"):
+            state = add_observations(state, frame.feat_ids, frame.feat_uv, frame.feat_mask)
+            n_cand, n_cams = to_host(torch.stack([_count_lost_candidates(state).to(torch.int32),
+                                                  state.cams.count]), "be.candidates")
+        with span("be.lost"):
+            state, warn1, n_overflow, urows = remove_lost_features(state, params, config, n_cand)
+        with span("be.prune"):
+            state, warn2, n_two = prune_cam_states(state, params, config, n_cams)
+        out = StepOutput(
+            timestamp=frame.timestamp, q=state.imu.q, p=state.imu.p, v=state.imu.v,
+            active=flag(True), warn_large_update=warn1 | warn2, did_reset=flag(False),
+            n_cams=state.cams.count, n_features=state.features.valid.to(torch.int32).sum(),
+            n_lost_overflow=i32(n_overflow), n_update_rows=i32(urows), n_prune_feats=i32(n_two),
+            R_imu_cam0=state.imu.R_imu_cam0, t_cam0_imu=state.imu.t_cam0_imu)
+        # publish happens before the online reset
+        with span("be.reset"):
+            state, did_reset = online_reset(state, params, config)
+        return state, out._replace(did_reset=flag(did_reset))
 
 
 # ---------------------------------------------------------------------------
@@ -475,10 +487,15 @@ def _on_subset(flags: list, st, stage):
     on = [b for b, f in enumerate(flags) if f]
     if len(on) == len(flags):
         return stage(st)
-    idx = _index(on, st.cov.device)
-    sub, outs = stage(tree.map_leaves(lambda x: x.index_select(0, idx), st))
-    st = tree.map_leaves(lambda x, y: x.index_copy(0, idx, y), st, sub)
-    return st, tuple(o.new_zeros((len(flags),) + o.shape[1:]).index_copy(0, idx, o) for o in outs)
+    count("be.subset.gathers")
+    with span("be.subset"):
+        idx = _index(on, st.cov.device)
+        sub = tree.map_leaves(lambda x: x.index_select(0, idx), st)
+    sub, outs = stage(sub)
+    with span("be.subset"):
+        st = tree.map_leaves(lambda x, y: x.index_copy(0, idx, y), st, sub)
+        return st, tuple(o.new_zeros((len(flags),) + o.shape[1:]).index_copy(0, idx, o)
+                         for o in outs)
 
 
 def _rows(x, idx):
@@ -651,29 +668,36 @@ def _remove_lost_once_fleet(state: FilterState, params: MsckfParams, config: Con
     sel_mask = cand.gather(1, sel)
     n_overflow = torch.clamp(cand.to(torch.int32).sum(1) - L, min=0)
 
-    state, init_fail = _triangulate_selected(state, params, config, sel, sel_mask)
+    with span("be.lost.triangulate"):
+        state, init_fail = _triangulate_selected(state, params, config, sel, sel_mask)
     table = state.features
     proc = sel_mask & ~init_fail
-    H_blk, r_blk, rows_f = feature_block_rows(
-        cams.q, cams.p, cams.q_null, cams.p_null, table.obs, table.obs_mask, table.position,
-        sel, proc, state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, D)
-    dof = _rows(table.obs_mask, sel).to(torch.int32).sum(2) - 1
-    gate_ok = gating_test_batch(H_blk, r_blk, rows_f, state.cov, params.obs_noise,
-                                params.chi2_table, dof)
-    include = proc & gate_ok
-    rows_inc = torch.where(include, rows_f, 0)
-    prefix = torch.cumsum(rows_inc, 1) - rows_inc
-    include = include & (prefix <= row_cap[:, None])  # order-dependent cap (ref :667)
-    rows_inc = torch.where(include, rows_f, 0)
-    rows_total = rows_inc.sum(1)
+    with span("be.lost.jacobian"):
+        H_blk, r_blk, rows_f = feature_block_rows(
+            cams.q, cams.p, cams.q_null, cams.p_null, table.obs, table.obs_mask, table.position,
+            sel, proc, state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, D)
+        dof = _rows(table.obs_mask, sel).to(torch.int32).sum(2) - 1
+    with span("be.lost.gate"):
+        gate_ok = gating_test_batch(H_blk, r_blk, rows_f, state.cov, params.obs_noise,
+                                    params.chi2_table, dof)
+    with span("be.lost.stack"):
+        include = proc & gate_ok
+        rows_inc = torch.where(include, rows_f, 0)
+        prefix = torch.cumsum(rows_inc, 1) - rows_inc
+        include = include & (prefix <= row_cap[:, None])  # order-dependent cap (ref :667)
+        rows_inc = torch.where(include, rows_f, 0)
+        rows_total = rows_inc.sum(1)
 
-    H_buf, r_buf = _stack_blocks_fleet(include, prefix, H_blk, r_blk, cap.max_update_rows)
-    upd_t = include.any(1)
-    any_update, n_rows, n_over = to_host(torch.stack(
-        [upd_t.to(torch.int64), rows_total.to(torch.int64), n_overflow.to(torch.int64)]))
+        H_buf, r_buf = _stack_blocks_fleet(include, prefix, H_blk, r_blk, cap.max_update_rows)
+        upd_t = include.any(1)
+        any_update, n_rows, n_over = to_host(torch.stack(
+            [upd_t.to(torch.int64), rows_total.to(torch.int64), n_overflow.to(torch.int64)]),
+            "be.lost_update")
     warn = torch.zeros_like(upd_t)
     if any(any_update):
-        state, warn = apply_update_fleet(state, params, H_buf, r_buf, n_rows, any_update, upd_t)
+        with span("be.lost.update"):
+            state, warn = apply_update_fleet(state, params, H_buf, r_buf, n_rows, any_update,
+                                             upd_t)
 
     selected = torch.zeros_like(cand).scatter(1, sel, sel_mask)
     remove = drop_short | selected | (cand & (n_overflow == 0)[:, None])
@@ -687,6 +711,7 @@ def _remove_lost_fleet(state: FilterState, params: MsckfParams, config: Config,
     (``n_cand`` their host counts), the overflow pass on those that
     overflow.  Returns (state, (warn, n_overflow, rows))."""
     S, dev = len(n_cand), state.cov.device
+    count("be.lost.instances", S)
     L = LOST_SMALL if max(n_cand) <= LOST_SMALL else config.capacity.max_lost_per_frame
     budget = torch.full((S,), MAX_BUDGET_ROWS, dtype=torch.int32, device=dev)
     state, warn1, _, rows1, n_over1 = _remove_lost_once_fleet(state, params, config, budget, L)
@@ -695,6 +720,7 @@ def _remove_lost_fleet(state: FilterState, params: MsckfParams, config: Config,
 
     def second(st):
         idx = [b for b, n in enumerate(n_over1) if n]
+        count("be.lost.second_pass", len(idx))
         left = budget - rows1 if len(idx) == S else (budget - rows1).index_select(
             0, _index(idx, dev))
         st, warn2, n_over2, _, _ = _remove_lost_once_fleet(
@@ -745,48 +771,56 @@ def _prune_fleet(state: FilterState, params: MsckfParams, config: Config):
     dtype, dev = state.cov.dtype, state.cov.device
     S, M, N = table.obs_mask.shape
     D = config.capacity.state_dim
-    rm = _find_redundant_fleet(state)
-    two = table.valid & ((table.obs_mask.gather(2, rm[:, None, :].expand(S, M, 2))
-                          .to(torch.int32).sum(2) * table.valid.to(torch.int32)) == 2)
-    n_two_t = two.to(torch.int32).sum(1)
-    tiers = [_prune_tier(n, M, config) for n in to_host(n_two_t)]
+    count("be.prune.instances", S)
+    with span("be.prune.redundant"):
+        rm = _find_redundant_fleet(state)
+        two = table.valid & ((table.obs_mask.gather(2, rm[:, None, :].expand(S, M, 2))
+                              .to(torch.int32).sum(2) * table.valid.to(torch.int32)) == 2)
+        n_two_t = two.to(torch.int32).sum(1)
+        tiers = [_prune_tier(n, M, config) for n in to_host(n_two_t, "be.prune_two_view")]
     Kp = max(tiers)
     sel = smallest_k_indices(torch.where(two, table.seq, INT32_MAX), Kp).long()
     sel_two = two.gather(1, sel)
-    state, init_fail = _triangulate_selected(state, params, config, sel, sel_two)
+    with span("be.prune.triangulate"):
+        state, init_fail = _triangulate_selected(state, params, config, sel, sel_two)
     table, cams = state.features, state.cams
     proc = sel_two & ~init_fail
 
     # Jacobian blocks over the two involved cameras only
-    H, r_blk, rows_f = feature_block_rows(
-        cams.q, cams.p, cams.q_null, cams.p_null, table.obs, table.obs_mask, table.position,
-        sel, proc, state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, D, rm=rm)
-    H12 = H[..., IMU_DIM:IMU_DIM + 12]
-    cols = IMU_DIM + 6 * rm.repeat_interleave(6, 1) + torch.arange(6, device=dev).repeat(2)
-    H_blk = torch.zeros((S, Kp, 5, D), dtype=dtype, device=dev).scatter(
-        3, cols[:, None, None, :].expand(S, Kp, 5, 12), H12)
-    gate_ok = gating_test_batch(H_blk, r_blk, rows_f, state.cov, params.obs_noise,
-                                params.chi2_table,
-                                torch.full((S, Kp), 2, dtype=torch.int32, device=dev))
+    with span("be.prune.jacobian"):
+        H, r_blk, rows_f = feature_block_rows(
+            cams.q, cams.p, cams.q_null, cams.p_null, table.obs, table.obs_mask, table.position,
+            sel, proc, state.gravity, params.R_cam0_cam1, params.t_cam0_cam1, D, rm=rm)
+        H12 = H[..., IMU_DIM:IMU_DIM + 12]
+        cols = IMU_DIM + 6 * rm.repeat_interleave(6, 1) + torch.arange(6, device=dev).repeat(2)
+        H_blk = torch.zeros((S, Kp, 5, D), dtype=dtype, device=dev).scatter(
+            3, cols[:, None, None, :].expand(S, Kp, 5, 12), H12)
+    with span("be.prune.gate"):
+        gate_ok = gating_test_batch(H_blk, r_blk, rows_f, state.cov, params.obs_noise,
+                                    params.chi2_table,
+                                    torch.full((S, Kp), 2, dtype=torch.int32, device=dev))
     include = proc & gate_ok
     upd_t = include.any(1)
-    if config.filter.prune_rank12:
-        upd = to_host(upd_t)  # JAX's lax.cond on any_update
-        warn = torch.zeros_like(upd_t)
-        if any(upd):
-            state, warn = apply_update_rank12_rows_fleet(state, params, H12, r_blk, include,
-                                                         cols, upd, upd_t, tiers)
-    else:
-        rows_inc = torch.where(include, rows_f, 0)
-        H_buf, r_buf = _stack_blocks_fleet(include, torch.cumsum(rows_inc, 1) - rows_inc,
-                                           H_blk, r_blk, config.capacity.max_prune_rows)
-        upd, n_rows = to_host(torch.stack([upd_t.to(torch.int64),
-                                           rows_inc.sum(1).to(torch.int64)]))
-        warn = torch.zeros_like(upd_t)
-        if any(upd):
-            state, warn = apply_update_fleet(state, params, H_buf, r_buf, n_rows, upd, upd_t)
+    with span("be.prune.update"):
+        if config.filter.prune_rank12:
+            upd = to_host(upd_t, "be.prune_update")  # JAX's lax.cond on any_update
+            warn = torch.zeros_like(upd_t)
+            if any(upd):
+                state, warn = apply_update_rank12_rows_fleet(state, params, H12, r_blk, include,
+                                                             cols, upd, upd_t, tiers)
+        else:
+            rows_inc = torch.where(include, rows_f, 0)
+            H_buf, r_buf = _stack_blocks_fleet(include, torch.cumsum(rows_inc, 1) - rows_inc,
+                                               H_blk, r_blk, config.capacity.max_prune_rows)
+            upd, n_rows = to_host(torch.stack([upd_t.to(torch.int64),
+                                               rows_inc.sum(1).to(torch.int64)]),
+                                  "be.prune_update")
+            warn = torch.zeros_like(upd_t)
+            if any(upd):
+                state, warn = apply_update_fleet(state, params, H_buf, r_buf, n_rows, upd, upd_t)
     warn = warn | (n_two_t > _prune_tier(n_two_t, M, config))
-    return _compact_window_fleet(state, rm), (warn, n_two_t)
+    with span("be.prune.compact"):
+        return _compact_window_fleet(state, rm), (warn, n_two_t)
 
 
 def _compact_window_fleet(state: FilterState, rm) -> FilterState:
@@ -876,25 +910,31 @@ def _active_fleet(state: FilterState, frame: FrameInput, params: MsckfParams, co
     imu = state.imu._replace(timestamp=torch.where(state.started, state.imu.timestamp,
                                                    frame.timestamp))
     state = state._replace(imu=imu, started=torch.ones((S,), dtype=torch.bool, device=dev))
-    state = propagate(state, params, frame.imu_t, frame.imu_w, frame.imu_a, frame.imu_mask)
-    state = _augment_fleet(state, params, frame.timestamp)
-    state = _add_observations_fleet(state, frame.feat_ids, frame.feat_uv, frame.feat_mask)
-    n_cand, count = to_host(torch.stack([_count_lost_candidates(state).to(torch.int32),
-                                         state.cams.count]))
-    # the lost features too short to marginalize go on every instance; an
-    # instance with candidates removes them again in its pass (no change)
-    state = _drop_lost_short(state)
-    zero = torch.zeros((S,), dtype=torch.int32, device=dev)
-    no = torch.zeros((S,), dtype=torch.bool, device=dev)
-    warn1, n_over, urows, warn2, n_two = no, zero, zero, no, zero
-    has_cand = [n > 0 for n in n_cand]
-    if any(has_cand):
-        state, (warn1, n_over, urows) = _on_subset(has_cand, state, lambda st: _remove_lost_fleet(
-            st, params, config, [n for n in n_cand if n > 0]))
-    full = [c >= config.filter.max_cam_state_size for c in count]
+    with span("be.propagate"):
+        state = propagate(state, params, frame.imu_t, frame.imu_w, frame.imu_a, frame.imu_mask)
+    with span("be.augment"):
+        state = _augment_fleet(state, params, frame.timestamp)
+    with span("be.observe"):
+        state = _add_observations_fleet(state, frame.feat_ids, frame.feat_uv, frame.feat_mask)
+        n_cand, n_cams = to_host(torch.stack([_count_lost_candidates(state).to(torch.int32),
+                                              state.cams.count]), "be.candidates")
+    with span("be.lost"):
+        # the lost features too short to marginalize go on every instance; an
+        # instance with candidates removes them again in its pass (no change)
+        state = _drop_lost_short(state)
+        zero = torch.zeros((S,), dtype=torch.int32, device=dev)
+        no = torch.zeros((S,), dtype=torch.bool, device=dev)
+        warn1, n_over, urows, warn2, n_two = no, zero, zero, no, zero
+        has_cand = [n > 0 for n in n_cand]
+        if any(has_cand):
+            state, (warn1, n_over, urows) = _on_subset(
+                has_cand, state,
+                lambda st: _remove_lost_fleet(st, params, config, [n for n in n_cand if n > 0]))
+    full = [c >= config.filter.max_cam_state_size for c in n_cams]
     if any(full):
-        state, (warn2, n_two) = _on_subset(full, state,
-                                           lambda st: _prune_fleet(st, params, config))
+        with span("be.prune"):
+            state, (warn2, n_two) = _on_subset(full, state,
+                                               lambda st: _prune_fleet(st, params, config))
     out = StepOutput(
         timestamp=frame.timestamp, q=state.imu.q, p=state.imu.p, v=state.imu.v,
         active=~no, warn_large_update=warn1 | warn2, did_reset=no, n_cams=state.cams.count,
@@ -902,7 +942,8 @@ def _active_fleet(state: FilterState, frame: FrameInput, params: MsckfParams, co
         n_update_rows=urows, n_prune_feats=n_two.to(torch.int32),
         R_imu_cam0=state.imu.R_imu_cam0, t_cam0_imu=state.imu.t_cam0_imu)
     # publish happens before the online reset
-    state, did_reset = _online_reset_fleet(state, params, config)
+    with span("be.reset"):
+        state, did_reset = _online_reset_fleet(state, params, config)
     return state, out._replace(did_reset=did_reset)
 
 
@@ -919,16 +960,22 @@ def backend_step_fleet(bstate: FilterState, bframe: FrameInput, params: MsckfPar
     instances keep their state and publish the skip row.  Returns (state,
     StepOutput), each with the leading axis; instance b's slice is its
     ``backend_step``'s."""
-    act = list(bframe.active)
-    on = [b for b, a in enumerate(act) if a]
-    skip = _skip_rows(bstate, bframe)
-    if not on:
-        return bstate, skip
-    if len(on) == len(act):
-        return _active_fleet(bstate, bframe, params, config)
-    idx = _index(on, bstate.cov.device)
-    frame = FrameInput(*(x.index_select(0, idx) for x in bframe[:-1]), active=[True] * len(on))
-    st, out = _active_fleet(tree.map_leaves(lambda x: x.index_select(0, idx), bstate), frame,
-                            params, config)
-    return (tree.map_leaves(lambda x, y: x.index_copy(0, idx, y), bstate, st),
-            tree.map_leaves(lambda x, y: x.index_copy(0, idx, y.to(x.dtype)), skip, out))
+    with span("backend"):
+        act = list(bframe.active)
+        on = [b for b, a in enumerate(act) if a]
+        with span("be.subset"):
+            skip = _skip_rows(bstate, bframe)
+        if not on:
+            return bstate, skip
+        if len(on) == len(act):
+            return _active_fleet(bstate, bframe, params, config)
+        count("be.subset.gathers")
+        with span("be.subset"):
+            idx = _index(on, bstate.cov.device)
+            frame = FrameInput(*(x.index_select(0, idx) for x in bframe[:-1]),
+                               active=[True] * len(on))
+            sub = tree.map_leaves(lambda x: x.index_select(0, idx), bstate)
+        st, out = _active_fleet(sub, frame, params, config)
+        with span("be.subset"):
+            return (tree.map_leaves(lambda x, y: x.index_copy(0, idx, y), bstate, st),
+                    tree.map_leaves(lambda x, y: x.index_copy(0, idx, y.to(x.dtype)), skip, out))

@@ -33,7 +33,7 @@ import torch
 
 from ... import kernels
 from ...utils import quaternion as quat
-from ...utils import tree
+from ...utils import profiling, tree
 from .state import IMU_DIM, FilterState, MsckfParams
 
 GATE_TIER = 32
@@ -707,15 +707,20 @@ def apply_update_fleet_plain(state: FilterState, params: MsckfParams, H_buf, r_b
 def _update_fleet(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true, upd: list,
                   upd_mask):
     """``apply_update_fleet`` (the single ``apply_update`` is its fleet of
-    one): the plain version on the CPU, ONE launch of K11 on the card."""
+    one): the plain version on the CPU, ONE launch of K11 on the card.  The
+    recorder counts each instance's update by its row tier, and its rows."""
+    if profiling.enabled():
+        for b, u in enumerate(upd):
+            if u:
+                tier = update_tier(H_buf.shape[1], H_buf.shape[2], rows_true[b])
+                profiling.count(f"k11.updates.{tier}")
+                profiling.count("k11.rows", rows_true[b] or 0)
     if not _on_card(state.cov, "K11"):
         return apply_update_fleet_plain(state, params, H_buf, r_buf, rows_true, upd, upd_mask)
     idx = [b for b, u in enumerate(upd) if u]
     vals, flags = _ekf_update_fleet_kernel(state.cov, H_buf, r_buf, params.obs_noise, rows_true,
                                            idx, state)
     apply_update.launches += _launches(len(idx))
-    for b in idx:
-        apply_update.tiers[update_tier(H_buf.shape[1], H_buf.shape[2], rows_true[b])] += 1
     return _fleet_injected(state, vals, flags, upd, upd_mask)
 
 
@@ -755,6 +760,7 @@ def _prune_update_fleet(state: FilterState, params: MsckfParams, H12, r_blk, inc
     """``apply_update_rank12_rows_fleet`` (the single
     ``apply_update_rank12_rows`` is its fleet of one): the plain version on
     the CPU, ONE launch of K12 on the card."""
+    profiling.count("k12.updates", sum(map(bool, upd)))
     if not _on_card(state.cov, "K12"):
         return apply_update_rank12_rows_fleet_plain(state, params, H12, r_blk, include, cols, upd,
                                                     upd_mask, n_feats)
@@ -931,7 +937,6 @@ def apply_update(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_tru
 
 
 apply_update.launches = 0
-apply_update.tiers = {"T1": 0, "T2": 0, "QR": 0, "all": 0}  # instance updates per row tier
 
 
 def apply_update_plain(state: FilterState, params: MsckfParams, H_buf, r_buf, rows_true=None):

@@ -119,7 +119,7 @@ def run_sequence(config: Config, frames: VioFrame, gyro_bias, acc_mean, fparams=
     fparams = fparams or make_frontend_params(config, device)
     if state is None:
         state = init_vio_state(config, gyro_bias, acc_mean, mparams)
-    active = to_host(frames.active)
+    active = to_host(frames.active, "run.active")
     outs = []
     for k in range(frames.timestamp.shape[0]):
         frame = VioFrame(*(x[k] for x in frames))

@@ -31,6 +31,7 @@ from ..models.msckf.state import make_params
 from ..models.msckf.step import StepOutput
 from ..models.vio import VioFrame, VioState, init_vio_state, vio_step_fleet
 from ..utils import tree
+from ..utils.profiling import span
 
 
 def fleet_config(config: Config) -> Config:
@@ -45,10 +46,11 @@ def init_fleet_state(config: Config, gyro_bias, acc_mean, n: int,
     and instance b's slice is ``init_vio_state`` of ``gyro_bias[b]`` and
     ``acc_mean[b]`` ((n, 3) each; one (3,) is every instance's).  On the card
     unless the caller passes the CPU."""
-    mparams = make_params(config, get_device(str(device)))
-    gb = np.array(np.broadcast_to(np.asarray(gyro_bias, np.float64), (n, 3)))
-    am = np.array(np.broadcast_to(np.asarray(acc_mean, np.float64), (n, 3)))
-    return tree.stack([init_vio_state(config, gb[b], am[b], mparams) for b in range(n)])
+    with span("fleet.init"):
+        mparams = make_params(config, get_device(str(device)))
+        gb = np.array(np.broadcast_to(np.asarray(gyro_bias, np.float64), (n, 3)))
+        am = np.array(np.broadcast_to(np.asarray(acc_mean, np.float64), (n, 3)))
+        return tree.stack([init_vio_state(config, gb[b], am[b], mparams) for b in range(n)])
 
 
 def make_fleet_step(config: Config, device="cuda"):
@@ -60,7 +62,7 @@ def make_fleet_step(config: Config, device="cuda"):
 
     def step(bstate: VioState, bframe: VioFrame):
         state, out, _ = vio_step_fleet(bstate, bframe, fparams, mparams, config,
-                                       to_host(bframe.active))
+                                       to_host(bframe.active, "fleet.active"))
         return state, out
 
     return step
@@ -79,11 +81,13 @@ def run_fleet(config: Config, frames: VioFrame, gyro_bias, acc_mean, state: VioS
     n = frames.timestamp.shape[1]
     if state is None:
         state = init_fleet_state(config, gyro_bias, acc_mean, n, device)
-    active = to_host(frames.active)
+    active = to_host(frames.active, "fleet.active")
     outs = []
     for k in range(frames.timestamp.shape[0]):
         frame = VioFrame(*(x[k] for x in frames))
-        state, out, fe_out = vio_step_fleet(state, frame, fparams, mparams, config, active[k])
+        with span("fleet.step"):
+            state, out, fe_out = vio_step_fleet(state, frame, fparams, mparams, config,
+                                                active[k])
         if on_frame is not None:
             on_frame(k, fe_out, out)
         outs.append(out)
